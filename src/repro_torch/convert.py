@@ -1,0 +1,98 @@
+"""Carry the reference's pytrees into the port and the port's caches back.
+
+Everything here takes and returns **numpy** arrays and nested dicts/lists,
+never JAX objects: the caller does ``np.asarray`` (or ``jax.tree.map(
+np.asarray, ...)``) on the reference side. bfloat16 numpy arrays (the
+``ml_dtypes`` type JAX hands out) are carried bit for bit.
+
+Layouts:
+  - params: the reference's ``init_lm`` tree keeps the layer stack as
+    {"periods": [one stacked tree per pattern position], "remainder": [...]}
+    (``repro/models/blocks.py:init_stack``); the port keeps one flat list in
+    execution order, layer ``l = p * period + i`` then the remainder.
+  - adapters: flat {"A": (L, D, R), "B": (L, R, D)} in both packages.
+  - pools: ``AdapterPool.pools()`` dicts, float {"A", "B"} or int8
+    {"qa", "sa", "qb", "sb"}, in both packages.
+  - KV caches: the port's per-layer list goes back to the reference's
+    periods/remainder layout, as float32 (bf16 values are exact in fp32).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+Params = Any
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def to_tensor(arr, device="cpu") -> torch.Tensor:
+    """numpy array -> tensor of the same dtype (bfloat16 included)."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor -> numpy; bfloat16 comes back as float32 (exact)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _flat_layers(stack: Params, cfg: ModelConfig) -> list[Params]:
+    layers = []
+    for p in range(cfg.n_periods):
+        for i in range(cfg.period):
+            layers.append(_map(lambda x, p=p: x[p], stack["periods"][i]))
+    layers.extend(stack["remainder"])
+    return layers
+
+
+def params_from_reference(tree: Params, cfg: ModelConfig, *, device="cpu") -> Params:
+    """The reference's ``init_lm`` params (as numpy) -> the port's params."""
+    conv = lambda x: to_tensor(x, device)  # noqa: E731
+    params = {
+        "embed": _map(conv, tree["embed"]),
+        "stack": _map(conv, _flat_layers(tree["stack"], cfg)),
+        "final_norm": _map(conv, tree["final_norm"]),
+    }
+    if "head" in tree:
+        params["head"] = _map(conv, tree["head"])
+    return params
+
+
+def adapters_from_reference(adapters: Params, *, device="cpu") -> Params:
+    """Flat {"A": (L, D, R), "B": (L, R, D)} numpy adapters -> tensors."""
+    return {k: to_tensor(adapters[k], device) for k in ("A", "B")}
+
+
+def pools_from_reference(pools: dict, *, device="cpu") -> dict[str, torch.Tensor]:
+    """``AdapterPool.pools()`` dict (float or int8 layout) -> tensors."""
+    return {k: to_tensor(v, device) for k, v in pools.items()}
+
+
+def caches_to_reference(caches: list[Params], cfg: ModelConfig) -> Params:
+    """The port's per-layer KV caches -> the reference's periods/remainder
+    layout, as float32 numpy."""
+    flat = [_map(to_numpy, c) for c in caches]
+    n_per, period = cfg.n_periods, cfg.period
+    periods = []
+    for i in range(period):
+        per_pos = [flat[p * period + i] for p in range(n_per)]
+        periods.append({k: np.stack([c[k] for c in per_pos]) for k in per_pos[0]})
+    return {"periods": periods, "remainder": flat[n_per * period :]}
