@@ -15,6 +15,10 @@ Layouts:
     {"qa", "sa", "qb", "sb"}, in both packages.
   - KV caches: the port's per-layer list goes back to the reference's
     periods/remainder layout, as float32 (bf16 values are exact in fp32).
+  - Skip-Caches: the reference's ``SkipCache`` (``slots`` dict + ``valid``)
+    and the port's have the same slots in the same layouts.
+  - optimizer states: ``OptState`` (step, mu, nu) in both packages, with
+    dicts of arrays (tensors) for the moments.
 """
 
 from __future__ import annotations
@@ -96,3 +100,38 @@ def caches_to_reference(caches: list[Params], cfg: ModelConfig) -> Params:
         per_pos = [flat[p * period + i] for p in range(n_per)]
         periods.append({k: np.stack([c[k] for c in per_pos]) for k in per_pos[0]})
     return {"periods": periods, "remainder": flat[n_per * period :]}
+
+
+def cache_from_reference(cache, *, device="cpu"):
+    """The reference's ``SkipCache`` with numpy leaves (``jax.tree.map(
+    np.asarray, cache)``) -> the port's ``SkipCache``."""
+    from repro_torch.core.skip_cache import SkipCache
+
+    return SkipCache(
+        slots={k: to_tensor(v, device) for k, v in cache.slots.items()},
+        valid=to_tensor(cache.valid, device),
+    )
+
+
+def cache_to_numpy(cache) -> dict[str, np.ndarray]:
+    """The port's ``SkipCache`` -> {slot name: numpy array, "valid": ...}."""
+    return {**{k: to_numpy(v) for k, v in cache.slots.items()}, "valid": to_numpy(cache.valid)}
+
+
+def adapters_to_reference(adapters: Params) -> dict[str, np.ndarray]:
+    """The port's adapters (or any dict of tensors) -> numpy, for comparing
+    with the reference's."""
+    return {k: to_numpy(v) for k, v in adapters.items()}
+
+
+def opt_state_to_numpy(state) -> dict[str, Any]:
+    """An ``OptState`` of either package -> {"step": int, "mu": ..., "nu": ...}
+    with numpy leaves (``None`` where the optimizer keeps no moment)."""
+    def conv(x):
+        return to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    return {
+        "step": int(conv(state.step)),
+        "mu": None if state.mu is None else _map(conv, state.mu),
+        "nu": None if state.nu is None else _map(conv, state.nu),
+    }

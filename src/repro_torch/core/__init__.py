@@ -1,1 +1,2 @@
-"""Skip-LoRA adapters, the adapter pool and the generation entry points."""
+"""Skip-LoRA adapters and training steps, the Skip-Cache, the adapter pool
+and the generation entry points."""

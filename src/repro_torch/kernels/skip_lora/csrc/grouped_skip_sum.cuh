@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "numerics.cuh"
+
 namespace gss {
 
 constexpr int TM_MAX = 32;       // most rows in one tile (one warp's ballot)
@@ -51,22 +53,9 @@ constexpr int P2_THREADS = 64;   // one output column per thread
 constexpr int KC = 32;           // (layer, rank) pairs per phase-2 step
 constexpr int RG = 8;            // tile rows per phase-2 pass
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round to the activation type and back: the reference's `.astype(x.dtype)`.
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
+using rtk::from_f;
+using rtk::round_to;
+using rtk::to_f;
 
 // Adapter elements as fp32, before the cast to the activation type. A pool
 // is (N, L, D, R) and B pool (N, L, R, D), so both read as 2-D row-major:

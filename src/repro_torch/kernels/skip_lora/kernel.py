@@ -1,163 +1,151 @@
-"""Hopper CUDA kernels for the grouped Skip-LoRA forward, and their build.
+"""Hopper CUDA kernels for the Skip-LoRA sum, bound with ``ctypes``.
 
-Two kernels, each a CUDA C++ source under ``csrc/`` with a plain C
-interface, compiled by ``nvcc`` for ``sm_90a`` into a shared library and
-bound with ``ctypes``:
+Five kernels, each a CUDA C++ source under ``csrc/`` with a plain C
+interface, compiled by ``nvcc`` for ``sm_90a`` (``kernels/build.py``):
 
-  - ``grouped_skip_sum_fwd`` (float pool) replaces
-    ``repro/kernels/skip_lora/kernel.py::skip_lora_grouped_fwd``;
-  - ``grouped_skip_sum_fwd_int8`` (int8 pool) replaces
-    ``repro/kernels/skip_lora/kernel.py::skip_lora_grouped_fwd_int8``.
+  - ``skip_lora_fwd`` (K1) replaces ``repro/kernels/skip_lora/kernel.py::skip_lora_fwd``;
+  - ``skip_lora_bwd`` (K2) replaces ``...::skip_lora_bwd``;
+  - ``skip_lora_fwd_int8`` (K3) replaces ``...::skip_lora_fwd_int8``;
+  - ``grouped_skip_sum_fwd`` (K5, float pool) replaces ``...::skip_lora_grouped_fwd``;
+  - ``grouped_skip_sum_fwd_int8`` (K6, int8 pool) replaces
+    ``...::skip_lora_grouped_fwd_int8``.
 
-The libraries are built from the sources in the checkout at first use,
-into ``build/repro_torch/`` at the repository root (one ``nvcc`` per source,
-started together), and named by a hash of their sources and flags, so an
-edited source is rebuilt. Nothing is built or loaded at import time: the
-module imports on a machine with no CUDA toolkit.
-
-Each launch function checks devices, types, shapes and contiguity, launches
-on the current stream, raises on a nonzero CUDA error code, and counts its
-launches in ``LAUNCHES``.
+Nothing is built or loaded at import time: the module imports on a machine
+with no CUDA toolkit. Each launch function checks devices, types, shapes and
+contiguity, allocates its output and scratch, launches on the current
+stream, raises on a nonzero CUDA error code, and counts its launches in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import I, KernelLib, P, check, check_tensor
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-#: kernel name -> its source file under csrc/ (each includes the shared header)
+#: kernel name -> its source file under csrc/
 SOURCES = {
+    "skip_lora_fwd": "skip_lora_fwd.cu",
+    "skip_lora_bwd": "skip_lora_bwd.cu",
+    "skip_lora_fwd_int8": "skip_lora_fwd_int8.cu",
     "grouped_skip_sum_fwd": "grouped_skip_sum_fwd.cu",
     "grouped_skip_sum_fwd_int8": "grouped_skip_sum_fwd_int8.cu",
 }
-_HEADERS = ("grouped_skip_sum.cuh",)
+LIB = KernelLib(CSRC, SOURCES, {
+    "skip_lora_fwd": [P] * 5 + [I] * 6 + [P],
+    "skip_lora_bwd": [P] * 10 + [I] * 6 + [P],
+    "skip_lora_fwd_int8": [P] * 6 + [I] * 5 + [P],
+    "grouped_skip_sum_fwd": [P] * 7 + [I] * 8 + [P],
+    "grouped_skip_sum_fwd_int8": [P] * 9 + [I] * 7 + [P],
+})
 
 #: kernel name -> launches since the last ``reset_launches()``
-LAUNCHES = {name: 0 for name in SOURCES}
-#: most rows in one tile and highest rank the kernels take (grouped_skip_sum.cuh)
+LAUNCHES = LIB.launches
+reset_launches = LIB.reset_launches
+build = LIB.build
+
+#: most rows in one tile and highest rank the kernels take (*.cuh)
 TM_MAX = 32
 R_MAX = 64
+#: rows of M per partial gradient in the backward (skip_sum.cuh, O_MC)
+BWD_CHUNK = 256
 
-_LIBS: dict[str, ctypes.CDLL] = {}
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = {
-    "grouped_skip_sum_fwd": [_P] * 7 + [_I] * 8 + [_P],
-    "grouped_skip_sum_fwd_int8": [_P] * 9 + [_I] * 7 + [_P],
-}
+_FLOAT = (torch.float32, torch.bfloat16)
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
-    return nvcc
-
-
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name],) + _HEADERS:
-        h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-
-
-def build(names=None) -> dict[str, str]:
-    """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` process per source, all started together. Returns each built
-    kernel's compiler output (``-Xptxas -v``: registers, shared memory,
-    spills); raises RuntimeError if any compile fails."""
-    todo = [n for n in (names or SOURCES) if not _lib_path(n).exists()]
-    if not todo:
-        return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name in todo:
-        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    logs, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode:
-            failed.append(name)
-        else:
-            os.replace(tmp, _lib_path(name))
-    if failed:
-        detail = "\n".join(f"--- {n}\n{logs[n]}" for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{detail}")
-    return logs
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+def _bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
-# Launches
+# K1, K2, K3: one adapter stack over all rows
 # ---------------------------------------------------------------------------
 
 
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
+def _check_adapters(x, a, b, lnum, d):
+    r = a.shape[-1]
+    check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
+    check_tensor(a, "a", x.device, (lnum, d, r), _FLOAT)
+    check_tensor(b, "b", x.device, (lnum, r, d), (a.dtype,))
+    return r
+
+
+def skip_lora_fwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1: x (L, M, D) fp32/bf16, a (L, D, R), b (L, R, D) fp32/bf16 ->
+    (M, D) in x.dtype."""
+    check_tensor(x, "x", x.device, x.shape, _FLOAT)
+    lnum, m, d = x.shape
+    r = _check_adapters(x, a, b, lnum, d)
+    z = torch.empty((lnum, m, r), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    LIB.launch("skip_lora_fwd", x, x.data_ptr(), a.data_ptr(), b.data_ptr(), z.data_ptr(),
+               out.data_ptr(), lnum, m, d, r, _bf16(x), _bf16(a))
+    return out
+
+
+def skip_lora_bwd(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2: adapter grads (gA (L, D, R), gB (L, R, D)) fp32 for the upstream
+    gradient g (M, D) in x.dtype. Deterministic: the sum over M is split in
+    ``BWD_CHUNK``-row partials added in a fixed order."""
+    check_tensor(x, "x", x.device, x.shape, _FLOAT)
+    lnum, m, d = x.shape
+    r = _check_adapters(x, a, b, lnum, d)
+    check_tensor(g, "g", x.device, (m, d), (x.dtype,))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    z = torch.empty((lnum, m, r), **f32)
+    gz = torch.empty((lnum, m, r), **f32)
+    chunks = -(-m // BWD_CHUNK)
+    ga = torch.empty((lnum, d, r), **f32)
+    gb = torch.empty((lnum, r, d), **f32)
+    if chunks > 1:
+        pa = torch.empty((chunks, lnum, d, r), **f32)
+        pb = torch.empty((chunks, lnum, r, d), **f32)
+        pa_ptr, pb_ptr = pa.data_ptr(), pb.data_ptr()
+    else:
+        pa_ptr = pb_ptr = None
+    LIB.launch("skip_lora_bwd", x, x.data_ptr(), a.data_ptr(), b.data_ptr(), g.data_ptr(),
+               z.data_ptr(), gz.data_ptr(), pa_ptr, pb_ptr, ga.data_ptr(), gb.data_ptr(),
+               lnum, m, d, r, _bf16(x), _bf16(a))
+    return ga, gb
+
+
+def skip_lora_fwd_int8(
+    q: torch.Tensor, s: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """K3: q (L, M, D) int8 with per-row scales s (L, M) fp32, dequantised to
+    bf16 in the kernel -> (M, D) bf16."""
+    check_tensor(q, "q", q.device, q.shape, (torch.int8,))
+    lnum, m, d = q.shape
+    check_tensor(s, "s", q.device, (lnum, m), (torch.float32,))
+    r = _check_adapters(q, a, b, lnum, d)
+    z = torch.empty((lnum, m, r), dtype=torch.float32, device=q.device)
+    out = torch.empty((m, d), dtype=torch.bfloat16, device=q.device)
+    LIB.launch("skip_lora_fwd_int8", q, q.data_ptr(), s.data_ptr(), a.data_ptr(), b.data_ptr(),
+               z.data_ptr(), out.data_ptr(), lnum, m, d, r, _bf16(a))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5, K6: grouped (multi-tenant) forwards over an adapter pool
+# ---------------------------------------------------------------------------
 
 
 def _check_plan(x, row_src, tile_slot, tm):
     lnum, m, d = x.shape
-    _check(x.is_cuda and x.is_contiguous(), "x must be a contiguous CUDA tensor")
-    _check(x.dtype in (torch.float32, torch.bfloat16), f"x dtype {x.dtype} not fp32/bf16")
-    _check(1 <= tm <= TM_MAX, f"row tile {tm} outside 1..{TM_MAX}")
+    check_tensor(x, "x", x.device, x.shape, _FLOAT)
+    check(1 <= tm <= TM_MAX, f"row tile {tm} outside 1..{TM_MAX}")
     n_tiles = tile_slot.shape[0]
     for t, name in ((row_src, "row_src"), (tile_slot, "tile_slot")):
-        _check(t.dtype == torch.int32 and t.is_contiguous() and t.device == x.device,
-               f"{name} must be contiguous int32 on {x.device}")
-    _check(row_src.shape == (n_tiles * tm,), f"row_src {tuple(row_src.shape)} != ({n_tiles * tm},)")
-    _check(n_tiles >= 1 and m >= 1, "empty batch")
+        check(t.dtype == torch.int32 and t.is_contiguous() and t.device == x.device,
+              f"{name} must be contiguous int32 on {x.device}")
+    check(row_src.shape == (n_tiles * tm,), f"row_src {tuple(row_src.shape)} != ({n_tiles * tm},)")
+    check(n_tiles >= 1 and m >= 1, "empty batch")
     return lnum, m, d, n_tiles
-
-
-def _check_pool(x, t, shape, dtypes, name):
-    _check(t.device == x.device and t.is_contiguous(), f"{name} must be contiguous on {x.device}")
-    _check(tuple(t.shape) == shape, f"{name} {tuple(t.shape)} != {shape}")
-    _check(t.dtype in dtypes, f"{name} dtype {t.dtype} not in {dtypes}")
-
-
-def _stream(x) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc:
-        raise RuntimeError(f"{name}: CUDA launch failed with error code {rc}")
 
 
 def grouped_skip_sum_fwd(
@@ -168,25 +156,20 @@ def grouped_skip_sum_fwd(
     tile_slot: torch.Tensor,  # (n_tiles,) int32
     tm: int,
 ) -> torch.Tensor:
-    """Float-pool grouped skip-sum on the card -> (M, D) in x.dtype."""
+    """K5: float-pool grouped skip-sum on the card -> (M, D) in x.dtype."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     n, _, _, r = a_pool.shape
-    _check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
-    fdt = (torch.float32, torch.bfloat16)
-    _check_pool(x, a_pool, (n, lnum, d, r), fdt, "a_pool")
-    _check_pool(x, b_pool, (n, lnum, r, d), (a_pool.dtype,), "b_pool")
+    check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
+    check_tensor(a_pool, "a_pool", x.device, (n, lnum, d, r), _FLOAT)
+    check_tensor(b_pool, "b_pool", x.device, (n, lnum, r, d), (a_pool.dtype,))
     z = torch.empty((lnum, n_tiles * tm, r), dtype=torch.float32, device=x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    fn = _lib("grouped_skip_sum_fwd").grouped_skip_sum_fwd
-    with torch.cuda.device(x.device):
-        rc = fn(
-            x.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(), row_src.data_ptr(),
-            tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
-            lnum, m, d, r, tm, n_tiles,
-            int(x.dtype == torch.bfloat16), int(a_pool.dtype == torch.bfloat16), _stream(x),
-        )
-    _raise_on(rc, "grouped_skip_sum_fwd")
-    LAUNCHES["grouped_skip_sum_fwd"] += 1
+    LIB.launch(
+        "grouped_skip_sum_fwd", x,
+        x.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(), row_src.data_ptr(),
+        tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
+        lnum, m, d, r, tm, n_tiles, _bf16(x), _bf16(a_pool),
+    )
     return out
 
 
@@ -200,24 +183,21 @@ def grouped_skip_sum_fwd_int8(
     tile_slot: torch.Tensor,
     tm: int,
 ) -> torch.Tensor:
-    """int8-pool grouped skip-sum on the card -> (M, D) in x.dtype."""
+    """K6: int8-pool grouped skip-sum on the card -> (M, D) in x.dtype."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     n, _, _, r = qa.shape
-    _check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
+    check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
     i8, f32 = (torch.int8,), (torch.float32,)
-    _check_pool(x, qa, (n, lnum, d, r), i8, "qa")
-    _check_pool(x, sa, (n, lnum, d), f32, "sa")
-    _check_pool(x, qb, (n, lnum, r, d), i8, "qb")
-    _check_pool(x, sb, (n, lnum, r), f32, "sb")
+    check_tensor(qa, "qa", x.device, (n, lnum, d, r), i8)
+    check_tensor(sa, "sa", x.device, (n, lnum, d), f32)
+    check_tensor(qb, "qb", x.device, (n, lnum, r, d), i8)
+    check_tensor(sb, "sb", x.device, (n, lnum, r), f32)
     z = torch.empty((lnum, n_tiles * tm, r), dtype=torch.float32, device=x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    fn = _lib("grouped_skip_sum_fwd_int8").grouped_skip_sum_fwd_int8
-    with torch.cuda.device(x.device):
-        rc = fn(
-            x.data_ptr(), qa.data_ptr(), sa.data_ptr(), qb.data_ptr(), sb.data_ptr(),
-            row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
-            lnum, m, d, r, tm, n_tiles, int(x.dtype == torch.bfloat16), _stream(x),
-        )
-    _raise_on(rc, "grouped_skip_sum_fwd_int8")
-    LAUNCHES["grouped_skip_sum_fwd_int8"] += 1
+    LIB.launch(
+        "grouped_skip_sum_fwd_int8", x,
+        x.data_ptr(), qa.data_ptr(), sa.data_ptr(), qb.data_ptr(), sb.data_ptr(),
+        row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
+        lnum, m, d, r, tm, n_tiles, _bf16(x),
+    )
     return out

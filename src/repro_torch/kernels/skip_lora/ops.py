@@ -1,17 +1,26 @@
-"""Public wrappers for the grouped (multi-tenant) Skip-LoRA skip-sum.
+"""Public wrappers for the Skip-LoRA sum: single-stack (training) and
+grouped (multi-tenant serving).
 
-Counterpart of the serve half of ``repro.kernels.skip_lora.ops``:
-``skip_lora_grouped`` (float pool) and ``skip_lora_grouped_int8`` (int8
-pool) take the framework layouts -- acts (L, B, S, D), pools (N, L, D, R) /
-(N, L, R, D), idx (B,) slot per batch row -- and return (B, S, D).
+Counterpart of ``repro.kernels.skip_lora.ops``:
+  - ``skip_lora_fused`` / ``skip_lora_fused_int8`` take acts (L, B, S, D)
+    (or an int8 payload (L, B, S, D) with per-row scales (L, B, S)) and one
+    adapter stack a (L, D, R), b (L, R, D), and return (B, S, D). Each is a
+    ``torch.autograd.Function``: the forward is K1 / K3, the backward K2,
+    which gives the adapters' gradients only -- the cached activations are
+    frozen-backbone constants and get none. The int8 backward first
+    dequantises the rows to bf16 with a plain torch op, as the reference's
+    ``_dequant_rows`` does; the forward never does.
+  - ``skip_lora_grouped`` (float pool) and ``skip_lora_grouped_int8`` (int8
+    pool) take acts (L, B, S, D), pools (N, L, D, R) / (N, L, R, D) and idx
+    (B,) slot per batch row, and return (B, S, D) (K5 / K6).
 
 Dispatch follows the device of the activations: a CPU tensor goes to the
 plain version in ``ref.py``; a CUDA tensor launches the hand-written kernel
-in ``kernel.py`` (or raises); any other device raises. Inputs are detached,
-the counterpart of the reference's ``stop_gradient``: the pool holds
-already fine-tuned tenants.
+in ``kernel.py`` (or raises); any other device raises. Grouped inputs are
+detached, the counterpart of the reference's ``stop_gradient``: the pool
+holds already fine-tuned tenants.
 
-The kernels want rows grouped so that every ``tm``-row tile belongs to one
+The grouped kernels want rows grouped so that every ``tm``-row tile belongs to one
 slot. ``_grouping_plan`` is the reference's plan written in torch ops that
 need no host synchronisation: rows sorted by slot, each group padded to a tile
 boundary inside a buffer of static size. The kernels never build the grouped
@@ -31,6 +40,94 @@ from repro_torch.kernels.skip_lora import ref as R
 
 #: default row tile of the CUDA kernels
 TM = 16
+
+
+def _device_kind(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"skip-LoRA sum runs on cpu or cuda, not {x.device}")
+    return x.device.type
+
+
+# ---------------------------------------------------------------------------
+# One adapter stack over all rows: K1 / K3 forward, K2 backward
+# ---------------------------------------------------------------------------
+
+
+def _fwd(x, a, b):
+    return R.skip_lora_fwd_ref(x, a, b) if _device_kind(x) == "cpu" else K.skip_lora_fwd(x, a, b)
+
+
+def _adapter_grads(x, a, b, g):
+    """K2 on x (L, M, D) and g (M, D) cast to x.dtype, grads cast to the
+    adapters' dtypes."""
+    g = g.to(x.dtype).contiguous()
+    bwd = R.skip_lora_bwd_ref if _device_kind(x) == "cpu" else K.skip_lora_bwd
+    ga, gb = bwd(x, a, b, g)
+    return ga.to(a.dtype), gb.to(b.dtype)
+
+
+def _dequant_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """One-off dequantisation of int8 cache rows for the adapter backward."""
+    return (q.float() * s[..., None]).to(torch.bfloat16)
+
+
+class _SkipLoraRows(torch.autograd.Function):
+    """x (L, M, D) -> (M, D), differentiable in (a, b); x is data."""
+
+    @staticmethod
+    def forward(ctx, x, a, b):
+        ctx.save_for_backward(x, a, b)
+        return _fwd(x, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b = ctx.saved_tensors
+        ga, gb = _adapter_grads(x, a, b, g)
+        return None, ga, gb
+
+
+class _SkipLoraRowsInt8(torch.autograd.Function):
+    """q (L, M, D) int8, s (L, M) fp32 -> (M, D) bf16, differentiable in
+    (a, b); the cache is data."""
+
+    @staticmethod
+    def forward(ctx, q, s, a, b):
+        ctx.save_for_backward(q, s, a, b)
+        if _device_kind(q) == "cpu":
+            return R.skip_lora_int8_fwd_ref(q, s, a, b)
+        return K.skip_lora_fwd_int8(q, s, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, s, a, b = ctx.saved_tensors
+        ga, gb = _adapter_grads(_dequant_rows(q, s), a, b, g)
+        return None, None, ga, gb
+
+
+def skip_lora_fused(acts: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_l acts[l] @ a[l] @ b[l]: acts (L, B, S, D); a (L, D, R);
+    b (L, R, D) -> (B, S, D) in acts.dtype."""
+    lnum, bsz, s, d = acts.shape
+    x = acts.detach().reshape(lnum, bsz * s, d).contiguous()
+    out = _SkipLoraRows.apply(x, a.contiguous(), b.contiguous())
+    return out.reshape(bsz, s, d)
+
+
+def skip_lora_fused_int8(
+    q: torch.Tensor, scale: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """int8-cache variant (dequantisation in the kernel): q (L, B, S, D)
+    int8, scale (L, B, S) fp32 -> (B, S, D) bf16."""
+    lnum, bsz, s, d = q.shape
+    qr = q.reshape(lnum, bsz * s, d).contiguous()
+    sr = scale.detach().reshape(lnum, bsz * s).contiguous()
+    out = _SkipLoraRowsInt8.apply(qr, sr, a.contiguous(), b.contiguous())
+    return out.reshape(bsz, s, d)
+
+
+# ---------------------------------------------------------------------------
+# Grouped (multi-tenant) forwards: K5 / K6
+# ---------------------------------------------------------------------------
 
 
 def _grouping_plan(idx: torch.Tensor, n_adapters: int, m: int, tm: int = TM):
@@ -93,12 +190,6 @@ def _rows(acts: torch.Tensor, idx: torch.Tensor):
     """(L, B, S, D) acts + (B,) slots -> (L, B*S, D) rows + (B*S,) row slots."""
     lnum, bsz, s, d = acts.shape
     return acts.detach().reshape(lnum, bsz * s, d).contiguous(), idx.repeat_interleave(s)
-
-
-def _device_kind(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"grouped skip-sum runs on cpu or cuda, not {x.device}")
-    return x.device.type
 
 
 def skip_lora_grouped(

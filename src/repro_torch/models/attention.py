@@ -6,6 +6,8 @@ partial rotary and ``head_dim != d / heads``. Weights keep the reference's
 layouts: ``wq`` (D, H, hd), ``wk``/``wv`` (D, Hkv, hd), ``wo`` (H, hd, D).
 
 Entry points:
+  - ``attn_train``: full-sequence causal attention (training / populate);
+    ``use_flash=True`` goes through the flash-attention kernel (K4).
   - ``attn_prefill``: full-sequence causal attention that also writes
     positions [0, s) of the KV cache.
   - ``attn_decode``: one step at a scalar position against the cache.
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -129,6 +131,35 @@ def causal_mask(sq: int, sk: int, q_offset: int, window: int, *, device=None) ->
     if window > 0:
         m &= k_pos[None, :] > (q_pos[:, None] - window)
     return m[None]
+
+
+def attn_train(
+    params: Params,
+    x: torch.Tensor,
+    spec: AttnSpec,
+    positions: Optional[torch.Tensor] = None,
+    *,
+    use_flash: bool = False,
+) -> torch.Tensor:
+    """Full-sequence causal attention. ``use_flash`` routes the attention
+    itself through ``kernels.flash_attn.ops.flash_attention`` (the CUDA
+    kernel on the card, its plain version on the CPU), which never
+    materialises the (S, S) scores; the reference's model never sets it."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q, k, v = _qkv(params, x, positions, spec)
+    if use_flash:
+        from repro_torch.kernels.flash_attn.ops import flash_attention
+
+        out = flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            window=spec.window, softcap=spec.softcap, scale=_scale(spec),
+        ).transpose(1, 2)
+    else:
+        mask = causal_mask(s, s, 0, spec.window, device=x.device)
+        out = _sdpa(q, k, v, mask, spec)
+    return _out(out, params["wo"])
 
 
 # ---------------------------------------------------------------------------

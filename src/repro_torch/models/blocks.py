@@ -92,16 +92,18 @@ def block_forward(
     h: torch.Tensor,
     cfg: ModelConfig,
     *,
-    mode: str,                     # "prefill" | "decode"
-    cache: Params,
+    mode: str,                     # "train" | "prefill" | "decode"
+    cache: Params = None,
     pos: Optional[int] = None,
 ) -> tuple[torch.Tensor, Params]:
-    """Apply one block. Returns (h_out, cache)."""
+    """Apply one block. Returns (h_out, cache); the cache is None in train mode."""
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     x = _norm(cfg, params["norm1"], h)
     spec = A.AttnSpec.from_config(cfg, local=(kind == "attn_local"))
-    if mode == "prefill":
+    if mode == "train":
+        y = A.attn_train(params["attn"], x, spec)
+    elif mode == "prefill":
         y, cache = A.attn_prefill(params["attn"], x, spec, cache)
     elif mode == "decode":
         y, cache = A.attn_decode(params["attn"], x, pos, spec, cache)
@@ -151,7 +153,7 @@ def stack_forward(
     cfg: ModelConfig,
     *,
     mode: str,
-    caches: list[Params],
+    caches: Optional[list[Params]] = None,
     pos: Optional[int] = None,
     adapters: Optional[list[Params]] = None,   # per-layer {"A": (D,R), "B": (R,D)}
     collect_acts: bool = False,
@@ -159,9 +161,13 @@ def stack_forward(
     """Run all layers. Returns dict with:
     h       : final hidden state
     skip    : accumulated Skip-LoRA term (zeros if no adapters)
-    caches  : the (updated in place) per-layer caches
+    caches  : the (updated in place) per-layer caches; None in train mode
     acts    : per-layer block inputs (n_layers, B, S, D) if collect_acts
-    """
+
+    In train mode the backbone params never require grad, so autograd
+    records only the adapters' skip path, which reads the block inputs
+    and nothing inside the blocks: the counterpart of the reference's
+    rematerialised (``jax.checkpoint``) layer scan."""
     skip = torch.zeros_like(h)
     acts = []
     for l, kind in enumerate(cfg.layer_kinds()):
@@ -169,9 +175,10 @@ def stack_forward(
             acts.append(h)
         if adapters is not None:
             skip = skip + _apply_adapter(adapters[l], h)
-        h, caches[l] = block_forward(
-            kind, stack[l], h, cfg, mode=mode, cache=caches[l], pos=pos
-        )
+        cache = None if caches is None else caches[l]
+        h, cache = block_forward(kind, stack[l], h, cfg, mode=mode, cache=cache, pos=pos)
+        if caches is not None:
+            caches[l] = cache
     return {
         "h": h,
         "skip": skip,

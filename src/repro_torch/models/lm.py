@@ -1,9 +1,12 @@
 """TransformerLM: embedding -> layer stack -> final norm -> readout.
 
-Counterpart of ``repro.models.lm`` for serving:
-  - ``init_lm`` / ``lm_forward``: parameter init and the prefill / decode
-    forward, with optional single-stack Skip-LoRA adapters and activation
-    collection.
+Counterpart of ``repro.models.lm``:
+  - ``init_lm`` / ``lm_forward``: parameter init and the train / prefill /
+    decode forward, with optional single-stack Skip-LoRA adapters and
+    activation collection (for Skip-Cache population).
+  - ``lm_loss_rows`` / ``lm_loss`` / ``train_loss_fn``: next-token cross
+    entropy with a chunked fp32 readout that never holds (B, S, vocab)
+    logits.
   - ``init_serve_caches``: per-layer bf16 KV caches.
   - ``serve_prefill`` / ``serve_decode`` and the multi-tenant ``_grouped``
     variants, whose skip term goes through the grouped skip-LoRA kernels.
@@ -53,15 +56,19 @@ def lm_forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,                    # (B, S) int
     *,
-    mode: str,                               # "prefill" | "decode"
-    caches: list[Params],
+    mode: str = "train",                     # "train" | "prefill" | "decode"
+    caches: Optional[list[Params]] = None,
     pos: Optional[int] = None,
     adapters: Optional[list[Params]] = None,
     collect_acts: bool = False,
+    prefix_embeds: Optional[torch.Tensor] = None,
 ) -> dict[str, Any]:
     """Returns {"h": final hidden (pre-norm, incl. skip term), "caches",
-    "acts", "y_base": final hidden *without* the skip term}."""
+    "acts", "y_base": final hidden *without* the skip term}. Modality
+    prefixes (``prefix_embeds``) need a frontend, which is not ported."""
     B.check_supported(cfg)
+    if prefix_embeds is not None:
+        raise NotImplementedError("prefix_embeds need a modality frontend, which is not ported")
     dtype = model_dtype(cfg)
     h = embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.scale_embed_by_sqrt_dim, dtype=dtype)
     out = B.stack_forward(
@@ -84,6 +91,111 @@ def readout(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
     return logits
+
+
+class _ChunkLogLik(torch.autograd.Function):
+    """Log-likelihood sums of one readout chunk: hn (B, c, D) normed hidden,
+    table (V, D) frozen fp32 readout, labels (B, c) with -1 masked -> (ll (B,),
+    count (B,)) fp32.
+
+    The (B, c, V) fp32 logits live only inside the forward, which also
+    computes the gradient for hn when one is wanted: d ll / d logits =
+    mask (onehot - softmax), through the softcap, times the table. The
+    backward scales it by the upstream gradient of ``ll``. The reference
+    gets the same by rematerialising each chunk in its backward
+    (``jax.checkpoint``), which computes the vocab-wide product three times
+    per chunk; here it is computed twice."""
+
+    @staticmethod
+    def forward(ctx, hn, table, labels, cap):
+        logits = hn.float() @ table.T
+        if cap:
+            logits = softcap(logits, cap)
+        logp = torch.log_softmax(logits, dim=-1)
+        mask = (labels >= 0).float()
+        tgt = torch.clamp(labels, min=0)[..., None].long()
+        ll = torch.gather(logp, -1, tgt)[..., 0]
+        total, count = torch.sum(ll * mask, dim=-1), torch.sum(mask, dim=-1)
+        ctx.hn_dtype = hn.dtype
+        if ctx.needs_input_grad[0]:
+            dlogits = logp.exp_().neg_()          # -softmax, in place of logp
+            dlogits.scatter_add_(-1, tgt, torch.ones_like(tgt, dtype=dlogits.dtype))
+            dlogits.mul_(mask[..., None])
+            if cap:
+                dlogits.mul_(1 - torch.square(logits / cap))
+            del logits
+            ctx.save_for_backward(dlogits @ table)
+        return total, count
+
+    @staticmethod
+    def backward(ctx, g_total, g_count):
+        (g_hn,) = ctx.saved_tensors
+        return (g_hn * g_total[:, None, None]).to(ctx.hn_dtype), None, None, None
+
+
+def lm_loss_rows(
+    params: Params,
+    cfg: ModelConfig,
+    h: torch.Tensor,                    # (B, S, D) final hidden (pre-norm)
+    labels: torch.Tensor,               # (B, S) int; -1 = masked
+    *,
+    chunk: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row next-token log-likelihood sums with chunked readout ->
+    (ll (B,) fp32 summed log-likelihood per row, count (B,) fp32 unmasked
+    tokens per row). A ragged tail chunk is padded with label -1. The
+    readout table is frozen: it gets no gradient."""
+    b, s, d = h.shape
+    hn = apply_norm(
+        cfg.norm_type, params["final_norm"], h, eps=cfg.norm_eps,
+        unit_offset=cfg.rmsnorm_unit_offset,
+    )
+    table = (params["head"] if not cfg.tie_embeddings else params["embed"])["table"]
+    if table.requires_grad:
+        raise NotImplementedError("the chunked readout loss takes a frozen readout table")
+    table = table.float()   # once for all chunks
+    chunk = min(chunk, s)
+    n_chunks = -(-s // chunk)
+    padded = n_chunks * chunk
+    if padded > s:
+        hn = torch.nn.functional.pad(hn, (0, 0, 0, padded - s))
+        labels = torch.nn.functional.pad(labels, (0, padded - s), value=-1)
+    total = torch.zeros((b,), dtype=torch.float32, device=h.device)
+    count = torch.zeros((b,), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        ll, m = _ChunkLogLik.apply(hn[:, sl], table, labels[:, sl], cfg.final_softcap)
+        total, count = total + ll, count + m
+    return total, count
+
+
+def lm_loss(
+    params: Params,
+    cfg: ModelConfig,
+    h: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean next-token cross entropy with chunked readout."""
+    total, count = lm_loss_rows(params, cfg, h, labels, chunk=chunk)
+    return -torch.sum(total) / torch.clamp(torch.sum(count), min=1.0)
+
+
+def train_loss_fn(
+    params: Params,
+    cfg: ModelConfig,
+    batch: dict[str, torch.Tensor],
+    *,
+    adapters: Optional[list[Params]] = None,
+) -> torch.Tensor:
+    """Loss of one batch {"tokens", "labels"} through the train forward,
+    with optional per-layer adapters (``lm_skiplora.adapters_to_stack``)."""
+    out = lm_forward(
+        params, cfg, batch["tokens"], mode="train", adapters=adapters,
+        prefix_embeds=batch.get("prefix_embeds"),
+    )
+    return lm_loss(params, cfg, out["h"], batch["labels"])
 
 
 def init_serve_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> list[Params]:

@@ -1,16 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and the CUDA toolkit's ``nvcc`` (the
-kernels are built from ``src/repro_torch/kernels/skip_lora/csrc`` at first
-use); without a device they skip. The file imports no JAX, so it also runs
+kernels are built from ``src/repro_torch/kernels/*/csrc`` at first use);
+without a device they skip. The file imports no JAX, so it also runs
 on a machine that has only PyTorch (``--noconftest`` skips
 ``tests/conftest.py``, which imports JAX):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: fp32 activations -> 1e-5 of the output's largest magnitude
-(summation order over D); bf16 -> two bf16 ulps of it (z and the output may
-each round one ulp apart)."""
+(summation order over D or M); bf16 -> two bf16 ulps of it (z and the
+output may each round one ulp apart), four for gradients (a z or gz element
+one ulp apart moves a whole sum over M) and for flash attention
+(probabilities round to bf16 before the value product in the kernel, after
+normalisation in the plain version)."""
 
 import pytest
 
@@ -20,6 +23,9 @@ from repro_torch.core.lm_skiplora import quantize_int8  # noqa: E402
 from repro_torch.kernels.skip_lora import kernel as K  # noqa: E402
 from repro_torch.kernels.skip_lora import ops  # noqa: E402
 from repro_torch.kernels.skip_lora import ref as R  # noqa: E402
+from repro_torch.kernels.flash_attn import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash_attn import ops as FO  # noqa: E402
+from repro_torch.kernels.flash_attn import ref as FR  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -44,9 +50,9 @@ def _inputs(cuda, groups, rank, dtype, lnum=4, d=200, seed=0):
     return x, a, b, idx
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, bf16_rel=2.0**-7):
     scale = want.float().abs().max().item()
-    tol = (2.0**-7 if dtype == "bfloat16" else 1e-5) * scale
+    tol = (bf16_rel if dtype == "bfloat16" else 1e-5) * scale
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol, f"max |kernel - plain| {err:.3e} > {tol:.3e}"
 
@@ -82,7 +88,11 @@ def test_each_wrapper_call_counts_one_launch(cuda):
     ops.skip_lora_grouped(x[:, :, None], a, b, idx)
     ops.skip_lora_grouped_int8(x[:, :, None], qa, sa, qb, sb, idx)
     R.skip_lora_grouped_ref(x, a, b, idx)
-    assert K.LAUNCHES == {"grouped_skip_sum_fwd": 2, "grouped_skip_sum_fwd_int8": 1}
+    a1, b1 = a[0].requires_grad_(True), b[0].requires_grad_(True)
+    ops.skip_lora_fused(x[:, :, None], a1, b1).float().sum().backward()
+    R.skip_lora_fwd_ref(x, a1, b1).float().sum().backward()
+    assert K.LAUNCHES == {"grouped_skip_sum_fwd": 2, "grouped_skip_sum_fwd_int8": 1,
+                          "skip_lora_fwd": 1, "skip_lora_bwd": 1, "skip_lora_fwd_int8": 0}
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
@@ -94,3 +104,75 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         ops.skip_lora_grouped(x[:, :, None], a, b, idx, tm=33)
     with pytest.raises(ValueError, match="dtype"):
         ops.skip_lora_grouped(x[:, :, None], a.half(), b.half(), idx)
+
+
+# ---------------------------------------------------------------------------
+# K1, K2, K3: one adapter stack over all rows
+# ---------------------------------------------------------------------------
+
+
+def _dense(cuda, lnum, m, d, rank, dtype, wdtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((lnum, m, d), generator=g, device=cuda).to(DTYPES[dtype])
+    a = (torch.randn((lnum, d, rank), generator=g, device=cuda) / d**0.5).to(wdtype)
+    b = (torch.randn((lnum, rank, d), generator=g, device=cuda) * 0.1).to(wdtype)
+    gr = torch.randn((m, d), generator=g, device=cuda).to(DTYPES[dtype])
+    return x, a, b, gr
+
+
+@pytest.mark.parametrize("m", [1, 100, 1000, 1024])
+@pytest.mark.parametrize("rank", [4, 8, 24, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_kernels_match_plain_versions(cuda, m, rank, dtype):
+    for wdtype in (torch.float32, torch.bfloat16):
+        x, a, b, g = _dense(cuda, 3, m, 200, rank, dtype, wdtype)
+        _close(K.skip_lora_fwd(x, a, b), R.skip_lora_fwd_ref(x, a, b), dtype)
+        ga, gb = K.skip_lora_bwd(x, a, b, g)
+        wa, wb = R.skip_lora_bwd_ref(x, a, b, g)
+        _close(ga, wa, dtype, 2.0**-6)
+        _close(gb, wb, dtype, 2.0**-6)
+        q, s = quantize_int8(x)
+        _close(K.skip_lora_fwd_int8(q, s, a, b), R.skip_lora_int8_fwd_ref(q, s, a, b), "bfloat16")
+
+
+def test_backward_is_deterministic(cuda):
+    x, a, b, g = _dense(cuda, 24, 1000, 2048, 8, "bfloat16")
+    first = K.skip_lora_bwd(x, a, b, g)
+    for _ in range(3):
+        again = K.skip_lora_bwd(x, a, b, g)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_autograd_wrappers_give_the_kernel_gradients(cuda):
+    x, a, b, g = _dense(cuda, 4, 300, 128, 8, "bfloat16")
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    out = ops.skip_lora_fused(x[:, :, None], a, b)[:, 0]
+    (out.float() * g.float()).sum().backward()
+    ga, gb = K.skip_lora_bwd(x, a.detach(), b.detach(), g)
+    assert torch.equal(a.grad, ga) and torch.equal(b.grad, gb)
+
+
+# ---------------------------------------------------------------------------
+# K4: flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", [
+    # (b, h, hkv, s, hd, window, softcap)
+    (2, 4, 4, 128, 64, 0, 0.0),
+    (1, 4, 2, 200, 32, 0, 0.0),
+    (1, 2, 1, 256, 128, 64, 0.0),
+    (1, 4, 2, 512, 256, 100, 50.0),
+    (1, 1, 1, 70, 80, 0, 30.0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_version(cuda, case, dtype):
+    b, h, hkv, s, hd, window, cap = case
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(DTYPES[dtype])
+               for shape in ((b, h, s, hd), (b, hkv, s, hd), (b, hkv, s, hd)))
+    FK.reset_launches()
+    got = FO.flash_attention(q, k, v, window=window, softcap=cap)
+    assert FK.LAUNCHES["flash_attn_fwd"] == 1
+    _close(got, FR.flash_attention_ref(q, k, v, window=window, softcap=cap), dtype, 2.0**-6)
