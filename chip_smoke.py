@@ -5,7 +5,7 @@
 
 Phases, each printing one line (or a few) before the last line:
   1. device: the card's name and power limit from nvidia-smi.
-  2. build: the six hand-written kernels compiled with nvcc from csrc/, one
+  2. build: the nine hand-written kernels compiled with nvcc from csrc/, one
      nvcc per source, all started together.
   3. kernels: each kernel against its plain PyTorch version on the card, with
      kernel / plain times (CUDA events, L2 flushed), the bound and, where one
@@ -38,6 +38,23 @@ Phases, each printing one line (or a few) before the last line:
   7. checks: a reduced float32 config fine-tunes to the same losses and
      adapters on the card (kernels) as on the CPU (plain versions); one
      full-width attention layer gives the same output with and without K4.
+  8. kernels, fleet slice: K7 (packed 4-bit pool, int4 and nf4) at the serve
+     shape and a ragged M 512, its zero slot bitwise K5's exact zeros; K8
+     (int8 activations) and K9 (grouped backward, run twice for identical
+     bits, and with an empty slot) at the fleet cached step's shape (L 24,
+     M 1024, D 2048, R 8, N 4).
+  9. fleet: 4 tenants x 16 samples x seq 128 through
+     ``repro_torch.launch.fleet`` at full width (batch per tenant 2, rank 8,
+     ``--use-kernel``), modes full and int8, one populate and two cached
+     epochs: exactly 8 K5 + 8 K9 per populate epoch, 8 K5 (full) or K8 (int8)
+     + 8 K9 per cached epoch, nothing else; every tenant's loss falling; one
+     cached step's stacked gradients with the kernels equal to the einsum
+     route's; frozen and empty slots exactly zero. Then write-back of the 4
+     tenants into float, int8, int4 and nf4 pools and ``generate_grouped``
+     over them plus a base row: 33 launches of the pool's kernel a call, the
+     base row equal to base ``generate``, ``register_many`` equal to
+     ``register``, ``rollback`` bitwise; tokens/s per pool. A reduced float32
+     fleet gives the same losses and adapters on the card as on the CPU.
 The kernels line {"kernels": [...]} comes next, then the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is
 nonzero; without CUDA, or without the repo's ``src`` next to this file, it
@@ -62,6 +79,12 @@ BATCH, PROMPT, NEW, TENANTS, RANK = 4, 128, 32, 3, 8
 TRAIN_ARGS = ["--arch", ARCH, "--full", "--use-kernel", "--samples", "64", "--batch", "8",
               "--seq", "128", "--rank", str(RANK), "--epochs", "3"]
 TRAIN_STEPS = 64 // 8
+# the fleet phase: 4 tenants' cached steps fill the cached-step shape (M 1024)
+FLEET_TENANTS, FLEET_SAMPLES, FLEET_BPT, FLEET_SEQ = 4, 16, 2, 128
+FLEET_ARGS = ["--arch", ARCH, "--full", "--use-kernel", "--tenants", str(FLEET_TENANTS),
+              "--samples", str(FLEET_SAMPLES), "--batch-per-tenant", str(FLEET_BPT), "--seq", str(FLEET_SEQ),
+              "--rank", str(RANK), "--epochs", "3", "--lr", "1e-3", "--device", "cuda"]
+FLEET_STEPS = FLEET_SAMPLES // FLEET_BPT
 SKIP_SRC = "src/repro_torch/kernels/skip_lora/csrc"
 TPU_SKIP = "src/repro/kernels/skip_lora/kernel.py"
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; fp32 (CUDA cores) and
@@ -744,6 +767,392 @@ def attention_check(torch):
           f"max abs diff {err:.3e} (max |out| {mag:.3e}); K4 launched once")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: K7, K8, K9 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _fleet_rows(torch, groups, seed):
+    """Inputs at the fleet cached step's shape: x (L 24, M, D 2048) bf16, fp32
+    pools of N = len(groups) slots, rank 8, (M,) slots tenant-contiguous as
+    the fleet's batches are, and an upstream gradient g (M, D) bf16."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lnum, d, r, n, m = 24, 2048, RANK, len(groups), sum(groups)
+    x = torch.randn((lnum, m, d), generator=g, device="cuda").to(torch.bfloat16)
+    a = torch.randn((n, lnum, d, r), generator=g, device="cuda") / d**0.5
+    b = torch.randn((n, lnum, r, d), generator=g, device="cuda") * 0.02
+    gr = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
+    idx = torch.cat([torch.full((c,), s, dtype=torch.int32, device="cuda") for s, c in enumerate(groups)])
+    return x, a, b, gr, idx
+
+
+def grouped_train_kernel_phase(torch):
+    """K7 (packed 4-bit pool, int4 and nf4) at the serve shape (M 4, one row
+    per slot, as each decode step has) and a ragged M 512, with the zero
+    slot exact against K5 at M 4 x 128; K8 (int8 activations) and K9
+    (grouped backward) at the fleet cached step's shape (L 24, M 1024 =
+    4 tenants x 2 samples x 128, D 2048, R 8, N 4, bf16 rows, fp32 pools),
+    K9 also with an empty slot and run twice for identical bits. No single
+    PyTorch call computes any of them: no library time."""
+    from repro_torch.core.lm_skiplora import quantize_int8
+    from repro_torch.kernels.skip_lora import kernel as K
+    from repro_torch.kernels.skip_lora import ops, quant as Q, ref as R
+
+    results = {}
+    for kind in Q.Q4_KINDS:
+        code = Q.codebook(kind, "cuda")
+        for label, m_rows, groups in (("serve", 4, (1, 1, 1, 1)), ("ragged", 512, (37, 300, 5, 170))):
+            for dtype in (torch.bfloat16, torch.float32):
+                x, (a, b), idx = _case(torch, dtype, m_rows, groups, seed=7, int8=False)
+                pool = (*Q.quantize_q4(a, kind), *Q.quantize_q4(b, kind), code)   # qa, sa, qb, sb, code
+                row_src, tile_slot = ops._plan(idx, 4, m_rows, ops.TM)
+                run = lambda: K.grouped_skip_sum_fwd_q4(x, *pool, row_src, tile_slot, ops.TM)  # noqa: E731
+                plain = lambda: R.skip_lora_grouped_q4_ref(x, *pool, idx)  # noqa: E731
+                got, want = run(), plain()
+                got_w = ops.skip_lora_grouped_q4(x[:, :, None], *pool, idx)[:, 0]
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()), f"K7 {kind} {label} {dtype}: non-finite output")
+                check(torch.equal(got, got_w), f"K7 {kind} {label} {dtype}: wrapper != kernel launch")
+                err, mag = _rel_err(got, want)
+                # bf16: z and out may round one ulp apart (sums in another order)
+                tol = (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * mag
+                check(err <= tol, f"K7 {kind} {label} {dtype}: max |kernel - plain| {err:.3e} > {tol:.3e}")
+                k_ms, p_ms = time_ms(run), time_ms(plain, reps=5)
+                active = idx.unique().numel()
+                nbytes = _nbytes(x, got, code) + _nbytes(*pool[:4]) * active // 4
+                dname = str(dtype).split(".")[-1]
+                bound = _bound_ms(nbytes, 2 * m_rows * 24 * RANK * 2 * 2048, dname)
+                print(f"kernel grouped_skip_sum_fwd_q4 {kind} {label} M={m_rows} {dname}: max_abs_err {err:.3e} "
+                      f"(tol {tol:.3e}) kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, bound "
+                      f"{bound[0] * 1e3:.2f} us ({bound[1]}, {nbytes} B)")
+                if label == "serve" and dtype == torch.bfloat16 and kind == "int4":
+                    results["grouped_skip_sum_fwd_q4"] = _entry(
+                        "grouped_skip_sum_fwd_q4", f"{SKIP_SRC}/{K.SOURCES['grouped_skip_sum_fwd_q4']}",
+                        f"{TPU_SKIP}:332", err, k_ms, p_ms, bound, nbytes, None,
+                        f"L=24 M={m_rows} D=2048 R={RANK} N=4 int4 bf16")
+    # The zero slot through a 4-bit pool: exact zeros, the same bits as K5's.
+    x, (a, b), idx = _case(torch, torch.bfloat16, 512, (128, 128, 128, 128), seed=8, int8=False)
+    k5 = ops.skip_lora_grouped(x[:, :, None], a, b, idx)[:, 0]
+    zero = idx == 0
+    for kind in Q.Q4_KINDS:
+        k7 = ops.skip_lora_grouped_q4(x[:, :, None], *Q.quantize_q4(a, kind), *Q.quantize_q4(b, kind),
+                                      Q.codebook(kind, "cuda"), idx)[:, 0]
+        check(torch.equal(k7[zero], k5[zero]) and not k7[zero].any(),
+              f"K7 {kind}: zero-slot rows are not K5's exact zeros")
+    print("kernel grouped_skip_sum_fwd_q4 zero slot, M=4x128 bf16: int4 and nf4 rows of slot 0 are exact "
+          "zeros, bitwise K5's")
+
+    x, a, b, gr, idx = _fleet_rows(torch, (256, 256, 256, 256), seed=9)
+    m, lnum, d = x.shape[1], x.shape[0], x.shape[2]
+    mm = 2 * lnum * m * d * RANK     # operations of one (L, M, D) x (D, R) product
+    q, s = quantize_int8(x)
+    row_src, tile_slot = ops._plan(idx, 4, m, ops.TM)
+    cases = {
+        "grouped_skip_sum_fwd_actint8": dict(
+            run=lambda: K.grouped_skip_sum_fwd_actint8(q, s, a, b, row_src, tile_slot, ops.TM),
+            plain=lambda: R.skip_lora_grouped_actint8_ref(q, s, a, b, idx),
+            nbytes=_nbytes(q, s, a, b) + m * d * 2, ops=2 * mm, tol=2.0**-7, replaces=f"{TPU_SKIP}:395"),
+        "grouped_skip_sum_bwd": dict(
+            run=lambda: K.grouped_skip_sum_bwd(x, a, b, gr, row_src, tile_slot, ops.TM),
+            plain=lambda: R.skip_lora_grouped_bwd_ref(x, a, b, gr, idx),
+            nbytes=_nbytes(x, gr, a, b) + _nbytes(a, b), ops=4 * mm, tol=2.0**-6,
+            replaces=f"{TPU_SKIP}:471"),
+    }
+    for name, c in cases.items():
+        got, want = c["run"](), c["plain"]()
+        torch.cuda.synchronize()
+        gots = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        errs = []
+        for gt, wt in zip(gots, wants):
+            check(bool(torch.isfinite(gt).all()), f"{name}: non-finite output")
+            err, mag = _rel_err(gt, wt)
+            check(err <= c["tol"] * mag, f"{name}: max |kernel - plain| {err:.3e} > {c['tol'] * mag:.3e}")
+            errs.append(err)
+        if name == "grouped_skip_sum_bwd":
+            again = c["run"]()
+            check(all(torch.equal(u, v) for u, v in zip(got, again)), "K9: not the same bits on a second run")
+            passes = "; ".join(f"{k.split('<')[0].split('(')[0].split()[-1]} x{n} {t * 1e3:.1f} us"
+                               for k, (t, n) in _profile(c["run"])[1].items())
+            print(f"kernel {name} fleet passes (profiler): {passes}")
+        k_ms, p_ms = time_ms(c["run"]), time_ms(c["plain"], reps=5)
+        bound = _bound_ms(c["nbytes"], c["ops"], "bfloat16")
+        print(f"kernel {name} fleet L={lnum} M={m} D={d} R={RANK} N=4 bf16 rows, fp32 pools: max_abs_err "
+              f"{max(errs):.3e} (tol {c['tol']:.1e} x max) kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, "
+              f"bound {bound[0] * 1e3:.2f} us ({bound[1]}, {c['nbytes']} B, {c['ops']} ops)")
+        results[name] = _entry(name, f"{SKIP_SRC}/{K.SOURCES[name]}", c["replaces"], max(errs), k_ms, p_ms,
+                               bound, c["nbytes"], None, f"L={lnum} M={m} D={d} R={RANK} N=4 bf16, fp32 pools")
+    # K9 with an empty slot and ragged groups: the empty slot's grads are zeros
+    x, a, b, gr, idx = _fleet_rows(torch, (300, 0, 200, 524), seed=10)
+    row_src, tile_slot = ops._plan(idx, 4, x.shape[1], ops.TM)
+    ga, gb = K.grouped_skip_sum_bwd(x, a, b, gr, row_src, tile_slot, ops.TM)
+    wa, wb = R.skip_lora_grouped_bwd_ref(x, a, b, gr, idx)
+    for gt, wt in ((ga, wa), (gb, wb)):
+        err, mag = _rel_err(gt, wt)
+        check(err <= 2.0**-6 * mag, f"K9 ragged: max |kernel - plain| {err:.3e} > {2.0**-6 * mag:.3e}")
+    check(not ga[1].any() and not gb[1].any(), "K9: an empty slot got a nonzero gradient")
+    print("kernel grouped_skip_sum_bwd ragged groups (300, 0, 200, 524): within 2^-6 of the plain version, "
+          "the empty slot exactly zero")
+    del x, q, gr, a, b
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: fleet fine-tuning at full width, write-back, serving from every pool
+# ---------------------------------------------------------------------------
+
+
+def fleet_phase(torch, device_name):
+    """4 tenants x 16 samples x seq 128 through ``repro_torch.launch.fleet``'s
+    own functions (batch per tenant 2, rank 8, AdamW lr 1e-3, fp32 cache,
+    ``--use-kernel``), modes full and int8: one populate and two cached
+    epochs, exact launch counts per epoch, every tenant's loss falling, one
+    cached step's gradients against the einsum route, frozen and empty slots
+    exactly zero. Returns each kernel's launches and the full-mode run (for
+    write-back)."""
+    from repro_torch.launch import fleet as FL
+
+    totals = {k: 0 for k in ("grouped_skip_sum_fwd", "grouped_skip_sum_fwd_actint8", "grouped_skip_sum_bwd")}
+    kept = None
+    for mode, fwd in (("full", "grouped_skip_sum_fwd"), ("int8", "grouped_skip_sum_fwd_actint8")):
+        args = FL.parse_args([*FLEET_ARGS, "--mode", mode])
+        cfg, sl = FL.setup(args)
+        dev = torch.device(args.device)
+        check(dev.type == "cuda", f"the fleet launcher runs on {dev}, not the card")
+        params, tokens, labels = FL.make_inputs(args, cfg, dev)
+
+        def on_epoch(epoch, losses, seconds, fwd=fwd, mode=mode):
+            torch.cuda.synchronize()
+            counts = _launches()
+            _reset_launches()
+            want = {k: 0 for k in counts}
+            want["grouped_skip_sum_fwd" if epoch == 0 else fwd] = FLEET_STEPS
+            want["grouped_skip_sum_bwd"] = FLEET_STEPS
+            check(counts == want, f"fleet {mode} epoch {epoch}: launches {counts} != {want}")
+            for k in totals:
+                totals[k] += counts[k]
+
+        torch.cuda.synchronize()
+        _reset_launches()
+        out = FL.run(args, cfg, sl, params, tokens, labels, on_epoch=on_epoch)
+        losses, times = out["losses"], out["epoch_times"]
+        check(losses.shape == (3, FLEET_STEPS, FLEET_TENANTS), f"fleet losses shape {losses.shape}")
+        check(bool(torch.isfinite(torch.as_tensor(losses)).all()), f"fleet {mode}: non-finite loss")
+        means = losses.mean(axis=1)          # (epochs, tenants)
+        check(bool((means[2] < means[1]).all() and (means[1] < means[0]).all()),
+              f"fleet {mode}: a tenant's mean loss did not fall: {means.tolist()}")
+        print(f"fleet {ARCH} full width mode={mode} --use-kernel on {device_name}: {FLEET_TENANTS} tenants x "
+              f"{FLEET_SAMPLES} samples, batch/tenant {FLEET_BPT}, seq {FLEET_SEQ}, rank {RANK}: populate epoch "
+              f"{times[0]:.3f} s, cached epochs {times[1]:.3f} / {times[2]:.3f} s, cached-epoch speedup "
+              f"{times[0] / (sum(times[1:]) / 2):.2f}x; per-tenant mean losses by epoch "
+              f"{[[round(float(v), 4) for v in row] for row in means]}; launches per epoch: populate "
+              f"grouped_skip_sum_fwd {FLEET_STEPS} + grouped_skip_sum_bwd {FLEET_STEPS}, cached {fwd} "
+              f"{FLEET_STEPS} + grouped_skip_sum_bwd {FLEET_STEPS}, no other kernel")
+        res = out["result"]
+        _fleet_grad_check(torch, cfg, sl, params, res, mode)
+        if mode == "full":
+            _fleet_step_split(torch, cfg, sl, params, res, device_name)
+        res.cache = None
+        if mode == "full":
+            kept = (cfg, sl, params, res.adapters)
+        del params, res, out
+        torch.cuda.empty_cache()
+    return totals, kept
+
+
+def _fleet_grad_check(torch, cfg, sl, params, res, mode):
+    """One cached fleet step's stacked gradients on the card: the kernels (K5
+    or K8, and K9) against ``use_kernel=False``, the ``blocked_skip_sum``
+    einsum that autograd differentiates in plain PyTorch, within 2^-6 of
+    the largest gradient (z and gz round to bf16 in both, one ulp apart at
+    most, and one such element moves a whole sum over a tenant's rows). Then
+    a frozen slot and a slot with no rows get exactly zero gradient."""
+    from repro_torch.core import fleet_finetune as FF
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.skip_cache import cache_read
+    from repro_torch.models.lm import model_dtype
+
+    dev = torch.device("cuda")
+    dtype = model_dtype(cfg)
+    idx = torch.as_tensor(FF.fleet_index_matrix(1, FLEET_TENANTS, FLEET_SAMPLES, FLEET_BPT), device=dev)[0]
+    vals = cache_read(res.cache, idx)
+
+    def grads(use_kernel, rows, freeze=None):
+        return SL.value_and_grad(lambda t: FF.fleet_cached_loss(
+            params, cfg, sl, t, vals, rows, FLEET_TENANTS, dtype, use_kernel=use_kernel, freeze_mask=freeze),
+            res.adapters)
+
+    rows = FF.fleet_row_tenant(FLEET_TENANTS, FLEET_BPT, device=dev)
+    loss_k, _, got = grads(True, rows)
+    loss_p, _, want = grads(False, rows)
+    msg = []
+    for k in want:
+        err, mag = _rel_err(got[k], want[k])
+        check(err <= 2.0**-6 * mag, f"fleet {mode}: grad {k} kernels vs einsum {err:.3e} > {2.0**-6 * mag:.3e}")
+        msg.append(f"{k} {err:.3e} (max {mag:.3e})")
+    # tenant 3's rows go to tenant 0, so slot 3 has none; slot 1 is frozen
+    rows2 = torch.tensor([0, 0, 1, 1, 2, 2, 0, 0], dtype=torch.int32, device=dev)
+    freeze = torch.tensor([False, True, False, False], device=dev)
+    _, _, g2 = grads(True, rows2, freeze)
+    for k, v in g2.items():
+        check(not v[1].any() and not v[3].any() and bool(v[0].any() and v[2].any()),
+              f"fleet {mode}: frozen / empty slot gradient {k} not exactly zero (or a live one zero)")
+    print(f"fleet {mode}: one cached step on the card, kernels vs einsum route: loss {float(loss_k):.6f} vs "
+          f"{float(loss_p):.6f}, max |grad diff| {', '.join(msg)}; frozen slot and empty slot: exact zeros")
+
+
+def _fleet_step_split(torch, cfg, sl, params, res, device_name):
+    """The fleet cached step's device time (CUDA events, L2 flushed) and
+    three parts run alone on its inputs: the per-tenant readout loss forward
+    + backward, the grouped kernels K5 + K9, AdamW. What the step takes
+    beyond those is printed as a remainder, not timed alone."""
+    from repro_torch.core import fleet_finetune as FF
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.skip_cache import cache_read
+    from repro_torch.kernels.skip_lora import kernel as K
+    from repro_torch.kernels.skip_lora import ops
+    from repro_torch.models.lm import model_dtype
+    from repro_torch.optim.optimizers import adamw, apply_updates
+
+    dev = torch.device("cuda")
+    dtype = model_dtype(cfg)
+    idx = torch.as_tensor(FF.fleet_index_matrix(1, FLEET_TENANTS, FLEET_SAMPLES, FLEET_BPT), device=dev)[0]
+    rows = FF.fleet_row_tenant(FLEET_TENANTS, FLEET_BPT, device=dev)
+    opt = adamw(1e-3)
+    state = opt.init(res.adapters)
+    step = FF.make_fleet_cached_step_from_vals(cfg, sl, opt, FLEET_TENANTS)
+    vals = cache_read(res.cache, idx)
+    x = SL._swap01(vals["acts"], dtype)
+    x = x.reshape(x.shape[0], -1, x.shape[-1])
+    row_src, tile_slot = ops._plan(rows.repeat_interleave(FLEET_SEQ), FLEET_TENANTS, x.shape[1], ops.TM)
+    g = torch.randn(x.shape[1:], device=dev).to(dtype)
+    h = vals["y_base"].to(dtype).requires_grad_(True)
+    grads = {k: torch.randn_like(v) for k, v in res.adapters.items()}
+    a, b = res.adapters["A"], res.adapters["B"]
+
+    def cached():
+        step(params, res.adapters, state, cache_read(res.cache, idx), rows)
+
+    def readout():
+        with torch.enable_grad():
+            per = FF.per_tenant_loss(params, cfg, h, vals["labels"], FLEET_TENANTS)
+            torch.autograd.grad(per.sum(), [h])
+
+    def skip():
+        K.grouped_skip_sum_fwd(x, a, b, row_src, tile_slot, ops.TM)
+        K.grouped_skip_sum_bwd(x, a, b, g, row_src, tile_slot, ops.TM)
+
+    def adam():
+        updates, _ = opt.update(grads, state, res.adapters)
+        apply_updates(res.adapters, updates)
+
+    ms = {name: time_ms(fn, reps=5, spin=STEP_SPIN) for name, fn in (
+        ("step", cached), ("readout", readout), ("skip", skip), ("adamw", adam))}
+    total = ms["step"]
+    rest = total - ms["readout"] - ms["skip"] - ms["adamw"]
+    print(f"fleet step split, mode full, {ARCH} full width on {device_name} (CUDA events, L2 flushed): cached "
+          f"fleet step {total:.3f} ms = per-tenant readout loss {ms['readout']:.3f} ms "
+          f"({100 * ms['readout'] / total:.1f}%) + grouped kernels K5+K9 {ms['skip']:.3f} ms "
+          f"({100 * ms['skip'] / total:.1f}%) + AdamW {ms['adamw']:.3f} ms ({100 * ms['adamw'] / total:.1f}%); "
+          f"remainder, not timed alone (cache gather, decode, grouping plan, casts): {rest:.3f} ms")
+
+
+def fleet_serve_phase(torch, device_name, kept):
+    """Write the 4 trained tenants back into float, int8, int4 and nf4 pools
+    (``write_back_to_pool``: one ``register_many``) and serve them plus a
+    base row with ``generate_grouped`` (prompt 128, 32 new tokens, greedy).
+    Checks: the base row equals base ``generate``; the pool's kernel (K5, K6
+    or K7) launches exactly 1 + 32 times a call and no other; the batched
+    write equals sequential ``register``; ``rollback`` restores the previous
+    payload bitwise. Returns each kernel's launches."""
+    from repro_torch.core.adapter_pool import AdapterPool
+    from repro_torch.core.fleet_finetune import init_fleet_adapters, write_back_to_pool
+    from repro_torch.core.runtime import generate, generate_grouped
+
+    cfg, sl, params, stacked = kept
+    dev = torch.device("cuda")
+    tenants = [f"tenant-{t}" for t in range(FLEET_TENANTS)]
+    who = tenants + [None]
+    prompts = torch.randint(0, cfg.vocab_size, (len(who), PROMPT),
+                            generator=torch.Generator(device=dev).manual_seed(21), device=dev)
+    base = generate(params, cfg, prompts, max_new=NEW, device=dev)
+    # the adapters fleet_finetune started from (the CLI's seed 3)
+    before = init_fleet_adapters(torch.Generator(device=dev).manual_seed(3), cfg, sl, FLEET_TENANTS)
+    kernels = {None: "grouped_skip_sum_fwd", "int8": "grouped_skip_sum_fwd_int8",
+               "int4": "grouped_skip_sum_fwd_q4", "nf4": "grouped_skip_sum_fwd_q4"}
+    launches = {k: 0 for k in kernels.values()}
+    for compress, kname in kernels.items():
+        pool = AdapterPool(FLEET_TENANTS + 2, cfg, RANK, compress=compress, device=dev, history=1)
+        pool.register_many(tenants, before)
+        old = pool.slot_payload(tenants[0])
+        slots = write_back_to_pool(pool, tenants, stacked)
+        seq = AdapterPool(FLEET_TENANTS + 2, cfg, RANK, compress=compress, device=dev)
+        seq_slots = [seq.register(t, {k: v[i] for k, v in stacked.items()}) for i, t in enumerate(tenants)]
+        check(slots == seq_slots, f"pool {compress}: register_many slots {slots} != register {seq_slots}")
+        for t in tenants:
+            a, b = pool.slot_payload(t), seq.slot_payload(t)
+            check(all(torch.equal(a[k], b[k]) for k in a), f"pool {compress}: register_many != register for {t}")
+        idx = pool.lookup(who)
+        generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)   # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _launches()
+        want = {k: 0 for k in counts}
+        want[kname] = 1 + NEW
+        check(counts == want, f"pool {compress}: launches {counts} != {want}")
+        launches[kname] += counts[kname]
+        check(tuple(out.shape) == (len(who), NEW), f"tokens shape {tuple(out.shape)}")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids out of range")
+        check(torch.equal(out[-1], base[-1]), f"pool {compress}: base row {out[-1].tolist()} != base generate "
+              f"{base[-1].tolist()}")
+        new = pool.slot_payload(tenants[0])
+        pool.rollback(tenants[0])
+        back = pool.slot_payload(tenants[0])
+        check(all(torch.equal(back[k], old[k]) for k in old), f"pool {compress}: rollback is not bitwise")
+        check(any(not torch.equal(new[k], old[k]) for k in old), f"pool {compress}: write-back changed nothing")
+        print(f"fleet serve {ARCH} full width, pool={compress or 'float'} after write-back: "
+              f"{len(who)}x{PROMPT} prompt + {NEW} new in {dt:.3f} s = {len(who) * NEW / dt:.1f} tok/s on "
+              f"{device_name}; {kname} x{counts[kname]}; base row == base generate; register_many == register; "
+              f"rollback bitwise")
+        del pool, seq
+    return launches
+
+
+def small_fleet_check(torch):
+    """Reduced float32 stablelm-1.6b, 3 tenants x 4 samples, seq 32: the card
+    (kernels) and the CPU (plain versions) give the same per-tenant losses
+    (rtol 1e-4) and final adapters (atol 1e-4) after one populate and two
+    cached epochs, from the same initial adapters. The two sides sum in
+    different orders; an int8 payload may round one count apart where an
+    activation sits on a rounding boundary."""
+    from repro_torch.core import fleet_finetune as FF
+    from repro_torch.launch import fleet as FL
+
+    for mode in ("full", "int8"):
+        args = FL.parse_args(["--arch", ARCH, "--device", "cpu", "--use-kernel", "--mode", mode,
+                              "--tenants", "3", "--samples", "4", "--batch-per-tenant", "2", "--seq", "32",
+                              "--epochs", "3"])
+        cfg, sl = FL.setup(args)
+        params, tokens, labels = FL.make_inputs(args, cfg, torch.device("cpu"))
+        init = FF.init_fleet_adapters(torch.Generator().manual_seed(3), cfg, sl, args.tenants)
+        cpu = FL.run(args, cfg, sl, params, tokens, labels, adapters=init)
+        card = FL.run(args, cfg, sl, _to(params, "cuda"), tokens.cuda(), labels.cuda(), adapters=_to(init, "cuda"))
+        lc, lg = torch.as_tensor(cpu["losses"]), torch.as_tensor(card["losses"])
+        loss_err = ((lg - lc).abs() / lc.abs()).max().item()
+        check(loss_err <= 1e-4, f"small fleet {mode}: losses card {lg.tolist()} vs CPU {lc.tolist()}")
+        ad = cpu["result"].adapters
+        ad_err = max((card["result"].adapters[k].cpu() - ad[k]).abs().max().item() for k in ad)
+        check(ad_err <= 1e-4, f"small fleet {mode}: adapters differ by {ad_err:.3e} between card and CPU")
+        print(f"fleet small: reduced {ARCH} float32 mode={mode} --use-kernel, 3 tenants, populate + 2 cached "
+              f"epochs: card (kernels) vs CPU (plain versions) max loss rel diff {loss_err:.3e}, max adapter "
+              f"diff {ad_err:.3e}")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -790,12 +1199,22 @@ def main() -> None:
     results = kernel_phase(torch)
     results.update(fused_kernel_phase(torch))
     results.update(flash_phase(torch))
+    results.update(grouped_train_kernel_phase(torch))
     launches = serve_phase(torch, smi)
     launches.update(train_phase(torch, smi))
     small_train_check(torch)
     attention_check(torch)
+    fleet_launches, kept = fleet_phase(torch, smi)
+    serve_launches = fleet_serve_phase(torch, smi, kept)
+    del kept
+    small_fleet_check(torch)
+    # each kernel's launches over every main path that runs it
+    for counts in (fleet_launches, serve_launches):
+        for kname, n in counts.items():
+            launches[kname] = launches.get(kname, 0) + n
     for kname, n in launches.items():
         results[kname]["launches"] = n
+    check(len(results) == 9, f"{len(results)} kernels in the kernels line, not 9")
     check(all(r["launches"] is not None for r in results.values()), "a kernel has no launch count")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,9 +10,11 @@ Layouts:
     {"periods": [one stacked tree per pattern position], "remainder": [...]}
     (``repro/models/blocks.py:init_stack``); the port keeps one flat list in
     execution order, layer ``l = p * period + i`` then the remainder.
-  - adapters: flat {"A": (L, D, R), "B": (L, R, D)} in both packages.
-  - pools: ``AdapterPool.pools()`` dicts, float {"A", "B"} or int8
-    {"qa", "sa", "qb", "sb"}, in both packages.
+  - adapters: flat {"A": (L, D, R), "B": (L, R, D)}, or a fleet's stacked
+    {"A": (N, L, D, R), "B": (N, L, R, D)}, in both packages.
+  - pools: ``AdapterPool.pools()`` dicts, float {"A", "B"}, int8
+    {"qa", "sa", "qb", "sb"} or 4-bit {"qa4", "sa", "qb4", "sb", "code"}
+    (uint8 payloads carried bit for bit), in both packages.
   - KV caches: the port's per-layer list goes back to the reference's
     periods/remainder layout, as float32 (bf16 values are exact in fp32).
   - Skip-Caches: the reference's ``SkipCache`` (``slots`` dict + ``valid``)
@@ -81,13 +83,20 @@ def params_from_reference(tree: Params, cfg: ModelConfig, *, device="cpu") -> Pa
 
 
 def adapters_from_reference(adapters: Params, *, device="cpu") -> Params:
-    """Flat {"A": (L, D, R), "B": (L, R, D)} numpy adapters -> tensors."""
+    """Flat {"A": (L, D, R), "B": (L, R, D)} or stacked fleet {"A": (N, L,
+    D, R), "B": (N, L, R, D)} numpy adapters -> tensors."""
     return {k: to_tensor(adapters[k], device) for k in ("A", "B")}
 
 
 def pools_from_reference(pools: dict, *, device="cpu") -> dict[str, torch.Tensor]:
-    """``AdapterPool.pools()`` dict (float or int8 layout) -> tensors."""
+    """``AdapterPool.pools()`` dict (float, int8 or 4-bit layout) -> tensors."""
     return {k: to_tensor(v, device) for k, v in pools.items()}
+
+
+def pools_to_reference(pools: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The port's ``AdapterPool.pools()`` (any layout) -> numpy, for comparing
+    with the reference's pool (integer payloads bit for bit)."""
+    return {k: to_numpy(v) for k, v in pools.items()}
 
 
 def caches_to_reference(caches: list[Params], cfg: ModelConfig) -> Params:
@@ -119,8 +128,8 @@ def cache_to_numpy(cache) -> dict[str, np.ndarray]:
 
 
 def adapters_to_reference(adapters: Params) -> dict[str, np.ndarray]:
-    """The port's adapters (or any dict of tensors) -> numpy, for comparing
-    with the reference's."""
+    """The port's adapters, flat or stacked (or any dict of tensors) ->
+    numpy, for comparing with the reference's."""
     return {k: to_numpy(v) for k, v in adapters.items()}
 
 

@@ -23,16 +23,15 @@ extern "C" int grouped_skip_sum_fwd(
     int L, int M, int D, int R, int tm, int n_tiles,
     int x_bf16, int pool_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  const gss::FloatPool<bf> pb{(const bf*)a_pool, (const bf*)b_pool};
+  const gss::FloatPool<float> pf{(const float*)a_pool, (const float*)b_pool};
   if (x_bf16) {
-    if (pool_bf16)
-      return gss::run<__nv_bfloat16>(x, gss::FloatPool<__nv_bfloat16>{(const __nv_bfloat16*)a_pool, (const __nv_bfloat16*)b_pool},
-                                     row_src, tile_slot, z, out, L, M, D, R, tm, n_tiles, s);
-    return gss::run<__nv_bfloat16>(x, gss::FloatPool<float>{(const float*)a_pool, (const float*)b_pool},
-                                   row_src, tile_slot, z, out, L, M, D, R, tm, n_tiles, s);
+    const gss::DenseActs<bf> acts{(const bf*)x, (size_t)M * D, D};
+    if (pool_bf16) return gss::run<bf>(acts, pb, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
+    return gss::run<bf>(acts, pf, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
   }
-  if (pool_bf16)
-    return gss::run<float>(x, gss::FloatPool<__nv_bfloat16>{(const __nv_bfloat16*)a_pool, (const __nv_bfloat16*)b_pool},
-                           row_src, tile_slot, z, out, L, M, D, R, tm, n_tiles, s);
-  return gss::run<float>(x, gss::FloatPool<float>{(const float*)a_pool, (const float*)b_pool},
-                         row_src, tile_slot, z, out, L, M, D, R, tm, n_tiles, s);
+  const gss::DenseActs<float> acts{(const float*)x, (size_t)M * D, D};
+  if (pool_bf16) return gss::run<float>(acts, pb, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
+  return gss::run<float>(acts, pf, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
 }

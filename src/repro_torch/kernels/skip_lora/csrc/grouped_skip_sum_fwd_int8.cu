@@ -28,7 +28,10 @@ extern "C" int grouped_skip_sum_fwd_int8(
     int x_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const gss::Int8Pool pool{qa, sa, qb, sb};
-  if (x_bf16)
-    return gss::run<__nv_bfloat16>(x, pool, row_src, tile_slot, z, out, L, M, D, R, tm, n_tiles, s);
-  return gss::run<float>(x, pool, row_src, tile_slot, z, out, L, M, D, R, tm, n_tiles, s);
+  if (x_bf16) {
+    const gss::DenseActs<__nv_bfloat16> acts{(const __nv_bfloat16*)x, (size_t)M * D, D};
+    return gss::run<__nv_bfloat16>(acts, pool, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
+  }
+  const gss::DenseActs<float> acts{(const float*)x, (size_t)M * D, D};
+  return gss::run<float>(acts, pool, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
 }

@@ -1,6 +1,6 @@
 """Hopper CUDA kernels for the Skip-LoRA sum, bound with ``ctypes``.
 
-Five kernels, each a CUDA C++ source under ``csrc/`` with a plain C
+Eight kernels, each a CUDA C++ source under ``csrc/`` with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` (``kernels/build.py``):
 
   - ``skip_lora_fwd`` (K1) replaces ``repro/kernels/skip_lora/kernel.py::skip_lora_fwd``;
@@ -8,7 +8,13 @@ interface, compiled by ``nvcc`` for ``sm_90a`` (``kernels/build.py``):
   - ``skip_lora_fwd_int8`` (K3) replaces ``...::skip_lora_fwd_int8``;
   - ``grouped_skip_sum_fwd`` (K5, float pool) replaces ``...::skip_lora_grouped_fwd``;
   - ``grouped_skip_sum_fwd_int8`` (K6, int8 pool) replaces
-    ``...::skip_lora_grouped_fwd_int8``.
+    ``...::skip_lora_grouped_fwd_int8``;
+  - ``grouped_skip_sum_fwd_q4`` (K7, packed 4-bit pool) replaces
+    ``...::skip_lora_grouped_fwd_q4``;
+  - ``grouped_skip_sum_fwd_actint8`` (K8, int8 activations) replaces
+    ``...::skip_lora_grouped_fwd_actint8``;
+  - ``grouped_skip_sum_bwd`` (K9, per-slot adapter gradients) replaces
+    ``...::skip_lora_grouped_bwd``.
 
 Nothing is built or loaded at import time: the module imports on a machine
 with no CUDA toolkit. Each launch function checks devices, types, shapes and
@@ -33,6 +39,9 @@ SOURCES = {
     "skip_lora_fwd_int8": "skip_lora_fwd_int8.cu",
     "grouped_skip_sum_fwd": "grouped_skip_sum_fwd.cu",
     "grouped_skip_sum_fwd_int8": "grouped_skip_sum_fwd_int8.cu",
+    "grouped_skip_sum_fwd_q4": "grouped_skip_sum_fwd_q4.cu",
+    "grouped_skip_sum_fwd_actint8": "grouped_skip_sum_fwd_actint8.cu",
+    "grouped_skip_sum_bwd": "grouped_skip_sum_bwd.cu",
 }
 LIB = KernelLib(CSRC, SOURCES, {
     "skip_lora_fwd": [P] * 5 + [I] * 6 + [P],
@@ -40,6 +49,9 @@ LIB = KernelLib(CSRC, SOURCES, {
     "skip_lora_fwd_int8": [P] * 6 + [I] * 5 + [P],
     "grouped_skip_sum_fwd": [P] * 7 + [I] * 8 + [P],
     "grouped_skip_sum_fwd_int8": [P] * 9 + [I] * 7 + [P],
+    "grouped_skip_sum_fwd_q4": [P] * 10 + [I] * 7 + [P],
+    "grouped_skip_sum_fwd_actint8": [P] * 8 + [I] * 7 + [P],
+    "grouped_skip_sum_bwd": [P] * 10 + [I] * 9 + [P],
 })
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -135,9 +147,9 @@ def skip_lora_fwd_int8(
 # ---------------------------------------------------------------------------
 
 
-def _check_plan(x, row_src, tile_slot, tm):
+def _check_plan(x, row_src, tile_slot, tm, dtypes=_FLOAT):
     lnum, m, d = x.shape
-    check_tensor(x, "x", x.device, x.shape, _FLOAT)
+    check_tensor(x, "x", x.device, x.shape, dtypes)
     check(1 <= tm <= TM_MAX, f"row tile {tm} outside 1..{TM_MAX}")
     n_tiles = tile_slot.shape[0]
     for t, name in ((row_src, "row_src"), (tile_slot, "tile_slot")):
@@ -146,6 +158,14 @@ def _check_plan(x, row_src, tile_slot, tm):
     check(row_src.shape == (n_tiles * tm,), f"row_src {tuple(row_src.shape)} != ({n_tiles * tm},)")
     check(n_tiles >= 1 and m >= 1, "empty batch")
     return lnum, m, d, n_tiles
+
+
+def _check_float_pool(x, a_pool, b_pool, lnum, d):
+    n, _, _, r = a_pool.shape
+    check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
+    check_tensor(a_pool, "a_pool", x.device, (n, lnum, d, r), _FLOAT)
+    check_tensor(b_pool, "b_pool", x.device, (n, lnum, r, d), (a_pool.dtype,))
+    return n, r
 
 
 def grouped_skip_sum_fwd(
@@ -158,10 +178,7 @@ def grouped_skip_sum_fwd(
 ) -> torch.Tensor:
     """K5: float-pool grouped skip-sum on the card -> (M, D) in x.dtype."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
-    n, _, _, r = a_pool.shape
-    check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
-    check_tensor(a_pool, "a_pool", x.device, (n, lnum, d, r), _FLOAT)
-    check_tensor(b_pool, "b_pool", x.device, (n, lnum, r, d), (a_pool.dtype,))
+    _, r = _check_float_pool(x, a_pool, b_pool, lnum, d)
     z = torch.empty((lnum, n_tiles * tm, r), dtype=torch.float32, device=x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     LIB.launch(
@@ -201,3 +218,96 @@ def grouped_skip_sum_fwd_int8(
         lnum, m, d, r, tm, n_tiles, _bf16(x),
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# K7: packed 4-bit pool; K8: int8 activations; K9: grouped backward
+# ---------------------------------------------------------------------------
+
+
+def grouped_skip_sum_fwd_q4(
+    x: torch.Tensor,          # (L, M, D) fp32 / bf16, original row order
+    qa: torch.Tensor,         # (N, L, D, R // 2) uint8, two nibbles a byte along R
+    sa: torch.Tensor,         # (N, L, D) fp32
+    qb: torch.Tensor,         # (N, L, R, D // 2) uint8, two nibbles a byte along D
+    sb: torch.Tensor,         # (N, L, R) fp32
+    code: torch.Tensor,       # (16,) fp32 codebook
+    row_src: torch.Tensor,
+    tile_slot: torch.Tensor,
+    tm: int,
+) -> torch.Tensor:
+    """K7: packed-4-bit-pool grouped skip-sum on the card -> (M, D) in x.dtype."""
+    lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
+    n, _, _, rp = qa.shape
+    r = 2 * rp
+    check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
+    check(d % 2 == 0, f"d_model {d} must be even to unpack B")
+    u8, f32 = (torch.uint8,), (torch.float32,)
+    check_tensor(qa, "qa", x.device, (n, lnum, d, rp), u8)
+    check_tensor(sa, "sa", x.device, (n, lnum, d), f32)
+    check_tensor(qb, "qb", x.device, (n, lnum, r, d // 2), u8)
+    check_tensor(sb, "sb", x.device, (n, lnum, r), f32)
+    check_tensor(code, "code", x.device, (16,), f32)
+    z = torch.empty((lnum, n_tiles * tm, r), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    LIB.launch(
+        "grouped_skip_sum_fwd_q4", x,
+        x.data_ptr(), qa.data_ptr(), sa.data_ptr(), qb.data_ptr(), sb.data_ptr(), code.data_ptr(),
+        row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
+        lnum, m, d, r, tm, n_tiles, _bf16(x),
+    )
+    return out
+
+
+def grouped_skip_sum_fwd_actint8(
+    q: torch.Tensor,          # (L, M, D) int8, original row order
+    s: torch.Tensor,          # (L, M) fp32 per-row scales
+    a_pool: torch.Tensor,     # (N, L, D, R) fp32 / bf16
+    b_pool: torch.Tensor,     # (N, L, R, D), same dtype as a_pool
+    row_src: torch.Tensor,
+    tile_slot: torch.Tensor,
+    tm: int,
+) -> torch.Tensor:
+    """K8: grouped skip-sum over int8 activations dequantised to bf16 in the
+    kernel, float pool -> (M, D) bf16."""
+    lnum, m, d, n_tiles = _check_plan(q, row_src, tile_slot, tm, (torch.int8,))
+    check_tensor(s, "s", q.device, (lnum, m), (torch.float32,))
+    _, r = _check_float_pool(q, a_pool, b_pool, lnum, d)
+    z = torch.empty((lnum, n_tiles * tm, r), dtype=torch.float32, device=q.device)
+    out = torch.empty((m, d), dtype=torch.bfloat16, device=q.device)
+    LIB.launch(
+        "grouped_skip_sum_fwd_actint8", q,
+        q.data_ptr(), s.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
+        row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
+        lnum, m, d, r, tm, n_tiles, _bf16(a_pool),
+    )
+    return out
+
+
+def grouped_skip_sum_bwd(
+    x: torch.Tensor,          # (L, M, D) fp32 / bf16, original row order
+    a_pool: torch.Tensor,     # (N, L, D, R) fp32 / bf16
+    b_pool: torch.Tensor,     # (N, L, R, D), same dtype as a_pool
+    g: torch.Tensor,          # (M, D) in x.dtype
+    row_src: torch.Tensor,
+    tile_slot: torch.Tensor,  # (n_tiles,) int32, non-decreasing
+    tm: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K9: per-slot adapter grads (gA (N, L, D, R), gB (N, L, R, D)) fp32,
+    zeros for slots with no rows. Deterministic: each (slot, layer) block is
+    summed by one CUDA block over the slot's rows in grouped order."""
+    lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
+    n, r = _check_float_pool(x, a_pool, b_pool, lnum, d)
+    check_tensor(g, "g", x.device, (m, d), (x.dtype,))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    z = torch.empty((lnum, n_tiles * tm, r), **f32)
+    gz = torch.empty((lnum, n_tiles * tm, r), **f32)
+    ga = torch.empty((n, lnum, d, r), **f32)
+    gb = torch.empty((n, lnum, r, d), **f32)
+    LIB.launch(
+        "grouped_skip_sum_bwd", x,
+        x.data_ptr(), g.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
+        row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), gz.data_ptr(),
+        ga.data_ptr(), gb.data_ptr(), lnum, m, d, r, tm, n_tiles, n, _bf16(x), _bf16(a_pool),
+    )
+    return ga, gb

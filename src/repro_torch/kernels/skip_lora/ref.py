@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.skip_lora.quant import dequantize_q4
+
 
 def skip_lora_fwd_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_l x[l] @ a[l] @ b[l].
@@ -74,3 +76,65 @@ def skip_lora_grouped_int8_ref(
     a_pool = qa.float() * sa[..., None]
     b_pool = qb.float() * sb[..., None]
     return skip_lora_grouped_ref(x, a_pool, b_pool, idx)
+
+
+def skip_lora_grouped_q4_ref(
+    x: torch.Tensor,
+    qa: torch.Tensor,
+    sa: torch.Tensor,
+    qb: torch.Tensor,
+    sb: torch.Tensor,
+    code: torch.Tensor,
+    idx: torch.Tensor,
+) -> torch.Tensor:
+    """Packed-4-bit-pool version: unpack and dequantise the whole pool in
+    fp32 (``code[nibble] * scale``), then the float version. qa: (N, L, D,
+    R//2) uint8 with sa (N, L, D); qb: (N, L, R, D//2) with sb (N, L, R);
+    code: the 16-entry codebook. Differentiable in (sa, sb)."""
+    a_pool = dequantize_q4(qa, sa, code)
+    b_pool = dequantize_q4(qb, sb, code)
+    return skip_lora_grouped_ref(x, a_pool, b_pool, idx)
+
+
+def skip_lora_grouped_actint8_ref(
+    q: torch.Tensor,
+    scale: torch.Tensor,
+    a_pool: torch.Tensor,
+    b_pool: torch.Tensor,
+    idx: torch.Tensor,
+    dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """int8-activation version: rows dequantised to ``dtype``
+    (``q * scale``), the float pool cast to ``dtype``, then the float
+    version; the output is in ``dtype``. q: (L, M, D) int8; scale: (L, M)
+    fp32."""
+    x = (q.float() * scale[..., None]).to(dtype)
+    return skip_lora_grouped_ref(x, a_pool.to(dtype), b_pool.to(dtype), idx)
+
+
+def skip_lora_grouped_bwd_ref(
+    x: torch.Tensor,
+    a_pool: torch.Tensor,
+    b_pool: torch.Tensor,
+    g: torch.Tensor,
+    idx: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot adapter grads of the grouped skip-sum -> (gA (N, L, D, R),
+    gB (N, L, R, D)) fp32; a slot with no rows gets exact zeros.
+
+    gB[n, l] = sum_{m: idx[m] = n} cast_x(x[l, m] A[n, l])^T g[m];
+    gA[n, l] = sum_{m: idx[m] = n} x[l, m]^T cast_x(g[m] B[n, l]^T).
+    x: (L, M, D); g: (M, D) (cast to x.dtype); idx: (M,). The reference's
+    version forms (M, L, D, R) per-row products; this one takes each slot's
+    rows and runs ``skip_lora_bwd_ref``'s four einsums on them, the same
+    function at a size the card holds at the fleet shape."""
+    n = a_pool.shape[0]
+    idx = idx.long()
+    g = g.to(x.dtype)
+    ga = torch.zeros((n,) + tuple(a_pool.shape[1:]), dtype=torch.float32, device=x.device)
+    gb = torch.zeros((n,) + tuple(b_pool.shape[1:]), dtype=torch.float32, device=x.device)
+    for s in range(n):
+        rows = torch.nonzero(idx == s)[:, 0]
+        if rows.numel():
+            ga[s], gb[s] = skip_lora_bwd_ref(x[:, rows], a_pool[s], b_pool[s], g[rows])
+    return ga, gb

@@ -17,7 +17,7 @@ adapters from seed 1, tokens from ``data.pipeline``'s synthetic store.
 
 Every mode runs the single-tenant epoch loop of ``core.lm_skiplora``. The
 reference sends ``full`` and ``int8`` through its ``SessionRuntime``, which
-belongs to the multi-tenant slice of the port, so ``--hbm-mb`` > 0 and
+belongs to the session-runtime slice of the port, so ``--hbm-mb`` > 0 and
 ``--cache-dir`` (its tiered cache engine) raise ``NotImplementedError``.
 Epoch orders come from ``data.pipeline.epoch_permutation`` (seed 2, one
 permutation per epoch) batched by ``core.batch_plan.index_matrix``: the
@@ -96,7 +96,7 @@ def prepare(args: argparse.Namespace) -> Run:
     if args.hbm_mb > 0 or args.cache_dir is not None:
         raise NotImplementedError(
             "--hbm-mb / --cache-dir need the session runtime's tiered cache engine, "
-            "which belongs to the multi-tenant slice and is not ported yet")
+            "which belongs to the session-runtime slice and is not ported yet")
     device = torch.device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

@@ -218,5 +218,5 @@ def test_cli_runs_each_mode_with_the_loss_falling(flags, capsys):
 
 
 def test_cli_refuses_the_tiered_engine():
-    with pytest.raises(NotImplementedError, match="multi-tenant"):
+    with pytest.raises(NotImplementedError, match="session-runtime slice"):
         cli.main(["--device", "cpu", "--hbm-mb", "0.05"])

@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.lm_skiplora import quantize_int8  # noqa: E402
 from repro_torch.kernels.skip_lora import kernel as K  # noqa: E402
 from repro_torch.kernels.skip_lora import ops  # noqa: E402
+from repro_torch.kernels.skip_lora import quant as Q  # noqa: E402
 from repro_torch.kernels.skip_lora import ref as R  # noqa: E402
 from repro_torch.kernels.flash_attn import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as FO  # noqa: E402
@@ -92,7 +93,9 @@ def test_each_wrapper_call_counts_one_launch(cuda):
     ops.skip_lora_fused(x[:, :, None], a1, b1).float().sum().backward()
     R.skip_lora_fwd_ref(x, a1, b1).float().sum().backward()
     assert K.LAUNCHES == {"grouped_skip_sum_fwd": 2, "grouped_skip_sum_fwd_int8": 1,
-                          "skip_lora_fwd": 1, "skip_lora_bwd": 1, "skip_lora_fwd_int8": 0}
+                          "skip_lora_fwd": 1, "skip_lora_bwd": 1, "skip_lora_fwd_int8": 0,
+                          "grouped_skip_sum_fwd_q4": 0, "grouped_skip_sum_fwd_actint8": 0,
+                          "grouped_skip_sum_bwd": 0}
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
@@ -104,6 +107,102 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         ops.skip_lora_grouped(x[:, :, None], a, b, idx, tm=33)
     with pytest.raises(ValueError, match="dtype"):
         ops.skip_lora_grouped(x[:, :, None], a.half(), b.half(), idx)
+
+
+# ---------------------------------------------------------------------------
+# K7, K8, K9: packed 4-bit pool, int8 activations, grouped backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", Q.Q4_KINDS)
+@pytest.mark.parametrize("tm", [1, 7, 16, 32])
+@pytest.mark.parametrize("rank", [4, 8, 24, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_q4_kernel_matches_plain_version(cuda, kind, tm, rank, dtype):
+    x, a, b, idx = _inputs(cuda, (2, 0, 19, 1, 33), rank, dtype)
+    a[0], b[0] = 0.0, 0.0                               # a zero slot: scale 0
+    qa, sa = Q.quantize_q4(a, kind)
+    qb, sb = Q.quantize_q4(b, kind)
+    code = Q.codebook(kind, cuda)
+    got = ops.skip_lora_grouped_q4(x[:, :, None], qa, sa, qb, sb, code, idx, tm=tm)[:, 0]
+    _close(got, R.skip_lora_grouped_q4_ref(x, qa, sa, qb, sb, code, idx), dtype)
+
+
+def test_q4_zero_slot_is_exactly_zero(cuda):
+    x, a, b, idx = _inputs(cuda, (3, 5), 8, "bfloat16", lnum=24, d=2048)
+    a[0], b[0] = 0.0, 0.0
+    for kind in Q.Q4_KINDS:
+        qa, sa = Q.quantize_q4(a, kind)
+        qb, sb = Q.quantize_q4(b, kind)
+        got = ops.skip_lora_grouped_q4(x[:, :, None], qa, sa, qb, sb, Q.codebook(kind, cuda), idx)[:, 0]
+        want = ops.skip_lora_grouped(x[:, :, None], a, b, idx)[:, 0]
+        zero = idx == 0
+        assert torch.equal(got[zero], want[zero]) and not got[zero].any()
+
+
+@pytest.mark.parametrize("tm", [1, 7, 16, 32])
+@pytest.mark.parametrize("rank", [4, 8, 24, 64])
+def test_actint8_kernel_matches_plain_version(cuda, tm, rank):
+    x, a, b, idx = _inputs(cuda, (2, 0, 19, 1, 33), rank, "float32")
+    q, s = quantize_int8(x)
+    for pool_dtype in (torch.float32, torch.bfloat16):
+        ap, bp = a.to(pool_dtype), b.to(pool_dtype)
+        row_src, tile_slot = ops._plan(idx, ap.shape[0], x.shape[1], tm)
+        got = K.grouped_skip_sum_fwd_actint8(q, s, ap, bp, row_src, tile_slot, tm)
+        assert got.dtype == torch.bfloat16
+        _close(got, R.skip_lora_grouped_actint8_ref(q, s, ap, bp, idx), "bfloat16")
+
+
+@pytest.mark.parametrize("groups", [(2, 0, 19, 1, 33), (1,), (0, 0, 40), (64, 0, 3)])
+@pytest.mark.parametrize("tm", [1, 7, 16, 32])
+@pytest.mark.parametrize("rank", [4, 8, 24, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_backward_matches_plain_version(cuda, groups, tm, rank, dtype):
+    x, a, b, idx = _inputs(cuda, groups, rank, dtype)
+    g = torch.randn(x.shape[1:], generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(x.dtype)
+    for pool_dtype in (torch.float32, torch.bfloat16):
+        ap, bp = a.to(pool_dtype), b.to(pool_dtype)
+        row_src, tile_slot = ops._plan(idx, ap.shape[0], x.shape[1], tm)
+        ga, gb = K.grouped_skip_sum_bwd(x, ap, bp, g, row_src, tile_slot, tm)
+        wa, wb = R.skip_lora_grouped_bwd_ref(x, ap, bp, g, idx)
+        _close(ga, wa, dtype, 2.0**-6)
+        _close(gb, wb, dtype, 2.0**-6)
+        empty = [n for n, c in enumerate(groups) if c == 0]
+        assert not ga[empty].any() and not gb[empty].any()
+
+
+def test_grouped_backward_is_deterministic(cuda):
+    x, a, b, idx = _inputs(cuda, (300, 200, 0, 524), 8, "bfloat16", lnum=24, d=2048)
+    g = torch.randn(x.shape[1:], device=cuda).to(x.dtype)
+    row_src, tile_slot = ops._plan(idx, 4, x.shape[1], ops.TM)
+    first = K.grouped_skip_sum_bwd(x, a, b, g, row_src, tile_slot, ops.TM)
+    for _ in range(3):
+        again = K.grouped_skip_sum_bwd(x, a, b, g, row_src, tile_slot, ops.TM)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_trainable_wrappers_give_the_kernel_gradients(cuda):
+    x, a, b, idx = _inputs(cuda, (5, 0, 9, 3), 8, "bfloat16")
+    g = torch.randn(x.shape[1:], device=cuda).to(x.dtype)
+    freeze = torch.tensor([False, False, True, False], device=cuda)
+    ap, bp = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    K.reset_launches()
+    out = ops.skip_lora_grouped_train(x[:, :, None], ap, bp, idx, freeze_mask=freeze)[:, 0]
+    (out.float() * g.float()).sum().backward()
+    assert K.LAUNCHES["grouped_skip_sum_fwd"] == 1 and K.LAUNCHES["grouped_skip_sum_bwd"] == 1
+    row_src, tile_slot = ops._plan(idx, 4, x.shape[1], ops.TM)
+    wa, wb = K.grouped_skip_sum_bwd(x, a, b, g, row_src, tile_slot, ops.TM)
+    wa[1:3], wb[1:3] = 0.0, 0.0                        # slot 1 empty, slot 2 frozen
+    assert torch.equal(ap.grad, wa) and torch.equal(bp.grad, wb)
+    q, s = quantize_int8(x.float())
+    ap.grad = bp.grad = None
+    out = ops.skip_lora_grouped_train_int8(q[:, :, None], s[:, :, None], ap, bp, idx)[:, 0]
+    (out.float() * g.float()).sum().backward()
+    wa, wb = K.grouped_skip_sum_bwd(ops._dequant_rows(q, s), a, b, g, row_src, tile_slot, ops.TM)
+    wa[1], wb[1] = 0.0, 0.0
+    assert torch.equal(ap.grad, wa) and torch.equal(bp.grad, wb)
+    assert K.LAUNCHES["grouped_skip_sum_fwd_actint8"] == 1
 
 
 # ---------------------------------------------------------------------------

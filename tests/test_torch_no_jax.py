@@ -28,7 +28,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "assert len(mods) > 25, mods\n"
         "for m in ('repro_torch.launch.finetune', 'repro_torch.kernels.flash_attn.ops',\n"
         "          'repro_torch.core.skip_cache', 'repro_torch.optim.optimizers',\n"
-        "          'repro_torch.data.pipeline', 'repro_torch.kernels.build'):\n"
+        "          'repro_torch.data.pipeline', 'repro_torch.kernels.build',\n"
+        "          'repro_torch.kernels.skip_lora.quant', 'repro_torch.core.batch_plan',\n"
+        "          'repro_torch.core.fleet_finetune', 'repro_torch.launch.fleet'):\n"
         "    assert m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
