@@ -5,7 +5,7 @@
 
 Phases, each printing one line (or a few) before the last line:
   1. device: the card's name and power limit from nvidia-smi.
-  2. build: the nine hand-written kernels compiled with nvcc from csrc/, one
+  2. build: the ten hand-written kernels compiled with nvcc from csrc/, one
      nvcc per source, all started together.
   3. kernels: each kernel against its plain PyTorch version on the card, with
      kernel / plain times (CUDA events, L2 flushed), the bound and, where one
@@ -16,7 +16,10 @@ Phases, each printing one line (or a few) before the last line:
          M 1000 and fp32;
        - K4 (flash attention) at the populate shape (B 8 x H 32, S 128,
          hd 64, bf16) and a gemma-2-like shape (window 512, softcap 50,
-         hd 256, GQA 2:1, S 1024).
+         hd 256, GQA 2:1, S 1024);
+       - K7/K8/K9 (phase 8 below) and K10 (paged KV block gather), bitwise,
+         at the scheduler's reuse wave (pool (24, 128, 32, 32, 64) bf16,
+         tables (2, 14)) and a ragged shape, beside ``index_select``.
   4. serve: full-width stablelm-1.6b (24 layers, seeded random weights)
      through ``generate_grouped`` with a float and an int8 adapter pool:
      3 demo tenants plus the zero slot, 4 prompts of 128 tokens, 32 greedy
@@ -55,6 +58,18 @@ Phases, each printing one line (or a few) before the last line:
      base row equal to base ``generate``, ``register_many`` equal to
      ``register``, ``rollback`` bitwise; tokens/s per pool. A reduced float32
      fleet gives the same losses and adapters on the card as on the CPU.
+ 10. scheduler: full-width stablelm-1.6b in a ``SessionRuntime`` with 3
+     demo tenants, the ``RequestScheduler`` on the reference's shared-prefix
+     trace (8 requests, 448 shared + 64 tail tokens, 4 new, batch 4, bucket
+     2, chunk 2, KV block 32), reuse on and off after a warm-up: reuse
+     happens, K10 launches twice a reuse wave and K5 as the dispatch
+     counters imply, no block leaks, the first reuse wave's gathered K/V
+     bitwise the dense admission's live rows, temperature-0 tokens equal;
+     tokens/s both ways, the share of prefill tokens skipped, the device
+     time of one reuse and one dense admission dispatch; mid-decode
+     admission (3 x 128 tokens, bucket 1, 8 new) continuous vs sequential
+     vs solo ``serve``. A reduced float32 scheduler with reuse gives the
+     same tokens on the card as on the CPU.
 The kernels line {"kernels": [...]} comes next, then the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is
 nonzero; without CUDA, or without the repo's ``src`` next to this file, it
@@ -525,17 +540,20 @@ def flash_phase(torch):
 
 def _launches():
     from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import paged as PG
     from repro_torch.kernels.skip_lora import kernel as K
 
-    return {**K.LAUNCHES, **FK.LAUNCHES}
+    return {**K.LAUNCHES, **FK.LAUNCHES, **PG.LAUNCHES}
 
 
 def _reset_launches():
     from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import paged as PG
     from repro_torch.kernels.skip_lora import kernel as K
 
     K.reset_launches()
     FK.reset_launches()
+    PG.reset_launches()
 
 
 def train_phase(torch, device_name):
@@ -1153,6 +1171,318 @@ def small_fleet_check(torch):
               f"diff {ad_err:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: K10 (paged KV block gather)
+# ---------------------------------------------------------------------------
+
+PAGED_SRC = "src/repro_torch/kernels/flash_attn/csrc/paged_gather.cu"
+# the scheduler phase: the reference's shared-prefix trace (benchmarks/serving_bench.py:153)
+SCHED_SHARE, SCHED_TAIL, SCHED_NEW, SCHED_REQS = 448, 64, 4, 8
+SCHED_ARGS = dict(max_batch=4, max_prompt=SCHED_SHARE + SCHED_TAIL, max_new_cap=SCHED_NEW,
+                  admit_bucket=2, inflight_per_tenant=SCHED_REQS, chunk=2, kv_block=32)
+# A temperature-0 token that differs between reuse on and off, or between the
+# scheduler and a solo ``serve``, is accepted only where the dense path's two
+# top logits lie within 2^-5 of the largest |logit| (4 bf16 ulps): the tail
+# prefill's products, and a batch of one's, have other shapes than the dense
+# batched prefill's, so cuBLAS may round them differently.
+TOP2_REL_TOL = 2.0**-5
+
+
+def paged_kernel_phase(torch):
+    """K10 against its plain version, bitwise: at the scheduler's reuse wave
+    (one gather of K at full width: pool (24, 128, 32, 32, 64) bf16, tables
+    (2, 14)) and a ragged shape (no layer axis, block 8, n_kv 4, hd 96, fp32,
+    tables (3, 5) with repeats). The library yardstick is one
+    ``index_select`` over the flattened pool's block axis."""
+    from repro_torch.kernels.flash_attn import paged as PG
+
+    results = {}
+    cases = [("reuse-wave", (24,), 128, 32, 32, 64, torch.bfloat16, 2, 14),
+             ("ragged", (), 16, 8, 4, 96, torch.float32, 3, 5)]
+    for label, lead, nb, blk, nkv, hd, dtype, rows, slots in cases:
+        g = torch.Generator(device="cuda").manual_seed(17)
+        pool = torch.randn(lead + (nb, blk, nkv, hd), generator=g, device="cuda").to(dtype)
+        tables = torch.randint(0, nb, (rows, slots), generator=g, device="cuda", dtype=torch.int32)
+        tables[-1, -2:] = tables[0, :2]                  # repeated ids
+        flat = pool.reshape(lead + (nb, -1))
+        run = lambda: PG.paged_gather(pool, tables)  # noqa: E731
+        plain = lambda: PG.paged_gather_ref(pool, tables)  # noqa: E731
+        library = lambda: flat.index_select(len(lead), tables.reshape(-1))  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.equal(got, want), f"K10 {label}: kernel != plain version (max diff {err:.3e})")
+        check(torch.equal(got, PG.gather(pool, tables)), f"K10 {label}: wrapper != kernel")
+        check(torch.equal(got.reshape(library().shape), library()), f"K10 {label}: != index_select")
+        k_ms, p_ms, l_ms = time_ms(run), time_ms(plain), time_ms(library)
+        nbytes = 2 * _nbytes(got) + _nbytes(tables)    # gathered blocks read once, output written once
+        dname = str(dtype).split(".")[-1]
+        bound = _bound_ms(nbytes, 0, dname)
+        shape = f"pool {tuple(pool.shape)} {dname}, tables ({rows}, {slots})"
+        print(f"kernel paged_gather {label} {shape}: bitwise equal to the plain version and index_select; "
+              f"kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, library index_select {l_ms * 1e3:.1f} us, "
+              f"bound {bound[0] * 1e3:.2f} us ({bound[1]}, {nbytes} B), "
+              f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s achieved")
+        if label == "reuse-wave":
+            results["paged_gather"] = _entry("paged_gather", PAGED_SRC, "src/repro/kernels/flash_attn/paged.py:58",
+                                             err, k_ms, p_ms, bound, nbytes, l_ms, shape)
+        del pool, flat, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the request scheduler with paged-KV prefix reuse at full width
+# ---------------------------------------------------------------------------
+
+
+def _shared_prefix_trace(vocab, seed, n):
+    """``n`` prompts: one shared 448-token prefix, a distinct 64-token tail each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, size=SCHED_SHARE, dtype=np.int32)
+    return [np.concatenate([shared, rng.integers(0, vocab, size=SCHED_TAIL, dtype=np.int32)])
+            for _ in range(n)]
+
+
+def _near_tie_flips(torch, rt, what, prompts, tenants, toks_a, toks_b):
+    """Temperature-0 tokens of two runs of the same requests: where request
+    i first differs (token d), the dense path's logits for prompt i + the
+    first d tokens of run b must have their top two within ``TOP2_REL_TOL``
+    of the largest |logit|, else the check fails. Returns one line per flip."""
+    import numpy as np
+
+    from repro_torch.models.lm import sched_prefill
+
+    dev, flips = rt.device, []
+    for i, (a, b) in enumerate(zip(toks_a, toks_b)):
+        a, b = np.asarray(a), np.asarray(b)
+        if np.array_equal(a, b):
+            continue
+        d = int(np.flatnonzero(a != b)[0])
+        ctx = torch.as_tensor(np.concatenate([prompts[i], b[:d]])[None], device=dev)
+        with torch.no_grad():
+            logits, _ = sched_prefill(rt.params, rt.cfg, ctx, torch.tensor([ctx.shape[1]], device=dev),
+                                      rt.pool.pools(), rt.pool.lookup([tenants[i]]))
+        top = torch.topk(logits[0, 0].float(), 2).values
+        gap, mag = (top[0] - top[1]).item(), logits.float().abs().max().item()
+        check(gap <= TOP2_REL_TOL * mag, f"scheduler: request {i} token {d} differs, {what} "
+              f"({a.tolist()} vs {b.tolist()}) at a top-2 logit gap {gap:.3e} > {TOP2_REL_TOL * mag:.3e}")
+        flips.append(f"request {i} token {d}: top-2 gap {gap:.3e} (max |logit| {mag:.3e})")
+    return flips
+
+
+def scheduler_phase(torch, device_name):
+    """Full-width stablelm-1.6b (bf16, seeded weights) in a ``SessionRuntime``
+    with the serve phase's 3 demo tenants (float pool), through the
+    ``RequestScheduler`` on the reference's shared-prefix trace: 8 requests
+    of one tenant, a shared 448-token prefix + a distinct 64-token tail each
+    (numpy seed 13), 4 new tokens, batch 4, admission bucket 2, chunk 2, KV
+    block 32, temperature 0. Warmed once (reuse on and off, 4 other
+    prompts), then replayed with reuse on and with reuse off. Checks: reuse
+    admissions and prefix hits happen; K10 launches exactly twice a reuse
+    wave and K5 as often as the dispatch counters imply, no other kernel;
+    no block leaks after the drain; the first reuse wave's gathered K/V equal
+    bitwise the live rows the dense admission wrote for the same prefix;
+    temperature-0 tokens equal with reuse on and off (or a flip within
+    ``TOP2_REL_TOL``). Then the device time of one reuse and one dense
+    admission dispatch, and mid-decode admission at full width (3 requests
+    of 128 tokens, bucket 1, 8 new tokens): continuous equal to sequential,
+    and to solo ``serve`` (or a flip within ``TOP2_REL_TOL``). Returns each kernel's launches over the two replays."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import kv_pool as KV
+    from repro_torch.core import scheduler as S
+    from repro_torch.launch.serve import demo_runtime
+    from repro_torch.models.lm import init_lm
+
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    rt = demo_runtime(cfg, TENANTS, RANK, None, params, dev)
+    tenant = "tenant-0"
+    captured = {}
+
+    class Traced(S.RequestScheduler):
+        def _publish_rows(self, pool, pidx, lb, admits, rows):
+            # the live rows the first dense admission wrote, before they decode on
+            captured.setdefault("dense", (list(rows), {
+                n: lb.caches[n][:, rows, :SCHED_SHARE].clone() for n in ("k", "v")}))
+            super()._publish_rows(pool, pidx, lb, admits, rows)
+
+    real_gather = KV.gather_blocks
+
+    def gather(data, tables):
+        out = real_gather(data, tables)
+        captured.setdefault("gathered", {n: v.clone() for n, v in out.items()})
+        return out
+
+    def first_call(name, fn):
+        def wrapper(*a, **kw):
+            captured.setdefault(name, (fn, a, kw))
+            return fn(*a, **kw)
+        return wrapper
+
+    def replay(prompts, reuse, cls=S.RequestScheduler):
+        rt.reset_prefix_cache()
+        sched = cls(rt, prefix_reuse=reuse, **SCHED_ARGS)
+        reqs = [sched.submit(tenant, p, max_new=SCHED_NEW) for p in prompts]
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        sched.drain()
+        torch.cuda.synchronize()
+        return sched, [r.result() for r in reqs], time.perf_counter() - t0, _launches()
+
+    for reuse in (True, False):
+        replay(_shared_prefix_trace(cfg.vocab_size, 17, 4), reuse)
+    prompts = _shared_prefix_trace(cfg.vocab_size, 13, SCHED_REQS)
+    saved = (KV.gather_blocks, S._sched_admit, S._sched_admit_reuse)
+    KV.gather_blocks = gather
+    S._sched_admit = first_call("admit", S._sched_admit)
+    S._sched_admit_reuse = first_call("admit_reuse", S._sched_admit_reuse)
+    try:
+        on, on_toks, on_dt, on_counts = replay(prompts, True, cls=Traced)
+        rt.check_prefix_no_leaks()
+        off, off_toks, off_dt, off_counts = replay(prompts, False)
+    finally:
+        KV.gather_blocks, S._sched_admit, S._sched_admit_reuse = saved
+    c, chunk = on.counters, SCHED_ARGS["chunk"]
+    check(c["dispatch/admit_reuse"] >= 1 and c["prefix/hits"] >= 1,
+          f"scheduler: no prefix reuse on the shared-prefix trace: {dict(c)}")
+    launches = {}
+    for sched, counts, reuse in ((on, on_counts, True), (off, off_counts, False)):
+        sc = sched.counters
+        want = {k: 0 for k in counts}
+        admits = sc["dispatch/admit"] + sc["dispatch/admit_reuse"]
+        want["grouped_skip_sum_fwd"] = admits * (1 + chunk) + sc["dispatch/step"] * chunk
+        want["paged_gather"] = 2 * sc["dispatch/admit_reuse"]
+        check(counts == want, f"scheduler reuse={reuse}: launches {counts} != {want} (counters {dict(sc)})")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    check(off.counters["dispatch/admit_reuse"] == 0, "reuse off still reused")
+    rows, dense = captured["dense"]
+    gathered = captured["gathered"]
+    check(tuple(gathered["k"].shape[2:3]) == (SCHED_SHARE,), f"gathered span {tuple(gathered['k'].shape)}")
+    for n in ("k", "v"):
+        for j in range(gathered[n].shape[1]):
+            check(torch.equal(gathered[n][:, j], dense[n][:, 0]),
+                  f"scheduler: reuse wave row {j} gathered {n} != the dense admission's live row {rows[0]}")
+    same_rows = all(torch.equal(dense[n][:, 0], dense[n][:, 1]) for n in ("k", "v"))
+    # temperature 0: reuse on and off give the same tokens, or a flip at a near tie
+    flips = _near_tie_flips(torch, rt, "reuse on vs off", prompts, [tenant] * SCHED_REQS, on_toks, off_toks)
+    total = SCHED_REQS * SCHED_NEW
+    skipped = c["prefix/tokens_reused"] / (SCHED_REQS * (SCHED_SHARE + SCHED_TAIL))
+    print(f"scheduler {ARCH} full width on {device_name}: {SCHED_REQS} requests x ({SCHED_SHARE} shared + "
+          f"{SCHED_TAIL} tail) prompt + {SCHED_NEW} new, batch 4, bucket 2, chunk 2, kv block 32: reuse on "
+          f"{on_dt:.3f} s = {total / on_dt:.1f} tok/s, reuse off {off_dt:.3f} s = {total / off_dt:.1f} tok/s "
+          f"({off_dt / on_dt:.2f}x); prefill tokens skipped {100 * skipped:.1f}%; counters on "
+          f"{dict(sorted(c.items()))}; off {dict(sorted(off.counters.items()))}")
+    print(f"scheduler checks: launches per replay exact (K5 = admissions x 3 + steps x 2, K10 = 2 x reuse "
+          f"waves); no block leaks after the reuse-on drain; first reuse wave's gathered K/V bitwise the "
+          f"dense admission's live row (the two dense rows' prefixes {'equal' if same_rows else 'differ'}); "
+          f"temperature-0 tokens reuse on vs off: "
+          f"{'all equal' if not flips else '; '.join(flips)}")
+    timed = {}
+    for name in ("admit", "admit_reuse"):
+        fn, a, kw = captured[name]
+        run = lambda: fn(*a, **kw)  # noqa: E731
+        timed[name] = (time_ms(run, reps=5, spin=STEP_SPIN), *_busy(torch, run))
+    (d_ms, d_busy, d_wall, d_n), (r_ms, r_busy, r_wall, r_n) = timed["admit"], timed["admit_reuse"]
+    print(f"scheduler dispatch on {device_name}: device kernel time (profiler) of a dense admission of 2 x "
+          f"{SCHED_SHARE + SCHED_TAIL} tokens + 2 decode steps {d_busy:.3f} ms ({d_n} kernels, profiled wall "
+          f"{d_wall:.1f} ms), of a reuse admission (K10 gather of {SCHED_SHARE} tokens a row + {SCHED_TAIL}-token "
+          f"tail prefill) + 2 decode steps {r_busy:.3f} ms ({r_n} kernels, wall {r_wall:.1f} ms): "
+          f"{d_busy / r_busy:.2f}x; CUDA events from first to last kernel (L2 flushed, stream held by a spin "
+          f"kernel) {d_ms:.3f} / {r_ms:.3f} ms, which the host sets: once the card's launch queue is full the host "
+          f"waits on each launch, so the card idles between kernels")
+    captured.clear()
+
+    # Mid-decode admission at full width: continuous, sequential, solo serve.
+    rng = np.random.default_rng(5)
+    mid = [rng.integers(0, cfg.vocab_size, size=128, dtype=np.int32) for _ in range(3)]
+    who = ["tenant-0", "tenant-1", "tenant-0"]
+    kw = dict(max_batch=3, max_prompt=128, max_new_cap=8, admit_bucket=1, inflight_per_tenant=3, chunk=2,
+              prefix_reuse=False)
+    runs = {}
+    for mode in ("continuous", "sequential"):
+        rt.reset_prefix_cache()
+        sched = S.RequestScheduler(rt, mode=mode, **kw)
+        reqs = [sched.submit(t, p, max_new=8) for t, p in zip(who, mid)]
+        sched.drain()
+        check(sched.counters["dispatch/admit"] == 3, f"mid-decode {mode}: {dict(sched.counters)}")
+        runs[mode] = np.stack([r.result() for r in reqs])
+    runs["solo"] = np.stack([rt.serve([t], p[None], max_new=8)[0].cpu().numpy() for t, p in zip(who, mid)])
+    check(all(((v >= 0) & (v < cfg.vocab_size)).all() for v in runs.values()), "mid-decode: token ids out of range")
+    # one batch geometry (3 rows, the same dispatch shapes) in both modes: the same tokens, bitwise
+    check(np.array_equal(runs["continuous"], runs["sequential"]),
+          f"mid-decode: continuous {runs['continuous'].tolist()} != sequential {runs['sequential'].tolist()}")
+    # a solo serve is a batch of one: equal tokens, or a flip at a near tie
+    solo_flips = _near_tie_flips(torch, rt, "scheduler vs solo serve", mid, who, runs["continuous"], runs["solo"])
+    n = runs["solo"].size
+    print(f"scheduler mid-decode admission {ARCH} full width: 3 requests x 128 tokens, bucket 1, 8 new: equal tokens "
+          f"continuous vs sequential {(runs['continuous'] == runs['sequential']).sum()}/{n} (checked equal), "
+          f"continuous vs solo serve {(runs['continuous'] == runs['solo']).sum()}/{n} "
+          f"({'all equal' if not solo_flips else '; '.join(solo_flips)})")
+    del rt, params, on, off
+    torch.cuda.empty_cache()
+    return launches
+
+
+def small_scheduler_check(torch):
+    """Reduced float32 stablelm-1.6b through the scheduler with prefix reuse
+    (6 prompts of two tenants sharing 12 of 16 tokens, KV block 4, batch 2,
+    so rows recycle): the same temperature-0 tokens on the card (kernels,
+    K10 included) as on the CPU (plain versions), and with reuse off. Both
+    sessions hold the same adapters, drawn on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.core.scheduler import RequestScheduler
+    from repro_torch.kernels.flash_attn import paged as PG
+    from repro_torch.models.lm import init_lm
+
+    cfg = reduce_config(get_config(ARCH))
+    sl = SL.SkipLoRAConfig(rank=RANK)
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    adapters = []
+    for t in range(2):
+        ad = SL.init_adapters(torch.Generator().manual_seed(100 + t), cfg, sl)
+        ad["B"] = torch.randn(ad["B"].shape, generator=torch.Generator().manual_seed(200 + t)) * 0.02
+        adapters.append(ad)
+    rng = np.random.default_rng(13)
+    shared = rng.integers(0, cfg.vocab_size, 12).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 4).astype(np.int32)]) for _ in range(6)]
+    toks = {}
+    for where in ("cpu", "cuda"):
+        rt = SessionRuntime(cfg, sl, _to(params, where), max_tenants=2, device=where)
+        for t, ad in enumerate(adapters):
+            rt.pool.register(f"tenant-{t}", ad)
+        for reuse in (True, False):
+            rt.reset_prefix_cache()
+            sched = RequestScheduler(rt, max_batch=2, max_prompt=16, max_new_cap=4, admit_bucket=2,
+                                     inflight_per_tenant=6, chunk=2, prefix_reuse=reuse, kv_block=4)
+            PG.reset_launches()
+            reqs = [sched.submit(f"tenant-{i % 2}", p, max_new=4) for i, p in enumerate(prompts)]
+            sched.drain()
+            toks[where, reuse] = [r.result().tolist() for r in reqs]
+            if reuse:
+                rt.check_prefix_no_leaks()
+                check(sched.counters["dispatch/admit_reuse"] >= 1, f"small scheduler {where}: no reuse")
+                if where == "cuda":
+                    check(PG.LAUNCHES["paged_gather"] == 2 * sched.counters["dispatch/admit_reuse"],
+                          f"small scheduler: K10 launches {PG.LAUNCHES}")
+    check(toks["cpu", True] == toks["cuda", True] == toks["cpu", False] == toks["cuda", False],
+          f"small scheduler: tokens differ {toks}")
+    print(f"scheduler small: reduced {ARCH} float32, 6 prompts of 2 tenants sharing 12 of 16 tokens, kv block 4, "
+          f"batch 2: temperature-0 tokens equal on the card (K5 + K10) and the CPU (plain versions), reuse on "
+          f"and off")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1185,10 +1515,11 @@ def main() -> None:
 
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import paged as PG
     from repro_torch.kernels.skip_lora import kernel as K
 
     t0 = time.perf_counter()
-    logs = build_all([(K.LIB, None), (FK.LIB, None)])
+    logs = build_all([(K.LIB, None), (FK.LIB, None), (PG.LIB, None)])
     regs = [int(v) for log in logs.values() for v in re.findall(r"Used (\d+) registers", log)]
     spills = [int(v) for log in logs.values() for v in re.findall(r"(\d+) bytes spill stores", log)]
     stack = [int(v) for log in logs.values() for v in re.findall(r"(\d+) bytes stack frame", log)]
@@ -1200,6 +1531,7 @@ def main() -> None:
     results.update(fused_kernel_phase(torch))
     results.update(flash_phase(torch))
     results.update(grouped_train_kernel_phase(torch))
+    results.update(paged_kernel_phase(torch))
     launches = serve_phase(torch, smi)
     launches.update(train_phase(torch, smi))
     small_train_check(torch)
@@ -1208,13 +1540,15 @@ def main() -> None:
     serve_launches = fleet_serve_phase(torch, smi, kept)
     del kept
     small_fleet_check(torch)
+    sched_launches = scheduler_phase(torch, smi)
+    small_scheduler_check(torch)
     # each kernel's launches over every main path that runs it
-    for counts in (fleet_launches, serve_launches):
+    for counts in (fleet_launches, serve_launches, sched_launches):
         for kname, n in counts.items():
             launches[kname] = launches.get(kname, 0) + n
     for kname, n in launches.items():
         results[kname]["launches"] = n
-    check(len(results) == 9, f"{len(results)} kernels in the kernels line, not 9")
+    check(len(results) == 10, f"{len(results)} kernels in the kernels line, not 10")
     check(all(r["launches"] is not None for r in results.values()), "a kernel has no launch count")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,6 +17,10 @@ Layouts:
     (uint8 payloads carried bit for bit), in both packages.
   - KV caches: the port's per-layer list goes back to the reference's
     periods/remainder layout, as float32 (bf16 values are exact in fp32).
+    So do its stacked caches {"k", "v"}: (L, B, S, n_kv, hd) and its paged
+    KV pool {"k", "v"}: (L, NB, block, n_kv, hd), whose reference
+    (``KVBlockPool.data``) is the serve-cache tree with the batch axis read
+    as the block axis.
   - Skip-Caches: the reference's ``SkipCache`` (``slots`` dict + ``valid``)
     and the port's have the same slots in the same layouts.
   - optimizer states: ``OptState`` (step, mu, nu) in both packages, with
@@ -109,6 +113,12 @@ def caches_to_reference(caches: list[Params], cfg: ModelConfig) -> Params:
         per_pos = [flat[p * period + i] for p in range(n_per)]
         periods.append({k: np.stack([c[k] for c in per_pos]) for k in per_pos[0]})
     return {"periods": periods, "remainder": flat[n_per * period :]}
+
+
+def stacked_to_reference(stacked: dict[str, torch.Tensor], cfg: ModelConfig) -> Params:
+    """Stacked caches or KV pool data {"k", "v"} with a leading layer axis ->
+    the reference's periods/remainder layout, as float32 numpy."""
+    return caches_to_reference([{"k": k, "v": v} for k, v in zip(stacked["k"], stacked["v"])], cfg)
 
 
 def cache_from_reference(cache, *, device="cpu"):

@@ -24,6 +24,9 @@ outgoing payload (storage layout, on the host) with its {"step",
 fleet's stacks in one batched write per pool tensor, with an optional
 write-back ``gate``.
 
+``version`` counts changes of the tenant -> slot map (and rollbacks), as
+the reference's does; ``touch`` refreshes recency without a lookup.
+
 Not ported yet: the checkpoint plane (``state_arrays`` / ``load_state`` /
 ``slot_table``), the dense ``fused`` skip-sum and ``ShardedAdapterPool``.
 """
@@ -124,6 +127,11 @@ class AdapterPool:
         self._hist: dict[Any, list[dict]] = {}
         #: tenant -> {"step", "eval_loss"} of the served version.
         self._vmeta: dict[Any, dict] = {}
+        #: bumps when the tenant -> slot map changes (a new assignment, an
+        #: eviction) and on a rollback; not on a lookup, an LRU touch or a
+        #: re-registration into the tenant's own slot. The request scheduler
+        #: re-resolves its rows' slots when it moves.
+        self.version = 0
         self.stats = PoolStats()
 
     # -- capacity -----------------------------------------------------------
@@ -180,6 +188,7 @@ class AdapterPool:
             self._drop_versions(victim)
             self.stats.evictions += 1
         self._lru[tenant] = slot
+        self.version += 1
         return slot
 
     def _set_meta(self, tenant, meta: Optional[dict]) -> None:
@@ -260,6 +269,7 @@ class AdapterPool:
             raise ValueError(f"tenant {tenant!r} is pinned; unpin before evicting")
         self._free.append(self._lru.pop(tenant))
         self._drop_versions(tenant)
+        self.version += 1
         self.stats.evictions += 1
 
     # -- versioned slots ----------------------------------------------------
@@ -327,6 +337,7 @@ class AdapterPool:
         for name, val in rec["payload"].items():
             self._arrays[name][slot] = val.to(self.device)
         self._vmeta[tenant] = {"step": rec["step"], "eval_loss": rec["eval_loss"]}
+        self.version += 1
         self.stats.rollbacks += 1
         return {"step": rec["step"], "eval_loss": rec["eval_loss"]}
 
@@ -360,6 +371,13 @@ class AdapterPool:
                 self.stats.misses += 1
                 raise KeyError(f"tenant {t!r} has no registered adapters")
         return torch.tensor(slots, dtype=torch.int32, device=self.device)
+
+    def touch(self, tenants) -> None:
+        """LRU refresh only, no slot-index build (and no ``version`` bump):
+        recency follows serving traffic that reuses a memoised lookup."""
+        for t in tenants:
+            if t is not None and t in self._lru:
+                self._lru.move_to_end(t)
 
     # -- data plane ---------------------------------------------------------
 

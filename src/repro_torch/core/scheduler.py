@@ -1,0 +1,582 @@
+"""Continuous-batching request scheduler over ``SessionRuntime``.
+
+Counterpart of ``repro.core.scheduler`` on one device. ``serve()`` takes
+pre-formed batches: every row starts together, decodes in lockstep and
+finishes together. This module is the request-level event loop instead:
+per-tenant requests in, step-synchronous dispatches out.
+
+Event model (one ``step()`` = one dispatch when there is work):
+
+  1. *Admit*: ``batch_plan.plan_admissions`` walks the arrival-ordered
+     queue under the per-tenant in-flight cap (FIFO within tenant, no
+     head-of-line blocking across tenants) and fills up to ``admit_bucket``
+     free rows.
+  2. *Dispatch*: with admissions, the padded admission prefill
+     (``lm.sched_prefill``), each new row's first token, the scatter of
+     caches/tokens/positions into the live batch, then ``chunk`` decode
+     steps; without admissions, the ``chunk`` steps alone. The decode is a
+     loop of ``lm.decode_step`` over per-row positions, per-row temperatures
+     and per-row adapter slots.
+  3. *Harvest*: pull the dispatch's tokens to the host, append per row,
+     retire rows whose requests hit ``max_new`` (their rows are recyclable
+     at once: a follow-up admission wave runs in the same step).
+
+Rows never wait for each other: a row admitted at step k decodes from its
+own position while its neighbours are mid-sequence. Retired rows keep
+their token and position frozen (``torch.where(active, ...)``; their cache
+writes land at a frozen position nobody reads), so the dispatch's shapes
+never change.
+
+Prefix reuse (the paged KV pool and radix index on the runtime): a wave
+whose prompts all match pooled blocks gathers them into the admission
+caches (``kv_pool.gather_blocks``: K10 on the card, two launches a wave)
+and prefills only the tails (``lm.sched_prefill_reuse``); a dense wave
+publishes its prompts' full blocks into the pool afterwards.
+
+Sampling: each dispatch draws from a ``torch.Generator`` seeded from
+``(seed, dispatch counter)``: deterministic replay for a fresh, identically
+seeded scheduler, never one stream for two dispatches. ``mode="sequential"``
+runs the same machinery but admits a request only into an empty batch,
+the one-request-at-a-time baseline.
+
+Not ported: pipelined admission and multi-shard routing (slice 7 of the
+port), ``submit_ingest`` (slice 5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import Counter, deque
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import batch_plan
+from repro_torch.models.blocks import ATTN_KINDS
+from repro_torch.models.lm import (
+    decode_step,
+    init_stacked_caches,
+    layer_caches,
+    sample_token,
+    sched_prefill,
+    sched_prefill_reuse,
+)
+
+#: Sentinel batch row of an admission's padding entries: their prefill is
+#: computed and dropped (only the admitted rows scatter into the live
+#: batch), so padding an admission up to the bucket width never perturbs
+#: live rows. They read the last row's slot and temperature.
+_DROP_ROW = 1 << 30
+
+
+@dataclasses.dataclass(eq=False)
+class Request:
+    """One in-flight generation request (the scheduler's future)."""
+
+    rid: int
+    tenant: Any                        # None -> base model
+    prompt: np.ndarray                 # (len,) int32
+    max_new: int
+    temperature: float = 0.0
+    submitted_at: float = 0.0
+    started_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    #: Terminal failure: the dispatch this request was admitted into raised.
+    #: The request is ``done`` (it will never produce tokens) and ``result``
+    #: re-raises the stored error.
+    error: Optional[BaseException] = None
+
+    def result(self) -> np.ndarray:
+        if self.error is not None:
+            raise RuntimeError(f"request {self.rid} failed in dispatch") from self.error
+        if not self.done:
+            raise RuntimeError(f"request {self.rid} still in flight")
+        return np.asarray(self.tokens[: self.max_new], np.int32)
+
+    @property
+    def latency(self) -> float:
+        if self.finished_at is None:
+            raise RuntimeError(f"request {self.rid} still in flight")
+        return self.finished_at - self.submitted_at
+
+
+# ---------------------------------------------------------------------------
+# Dispatch bodies
+# ---------------------------------------------------------------------------
+
+
+def _temps(host: np.ndarray, device):
+    """Per-row temperatures for ``sample_token``: 0.0 when every row is
+    greedy (no draw at all), else a (B,) tensor."""
+    return torch.as_tensor(host, dtype=torch.float32, device=device) if (host > 0).any() else 0.0
+
+
+def _chunk_scan(params, cfg, chunk, pools, idx, caches, tok, pos, active, temps, generator,
+                max_seq):
+    """``chunk`` decode steps over the live batch, retired rows frozen in
+    place, live positions clamped so a chunk overshooting a finishing row
+    never writes past the cache. Returns (tok, pos, tokens sampled at each
+    step (chunk, B)): each chunk hands back exactly the tokens the host has
+    not seen."""
+    layers = layer_caches(caches)
+    toks = []
+    for _ in range(chunk):
+        ntok, _ = decode_step(params, cfg, tok, pos, layers, temperature=temps,
+                              generator=generator, pools=pools, idx=idx)
+        tok = torch.where(active[:, None], ntok, tok)
+        pos = torch.where(active, torch.clamp(pos + 1, max=max_seq - 1), pos)
+        toks.append(tok[:, 0])
+    return tok, pos, torch.stack(toks)
+
+
+def _admit_epilogue(params, cfg, chunk, max_seq, pools, idx, logits, adm, rows, start_pos,
+                    caches, tok, pos, active, temps, adm_temps, generator):
+    """Sample each admitted row's first token, scatter the first
+    ``len(rows)`` admission rows' caches, tokens and positions into live
+    rows ``rows`` (the padding rows behind them are dropped), then decode
+    the chunk. Returns (tok, pos, toks, tok0 (A, 1))."""
+    tok0 = sample_token(logits, adm_temps, generator)
+    k, p = rows.shape[0], adm["k"].shape[2]
+    for n in ("k", "v"):
+        caches[n][:, rows, :p] = adm[n][:, :k]
+    tok, pos = tok.clone(), pos.clone()
+    tok[rows] = tok0[:k]
+    pos[rows] = start_pos[:k]
+    tok, pos, toks = _chunk_scan(params, cfg, chunk, pools, idx, caches, tok, pos, active, temps,
+                                 generator, max_seq)
+    return tok, pos, toks, tok0
+
+
+def _sched_admit(params, cfg, chunk, max_seq, pools, idx, new_tokens, new_lens, new_idx, rows,
+                 caches, tok, pos, active, temps, adm_temps, generator):
+    """Dense admission: prefill the padded (A, P) prompts into fresh
+    admission caches, then the common epilogue."""
+    a, p = new_tokens.shape
+    adm = init_stacked_caches(cfg, a, p, device=tok.device)
+    logits, _ = sched_prefill(params, cfg, new_tokens, new_lens, pools, new_idx,
+                              caches=layer_caches(adm))
+    return _admit_epilogue(params, cfg, chunk, max_seq, pools, idx, logits, adm, rows,
+                           new_lens.long(), caches, tok, pos, active, temps, adm_temps, generator)
+
+
+def _sched_admit_reuse(params, cfg, chunk, max_seq, pools, idx, pool_data, tables, tail_tokens,
+                       tail_lens, prefix_lens, new_idx, rows, caches, tok, pos, active, temps,
+                       adm_temps, generator, *, prompt):
+    """Prefix-reuse admission: every prompt of the wave matched >= 1 pooled
+    block. Gather their block tables out of the pool into fresh (A, P)
+    admission caches (data movement: no forward FLOPs for the prefix),
+    prefill only the (A, PT) tails, then the common epilogue."""
+    from repro_torch.core.kv_pool import gather_blocks
+
+    a = tables.shape[0]
+    adm = init_stacked_caches(cfg, a, prompt, device=tok.device)
+    prefix = gather_blocks(pool_data, tables)
+    span = prefix["k"].shape[2]
+    for n in ("k", "v"):
+        adm[n][:, :, :span] = prefix[n]
+    logits, _ = sched_prefill_reuse(params, cfg, tail_tokens, tail_lens, prefix_lens,
+                                    layer_caches(adm), pools, new_idx)
+    return _admit_epilogue(params, cfg, chunk, max_seq, pools, idx, logits, adm, rows,
+                           (prefix_lens + tail_lens).long(), caches, tok, pos, active, temps,
+                           adm_temps, generator)
+
+
+# ---------------------------------------------------------------------------
+# Live batch
+# ---------------------------------------------------------------------------
+
+
+class _LiveBatch:
+    """The resident decode state: device tensors (stacked caches (L, B,
+    max_seq, n_kv, hd), tok (B, 1), pos (B,)) plus host-side row
+    bookkeeping. ``rows[i]`` is the request occupying batch row ``i`` (None
+    = free)."""
+
+    def __init__(self, cfg, max_batch: int, max_seq: int, device):
+        self.caches = init_stacked_caches(cfg, max_batch, max_seq, device=device)
+        self.tok = torch.zeros((max_batch, 1), dtype=torch.long, device=device)
+        self.pos = torch.zeros((max_batch,), dtype=torch.long, device=device)
+        self.rows: list[Optional[Request]] = [None] * max_batch
+        self.active = np.zeros((max_batch,), bool)
+        self.temps = np.zeros((max_batch,), np.float32)
+        self.idx = np.zeros((max_batch,), np.int32)
+        self.idx_version: Optional[int] = None
+        #: Per-row prefix pin: ``(index, handle)`` while the row reuses
+        #: pooled KV blocks, released when the row retires.
+        self.blocks: list[Optional[tuple]] = [None] * max_batch
+
+    def free_rows(self) -> list[int]:
+        return [i for i, r in enumerate(self.rows) if r is None]
+
+    def n_active(self) -> int:
+        return int(self.active.sum())
+
+
+class RequestScheduler:
+    """Admission queue + continuous-batching event loop over a runtime.
+
+    ``max_prompt`` is the single pad bucket every prompt is right-padded to;
+    ``max_seq = max_prompt + max_new_cap`` sizes the live KV caches.
+    ``inflight_per_tenant`` caps one tenant's simultaneous batch rows;
+    ``admit_bucket`` is the (padded) admission width of one dispatch;
+    ``chunk`` is how many decode steps each dispatch runs. ``prefix_reuse``
+    turns on the paged KV prefix cache; ``kv_block`` overrides the default
+    block size. The pool
+    and index live on the runtime, so a later scheduler reuses what an
+    earlier one published (``runtime.reset_prefix_cache()`` clears them)."""
+
+    def __init__(
+        self,
+        runtime,
+        *,
+        max_batch: int = 8,
+        max_prompt: int = 16,
+        max_new_cap: int = 32,
+        admit_bucket: int = 2,
+        inflight_per_tenant: int = 2,
+        chunk: int = 4,
+        mode: str = "continuous",
+        prefix_reuse: bool = True,
+        kv_block: Optional[int] = None,
+    ):
+        if mode not in ("continuous", "sequential"):
+            raise ValueError(f"unknown scheduler mode {mode!r}")
+        kinds = set(runtime.cfg.layer_kinds())
+        if not kinds <= set(ATTN_KINDS):
+            raise NotImplementedError(
+                f"scheduler needs per-row decode positions, which only the attention cache "
+                f"supports; config has {sorted(kinds)}"
+            )
+        if admit_bucket > max_batch:
+            raise ValueError(f"admit_bucket {admit_bucket} > max_batch {max_batch}")
+        self.rt = runtime
+        self.max_batch = max_batch
+        self.max_prompt = max_prompt
+        self.max_new_cap = max_new_cap
+        self.max_seq = max_prompt + max_new_cap
+        self.admit_bucket = admit_bucket
+        self.inflight_per_tenant = inflight_per_tenant
+        self.chunk = chunk
+        self.mode = mode
+        self.prefix_reuse = bool(prefix_reuse)
+        self.kv_block = int(kv_block) if kv_block else None
+        self.counters = Counter()
+        self._pending: deque[Request] = deque()
+        self._completed: list[Request] = []
+        self._lb = _LiveBatch(runtime.cfg, max_batch, self.max_seq, runtime.device)
+        self._in_flight: Counter = Counter()
+        self._next_rid = 0
+        self._dispatches = 0
+
+    # -- submission ----------------------------------------------------------
+
+    def submit(self, tenant, prompt, *, max_new: int, temperature: float = 0.0) -> Request:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0 or prompt.size > self.max_prompt:
+            raise ValueError(f"prompt length {prompt.size} outside (0, {self.max_prompt}]")
+        if not 0 < max_new <= self.max_new_cap:
+            raise ValueError(f"max_new {max_new} outside (0, {self.max_new_cap}]")
+        req = Request(
+            rid=self._next_rid, tenant=tenant, prompt=prompt, max_new=max_new,
+            temperature=float(temperature), submitted_at=time.perf_counter(),
+        )
+        self._next_rid += 1
+        self._pending.append(req)
+        self.counters["submitted"] += 1
+        return req
+
+    def submit_ingest(self, tenant, tokens, labels):
+        raise NotImplementedError("submit_ingest is not ported (slice 5: the session runtime)")
+
+    def _refresh_idx(self, lb: _LiveBatch) -> None:
+        """Re-resolve occupied rows' pool slots when the pool's slot map
+        changed (its ``version`` moved) or the occupancy did."""
+        pool = self.rt.pool
+        if lb.idx_version == pool.version:
+            return
+        who = [r.tenant if r is not None and pool.has(r.tenant) else None for r in lb.rows]
+        lb.idx = pool.lookup(who).cpu().numpy()
+        lb.idx_version = pool.version
+
+    # -- the event loop ------------------------------------------------------
+
+    def step(self) -> int:
+        """One scheduler tick: admit + dispatch when there is work, harvest
+        the produced tokens, and, when the harvest freed rows while requests
+        wait, one follow-up admission wave. Returns the dispatches issued."""
+        admits = self._plan()
+        if admits is None:
+            return 0
+        issued = 1
+        done0 = self.counters["completed"]
+        self._harvest(*self._dispatch(admits))
+        # Row recycle: rows released by this step's retirements are
+        # admissible at once, not one step later.
+        if self._pending and self.counters["completed"] > done0:
+            admits = self._plan()
+            if admits:
+                self._harvest(*self._dispatch(admits))
+                self.counters["recycle_waves"] += 1
+                issued += 1
+        return issued
+
+    def drain(self) -> list[Request]:
+        """Pump the loop until every queued request has completed; returns
+        the requests completed during the drain, in completion order."""
+        done0 = len(self._completed)
+        while self._pending or self._lb.n_active():
+            if self.step() == 0:
+                raise RuntimeError("scheduler stalled with queued work")
+        return self._completed[done0:]
+
+    def _plan(self) -> Optional[list[Request]]:
+        """The admissions of the next dispatch under the fairness policy
+        ([] to step the live rows alone), or None when there is nothing to
+        dispatch. Sequential mode admits one request, and only into an idle
+        batch."""
+        pending = list(self._pending)
+        lb = self._lb
+        if self.mode == "sequential":
+            if lb.n_active() == 0 and pending:
+                return pending[:1]
+            return [] if lb.n_active() else None
+        picks = batch_plan.plan_admissions(
+            pending, self._in_flight, len(lb.free_rows()),
+            cap=self.inflight_per_tenant, bucket=self.admit_bucket,
+        )
+        admits = [pending[i] for i in picks]
+        return admits if admits or lb.n_active() else None
+
+    def _prefix_state(self):
+        """(pool, index) of the runtime's paged prefix cache, built lazily.
+        Disabled, ``(None, None)``, when no full block can ever be matched
+        (a match is capped at ``(len - 1) // block`` so a tail token
+        survives)."""
+        from repro_torch.core import kv_pool as KV
+
+        blk = self.kv_block or KV.get_default_block()
+        if (self.max_prompt - 1) // blk < 1:
+            return None, None
+        n_blocks = max(8, 2 * self.max_batch * (self.max_prompt // blk))
+        pool = self.rt.kv_pool(block=blk, n_blocks=n_blocks)
+        return pool, self.rt.prefix_index()
+
+    @torch.no_grad()
+    def _dispatch(self, admits: list[Request]):
+        lb = self._lb
+        dev = self.rt.device
+        matches = None
+        pool = pidx = None
+        if admits and self.prefix_reuse:
+            pool, pidx = self._prefix_state()
+            if pidx is not None:
+                m = [pidx.match(r.tenant, r.prompt) for r in admits]
+                # One dispatch is one kind: split a mixed wave at the first
+                # kind flip and take the longest same-kind FIFO prefix
+                # (all-reuse or all-dense); the rest stay pending.
+                want = bool(m[0])
+                take = 1
+                while take < len(admits) and bool(m[take]) == want:
+                    take += 1
+                if take < len(admits):
+                    admits = admits[:take]
+                    self.counters["prefix/wave_split"] += 1
+                if want:
+                    matches = m[:take]
+        now = time.perf_counter()
+        free = lb.free_rows()
+        for req, row in zip(admits, free):
+            self._pending.remove(req)
+            lb.rows[row] = req
+            lb.active[row] = True
+            lb.temps[row] = req.temperature
+            self._in_flight[req.tenant] += 1
+            req.started_at = now
+        lb.idx_version = None            # occupancy changed: re-resolve slots
+        self._refresh_idx(lb)
+        generator = torch.Generator(device=dev).manual_seed((self.rt.seed << 32) + self._dispatches)
+        self._dispatches += 1
+        params, pools = self.rt.params, self.rt.pool.pools()
+        idx = torch.as_tensor(lb.idx, device=dev)
+        active = torch.as_tensor(lb.active, device=dev)
+        temps = _temps(lb.temps, dev)
+        if not admits:
+            lb.tok, lb.pos, toks = _chunk_scan(
+                params, self.rt.cfg, self.chunk, pools, idx, lb.caches, lb.tok, lb.pos, active,
+                temps, generator, self.max_seq,
+            )
+            self.counters["dispatch/step"] += 1
+            return [], (toks, None)
+        a, p = self.admit_bucket, self.max_prompt
+        rows = free[: len(admits)]
+        if matches is not None:
+            return self._dispatch_reuse(lb, admits, rows, matches, pool, pidx, params, pools, idx,
+                                        active, temps, generator)
+        new_tokens = np.zeros((a, p), np.int32)
+        new_lens = np.ones((a,), np.int32)
+        new_rows = np.full((a,), _DROP_ROW, np.int64)
+        for j, (req, row) in enumerate(zip(admits, rows)):
+            new_tokens[j, : req.prompt.size] = req.prompt
+            new_lens[j] = req.prompt.size
+            new_rows[j] = row
+        pick = np.minimum(new_rows, self.max_batch - 1)
+        try:
+            lb.tok, lb.pos, toks, tok0 = _sched_admit(
+                params, self.rt.cfg, self.chunk, self.max_seq, pools, idx,
+                torch.as_tensor(new_tokens, device=dev), torch.as_tensor(new_lens, device=dev),
+                torch.as_tensor(lb.idx[pick], device=dev), torch.as_tensor(rows, device=dev),
+                lb.caches, lb.tok, lb.pos, active, temps, _temps(lb.temps[pick], dev), generator,
+            )
+        except Exception as err:
+            self._abort_admits(lb, admits, rows, err)
+            raise
+        self.counters["dispatch/admit"] += 1
+        if pidx is not None:
+            self._publish_rows(pool, pidx, lb, admits, rows)
+            self.counters["prefix/misses"] += len(admits)
+        return list(zip(admits, rows)), (toks, tok0)
+
+    def _dispatch_reuse(self, lb: _LiveBatch, admits, rows, matches, pool, pidx, params, pools,
+                        idx, active, temps, generator):
+        """Reuse-wave dispatch: every admit matched >= 1 pooled block. Pin
+        the matched blocks for the rows' lifetimes, then gather them into
+        the admission caches and prefill only the tails."""
+        dev = self.rt.device
+        a, p = self.admit_bucket, self.max_prompt
+        blk = pool.block
+        nbs = [len(ids) for ids in matches]
+        max_nb = max(nbs)
+        tails = [r.prompt.size - nb * blk for r, nb in zip(admits, nbs)]
+        # Tail pad bucket: block-quantised, never above the prompt bucket.
+        pt = min(p, -(-max(tails) // blk) * blk)
+        tables = np.zeros((a, max_nb), np.int32)
+        tail_tokens = np.zeros((a, pt), np.int32)
+        tail_lens = np.ones((a,), np.int32)
+        prefix_lens = np.zeros((a,), np.int32)
+        new_rows = np.full((a,), _DROP_ROW, np.int64)
+        for j, (req, row, ids) in enumerate(zip(admits, rows, matches)):
+            nb = len(ids)
+            # Rows with nb < max_nb pad their table with block 0, any valid
+            # id: the padded key positions are >= the row's own length,
+            # masked in the tail prefill and overwritten by decode.
+            tables[j, :nb] = ids
+            plen = nb * blk
+            t = req.prompt[plen:]
+            tail_tokens[j, : t.size] = t
+            tail_lens[j] = t.size
+            prefix_lens[j] = plen
+            new_rows[j] = row
+            lb.blocks[row] = (pidx, pidx.acquire(ids))
+            self.counters["prefix/blocks_reused"] += nb
+            self.counters["prefix/tokens_reused"] += plen
+        self.counters["prefix/hits"] += len(admits)
+        pick = np.minimum(new_rows, self.max_batch - 1)
+        try:
+            lb.tok, lb.pos, toks, tok0 = _sched_admit_reuse(
+                params, self.rt.cfg, self.chunk, self.max_seq, pools, idx, pool.data,
+                torch.as_tensor(tables, device=dev), torch.as_tensor(tail_tokens, device=dev),
+                torch.as_tensor(tail_lens, device=dev), torch.as_tensor(prefix_lens, device=dev),
+                torch.as_tensor(lb.idx[pick], device=dev), torch.as_tensor(rows, device=dev),
+                lb.caches, lb.tok, lb.pos, active, temps, _temps(lb.temps[pick], dev), generator,
+                prompt=p,
+            )
+        except Exception as err:
+            self._abort_admits(lb, admits, rows, err)
+            raise
+        self.counters["dispatch/admit_reuse"] += 1
+        return list(zip(admits, rows)), (toks, tok0)
+
+    def _publish_rows(self, pool, pidx, lb: _LiveBatch, admits, rows) -> None:
+        """After a dense admission, index the wave's full prompt blocks and
+        publish their freshly prefilled K/V out of the live rows into the
+        pool (``floor(len / block)`` blocks a prompt; only newly created
+        radix nodes copy)."""
+        for req, row in zip(admits, rows):
+            created = pidx.insert(req.tenant, req.prompt)
+            if created:
+                pool.publish(lb.caches, row, [bid for bid, _ in created],
+                             [slot for _, slot in created])
+                self.counters["prefix/published_blocks"] += len(created)
+
+    def _release_blocks(self, lb: _LiveBatch, row: int) -> None:
+        handle = lb.blocks[row]
+        if handle is not None:
+            lb.blocks[row] = None
+            pidx, h = handle
+            pidx.release(h)
+
+    def prefix_metrics(self) -> dict:
+        """Prefix-reuse counters plus the pool's occupancy. After a drain
+        every held block belongs to exactly one radix node, so ``refs_total
+        == held == nodes`` (``SessionRuntime.check_prefix_no_leaks``)."""
+        out: dict[str, Any] = {
+            k.split("/", 1)[1]: int(v)
+            for k, v in sorted(self.counters.items())
+            if k.startswith("prefix/")
+        }
+        # keyed by shard as the reference's: one device, shard "0"
+        p, idx = self.rt._kv_pool, self.rt._prefix_index
+        out["pools"] = {} if p is None else {"0": {
+            "block": p.block,
+            "n_blocks": p.n_blocks,
+            "free": p.n_free(),
+            "held": int((p.refs > 0).sum()),
+            "refs_total": int(p.refs.sum()),
+            "nodes": idx.n_nodes() if idx is not None else 0,
+        }}
+        return out
+
+    def _abort_admits(self, lb: _LiveBatch, admits, rows, err) -> None:
+        """Unwind a failed dispatch's admissions: the rows just claimed go
+        back to the free list and each admitted tenant's in-flight count
+        comes back down (else one raising dispatch leaks batch rows and pins
+        the tenant at its cap). The requests fail terminally (``error`` set;
+        ``result()`` re-raises), not re-queued: the caller sees the raise and
+        owns the retry policy."""
+        now = time.perf_counter()
+        for req, row in zip(admits, rows):
+            self._release_blocks(lb, row)
+            lb.rows[row] = None
+            lb.active[row] = False
+            self._in_flight[req.tenant] -= 1
+            if self._in_flight[req.tenant] <= 0:
+                del self._in_flight[req.tenant]
+            req.done = True
+            req.error = err
+            req.finished_at = now
+            self.counters["failed"] += 1
+        lb.idx_version = None
+
+    def _harvest(self, admitted, out) -> None:
+        lb = self._lb
+        toks, tok0 = out
+        toks = toks.cpu().numpy()                    # (chunk, B): the sync point
+        if tok0 is not None:
+            tok0 = tok0.cpu().numpy()                # (bucket, 1)
+            for j, (req, _) in enumerate(admitted):
+                req.tokens.append(int(tok0[j, 0]))
+        for row, req in enumerate(lb.rows):
+            if req is None or not lb.active[row]:
+                continue
+            need = req.max_new - len(req.tokens)
+            req.tokens.extend(int(t) for t in toks[: max(need, 0), row])
+            if len(req.tokens) >= req.max_new:
+                self._finish(lb, row, req)
+        self.counters["steps"] += self.chunk
+
+    def _finish(self, lb: _LiveBatch, row: int, req: Request) -> None:
+        req.done = True
+        req.finished_at = time.perf_counter()
+        self._release_blocks(lb, row)
+        lb.rows[row] = None
+        lb.active[row] = False
+        self._in_flight[req.tenant] -= 1
+        if self._in_flight[req.tenant] <= 0:
+            del self._in_flight[req.tenant]
+        self._completed.append(req)
+        self.counters["completed"] += 1
+        self.counters["tokens"] += req.max_new

@@ -10,9 +10,11 @@ an ``AdapterPool``, registers N demo tenants (B ~ 0.02 N(0, 1)), and serves
 one mixed batch -- row 0 on the base model via the zero slot, the other rows
 cycling through the tenants -- with ``generate_grouped`` over
 ``pool.lookup(tenants)``, which is what the reference's one-shard session
-runs. Weights and prompts are random, drawn from fixed seeds.
-``--scheduler``, ``--loop`` and ``--unroll`` other than 1 are not ported yet
-and raise.
+runs. ``--scheduler`` serves the same rows as one request each through a
+``SessionRuntime``'s continuous-batching ``RequestScheduler`` (admission
+bucket 2, ``--chunk`` decode steps a dispatch; ``max(--tenants, 1)`` demo
+tenants). Weights and prompts are random, drawn from fixed seeds.
+``--loop`` and ``--unroll`` other than 1 are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import lm_skiplora as SL
 from repro_torch.core.adapter_pool import AdapterPool
-from repro_torch.core.runtime import generate, generate_grouped
+from repro_torch.core.runtime import SessionRuntime, generate, generate_grouped
 from repro_torch.models.lm import init_lm
 
 
@@ -33,15 +35,28 @@ def _gen(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def demo_pool(cfg, n_tenants: int, rank: int, compress, device) -> AdapterPool:
-    """Pool with ``n_tenants`` pretend on-device fine-tunes (B != 0)."""
+def _register_demo(pool: AdapterPool, cfg, n_tenants: int, rank: int, device) -> None:
+    """Register ``n_tenants`` pretend on-device fine-tunes (B != 0)."""
     sl = SL.SkipLoRAConfig(rank=rank)
-    pool = AdapterPool(n_tenants + 1, cfg, rank, compress=compress, device=device)
     for t in range(n_tenants):
         ad = SL.init_adapters(_gen(100 + t, device), cfg, sl)
         ad["B"] = torch.randn(ad["B"].shape, generator=_gen(200 + t, device), device=device) * 0.02
         pool.register(f"tenant-{t}", ad)
+
+
+def demo_pool(cfg, n_tenants: int, rank: int, compress, device) -> AdapterPool:
+    """Pool with ``n_tenants`` demo tenants ``tenant-0``... plus the zero slot."""
+    pool = AdapterPool(n_tenants + 1, cfg, rank, compress=compress, device=device)
+    _register_demo(pool, cfg, n_tenants, rank, device)
     return pool
+
+
+def demo_runtime(cfg, n_tenants: int, rank: int, compress, params, device) -> SessionRuntime:
+    """Serving session whose pool holds ``demo_pool``'s tenants."""
+    rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=rank), params, max_tenants=n_tenants,
+                        pool_compress=compress, device=device)
+    _register_demo(rt.pool, cfg, n_tenants, rank, device)
+    return rt
 
 
 def main(argv=None) -> None:
@@ -60,13 +75,15 @@ def main(argv=None) -> None:
     ap.add_argument("--unroll", type=int, default=1,
                     help="(reference's scan knob; not ported)")
     ap.add_argument("--loop", action="store_true", help="(not ported)")
-    ap.add_argument("--scheduler", action="store_true", help="(not ported)")
+    ap.add_argument("--scheduler", action="store_true",
+                    help="serve through the continuous-batching request scheduler (one "
+                         "request per batch row, staggered admission) instead of one "
+                         "pre-formed batch")
     ap.add_argument("--chunk", type=int, default=4,
-                    help="decode steps per scheduler dispatch (not ported)")
+                    help="decode steps per scheduler dispatch")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    for flag, on in (("--scheduler", args.scheduler), ("--loop", args.loop),
-                     ("--unroll", args.unroll != 1)):
+    for flag, on in (("--loop", args.loop), ("--unroll", args.unroll != 1)):
         if on:
             raise NotImplementedError(f"{flag} is not yet ported")
 
@@ -82,7 +99,26 @@ def main(argv=None) -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    if args.tenants > 0:
+    if args.scheduler:
+        n_t = max(args.tenants, 1)
+        rt = demo_runtime(cfg, n_t, args.rank, args.pool_compress, params, device)
+        rt.attach_scheduler(max_batch=args.batch, max_prompt=args.prompt_len,
+                            max_new_cap=args.gen, chunk=args.chunk,
+                            admit_bucket=min(2, args.batch))
+        tenants = [None] + [f"tenant-{i % n_t}" for i in range(1, args.batch)]
+        sync()
+        t0 = time.perf_counter()
+        reqs = [rt.enqueue_serve(t, prompts[i].cpu().numpy(), max_new=args.gen,
+                                 temperature=args.temperature)
+                for i, t in enumerate(tenants)]
+        rt.drain()
+        sync()
+        dt = time.perf_counter() - t0
+        toks = torch.stack([torch.as_tensor(r.result()) for r in reqs])
+        c = rt.scheduler.counters
+        print(f"[scheduler: {c['dispatch/admit']} admit + {c['dispatch/admit_reuse']} reuse "
+              f"admit + {c['dispatch/step']} step dispatches, chunk {args.chunk}]")
+    elif args.tenants > 0:
         pool = demo_pool(cfg, args.tenants, args.rank, args.pool_compress, device)
         tenants = [None] + [f"tenant-{i % args.tenants}" for i in range(1, args.batch)]
         sync()

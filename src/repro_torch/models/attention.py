@@ -10,12 +10,16 @@ Entry points:
     ``use_flash=True`` goes through the flash-attention kernel (K4).
   - ``attn_prefill``: full-sequence causal attention that also writes
     positions [0, s) of the KV cache.
-  - ``attn_decode``: one step at a scalar position against the cache.
+  - ``attn_prefill_ext``: per-row *offset* prefill over the cache (the
+    scheduler's prefix-reuse admission).
+  - ``attn_decode``: one step against the cache, at one scalar position for
+    the whole batch or, given a (b,) tensor, at each row's own position
+    (continuous batching).
+  - ``attn_decode_paged``: the per-row decode over KV pool blocks behind a
+    block table, gathered through ``kernels.flash_attn.paged`` (K10).
 
 The caches are updated in place (the reference returns new arrays); the
 functions still return the cache so callers read like the reference.
-The per-row-position decode, ``attn_prefill_ext`` and the paged decode
-belong to the scheduler and are not ported yet.
 """
 
 from __future__ import annotations
@@ -133,6 +137,16 @@ def causal_mask(sq: int, sk: int, q_offset: int, window: int, *, device=None) ->
     return m[None]
 
 
+def row_mask(q_pos: torch.Tensor, sk: int, window: int) -> torch.Tensor:
+    """(b, s, sk) mask for per-row query positions ``q_pos`` (b, s): key t
+    attends iff t <= q_pos and q_pos - t < window."""
+    k_pos = torch.arange(sk, device=q_pos.device)
+    m = k_pos[None, None, :] <= q_pos[:, :, None]
+    if window > 0:
+        m &= k_pos[None, None, :] > (q_pos[:, :, None] - window)
+    return m
+
+
 def attn_train(
     params: Params,
     x: torch.Tensor,
@@ -192,16 +206,70 @@ def attn_prefill(
     return _out(out, params["wo"]), cache
 
 
-def attn_decode(
+def attn_prefill_ext(
     params: Params,
-    x: torch.Tensor,              # (b, 1, d)
-    pos: int,                     # position of this token, the same for every row
+    x: torch.Tensor,              # (b, s, d) tail tokens (right-padded)
+    offs: torch.Tensor,           # (b,) int per-row start position
     spec: AttnSpec,
     cache: dict[str, torch.Tensor],
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """One decode step: write K/V at ``pos``, attend over cache[0:pos+1]
-    (the reference's scalar-``pos`` branch)."""
+    """Per-row *offset* prefill: row b's ``s`` tokens occupy positions
+    ``[offs[b], offs[b] + s)``; their K/V go into the cache at those
+    positions and attention runs over the CACHE, including whatever the
+    caller pre-wrote below ``offs`` (the prefix-reuse admission: gathered
+    pool blocks sit at ``[0, offs)``, so the tail attends reused keys
+    without recomputing them).
+
+    Padding as in the reference: pad tail positions write garbage K/V at
+    indices >= the row's true end, writes past the cache are dropped (the
+    reference's ``mode="drop"``), and rows with a shorter reused prefix see
+    garbage between their prefix and the wave's padded prefix, all at
+    positions >= their own length, which the causal mask hides and decode
+    overwrites before attending there. The write is a select over the whole
+    cache row (key t takes tail token t - offs[b] where that is in [0, s)),
+    so no index leaves the cache and the host never reads ``offs``."""
+    b, s, _ = x.shape
+    offs = offs.long()
+    positions = offs[:, None] + torch.arange(s, device=x.device)[None]      # (b, s)
+    q, k, v = _qkv(params, x, positions, spec)
+    sk = cache["k"].shape[1]
+    src = torch.arange(sk, device=x.device)[None] - offs[:, None]          # (b, sk)
+    hit = ((src >= 0) & (src < s))[:, :, None, None]
+    src = src.clamp(0, s - 1)[:, :, None, None]
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        picked = torch.gather(new.to(c.dtype), 1, src.expand(b, sk, *new.shape[2:]))
+        c.copy_(torch.where(hit, picked, c))
+    mask = row_mask(positions, sk, spec.window)
+    out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask, spec)
+    return _out(out, params["wo"]), cache
+
+
+def attn_decode(
+    params: Params,
+    x: torch.Tensor,              # (b, 1, d)
+    pos,                          # int: every row's position; (b,) tensor: each row's
+    spec: AttnSpec,
+    cache: dict[str, torch.Tensor],
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One decode step: write K/V at ``pos``, attend over cache[0:pos+1].
+
+    An ``int`` ``pos`` is the reference's scalar branch (every row at the
+    same position). A (b,) tensor selects the continuous-batching branch:
+    each row writes its K/V at its own position and masks keys per row,
+    what the request scheduler needs once rows admitted at different times
+    share one live batch. Positions must lie inside the cache."""
     b = x.shape[0]
+    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
+        pos = pos.long()
+        q, k, v = _qkv(params, x, pos[:, None], spec)
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
+        ck, cv = cache["k"], cache["v"]
+        mask = row_mask(pos[:, None], ck.shape[1], spec.window)
+        out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask, spec)
+        return _out(out, params["wo"]), cache
     positions = torch.full((b, 1), pos, device=x.device)
     q, k, v = _qkv(params, x, positions, spec)
     cache["k"][:, pos : pos + 1] = k.to(cache["k"].dtype)
@@ -210,3 +278,37 @@ def attn_decode(
     mask = causal_mask(1, ck.shape[1], pos, spec.window, device=x.device)
     out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask, spec)
     return _out(out, params["wo"]), cache
+
+
+def attn_decode_paged(
+    params: Params,
+    x: torch.Tensor,                 # (b, 1, d)
+    pos: torch.Tensor,               # (b,) int per-row position
+    spec: AttnSpec,
+    pool: dict[str, torch.Tensor],   # {"k", "v"}: (n_blocks, block, n_kv, hd)
+    table: torch.Tensor,             # (b, T) int32 pool block ids
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Block-table variant of ``attn_decode``'s per-row branch: row b's K/V
+    for token position t lives in pool block ``table[b, t // block]`` at
+    offset ``t % block`` instead of a contiguous cache row.
+
+    The step writes the new K/V at ``pos`` into the owning pool block, in
+    place (the caller must hold that block exclusively: the copy-on-write
+    rule, ``KVBlockPool.copy_block`` first if shared), then attends over the
+    gathered per-row keys with the dense branch's per-row mask, so given
+    equal KV bytes the output is bitwise the dense ``attn_decode``'s. The
+    gather is K10 on a CUDA pool. Returns (y, the updated pool)."""
+    from repro_torch.kernels.flash_attn import paged
+
+    blk = pool["k"].shape[1]
+    pos = pos.long()
+    q, k, v = _qkv(params, x, pos[:, None], spec)
+    owner = table.long().gather(1, (pos // blk)[:, None])[:, 0]            # (b,)
+    off = pos % blk
+    pool["k"][owner, off] = k[:, 0].to(pool["k"].dtype)
+    pool["v"][owner, off] = v[:, 0].to(pool["v"].dtype)
+    ck = paged.gather(pool["k"], table)
+    cv = paged.gather(pool["v"], table)
+    mask = row_mask(pos[:, None], ck.shape[1], spec.window)
+    out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask, spec)
+    return _out(out, params["wo"]), pool

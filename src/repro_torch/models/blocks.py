@@ -94,9 +94,13 @@ def block_forward(
     *,
     mode: str,                     # "train" | "prefill" | "decode"
     cache: Params = None,
-    pos: Optional[int] = None,
+    pos=None,                      # int, or a (b,) tensor of per-row positions
 ) -> tuple[torch.Tensor, Params]:
-    """Apply one block. Returns (h_out, cache); the cache is None in train mode."""
+    """Apply one block. Returns (h_out, cache); the cache is None in train
+    mode. ``pos`` routes as in the reference: in prefill a (b,) tensor is
+    each row's start offset (``attn_prefill_ext``, the prefix-reuse
+    admission) and None the classic prefill; in decode an ``int`` is the
+    scalar branch and a (b,) tensor the per-row branch."""
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     x = _norm(cfg, params["norm1"], h)
@@ -104,7 +108,10 @@ def block_forward(
     if mode == "train":
         y = A.attn_train(params["attn"], x, spec)
     elif mode == "prefill":
-        y, cache = A.attn_prefill(params["attn"], x, spec, cache)
+        if pos is not None:
+            y, cache = A.attn_prefill_ext(params["attn"], x, pos, spec, cache)
+        else:
+            y, cache = A.attn_prefill(params["attn"], x, spec, cache)
     elif mode == "decode":
         y, cache = A.attn_decode(params["attn"], x, pos, spec, cache)
     else:
@@ -154,7 +161,7 @@ def stack_forward(
     *,
     mode: str,
     caches: Optional[list[Params]] = None,
-    pos: Optional[int] = None,
+    pos=None,
     adapters: Optional[list[Params]] = None,   # per-layer {"A": (D,R), "B": (R,D)}
     collect_acts: bool = False,
 ) -> dict[str, Any]:

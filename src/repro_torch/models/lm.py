@@ -13,6 +13,11 @@ Counterpart of ``repro.models.lm``:
   - ``sample_token``, ``decode_step`` and ``decode_scan``: the reference
     scans over decode steps; here ``decode_scan`` is a Python loop of
     exactly ``max_new`` steps, so tokens and final caches compare one to one.
+    ``decode_step`` also takes per-row positions and ``sample_token``
+    per-row temperatures, for the request scheduler.
+  - ``init_stacked_caches``, ``sched_prefill`` and ``sched_prefill_reuse``:
+    the request scheduler's admission prefills (dense, and over the unseen
+    tail of a prompt whose prefix K/V came from the paged pool).
 
 Params are plain dicts of tensors: {"embed": {"table"}, "stack": [per-layer
 dicts], "final_norm", and "head" when embeddings are untied}.
@@ -58,7 +63,7 @@ def lm_forward(
     *,
     mode: str = "train",                     # "train" | "prefill" | "decode"
     caches: Optional[list[Params]] = None,
-    pos: Optional[int] = None,
+    pos=None,                                # int, or (B,) tensor: see blocks.block_forward
     adapters: Optional[list[Params]] = None,
     collect_acts: bool = False,
     prefix_embeds: Optional[torch.Tensor] = None,
@@ -203,6 +208,23 @@ def init_serve_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> 
     return B.init_stack_caches(batch, max_seq, cfg, torch.bfloat16, device=device)
 
 
+def init_stacked_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dict[str, torch.Tensor]:
+    """The serve caches of every layer as two zeroed bf16 tensors
+    {"k", "v"}: (L, batch, max_seq, n_kv, hd), so that one op moves a row
+    (or a block) of every layer at once. ``layer_caches`` gives the
+    per-layer views the forward takes. Attention-only configs, whose layers
+    all share one KV shape."""
+    B.check_supported(cfg)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {n: torch.zeros(shape, dtype=torch.bfloat16, device=device) for n in ("k", "v")}
+
+
+def layer_caches(stacked: dict[str, torch.Tensor]) -> list[Params]:
+    """Per-layer {"k", "v"} views of ``init_stacked_caches``' tensors:
+    writes through them land in the stacked tensors."""
+    return [{"k": k, "v": v} for k, v in zip(stacked["k"], stacked["v"])]
+
+
 def serve_prefill(
     params: Params,
     cfg: ModelConfig,
@@ -220,7 +242,7 @@ def serve_decode(
     params: Params,
     cfg: ModelConfig,
     token: torch.Tensor,     # (B, 1)
-    pos: int,
+    pos,                     # int, or (B,) tensor
     caches: list[Params],
     *,
     adapters: Optional[list[Params]] = None,
@@ -259,7 +281,7 @@ def serve_decode_grouped(
     params: Params,
     cfg: ModelConfig,
     token: torch.Tensor,              # (B, 1)
-    pos: int,
+    pos,                              # int, or (B,) tensor
     caches: list[Params],
     pools: dict[str, torch.Tensor],
     idx: torch.Tensor,                # (B,) int32
@@ -281,7 +303,7 @@ def serve_decode_grouped(
 
 def sample_token(
     logits: torch.Tensor,                       # (B, 1, V)
-    temperature: float,
+    temperature,                                # float, or (B,) tensor of per-row temperatures
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Greedy (``temperature <= 0``) or temperature sampling -> (B, 1) int64.
@@ -289,7 +311,17 @@ def sample_token(
     Greedy picks the first maximum, as ``jnp.argmax`` does, so temperature-0
     tokens equal the reference's. Temperature > 0 draws from ``generator``
     (a ``torch.Generator`` on the logits' device) and cannot reproduce JAX's
-    PRNG stream."""
+    PRNG stream. A (B,) tensor gives each row its own temperature, as the
+    request scheduler's rows have: every row draws (the logits divided in
+    their own dtype by the row's temperature, or by 1 for a greedy row) and
+    greedy rows keep their ``argmax``, so greedy tokens do not depend on the
+    other rows."""
+    if isinstance(temperature, torch.Tensor):
+        t = temperature.to(device=logits.device, dtype=torch.float32).expand(logits.shape[0])
+        safe = torch.where(t > 0, t, torch.ones_like(t)).to(logits.dtype)
+        probs = torch.softmax((logits[:, 0] / safe[:, None]).float(), dim=-1)
+        drawn = torch.multinomial(probs, 1, generator=generator)
+        return torch.where((t > 0)[:, None], drawn, torch.argmax(logits, dim=-1))
     if temperature > 0:
         probs = torch.softmax((logits[:, 0] / temperature).float(), dim=-1)
         return torch.multinomial(probs, 1, generator=generator)
@@ -300,10 +332,10 @@ def decode_step(
     params: Params,
     cfg: ModelConfig,
     tok: torch.Tensor,             # (B, 1)
-    pos: int,
+    pos,                           # int, or (B,) tensor: each row's position
     caches: list[Params],
     *,
-    temperature: float = 0.0,
+    temperature=0.0,               # float, or (B,) tensor: see sample_token
     generator: Optional[torch.Generator] = None,
     adapters: Optional[list[Params]] = None,
     pools: Optional[dict[str, torch.Tensor]] = None,
@@ -311,7 +343,8 @@ def decode_step(
 ) -> tuple[torch.Tensor, list[Params]]:
     """One decode step at position ``pos``: returns (next token (B, 1),
     caches). ``pools``/``idx`` select the grouped path, ``adapters`` the
-    single-stack path."""
+    single-stack path. A (B,) ``pos`` decodes every row at its own
+    position (continuous batching; see ``attention.attn_decode``)."""
     if pools is not None:
         logits, caches = serve_decode_grouped(params, cfg, tok, pos, caches, pools, idx)
     else:
@@ -345,3 +378,73 @@ def decode_scan(
             generator=generator, adapters=adapters, pools=pools, idx=idx,
         )
     return torch.cat(toks, dim=1), caches
+
+
+# ---------------------------------------------------------------------------
+# Admission prefills of the request scheduler
+# ---------------------------------------------------------------------------
+
+
+def _last_logits(params, cfg, out, last, pools, idx) -> torch.Tensor:
+    """Logits at each row's position ``last`` (A,): the adapter-free hidden
+    there plus, with ``pools``, one grouped skip-sum over the block inputs
+    at that position -> (A, 1, V)."""
+    rows = torch.arange(last.shape[0], device=last.device)
+    y_last = out["y_base"][rows, last][:, None]                  # (A, 1, D)
+    if pools is not None:
+        from repro_torch.core.adapter_pool import grouped_skip_sum
+
+        acts_last = out["acts"][:, rows, last][:, :, None]       # (L, A, 1, D)
+        y_last = y_last + grouped_skip_sum(acts_last, pools, idx).to(y_last.dtype)
+    return readout(params, cfg, y_last)
+
+
+def sched_prefill(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                   # (A, P) int, right-padded per row
+    lens: torch.Tensor,                     # (A,) int true prompt length per row
+    pools: Optional[dict[str, torch.Tensor]] = None,
+    idx: Optional[torch.Tensor] = None,     # (A,) int32 slot per row
+    *,
+    caches: Optional[list[Params]] = None,
+) -> tuple[torch.Tensor, list[Params]]:
+    """Admission prefill of the request scheduler: ragged prompts in one
+    padded (A, P) batch, the logits read at each row's own last *real*
+    position (``lens[a] - 1``) rather than column -1. Pad positions write
+    garbage K/V at indices >= len, which decode overwrites (it resumes at
+    ``pos = len``) before the causal mask ever exposes them. ``caches``
+    (per-layer, at (A, P)) defaults to fresh zeroed ones; the scheduler
+    passes views of its stacked admission caches. Returns (logits (A, 1, V),
+    caches)."""
+    a, p = tokens.shape
+    if caches is None:
+        caches = init_serve_caches(cfg, a, p, device=tokens.device)
+    out = lm_forward(params, cfg, tokens, mode="prefill", caches=caches, collect_acts=True)
+    last = (lens.clamp(min=1) - 1).long()
+    return _last_logits(params, cfg, out, last, pools, idx), out["caches"]
+
+
+def sched_prefill_reuse(
+    params: Params,
+    cfg: ModelConfig,
+    tail_tokens: torch.Tensor,              # (A, PT) int, right-padded tail per row
+    tail_lens: torch.Tensor,                # (A,) int true tail length (>= 1)
+    prefix_lens: torch.Tensor,              # (A,) int reused-prefix length per row
+    caches: list[Params],                   # (A, P) caches, prefix K/V pre-written
+    pools: Optional[dict[str, torch.Tensor]] = None,
+    idx: Optional[torch.Tensor] = None,     # (A,) int32 slot per row
+) -> tuple[torch.Tensor, list[Params]]:
+    """Admission prefill over only the unseen tail of each prompt: the
+    prefix's K/V were gathered from the paged pool into
+    ``caches[:, 0:prefix_lens)``, so the backbone runs at (A, PT) instead of
+    (A, P). The tail attends the cache (``attention.attn_prefill_ext``). The
+    skip-LoRA readout needs only the last real position's block inputs,
+    which lie in the tail (the radix match always leaves >= 1 tail token).
+    Returns (logits (A, 1, V), caches at (A, P))."""
+    out = lm_forward(
+        params, cfg, tail_tokens, mode="prefill", caches=caches, pos=prefix_lens,
+        collect_acts=True,
+    )
+    last = (tail_lens.clamp(min=1) - 1).long()
+    return _last_logits(params, cfg, out, last, pools, idx), out["caches"]

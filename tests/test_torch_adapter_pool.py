@@ -252,6 +252,43 @@ def test_history_and_rollback_are_bitwise(compress):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("compress", [None, "int8"])
+def test_version_trail_matches_the_reference(compress):
+    """``version`` moves where the reference's does: a new slot assignment
+    (also inside ``register_many`` and when it evicts), ``evict`` and
+    ``rollback``; never on a re-registration into the tenant's own slot, a
+    lookup, a ``touch``, a pin or a gated-out write."""
+    pools = (JP.AdapterPool(3, CFG, RANK, compress=compress, history=1),
+             TP.AdapterPool(3, CFG, RANK, compress=compress, device="cpu", history=1))
+    stacked = {k: np.stack([_adapters(5)[k], _adapters(6)[k]]) for k in ("A", "B")}
+    ops = [
+        lambda p: p.register("a", _adapters(0)),
+        lambda p: p.register("b", _adapters(1)),
+        lambda p: p.register("a", _adapters(2)),          # own slot again
+        lambda p: p.lookup(["a", None, "b"]),
+        lambda p: p.touch(["b", "zz", None]),
+        lambda p: p.pin("b"),
+        lambda p: p.register("c", _adapters(3)),          # evicts a (b pinned)
+        lambda p: p.unpin("b"),
+        lambda p: p.rollback("c") if p.history_len("c") else None,
+        lambda p: p.register("c", _adapters(4)),
+        lambda p: p.rollback("c"),
+        lambda p: p.evict("c"),
+        lambda p: p.register_many(["b", "d"], stacked),
+        lambda p: p.register_many(["b", "d"], stacked, gate=lambda t: "reject"),
+    ]
+    trails = []
+    for pool in pools:
+        trail = [pool.version]
+        for op in ops:
+            op(pool)
+            trail.append(pool.version)
+        trails.append(trail)
+    assert trails[0] == trails[1]
+    assert trails[1][-1] > trails[1][0]
+    assert trails[1][2] == trails[1][3] == trails[1][4] == trails[1][5] == trails[1][6]
+
+
 @pytest.fixture(scope="module")
 def trained_fleet():
     """A 3-tenant fleet trained by the reference (reduced stablelm-1.6b,

@@ -25,6 +25,7 @@ from repro_torch.kernels.skip_lora import ops  # noqa: E402
 from repro_torch.kernels.skip_lora import quant as Q  # noqa: E402
 from repro_torch.kernels.skip_lora import ref as R  # noqa: E402
 from repro_torch.kernels.flash_attn import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash_attn import paged as PG  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as FO  # noqa: E402
 from repro_torch.kernels.flash_attn import ref as FR  # noqa: E402
 
@@ -275,3 +276,75 @@ def test_flash_kernel_matches_plain_version(cuda, case, dtype):
     got = FO.flash_attention(q, k, v, window=window, softcap=cap)
     assert FK.LAUNCHES["flash_attn_fwd"] == 1
     _close(got, FR.flash_attention_ref(q, k, v, window=window, softcap=cap), dtype, 2.0**-6)
+
+
+# ---------------------------------------------------------------------------
+# K10: paged KV block gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", [
+    # (layers or None, n_blocks, block, n_kv, hd, dtype, rows, slots)
+    (24, 128, 32, 32, 64, torch.bfloat16, 2, 14),    # the scheduler's reuse wave, full width
+    (None, 16, 8, 4, 96, torch.float32, 3, 5),       # ragged, no layer axis
+    (3, 9, 3, 1, 5, torch.bfloat16, 4, 3),           # 30-byte blocks: the narrow-unit path
+    (2, 7, 5, 3, 7, torch.float16, 2, 6),            # 210-byte blocks
+])
+def test_paged_gather_is_bitwise_the_plain_version(cuda, case):
+    lnum, nb, blk, nkv, hd, dtype, rows, slots = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    lead = (lnum,) if lnum else ()
+    pool = torch.randn(lead + (nb, blk, nkv, hd), generator=g, device=cuda).to(dtype)
+    tables = torch.randint(0, nb, (rows, slots), generator=g, device=cuda, dtype=torch.int32)
+    tables[0, -1] = tables[0, 0]                     # a repeated id
+    PG.reset_launches()
+    got = PG.gather(pool, tables)
+    torch.cuda.synchronize()
+    assert PG.LAUNCHES["paged_gather"] == 1
+    assert torch.equal(got, PG.paged_gather_ref(pool, tables))
+    assert tuple(got.shape) == lead + (rows, slots * blk, nkv, hd)
+
+
+def test_paged_gather_counts_one_launch_per_call_and_refuses_what_it_cannot_take(cuda):
+    pool = torch.zeros((2, 4, 8, 2, 16), dtype=torch.bfloat16, device=cuda)
+    tables = torch.tensor([[1, 3]], dtype=torch.int32, device=cuda)
+    PG.reset_launches()
+    for _ in range(3):
+        PG.gather(pool, tables)
+    assert PG.LAUNCHES["paged_gather"] == 3
+    PG.paged_gather_ref(pool, tables)                # the plain version launches nothing
+    assert PG.LAUNCHES["paged_gather"] == 3
+    with pytest.raises(ValueError, match="int32"):
+        PG.paged_gather(pool, tables.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        PG.paged_gather(pool.transpose(-1, -2), tables)
+    with pytest.raises(ValueError, match="dtype"):
+        PG.paged_gather(pool.to(torch.int16), tables)
+    assert PG.LAUNCHES["paged_gather"] == 3
+
+
+def test_paged_decode_through_k10_is_bitwise_the_dense_branch(cuda):
+    """``attn_decode_paged`` with the gather on K10 against the dense
+    per-row decode over the same K/V bytes, bf16 as the serve caches."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=256, n_heads=8, n_kv_heads=4,
+                      d_ff=64, vocab_size=64, dtype="bfloat16")
+    spec = A.AttnSpec.from_config(cfg, local=False)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    params = A.init_attn(g, cfg, torch.bfloat16)
+    b, t, blk, hd = 3, 64, 16, cfg.resolved_head_dim
+    x = torch.randn((b, 1, cfg.d_model), generator=g, device=cuda).to(torch.bfloat16)
+    cache = {n: torch.randn((b, t, cfg.n_kv_heads, hd), generator=g, device=cuda).to(torch.bfloat16)
+             for n in ("k", "v")}
+    pool = {n: c.reshape(b * t // blk, blk, *c.shape[2:]).clone() for n, c in cache.items()}
+    table = torch.arange(b * t // blk, dtype=torch.int32, device=cuda).reshape(b, t // blk)
+    pos = torch.tensor([0, t // 2, t - 1], device=cuda)
+    PG.reset_launches()
+    y_p, pool = A.attn_decode_paged(params, x, pos, spec, pool, table)
+    assert PG.LAUNCHES["paged_gather"] == 2
+    y_d, cache = A.attn_decode(params, x, pos, spec, cache)
+    assert torch.equal(y_p, y_d)
+    for n in ("k", "v"):
+        assert torch.equal(pool[n].reshape(cache[n].shape), cache[n])

@@ -25,12 +25,14 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "assert len(mods) > 25, mods\n"
+        "assert len(mods) > 29, mods\n"
         "for m in ('repro_torch.launch.finetune', 'repro_torch.kernels.flash_attn.ops',\n"
         "          'repro_torch.core.skip_cache', 'repro_torch.optim.optimizers',\n"
         "          'repro_torch.data.pipeline', 'repro_torch.kernels.build',\n"
         "          'repro_torch.kernels.skip_lora.quant', 'repro_torch.core.batch_plan',\n"
-        "          'repro_torch.core.fleet_finetune', 'repro_torch.launch.fleet'):\n"
+        "          'repro_torch.core.fleet_finetune', 'repro_torch.launch.fleet',\n"
+        "          'repro_torch.kernels.flash_attn.paged', 'repro_torch.core.kv_pool',\n"
+        "          'repro_torch.core.prefix_index', 'repro_torch.core.scheduler'):\n"
         "    assert m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -196,8 +196,8 @@ def test_serve_cli_tenants(capsys, extra):
 
 
 def test_serve_cli_flags():
-    with pytest.raises(NotImplementedError, match="--scheduler"):
-        cli.main(["--scheduler", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="--unroll"):
+        cli.main(["--unroll", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="--loop"):
         cli.main(["--loop", "--device", "cpu"])
     with pytest.raises(NotImplementedError):
