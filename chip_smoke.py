@@ -477,8 +477,10 @@ def _attn_pairs(s, window):
 
 def flash_phase(torch):
     """K4 against its plain version at the populate shape and a gemma-2-like
-    shape; the library yardstick is ``F.scaled_dot_product_attention`` with
-    a boolean mask, on the shape without softcap (it has none)."""
+    shape. The library yardstick is ``F.scaled_dot_product_attention``, on
+    the shape without softcap or window (it has neither), called two ways:
+    with a boolean causal mask (a mask keeps PyTorch off its flash backend)
+    and with ``is_causal=True``; ``library_ms`` is the faster."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import kernel as FK
@@ -511,16 +513,22 @@ def flash_phase(torch):
         check(err <= tol, f"K4 {label} {dtype}: max |kernel - plain| {err:.3e} > {tol:.3e}")
         k_ms = time_ms(run)
         p_ms = time_ms(plain, reps=5)
-        lib_ms = None
-        if not cap and h == hkv:
-            idx = torch.arange(s, device="cuda")
-            mask = idx[None, :] <= idx[:, None]
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
+        sdpa = {}
+        has_gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+        if not cap and not window and (h == hkv or has_gqa):
+            gqa = {} if h == hkv else {"enable_gqa": True}
+            if h == hkv:
+                idx = torch.arange(s, device="cuda")
+                mask = idx[None, :] <= idx[:, None]
+                sdpa["mask"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
+            sdpa["is_causal"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
+                                                                               **gqa))
+        lib_ms = min(sdpa.values()) if sdpa else None
         nbytes = _nbytes(q, k, v, got)
         ops = 4 * hd * _attn_pairs(s, window) * b * h
         dname = str(dtype).split(".")[-1]
         bound = _bound_ms(nbytes, ops, dname)
-        lib = f"{lib_ms * 1e3:.1f} us" if lib_ms is not None else "none (softcap / GQA)"
+        lib = ", ".join(f"{how} {t * 1e3:.1f} us" for how, t in sdpa.items()) or "none (softcap / window)"
         print(f"kernel flash_attn_fwd {label} B={b} H={h} Hkv={hkv} S={s} hd={hd} window={window} "
               f"softcap={cap} {dname}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {k_ms * 1e3:.1f} us, "
               f"plain {p_ms * 1e3:.1f} us, library sdpa {lib}, bound {bound[0] * 1e3:.2f} us "
@@ -529,7 +537,8 @@ def flash_phase(torch):
             results["flash_attn_fwd"] = _entry(
                 "flash_attn_fwd", "src/repro_torch/kernels/flash_attn/csrc/flash_attn_fwd.cu",
                 "src/repro/kernels/flash_attn/kernel.py:96", err, k_ms, p_ms, bound, nbytes, lib_ms,
-                f"B={b} H={h} S={s} hd={hd} {dname} causal")
+                f"B={b} H={h} S={s} hd={hd} {dname} causal",
+                sdpa_ms=dict(sdpa))
     return results
 
 
@@ -1483,6 +1492,25 @@ def small_scheduler_check(torch):
           f"and off")
 
 
+def _tensor_core_ptxas(logs):
+    """One line per instantiation of the tensor-core kernels (K4's and K9's
+    bf16 routes) from nvcc's ``-Xptxas -v`` output: registers, shared
+    memory, spills."""
+    out, fn = [], None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1) if re.search(r"flash_fwd_bf16|project_tc|outer_tc", m.group(1)) else None
+                spill = "0 bytes spill stores"
+            elif fn and "spill" in line:
+                spill = line.split(",")[1].strip()
+            elif fn and "Used" in line:
+                out.append(f"ptxas {fn}: {line.split(':', 1)[1].strip()}, {spill}")
+                fn = None
+    return out
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1526,6 +1554,8 @@ def main() -> None:
     print(f"build: {len(logs)} kernels built with nvcc in {time.perf_counter() - t0:.1f} s; "
           f"max registers {max(regs, default=0)}, instantiations spilling {sum(s > 0 for s in spills)}, "
           f"with a stack frame {sum(s > 0 for s in stack)}")
+    for line in _tensor_core_ptxas(logs):
+        print(line)
 
     results = kernel_phase(torch)
     results.update(fused_kernel_phase(torch))

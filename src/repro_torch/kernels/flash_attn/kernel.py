@@ -1,7 +1,8 @@
 """Hopper CUDA kernel for causal flash attention (K4), bound with ``ctypes``.
 
 ``flash_attn_fwd`` (``csrc/flash_attn_fwd.cu``) replaces
-``repro/kernels/flash_attn/kernel.py::flash_attention_fwd``. It is built by
+``repro/kernels/flash_attn/kernel.py::flash_attention_fwd``: bf16 inputs run
+on the tensor cores, float32 inputs on CUDA cores. It is built by
 ``nvcc`` for ``sm_90a`` at first use (``kernels/build.py``); nothing is
 built or loaded at import time. The launch function checks devices, types,
 shapes and contiguity, allocates the output, launches on the current

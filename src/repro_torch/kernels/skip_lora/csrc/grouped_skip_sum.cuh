@@ -1,5 +1,7 @@
-// Grouped skip-LoRA for Hopper (sm_90a): the bodies shared by the grouped
-// kernels of this directory.
+// Grouped skip-LoRA for Hopper (sm_90a), on CUDA cores: the bodies shared
+// by the grouped forward kernels of this directory (K5-K8) and the fp32-row
+// route of the grouped backward (K9). K9's bf16-row route runs on the tensor
+// cores and lives in grouped_skip_sum_bwd.cu.
 //
 //   forward   out[m] = sum_l cast_x( x[l, m] @ cast_x(A[g, l]) ) @ cast_x(B[g, l])
 //   backward  gA[n, l] = sum_{m in n} x[l, m]^T cast_x(g[m] @ cast_x(B[n, l])^T)
@@ -10,8 +12,10 @@
 // (src/repro/kernels/skip_lora/kernel.py, _grouped_fwd_kernel and its int8,
 // q4 and actint8 forms, _grouped_bwd_kernel). The forward's activations are
 // float rows (K5, K6, K7) or int8 rows with a per-row scale (K8); its pool is
-// float (K5, K8), int8 (K6) or packed 4-bit (K7). The backward (K9) takes
-// float rows and a float pool.
+// float (K5, K8), int8 (K6) or packed 4-bit (K7). The backward here takes
+// fp32 rows and a float pool: it stays on CUDA cores because the tensor
+// cores' fp32 input is TF32 (about three decimal digits), which would break
+// the float32 cases' 1e-5 bar.
 //
 // What bounds them: bytes. The adapter rank R is 4..64, so each x element
 // meets at most 2R multiply-adds; at the serve shapes (a handful of rows,
@@ -36,10 +40,10 @@
 //     tile rows for those pairs staged in shared memory, one fp32
 //     accumulator per row. Rows are written straight back to their original
 //     positions, so no grouped copy of x or out is made.
-//   outer (backward), one block per (slot, layer, O_TD columns): the block
-//     finds its slot's contiguous run of tiles in `tile_slot` (non-decreasing)
-//     by binary search and walks those tiles' rows in order, one column of D
-//     per thread, 2 R fp32 accumulators. A GPU grid has no order, so the
+//   outer (backward, fp32 rows), one block per (slot, layer, O_TD
+//     columns): the block finds its slot's contiguous run of tiles in
+//     `tile_slot` (non-decreasing) by binary search and walks those tiles'
+//     rows in order, one column of D per thread, 2 R fp32 accumulators. A GPU grid has no order, so the
 //     TPU kernel's first-visit init on a sequential grid becomes this loop
 //     inside one block: each (slot, layer) block is summed by one block in a
 //     fixed order, with no atomics and no cross-block reduction, so the
@@ -48,8 +52,8 @@
 //
 // Rows reach a tile through `row_src` (M_pad,) int32: the original row of
 // each grouped position, or -1 for padding. `tile_slot` (M_pad / tm,) int32
-// gives each tile's slot; a tile with no live rows is skipped. Tensor cores,
-// TMA and fused single passes are left for later work.
+// gives each tile's slot; a tile with no live rows is skipped. The forwards
+// on tensor cores, TMA and fused single passes are left for later work.
 
 #pragma once
 

@@ -14,7 +14,8 @@ interface, compiled by ``nvcc`` for ``sm_90a`` (``kernels/build.py``):
   - ``grouped_skip_sum_fwd_actint8`` (K8, int8 activations) replaces
     ``...::skip_lora_grouped_fwd_actint8``;
   - ``grouped_skip_sum_bwd`` (K9, per-slot adapter gradients) replaces
-    ``...::skip_lora_grouped_bwd``.
+    ``...::skip_lora_grouped_bwd``; bf16 rows run on the tensor cores, fp32
+    rows on CUDA cores like the others.
 
 Nothing is built or loaded at import time: the module imports on a machine
 with no CUDA toolkit. Each launch function checks devices, types, shapes and
@@ -284,6 +285,18 @@ def grouped_skip_sum_fwd_actint8(
     return out
 
 
+def bwd_scratch_rank(r: int, dtype: torch.dtype) -> int:
+    """Width of K9's (L, M_pad, width) z / gz scratch: R itself for fp32
+    rows (CUDA cores); for bf16 rows (tensor cores) R padded to a power-of-two
+    number of 8-wide mma n-tiles: 8, 16, 32 or 64, the padding held at zero."""
+    if dtype != torch.bfloat16:
+        return r
+    tiles = 1
+    while 8 * tiles < r:
+        tiles *= 2
+    return 8 * tiles
+
+
 def grouped_skip_sum_bwd(
     x: torch.Tensor,          # (L, M, D) fp32 / bf16, original row order
     a_pool: torch.Tensor,     # (N, L, D, R) fp32 / bf16
@@ -295,13 +308,16 @@ def grouped_skip_sum_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K9: per-slot adapter grads (gA (N, L, D, R), gB (N, L, R, D)) fp32,
     zeros for slots with no rows. Deterministic: each (slot, layer) block is
-    summed by one CUDA block over the slot's rows in grouped order."""
+    summed by one CUDA block over the slot's rows in grouped order. bf16
+    rows run on the tensor cores, fp32 rows on CUDA cores; z and gz go
+    through a scratch of the rows' dtype (``bwd_scratch_rank``)."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     n, r = _check_float_pool(x, a_pool, b_pool, lnum, d)
     check_tensor(g, "g", x.device, (m, d), (x.dtype,))
     f32 = dict(dtype=torch.float32, device=x.device)
-    z = torch.empty((lnum, n_tiles * tm, r), **f32)
-    gz = torch.empty((lnum, n_tiles * tm, r), **f32)
+    scratch = (lnum, n_tiles * tm, bwd_scratch_rank(r, x.dtype))
+    z = torch.empty(scratch, dtype=x.dtype, device=x.device)
+    gz = torch.empty(scratch, dtype=x.dtype, device=x.device)
     ga = torch.empty((n, lnum, d, r), **f32)
     gb = torch.empty((n, lnum, r, d), **f32)
     LIB.launch(

@@ -173,6 +173,30 @@ def test_grouped_backward_matches_plain_version(cuda, groups, tm, rank, dtype):
         assert not ga[empty].any() and not gb[empty].any()
 
 
+@pytest.mark.parametrize("case", [
+    # (groups, rank, tm, d, pool dtype)
+    ((300, 0, 200, 524), 8, 16, 2048, torch.float32),   # runs of several 16-row steps, ragged tails
+    ((40, 0, 77, 0, 5, 130), 8, 16, 200, torch.float32),   # N 6, two empty slots
+    ((2, 0, 19, 1, 33), 64, 1, 200, torch.bfloat16),    # tm 1 at R 64, bf16 pool
+    ((5, 0, 11), 8, 16, 100, torch.float32),            # D 100, not a multiple of 8: plain loads
+])
+def test_grouped_backward_tensor_core_edges(cuda, case):
+    groups, rank, tm, d, pool_dtype = case
+    x, a, b, idx = _inputs(cuda, groups, rank, "bfloat16", lnum=2, d=d, seed=5)
+    g = torch.randn(x.shape[1:], generator=torch.Generator(device=cuda).manual_seed(6),
+                    device=cuda).to(x.dtype)
+    ap, bp = a.to(pool_dtype), b.to(pool_dtype)
+    row_src, tile_slot = ops._plan(idx, ap.shape[0], x.shape[1], tm)
+    ga, gb = K.grouped_skip_sum_bwd(x, ap, bp, g, row_src, tile_slot, tm)
+    wa, wb = R.skip_lora_grouped_bwd_ref(x, ap, bp, g, idx)
+    _close(ga, wa, "bfloat16", 2.0**-6)
+    _close(gb, wb, "bfloat16", 2.0**-6)
+    empty = [n for n, c in enumerate(groups) if c == 0]
+    assert not ga[empty].any() and not gb[empty].any()
+    again = K.grouped_skip_sum_bwd(x, ap, bp, g, row_src, tile_slot, tm)
+    assert torch.equal(ga, again[0]) and torch.equal(gb, again[1])
+
+
 def test_grouped_backward_is_deterministic(cuda):
     x, a, b, idx = _inputs(cuda, (300, 200, 0, 524), 8, "bfloat16", lnum=24, d=2048)
     g = torch.randn(x.shape[1:], device=cuda).to(x.dtype)
@@ -265,6 +289,12 @@ def test_autograd_wrappers_give_the_kernel_gradients(cuda):
     (1, 2, 1, 256, 128, 64, 0.0),
     (1, 4, 2, 512, 256, 100, 50.0),
     (1, 1, 1, 70, 80, 0, 30.0),
+    (1, 2, 2, 130, 96, 0, 0.0),       # hd 96: padded to 128 in the bf16 tiles
+    (2, 2, 1, 1, 64, 0, 0.0),         # S 1
+    (1, 4, 2, 17, 64, 0, 0.0),        # S 17: one ragged tile
+    (1, 2, 2, 100, 64, 1, 0.0),       # window 1: each query sees only itself
+    (1, 8, 2, 300, 128, 0, 30.0),     # GQA group of 4 with softcap at hd 128
+    (1, 2, 1, 45, 20, 0, 0.0),        # hd 20, not a multiple of 8: plain loads and stores
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_version(cuda, case, dtype):
