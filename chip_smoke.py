@@ -10,7 +10,9 @@ Phases, each printing one line (or a few) before the last line:
   3. kernels: each kernel against its plain PyTorch version on the card, with
      kernel / plain times (CUDA events, L2 flushed), the bound and, where one
      PyTorch call computes the same function, its time:
-       - K5/K6 (grouped skip-sum) at the serve shape and a ragged shape;
+       - K5/K6 (grouped skip-sum) at the serve shape and a ragged shape, and
+         K5 at the fleet step's shape (M 1024 in 4 slots) and ragged groups
+         with an empty slot;
        - K1/K2/K3 (skip-sum forward, adapter backward, int8 forward) at the
          cached-step shape (L 24, M 1024, D 2048, R 8, bf16), a ragged
          M 1000 and fp32;
@@ -37,7 +39,7 @@ Phases, each printing one line (or a few) before the last line:
      to the same step through the plain versions on the card. Populate and
      cached epoch times; one populate and one cached step's device time
      (CUDA events) and busy share (torch.profiler), and the cached step's
-     device time split into readout loss, skip-sum kernels and AdamW.
+     device time split into readout loss, K1, K2 and AdamW.
   7. checks: a reduced float32 config fine-tunes to the same losses and
      adapters on the card (kernels) as on the CPU (plain versions); one
      full-width attention layer gives the same output with and without K4.
@@ -257,7 +259,8 @@ def kernel_phase(torch):
                 w_ms = time_ms(lambda: wrapper(x[:, :, None], *pool, idx))
                 p_ms = time_ms(lambda: plain(x, *pool, idx), reps=5)
                 bound_ms, bound_by, nbytes = _bound(x, pool, idx, got)
-                print(f"kernel {name} {label} M={m_rows} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                route = "" if int8 else f", route {K.grouped_fwd_route(dtype)}"
+                print(f"kernel {name} {label} M={m_rows} {str(dtype)[6:]}{route}: max_abs_err {err:.3e} "
                       f"(tol {tol:.3e}) kernel {k_ms * 1e3:.1f} us, wrapper {w_ms * 1e3:.1f} us, "
                       f"plain {p_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
                 if label == "serve" and dtype == torch.bfloat16:
@@ -271,7 +274,53 @@ def kernel_phase(torch):
                         "wrapper_ms": w_ms, "bound_bytes": nbytes,
                         "shape": f"L=24 M={m_rows} D=2048 R={RANK} N=4 bf16",
                     }
+    results["grouped_skip_sum_fwd"].update(k5_many_rows_phase(torch))
     return results
+
+
+def k5_many_rows_phase(torch):
+    """K5 at the fleet step's shape (L 24, M 1024 in 4 slots of 256 rows,
+    D 2048, R 8, bf16 rows, fp32 pools), where the fleet's populate epochs
+    and cached ``full`` epochs call it, and at ragged groups with an empty
+    slot (300, 0, 200, 524): within 2^-7 of the largest output of the plain
+    version, the route ``kernel.grouped_fwd_route`` gives, kernel and plain
+    times, the byte bound and the device time of each pass (profiler).
+    Returns the many-row fields of K5's entry in the kernels line."""
+    from repro_torch.kernels.skip_lora import kernel as K
+    from repro_torch.kernels.skip_lora import ops, ref as R
+
+    fields = {}
+    for label, groups in (("fleet", (256, 256, 256, 256)), ("fleet-ragged", (300, 0, 200, 524))):
+        x, a, b, _, idx = _fleet_rows(torch, groups, seed=12)
+        m = x.shape[1]
+        row_src, tile_slot = ops._plan(idx, len(groups), m, ops.TM)
+        route = K.grouped_fwd_route(x.dtype)
+        run = lambda: K.grouped_skip_sum_fwd(x, a, b, row_src, tile_slot, ops.TM)  # noqa: E731
+        plain = lambda: R.skip_lora_grouped_ref(x, a, b, idx)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K5 {label}: non-finite output")
+        check(torch.equal(got, ops.skip_lora_grouped(x[:, :, None], a, b, idx)[:, 0]),
+              f"K5 {label}: wrapper != kernel launch")
+        err, mag = _rel_err(got, want)
+        tol = 2.0**-7 * mag
+        check(err <= tol, f"K5 {label}: max |kernel - plain| {err:.3e} > {tol:.3e}")
+        k_ms, p_ms = time_ms(run), time_ms(plain, reps=5)
+        bound_ms, bound_by, nbytes = _bound(x, (a, b), idx, got)
+        passes = "; ".join(f"{k.split('<')[0].split('(')[0].split()[-1]} x{n} {t * 1e3:.1f} us"
+                           for k, (t, n) in _profile(run)[1].items())
+        print(f"kernel grouped_skip_sum_fwd {label} L=24 M={m} groups {groups} D=2048 R={RANK} bf16 rows, fp32 "
+              f"pools, route {route}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {k_ms * 1e3:.1f} us, plain "
+              f"{p_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B); passes (profiler): "
+              f"{passes}")
+        if label == "fleet":
+            fields = {"many_rows_ms": k_ms, "many_rows_plain_ms": p_ms, "many_rows_bound_ms": bound_ms,
+                      "many_rows_bound_by": bound_by, "many_rows_bound_bytes": nbytes,
+                      "many_rows_max_abs_err": err, "many_rows_route": route,
+                      "many_rows_shape": f"L=24 M={m} in 4 slots D=2048 R={RANK} bf16 rows, fp32 pools"}
+        del x, a, b, got, want
+        torch.cuda.empty_cache()
+    return fields
 
 
 # ---------------------------------------------------------------------------
@@ -351,14 +400,15 @@ def trace_phase(torch, device_name, cfg, params, prompts, pool, idx):
     if not busy:
         print("trace: device time not measured (the profiler recorded no device activity)")
         return
-    phase = {p: sum(t for k, (t, _) in per_kernel.items() if p in k) for p in ("project_a", "project_b")}
+    # K5's two passes on its bf16 (tensor-core) route
+    phase = {p: sum(t for k, (t, _) in per_kernel.items() if p in k) for p in ("project_tc", "expand_tc")}
     skip = sum(phase.values())
     top = "; ".join(f"{k[:50]} x{c} {t:.2f} ms"
                     for k, (t, c) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6])
     print(f"trace {ARCH} float pool, one generate_grouped call on {device_name}: wall {wall_ms:.1f} ms "
           f"(profiled), device kernels {busy:.1f} ms = {100 * busy / wall_ms:.1f}% busy, "
           f"grouped skip-sum kernels {skip:.2f} ms = {100 * skip / busy:.2f}% of device time "
-          f"(phase 1 {phase['project_a']:.2f} ms, phase 2 {phase['project_b']:.2f} ms over {1 + NEW} calls); "
+          f"(project_tc {phase['project_tc']:.2f} ms, expand_tc {phase['expand_tc']:.2f} ms over {1 + NEW} calls); "
           f"top: {top}")
 
 
@@ -659,9 +709,9 @@ def _busy(torch, fn):
 
 def _step_split(torch, run, device_name):
     """The cached step's device time (CUDA events, L2 flushed), and its
-    three parts run alone on the same inputs: readout loss forward +
-    backward, skip-sum kernels K1 + K2, AdamW. What the step takes beyond
-    those three is printed as a remainder: it is not timed alone. The profiler, which dropped
+    parts run alone on the same inputs: readout loss forward + backward,
+    K1 and K2 each, AdamW. What the step takes beyond those parts is
+    printed as a remainder: it is not timed alone. The profiler, which dropped
     kernels of later windows in earlier runs on this card, gives only the
     busy share of one cached and one populate step (device kernel time over
     profiled wall time); the populate step writes into a fresh cache."""
@@ -687,8 +737,10 @@ def _step_split(torch, run, device_name):
         with torch.enable_grad():
             torch.autograd.grad(lm_loss(run.params, run.cfg, h, vals["labels"]), [h])
 
-    def skip():
+    def k1():
         K.skip_lora_fwd(x, run.trainable["A"], run.trainable["B"])
+
+    def k2():
         K.skip_lora_bwd(x, run.trainable["A"], run.trainable["B"], g)
 
     def adam():
@@ -703,11 +755,11 @@ def _step_split(torch, run, device_name):
         pop_step(run.params, run.trainable, run.static, run.opt_state, pop_cache, batch, idx)
 
     ms = {name: time_ms(fn, reps=5, spin=STEP_SPIN) for name, fn in (
-        ("step", cached), ("readout", readout), ("skip", skip), ("adamw", adam), ("populate", populate))}
+        ("step", cached), ("readout", readout), ("k1", k1), ("k2", k2), ("adamw", adam), ("populate", populate))}
     total = ms["step"]
     m, d, v = x.shape[1], x.shape[2], run.cfg.vocab_size
     tflops = 2 * 2 * m * d * v / (ms["readout"] * 1e-3) / 1e12
-    rest = total - ms["readout"] - ms["skip"] - ms["adamw"]
+    rest = total - ms["readout"] - ms["k1"] - ms["k2"] - ms["adamw"]
     busy = {name: _busy(torch, fn) for name, fn in (("step", cached), ("populate", populate))}
     print(f"train steps, mode full, {ARCH} full width on {device_name}: populate step {ms['populate']:.3f} ms, "
           f"cached step {total:.3f} ms of device time (CUDA events, L2 flushed); busy share under the "
@@ -717,9 +769,10 @@ def _step_split(torch, run, device_name):
           f"{busy['step'][2]} kernels)")
     print(f"train step split, mode full, {ARCH} full width on {device_name} (CUDA events, L2 flushed): cached "
           f"step {total:.3f} ms = readout loss {ms['readout']:.3f} ms ({100 * ms['readout'] / total:.1f}%, fp32 "
-          f"vocab products at {tflops:.1f} TFLOP/s) + skip-sum kernels K1+K2 {ms['skip']:.3f} ms "
-          f"({100 * ms['skip'] / total:.1f}%) + AdamW {ms['adamw']:.3f} ms ({100 * ms['adamw'] / total:.1f}%) "
-          f"; remainder, not timed alone (cache gather, decode, casts): {rest:.3f} ms")
+          f"vocab products at {tflops:.1f} TFLOP/s) + K1 {ms['k1']:.3f} ms ({100 * ms['k1'] / total:.1f}%) + K2 "
+          f"{ms['k2']:.3f} ms ({100 * ms['k2'] / total:.1f}%) + AdamW {ms['adamw']:.3f} ms "
+          f"({100 * ms['adamw'] / total:.1f}%); remainder, not timed alone (cache gather, decode, casts): "
+          f"{rest:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1031,8 +1084,8 @@ def _fleet_grad_check(torch, cfg, sl, params, res, mode):
 
 def _fleet_step_split(torch, cfg, sl, params, res, device_name):
     """The fleet cached step's device time (CUDA events, L2 flushed) and
-    three parts run alone on its inputs: the per-tenant readout loss forward
-    + backward, the grouped kernels K5 + K9, AdamW. What the step takes
+    its parts run alone on its inputs: the per-tenant readout loss forward
+    + backward, K5 and K9 each, AdamW. What the step takes
     beyond those is printed as a remainder, not timed alone."""
     from repro_torch.core import fleet_finetune as FF
     from repro_torch.core import lm_skiplora as SL
@@ -1066,8 +1119,10 @@ def _fleet_step_split(torch, cfg, sl, params, res, device_name):
             per = FF.per_tenant_loss(params, cfg, h, vals["labels"], FLEET_TENANTS)
             torch.autograd.grad(per.sum(), [h])
 
-    def skip():
+    def k5():
         K.grouped_skip_sum_fwd(x, a, b, row_src, tile_slot, ops.TM)
+
+    def k9():
         K.grouped_skip_sum_bwd(x, a, b, g, row_src, tile_slot, ops.TM)
 
     def adam():
@@ -1075,14 +1130,15 @@ def _fleet_step_split(torch, cfg, sl, params, res, device_name):
         apply_updates(res.adapters, updates)
 
     ms = {name: time_ms(fn, reps=5, spin=STEP_SPIN) for name, fn in (
-        ("step", cached), ("readout", readout), ("skip", skip), ("adamw", adam))}
+        ("step", cached), ("readout", readout), ("k5", k5), ("k9", k9), ("adamw", adam))}
     total = ms["step"]
-    rest = total - ms["readout"] - ms["skip"] - ms["adamw"]
+    rest = total - ms["readout"] - ms["k5"] - ms["k9"] - ms["adamw"]
     print(f"fleet step split, mode full, {ARCH} full width on {device_name} (CUDA events, L2 flushed): cached "
           f"fleet step {total:.3f} ms = per-tenant readout loss {ms['readout']:.3f} ms "
-          f"({100 * ms['readout'] / total:.1f}%) + grouped kernels K5+K9 {ms['skip']:.3f} ms "
-          f"({100 * ms['skip'] / total:.1f}%) + AdamW {ms['adamw']:.3f} ms ({100 * ms['adamw'] / total:.1f}%); "
-          f"remainder, not timed alone (cache gather, decode, grouping plan, casts): {rest:.3f} ms")
+          f"({100 * ms['readout'] / total:.1f}%) + K5 {ms['k5']:.3f} ms ({100 * ms['k5'] / total:.1f}%) + K9 "
+          f"{ms['k9']:.3f} ms ({100 * ms['k9'] / total:.1f}%) + AdamW {ms['adamw']:.3f} ms "
+          f"({100 * ms['adamw'] / total:.1f}%); remainder, not timed alone (cache gather, decode, grouping plan, "
+          f"casts): {rest:.3f} ms")
 
 
 def fleet_serve_phase(torch, device_name, kept):
@@ -1493,15 +1549,15 @@ def small_scheduler_check(torch):
 
 
 def _tensor_core_ptxas(logs):
-    """One line per instantiation of the tensor-core kernels (K4's and K9's
-    bf16 routes) from nvcc's ``-Xptxas -v`` output: registers, shared
-    memory, spills."""
+    """One line per instantiation of the tensor-core kernels (the bf16
+    routes of K2, K4, K5 and K9) from nvcc's ``-Xptxas -v`` output:
+    registers, shared memory, spills."""
     out, fn = [], None
     for log in logs.values():
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if re.search(r"flash_fwd_bf16|project_tc|outer_tc", m.group(1)) else None
+                fn = m.group(1) if re.search(r"flash_fwd_bf16|project_tc|expand_tc|outer_tc", m.group(1)) else None
                 spill = "0 bytes spill stores"
             elif fn and "spill" in line:
                 spill = line.split(",")[1].strip()
@@ -1578,6 +1634,8 @@ def main() -> None:
             launches[kname] = launches.get(kname, 0) + n
     for kname, n in launches.items():
         results[kname]["launches"] = n
+    # K5's launches at many rows (the fleet's) and at a few (serving, the scheduler)
+    results["grouped_skip_sum_fwd"]["launches_many_rows"] = fleet_launches["grouped_skip_sum_fwd"]
     check(len(results) == 10, f"{len(results)} kernels in the kernels line, not 10")
     check(all(r["launches"] is not None for r in results.values()), "a kernel has no launch count")
     print(json.dumps({"kernels": list(results.values())}))

@@ -1,7 +1,8 @@
 // Grouped skip-LoRA for Hopper (sm_90a), on CUDA cores: the bodies shared
 // by the grouped forward kernels of this directory (K5-K8) and the fp32-row
-// route of the grouped backward (K9). K9's bf16-row route runs on the tensor
-// cores and lives in grouped_skip_sum_bwd.cu.
+// route of the grouped backward (K9). The bf16-row routes of K9, and of K5
+// at many grouped positions (kernel.py, grouped_fwd_route), run on the
+// tensor cores (skip_sum_tc.cuh).
 //
 //   forward   out[m] = sum_l cast_x( x[l, m] @ cast_x(A[g, l]) ) @ cast_x(B[g, l])
 //   backward  gA[n, l] = sum_{m in n} x[l, m]^T cast_x(g[m] @ cast_x(B[n, l])^T)
@@ -52,8 +53,9 @@
 //
 // Rows reach a tile through `row_src` (M_pad,) int32: the original row of
 // each grouped position, or -1 for padding. `tile_slot` (M_pad / tm,) int32
-// gives each tile's slot; a tile with no live rows is skipped. The forwards
-// on tensor cores, TMA and fused single passes are left for later work.
+// gives each tile's slot; a tile with no live rows is skipped. K6, K7 and
+// K8 on the tensor cores (K8 with an int8 row loader on K5's route) are
+// later work.
 
 #pragma once
 

@@ -4,34 +4,61 @@
 //
 // Bandwidth-bound: per call it must move x (L M D elements), each active
 // slot's A and B blocks (2 L D R elements) and out (M D). At the serve
-// shapes the adapter blocks dominate. See grouped_skip_sum.cuh for the
-// two-phase design.
+// shapes (a few rows) the adapter blocks dominate; at the fleet step's
+// (M 1024 in 4 slots, L 24, D 2048, R 8, bf16 rows, fp32 pools: 117.4 MB,
+// 35.1 us at 3.35 TB/s) x does.
+//
+// Two routes, by the rows' type (kernel.py, grouped_fwd_route):
+//   bf16 rows: the tensor-core passes of skip_sum_tc.cuh. project_tc forms
+//     z = bf16(x bf16(A)) once per (32 positions, layer) with x read exactly
+//     once and each slab shared by 32 rows, into a (M_pad, L RP) bf16
+//     scratch whose row is one grouped position and whose k = l RP + r;
+//     expand_tc forms out = bf16(z bf16(B)) per (64 positions, 128 columns)
+//     with the slot's B stack staged 32 k at a time, and writes each row
+//     back to its original position. There is no threshold in rows: this
+//     route beat the CUDA-core passes at the serve shape (M 4, one row a
+//     slot) as well as at the fleet step's (PERF.md, the kernels table).
+//   fp32 rows: the CUDA-core passes of grouped_skip_sum.cuh; the tensor
+//     cores' fp32 input is TF32, which would break the float32 cases' 1e-5
+//     bar.
 //
 // Plain C interface for ctypes; returns the CUDA error code of the launches
 // (0 on success). The caller owns every buffer and the stream.
 
 #include "grouped_skip_sum.cuh"
+#include "skip_sum_tc.cuh"
 
 extern "C" int grouped_skip_sum_fwd(
     const void* x,            // (L, M, D) fp32 or bf16
     const void* a_pool,       // (N, L, D, R) fp32 or bf16
     const void* b_pool,       // (N, L, R, D), same type as a_pool
     const int* row_src,       // (n_tiles * tm,) original row or -1
-    const int* tile_slot,     // (n_tiles,) slot of each row tile
-    float* z,                 // (L, n_tiles * tm, R) scratch
+    const int* tile_slot,     // (n_tiles,) slot of each row tile, non-decreasing
+    void* z,                  // scratch: bf16 x (n_tiles * tm, L RP) bf16, fp32 x (L, n_tiles * tm, R) fp32
     void* out,                // (M, D), type of x
     int L, int M, int D, int R, int tm, int n_tiles,
     int x_bf16, int pool_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
-  const gss::FloatPool<bf> pb{(const bf*)a_pool, (const bf*)b_pool};
-  const gss::FloatPool<float> pf{(const float*)a_pool, (const float*)b_pool};
+  if (gss::bad_geometry(L, D, R, tm, n_tiles)) return (int)cudaErrorInvalidValue;
   if (x_bf16) {
-    const gss::DenseActs<bf> acts{(const bf*)x, (size_t)M * D, D};
-    if (pool_bf16) return gss::run<bf>(acts, pb, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
-    return gss::run<bf>(acts, pf, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
+    const bf* xt = static_cast<const bf*>(x);
+    bf* zt = static_cast<bf*>(z);
+    bf* ot = static_cast<bf*>(out);
+    return stc::by_rank(R, [&](auto nt) {
+      constexpr int NT = decltype(nt)::value;
+      if (pool_bf16)
+        return stc::grouped_forward<bf, NT>(xt, (const bf*)a_pool, (const bf*)b_pool, row_src, tile_slot, zt, ot,
+                                            L, M, D, R, tm, n_tiles, s);
+      return stc::grouped_forward<float, NT>(xt, (const float*)a_pool, (const float*)b_pool, row_src, tile_slot,
+                                             zt, ot, L, M, D, R, tm, n_tiles, s);
+    });
   }
+  float* zf = static_cast<float*>(z);
   const gss::DenseActs<float> acts{(const float*)x, (size_t)M * D, D};
-  if (pool_bf16) return gss::run<float>(acts, pb, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
-  return gss::run<float>(acts, pf, row_src, tile_slot, z, out, L, D, R, tm, n_tiles, s);
+  if (pool_bf16)
+    return gss::run<float>(acts, gss::FloatPool<bf>{(const bf*)a_pool, (const bf*)b_pool}, row_src, tile_slot, zf,
+                           out, L, D, R, tm, n_tiles, s);
+  return gss::run<float>(acts, gss::FloatPool<float>{(const float*)a_pool, (const float*)b_pool}, row_src,
+                         tile_slot, zf, out, L, D, R, tm, n_tiles, s);
 }

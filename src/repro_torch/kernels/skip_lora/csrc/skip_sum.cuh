@@ -1,6 +1,7 @@
-// Dense skip-LoRA sum and its adapter gradients for Hopper (sm_90a): the
-// body shared by skip_lora_fwd.cu (K1), skip_lora_fwd_int8.cu (K3) and
-// skip_lora_bwd.cu (K2).
+// Dense skip-LoRA sum and its adapter gradients for Hopper (sm_90a), on
+// CUDA cores: the body of skip_lora_fwd.cu (K1), skip_lora_fwd_int8.cu (K3)
+// and the fp32-row route of skip_lora_bwd.cu (K2). K2's bf16-row route runs
+// on the tensor cores (skip_sum_tc.cuh).
 //
 //   forward   out[m]  = cast_x( sum_l cast_x(x[l,m] @ cast_x(A[l])) @ cast_x(B[l]) )
 //   backward  gA[l]   = x[l]^T  @ cast_x(g @ cast_x(B[l])^T)
@@ -25,12 +26,15 @@
 //   expand   (block per 32-row x 128-column tile, 4 x 4 outputs a thread):
 //     out = cast_x(sum_(l,r) z[l,m,r] B[l,r,:]),
 //     the (layer, rank) pairs taken in order k = l * R + r.
-//   outer    (block per layer x 128 columns x 256-row chunk of M): per-chunk
+//   outer    (block per layer x 128 columns x chunk of M): per-chunk
 //     fp32 partials of gA and gB, one column of D per thread.
 //   reduce   sums the chunks' partials in chunk order: no atomics, so the
 //     gradients are the same bits on every run.
 //
-// Tensor cores, TMA and a fused single pass are left for later work.
+// fp32 rows stay here: the tensor cores' fp32 input is TF32 (about three
+// decimal digits), which would break the float32 cases' 1e-5 bar. K1 and K3
+// on the tensor cores (the one-slot form of K5's route in skip_sum_tc.cuh)
+// are later work.
 
 #pragma once
 
@@ -55,7 +59,6 @@ constexpr int E_TD = 128;         // columns per expand block
 constexpr int E_KK = 32;          // (layer, rank) pairs per expand step
 constexpr int E_THREADS = 256;
 constexpr int O_TD = 128;         // columns per outer block, one per thread
-constexpr int O_MC = 256;         // rows of M per outer block (one partial)
 
 // Rows of the activations, read as fp32 values of the activation type:
 // `at(l, m, d, row_scale(l, m))`. `layer_stride` 0 gives every layer the
@@ -269,7 +272,7 @@ int forward(Rows rows, const W* a, const W* b, float* z, T* out, int L, int M, i
   return (int)launch_expand<T, W>(z, b, out, L, M, D, R, s);
 }
 
-// outer: for rows [c * O_MC, (c + 1) * O_MC) of layer l,
+// outer: for rows [c * chunk, (c + 1) * chunk) of layer l,
 //   pa[c, l, d, r] = sum_m x[l, m, d] * gz[l, m, r]
 //   pb[c, l, r, d] = sum_m g[m, d]    * z[l, m, r]
 // one column d per thread, 2 RP fp32 accumulators. SUB rows at a time: their
@@ -279,13 +282,13 @@ template <typename T, int RP>
 __global__ void __launch_bounds__(O_TD, RP <= 16 ? 4 : 2)
 outer(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ z,
       const float* __restrict__ gz, float* __restrict__ pa, float* __restrict__ pb,
-      int L, int M, int D, int R) {
+      int L, int M, int D, int R, int chunk) {
   constexpr int SUB = RP <= 16 ? 32 : 8;
   __shared__ __align__(16) float zs[SUB * RP];
   __shared__ __align__(16) float gzs[SUB * RP];
   const int l = blockIdx.x, c = blockIdx.z, tid = threadIdx.x;
   const int d = blockIdx.y * O_TD + tid;
-  const int m_lo = c * O_MC, m_hi = min(M, m_lo + O_MC);
+  const int m_lo = c * chunk, m_hi = min(M, m_lo + chunk);
   float acc_a[RP], acc_b[RP];
 #pragma unroll
   for (int r = 0; r < RP; ++r) acc_a[r] = acc_b[r] = 0.f;
@@ -354,16 +357,22 @@ __global__ void reduce_chunks(const float* __restrict__ pa, const float* __restr
   }
 }
 
-// Number of M chunks, and so of partial gradients, the backward uses.
-inline int bwd_chunks(int M) { return (M + O_MC - 1) / O_MC; }
+// gA, gB (n elements each) from `chunks` partials of each, added in chunk order.
+inline cudaError_t launch_reduce(const float* pa, const float* pb, float* ga, float* gb, size_t n, int chunks,
+                                 cudaStream_t s) {
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  reduce_chunks<<<blocks, 256, 0, s>>>(pa, pb, ga, gb, n, chunks);
+  return cudaGetLastError();
+}
 
-// Backward. Scratch: z, gz (L, M, R) fp32; pa, pb (chunks, L, D, R) /
-// (chunks, L, R, D) fp32, unused (may be null) when there is one chunk, in
-// which case outer writes gA and gB directly.
+// Backward, the sum over M in chunks of `chunk` rows. Scratch: z, gz
+// (L, M, R) fp32; pa, pb (chunks, L, D, R) / (chunks, L, R, D) fp32, unused
+// (may be null) when there is one chunk, in which case outer writes gA and
+// gB directly.
 template <typename T, typename W>
 int backward(const T* x, const W* a, const W* b, const T* g, float* z, float* gz, float* pa,
-             float* pb, float* ga, float* gb, int L, int M, int D, int R, cudaStream_t s) {
-  if (L < 1 || M < 1 || D < 1 || R < 1 || R > R_MAX) return (int)cudaErrorInvalidValue;
+             float* pb, float* ga, float* gb, int L, int M, int D, int R, int chunk, cudaStream_t s) {
+  if (L < 1 || M < 1 || D < 1 || R < 1 || R > R_MAX || chunk < 1) return (int)cudaErrorInvalidValue;
   const DenseRows<T> xr{x, (size_t)M * D, D};
   const DenseRows<T> gr{g, 0, D};
   cudaError_t err = launch_project<T>(xr, a, (size_t)D * R, (size_t)R, (size_t)1, z, L, M, D, R, s);
@@ -371,26 +380,23 @@ int backward(const T* x, const W* a, const W* b, const T* g, float* z, float* gz
   // gz[l, m, r] = sum_d g[m, d] B[l, r, d]: B[l] read as a (D, R) matrix with strides (1, D).
   err = launch_project<T>(gr, b, (size_t)R * D, (size_t)1, (size_t)D, gz, L, M, D, R, s);
   if (err != cudaSuccess) return (int)err;
-  const int chunks = bwd_chunks(M);
+  const int chunks = (M + chunk - 1) / chunk;
   float* oa = chunks == 1 ? ga : pa;
   float* ob = chunks == 1 ? gb : pb;
   const dim3 grid(L, (D + O_TD - 1) / O_TD, chunks);
   if (R <= 4)
-    outer<T, 4><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R);
+    outer<T, 4><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   else if (R <= 8)
-    outer<T, 8><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R);
+    outer<T, 8><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   else if (R <= 16)
-    outer<T, 16><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R);
+    outer<T, 16><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   else if (R <= 32)
-    outer<T, 32><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R);
+    outer<T, 32><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   else
-    outer<T, 64><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R);
+    outer<T, 64><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return (int)err;
-  const size_t n = (size_t)L * D * R;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  reduce_chunks<<<blocks, 256, 0, s>>>(pa, pb, ga, gb, n, chunks);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(pa, pb, ga, gb, (size_t)L * D * R, chunks, s);
 }
 
 }  // namespace ssk

@@ -14,8 +14,11 @@ interface, compiled by ``nvcc`` for ``sm_90a`` (``kernels/build.py``):
   - ``grouped_skip_sum_fwd_actint8`` (K8, int8 activations) replaces
     ``...::skip_lora_grouped_fwd_actint8``;
   - ``grouped_skip_sum_bwd`` (K9, per-slot adapter gradients) replaces
-    ``...::skip_lora_grouped_bwd``; bf16 rows run on the tensor cores, fp32
-    rows on CUDA cores like the others.
+    ``...::skip_lora_grouped_bwd``.
+
+The bf16-row routes of K2, K5 and K9 run on the tensor cores
+(``csrc/skip_sum_tc.cuh``: ``mma.sync``, ``ldmatrix``, ``cp.async``); fp32
+rows, and K1, K3, K6, K7 and K8, on CUDA cores.
 
 Nothing is built or loaded at import time: the module imports on a machine
 with no CUDA toolkit. Each launch function checks devices, types, shapes and
@@ -46,7 +49,7 @@ SOURCES = {
 }
 LIB = KernelLib(CSRC, SOURCES, {
     "skip_lora_fwd": [P] * 5 + [I] * 6 + [P],
-    "skip_lora_bwd": [P] * 10 + [I] * 6 + [P],
+    "skip_lora_bwd": [P] * 10 + [I] * 7 + [P],
     "skip_lora_fwd_int8": [P] * 6 + [I] * 5 + [P],
     "grouped_skip_sum_fwd": [P] * 7 + [I] * 8 + [P],
     "grouped_skip_sum_fwd_int8": [P] * 9 + [I] * 7 + [P],
@@ -63,7 +66,9 @@ build = LIB.build
 #: most rows in one tile and highest rank the kernels take (*.cuh)
 TM_MAX = 32
 R_MAX = 64
-#: rows of M per partial gradient in the backward (skip_sum.cuh, O_MC)
+#: rows of M per partial gradient in K2 (the one place that names it): 4
+#: chunks at the cached step's M 1024, so the tensor-core outer pass has 384
+#: blocks for the 132 SMs; the partials are added in chunk order
 BWD_CHUNK = 256
 
 _FLOAT = (torch.float32, torch.bfloat16)
@@ -104,15 +109,18 @@ def skip_lora_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2: adapter grads (gA (L, D, R), gB (L, R, D)) fp32 for the upstream
     gradient g (M, D) in x.dtype. Deterministic: the sum over M is split in
-    ``BWD_CHUNK``-row partials added in a fixed order."""
+    ``BWD_CHUNK``-row partials added in a fixed order. bf16 rows run on the
+    tensor cores, fp32 rows on CUDA cores; z and gz go through a scratch of
+    the rows' dtype (``bwd_scratch_rank``)."""
     check_tensor(x, "x", x.device, x.shape, _FLOAT)
     lnum, m, d = x.shape
     r = _check_adapters(x, a, b, lnum, d)
     check_tensor(g, "g", x.device, (m, d), (x.dtype,))
     f32 = dict(dtype=torch.float32, device=x.device)
-    z = torch.empty((lnum, m, r), **f32)
-    gz = torch.empty((lnum, m, r), **f32)
-    chunks = -(-m // BWD_CHUNK)
+    scratch = (lnum, m, bwd_scratch_rank(r, x.dtype))
+    z = torch.empty(scratch, dtype=x.dtype, device=x.device)
+    gz = torch.empty(scratch, dtype=x.dtype, device=x.device)
+    chunks = bwd_chunks(m)
     ga = torch.empty((lnum, d, r), **f32)
     gb = torch.empty((lnum, r, d), **f32)
     if chunks > 1:
@@ -123,8 +131,13 @@ def skip_lora_bwd(
         pa_ptr = pb_ptr = None
     LIB.launch("skip_lora_bwd", x, x.data_ptr(), a.data_ptr(), b.data_ptr(), g.data_ptr(),
                z.data_ptr(), gz.data_ptr(), pa_ptr, pb_ptr, ga.data_ptr(), gb.data_ptr(),
-               lnum, m, d, r, _bf16(x), _bf16(a))
+               lnum, m, d, r, BWD_CHUNK, _bf16(x), _bf16(a))
     return ga, gb
+
+
+def bwd_chunks(m: int) -> int:
+    """Partial gradients K2 sums over M: one per ``BWD_CHUNK`` rows."""
+    return -(-m // BWD_CHUNK)
 
 
 def skip_lora_fwd_int8(
@@ -169,18 +182,34 @@ def _check_float_pool(x, a_pool, b_pool, lnum, d):
     return n, r
 
 
+def grouped_fwd_route(dtype: torch.dtype) -> str:
+    """K5's route for rows of ``dtype``: ``"tensor_cores"`` for bf16 rows,
+    whatever the number of rows (at the serve shape, M 4 in 4 slots, it beat
+    the CUDA-core passes too: PERF.md), ``"cuda_cores"`` for fp32 rows,
+    since the tensor cores' fp32 input is TF32, which would break the
+    float32 cases' 1e-5 bar."""
+    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+
+
 def grouped_skip_sum_fwd(
     x: torch.Tensor,          # (L, M, D) fp32 / bf16, original row order
     a_pool: torch.Tensor,     # (N, L, D, R) fp32 / bf16
     b_pool: torch.Tensor,     # (N, L, R, D), same dtype as a_pool
     row_src: torch.Tensor,    # (n_tiles * tm,) int32 original row or -1
-    tile_slot: torch.Tensor,  # (n_tiles,) int32
+    tile_slot: torch.Tensor,  # (n_tiles,) int32, non-decreasing
     tm: int,
 ) -> torch.Tensor:
-    """K5: float-pool grouped skip-sum on the card -> (M, D) in x.dtype."""
+    """K5: float-pool grouped skip-sum on the card -> (M, D) in x.dtype, on
+    the route ``grouped_fwd_route`` gives. The tensor-core route keeps z in an
+    (M_pad, L * RP) bf16 scratch (``bwd_scratch_rank``), the CUDA-core route
+    in an (L, M_pad, R) fp32 one."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     _, r = _check_float_pool(x, a_pool, b_pool, lnum, d)
-    z = torch.empty((lnum, n_tiles * tm, r), dtype=torch.float32, device=x.device)
+    m_pad = n_tiles * tm
+    if grouped_fwd_route(x.dtype) == "tensor_cores":
+        z = torch.empty((m_pad, lnum * bwd_scratch_rank(r, x.dtype)), dtype=x.dtype, device=x.device)
+    else:
+        z = torch.empty((lnum, m_pad, r), dtype=torch.float32, device=x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     LIB.launch(
         "grouped_skip_sum_fwd", x,
@@ -286,8 +315,9 @@ def grouped_skip_sum_fwd_actint8(
 
 
 def bwd_scratch_rank(r: int, dtype: torch.dtype) -> int:
-    """Width of K9's (L, M_pad, width) z / gz scratch: R itself for fp32
-    rows (CUDA cores); for bf16 rows (tensor cores) R padded to a power-of-two
+    """Rank width of the z / gz scratch of K2 and K9 ((L, M_pad, width)) and
+    of K5's tensor-core route ((M_pad, L * width)): R itself for fp32 rows
+    (CUDA cores); for bf16 rows (tensor cores) R padded to a power-of-two
     number of 8-wide mma n-tiles: 8, 16, 32 or 64, the padding held at zero."""
     if dtype != torch.bfloat16:
         return r

@@ -99,6 +99,47 @@ def test_each_wrapper_call_counts_one_launch(cuda):
                           "grouped_skip_sum_bwd": 0}
 
 
+@pytest.mark.parametrize("groups", [(256, 256, 256, 256), (300, 0, 200, 524)])
+@pytest.mark.parametrize("tm", [1, 7, 16, 32])
+@pytest.mark.parametrize("rank", [4, 8, 24, 64])
+def test_grouped_forward_tensor_cores_at_many_rows(cuda, groups, tm, rank):
+    x, a, b, idx = _inputs(cuda, groups, rank, "bfloat16", d=256)
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], tm)
+    for pool_dtype in (torch.float32, torch.bfloat16):
+        ap, bp = a.to(pool_dtype), b.to(pool_dtype)
+        got = K.grouped_skip_sum_fwd(x, ap, bp, row_src, tile_slot, tm)
+        _close(got, R.skip_lora_grouped_ref(x, ap, bp, idx), "bfloat16")
+
+
+@pytest.mark.parametrize("case", [
+    # (groups, rank, tm, d, row offset in elements)
+    ((5, 0, 11), 8, 16, 100, 0),              # D 100, not a multiple of 8: plain loads
+    ((40, 0, 77, 0, 5, 130), 9, 7, 200, 0),   # N 6, two empty slots, R 9
+    ((33, 64), 1, 32, 256, 0),                # rank 1
+    ((64, 0, 3), 64, 1, 256, 1),              # x 2 bytes past a 16-byte boundary
+])
+def test_grouped_forward_tensor_core_edges(cuda, case):
+    groups, rank, tm, d, offset = case
+    x, a, b, idx = _inputs(cuda, groups, rank, "bfloat16", lnum=3, d=d, seed=5)
+    if offset:
+        shifted = torch.empty(x.numel() + offset, dtype=x.dtype, device=cuda)[offset:].view(x.shape)
+        shifted.copy_(x)
+        x = shifted
+        assert x.data_ptr() % 16
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], tm)
+    got = K.grouped_skip_sum_fwd(x, a, b, row_src, tile_slot, tm)
+    _close(got, R.skip_lora_grouped_ref(x, a, b, idx), "bfloat16")
+
+
+def test_grouped_forward_zero_slot_is_exactly_zero(cuda):
+    x, a, b, idx = _inputs(cuda, (128, 128, 128, 128), 8, "bfloat16", lnum=24, d=2048)
+    a[0], b[0] = 0.0, 0.0
+    row_src, tile_slot = ops._plan(idx, 4, x.shape[1], ops.TM)
+    got = K.grouped_skip_sum_fwd(x, a, b, row_src, tile_slot, ops.TM)
+    zero = idx == 0
+    assert not got[zero].any() and got[~zero].all(dim=-1).any()
+
+
 def test_kernel_refuses_what_it_cannot_take(cuda):
     x, a, b, idx = _inputs(cuda, (3, 2), 72, "float32")
     with pytest.raises(ValueError, match="rank"):
@@ -265,6 +306,23 @@ def test_backward_is_deterministic(cuda):
     for _ in range(3):
         again = K.skip_lora_bwd(x, a, b, g)
         assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("case", [
+    # (layers, M, D, rank, adapter dtype)
+    (3, 300, 100, 8, torch.float32),      # D 100, not a multiple of 8: plain loads
+    (2, 257, 256, 9, torch.bfloat16),     # a chunk of one row, R 9
+    (24, 1024, 2048, 8, torch.float32),   # the cached step: 4 chunks
+])
+def test_tensor_core_backward_edges_are_repeatable(cuda, case):
+    lnum, m, d, rank, wdtype = case
+    x, a, b, g = _dense(cuda, lnum, m, d, rank, "bfloat16", wdtype, seed=3)
+    ga, gb = K.skip_lora_bwd(x, a, b, g)
+    wa, wb = R.skip_lora_bwd_ref(x, a, b, g)
+    _close(ga, wa, "bfloat16", 2.0**-6)
+    _close(gb, wb, "bfloat16", 2.0**-6)
+    again = K.skip_lora_bwd(x, a, b, g)
+    assert torch.equal(ga, again[0]) and torch.equal(gb, again[1])
 
 
 def test_autograd_wrappers_give_the_kernel_gradients(cuda):
