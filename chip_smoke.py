@@ -10,9 +10,12 @@ Phases, each printing one line (or a few) before the last line:
   3. kernels: each kernel against its plain PyTorch version on the card, with
      kernel / plain times (CUDA events, L2 flushed), the bound and, where one
      PyTorch call computes the same function, its time:
-       - K5/K6 (grouped skip-sum) at the serve shape and a ragged shape, and
-         K5 at the fleet step's shape (M 1024 in 4 slots) and ragged groups
-         with an empty slot;
+       - K5/K6 (grouped skip-sum) at the serve shape and a ragged shape, K6
+         at 5 slots of 128 rows (every position of fleet serving's prompts,
+         a measurement only), and K5 at the fleet step's shape
+         (M 1024 in 4 slots) and ragged groups with an empty slot; K5's and
+         K7's lines name the route and the geometry
+         (``kernel.grouped_fwd_route``, ``kernel.grouped_fwd_geometry``);
        - K1/K2/K3 (skip-sum forward, adapter backward, int8 forward) at the
          cached-step shape (L 24, M 1024, D 2048, R 8, bf16), a ragged
          M 1000 and fp32;
@@ -43,18 +46,25 @@ Phases, each printing one line (or a few) before the last line:
   7. checks: a reduced float32 config fine-tunes to the same losses and
      adapters on the card (kernels) as on the CPU (plain versions); one
      full-width attention layer gives the same output with and without K4.
-  8. kernels, fleet slice: K7 (packed 4-bit pool, int4 and nf4) at the serve
-     shape and a ragged M 512, its zero slot bitwise K5's exact zeros; K8
-     (int8 activations) and K9 (grouped backward, run twice for identical
-     bits, and with an empty slot) at the fleet cached step's shape (L 24,
-     M 1024, D 2048, R 8, N 4).
+  8. kernels, fleet slice: K7 (packed 4-bit pool, int4 and nf4) at fleet
+     serving's launch shape (one row in each of 5 slots), at 5 slots of 128
+     rows (every position of its prompts, a measurement) and a ragged M 512, its bf16 rows on
+     the tensor-core passes (profiler), its zero slot bitwise K5's exact
+     zeros; K8 (int8 activations, on the tensor-core passes) and K9 (grouped
+     backward, run twice for identical bits, and with an empty slot) at the
+     fleet cached step's shape (L 24, M 1024, D 2048, R 8, N 4); the device
+     time of each pass of K5, K7, K8 and K9 (profiler). Then both block
+     geometries of the tensor-core route timed, same bits, at the shapes the
+     main paths give K5, K7 and K8 and at 5 slots of 1 to 128 rows, beside
+     the geometry ``kernel.grouped_fwd_geometry`` picks.
   9. fleet: 4 tenants x 16 samples x seq 128 through
      ``repro_torch.launch.fleet`` at full width (batch per tenant 2, rank 8,
      ``--use-kernel``), modes full and int8, one populate and two cached
      epochs: exactly 8 K5 + 8 K9 per populate epoch, 8 K5 (full) or K8 (int8)
      + 8 K9 per cached epoch, nothing else; every tenant's loss falling; one
      cached step's stacked gradients with the kernels equal to the einsum
-     route's; frozen and empty slots exactly zero. Then write-back of the 4
+     route's; frozen and empty slots exactly zero; each mode's cached step
+     split into readout, K5 or K8, K9 and AdamW. Then write-back of the 4
      tenants into float, int8, int4 and nf4 pools and ``generate_grouped``
      over them plus a base row: 33 launches of the pool's kernel a call, the
      base row equal to base ``generate``, ``register_many`` equal to
@@ -72,6 +82,10 @@ Phases, each printing one line (or a few) before the last line:
      admission (3 x 128 tokens, bucket 1, 8 new) continuous vs sequential
      vs solo ``serve``. A reduced float32 scheduler with reuse gives the
      same tokens on the card as on the CPU.
+The grouped forwards' launches on these main paths are also counted by row
+class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
+step's must take many rows, and each ``generate_grouped`` call's a few
+(its prefill's skip-sum reads each prompt's last position only).
 The kernels line {"kernels": [...]} comes next, then the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is
 nonzero; without CUDA, or without the repo's ``src`` next to this file, it
@@ -102,6 +116,13 @@ FLEET_ARGS = ["--arch", ARCH, "--full", "--use-kernel", "--tenants", str(FLEET_T
               "--samples", str(FLEET_SAMPLES), "--batch-per-tenant", str(FLEET_BPT), "--seq", str(FLEET_SEQ),
               "--rank", str(RANK), "--epochs", "3", "--lr", "1e-3", "--device", "cuda"]
 FLEET_STEPS = FLEET_SAMPLES // FLEET_BPT
+# fleet serving (4 tenants and a base row in a 6-slot pool, slot 0 the zero
+# slot) launches the grouped kernels at one row in each of 5 slots, in every
+# decode step and in the prefill (whose skip-sum reads each prompt's last
+# position only); 5 slots of 128 rows, every position of the 5 prompts, is a
+# measurement of many rows that no main path launches
+SERVE_PREFILL = (128, 128, 128, 128, 128, 0)
+SERVE_DECODE = (1, 1, 1, 1, 1, 0)
 SKIP_SRC = "src/repro_torch/kernels/skip_lora/csrc"
 TPU_SKIP = "src/repro/kernels/skip_lora/kernel.py"
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; fp32 (CUDA cores) and
@@ -153,6 +174,19 @@ def _profile(fn):
     return wall_ms, per_kernel
 
 
+def _passes(fn) -> str:
+    """The device time of each kernel one call of ``fn`` launches
+    (torch.profiler), namespace::name without template arguments. A
+    profile that recorded no device activity at all (the profiler now and then
+    misses a whole call) is taken again, up to three times."""
+    for _ in range(3):
+        per_kernel = _profile(fn)[1]
+        if per_kernel:
+            break
+    return "; ".join(f"{k.split('<')[0].split('(')[0].split()[-1]} x{n} {t * 1e3:.1f} us"
+                     for k, (t, n) in per_kernel.items())
+
+
 def time_ms(fn, reps: int = 20, spin: int = SPIN_CYCLES) -> float:
     """Mean device time of ``fn`` in ms: CUDA events around each call, the
     50 MB L2 flushed before it (on the serve path the backbone's weights
@@ -184,12 +218,12 @@ def time_ms(fn, reps: int = 20, spin: int = SPIN_CYCLES) -> float:
 
 
 def _case(torch, dtype, m_rows, groups, seed, int8):
-    """Inputs at L=24, D=2048, R=8, N=4: x (L, M, D), a pool and (M,) slots
-    with the given group sizes, rows shuffled."""
+    """Inputs at L=24, D=2048, R=8, N=len(groups): x (L, M, D), a pool whose
+    slot 0 is zero and (M,) slots with the given group sizes, rows shuffled."""
     from repro_torch.core.lm_skiplora import quantize_int8
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    lnum, d, r, n = 24, 2048, RANK, 4
+    lnum, d, r, n = 24, 2048, RANK, len(groups)
     x = torch.randn((lnum, m_rows, d), generator=g, device="cuda").to(dtype)
     a = torch.randn((n, lnum, d, r), generator=g, device="cuda") / d**0.5
     b = torch.randn((n, lnum, r, d), generator=g, device="cuda") * 0.02
@@ -235,7 +269,10 @@ def kernel_phase(torch):
     results = {}
     for name, spec in specs.items():
         int8 = spec["int8"]
-        for label, m_rows, groups in (("serve", 4, (1, 1, 1, 1)), ("ragged", 512, (37, 300, 5, 170))):
+        shapes = [("serve", 4, (1, 1, 1, 1)), ("ragged", 512, (37, 300, 5, 170))]
+        if int8:   # K6 at many rows, a measurement only
+            shapes.append(("5x128", sum(SERVE_PREFILL), SERVE_PREFILL))
+        for label, m_rows, groups in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 x, pool, idx = _case(torch, dtype, m_rows, groups, seed=7, int8=int8)
                 row_src, tile_slot = ops._plan(idx, pool[0].shape[0], m_rows, ops.TM)
@@ -260,6 +297,8 @@ def kernel_phase(torch):
                 p_ms = time_ms(lambda: plain(x, *pool, idx), reps=5)
                 bound_ms, bound_by, nbytes = _bound(x, pool, idx, got)
                 route = "" if int8 else f", route {K.grouped_fwd_route(dtype)}"
+                if route.endswith("tensor_cores"):
+                    route += f", geometry {K.grouped_fwd_geometry(m_rows, row_src.numel())}"
                 print(f"kernel {name} {label} M={m_rows} {str(dtype)[6:]}{route}: max_abs_err {err:.3e} "
                       f"(tol {tol:.3e}) kernel {k_ms * 1e3:.1f} us, wrapper {w_ms * 1e3:.1f} us, "
                       f"plain {p_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
@@ -274,6 +313,14 @@ def kernel_phase(torch):
                         "wrapper_ms": w_ms, "bound_bytes": nbytes,
                         "shape": f"L=24 M={m_rows} D=2048 R={RANK} N=4 bf16",
                     }
+                    if not int8:
+                        results[name]["grouped_route"] = K.grouped_fwd_route(dtype)
+                if label == "5x128" and dtype == torch.bfloat16:
+                    results[name].update(many_rows_ms=k_ms, many_rows_plain_ms=p_ms, many_rows_bound_ms=bound_ms,
+                                         many_rows_bound_by=bound_by, many_rows_bound_bytes=nbytes,
+                                         many_rows_max_abs_err=err,
+                                         many_rows_shape=f"L=24 M={m_rows} in 5 slots of 128 D=2048 R={RANK} "
+                                                         f"N=6 bf16")
     results["grouped_skip_sum_fwd"].update(k5_many_rows_phase(torch))
     return results
 
@@ -307,8 +354,7 @@ def k5_many_rows_phase(torch):
         check(err <= tol, f"K5 {label}: max |kernel - plain| {err:.3e} > {tol:.3e}")
         k_ms, p_ms = time_ms(run), time_ms(plain, reps=5)
         bound_ms, bound_by, nbytes = _bound(x, (a, b), idx, got)
-        passes = "; ".join(f"{k.split('<')[0].split('(')[0].split()[-1]} x{n} {t * 1e3:.1f} us"
-                           for k, (t, n) in _profile(run)[1].items())
+        passes = _passes(run)
         print(f"kernel grouped_skip_sum_fwd {label} L=24 M={m} groups {groups} D=2048 R={RANK} bf16 rows, fp32 "
               f"pools, route {route}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {k_ms * 1e3:.1f} us, plain "
               f"{p_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B); passes (profiler): "
@@ -374,6 +420,8 @@ def serve_phase(torch, device_name):
         counts = dict(K.LAUNCHES)
         launches[kname] = counts[kname]
         check(counts[kname] >= 1 + NEW, f"{kname}: {counts[kname]} launches < {1 + NEW}")
+        # the prefill's skip-sum reads each prompt's last position: one row a slot, as a decode step's
+        _tally_rows(kname, {"few_rows": counts[kname]})
         check(tuple(out.shape) == (BATCH, NEW), f"tokens shape {tuple(out.shape)}")
         check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids out of range")
         check(torch.equal(out[0], base[0]), f"pool {compress}: zero-slot row {out[0].tolist()} "
@@ -603,6 +651,24 @@ def _launches():
     from repro_torch.kernels.skip_lora import kernel as K
 
     return {**K.LAUNCHES, **FK.LAUNCHES, **PG.LAUNCHES}
+
+
+#: the grouped forwards' launches on the main paths by (kernel, row class),
+#: as their wrappers counted them (``kernel.ROW_LAUNCHES``)
+MAIN_ROWS: dict[tuple[str, str], int] = {}
+
+
+def _tally_rows(kname, want):
+    """Hold the launches that the grouped forwards' wrappers counted by row
+    class in this main-path run against ``want`` (row class -> launches of
+    ``kname``; no other grouped forward) and add them to ``MAIN_ROWS``."""
+    from repro_torch.kernels.skip_lora import kernel as K
+
+    rows = dict(K.ROW_LAUNCHES)
+    want = {(kname, g): n for g, n in want.items() if n}
+    check(rows == want, f"{kname}: launches by row class {rows} != {want}")
+    for key, n in rows.items():
+        MAIN_ROWS[key] = MAIN_ROWS.get(key, 0) + n
 
 
 def _reset_launches():
@@ -879,13 +945,16 @@ def grouped_train_kernel_phase(torch):
     from repro_torch.kernels.skip_lora import ops, quant as Q, ref as R
 
     results = {}
+    q4_times = {}
     for kind in Q.Q4_KINDS:
         code = Q.codebook(kind, "cuda")
-        for label, m_rows, groups in (("serve", 4, (1, 1, 1, 1)), ("ragged", 512, (37, 300, 5, 170))):
+        for label, groups in (("decode", SERVE_DECODE), ("5x128", SERVE_PREFILL),
+                              ("ragged", (37, 300, 5, 170))):
+            m_rows, n = sum(groups), len(groups)
             for dtype in (torch.bfloat16, torch.float32):
                 x, (a, b), idx = _case(torch, dtype, m_rows, groups, seed=7, int8=False)
                 pool = (*Q.quantize_q4(a, kind), *Q.quantize_q4(b, kind), code)   # qa, sa, qb, sb, code
-                row_src, tile_slot = ops._plan(idx, 4, m_rows, ops.TM)
+                row_src, tile_slot = ops._plan(idx, n, m_rows, ops.TM)
                 run = lambda: K.grouped_skip_sum_fwd_q4(x, *pool, row_src, tile_slot, ops.TM)  # noqa: E731
                 plain = lambda: R.skip_lora_grouped_q4_ref(x, *pool, idx)  # noqa: E731
                 got, want = run(), plain()
@@ -899,17 +968,31 @@ def grouped_train_kernel_phase(torch):
                 check(err <= tol, f"K7 {kind} {label} {dtype}: max |kernel - plain| {err:.3e} > {tol:.3e}")
                 k_ms, p_ms = time_ms(run), time_ms(plain, reps=5)
                 active = idx.unique().numel()
-                nbytes = _nbytes(x, got, code) + _nbytes(*pool[:4]) * active // 4
+                nbytes = _nbytes(x, got, code) + _nbytes(*pool[:4]) * active // n
                 dname = str(dtype).split(".")[-1]
                 bound = _bound_ms(nbytes, 2 * m_rows * 24 * RANK * 2 * 2048, dname)
-                print(f"kernel grouped_skip_sum_fwd_q4 {kind} {label} M={m_rows} {dname}: max_abs_err {err:.3e} "
-                      f"(tol {tol:.3e}) kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, bound "
-                      f"{bound[0] * 1e3:.2f} us ({bound[1]}, {nbytes} B)")
-                if label == "serve" and dtype == torch.bfloat16 and kind == "int4":
-                    results["grouped_skip_sum_fwd_q4"] = _entry(
-                        "grouped_skip_sum_fwd_q4", f"{SKIP_SRC}/{K.SOURCES['grouped_skip_sum_fwd_q4']}",
-                        f"{TPU_SKIP}:332", err, k_ms, p_ms, bound, nbytes, None,
-                        f"L=24 M={m_rows} D=2048 R={RANK} N=4 int4 bf16")
+                route, passes = K.grouped_fwd_route(dtype), ""
+                if route == "tensor_cores":
+                    passes = _passes(run)
+                    check("stc::project_tc" in passes and "stc::expand_tc" in passes,
+                          f"K7 {kind} {label}: not the tensor-core passes: {passes}")
+                    passes = f"; passes (profiler): {passes}"
+                    route += f", geometry {K.grouped_fwd_geometry(m_rows, row_src.numel())}"
+                print(f"kernel grouped_skip_sum_fwd_q4 {kind} {label} M={m_rows} N={n} {dname}, route {route}"
+                      f": max_abs_err {err:.3e} (tol {tol:.3e}) kernel {k_ms * 1e3:.1f} us, "
+                      f"plain {p_ms * 1e3:.1f} us, bound {bound[0] * 1e3:.2f} us ({bound[1]}, {nbytes} B){passes}")
+                if dtype == torch.bfloat16:
+                    q4_times[kind, label] = (err, k_ms, p_ms, bound, nbytes)
+    err, k_ms, p_ms, bound, nbytes = q4_times["int4", "decode"]
+    many = q4_times["int4", "5x128"]
+    results["grouped_skip_sum_fwd_q4"] = _entry(
+        "grouped_skip_sum_fwd_q4", f"{SKIP_SRC}/{K.SOURCES['grouped_skip_sum_fwd_q4']}", f"{TPU_SKIP}:332",
+        err, k_ms, p_ms, bound, nbytes, None, f"L=24 M=5 one row in each of 5 slots D=2048 R={RANK} N=6 int4 bf16",
+        nf4_ms=q4_times["nf4", "decode"][1], many_rows_ms=many[1], many_rows_plain_ms=many[2],
+        many_rows_bound_ms=many[3][0], many_rows_bound_by=many[3][1], many_rows_bound_bytes=many[4],
+        many_rows_max_abs_err=many[0], many_rows_nf4_ms=q4_times["nf4", "5x128"][1],
+        many_rows_shape=f"L=24 M=640 in 5 slots of 128 D=2048 R={RANK} N=6 int4 bf16",
+        grouped_route=K.grouped_fwd_route(torch.bfloat16))
     # The zero slot through a 4-bit pool: exact zeros, the same bits as K5's.
     x, (a, b), idx = _case(torch, torch.bfloat16, 512, (128, 128, 128, 128), seed=8, int8=False)
     k5 = ops.skip_lora_grouped(x[:, :, None], a, b, idx)[:, 0]
@@ -952,9 +1035,11 @@ def grouped_train_kernel_phase(torch):
         if name == "grouped_skip_sum_bwd":
             again = c["run"]()
             check(all(torch.equal(u, v) for u, v in zip(got, again)), "K9: not the same bits on a second run")
-            passes = "; ".join(f"{k.split('<')[0].split('(')[0].split()[-1]} x{n} {t * 1e3:.1f} us"
-                               for k, (t, n) in _profile(c["run"])[1].items())
-            print(f"kernel {name} fleet passes (profiler): {passes}")
+        passes = _passes(c["run"])
+        if name == "grouped_skip_sum_fwd_actint8":
+            check(K.grouped_fwd_route(q.dtype) == "tensor_cores" and "stc::project_tc" in passes
+                  and "stc::expand_tc" in passes, f"K8: not the tensor-core passes: {passes}")
+        print(f"kernel {name} fleet passes (profiler): {passes}")
         k_ms, p_ms = time_ms(c["run"]), time_ms(c["plain"], reps=5)
         bound = _bound_ms(c["nbytes"], c["ops"], "bfloat16")
         print(f"kernel {name} fleet L={lnum} M={m} D={d} R={RANK} N=4 bf16 rows, fp32 pools: max_abs_err "
@@ -962,6 +1047,8 @@ def grouped_train_kernel_phase(torch):
               f"bound {bound[0] * 1e3:.2f} us ({bound[1]}, {c['nbytes']} B, {c['ops']} ops)")
         results[name] = _entry(name, f"{SKIP_SRC}/{K.SOURCES[name]}", c["replaces"], max(errs), k_ms, p_ms,
                                bound, c["nbytes"], None, f"L={lnum} M={m} D={d} R={RANK} N=4 bf16, fp32 pools")
+        if name == "grouped_skip_sum_fwd_actint8":
+            results[name]["grouped_route"] = K.grouped_fwd_route(q.dtype)
     # K9 with an empty slot and ragged groups: the empty slot's grads are zeros
     x, a, b, gr, idx = _fleet_rows(torch, (300, 0, 200, 524), seed=10)
     row_src, tile_slot = ops._plan(idx, 4, x.shape[1], ops.TM)
@@ -976,6 +1063,74 @@ def grouped_train_kernel_phase(torch):
     del x, q, gr, a, b
     torch.cuda.empty_cache()
     return results
+
+
+def geometry_phase(torch):
+    """Both block geometries of the tensor-core route, as a measurement of
+    the rule ``kernel.grouped_fwd_geometry`` picks them by: K5 at the serve
+    cell's decode step, at the fleet step (M 1024 in 4 slots) and over 1, 5
+    and 20 slots of a few to many rows each; K8 at 4 slots of 32 to 256 rows
+    (256: the fleet step); K7 int4 at fleet serving's decode step and at 5
+    slots of 32 to 128 rows. The rule is replaced for the measurement only.
+    Each shape must give the same bits in both. Returns {kernel: {shape: {m,
+    m_pad, rule, few_rows_ms, many_rows_ms}}} for the kernels line."""
+    from repro_torch.core.lm_skiplora import quantize_int8
+    from repro_torch.kernels.skip_lora import kernel as K
+    from repro_torch.kernels.skip_lora import ops, quant as Q
+
+    def k5(groups):
+        x, (a, b), idx = _case(torch, torch.bfloat16, sum(groups), groups, seed=13, int8=False)
+        return x, idx, lambda rs, ts: K.grouped_skip_sum_fwd(x, a, b, rs, ts, ops.TM)
+
+    def k8(groups):
+        x, a, b, _, idx = _fleet_rows(torch, groups, seed=12)
+        q, s = quantize_int8(x)
+        return q, idx, lambda rs, ts: K.grouped_skip_sum_fwd_actint8(q, s, a, b, rs, ts, ops.TM)
+
+    def k7(groups):
+        x, (a, b), idx = _case(torch, torch.bfloat16, sum(groups), groups, seed=7, int8=False)
+        pool = (*Q.quantize_q4(a, "int4"), *Q.quantize_q4(b, "int4"), Q.codebook("int4", "cuda"))
+        return x, idx, lambda rs, ts: K.grouped_skip_sum_fwd_q4(x, *pool, rs, ts, ops.TM)
+
+    # slot 0 is the zero slot: the live slots come after it
+    shapes = [(k5, "grouped_skip_sum_fwd", "serve decode", (1, 1, 1, 1)),
+              (k5, "grouped_skip_sum_fwd", "fleet", None)]
+    shapes += [(k5, "grouped_skip_sum_fwd", f"1 slot x {m}", (0, m)) for m in (64, 128, 256, 384, 512, 768)]
+    shapes += [(k5, "grouped_skip_sum_fwd", f"5 slots x {per}", (0,) + (per,) * 5)
+               for per in (1, 4, 8, 16, 32, 48, 64, 96, 128)]
+    shapes += [(k5, "grouped_skip_sum_fwd", f"20 slots x {per}", (0,) + (per,) * 20) for per in (4, 8, 16, 32)]
+    shapes += [(k8, "grouped_skip_sum_fwd_actint8", f"4 slots x {per}", (per,) * 4) for per in (32, 64, 128, 256)]
+    shapes += [(k7, "grouped_skip_sum_fwd_q4", "int4 decode", SERVE_DECODE)]
+    shapes += [(k7, "grouped_skip_sum_fwd_q4", f"int4 5 slots x {per}", (0,) + (per,) * 5) for per in (32, 64, 128)]
+    rule = K.grouped_fwd_geometry
+    times = {}
+    for make, kname, label, groups in shapes:
+        if groups is None:            # K5 at the fleet step: its rows, as K8's
+            x, a, b, _, idx = _fleet_rows(torch, (256, 256, 256, 256), seed=12)
+            groups, launch = (256,) * 4, lambda rs, ts, x=x, a=a, b=b: K.grouped_skip_sum_fwd(x, a, b, rs, ts, ops.TM)
+        else:
+            x, idx, launch = make(groups)
+        m = x.shape[1]
+        row_src, tile_slot = ops._plan(idx, len(groups), m, ops.TM)
+        run = lambda: launch(row_src, tile_slot)  # noqa: E731
+        outs, ms = {}, {}
+        for geometry in ("few_rows", "many_rows"):
+            K.grouped_fwd_geometry = lambda m, m_pad, geometry=geometry: geometry
+            try:
+                outs[geometry], ms[geometry] = run(), time_ms(run)
+            finally:
+                K.grouped_fwd_geometry = rule
+        check(torch.equal(outs["few_rows"], outs["many_rows"]), f"{kname} {label}: the geometries' bits differ")
+        picked = rule(m, row_src.numel())
+        faster = min(ms, key=ms.get)
+        print(f"geometry {kname} {label} M={m} M_pad={row_src.numel()}: few_rows {ms['few_rows'] * 1e3:.1f} us, "
+              f"many_rows {ms['many_rows'] * 1e3:.1f} us; the rule picks {picked}"
+              f"{'' if picked == faster else f' (the faster is {faster})'}; same bits")
+        times.setdefault(kname, {})[label] = {"m": m, "m_pad": row_src.numel(), "rule": picked,
+                                              "few_rows_ms": ms["few_rows"], "many_rows_ms": ms["many_rows"]}
+        del x, idx, launch, run, outs
+    torch.cuda.empty_cache()
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -1005,6 +1160,8 @@ def fleet_phase(torch, device_name):
         def on_epoch(epoch, losses, seconds, fwd=fwd, mode=mode):
             torch.cuda.synchronize()
             counts = _launches()
+            # every forward of a fleet step takes M 1024 in 4 slots: many rows
+            _tally_rows("grouped_skip_sum_fwd" if epoch == 0 else fwd, {"many_rows": FLEET_STEPS})
             _reset_launches()
             want = {k: 0 for k in counts}
             want["grouped_skip_sum_fwd" if epoch == 0 else fwd] = FLEET_STEPS
@@ -1031,8 +1188,7 @@ def fleet_phase(torch, device_name):
               f"{FLEET_STEPS} + grouped_skip_sum_bwd {FLEET_STEPS}, no other kernel")
         res = out["result"]
         _fleet_grad_check(torch, cfg, sl, params, res, mode)
-        if mode == "full":
-            _fleet_step_split(torch, cfg, sl, params, res, device_name)
+        _fleet_step_split(torch, cfg, sl, params, res, device_name, mode)
         res.cache = None
         if mode == "full":
             kept = (cfg, sl, params, res.adapters)
@@ -1082,11 +1238,12 @@ def _fleet_grad_check(torch, cfg, sl, params, res, mode):
           f"{float(loss_p):.6f}, max |grad diff| {', '.join(msg)}; frozen slot and empty slot: exact zeros")
 
 
-def _fleet_step_split(torch, cfg, sl, params, res, device_name):
+def _fleet_step_split(torch, cfg, sl, params, res, device_name, mode):
     """The fleet cached step's device time (CUDA events, L2 flushed) and
     its parts run alone on its inputs: the per-tenant readout loss forward
-    + backward, K5 and K9 each, AdamW. What the step takes
-    beyond those is printed as a remainder, not timed alone."""
+    + backward, the grouped forward (K5; K8 on the int8 cache in mode
+    ``int8``) and K9 each, AdamW. What the step takes beyond those is
+    printed as a remainder, not timed alone."""
     from repro_torch.core import fleet_finetune as FF
     from repro_torch.core import lm_skiplora as SL
     from repro_torch.core.skip_cache import cache_read
@@ -1103,8 +1260,14 @@ def _fleet_step_split(torch, cfg, sl, params, res, device_name):
     state = opt.init(res.adapters)
     step = FF.make_fleet_cached_step_from_vals(cfg, sl, opt, FLEET_TENANTS)
     vals = cache_read(res.cache, idx)
-    x = SL._swap01(vals["acts"], dtype)
-    x = x.reshape(x.shape[0], -1, x.shape[-1])
+    if mode == "int8":
+        q = SL._swap01(vals["acts_q"], torch.int8)
+        q = q.reshape(q.shape[0], -1, q.shape[-1])
+        s = SL._swap01(vals["acts_scale"], torch.float32).reshape(q.shape[:2])
+        x = (q.float() * s[..., None]).to(dtype)
+    else:
+        x = SL._swap01(vals["acts"], dtype)
+        x = x.reshape(x.shape[0], -1, x.shape[-1])
     row_src, tile_slot = ops._plan(rows.repeat_interleave(FLEET_SEQ), FLEET_TENANTS, x.shape[1], ops.TM)
     g = torch.randn(x.shape[1:], device=dev).to(dtype)
     h = vals["y_base"].to(dtype).requires_grad_(True)
@@ -1119,8 +1282,11 @@ def _fleet_step_split(torch, cfg, sl, params, res, device_name):
             per = FF.per_tenant_loss(params, cfg, h, vals["labels"], FLEET_TENANTS)
             torch.autograd.grad(per.sum(), [h])
 
-    def k5():
-        K.grouped_skip_sum_fwd(x, a, b, row_src, tile_slot, ops.TM)
+    def fwd():
+        if mode == "int8":
+            K.grouped_skip_sum_fwd_actint8(q, s, a, b, row_src, tile_slot, ops.TM)
+        else:
+            K.grouped_skip_sum_fwd(x, a, b, row_src, tile_slot, ops.TM)
 
     def k9():
         K.grouped_skip_sum_bwd(x, a, b, g, row_src, tile_slot, ops.TM)
@@ -1130,12 +1296,13 @@ def _fleet_step_split(torch, cfg, sl, params, res, device_name):
         apply_updates(res.adapters, updates)
 
     ms = {name: time_ms(fn, reps=5, spin=STEP_SPIN) for name, fn in (
-        ("step", cached), ("readout", readout), ("k5", k5), ("k9", k9), ("adamw", adam))}
+        ("step", cached), ("readout", readout), ("fwd", fwd), ("k9", k9), ("adamw", adam))}
     total = ms["step"]
-    rest = total - ms["readout"] - ms["k5"] - ms["k9"] - ms["adamw"]
-    print(f"fleet step split, mode full, {ARCH} full width on {device_name} (CUDA events, L2 flushed): cached "
+    rest = total - ms["readout"] - ms["fwd"] - ms["k9"] - ms["adamw"]
+    print(f"fleet step split, mode {mode}, {ARCH} full width on {device_name} (CUDA events, L2 flushed): cached "
           f"fleet step {total:.3f} ms = per-tenant readout loss {ms['readout']:.3f} ms "
-          f"({100 * ms['readout'] / total:.1f}%) + K5 {ms['k5']:.3f} ms ({100 * ms['k5'] / total:.1f}%) + K9 "
+          f"({100 * ms['readout'] / total:.1f}%) + {'K8' if mode == 'int8' else 'K5'} {ms['fwd']:.3f} ms "
+          f"({100 * ms['fwd'] / total:.1f}%) + K9 "
           f"{ms['k9']:.3f} ms ({100 * ms['k9'] / total:.1f}%) + AdamW {ms['adamw']:.3f} ms "
           f"({100 * ms['adamw'] / total:.1f}%); remainder, not timed alone (cache gather, decode, grouping plan, "
           f"casts): {rest:.3f} ms")
@@ -1188,6 +1355,7 @@ def fleet_serve_phase(torch, device_name, kept):
         want = {k: 0 for k in counts}
         want[kname] = 1 + NEW
         check(counts == want, f"pool {compress}: launches {counts} != {want}")
+        _tally_rows(kname, {"few_rows": 1 + NEW})     # prefill (last positions) and decode steps
         launches[kname] += counts[kname]
         check(tuple(out.shape) == (len(who), NEW), f"tokens shape {tuple(out.shape)}")
         check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids out of range")
@@ -1360,6 +1528,7 @@ def scheduler_phase(torch, device_name):
     from repro_torch.configs import get_config
     from repro_torch.core import kv_pool as KV
     from repro_torch.core import scheduler as S
+    from repro_torch.kernels.skip_lora import kernel as K
     from repro_torch.launch.serve import demo_runtime
     from repro_torch.models.lm import init_lm
 
@@ -1399,7 +1568,7 @@ def scheduler_phase(torch, device_name):
         t0 = time.perf_counter()
         sched.drain()
         torch.cuda.synchronize()
-        return sched, [r.result() for r in reqs], time.perf_counter() - t0, _launches()
+        return sched, [r.result() for r in reqs], time.perf_counter() - t0, (_launches(), dict(K.ROW_LAUNCHES))
 
     for reuse in (True, False):
         replay(_shared_prefix_trace(cfg.vocab_size, 17, 4), reuse)
@@ -1418,7 +1587,9 @@ def scheduler_phase(torch, device_name):
     check(c["dispatch/admit_reuse"] >= 1 and c["prefix/hits"] >= 1,
           f"scheduler: no prefix reuse on the shared-prefix trace: {dict(c)}")
     launches = {}
-    for sched, counts, reuse in ((on, on_counts, True), (off, off_counts, False)):
+    for sched, (counts, rows), reuse in ((on, on_counts, True), (off, off_counts, False)):
+        for (kname, geometry), n in rows.items():
+            MAIN_ROWS[kname, geometry] = MAIN_ROWS.get((kname, geometry), 0) + n
         sc = sched.counters
         want = {k: 0 for k in counts}
         admits = sc["dispatch/admit"] + sc["dispatch/admit_reuse"]
@@ -1617,6 +1788,8 @@ def main() -> None:
     results.update(fused_kernel_phase(torch))
     results.update(flash_phase(torch))
     results.update(grouped_train_kernel_phase(torch))
+    for kname, shapes in geometry_phase(torch).items():
+        results[kname]["geometry_ms"] = shapes
     results.update(paged_kernel_phase(torch))
     launches = serve_phase(torch, smi)
     launches.update(train_phase(torch, smi))
@@ -1634,8 +1807,14 @@ def main() -> None:
             launches[kname] = launches.get(kname, 0) + n
     for kname, n in launches.items():
         results[kname]["launches"] = n
-    # K5's launches at many rows (the fleet's) and at a few (serving, the scheduler)
-    results["grouped_skip_sum_fwd"]["launches_many_rows"] = fleet_launches["grouped_skip_sum_fwd"]
+    # the grouped forwards' launches on the main paths by row class, as the
+    # wrappers counted them (on the tensor-core route, the geometry taken)
+    for kname in ("grouped_skip_sum_fwd", "grouped_skip_sum_fwd_int8", "grouped_skip_sum_fwd_q4",
+                  "grouped_skip_sum_fwd_actint8"):
+        many, few = (MAIN_ROWS.get((kname, g), 0) for g in ("many_rows", "few_rows"))
+        check(many + few == launches[kname], f"{kname}: {many} + {few} launches by row class != "
+              f"{launches[kname]} launches")
+        results[kname].update(launches_many_rows=many, launches_few_rows=few)
     check(len(results) == 10, f"{len(results)} kernels in the kernels line, not 10")
     check(all(r["launches"] is not None for r in results.values()), "a kernel has no launch count")
     print(json.dumps({"kernels": list(results.values())}))

@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
-// bf16 kernels (K4 flash_attn_fwd, K9 grouped_skip_sum_bwd), as inline PTX
-// for sm_80 and later: 16-byte `cp.async` copies into shared memory (with
-// zero fill), `ldmatrix` (plain and transposed) and the
-// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` product.
+// bf16 kernels (K4 flash_attn_fwd; K2, K5, K7, K8 and K9 through
+// skip_lora/csrc/skip_sum_tc.cuh), as inline PTX for sm_80 and later: 16- and
+// 4-byte `cp.async` copies into shared memory (with zero fill), `ldmatrix`
+// (plain and transposed) and the `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`
+// product.
 //
 // Fragment layout of m16n8k16 for lane = 4 * grp + tig (grp 0..7, tig 0..3):
 //   A (16 x 16, row-major):  a0 (grp,     2 tig..+1)  a1 (grp + 8, 2 tig..+1)
@@ -26,6 +27,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // read, the rest of the 16 are zero-filled. Both addresses 16-byte aligned.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+// 4 bytes from global to shared, through L1 (cp.async takes 16-byte copies
+// only through L2); the same zero fill.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -1,8 +1,9 @@
 // Grouped skip-LoRA for Hopper (sm_90a), on CUDA cores: the bodies shared
-// by the grouped forward kernels of this directory (K5-K8) and the fp32-row
-// route of the grouped backward (K9). The bf16-row routes of K9, and of K5
-// at many grouped positions (kernel.py, grouped_fwd_route), run on the
-// tensor cores (skip_sum_tc.cuh).
+// by the fp32-row routes of the grouped forwards K5 and K7, K6 (int8 pool,
+// fp32 and bf16 rows) and the fp32-row route of the grouped backward (K9).
+// The bf16-row routes of K5, K7 and K9, and K8 (int8 rows dequantised to
+// bf16), run on the tensor cores at every row count (skip_sum_tc.cuh;
+// kernel.py, grouped_fwd_route).
 //
 //   forward   out[m] = sum_l cast_x( x[l, m] @ cast_x(A[g, l]) ) @ cast_x(B[g, l])
 //   backward  gA[n, l] = sum_{m in n} x[l, m]^T cast_x(g[m] @ cast_x(B[n, l])^T)
@@ -10,13 +11,12 @@
 //
 // with g the adapter slot of the row's tile, fp32 accumulation, and every
 // cast to the activation type placed where the reference puts it
-// (src/repro/kernels/skip_lora/kernel.py, _grouped_fwd_kernel and its int8,
-// q4 and actint8 forms, _grouped_bwd_kernel). The forward's activations are
-// float rows (K5, K6, K7) or int8 rows with a per-row scale (K8); its pool is
-// float (K5, K8), int8 (K6) or packed 4-bit (K7). The backward here takes
-// fp32 rows and a float pool: it stays on CUDA cores because the tensor
-// cores' fp32 input is TF32 (about three decimal digits), which would break
-// the float32 cases' 1e-5 bar.
+// (src/repro/kernels/skip_lora/kernel.py, _grouped_fwd_kernel and its int8
+// and q4 forms, _grouped_bwd_kernel). The forward's activations here are
+// float rows; its pool is float (K5), int8 (K6) or packed 4-bit (K7). The
+// backward here takes fp32 rows and a float pool. fp32 rows stay on CUDA
+// cores because the tensor cores' fp32 input is TF32 (about three decimal
+// digits), which would break the float32 cases' 1e-5 bar.
 //
 // What bounds them: bytes. The adapter rank R is 4..64, so each x element
 // meets at most 2R multiply-adds; at the serve shapes (a handful of rows,
@@ -53,9 +53,7 @@
 //
 // Rows reach a tile through `row_src` (M_pad,) int32: the original row of
 // each grouped position, or -1 for padding. `tile_slot` (M_pad / tm,) int32
-// gives each tile's slot; a tile with no live rows is skipped. K6, K7 and
-// K8 on the tensor cores (K8 with an int8 row loader on K5's route) are
-// later work.
+// gives each tile's slot; a tile with no live rows is skipped.
 
 #pragma once
 
@@ -165,29 +163,16 @@ template <typename Pool> struct ViewBT {
 
 // ---------------------------------------------------------------------------
 // Activation rows, read as fp32 values of the activation type:
-// `at(l, m, d, row_scale(l, m))`. `layer_stride` 0 gives every layer the
-// same matrix (g in the backward).
+// `at(l, m, d)`. `layer_stride` 0 gives every layer the same matrix (g in
+// the backward).
 // ---------------------------------------------------------------------------
 
 template <typename T> struct DenseActs {
   const T* x;
   size_t layer_stride;
   int D;
-  __device__ __forceinline__ float row_scale(int, int) const { return 1.f; }
-  __device__ __forceinline__ float at(int l, int m, int d, float) const {
+  __device__ __forceinline__ float at(int l, int m, int d) const {
     return to_f<T>(x[(size_t)l * layer_stride + (size_t)m * D + d]);
-  }
-};
-
-// int8 payload times its fp32 per-row scale, rounded to bf16 as the
-// reference's `(q.astype(f32) * s).astype(bf16)`.
-struct Int8Acts {
-  const int8_t* q;
-  const float* s;
-  int M, D;
-  __device__ __forceinline__ float row_scale(int l, int m) const { return s[(size_t)l * M + m]; }
-  __device__ __forceinline__ float at(int l, int m, int d, float scale) const {
-    return round_to<__nv_bfloat16>((float)q[((size_t)l * M + m) * D + d] * scale);
   }
 };
 
@@ -216,7 +201,6 @@ project_a(Acts acts, W w, const int* __restrict__ row_src, const int* __restrict
   constexpr int G = ACC / RP;
   constexpr int U = RP <= 16 ? 4 : 1;
   __shared__ int rows[TM_MAX];
-  __shared__ float rs[TM_MAX];   // per-row scales (int8 rows), staged once
   __shared__ int n_live;
   __shared__ float pool_sm[W::SMEM];
   __shared__ float red[P1_THREADS / 32][ACC];
@@ -226,8 +210,6 @@ project_a(Acts acts, W w, const int* __restrict__ row_src, const int* __restrict
   w.p.bind(pool_sm);
   const int nlive = tile_rows(row_src, t, tm, rows, &n_live);
   if (nlive == 0) return;
-  if (tid < nlive) rs[tid] = acts.row_scale(l, rows[tid]);
-  __syncthreads();
   const size_t gl = (size_t)tile_slot[t] * L + l;
 
   for (int i0 = 0; i0 < nlive; i0 += G) {
@@ -246,7 +228,7 @@ project_a(Acts acts, W w, const int* __restrict__ row_src, const int* __restrict
           a[u][r] = (d < D && r < R) ? round_to<T>(w.w(gl, d, r)) : 0.f;
 #pragma unroll
         for (int i = 0; i < G; ++i)
-          xv[u][i] = (d < D && i < n) ? acts.at(l, rows[i0 + i], d, rs[i0 + i]) : 0.f;
+          xv[u][i] = (d < D && i < n) ? acts.at(l, rows[i0 + i], d) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)

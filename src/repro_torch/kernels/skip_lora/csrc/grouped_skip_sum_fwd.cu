@@ -10,14 +10,12 @@
 //
 // Two routes, by the rows' type (kernel.py, grouped_fwd_route):
 //   bf16 rows: the tensor-core passes of skip_sum_tc.cuh. project_tc forms
-//     z = bf16(x bf16(A)) once per (32 positions, layer) with x read exactly
-//     once and each slab shared by 32 rows, into a (M_pad, L RP) bf16
-//     scratch whose row is one grouped position and whose k = l RP + r;
-//     expand_tc forms out = bf16(z bf16(B)) per (64 positions, 128 columns)
-//     with the slot's B stack staged 32 k at a time, and writes each row
-//     back to its original position. There is no threshold in rows: this
-//     route beat the CUDA-core passes at the serve shape (M 4, one row a
-//     slot) as well as at the fleet step's (PERF.md, the kernels table).
+//     z = bf16(x bf16(A)) with x read exactly once and each slab shared by
+//     the block's rows, into a (M_pad, L RP) bf16 scratch whose row is one
+//     grouped position and whose k = l RP + r; expand_tc forms
+//     out = bf16(z bf16(B)) with the slot's B stack staged 32 k at a time,
+//     and writes each row back to its original position. `few` picks the
+//     few-row geometry (kernel.py, grouped_fwd_geometry; the same bits).
 //   fp32 rows: the CUDA-core passes of grouped_skip_sum.cuh; the tensor
 //     cores' fp32 input is TF32, which would break the float32 cases' 1e-5
 //     bar.
@@ -37,7 +35,9 @@ extern "C" int grouped_skip_sum_fwd(
     void* z,                  // scratch: bf16 x (n_tiles * tm, L RP) bf16, fp32 x (L, n_tiles * tm, R) fp32
     void* out,                // (M, D), type of x
     int L, int M, int D, int R, int tm, int n_tiles,
-    int x_bf16, int pool_bf16, void* stream) {
+    int x_bf16, int pool_bf16,
+    int few,                  // few-row geometry (bf16 rows)
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   if (gss::bad_geometry(L, D, R, tm, n_tiles)) return (int)cudaErrorInvalidValue;
@@ -48,10 +48,11 @@ extern "C" int grouped_skip_sum_fwd(
     return stc::by_rank(R, [&](auto nt) {
       constexpr int NT = decltype(nt)::value;
       if (pool_bf16)
-        return stc::grouped_forward<bf, NT>(xt, (const bf*)a_pool, (const bf*)b_pool, row_src, tile_slot, zt, ot,
-                                            L, M, D, R, tm, n_tiles, s);
-      return stc::grouped_forward<float, NT>(xt, (const float*)a_pool, (const float*)b_pool, row_src, tile_slot,
-                                             zt, ot, L, M, D, R, tm, n_tiles, s);
+        return stc::grouped_forward<NT>(stc::Bf16Rows{xt}, stc::FloatPool<bf>{(const bf*)a_pool, (const bf*)b_pool},
+                                        row_src, tile_slot, zt, ot, L, M, D, R, tm, n_tiles, few, s);
+      return stc::grouped_forward<NT>(stc::Bf16Rows{xt},
+                                      stc::FloatPool<float>{(const float*)a_pool, (const float*)b_pool}, row_src,
+                                      tile_slot, zt, ot, L, M, D, R, tm, n_tiles, few, s);
     });
   }
   float* zf = static_cast<float*>(z);

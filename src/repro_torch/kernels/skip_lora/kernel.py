@@ -16,15 +16,15 @@ interface, compiled by ``nvcc`` for ``sm_90a`` (``kernels/build.py``):
   - ``grouped_skip_sum_bwd`` (K9, per-slot adapter gradients) replaces
     ``...::skip_lora_grouped_bwd``.
 
-The bf16-row routes of K2, K5 and K9 run on the tensor cores
-(``csrc/skip_sum_tc.cuh``: ``mma.sync``, ``ldmatrix``, ``cp.async``); fp32
-rows, and K1, K3, K6, K7 and K8, on CUDA cores.
+The bf16-row routes of K2, K5, K7 and K9, and K8 (int8 rows dequantised to
+bf16), run on the tensor cores (``csrc/skip_sum_tc.cuh``: ``mma.sync``,
+``ldmatrix``, ``cp.async``); fp32 rows, and K1, K3 and K6, on CUDA cores.
 
 Nothing is built or loaded at import time: the module imports on a machine
 with no CUDA toolkit. Each launch function checks devices, types, shapes and
 contiguity, allocates its output and scratch, launches on the current
 stream, raises on a nonzero CUDA error code, and counts its launches in
-``LAUNCHES``.
+``LAUNCHES`` (the grouped forwards' also by row class in ``ROW_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -51,17 +51,25 @@ LIB = KernelLib(CSRC, SOURCES, {
     "skip_lora_fwd": [P] * 5 + [I] * 6 + [P],
     "skip_lora_bwd": [P] * 10 + [I] * 7 + [P],
     "skip_lora_fwd_int8": [P] * 6 + [I] * 5 + [P],
-    "grouped_skip_sum_fwd": [P] * 7 + [I] * 8 + [P],
+    "grouped_skip_sum_fwd": [P] * 7 + [I] * 9 + [P],
     "grouped_skip_sum_fwd_int8": [P] * 9 + [I] * 7 + [P],
-    "grouped_skip_sum_fwd_q4": [P] * 10 + [I] * 7 + [P],
-    "grouped_skip_sum_fwd_actint8": [P] * 8 + [I] * 7 + [P],
+    "grouped_skip_sum_fwd_q4": [P] * 10 + [I] * 8 + [P],
+    "grouped_skip_sum_fwd_actint8": [P] * 8 + [I] * 8 + [P],
     "grouped_skip_sum_bwd": [P] * 10 + [I] * 9 + [P],
 })
 
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES = LIB.launches
-reset_launches = LIB.reset_launches
+#: (grouped forward K5-K8, "few_rows" or "many_rows") -> its launches since the
+#: last ``reset_launches()`` by the row class ``grouped_fwd_geometry`` gave
+#: each launch: on the tensor-core route, the geometry the launch took
+ROW_LAUNCHES: dict[tuple[str, str], int] = {}
 build = LIB.build
+
+
+def reset_launches() -> None:
+    LIB.reset_launches()
+    ROW_LAUNCHES.clear()
 
 #: most rows in one tile and highest rank the kernels take (*.cuh)
 TM_MAX = 32
@@ -76,6 +84,10 @@ _FLOAT = (torch.float32, torch.bfloat16)
 
 def _bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
+
+
+def _count_rows(name: str, geometry: str) -> None:
+    ROW_LAUNCHES[name, geometry] = ROW_LAUNCHES.get((name, geometry), 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -183,12 +195,36 @@ def _check_float_pool(x, a_pool, b_pool, lnum, d):
 
 
 def grouped_fwd_route(dtype: torch.dtype) -> str:
-    """K5's route for rows of ``dtype``: ``"tensor_cores"`` for bf16 rows,
-    whatever the number of rows (at the serve shape, M 4 in 4 slots, it beat
-    the CUDA-core passes too: PERF.md), ``"cuda_cores"`` for fp32 rows,
-    since the tensor cores' fp32 input is TF32, which would break the
-    float32 cases' 1e-5 bar."""
-    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+    """The route of the grouped forwards K5, K7 and K8 for rows of ``dtype``,
+    whatever the number of rows: ``"tensor_cores"`` for bf16 rows (K5, K7)
+    and int8 rows (K8, dequantised to bf16 in the kernel); ``"cuda_cores"``
+    for fp32 rows (K5, K7), since the tensor cores' fp32 input is TF32,
+    which would break the float32 cases' 1e-5 bar."""
+    return "cuda_cores" if dtype == torch.float32 else "tensor_cores"
+
+
+def grouped_fwd_geometry(m: int, m_pad: int) -> str:
+    """The block geometry of the tensor-core route for ``m`` rows in
+    ``m_pad`` grouped positions: ``"few_rows"`` when at least a quarter of
+    the positions are padding (4 m <= 3 m_pad), so that the slots hold few
+    row tiles each, as at a decode step (one row a slot) or up to about 48
+    rows a slot: each block of both passes then takes 16 positions of one
+    row tile (one slot, one round) and the expand blocks 64 columns, so both
+    grids cover the card; else ``"many_rows"``: 32 (or 16) consecutive
+    positions a project block and 64 positions x 128 columns an expand
+    block, each slab and B row shared by many rows. Both give the same bits.
+    ``chip_smoke.py`` times both over 1, 4, 5 and 20 slots of 1 to 768 rows;
+    this rule picks the faster, or one within 2 %, at each shape."""
+    return "few_rows" if 4 * m <= 3 * m_pad else "many_rows"
+
+
+def _grouped_scratch(x, lnum, m_pad, r):
+    """z of the grouped forwards for rows ``x``: (M_pad, L * RP) bf16 on the
+    tensor cores (``bwd_scratch_rank``), (L, M_pad, R) fp32 on CUDA cores."""
+    if grouped_fwd_route(x.dtype) == "tensor_cores":
+        return torch.empty((m_pad, lnum * bwd_scratch_rank(r, torch.bfloat16)), dtype=torch.bfloat16,
+                           device=x.device)
+    return torch.empty((lnum, m_pad, r), dtype=torch.float32, device=x.device)
 
 
 def grouped_skip_sum_fwd(
@@ -200,23 +236,21 @@ def grouped_skip_sum_fwd(
     tm: int,
 ) -> torch.Tensor:
     """K5: float-pool grouped skip-sum on the card -> (M, D) in x.dtype, on
-    the route ``grouped_fwd_route`` gives. The tensor-core route keeps z in an
-    (M_pad, L * RP) bf16 scratch (``bwd_scratch_rank``), the CUDA-core route
-    in an (L, M_pad, R) fp32 one."""
+    the route ``grouped_fwd_route`` gives (and, on the tensor cores, the
+    geometry ``grouped_fwd_geometry`` gives); z in ``_grouped_scratch``."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     _, r = _check_float_pool(x, a_pool, b_pool, lnum, d)
     m_pad = n_tiles * tm
-    if grouped_fwd_route(x.dtype) == "tensor_cores":
-        z = torch.empty((m_pad, lnum * bwd_scratch_rank(r, x.dtype)), dtype=x.dtype, device=x.device)
-    else:
-        z = torch.empty((lnum, m_pad, r), dtype=torch.float32, device=x.device)
+    geometry = grouped_fwd_geometry(m, m_pad)
+    z = _grouped_scratch(x, lnum, m_pad, r)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     LIB.launch(
         "grouped_skip_sum_fwd", x,
         x.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(), row_src.data_ptr(),
         tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
-        lnum, m, d, r, tm, n_tiles, _bf16(x), _bf16(a_pool),
+        lnum, m, d, r, tm, n_tiles, _bf16(x), _bf16(a_pool), int(geometry == "few_rows"),
     )
+    _count_rows("grouped_skip_sum_fwd", geometry)
     return out
 
 
@@ -247,6 +281,7 @@ def grouped_skip_sum_fwd_int8(
         row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
         lnum, m, d, r, tm, n_tiles, _bf16(x),
     )
+    _count_rows("grouped_skip_sum_fwd_int8", grouped_fwd_geometry(m, n_tiles * tm))
     return out
 
 
@@ -266,7 +301,10 @@ def grouped_skip_sum_fwd_q4(
     tile_slot: torch.Tensor,
     tm: int,
 ) -> torch.Tensor:
-    """K7: packed-4-bit-pool grouped skip-sum on the card -> (M, D) in x.dtype."""
+    """K7: packed-4-bit-pool grouped skip-sum on the card -> (M, D) in
+    x.dtype, on the route ``grouped_fwd_route`` gives (and, on the tensor
+    cores, the geometry ``grouped_fwd_geometry`` gives); z in
+    ``_grouped_scratch``."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     n, _, _, rp = qa.shape
     r = 2 * rp
@@ -278,14 +316,17 @@ def grouped_skip_sum_fwd_q4(
     check_tensor(qb, "qb", x.device, (n, lnum, r, d // 2), u8)
     check_tensor(sb, "sb", x.device, (n, lnum, r), f32)
     check_tensor(code, "code", x.device, (16,), f32)
-    z = torch.empty((lnum, n_tiles * tm, r), dtype=torch.float32, device=x.device)
+    m_pad = n_tiles * tm
+    geometry = grouped_fwd_geometry(m, m_pad)
+    z = _grouped_scratch(x, lnum, m_pad, r)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     LIB.launch(
         "grouped_skip_sum_fwd_q4", x,
         x.data_ptr(), qa.data_ptr(), sa.data_ptr(), qb.data_ptr(), sb.data_ptr(), code.data_ptr(),
         row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
-        lnum, m, d, r, tm, n_tiles, _bf16(x),
+        lnum, m, d, r, tm, n_tiles, _bf16(x), int(geometry == "few_rows"),
     )
+    _count_rows("grouped_skip_sum_fwd_q4", geometry)
     return out
 
 
@@ -299,24 +340,30 @@ def grouped_skip_sum_fwd_actint8(
     tm: int,
 ) -> torch.Tensor:
     """K8: grouped skip-sum over int8 activations dequantised to bf16 in the
-    kernel, float pool -> (M, D) bf16."""
+    kernel, float pool -> (M, D) bf16, on the tensor cores
+    (``grouped_fwd_route(torch.int8)``) in the geometry
+    ``grouped_fwd_geometry`` gives; z in ``_grouped_scratch``."""
     lnum, m, d, n_tiles = _check_plan(q, row_src, tile_slot, tm, (torch.int8,))
     check_tensor(s, "s", q.device, (lnum, m), (torch.float32,))
     _, r = _check_float_pool(q, a_pool, b_pool, lnum, d)
-    z = torch.empty((lnum, n_tiles * tm, r), dtype=torch.float32, device=q.device)
+    m_pad = n_tiles * tm
+    geometry = grouped_fwd_geometry(m, m_pad)
+    z = _grouped_scratch(q, lnum, m_pad, r)
     out = torch.empty((m, d), dtype=torch.bfloat16, device=q.device)
     LIB.launch(
         "grouped_skip_sum_fwd_actint8", q,
         q.data_ptr(), s.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
         row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
-        lnum, m, d, r, tm, n_tiles, _bf16(a_pool),
+        lnum, m, d, r, tm, n_tiles, _bf16(a_pool), int(geometry == "few_rows"),
     )
+    _count_rows("grouped_skip_sum_fwd_actint8", geometry)
     return out
 
 
 def bwd_scratch_rank(r: int, dtype: torch.dtype) -> int:
     """Rank width of the z / gz scratch of K2 and K9 ((L, M_pad, width)) and
-    of K5's tensor-core route ((M_pad, L * width)): R itself for fp32 rows
+    of the grouped forwards' tensor-core route ((M_pad, L * width)): R itself
+    for fp32 rows
     (CUDA cores); for bf16 rows (tensor cores) R padded to a power-of-two
     number of 8-wide mma n-tiles: 8, 16, 32 or 64, the padding held at zero."""
     if dtype != torch.bfloat16:

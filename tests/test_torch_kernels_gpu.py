@@ -195,6 +195,168 @@ def test_actint8_kernel_matches_plain_version(cuda, tm, rank):
         _close(got, R.skip_lora_grouped_actint8_ref(q, s, ap, bp, idx), "bfloat16")
 
 
+# K7 (bf16 rows) and K8 on K5's tensor-core passes. Shapes: a decode step
+# (one row in each of 5 slots of 6), the fleet step (4 slots of 256) and
+# ragged groups with an empty slot.
+TC_SHAPES = {"decode": (1, 1, 1, 1, 1, 0), "fleet": (256, 256, 256, 256), "ragged": (300, 0, 200, 524)}
+
+
+def _launch_k5(x, a, b, row_src, tile_slot, tm, few):
+    """K5's bf16 route launched with the geometry given, not the one
+    ``kernel.grouped_fwd_geometry`` picks."""
+    lnum, m, d = x.shape
+    m_pad, r = row_src.numel(), a.shape[-1]
+    z = K._grouped_scratch(x, lnum, m_pad, r)
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    K.LIB.launch("grouped_skip_sum_fwd", x, x.data_ptr(), a.data_ptr(), b.data_ptr(), row_src.data_ptr(),
+                 tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(), lnum, m, d, r, tm, m_pad // tm, 1,
+                 int(a.dtype == torch.bfloat16), few)
+    return out
+
+
+def _launch_k7(x, pool, row_src, tile_slot, tm, few):
+    lnum, m, d = x.shape
+    m_pad, r = row_src.numel(), 2 * pool[0].shape[-1]
+    z = K._grouped_scratch(x, lnum, m_pad, r)
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    K.LIB.launch("grouped_skip_sum_fwd_q4", x, x.data_ptr(), *(t.data_ptr() for t in pool), row_src.data_ptr(),
+                 tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(), lnum, m, d, r, tm, m_pad // tm, 1, few)
+    return out
+
+
+def _launch_k8(q, s, a, b, row_src, tile_slot, tm, few):
+    lnum, m, d = q.shape
+    m_pad, r = row_src.numel(), a.shape[-1]
+    z = K._grouped_scratch(q, lnum, m_pad, r)
+    out = torch.empty((m, d), dtype=torch.bfloat16, device=q.device)
+    K.LIB.launch("grouped_skip_sum_fwd_actint8", q, q.data_ptr(), s.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(), lnum, m, d, r, tm,
+                 m_pad // tm, int(a.dtype == torch.bfloat16), few)
+    return out
+
+
+def _q4(a, b, kind, cuda):
+    return (*Q.quantize_q4(a, kind), *Q.quantize_q4(b, kind), Q.codebook(kind, cuda))
+
+
+@pytest.mark.parametrize("shape", list(TC_SHAPES))
+@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64])
+def test_q4_tensor_cores_match_plain_version_and_k5(cuda, shape, rank):
+    """K7 with bf16 rows within two bf16 ulps of its plain version, the same
+    bits on a second run, and bitwise K5 over the dequantised pool (each
+    element code[nibble] scale in fp32, then the same passes)."""
+    groups = TC_SHAPES[shape]
+    x, a, b, idx = _inputs(cuda, groups, rank, "bfloat16", lnum=4, d=2048, seed=rank)
+    a[0], b[0] = 0.0, 0.0
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], ops.TM)
+    assert K.grouped_fwd_route(x.dtype) == "tensor_cores"
+    for kind in Q.Q4_KINDS:
+        pool = _q4(a, b, kind, cuda)
+        got = K.grouped_skip_sum_fwd_q4(x, *pool, row_src, tile_slot, ops.TM)
+        _close(got, R.skip_lora_grouped_q4_ref(x, *pool, idx), "bfloat16")
+        assert torch.equal(got, K.grouped_skip_sum_fwd_q4(x, *pool, row_src, tile_slot, ops.TM))
+        qa, sa, qb, sb, code = pool
+        k5 = K.grouped_skip_sum_fwd(x, Q.dequantize_q4(qa, sa, code), Q.dequantize_q4(qb, sb, code), row_src,
+                                    tile_slot, ops.TM)
+        assert torch.equal(got, k5)
+        assert not got[idx == 0].any()
+
+
+@pytest.mark.parametrize("shape", list(TC_SHAPES))
+@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64])
+def test_actint8_tensor_cores_match_plain_version_and_k5(cuda, shape, rank):
+    """K8 within two bf16 ulps of its plain version, the same bits on a
+    second run, and bitwise K5 over the rows dequantised to bf16."""
+    groups = TC_SHAPES[shape]
+    x, a, b, idx = _inputs(cuda, groups, rank, "float32", lnum=4, d=2048, seed=rank)
+    q, s = quantize_int8(x)
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], ops.TM)
+    assert K.grouped_fwd_route(q.dtype) == "tensor_cores"
+    for pool_dtype in (torch.float32, torch.bfloat16):
+        ap, bp = a.to(pool_dtype), b.to(pool_dtype)
+        got = K.grouped_skip_sum_fwd_actint8(q, s, ap, bp, row_src, tile_slot, ops.TM)
+        _close(got, R.skip_lora_grouped_actint8_ref(q, s, ap, bp, idx), "bfloat16")
+        assert torch.equal(got, K.grouped_skip_sum_fwd_actint8(q, s, ap, bp, row_src, tile_slot, ops.TM))
+        rows = (q.float() * s[..., None]).to(torch.bfloat16)
+        assert torch.equal(got, K.grouped_skip_sum_fwd(rows, ap, bp, row_src, tile_slot, ops.TM))
+
+
+@pytest.mark.parametrize("case", [
+    # (groups, rank, tm, d, byte offset of the rows)
+    ((5, 0, 11), 8, 16, 100, 0),              # D 100: plain loads everywhere
+    ((5, 0, 11), 8, 16, 200, 0),              # D 200: plain int8 and 4-bit loads, bf16 copies
+    ((1, 1, 1, 1, 1, 0), 16, 16, 2048, 2),    # rows 2 bytes past a 16-byte boundary, decode shape
+    ((40, 0, 77, 0, 5, 130), 24, 7, 256, 1),  # tm 7, two empty slots, rows 1 byte off (int8)
+    ((3, 0, 2), 4, 32, 256, 0),               # tm 32, a few rows: two blocks a tile
+    ((2, 0, 19, 1, 33), 64, 1, 256, 0),       # tm 1
+])
+def test_tensor_core_quantised_forward_edges(cuda, case):
+    groups, rank, tm, d, offset = case
+    x, a, b, idx = _inputs(cuda, groups, rank, "float32", lnum=3, d=d, seed=9)
+    a[0], b[0] = 0.0, 0.0
+    q, s = quantize_int8(x)
+    xb = x.to(torch.bfloat16)
+    if offset:
+        q = torch.empty(q.numel() + offset, dtype=q.dtype, device=cuda)[offset:].view(q.shape).copy_(q)
+        xb = torch.empty(xb.numel() + 1, dtype=xb.dtype, device=cuda)[1:].view(xb.shape).copy_(xb)
+        assert q.data_ptr() % 16 and xb.data_ptr() % 16
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], tm)
+    got = K.grouped_skip_sum_fwd_actint8(q, s, a, b, row_src, tile_slot, tm)
+    _close(got, R.skip_lora_grouped_actint8_ref(q, s, a, b, idx), "bfloat16")
+    for kind in Q.Q4_KINDS:
+        pool = _q4(a, b, kind, cuda)
+        got = K.grouped_skip_sum_fwd_q4(xb, *pool, row_src, tile_slot, tm)
+        _close(got, R.skip_lora_grouped_q4_ref(xb, *pool, idx), "bfloat16")
+        assert not got[idx == 0].any()
+
+
+@pytest.mark.parametrize("shape", ["serve", *TC_SHAPES])
+@pytest.mark.parametrize("rank", [8, 64])
+def test_geometries_give_the_same_bits(cuda, shape, rank):
+    """The few-row and many-row geometries of the tensor-core route give
+    the same bits (each position's sums in the same k order), for K5 (so its
+    serve shape, which now takes the few-row geometry, keeps the many-row
+    bits), K7 and K8."""
+    groups = (1, 1, 1, 1) if shape == "serve" else TC_SHAPES[shape]
+    x, a, b, idx = _inputs(cuda, groups, rank, "float32", lnum=4, d=2048, seed=3)
+    q, s = quantize_int8(x)
+    xb = x.to(torch.bfloat16)
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], ops.TM)
+    pool = _q4(a, b, "nf4", cuda)
+    for run in (lambda few: _launch_k5(xb, a, b, row_src, tile_slot, ops.TM, few),
+                lambda few: _launch_k7(xb, pool, row_src, tile_slot, ops.TM, few),
+                lambda few: _launch_k8(q, s, a, b, row_src, tile_slot, ops.TM, few)):
+        assert torch.equal(run(0), run(1))
+
+
+@pytest.mark.parametrize("shape", list(TC_SHAPES))
+def test_q4_fp32_rows_stay_the_cuda_core_passes(cuda, shape):
+    """K7 with fp32 rows runs the CUDA-core passes it ran before: bitwise K5's
+    fp32 route over the dequantised pool, within 1e-5 of the plain version."""
+    groups = TC_SHAPES[shape]
+    x, a, b, idx = _inputs(cuda, groups, 8, "float32", lnum=4, d=2048, seed=2)
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], ops.TM)
+    assert K.grouped_fwd_route(x.dtype) == "cuda_cores"
+    for kind in Q.Q4_KINDS:
+        qa, sa, qb, sb, code = _q4(a, b, kind, cuda)
+        got = K.grouped_skip_sum_fwd_q4(x, qa, sa, qb, sb, code, row_src, tile_slot, ops.TM)
+        _close(got, R.skip_lora_grouped_q4_ref(x, qa, sa, qb, sb, code, idx), "float32")
+        k5 = K.grouped_skip_sum_fwd(x, Q.dequantize_q4(qa, sa, code), Q.dequantize_q4(qb, sb, code), row_src,
+                                    tile_slot, ops.TM)
+        assert torch.equal(got, k5)
+
+
+@pytest.mark.parametrize("groups", [(3, 5), (128, 128, 128, 128)])
+def test_q4_zero_slot_is_k5s_exact_zeros_in_both_geometries(cuda, groups):
+    x, a, b, idx = _inputs(cuda, groups, 8, "bfloat16", lnum=24, d=2048)
+    a[0], b[0] = 0.0, 0.0
+    want = ops.skip_lora_grouped(x[:, :, None], a, b, idx)[:, 0]
+    zero = idx == 0
+    for kind in Q.Q4_KINDS:
+        got = ops.skip_lora_grouped_q4(x[:, :, None], *_q4(a, b, kind, cuda), idx)[:, 0]
+        assert torch.equal(got[zero], want[zero]) and not got[zero].any()
+
+
 @pytest.mark.parametrize("groups", [(2, 0, 19, 1, 33), (1,), (0, 0, 40), (64, 0, 3)])
 @pytest.mark.parametrize("tm", [1, 7, 16, 32])
 @pytest.mark.parametrize("rank", [4, 8, 24, 64])
