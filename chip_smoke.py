@@ -13,12 +13,14 @@ Phases, each printing one line (or a few) before the last line:
        - K5/K6 (grouped skip-sum) at the serve shape and a ragged shape, K6
          at 5 slots of 128 rows (every position of fleet serving's prompts,
          a measurement only), and K5 at the fleet step's shape
-         (M 1024 in 4 slots) and ragged groups with an empty slot; K5's and
-         K7's lines name the route and the geometry
-         (``kernel.grouped_fwd_route``, ``kernel.grouped_fwd_geometry``);
+         (M 1024 in 4 slots) and ragged groups with an empty slot; K5's, K6's
+         and K7's lines name the route and the geometry
+         (``kernel.grouped_fwd_route``, ``kernel.grouped_fwd_geometry``), K6's
+         its passes (profiler): bf16 rows on the tensor-core passes, fp32
+         rows on the CUDA-core ones;
        - K1/K2/K3 (skip-sum forward, adapter backward, int8 forward) at the
          cached-step shape (L 24, M 1024, D 2048, R 8, bf16), a ragged
-         M 1000 and fp32;
+         M 1000 and fp32, K3 on the tensor-core passes (profiler);
        - K4 (flash attention) at the populate shape (B 8 x H 32, S 128,
          hd 64, bf16) and a gemma-2-like shape (window 512, softcap 50,
          hd 256, GQA 2:1, S 1024);
@@ -42,7 +44,8 @@ Phases, each printing one line (or a few) before the last line:
      to the same step through the plain versions on the card. Populate and
      cached epoch times; one populate and one cached step's device time
      (CUDA events) and busy share (torch.profiler), and the cached step's
-     device time split into readout loss, K1, K2 and AdamW.
+     device time split into readout loss, K1 (K3 in mode int8), K2 and
+     AdamW.
   7. checks: a reduced float32 config fine-tunes to the same losses and
      adapters on the card (kernels) as on the CPU (plain versions); one
      full-width attention layer gives the same output with and without K4.
@@ -55,8 +58,8 @@ Phases, each printing one line (or a few) before the last line:
      fleet cached step's shape (L 24, M 1024, D 2048, R 8, N 4); the device
      time of each pass of K5, K7, K8 and K9 (profiler). Then both block
      geometries of the tensor-core route timed, same bits, at the shapes the
-     main paths give K5, K7 and K8 and at 5 slots of 1 to 128 rows, beside
-     the geometry ``kernel.grouped_fwd_geometry`` picks.
+     main paths give K5, K6, K7 and K8 and at 5 slots of 1 to 128 rows,
+     beside the geometry ``kernel.grouped_fwd_geometry`` picks.
   9. fleet: 4 tenants x 16 samples x seq 128 through
      ``repro_torch.launch.fleet`` at full width (batch per tenant 2, rank 8,
      ``--use-kernel``), modes full and int8, one populate and two cached
@@ -67,6 +70,7 @@ Phases, each printing one line (or a few) before the last line:
      split into readout, K5 or K8, K9 and AdamW. Then write-back of the 4
      tenants into float, int8, int4 and nf4 pools and ``generate_grouped``
      over them plus a base row: 33 launches of the pool's kernel a call, the
+     int8 and 4-bit pools' on the tensor-core passes (profiler), the
      base row equal to base ``generate``, ``register_many`` equal to
      ``register``, ``rollback`` bitwise; tokens/s per pool. A reduced float32
      fleet gives the same losses and adapters on the card as on the CPU.
@@ -296,12 +300,19 @@ def kernel_phase(torch):
                 w_ms = time_ms(lambda: wrapper(x[:, :, None], *pool, idx))
                 p_ms = time_ms(lambda: plain(x, *pool, idx), reps=5)
                 bound_ms, bound_by, nbytes = _bound(x, pool, idx, got)
-                route = "" if int8 else f", route {K.grouped_fwd_route(dtype)}"
+                route = f", route {K.grouped_fwd_route(dtype)}"
                 if route.endswith("tensor_cores"):
                     route += f", geometry {K.grouped_fwd_geometry(m_rows, row_src.numel())}"
+                passes = ""
+                if int8:   # K6's passes: the tensor-core ones for bf16 rows, the CUDA-core ones for fp32
+                    passes = _passes(lambda: launch(x, *pool, row_src, tile_slot, ops.TM))
+                    tc = "stc::project_tc" in passes and "stc::expand_tc" in passes
+                    check(tc == (K.grouped_fwd_route(dtype) == "tensor_cores") and ("gss::" in passes) != tc,
+                          f"{name} {label} {dtype}: passes {passes} are not its route's")
                 print(f"kernel {name} {label} M={m_rows} {str(dtype)[6:]}{route}: max_abs_err {err:.3e} "
                       f"(tol {tol:.3e}) kernel {k_ms * 1e3:.1f} us, wrapper {w_ms * 1e3:.1f} us, "
-                      f"plain {p_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
+                      f"plain {p_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)"
+                      f"{f'; passes (profiler): {passes}' if passes else ''}")
                 if label == "serve" and dtype == torch.bfloat16:
                     results[name] = {
                         "name": name, "route": "cuda",
@@ -312,13 +323,14 @@ def kernel_phase(torch):
                         "library_ms": None,
                         "wrapper_ms": w_ms, "bound_bytes": nbytes,
                         "shape": f"L=24 M={m_rows} D=2048 R={RANK} N=4 bf16",
+                        "grouped_route": K.grouped_fwd_route(dtype),
                     }
-                    if not int8:
-                        results[name]["grouped_route"] = K.grouped_fwd_route(dtype)
+                    if passes:
+                        results[name]["passes"] = passes
                 if label == "5x128" and dtype == torch.bfloat16:
                     results[name].update(many_rows_ms=k_ms, many_rows_plain_ms=p_ms, many_rows_bound_ms=bound_ms,
                                          many_rows_bound_by=bound_by, many_rows_bound_bytes=nbytes,
-                                         many_rows_max_abs_err=err,
+                                         many_rows_max_abs_err=err, many_rows_passes=passes,
                                          many_rows_shape=f"L=24 M={m_rows} in 5 slots of 128 D=2048 R={RANK} "
                                                          f"N=6 bf16")
     results["grouped_skip_sum_fwd"].update(k5_many_rows_phase(torch))
@@ -545,19 +557,28 @@ def fused_kernel_phase(torch):
             k_ms = time_ms(c["run"])
             p_ms = time_ms(c["plain"], reps=5)
             bound = _bound_ms(c["nbytes"], c["ops"], c["dt"])
+            passes = ""
             if label == "cached-step":   # device time of each pass of the kernel
                 c["run"]()
                 torch.cuda.synchronize()
-                passes = "; ".join(f"{k.split('<')[0].split('(')[0].split()[-1]} x{n} {t * 1e3:.1f} us"
-                                   for k, (t, n) in _profile(c["run"])[1].items())
+                passes = _passes(c["run"])
                 print(f"kernel {name} {label} passes (profiler): {passes}")
-            print(f"kernel {name} {label} L={lnum} M={m} D={d} R={r} {dname}: max_abs_err {err:.3e} "
+            route = ""
+            if name == "skip_lora_fwd_int8":   # K8's one-slot form: the tensor-core passes
+                route = f", route {K.grouped_fwd_route(q.dtype)}, geometry {K.grouped_fwd_geometry(m, m)}"
+                if passes:
+                    check("stc::project_tc" in passes and "stc::expand_tc" in passes and "ssk::" not in passes,
+                          f"K3 {label}: not the tensor-core passes: {passes}")
+            print(f"kernel {name} {label} L={lnum} M={m} D={d} R={r} {dname}{route}: max_abs_err {err:.3e} "
                   f"(tol {c['tol']:.1e} x max) kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
                   f"(cuBLAS products via einsum), bound {bound[0] * 1e3:.2f} us ({bound[1]}, "
                   f"{c['nbytes']} B, {c['ops']} ops)")
             if label == "cached-step":
                 results[name] = _entry(name, f"{SKIP_SRC}/{K.SOURCES[name]}", c["replaces"], err, k_ms, p_ms,
-                                       bound, c["nbytes"], None, f"L={lnum} M={m} D={d} R={r} {dname}")
+                                       bound, c["nbytes"], None, f"L={lnum} M={m} D={d} R={r} {dname}",
+                                       passes=passes)
+                if name == "skip_lora_fwd_int8":
+                    results[name]["grouped_route"] = K.grouped_fwd_route(q.dtype)
         del x, q, gr
         torch.cuda.empty_cache()
     return results
@@ -717,8 +738,7 @@ def train_phase(torch, device_name):
               f"{' / '.join(f'{v:.4f}' for v in means)}; launches per cached epoch: {fwd} {TRAIN_STEPS}, "
               f"skip_lora_bwd {TRAIN_STEPS}; during populate: none")
         _grad_check(torch, run, mode)
-        if mode == "full":
-            _step_split(torch, run, device_name)
+        _step_split(torch, run, device_name)
         del run
         torch.cuda.empty_cache()
     return totals
@@ -776,7 +796,8 @@ def _busy(torch, fn):
 def _step_split(torch, run, device_name):
     """The cached step's device time (CUDA events, L2 flushed), and its
     parts run alone on the same inputs: readout loss forward + backward,
-    K1 and K2 each, AdamW. What the step takes beyond those parts is
+    K1 (K3 on the int8 payload in mode int8) and K2 each, AdamW. What the
+    step takes beyond those parts is
     printed as a remainder: it is not timed alone. The profiler, which dropped
     kernels of later windows in earlier runs on this card, gives only the
     busy share of one cached and one populate step (device kernel time over
@@ -791,8 +812,12 @@ def _step_split(torch, run, device_name):
     opt = adamw(run.args.lr)
     step = SL.make_cached_step(run.cfg, run.sl, opt)
     h = (vals["y_base"].to(dtype)).requires_grad_(True)
+    mode = run.args.mode
     x = SL._decode_acts(vals, run.sl, dtype)
     x = x.reshape(x.shape[0], -1, x.shape[-1])
+    if mode == "int8":
+        q = SL._swap01(vals["acts_q"], torch.int8).reshape(x.shape)
+        s = SL._swap01(vals["acts_scale"], torch.float32).reshape(x.shape[:2])
     g = torch.randn(x.shape[1:], device="cuda").to(dtype)
     grads = {k: torch.randn_like(v) for k, v in run.trainable.items()}
 
@@ -804,7 +829,10 @@ def _step_split(torch, run, device_name):
             torch.autograd.grad(lm_loss(run.params, run.cfg, h, vals["labels"]), [h])
 
     def k1():
-        K.skip_lora_fwd(x, run.trainable["A"], run.trainable["B"])
+        if mode == "int8":
+            K.skip_lora_fwd_int8(q, s, run.trainable["A"], run.trainable["B"])
+        else:
+            K.skip_lora_fwd(x, run.trainable["A"], run.trainable["B"])
 
     def k2():
         K.skip_lora_bwd(x, run.trainable["A"], run.trainable["B"], g)
@@ -827,15 +855,16 @@ def _step_split(torch, run, device_name):
     tflops = 2 * 2 * m * d * v / (ms["readout"] * 1e-3) / 1e12
     rest = total - ms["readout"] - ms["k1"] - ms["k2"] - ms["adamw"]
     busy = {name: _busy(torch, fn) for name, fn in (("step", cached), ("populate", populate))}
-    print(f"train steps, mode full, {ARCH} full width on {device_name}: populate step {ms['populate']:.3f} ms, "
+    fwd = "K3" if mode == "int8" else "K1"
+    print(f"train steps, mode {mode}, {ARCH} full width on {device_name}: populate step {ms['populate']:.3f} ms, "
           f"cached step {total:.3f} ms of device time (CUDA events, L2 flushed); busy share under the "
           f"profiler: populate {busy['populate'][0]:.3f} ms of device kernels in {busy['populate'][1]:.3f} ms "
           f"wall ({100 * busy['populate'][0] / busy['populate'][1]:.1f}%, {busy['populate'][2]} kernels), cached "
           f"{busy['step'][0]:.3f} ms in {busy['step'][1]:.3f} ms ({100 * busy['step'][0] / busy['step'][1]:.1f}%, "
           f"{busy['step'][2]} kernels)")
-    print(f"train step split, mode full, {ARCH} full width on {device_name} (CUDA events, L2 flushed): cached "
+    print(f"train step split, mode {mode}, {ARCH} full width on {device_name} (CUDA events, L2 flushed): cached "
           f"step {total:.3f} ms = readout loss {ms['readout']:.3f} ms ({100 * ms['readout'] / total:.1f}%, fp32 "
-          f"vocab products at {tflops:.1f} TFLOP/s) + K1 {ms['k1']:.3f} ms ({100 * ms['k1'] / total:.1f}%) + K2 "
+          f"vocab products at {tflops:.1f} TFLOP/s) + {fwd} {ms['k1']:.3f} ms ({100 * ms['k1'] / total:.1f}%) + K2 "
           f"{ms['k2']:.3f} ms ({100 * ms['k2'] / total:.1f}%) + AdamW {ms['adamw']:.3f} ms "
           f"({100 * ms['adamw'] / total:.1f}%); remainder, not timed alone (cache gather, decode, casts): "
           f"{rest:.3f} ms")
@@ -1071,7 +1100,9 @@ def geometry_phase(torch):
     cell's decode step, at the fleet step (M 1024 in 4 slots) and over 1, 5
     and 20 slots of a few to many rows each; K8 at 4 slots of 32 to 256 rows
     (256: the fleet step); K7 int4 at fleet serving's decode step and at 5
-    slots of 32 to 128 rows. The rule is replaced for the measurement only.
+    slots of 32 to 128 rows; K6 at the serve cell's and fleet serving's
+    decode steps and at 5 slots of 128 rows. The rule is replaced for the
+    measurement only.
     Each shape must give the same bits in both. Returns {kernel: {shape: {m,
     m_pad, rule, few_rows_ms, many_rows_ms}}} for the kernels line."""
     from repro_torch.core.lm_skiplora import quantize_int8
@@ -1092,6 +1123,10 @@ def geometry_phase(torch):
         pool = (*Q.quantize_q4(a, "int4"), *Q.quantize_q4(b, "int4"), Q.codebook("int4", "cuda"))
         return x, idx, lambda rs, ts: K.grouped_skip_sum_fwd_q4(x, *pool, rs, ts, ops.TM)
 
+    def k6(groups):
+        x, pool, idx = _case(torch, torch.bfloat16, sum(groups), groups, seed=7, int8=True)
+        return x, idx, lambda rs, ts: K.grouped_skip_sum_fwd_int8(x, *pool, rs, ts, ops.TM)
+
     # slot 0 is the zero slot: the live slots come after it
     shapes = [(k5, "grouped_skip_sum_fwd", "serve decode", (1, 1, 1, 1)),
               (k5, "grouped_skip_sum_fwd", "fleet", None)]
@@ -1102,6 +1137,9 @@ def geometry_phase(torch):
     shapes += [(k8, "grouped_skip_sum_fwd_actint8", f"4 slots x {per}", (per,) * 4) for per in (32, 64, 128, 256)]
     shapes += [(k7, "grouped_skip_sum_fwd_q4", "int4 decode", SERVE_DECODE)]
     shapes += [(k7, "grouped_skip_sum_fwd_q4", f"int4 5 slots x {per}", (0,) + (per,) * 5) for per in (32, 64, 128)]
+    shapes += [(k6, "grouped_skip_sum_fwd_int8", "serve decode", (1, 1, 1, 1)),
+               (k6, "grouped_skip_sum_fwd_int8", "decode", SERVE_DECODE),
+               (k6, "grouped_skip_sum_fwd_int8", "5 slots x 128", SERVE_PREFILL)]
     rule = K.grouped_fwd_geometry
     times = {}
     for make, kname, label, groups in shapes:
@@ -1313,12 +1351,16 @@ def fleet_serve_phase(torch, device_name, kept):
     (``write_back_to_pool``: one ``register_many``) and serve them plus a
     base row with ``generate_grouped`` (prompt 128, 32 new tokens, greedy).
     Checks: the base row equals base ``generate``; the pool's kernel (K5, K6
-    or K7) launches exactly 1 + 32 times a call and no other; the batched
-    write equals sequential ``register``; ``rollback`` restores the previous
+    or K7) launches exactly 1 + 32 times a call and no other; over the int8
+    and 4-bit pools (K6, K7: bf16 rows) one more call, under the profiler,
+    runs the tensor-core passes and no CUDA-core pass; the batched write
+    equals sequential ``register``; ``rollback`` restores the previous
     payload bitwise. Returns each kernel's launches."""
     from repro_torch.core.adapter_pool import AdapterPool
     from repro_torch.core.fleet_finetune import init_fleet_adapters, write_back_to_pool
     from repro_torch.core.runtime import generate, generate_grouped
+    from repro_torch.kernels.skip_lora import kernel as K
+    from repro_torch.models.lm import model_dtype
 
     cfg, sl, params, stacked = kept
     dev = torch.device("cuda")
@@ -1361,6 +1403,15 @@ def fleet_serve_phase(torch, device_name, kept):
         check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids out of range")
         check(torch.equal(out[-1], base[-1]), f"pool {compress}: base row {out[-1].tolist()} != base generate "
               f"{base[-1].tolist()}")
+        passes = ""
+        if compress:   # K6 or K7 with the model's bf16 rows: the tensor-core passes only
+            check(K.grouped_fwd_route(model_dtype(cfg)) == "tensor_cores", f"pool {compress}: not bf16 rows")
+            every = _passes(lambda: generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW,
+                                                     device=dev))
+            passes = "; ".join(k for k in every.split("; ") if k.startswith(("stc::", "gss::")))
+            check("stc::project_tc" in passes and "stc::expand_tc" in passes and "gss::" not in passes,
+                  f"pool {compress}: {kname} not on the tensor-core passes: {passes}")
+            passes = f"; passes (profiler): {passes}"
         new = pool.slot_payload(tenants[0])
         pool.rollback(tenants[0])
         back = pool.slot_payload(tenants[0])
@@ -1368,8 +1419,8 @@ def fleet_serve_phase(torch, device_name, kept):
         check(any(not torch.equal(new[k], old[k]) for k in old), f"pool {compress}: write-back changed nothing")
         print(f"fleet serve {ARCH} full width, pool={compress or 'float'} after write-back: "
               f"{len(who)}x{PROMPT} prompt + {NEW} new in {dt:.3f} s = {len(who) * NEW / dt:.1f} tok/s on "
-              f"{device_name}; {kname} x{counts[kname]}; base row == base generate; register_many == register; "
-              f"rollback bitwise")
+              f"{device_name}; {kname} x{counts[kname]}{passes}; base row == base generate; register_many == "
+              f"register; rollback bitwise")
         del pool, seq
     return launches
 
@@ -1720,9 +1771,13 @@ def small_scheduler_check(torch):
 
 
 def _tensor_core_ptxas(logs):
-    """One line per instantiation of the tensor-core kernels (the bf16
-    routes of K2, K4, K5 and K9) from nvcc's ``-Xptxas -v`` output:
-    registers, shared memory, spills."""
+    """One line per instantiation of the tensor-core kernels from nvcc's
+    ``-Xptxas -v`` output (registers, shared memory, spills): K4's bf16
+    route and the passes of ``skip_sum_tc.cuh`` (``project_tc``,
+    ``expand_tc``, ``outer_tc``), which the bf16 routes of K2, K5, K6, K7
+    and K9, and K3 and K8, run. Each source that includes the header
+    builds its own copy, so an instantiation shared by two kernels (K3's
+    and K8's, say) prints once for each."""
     out, fn = [], None
     for log in logs.values():
         for line in log.splitlines():

@@ -1,5 +1,5 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
-// bf16 kernels (K4 flash_attn_fwd; K2, K5, K7, K8 and K9 through
+// bf16 kernels (K4 flash_attn_fwd; K2, K3, K5, K6, K7, K8 and K9 through
 // skip_lora/csrc/skip_sum_tc.cuh), as inline PTX for sm_80 and later: 16- and
 // 4-byte `cp.async` copies into shared memory (with zero fill), `ldmatrix`
 // (plain and transposed) and the `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`

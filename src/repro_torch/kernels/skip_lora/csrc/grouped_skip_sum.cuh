@@ -1,9 +1,8 @@
 // Grouped skip-LoRA for Hopper (sm_90a), on CUDA cores: the bodies shared
-// by the fp32-row routes of the grouped forwards K5 and K7, K6 (int8 pool,
-// fp32 and bf16 rows) and the fp32-row route of the grouped backward (K9).
-// The bf16-row routes of K5, K7 and K9, and K8 (int8 rows dequantised to
-// bf16), run on the tensor cores at every row count (skip_sum_tc.cuh;
-// kernel.py, grouped_fwd_route).
+// by the fp32-row routes of the grouped forwards K5, K6 and K7 and of the
+// grouped backward (K9). The bf16-row routes of K5, K6, K7 and K9, and K8
+// (int8 rows dequantised to bf16), run on the tensor cores at every row
+// count (skip_sum_tc.cuh; kernel.py, grouped_fwd_route).
 //
 //   forward   out[m] = sum_l cast_x( x[l, m] @ cast_x(A[g, l]) ) @ cast_x(B[g, l])
 //   backward  gA[n, l] = sum_{m in n} x[l, m]^T cast_x(g[m] @ cast_x(B[n, l])^T)

@@ -1,7 +1,7 @@
 // Dense skip-LoRA sum and its adapter gradients for Hopper (sm_90a), on
-// CUDA cores: the body of skip_lora_fwd.cu (K1), skip_lora_fwd_int8.cu (K3)
-// and the fp32-row route of skip_lora_bwd.cu (K2). K2's bf16-row route runs
-// on the tensor cores (skip_sum_tc.cuh).
+// CUDA cores: the body of skip_lora_fwd.cu (K1) and the fp32-row route of
+// skip_lora_bwd.cu (K2). K2's bf16-row route and K3 (int8 rows) run on the
+// tensor cores (skip_sum_tc.cuh).
 //
 //   forward   out[m]  = cast_x( sum_l cast_x(x[l,m] @ cast_x(A[l])) @ cast_x(B[l]) )
 //   backward  gA[l]   = x[l]^T  @ cast_x(g @ cast_x(B[l])^T)
@@ -9,7 +9,7 @@
 //
 // with fp32 accumulation and every cast to the activation type where the
 // reference puts it (src/repro/kernels/skip_lora/kernel.py, _fwd_kernel,
-// _bwd_kernel, _fwd_int8_kernel).
+// _bwd_kernel).
 //
 // What bounds them: bytes. The rank R is 4..64, so each element of x meets
 // 2R multiply-adds: at the cached-step shape (L 24, M 1024, D 2048, R 8,
@@ -32,9 +32,9 @@
 //     gradients are the same bits on every run.
 //
 // fp32 rows stay here: the tensor cores' fp32 input is TF32 (about three
-// decimal digits), which would break the float32 cases' 1e-5 bar. K1 and K3
-// on the tensor cores (the one-slot form of K5's route in skip_sum_tc.cuh)
-// are later work.
+// decimal digits), which would break the float32 cases' 1e-5 bar. K1's bf16
+// rows on the tensor cores (the one-slot form of K5's route in
+// skip_sum_tc.cuh, as K3 runs K8's) are later work.
 
 #pragma once
 
@@ -61,27 +61,14 @@ constexpr int E_THREADS = 256;
 constexpr int O_TD = 128;         // columns per outer block, one per thread
 
 // Rows of the activations, read as fp32 values of the activation type:
-// `at(l, m, d, row_scale(l, m))`. `layer_stride` 0 gives every layer the
-// same matrix (g in the backward).
+// `at(l, m, d)`. `layer_stride` 0 gives every layer the same matrix (g in
+// the backward).
 template <typename T> struct DenseRows {
   const T* x;
   size_t layer_stride;
   int D;
-  __device__ __forceinline__ float row_scale(int, int) const { return 1.f; }
-  __device__ __forceinline__ float at(int l, int m, int d, float) const {
+  __device__ __forceinline__ float at(int l, int m, int d) const {
     return to_f<T>(x[(size_t)l * layer_stride + (size_t)m * D + d]);
-  }
-};
-
-// int8 payload times its fp32 per-row scale, rounded to bf16 as the
-// reference's `(q.astype(f32) * s).astype(bf16)`.
-struct Int8Rows {
-  const int8_t* q;
-  const float* s;
-  int M, D;
-  __device__ __forceinline__ float row_scale(int l, int m) const { return s[(size_t)l * M + m]; }
-  __device__ __forceinline__ float at(int l, int m, int d, float scale) const {
-    return round_to<__nv_bfloat16>((float)q[((size_t)l * M + m) * D + d] * scale);
   }
 };
 
@@ -112,14 +99,11 @@ project(Rows rows, const W* __restrict__ w, size_t wl, size_t wd, size_t wr,
   constexpr int TRW = S::TRW, TM = S::TM, LPT = S::LPT;
   __shared__ float xs[TM * P_LD];
   __shared__ __align__(16) float ws[P_KC * RP];
-  __shared__ float rs[TM];   // per-row scales (int8 rows), staged once
   const int l = blockIdx.y, m0 = blockIdx.x * TM, tid = threadIdx.x;
   const int lane = tid & 31, dq = lane & 15;
   const int row0 = ((tid >> 5) * 2 + (lane >> 4)) * TRW;   // first of this thread's rows
   const W* wl_ = w + (size_t)l * wl;
   const bool w_rows = wr == 1;   // W[l] stored (D, R) row-major (A) or transposed (B)
-  if (tid < TM) rs[tid] = m0 + tid < M ? rows.row_scale(l, m0 + tid) : 0.f;
-  __syncthreads();
   float acc[TRW][RP];
 #pragma unroll
   for (int i = 0; i < TRW; ++i)
@@ -131,7 +115,7 @@ project(Rows rows, const W* __restrict__ w, size_t wl, size_t wd, size_t wr,
     for (int j = 0; j < LPT; ++j) {
       const int e = tid + j * P_THREADS, ii = e / P_KC, dd = e % P_KC;
       const int m = m0 + ii, d = d0 + dd;
-      xs[ii * P_LD + dd] = (m < M && d < D) ? rows.at(l, m, d, rs[ii]) : 0.f;
+      xs[ii * P_LD + dd] = (m < M && d < D) ? rows.at(l, m, d) : 0.f;
     }
     // W elements in the order that keeps neighbouring threads on
     // neighbouring addresses.

@@ -1,29 +1,32 @@
 // Skip-LoRA sums with bf16 products on Hopper's tensor cores (sm_90a): the
 // passes shared by K2 (skip_lora_bwd.cu, one adapter stack), the grouped
-// forwards K5 (grouped_skip_sum_fwd.cu, float pool), K7
-// (grouped_skip_sum_fwd_q4.cu, packed 4-bit pool) and K8
-// (grouped_skip_sum_fwd_actint8.cu, int8 rows), and K9
-// (grouped_skip_sum_bwd.cu, per-slot gradients). Every product is an
-// M x n x K matrix product in bf16 with fp32 sums, the rank (padded to whole
-// 8-wide n-tiles) as n: exactly `mma.sync` m16n8k16 (mma.cuh), fed from
+// forwards K5 (grouped_skip_sum_fwd.cu, float pool), K6
+// (grouped_skip_sum_fwd_int8.cu, int8 pool), K7 (grouped_skip_sum_fwd_q4.cu,
+// packed 4-bit pool) and K8 (grouped_skip_sum_fwd_actint8.cu, int8 rows), K3
+// (skip_lora_fwd_int8.cu, int8 rows and one adapter stack: K8's one-slot
+// form) and K9 (grouped_skip_sum_bwd.cu, per-slot gradients). Every product
+// is an M x n x K matrix product in bf16 with fp32 sums, the rank (padded to
+// whole 8-wide n-tiles) as n: exactly `mma.sync` m16n8k16 (mma.cuh), fed from
 // tiles that 16-byte `cp.async` copies bring into a ring of shared-memory
 // stages. Casts sit where the reference puts them
 // (src/repro/kernels/skip_lora/kernel.py): rows and adapters are cast to
 // bf16 before use, z = x A and gz = g B^T are rounded to bf16 between the
 // two products, sums are fp32.
 //
-// What feeds the passes is a compile-time policy, so the four kernels share
+// What feeds the passes is a compile-time policy, so the seven kernels share
 // one body:
 //   rows (project_tc's A operand): `Bf16Rows`, fragments by `ldmatrix`; or
-//     `Int8Rows` (K8), int8 rows with an fp32 scale per (layer, row), each
-//     fragment element built as bf16(float(q) s), the reference's
+//     `Int8Rows` (K8, K3), int8 rows with an fp32 scale per (layer, row),
+//     each fragment element built as bf16(float(q) s), the reference's
 //     `(q.astype(f32) * s).astype(bf16)`: x crosses device memory once, as
 //     int8.
-//   pool (A slabs and B rows): `FloatPool<P>` (fp32 or bf16); or `Q4Pool`
-//     (K7), the packed 4-bit payload and its fp32 scales copied as they are
-//     and each element dequantised as bf16(code[nibble] scale) where it
-//     becomes a fragment, the 16-entry codebook staged in shared memory once a
-//     block.
+//   pool (A slabs and B rows): `FloatPool<P>` (fp32 or bf16; K3's one stack
+//     is a pool of one slot); `Int8Pool` (K6), the int8 payload and its fp32
+//     scales copied as they are and each element dequantised as
+//     bf16(float(q) scale) where it becomes a fragment; or `Q4Pool` (K7), the
+//     packed 4-bit payload and its fp32 scales likewise, each element
+//     bf16(code[nibble] scale), the 16-entry codebook staged in shared memory
+//     once a block.
 //
 // What bounds these sums on this card: bytes. At the main path's shapes
 // (L 24, M 1024, D 2048, R 8, bf16 rows) x is 100.7 MB and the adapters a
@@ -74,8 +77,9 @@
 // the warps' partials in warp order; then over k = l RP + r), and the other
 // slots' rounds add exact zeros, so the two geometries give the same bits.
 //
-// D not a multiple of 8 (16 for int8 rows, 32 for a 4-bit pool), or pointers
-// not 16-byte aligned, take plain loads into the same shared-memory layouts.
+// D not a multiple of 8 (16 for int8 rows or an int8 pool, 32 for a 4-bit
+// pool), or pointers not 16-byte aligned, take plain loads into the same
+// shared-memory layouts.
 // fp32 rows never come here: the tensor cores' fp32 input is TF32 (about
 // three decimal digits), which would break the float32 cases' 1e-5 bar; they
 // stay on CUDA cores (skip_sum.cuh, grouped_skip_sum.cuh).
@@ -99,6 +103,7 @@ using rtk::to_f;
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int DC = 16 * WARPS;   // columns of D a project / outer stage takes, 16 per warp
+constexpr int R_MAX = 64;        // highest rank (by_rank)
 
 __device__ __forceinline__ bf16 zero_bf16() { return __float2bfloat16_rn(0.f); }
 
@@ -177,7 +182,7 @@ struct Bf16Rows {
   }
 };
 
-// int8 rows with an fp32 scale per (layer, row) (K8): [rows][DC + 16] bytes,
+// int8 rows with an fp32 scale per (layer, row) (K8, K3): [rows][DC + 16] bytes,
 // each row padded by 16 bytes so a warp's 2-byte fragment loads hit
 // distinct banks; the block's row scales are staged once (`scale`), and each
 // fragment element is bf16(float(q) s) (mma.cuh gives the fragment layout).
@@ -224,8 +229,8 @@ struct Int8Rows {
 // slab of its gz (R rows of DC columns, float pools only) and the B rows of
 // expand_tc (KC rows of CW columns, each row padded by 16 bytes), and each
 // element's value before its cast to bf16. `stage_code` puts the 4-bit
-// codebook in shared memory (`cs`, the accessors' argument); the float pool
-// has none.
+// codebook in shared memory (`cs`, the accessors' argument); the float and
+// int8 pools have none.
 // ---------------------------------------------------------------------------
 
 template <typename P> struct FloatPool {
@@ -309,6 +314,93 @@ template <typename P> struct FloatPool {
   template <int CW, int KC>
   __device__ __forceinline__ float b_at(const unsigned char* st, const float*, int row, int col) const {
     return to_f<P>(*reinterpret_cast<const P*>(st + row * b_row(CW) + col * E));
+  }
+};
+
+// int8 pool (K6): QA (N, L, D, R) and QB (N, L, R, D) int8 with fp32 scales
+// over the last axis, SA (N, L, D) and SB (N, L, R): Q4Pool's layout with
+// whole bytes and no codebook. An A slab is DC rows of R bytes then their DC
+// scales; a B stage KC rows of CW bytes, each padded by 16, then their KC
+// scales. Each element is float(q) s, which the passes round to bf16: the
+// reference's `(q.astype(f32) * s).astype(bf16)`. At R 8 two A rows share a
+// 16-byte chunk; a warp's byte loads at one fragment position (dd = 16 w +
+// 2 tig + .., r = 8 j + grp) span 64 contiguous bytes at R 8 and 128 at
+// R 16, so lanes hit distinct banks or share a word; above R 16 up to four
+// lanes meet in a bank, as in the float pool.
+struct Int8Pool {
+  const int8_t* QA;
+  const float* SA;
+  const int8_t* QB;
+  const float* SB;
+  template <int RP> __host__ __device__ static constexpr int slab_bytes() { return DC * RP + DC * 4; }
+  __host__ __device__ static constexpr int b_row(int cw) { return cw + 16; }
+  __host__ __device__ static constexpr int b_extra(int kc) { return kc * 4; }
+  bool vec_ok(int D) const {
+    return D % 16 == 0 && aligned16(QA) && aligned16(SA) && aligned16(QB) && aligned16(SB);
+  }
+  __device__ __forceinline__ void stage_code(float*) const {}
+
+  template <int RP>
+  __device__ __forceinline__ void issue_a(unsigned char* slab, size_t gl, int c0, int live, int D, int R, bool vec,
+                                          int tid) const {
+    const int8_t* src = QA + (gl * D + c0) * R;
+    const float* ss = SA + gl * D + c0;
+    float* sc = reinterpret_cast<float*>(slab + DC * RP);
+    if (vec) {   // live is a multiple of 16, so live R bytes are whole 16-byte chunks
+      for (int e = tid; e < (DC * R + 15) / 16; e += THREADS) {
+        const bool ok = 16 * e < live * R;
+        tc::cp_async16(slab + 16 * e, ok ? src + 16 * e : QA, ok ? 16 : 0);
+      }
+      for (int e = tid; e < DC / 4; e += THREADS) {
+        const bool ok = 4 * e < live;
+        tc::cp_async16(sc + 4 * e, ok ? ss + 4 * e : SA, ok ? 16 : 0);
+      }
+    } else {
+      int8_t* as = reinterpret_cast<int8_t*>(slab);
+      for (int e = tid; e < DC * R; e += THREADS) as[e] = e < live * R ? src[e] : int8_t(0);
+      for (int e = tid; e < DC; e += THREADS) sc[e] = e < live ? ss[e] : 0.f;
+    }
+  }
+  template <int RP>
+  __device__ __forceinline__ float a_at(const unsigned char* slab, const float*, int dd, int r, int R) const {
+    return (float)reinterpret_cast<const int8_t*>(slab)[dd * R + r] *
+           reinterpret_cast<const float*>(slab + DC * RP)[dd];
+  }
+
+  template <int CW, int KC, int RP>
+  __device__ __forceinline__ void issue_b(unsigned char* st, int slot, int k0, int dc0, int L, int D, int R, bool vec,
+                                          int tid) const {
+    constexpr int CPR = CW / 16, BR = b_row(CW);   // 16-byte chunks (16 columns) of a row
+    for (int e = tid; e < KC * CPR; e += THREADS) {
+      const int row = e / CPR, cb = (e % CPR) * 16, col = dc0 + cb;
+      const int k = k0 + row, l = k / RP, r = k % RP;
+      const bool ok = k < L * RP && r < R;
+      const int8_t* src = QB + (((size_t)slot * L + l) * R + r) * D + col;
+      int8_t* dst = reinterpret_cast<int8_t*>(st + row * BR + cb);
+      if (vec) {
+        const bool okc = ok && col < D;
+        tc::cp_async16(dst, okc ? src : QB, okc ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) dst[i] = ok && col + i < D ? src[i] : int8_t(0);
+      }
+    }
+    float* sc = reinterpret_cast<float*>(st + KC * BR);
+    for (int e = tid; e < KC; e += THREADS) {
+      const int k = k0 + e, l = k / RP, r = k % RP;
+      const bool ok = k < L * RP && r < R;
+      const float* src = SB + ((size_t)slot * L + l) * R + r;
+      if (vec) {
+        tc::cp_async4(sc + e, ok ? src : SB, ok ? 4 : 0);
+      } else {
+        sc[e] = ok ? *src : 0.f;
+      }
+    }
+  }
+  template <int CW, int KC>
+  __device__ __forceinline__ float b_at(const unsigned char* st, const float*, int row, int col) const {
+    return (float)reinterpret_cast<const int8_t*>(st)[row * b_row(CW) + col] *
+           reinterpret_cast<const float*>(st + KC * b_row(CW))[row];
   }
 };
 
@@ -641,9 +733,9 @@ expand_tc(const bf16* __restrict__ z, const Pool pool, const int* __restrict__ r
   const int zrow = tid >> 2, zc = tid & 3, zp = p0 + zrow;
   const bool zlive = zrow < span.n;
   const int ri = zlive ? row_at(row_src, zp, m_pad) : -1;
-  const int sl = zlive ? tile_slot[zp / tm] : -1;
+  const int sl = zlive ? slot_at(tile_slot, zp / tm) : -1;
   if (!__syncthreads_or(ri >= 0)) return;
-  const int s_lo = tile_slot[p0 / tm], s_hi = tile_slot[(p0 + span.n - 1) / tm];
+  const int s_lo = slot_at(tile_slot, p0 / tm), s_hi = slot_at(tile_slot, (p0 + span.n - 1) / tm);
   const int wc0 = 8 * NJ * warp;   // this warp's first column in the block
   const bool live_cols = dc0 + wc0 < D;
 
@@ -931,8 +1023,9 @@ int backward(const bf16* x, const bf16* g, const P* a, const P* b, const int* ro
                                vec, s);
 }
 
-// The grouped forwards with bf16 products (K5 and K7 with bf16 rows, K8):
-// z (n_tiles * tm, L RP) bf16 scratch, out (M, D) bf16. `few` (kernel.py,
+// The grouped forwards with bf16 products (K5, K6 and K7 with bf16 rows, K8),
+// and K3 as one slot (null row_src and tile_slot, tm 1, n_tiles M): z
+// (n_tiles * tm, L RP) bf16 scratch, out (M, D) bf16. `few` (kernel.py,
 // grouped_fwd_geometry) picks the few-row geometry: 16 positions of one row
 // tile a block in both passes, 64 columns an expand block.
 template <int NT, typename Rows, typename Pool>

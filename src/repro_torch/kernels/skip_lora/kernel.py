@@ -16,9 +16,10 @@ interface, compiled by ``nvcc`` for ``sm_90a`` (``kernels/build.py``):
   - ``grouped_skip_sum_bwd`` (K9, per-slot adapter gradients) replaces
     ``...::skip_lora_grouped_bwd``.
 
-The bf16-row routes of K2, K5, K7 and K9, and K8 (int8 rows dequantised to
-bf16), run on the tensor cores (``csrc/skip_sum_tc.cuh``: ``mma.sync``,
-``ldmatrix``, ``cp.async``); fp32 rows, and K1, K3 and K6, on CUDA cores.
+The bf16-row routes of K2, K5, K6, K7 and K9, and K3 and K8 (int8 rows
+dequantised to bf16), run on the tensor cores (``csrc/skip_sum_tc.cuh``:
+``mma.sync``, ``ldmatrix``, ``cp.async``); fp32 rows, and K1, on CUDA
+cores.
 
 Nothing is built or loaded at import time: the module imports on a machine
 with no CUDA toolkit. Each launch function checks devices, types, shapes and
@@ -50,9 +51,9 @@ SOURCES = {
 LIB = KernelLib(CSRC, SOURCES, {
     "skip_lora_fwd": [P] * 5 + [I] * 6 + [P],
     "skip_lora_bwd": [P] * 10 + [I] * 7 + [P],
-    "skip_lora_fwd_int8": [P] * 6 + [I] * 5 + [P],
+    "skip_lora_fwd_int8": [P] * 6 + [I] * 6 + [P],
     "grouped_skip_sum_fwd": [P] * 7 + [I] * 9 + [P],
-    "grouped_skip_sum_fwd_int8": [P] * 9 + [I] * 7 + [P],
+    "grouped_skip_sum_fwd_int8": [P] * 9 + [I] * 8 + [P],
     "grouped_skip_sum_fwd_q4": [P] * 10 + [I] * 8 + [P],
     "grouped_skip_sum_fwd_actint8": [P] * 8 + [I] * 8 + [P],
     "grouped_skip_sum_bwd": [P] * 10 + [I] * 9 + [P],
@@ -156,15 +157,18 @@ def skip_lora_fwd_int8(
     q: torch.Tensor, s: torch.Tensor, a: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
     """K3: q (L, M, D) int8 with per-row scales s (L, M) fp32, dequantised to
-    bf16 in the kernel -> (M, D) bf16."""
+    bf16 in the kernel -> (M, D) bf16. K8's tensor-core passes with one slot
+    (every row its own position, one row a tile): z in ``_grouped_scratch``,
+    the geometry ``grouped_fwd_geometry(M, M)`` gives (many rows)."""
     check_tensor(q, "q", q.device, q.shape, (torch.int8,))
     lnum, m, d = q.shape
     check_tensor(s, "s", q.device, (lnum, m), (torch.float32,))
     r = _check_adapters(q, a, b, lnum, d)
-    z = torch.empty((lnum, m, r), dtype=torch.float32, device=q.device)
+    geometry = grouped_fwd_geometry(m, m)
+    z = _grouped_scratch(q, lnum, m, r)
     out = torch.empty((m, d), dtype=torch.bfloat16, device=q.device)
     LIB.launch("skip_lora_fwd_int8", q, q.data_ptr(), s.data_ptr(), a.data_ptr(), b.data_ptr(),
-               z.data_ptr(), out.data_ptr(), lnum, m, d, r, _bf16(a))
+               z.data_ptr(), out.data_ptr(), lnum, m, d, r, _bf16(a), int(geometry == "few_rows"))
     return out
 
 
@@ -195,11 +199,12 @@ def _check_float_pool(x, a_pool, b_pool, lnum, d):
 
 
 def grouped_fwd_route(dtype: torch.dtype) -> str:
-    """The route of the grouped forwards K5, K7 and K8 for rows of ``dtype``,
-    whatever the number of rows: ``"tensor_cores"`` for bf16 rows (K5, K7)
-    and int8 rows (K8, dequantised to bf16 in the kernel); ``"cuda_cores"``
-    for fp32 rows (K5, K7), since the tensor cores' fp32 input is TF32,
-    which would break the float32 cases' 1e-5 bar."""
+    """The route of the grouped forwards K5-K8 (and K3, K8's one-slot form)
+    for rows of ``dtype``, whatever the number of rows: ``"tensor_cores"``
+    for bf16 rows (K5, K6, K7) and int8 rows (K3, K8, dequantised to bf16 in
+    the kernel); ``"cuda_cores"`` for fp32 rows (K5, K6, K7), since the
+    tensor cores' fp32 input is TF32, which would break the float32 cases'
+    1e-5 bar."""
     return "cuda_cores" if dtype == torch.float32 else "tensor_cores"
 
 
@@ -219,8 +224,9 @@ def grouped_fwd_geometry(m: int, m_pad: int) -> str:
 
 
 def _grouped_scratch(x, lnum, m_pad, r):
-    """z of the grouped forwards for rows ``x``: (M_pad, L * RP) bf16 on the
-    tensor cores (``bwd_scratch_rank``), (L, M_pad, R) fp32 on CUDA cores."""
+    """z of the grouped forwards (and K3) for rows ``x``: (M_pad, L * RP)
+    bf16 on the tensor cores (``bwd_scratch_rank``), (L, M_pad, R) fp32 on
+    CUDA cores."""
     if grouped_fwd_route(x.dtype) == "tensor_cores":
         return torch.empty((m_pad, lnum * bwd_scratch_rank(r, torch.bfloat16)), dtype=torch.bfloat16,
                            device=x.device)
@@ -264,7 +270,9 @@ def grouped_skip_sum_fwd_int8(
     tile_slot: torch.Tensor,
     tm: int,
 ) -> torch.Tensor:
-    """K6: int8-pool grouped skip-sum on the card -> (M, D) in x.dtype."""
+    """K6: int8-pool grouped skip-sum on the card -> (M, D) in x.dtype, on
+    the route ``grouped_fwd_route`` gives (and, on the tensor cores, the
+    geometry ``grouped_fwd_geometry`` gives); z in ``_grouped_scratch``."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     n, _, _, r = qa.shape
     check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
@@ -273,15 +281,17 @@ def grouped_skip_sum_fwd_int8(
     check_tensor(sa, "sa", x.device, (n, lnum, d), f32)
     check_tensor(qb, "qb", x.device, (n, lnum, r, d), i8)
     check_tensor(sb, "sb", x.device, (n, lnum, r), f32)
-    z = torch.empty((lnum, n_tiles * tm, r), dtype=torch.float32, device=x.device)
+    m_pad = n_tiles * tm
+    geometry = grouped_fwd_geometry(m, m_pad)
+    z = _grouped_scratch(x, lnum, m_pad, r)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     LIB.launch(
         "grouped_skip_sum_fwd_int8", x,
         x.data_ptr(), qa.data_ptr(), sa.data_ptr(), qb.data_ptr(), sb.data_ptr(),
         row_src.data_ptr(), tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(),
-        lnum, m, d, r, tm, n_tiles, _bf16(x),
+        lnum, m, d, r, tm, n_tiles, _bf16(x), int(geometry == "few_rows"),
     )
-    _count_rows("grouped_skip_sum_fwd_int8", grouped_fwd_geometry(m, n_tiles * tm))
+    _count_rows("grouped_skip_sum_fwd_int8", geometry)
     return out
 
 

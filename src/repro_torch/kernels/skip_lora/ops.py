@@ -27,8 +27,8 @@ Counterpart of ``repro.kernels.skip_lora.ops``:
 Dispatch follows the device of the activations: a CPU tensor goes to the
 plain version in ``ref.py``; a CUDA tensor launches the hand-written kernel
 in ``kernel.py`` (or raises); any other device raises. On the card, bf16
-rows take the tensor-core routes of K2, K5, K7 and K9, int8 rows (K8) the
-tensor cores too, and fp32 rows the CUDA-core routes (``kernel.py``);
+rows take the tensor-core routes of K2, K5, K6, K7 and K9, int8 rows (K3,
+K8) the tensor cores too, and fp32 rows the CUDA-core routes (``kernel.py``);
 either way a wrapper call is one launch. Grouped inputs are
 detached, the counterpart of the reference's ``stop_gradient``: the pool
 holds already fine-tuned tenants.

@@ -235,8 +235,27 @@ def _launch_k8(q, s, a, b, row_src, tile_slot, tm, few):
     return out
 
 
+def _launch_k6(x, pool, row_src, tile_slot, tm, few):
+    lnum, m, d = x.shape
+    m_pad, r = row_src.numel(), pool[0].shape[-1]
+    z = K._grouped_scratch(x, lnum, m_pad, r)
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    K.LIB.launch("grouped_skip_sum_fwd_int8", x, x.data_ptr(), *(t.data_ptr() for t in pool), row_src.data_ptr(),
+                 tile_slot.data_ptr(), z.data_ptr(), out.data_ptr(), lnum, m, d, r, tm, m_pad // tm, 1, few)
+    return out
+
+
 def _q4(a, b, kind, cuda):
     return (*Q.quantize_q4(a, kind), *Q.quantize_q4(b, kind), Q.codebook(kind, cuda))
+
+
+def _int8(a, b):
+    return (*quantize_int8(a), *quantize_int8(b))
+
+
+def _dequant_int8(pool):
+    qa, sa, qb, sb = pool
+    return qa.float() * sa[..., None], qb.float() * sb[..., None]
 
 
 @pytest.mark.parametrize("shape", list(TC_SHAPES))
@@ -316,14 +335,16 @@ def test_geometries_give_the_same_bits(cuda, shape, rank):
     """The few-row and many-row geometries of the tensor-core route give
     the same bits (each position's sums in the same k order), for K5 (so its
     serve shape, which now takes the few-row geometry, keeps the many-row
-    bits), K7 and K8."""
+    bits), K6, K7 and K8."""
     groups = (1, 1, 1, 1) if shape == "serve" else TC_SHAPES[shape]
     x, a, b, idx = _inputs(cuda, groups, rank, "float32", lnum=4, d=2048, seed=3)
     q, s = quantize_int8(x)
     xb = x.to(torch.bfloat16)
     row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], ops.TM)
     pool = _q4(a, b, "nf4", cuda)
+    pool8 = _int8(a, b)
     for run in (lambda few: _launch_k5(xb, a, b, row_src, tile_slot, ops.TM, few),
+                lambda few: _launch_k6(xb, pool8, row_src, tile_slot, ops.TM, few),
                 lambda few: _launch_k7(xb, pool, row_src, tile_slot, ops.TM, few),
                 lambda few: _launch_k8(q, s, a, b, row_src, tile_slot, ops.TM, few)):
         assert torch.equal(run(0), run(1))
@@ -355,6 +376,67 @@ def test_q4_zero_slot_is_k5s_exact_zeros_in_both_geometries(cuda, groups):
     for kind in Q.Q4_KINDS:
         got = ops.skip_lora_grouped_q4(x[:, :, None], *_q4(a, b, kind, cuda), idx)[:, 0]
         assert torch.equal(got[zero], want[zero]) and not got[zero].any()
+
+
+# K6 (int8 pool) with bf16 rows on the same passes (``stc::Int8Pool``).
+
+
+@pytest.mark.parametrize("shape", ["serve", *TC_SHAPES])
+@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64])
+def test_int8_pool_tensor_cores_match_plain_version_and_k5(cuda, shape, rank):
+    """K6 with bf16 rows within two bf16 ulps of its plain version, the same
+    bits on a second run, bitwise K5 over the dequantised pool (each element
+    float(q) scale in fp32, then the same passes), and the zero slot exact
+    zeros."""
+    groups = (1, 1, 1, 1) if shape == "serve" else TC_SHAPES[shape]
+    x, a, b, idx = _inputs(cuda, groups, rank, "bfloat16", lnum=4, d=2048, seed=rank)
+    a[0], b[0] = 0.0, 0.0
+    pool = _int8(a, b)
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], ops.TM)
+    assert K.grouped_fwd_route(x.dtype) == "tensor_cores"
+    got = K.grouped_skip_sum_fwd_int8(x, *pool, row_src, tile_slot, ops.TM)
+    _close(got, R.skip_lora_grouped_int8_ref(x, *pool, idx), "bfloat16")
+    assert torch.equal(got, K.grouped_skip_sum_fwd_int8(x, *pool, row_src, tile_slot, ops.TM))
+    assert torch.equal(got, K.grouped_skip_sum_fwd(x, *_dequant_int8(pool), row_src, tile_slot, ops.TM))
+    assert not got[idx == 0].any()
+
+
+@pytest.mark.parametrize("case", [
+    # (groups, rank, tm, d, element offset of the rows)
+    ((5, 0, 11), 8, 16, 100, 0),              # D 100: plain loads everywhere
+    ((5, 0, 11), 4, 16, 200, 0),              # D 200, not a multiple of 16: plain int8 pool loads
+    ((1, 1, 1, 1, 1, 0), 16, 16, 2048, 1),    # rows 2 bytes past a 16-byte boundary, decode shape
+    ((40, 0, 77, 0, 5, 130), 32, 7, 248, 0),  # tm 7, two empty slots, D 248
+    ((3, 0, 2), 64, 32, 256, 0),              # tm 32, a few rows: two blocks a tile
+    ((2, 0, 19, 1, 33), 9, 1, 256, 0),        # tm 1, R 9
+])
+def test_int8_pool_tensor_core_edges(cuda, case):
+    groups, rank, tm, d, offset = case
+    x, a, b, idx = _inputs(cuda, groups, rank, "bfloat16", lnum=3, d=d, seed=11)
+    a[0], b[0] = 0.0, 0.0
+    if offset:
+        x = torch.empty(x.numel() + offset, dtype=x.dtype, device=cuda)[offset:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16
+    pool = _int8(a, b)
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], tm)
+    got = K.grouped_skip_sum_fwd_int8(x, *pool, row_src, tile_slot, tm)
+    _close(got, R.skip_lora_grouped_int8_ref(x, *pool, idx), "bfloat16")
+    assert not got[idx == 0].any()
+    assert torch.equal(got, K.grouped_skip_sum_fwd(x, *_dequant_int8(pool), row_src, tile_slot, tm))
+
+
+@pytest.mark.parametrize("shape", ["serve", *TC_SHAPES])
+def test_int8_pool_fp32_rows_stay_the_cuda_core_passes(cuda, shape):
+    """K6 with fp32 rows runs the CUDA-core passes: within 1e-5 of the plain
+    version, and bitwise K5's fp32 route over the dequantised pool."""
+    groups = (1, 1, 1, 1) if shape == "serve" else TC_SHAPES[shape]
+    x, a, b, idx = _inputs(cuda, groups, 8, "float32", lnum=4, d=2048, seed=2)
+    pool = _int8(a, b)
+    row_src, tile_slot = ops._plan(idx, len(groups), x.shape[1], ops.TM)
+    assert K.grouped_fwd_route(x.dtype) == "cuda_cores"
+    got = K.grouped_skip_sum_fwd_int8(x, *pool, row_src, tile_slot, ops.TM)
+    _close(got, R.skip_lora_grouped_int8_ref(x, *pool, idx), "float32")
+    assert torch.equal(got, K.grouped_skip_sum_fwd(x, *_dequant_int8(pool), row_src, tile_slot, ops.TM))
 
 
 @pytest.mark.parametrize("groups", [(2, 0, 19, 1, 33), (1,), (0, 0, 40), (64, 0, 3)])
@@ -459,7 +541,49 @@ def test_fused_kernels_match_plain_versions(cuda, m, rank, dtype):
         _close(ga, wa, dtype, 2.0**-6)
         _close(gb, wb, dtype, 2.0**-6)
         q, s = quantize_int8(x)
-        _close(K.skip_lora_fwd_int8(q, s, a, b), R.skip_lora_int8_fwd_ref(q, s, a, b), "bfloat16")
+        got = K.skip_lora_fwd_int8(q, s, a, b)
+        _close(got, R.skip_lora_int8_fwd_ref(q, s, a, b), "bfloat16")
+        assert torch.equal(got, _k8_one_slot(q, s, a, b))       # K3 is K8's one-slot form
+
+
+def _k8_one_slot(q, s, a, b):
+    """K8 over one slot holding a and b, every row its own tile (tm 1): the
+    launch K3 makes with null row_src and tile_slot, made explicit."""
+    m = q.shape[1]
+    row_src = torch.arange(m, dtype=torch.int32, device=q.device)
+    tile_slot = torch.zeros(m, dtype=torch.int32, device=q.device)
+    return K.grouped_skip_sum_fwd_actint8(q, s, a[None], b[None], row_src, tile_slot, 1)
+
+
+@pytest.mark.parametrize("d", [2048, 200])
+@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64])
+def test_int8_cache_forward_on_the_tensor_cores(cuda, d, rank):
+    """K3 at the cached step's M and L (D 2048; D 200 takes the plain loads)
+    within two bf16 ulps of its plain version, the same bits on a second run,
+    bitwise K8's one-slot launch and K5's one-slot launch over the rows
+    dequantised to bf16."""
+    x, a, b, _ = _dense(cuda, 24, 1024, d, rank, "float32", seed=rank)
+    q, s = quantize_int8(x)
+    assert K.grouped_fwd_route(q.dtype) == "tensor_cores"
+    for wdtype in (torch.float32, torch.bfloat16):
+        aw, bw = a.to(wdtype), b.to(wdtype)
+        got = K.skip_lora_fwd_int8(q, s, aw, bw)
+        _close(got, R.skip_lora_int8_fwd_ref(q, s, aw, bw), "bfloat16")
+        assert torch.equal(got, K.skip_lora_fwd_int8(q, s, aw, bw))
+        assert torch.equal(got, _k8_one_slot(q, s, aw, bw))
+        rows = (q.float() * s[..., None]).to(torch.bfloat16)
+        m = q.shape[1]
+        one = torch.zeros(m, dtype=torch.int32, device=cuda)
+        assert torch.equal(got, K.grouped_skip_sum_fwd(rows, aw[None], bw[None],
+                                                       torch.arange(m, dtype=torch.int32, device=cuda), one, 1))
+
+
+def test_int8_cache_forward_rows_off_a_16_byte_boundary(cuda):
+    x, a, b, _ = _dense(cuda, 3, 300, 256, 8, "float32", seed=4)
+    q, s = quantize_int8(x)
+    q = torch.empty(q.numel() + 3, dtype=q.dtype, device=cuda)[3:].view(q.shape).copy_(q)
+    assert q.data_ptr() % 16
+    _close(K.skip_lora_fwd_int8(q, s, a, b), R.skip_lora_int8_fwd_ref(q, s, a, b), "bfloat16")
 
 
 def test_backward_is_deterministic(cuda):

@@ -1,14 +1,16 @@
-"""What the tensor-core routes of K5, K7, K8 and K2 take from their wrappers,
-checked on the CPU.
+"""What the tensor-core routes of K5, K6, K7, K8, K3 and K2 take from their
+wrappers, checked on the CPU.
 
 K5's bf16 rows (``kernel.grouped_fwd_route``) take the tensor cores: z
 per (grouped position, layer) into an (M_pad, L * RP) bf16 scratch whose k
 axis is k = l * RP + r, RP the rank padded to whole 8-wide mma n-tiles
 (``kernel.bwd_scratch_rank``), then a sum over k against the slot's B stack,
-each row written back through ``row_src``; K7 (bf16 rows over a packed
-4-bit pool) and K8 (int8 rows) run the same passes with each pool element
-dequantised as bf16(code[nibble] scale) and each row element built as
-bf16(q s) where it becomes an mma fragment. At a few rows
+each row written back through ``row_src``; K6 (bf16 rows over an int8
+pool), K7 (bf16 rows over a packed 4-bit pool) and K8 (int8 rows) run the
+same passes with each pool element dequantised as bf16(float(q) scale) or
+bf16(code[nibble] scale) and each row element built as bf16(q s) where it
+becomes an mma fragment, and K3 is K8 with one slot (null ``row_src`` and
+``tile_slot``: position p is row p, every position slot 0). At a few rows
 (``kernel.grouped_fwd_geometry``) every block of both passes takes 16
 positions of one row tile. K2's bf16 route rounds z and gz
 to bf16 into (L, M, RP) scratch and sums over M in ``BWD_CHUNK``-row chunks
@@ -109,10 +111,13 @@ def _inputs(rng, lnum, m, d, n, r):
 def _k5_model(x, a, b, row_src, tile_slot, tm):
     """K5's tensor-core passes in plain torch: z (M_pad, L RP) bf16, zero
     past R, then out[row] = bf16(sum_k z[p, k] bf16(B[slot, k])) over the k in
-    order, written through row_src."""
+    order, written through row_src. A null (None) row_src and tile_slot read
+    as the kernels read them (K3): position p is row p, every tile slot 0."""
     lnum, m, d = x.shape
     n, _, _, r = a.shape
     rp = K.bwd_scratch_rank(r, BF16)
+    if row_src is None:
+        row_src, tile_slot = torch.arange(m), torch.zeros(-(-m // tm), dtype=torch.int32)
     m_pad = row_src.numel()
     pos = torch.nonzero(row_src >= 0)[:, 0]
     rows = row_src[pos].long()
@@ -191,8 +196,8 @@ SMS = 132                 # the H100's streaming multiprocessors
 @pytest.mark.parametrize("dtype,route", [(BF16, "tensor_cores"), (torch.int8, "tensor_cores"),
                                          (torch.float32, "cuda_cores")])
 def test_grouped_route_follows_the_row_dtype(dtype, route):
-    """bf16 rows (K5, K7) and int8 rows (K8, dequantised to bf16) take the
-    tensor cores; fp32 rows (K5, K7) stay on CUDA cores."""
+    """bf16 rows (K5, K6, K7) and int8 rows (K3, K8, dequantised to bf16)
+    take the tensor cores; fp32 rows (K5, K6, K7) stay on CUDA cores."""
     assert K.grouped_fwd_route(dtype) == route
 
 
@@ -338,6 +343,60 @@ def test_actint8_launch_arguments_and_scratch(recorded, scratch, m, rank, pool_d
     assert args[8:] == (lnum, m, d, rank, tm, m_pad // tm, int(pool_dtype == BF16), few)
 
 
+@pytest.mark.parametrize("m", [4, 5, 640])
+@pytest.mark.parametrize("rank", [4, 8, 24, 64])
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_int8_pool_launch_arguments_and_scratch(recorded, scratch, m, rank, dtype):
+    """K6 records one launch whose z is (M_pad, L RP) bf16 on the tensor
+    cores and (L, M_pad, R) fp32 on CUDA cores, and the geometry flag: a few
+    rows at serving's one row a slot, many at 5 slots of 128."""
+    lnum, d, n, tm = 2, 64, 6, ops.TM
+    x = torch.zeros((lnum, m, d), dtype=dtype)
+    a, b = _pool(n, lnum, d, rank)
+    qa, sa = quantize_int8(a)
+    qb, sb = quantize_int8(b)
+    idx = torch.arange(m, dtype=torch.int32) % (n - 1)
+    row_src, tile_slot = ops._plan(idx, n, m, tm)
+    m_pad = row_src.numel()
+    out = K.grouped_skip_sum_fwd_int8(x, qa, sa, qb, sb, row_src, tile_slot, tm)
+    assert out.dtype == dtype and out.shape == (m, d)
+    assert K.LAUNCHES["grouped_skip_sum_fwd_int8"] == 1 and sum(K.LAUNCHES.values()) == 1
+    (name, args), = recorded
+    (z,) = scratch
+    if dtype == BF16:
+        assert z.shape == (m_pad, lnum * K.bwd_scratch_rank(rank, BF16)) and z.dtype == BF16
+    else:
+        assert z.shape == (lnum, m_pad, rank) and z.dtype == torch.float32
+    assert args[7] == z.data_ptr()
+    few = int(K.grouped_fwd_geometry(m, m_pad) == "few_rows")
+    assert few == (m != 640)
+    assert args[9:] == (lnum, m, d, rank, tm, m_pad // tm, int(dtype == BF16), few)
+    assert K.ROW_LAUNCHES == {("grouped_skip_sum_fwd_int8", "few_rows" if few else "many_rows"): 1}
+
+
+@pytest.mark.parametrize("m", [1, 100, 1024])
+@pytest.mark.parametrize("rank", [4, 8, 16, 24, 32, 64])
+@pytest.mark.parametrize("w_dtype", [BF16, torch.float32])
+def test_int8_cache_forward_launch_arguments_and_scratch(recorded, scratch, m, rank, w_dtype):
+    """K3 records one launch whose z is the (M, L RP) bf16 scratch of the
+    tensor-core route, M positions of one row a tile, and the geometry flag
+    of ``grouped_fwd_geometry(M, M)``: many rows, whatever M."""
+    lnum, d = 3, 64
+    q = torch.zeros((lnum, m, d), dtype=torch.int8)
+    s = torch.ones((lnum, m))
+    a, b = torch.zeros((lnum, d, rank), dtype=w_dtype), torch.zeros((lnum, rank, d), dtype=w_dtype)
+    out = K.skip_lora_fwd_int8(q, s, a, b)
+    assert out.dtype == BF16 and out.shape == (m, d)
+    assert K.LAUNCHES["skip_lora_fwd_int8"] == 1 and sum(K.LAUNCHES.values()) == 1
+    assert K.ROW_LAUNCHES == {}                      # not a grouped forward
+    (name, args), = recorded
+    (z,) = scratch
+    assert z.shape == (m, lnum * K.bwd_scratch_rank(rank, BF16)) and z.dtype == BF16
+    assert args[4] == z.data_ptr()
+    assert K.grouped_fwd_geometry(m, m) == "many_rows"
+    assert args[6:] == (lnum, m, d, rank, int(w_dtype == BF16), 0)
+
+
 @pytest.mark.parametrize("groups", [(1, 1, 1, 1, 1, 0), (5, 5, 5, 5, 5, 0), (6, 6, 6, 6, 6, 0),
                                     (128, 128, 128, 128, 128, 0), (256, 256, 256, 256)])
 @pytest.mark.parametrize("name", ["grouped_skip_sum_fwd", "grouped_skip_sum_fwd_int8",
@@ -345,7 +404,7 @@ def test_actint8_launch_arguments_and_scratch(recorded, scratch, m, rank, pool_d
 def test_grouped_forwards_count_each_launch_by_row_class(recorded, name, groups):
     """Each grouped forward's wrapper counts its launch once in
     ``ROW_LAUNCHES`` under the row class ``grouped_fwd_geometry`` gives, the
-    one whose flag it passes (K5, K7, K8); ``reset_launches`` clears it."""
+    one whose flag it passes (K5-K8); ``reset_launches`` clears it."""
     lnum, d, r, n, tm = 2, 64, 8, len(groups), ops.TM
     m = sum(groups)
     idx = torch.cat([torch.full((c,), s, dtype=torch.int32) for s, c in enumerate(groups)])
@@ -369,8 +428,7 @@ def test_grouped_forwards_count_each_launch_by_row_class(recorded, name, groups)
                                        a, b, row_src, tile_slot, tm)
     assert K.ROW_LAUNCHES == {(name, geometry): 1}
     (_, args), = recorded
-    if name != "grouped_skip_sum_fwd_int8":          # K6 takes no geometry flag
-        assert args[-1] == int(geometry == "few_rows")
+    assert args[-1] == int(geometry == "few_rows")
     K.reset_launches()
     assert K.ROW_LAUNCHES == {} and sum(K.LAUNCHES.values()) == 0
 
@@ -537,5 +595,131 @@ def test_actint8_tensor_core_model_gives_the_plain_sum(groups, rank, pool_dtype)
     rows = (q.float() * s[..., None]).to(BF16)
     got = _k5_model(rows, a.float(), b.float(), row_src, tile_slot, tm)
     want = R.skip_lora_grouped_actint8_ref(q, s, a, b, idx)
+    tol = 2.0**-7 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# K6: the int8 pool policy (Int8Pool in skip_sum_tc.cuh) and its sums; K3 as
+# K8 with one slot.
+
+def _int8_pool(rng, n, lnum, d, r):
+    a = torch.as_tensor(rng.standard_normal((n, lnum, d, r)) / d**0.5, dtype=torch.float32)
+    b = torch.as_tensor(rng.standard_normal((n, lnum, r, d)) * 0.1, dtype=torch.float32)
+    a[0], b[0] = 0.0, 0.0                     # the pool's zero slot
+    return (*quantize_int8(a), *quantize_int8(b))
+
+
+def _int8_slab(qa, sa, gl, c0, rp):
+    """Int8Pool::issue_a: rows c0.. of A (D, R) as R bytes each, then DC
+    fp32 scales at byte DC RP; zeros past D."""
+    d, r = qa.shape[1], qa.shape[2]
+    live = min(DC, d - c0)
+    slab = torch.zeros(DC * rp + DC * 4, dtype=torch.uint8)
+    slab[: live * r] = qa[gl, c0 : c0 + live].reshape(-1).view(torch.uint8)
+    scales = torch.zeros(DC, dtype=torch.float32)
+    scales[:live] = sa[gl, c0 : c0 + live]
+    slab[DC * rp :] = scales.view(torch.uint8)
+    return slab
+
+
+def _int8_a_at(slab, dd, r, rank, rp):
+    return slab[dd * rank + r].view(torch.int8).float() * slab[DC * rp :].view(torch.float32)[dd]
+
+
+def _int8_b_stage(qb, sb, slot, k0, dc0, lnum, rank, rp, cw):
+    """Int8Pool::issue_b: KC rows k = k0.. (l = k // RP, r = k % RP) of CW
+    bytes, each padded by 16, then their KC scales; zeros for r >= R."""
+    d = qb.shape[-1]
+    br = cw + 16
+    st = torch.zeros(KC * br + KC * 4, dtype=torch.uint8)
+    scales = torch.zeros(KC, dtype=torch.float32)
+    for row in range(KC):
+        k = k0 + row
+        l, r = divmod(k, rp)
+        if k >= lnum * rp or r >= rank:
+            continue
+        cols = qb[slot, l, r, dc0 : min(dc0 + cw, d)]
+        st[row * br : row * br + cols.numel()] = cols.view(torch.uint8)
+        scales[row] = sb[slot, l, r]
+    st[KC * br :] = scales.view(torch.uint8)
+    return st
+
+
+def _int8_b_at(st, row, col, cw):
+    br = cw + 16
+    return st[row * br + col].view(torch.int8).float() * st[KC * br :].view(torch.float32)[row]
+
+
+@pytest.mark.parametrize("rank", [4, 8, 9, 24, 64])
+def test_int8_slab_and_b_stage_hold_the_dequantised_pool(rank):
+    """Every element an Int8Pool stage yields (A slab at a_at, B rows at
+    b_at, both geometries' column widths) is the reference's float(q) scale,
+    zeros past D and past R; the zero slot gives exact zeros."""
+    lnum, d, n = 2, 160, 3
+    rng = np.random.default_rng(rank)
+    qa, sa, qb, sb = _int8_pool(rng, n, lnum, d, rank)
+    a = (qa.float() * sa[..., None]).reshape(n * lnum, d, rank)
+    b = qb.float() * sb[..., None]
+    rp = K.bwd_scratch_rank(rank, BF16)
+    qa2, sa2 = qa.reshape(n * lnum, d, rank), sa.reshape(n * lnum, d)
+    for gl in (0, 3):
+        for c0 in range(0, d, DC):
+            slab = _int8_slab(qa2, sa2, gl, c0, rp)
+            for dd in range(min(DC, d - c0)):
+                got = torch.stack([_int8_a_at(slab, dd, r, rank, rp) for r in range(rank)])
+                assert torch.equal(got, a[gl, c0 + dd])
+                if gl == 0:
+                    assert not got.any()
+    for cw in (64, 128):
+        for slot in (0, 2):
+            for k0 in range(0, lnum * rp, KC):
+                for dc0 in range(0, d, cw):
+                    st = _int8_b_stage(qb, sb, slot, k0, dc0, lnum, rank, rp, cw)
+                    for row in range(KC):
+                        l, r = divmod(k0 + row, rp)
+                        got = torch.stack([_int8_b_at(st, row, c, cw) for c in range(min(cw, d - dc0))])
+                        want = b[slot, l, r, dc0 : dc0 + cw] if l < lnum and r < rank else torch.zeros_like(got)
+                        assert torch.equal(got, want)
+                        if slot == 0:
+                            assert not got.any()
+
+
+@pytest.mark.parametrize("groups", GROUPS)
+@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("tm", [1, 16])
+def test_int8_pool_tensor_core_model_gives_the_plain_sum(groups, rank, tm):
+    """K6 with bf16 rows: the K5 model (each pool element float(q) scale
+    cast to bf16 before use, the k = l RP + r layout) over the dequantised
+    pool gives the plain version within the bf16 bar, and the zero slot
+    exact zeros."""
+    lnum, d, n, m = 3, 32, len(groups), sum(groups)
+    rng = np.random.default_rng(rank + 13 * len(groups) + tm)
+    x = torch.as_tensor(rng.standard_normal((lnum, m, d)), dtype=torch.float32).to(BF16)
+    qa, sa, qb, sb = _int8_pool(rng, n, lnum, d, rank)
+    idx = torch.as_tensor(rng.permutation(np.repeat(np.arange(n), groups)), dtype=torch.int32)
+    row_src, tile_slot = ops._plan(idx, n, m, tm)
+    got = _k5_model(x, qa.float() * sa[..., None], qb.float() * sb[..., None], row_src, tile_slot, tm)
+    want = R.skip_lora_grouped_int8_ref(x, qa, sa, qb, sb, idx)
+    tol = 2.0**-7 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert not got[idx == 0].any()
+
+
+@pytest.mark.parametrize("m", [1, 33, 100, 256])
+@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("w_dtype", [BF16, torch.float32])
+def test_int8_cache_tensor_core_model_gives_the_plain_sum(m, rank, w_dtype):
+    """K3: rows bf16(q s), the adapters a pool of one slot, null row_src and
+    tile_slot with one row a tile: the K5 model's sum over k = l RP + r gives
+    the plain version (each layer's product added into an fp32 output)
+    within the bf16 bar."""
+    lnum, d = 3, 48
+    rng = np.random.default_rng(m + rank)
+    x, a, b = _inputs(rng, lnum, m, d, 1, rank)
+    q, s = quantize_int8(x.float() * 4)
+    a, b = a[0].to(w_dtype), b[0].to(w_dtype)
+    rows = (q.float() * s[..., None]).to(BF16)
+    got = _k5_model(rows, a[None].float(), b[None].float(), None, None, 1)
+    want = R.skip_lora_int8_fwd_ref(q, s, a, b)
     tol = 2.0**-7 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
