@@ -20,7 +20,8 @@ Phases, each printing one line (or a few) before the last line:
          rows on the CUDA-core ones;
        - K1/K2/K3 (skip-sum forward, adapter backward, int8 forward) at the
          cached-step shape (L 24, M 1024, D 2048, R 8, bf16), a ragged
-         M 1000 and fp32, K3 on the tensor-core passes (profiler);
+         M 1000 and fp32, K1 also at D 200; K1's bf16 rows and K3 on the
+         tensor-core passes, K1's fp32 rows on the CUDA-core ones (profiler);
        - K4 (flash attention) at the populate shape (B 8 x H 32, S 128,
          hd 64, bf16) and a gemma-2-like shape (window 512, softcap 50,
          hd 256, GQA 2:1, S 1024);
@@ -495,18 +496,20 @@ def _entry(name, source, replaces, err, k_ms, p_ms, bound, nbytes, lib_ms, shape
 def fused_kernel_phase(torch):
     """K1/K2/K3 against their plain versions at the cached step's shape
     (L 24, M 1024, D 2048, R 8, fp32 adapters), a ragged M and fp32 (K1
-    and K2: K3's input is an int8 payload in every case). The
+    and K2: K3's input is an int8 payload in every case), and K1 at D 200
+    (the plain loads). The
     plain versions are two (K1, K3) or four (K2) cuBLAS products through
     einsum: no single PyTorch call computes these functions, so there is no
-    library time."""
+    library time. K1's bf16 rows and K3 must run the tensor-core passes
+    (``stc::``), K1's fp32 rows the CUDA-core ones (``ssk::``)."""
     from repro_torch.core.lm_skiplora import quantize_int8
     from repro_torch.kernels.skip_lora import kernel as K
     from repro_torch.kernels.skip_lora import ops, ref as R
 
-    lnum, d, r = 24, 2048, RANK
+    lnum, r = 24, RANK
     results = {}
-    for label, m, dtype in (("cached-step", 1024, torch.bfloat16), ("ragged", 1000, torch.bfloat16),
-                            ("fp32", 1024, torch.float32)):
+    for label, m, d, dtype in (("cached-step", 1024, 2048, torch.bfloat16), ("ragged", 1000, 2048, torch.bfloat16),
+                               ("fp32", 1024, 2048, torch.float32), ("d200", 1024, 200, torch.bfloat16)):
         g = torch.Generator(device="cuda").manual_seed(11)
         x = torch.randn((lnum, m, d), generator=g, device="cuda").to(dtype)
         a = torch.randn((lnum, d, r), generator=g, device="cuda") / d**0.5
@@ -532,6 +535,8 @@ def fused_kernel_phase(torch):
         }
         if not bf16:   # K3 takes an int8 payload and gives bf16 whatever x was: the cached-step case
             del cases["skip_lora_fwd_int8"]
+        if label == "d200":   # K1's plain loads (D not a multiple of 128 columns)
+            cases = {"skip_lora_fwd": cases["skip_lora_fwd"]}
         # the autograd wrappers launch the same kernels
         a_w, b_w = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
         out_w = ops.skip_lora_fused(x[:, :, None], a_w, b_w)[:, 0]
@@ -558,17 +563,22 @@ def fused_kernel_phase(torch):
             p_ms = time_ms(c["plain"], reps=5)
             bound = _bound_ms(c["nbytes"], c["ops"], c["dt"])
             passes = ""
-            if label == "cached-step":   # device time of each pass of the kernel
+            if label in ("cached-step", "fp32"):   # device time of each pass of the kernel
                 c["run"]()
                 torch.cuda.synchronize()
                 passes = _passes(c["run"])
+                check(passes != "", f"{name} {label}: the profiler saw no pass in three tries")
                 print(f"kernel {name} {label} passes (profiler): {passes}")
             route = ""
-            if name == "skip_lora_fwd_int8":   # K8's one-slot form: the tensor-core passes
-                route = f", route {K.grouped_fwd_route(q.dtype)}, geometry {K.grouped_fwd_geometry(m, m)}"
-                if passes:
-                    check("stc::project_tc" in passes and "stc::expand_tc" in passes and "ssk::" not in passes,
-                          f"K3 {label}: not the tensor-core passes: {passes}")
+            if name in ("skip_lora_fwd", "skip_lora_fwd_int8"):   # K5's and K8's one-slot forms
+                rows = q.dtype if name == "skip_lora_fwd_int8" else x.dtype
+                tc = K.grouped_fwd_route(rows) == "tensor_cores"
+                route = f", route {K.grouped_fwd_route(rows)}"
+                route += f", geometry {K.grouped_fwd_geometry(m, m)}" if tc else ""
+                if passes:   # stc::project_tc + stc::expand_tc, or ssk::project + ssk::expand
+                    ns, other = ("stc::", "ssk::") if tc else ("ssk::", "stc::")
+                    check(f"{ns}project" in passes and f"{ns}expand" in passes and other not in passes,
+                          f"{name} {label}: not the {K.grouped_fwd_route(rows)} passes: {passes}")
             print(f"kernel {name} {label} L={lnum} M={m} D={d} R={r} {dname}{route}: max_abs_err {err:.3e} "
                   f"(tol {c['tol']:.1e} x max) kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
                   f"(cuBLAS products via einsum), bound {bound[0] * 1e3:.2f} us ({bound[1]}, "
@@ -577,8 +587,8 @@ def fused_kernel_phase(torch):
                 results[name] = _entry(name, f"{SKIP_SRC}/{K.SOURCES[name]}", c["replaces"], err, k_ms, p_ms,
                                        bound, c["nbytes"], None, f"L={lnum} M={m} D={d} R={r} {dname}",
                                        passes=passes)
-                if name == "skip_lora_fwd_int8":
-                    results[name]["grouped_route"] = K.grouped_fwd_route(q.dtype)
+                if name in ("skip_lora_fwd", "skip_lora_fwd_int8"):
+                    results[name]["grouped_route"] = K.grouped_fwd_route(q.dtype if "int8" in name else x.dtype)
         del x, q, gr
         torch.cuda.empty_cache()
     return results

@@ -27,19 +27,6 @@
 #include "skip_sum.cuh"
 #include "skip_sum_tc.cuh"
 
-template <typename T>
-static int run(const void* x, const void* a, const void* b, const void* g, float* z, float* gz,
-               float* pa, float* pb, float* ga, float* gb, int L, int M, int D, int R, int chunk,
-               int w_bf16, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  if (w_bf16)
-    return ssk::backward<T>(xt, (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, gt, z, gz, pa, pb,
-                            ga, gb, L, M, D, R, chunk, s);
-  return ssk::backward<T>(xt, (const float*)a, (const float*)b, gt, z, gz, pa, pb, ga, gb, L, M, D,
-                          R, chunk, s);
-}
-
 extern "C" int skip_lora_bwd(
     const void* x,      // (L, M, D) fp32 or bf16
     const void* a,      // (L, D, R) fp32 or bf16
@@ -54,8 +41,15 @@ extern "C" int skip_lora_bwd(
     int L, int M, int D, int R, int chunk, int x_bf16, int w_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (L < 1 || M < 1 || D < 1 || R < 1 || R > ssk::R_MAX || chunk < 1) return (int)cudaErrorInvalidValue;
-  if (!x_bf16) return run<float>(x, a, b, g, (float*)z, (float*)gz, pa, pb, ga, gb, L, M, D, R, chunk, w_bf16, s);
   using bf = __nv_bfloat16;
+  if (!x_bf16) {
+    const float* xf = static_cast<const float*>(x);
+    const float* gf = static_cast<const float*>(g);
+    float *zf = static_cast<float*>(z), *gzf = static_cast<float*>(gz);
+    if (w_bf16)
+      return ssk::backward(xf, (const bf*)a, (const bf*)b, gf, zf, gzf, pa, pb, ga, gb, L, M, D, R, chunk, s);
+    return ssk::backward(xf, (const float*)a, (const float*)b, gf, zf, gzf, pa, pb, ga, gb, L, M, D, R, chunk, s);
+  }
   const int chunks = (M + chunk - 1) / chunk;
   float* oa = chunks == 1 ? ga : pa;
   float* ob = chunks == 1 ? gb : pb;

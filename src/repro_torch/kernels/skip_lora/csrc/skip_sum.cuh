@@ -1,40 +1,37 @@
-// Dense skip-LoRA sum and its adapter gradients for Hopper (sm_90a), on
-// CUDA cores: the body of skip_lora_fwd.cu (K1) and the fp32-row route of
-// skip_lora_bwd.cu (K2). K2's bf16-row route and K3 (int8 rows) run on the
-// tensor cores (skip_sum_tc.cuh).
+// Dense skip-LoRA sum and its adapter gradients for Hopper (sm_90a) over
+// fp32 rows, on CUDA cores: the fp32-row routes of skip_lora_fwd.cu (K1)
+// and skip_lora_bwd.cu (K2). Their bf16 rows, and K3's int8 rows, run on
+// the tensor cores (skip_sum_tc.cuh); fp32 rows stay here because the
+// tensor cores' fp32 input is TF32 (about three decimal digits), which
+// would break the float32 cases' 1e-5 bar.
 //
-//   forward   out[m]  = cast_x( sum_l cast_x(x[l,m] @ cast_x(A[l])) @ cast_x(B[l]) )
-//   backward  gA[l]   = x[l]^T  @ cast_x(g @ cast_x(B[l])^T)
-//             gB[l]   = cast_x(x[l] @ cast_x(A[l]))^T @ g
+//   forward   out[m]  = sum_l (x[l,m] @ A[l]) @ B[l]
+//   backward  gA[l]   = x[l]^T  @ (g @ B[l]^T)
+//             gB[l]   = (x[l] @ A[l])^T @ g
 //
-// with fp32 accumulation and every cast to the activation type where the
-// reference puts it (src/repro/kernels/skip_lora/kernel.py, _fwd_kernel,
-// _bwd_kernel).
+// with fp32 accumulation, the adapters (fp32 or bf16) read as fp32, as the
+// reference casts them to the rows' dtype
+// (src/repro/kernels/skip_lora/kernel.py, _fwd_kernel, _bwd_kernel).
 //
 // What bounds them: bytes. The rank R is 4..64, so each element of x meets
-// 2R multiply-adds: at the cached-step shape (L 24, M 1024, D 2048, R 8,
-// bf16) reading x (100 MB) takes ~30 us at 3.35 TB/s and the 0.8 GFLOP of
+// 2R multiply-adds: at the cached-step shape (L 24, M 1024, D 2048, R 8)
+// reading fp32 x (201 MB) takes ~60 us at 3.35 TB/s and the 0.8 GFLOP of
 // fp32 FMAs ~12 us at 67 TFLOP/s. The TPU kernels keep an fp32 output tile
 // resident while a sequential grid axis walks the layers (forward) or the
 // row tiles (backward). GPU blocks run in parallel, so each is split in
 // passes that a block finishes on its own:
 //
-//   project  (block per 16..64-row tile x layer): P[l, m, :] = cast_x(X(l, m, :) @ cast_x(W[l]))
+//   project  (block per 16..64-row tile x layer): P[l, m, :] = X(l, m, :) @ W[l]
 //     through shared memory, 128 columns of D per step; x is read once.
 //     Used for z = x A (forward and backward) and gz = g B^T (backward,
 //     W read through strides as B transposed, X the same g for every layer).
 //   expand   (block per 32-row x 128-column tile, 4 x 4 outputs a thread):
-//     out = cast_x(sum_(l,r) z[l,m,r] B[l,r,:]),
-//     the (layer, rank) pairs taken in order k = l * R + r.
+//     out = sum_(l,r) z[l,m,r] B[l,r,:], the (layer, rank) pairs taken in
+//     order k = l * R + r.
 //   outer    (block per layer x 128 columns x chunk of M): per-chunk
 //     fp32 partials of gA and gB, one column of D per thread.
 //   reduce   sums the chunks' partials in chunk order: no atomics, so the
-//     gradients are the same bits on every run.
-//
-// fp32 rows stay here: the tensor cores' fp32 input is TF32 (about three
-// decimal digits), which would break the float32 cases' 1e-5 bar. K1's bf16
-// rows on the tensor cores (the one-slot form of K5's route in
-// skip_sum_tc.cuh, as K3 runs K8's) are later work.
+//     gradients are the same bits on every run (K2's bf16 route uses it too).
 
 #pragma once
 
@@ -46,8 +43,6 @@
 
 namespace ssk {
 
-using rtk::from_f;
-using rtk::round_to;
 using rtk::to_f;
 
 constexpr int R_MAX = 64;
@@ -60,15 +55,14 @@ constexpr int E_KK = 32;          // (layer, rank) pairs per expand step
 constexpr int E_THREADS = 256;
 constexpr int O_TD = 128;         // columns per outer block, one per thread
 
-// Rows of the activations, read as fp32 values of the activation type:
-// `at(l, m, d)`. `layer_stride` 0 gives every layer the same matrix (g in
-// the backward).
-template <typename T> struct DenseRows {
-  const T* x;
+// fp32 rows: `at(l, m, d)`. `layer_stride` 0 gives every layer the same
+// matrix (g in the backward).
+struct DenseRows {
+  const float* x;
   size_t layer_stride;
   int D;
   __device__ __forceinline__ float at(int l, int m, int d) const {
-    return to_f<T>(x[(size_t)l * layer_stride + (size_t)m * D + d]);
+    return x[(size_t)l * layer_stride + (size_t)m * D + d];
   }
 };
 
@@ -80,8 +74,8 @@ template <int RP> struct ProjectShape {
   static constexpr int LPT = TM * P_KC / P_THREADS;    // x values a thread stages per step
 };
 
-// project: P[l, m, r] = cast_T( sum_d X(l, m, d) * cast_T(W[l*wl + d*wd + r*wr]) ),
-// stored as fp32 in P (L, M, R). RP is R rounded up to a power of two >= 4.
+// project: P[l, m, r] = sum_d X(l, m, d) * W[l*wl + d*wd + r*wr], stored in
+// P (L, M, R). RP is R rounded up to a power of two >= 4.
 // Each step stages a TM x P_KC tile of x and the matching P_KC x RP block
 // of W in shared memory, with loops of compile-time trip count so a
 // thread's loads issue together (8 at a time for x, which keeps the
@@ -91,7 +85,7 @@ template <int RP> struct ProjectShape {
 // At least 3 blocks per SM (2 at rank > 16): without the bound the
 // compiler keeps every staged load in flight in its own registers (200 at
 // rank 8), one block fits per SM and the grid runs in three waves.
-template <typename T, typename Rows, typename W, int RP>
+template <typename Rows, typename W, int RP>
 __global__ void __launch_bounds__(P_THREADS, RP <= 16 ? 3 : 2)
 project(Rows rows, const W* __restrict__ w, size_t wl, size_t wd, size_t wr,
         float* __restrict__ out, int M, int D, int R) {
@@ -123,7 +117,7 @@ project(Rows rows, const W* __restrict__ w, size_t wl, size_t wd, size_t wr,
     for (int j = 0; j < P_KC * RP / P_THREADS; ++j) {
       const int e = tid + j * P_THREADS;
       const int dd = w_rows ? e / RP : e % P_KC, r = w_rows ? e % RP : e / P_KC, d = d0 + dd;
-      ws[dd * RP + r] = (d < D && r < R) ? round_to<T>(to_f<W>(wl_[(size_t)d * wd + (size_t)r * wr])) : 0.f;
+      ws[dd * RP + r] = (d < D && r < R) ? to_f<W>(wl_[(size_t)d * wd + (size_t)r * wr]) : 0.f;
     }
     __syncthreads();
 #pragma unroll 2
@@ -161,35 +155,35 @@ project(Rows rows, const W* __restrict__ w, size_t wl, size_t wd, size_t wr,
       const int m = m0 + row0 + i;
 #pragma unroll
       for (int r = 0; r < RP; ++r)
-        if (m < M && r < R) out[((size_t)l * M + m) * R + r] = round_to<T>(acc[i][r]);
+        if (m < M && r < R) out[((size_t)l * M + m) * R + r] = acc[i][r];
     }
   }
 }
 
-template <typename T, typename Rows, typename W, int RP>
+template <typename Rows, typename W, int RP>
 cudaError_t launch_project_rp(Rows rows, const W* w, size_t wl, size_t wd, size_t wr, float* out,
                               int L, int M, int D, int R, cudaStream_t s) {
   const dim3 grid((M + ProjectShape<RP>::TM - 1) / ProjectShape<RP>::TM, L);
-  project<T, Rows, W, RP><<<grid, P_THREADS, 0, s>>>(rows, w, wl, wd, wr, out, M, D, R);
+  project<Rows, W, RP><<<grid, P_THREADS, 0, s>>>(rows, w, wl, wd, wr, out, M, D, R);
   return cudaGetLastError();
 }
 
-template <typename T, typename Rows, typename W>
+template <typename Rows, typename W>
 cudaError_t launch_project(Rows rows, const W* w, size_t wl, size_t wd, size_t wr, float* out,
                            int L, int M, int D, int R, cudaStream_t s) {
-  if (R <= 4) return launch_project_rp<T, Rows, W, 4>(rows, w, wl, wd, wr, out, L, M, D, R, s);
-  if (R <= 8) return launch_project_rp<T, Rows, W, 8>(rows, w, wl, wd, wr, out, L, M, D, R, s);
-  if (R <= 16) return launch_project_rp<T, Rows, W, 16>(rows, w, wl, wd, wr, out, L, M, D, R, s);
-  if (R <= 32) return launch_project_rp<T, Rows, W, 32>(rows, w, wl, wd, wr, out, L, M, D, R, s);
-  return launch_project_rp<T, Rows, W, 64>(rows, w, wl, wd, wr, out, L, M, D, R, s);
+  if (R <= 4) return launch_project_rp<Rows, W, 4>(rows, w, wl, wd, wr, out, L, M, D, R, s);
+  if (R <= 8) return launch_project_rp<Rows, W, 8>(rows, w, wl, wd, wr, out, L, M, D, R, s);
+  if (R <= 16) return launch_project_rp<Rows, W, 16>(rows, w, wl, wd, wr, out, L, M, D, R, s);
+  if (R <= 32) return launch_project_rp<Rows, W, 32>(rows, w, wl, wd, wr, out, L, M, D, R, s);
+  return launch_project_rp<Rows, W, 64>(rows, w, wl, wd, wr, out, L, M, D, R, s);
 }
 
-// expand: out[m, d] = cast_T( sum_k z[k / R, m, k % R] * cast_T(B[k, d]) ), k = l * R + r.
+// expand: out[m, d] = sum_k z[k / R, m, k % R] * B[k, d], k = l * R + r.
 // Thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3,
 // read as one float4 each from the staged (transposed) z and B tiles.
-template <typename T, typename W>
+template <typename W>
 __global__ void __launch_bounds__(E_THREADS)
-expand(const float* __restrict__ z, const W* __restrict__ b, T* __restrict__ out,
+expand(const float* __restrict__ z, const W* __restrict__ b, float* __restrict__ out,
        int L, int M, int D, int R) {
   constexpr int ZLD = E_TM + 4;
   __shared__ __align__(16) float zs[E_KK * ZLD];     // [kk][row]
@@ -211,7 +205,7 @@ expand(const float* __restrict__ z, const W* __restrict__ b, T* __restrict__ out
 #pragma unroll
     for (int j = 0; j < E_KK * E_TD / E_THREADS; ++j) {
       const int e = tid + j * E_THREADS, kk = e / E_TD, dd = e % E_TD, k = k0 + kk, d = d0 + dd;
-      bs[e] = (k < K && d < D) ? round_to<T>(to_f<W>(b[(size_t)k * D + d])) : 0.f;
+      bs[e] = (k < K && d < D) ? to_f<W>(b[(size_t)k * D + d]) : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -233,27 +227,28 @@ expand(const float* __restrict__ z, const W* __restrict__ b, T* __restrict__ out
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int d = d0 + tx * 4 + c;
-      if (m < M && d < D) out[(size_t)m * D + d] = from_f<T>(acc[i][c]);
+      if (m < M && d < D) out[(size_t)m * D + d] = acc[i][c];
     }
   }
 }
 
-template <typename T, typename W>
-cudaError_t launch_expand(const float* z, const W* b, T* out, int L, int M, int D, int R,
+template <typename W>
+cudaError_t launch_expand(const float* z, const W* b, float* out, int L, int M, int D, int R,
                           cudaStream_t s) {
   const dim3 grid((M + E_TM - 1) / E_TM, (D + E_TD - 1) / E_TD);
-  expand<T, W><<<grid, E_THREADS, 0, s>>>(z, b, out, L, M, D, R);
+  expand<W><<<grid, E_THREADS, 0, s>>>(z, b, out, L, M, D, R);
   return cudaGetLastError();
 }
 
 // Forward: project then expand. z is an (L, M, R) fp32 scratch buffer.
-template <typename T, typename Rows, typename W>
-int forward(Rows rows, const W* a, const W* b, float* z, T* out, int L, int M, int D, int R,
+template <typename W>
+int forward(const float* x, const W* a, const W* b, float* z, float* out, int L, int M, int D, int R,
             cudaStream_t s) {
   if (L < 1 || M < 1 || D < 1 || R < 1 || R > R_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_project<T>(rows, a, (size_t)D * R, (size_t)R, (size_t)1, z, L, M, D, R, s);
+  const DenseRows rows{x, (size_t)M * D, D};
+  cudaError_t err = launch_project(rows, a, (size_t)D * R, (size_t)R, (size_t)1, z, L, M, D, R, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_expand<T, W>(z, b, out, L, M, D, R, s);
+  return (int)launch_expand(z, b, out, L, M, D, R, s);
 }
 
 // outer: for rows [c * chunk, (c + 1) * chunk) of layer l,
@@ -262,9 +257,9 @@ int forward(Rows rows, const W* a, const W* b, float* z, T* out, int L, int M, i
 // one column d per thread, 2 RP fp32 accumulators. SUB rows at a time: their
 // z and gz rows are staged in shared memory, and each thread loads its SUB
 // x and g values together before using them.
-template <typename T, int RP>
+template <int RP>
 __global__ void __launch_bounds__(O_TD, RP <= 16 ? 4 : 2)
-outer(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ z,
+outer(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ z,
       const float* __restrict__ gz, float* __restrict__ pa, float* __restrict__ pb,
       int L, int M, int D, int R, int chunk) {
   constexpr int SUB = RP <= 16 ? 32 : 8;
@@ -292,8 +287,8 @@ outer(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict_
 #pragma unroll
     for (int i = 0; i < SUB; ++i) {
       const bool live = i < n && d < D;
-      xv[i] = live ? to_f<T>(x[((size_t)l * M + s0 + i) * D + d]) : 0.f;
-      gv[i] = live ? to_f<T>(g[(size_t)(s0 + i) * D + d]) : 0.f;
+      xv[i] = live ? x[((size_t)l * M + s0 + i) * D + d] : 0.f;
+      gv[i] = live ? g[(size_t)(s0 + i) * D + d] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -353,31 +348,31 @@ inline cudaError_t launch_reduce(const float* pa, const float* pb, float* ga, fl
 // (L, M, R) fp32; pa, pb (chunks, L, D, R) / (chunks, L, R, D) fp32, unused
 // (may be null) when there is one chunk, in which case outer writes gA and
 // gB directly.
-template <typename T, typename W>
-int backward(const T* x, const W* a, const W* b, const T* g, float* z, float* gz, float* pa,
+template <typename W>
+int backward(const float* x, const W* a, const W* b, const float* g, float* z, float* gz, float* pa,
              float* pb, float* ga, float* gb, int L, int M, int D, int R, int chunk, cudaStream_t s) {
   if (L < 1 || M < 1 || D < 1 || R < 1 || R > R_MAX || chunk < 1) return (int)cudaErrorInvalidValue;
-  const DenseRows<T> xr{x, (size_t)M * D, D};
-  const DenseRows<T> gr{g, 0, D};
-  cudaError_t err = launch_project<T>(xr, a, (size_t)D * R, (size_t)R, (size_t)1, z, L, M, D, R, s);
+  const DenseRows xr{x, (size_t)M * D, D};
+  const DenseRows gr{g, 0, D};
+  cudaError_t err = launch_project(xr, a, (size_t)D * R, (size_t)R, (size_t)1, z, L, M, D, R, s);
   if (err != cudaSuccess) return (int)err;
   // gz[l, m, r] = sum_d g[m, d] B[l, r, d]: B[l] read as a (D, R) matrix with strides (1, D).
-  err = launch_project<T>(gr, b, (size_t)R * D, (size_t)1, (size_t)D, gz, L, M, D, R, s);
+  err = launch_project(gr, b, (size_t)R * D, (size_t)1, (size_t)D, gz, L, M, D, R, s);
   if (err != cudaSuccess) return (int)err;
   const int chunks = (M + chunk - 1) / chunk;
   float* oa = chunks == 1 ? ga : pa;
   float* ob = chunks == 1 ? gb : pb;
   const dim3 grid(L, (D + O_TD - 1) / O_TD, chunks);
   if (R <= 4)
-    outer<T, 4><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
+    outer<4><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   else if (R <= 8)
-    outer<T, 8><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
+    outer<8><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   else if (R <= 16)
-    outer<T, 16><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
+    outer<16><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   else if (R <= 32)
-    outer<T, 32><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
+    outer<32><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   else
-    outer<T, 64><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
+    outer<64><<<grid, O_TD, 0, s>>>(x, g, z, gz, oa, ob, L, M, D, R, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return (int)err;
   return (int)launch_reduce(pa, pb, ga, gb, (size_t)L * D * R, chunks, s);

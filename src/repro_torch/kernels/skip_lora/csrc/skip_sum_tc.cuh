@@ -2,8 +2,9 @@
 // passes shared by K2 (skip_lora_bwd.cu, one adapter stack), the grouped
 // forwards K5 (grouped_skip_sum_fwd.cu, float pool), K6
 // (grouped_skip_sum_fwd_int8.cu, int8 pool), K7 (grouped_skip_sum_fwd_q4.cu,
-// packed 4-bit pool) and K8 (grouped_skip_sum_fwd_actint8.cu, int8 rows), K3
-// (skip_lora_fwd_int8.cu, int8 rows and one adapter stack: K8's one-slot
+// packed 4-bit pool) and K8 (grouped_skip_sum_fwd_actint8.cu, int8 rows), K1
+// (skip_lora_fwd.cu, bf16 rows and one adapter stack: K5's one-slot form),
+// K3 (skip_lora_fwd_int8.cu, int8 rows and one adapter stack: K8's one-slot
 // form) and K9 (grouped_skip_sum_bwd.cu, per-slot gradients). Every product
 // is an M x n x K matrix product in bf16 with fp32 sums, the rank (padded to
 // whole 8-wide n-tiles) as n: exactly `mma.sync` m16n8k16 (mma.cuh), fed from
@@ -13,15 +14,15 @@
 // bf16 before use, z = x A and gz = g B^T are rounded to bf16 between the
 // two products, sums are fp32.
 //
-// What feeds the passes is a compile-time policy, so the seven kernels share
+// What feeds the passes is a compile-time policy, so the eight kernels share
 // one body:
 //   rows (project_tc's A operand): `Bf16Rows`, fragments by `ldmatrix`; or
 //     `Int8Rows` (K8, K3), int8 rows with an fp32 scale per (layer, row),
 //     each fragment element built as bf16(float(q) s), the reference's
 //     `(q.astype(f32) * s).astype(bf16)`: x crosses device memory once, as
 //     int8.
-//   pool (A slabs and B rows): `FloatPool<P>` (fp32 or bf16; K3's one stack
-//     is a pool of one slot); `Int8Pool` (K6), the int8 payload and its fp32
+//   pool (A slabs and B rows): `FloatPool<P>` (fp32 or bf16; K1's and K3's
+//     one stack is a pool of one slot); `Int8Pool` (K6), the int8 payload and its fp32
 //     scales copied as they are and each element dequantised as
 //     bf16(float(q) scale) where it becomes a fragment; or `Q4Pool` (K7), the
 //     packed 4-bit payload and its fp32 scales likewise, each element
@@ -1024,7 +1025,7 @@ int backward(const bf16* x, const bf16* g, const P* a, const P* b, const int* ro
 }
 
 // The grouped forwards with bf16 products (K5, K6 and K7 with bf16 rows, K8),
-// and K3 as one slot (null row_src and tile_slot, tm 1, n_tiles M): z
+// and K1 and K3 as one slot (null row_src and tile_slot, tm 1, n_tiles M): z
 // (n_tiles * tm, L RP) bf16 scratch, out (M, D) bf16. `few` (kernel.py,
 // grouped_fwd_geometry) picks the few-row geometry: 16 positions of one row
 // tile a block in both passes, 64 columns an expand block.

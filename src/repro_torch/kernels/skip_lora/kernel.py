@@ -16,10 +16,9 @@ interface, compiled by ``nvcc`` for ``sm_90a`` (``kernels/build.py``):
   - ``grouped_skip_sum_bwd`` (K9, per-slot adapter gradients) replaces
     ``...::skip_lora_grouped_bwd``.
 
-The bf16-row routes of K2, K5, K6, K7 and K9, and K3 and K8 (int8 rows
+The bf16-row routes of K1, K2, K5, K6, K7 and K9, and K3 and K8 (int8 rows
 dequantised to bf16), run on the tensor cores (``csrc/skip_sum_tc.cuh``:
-``mma.sync``, ``ldmatrix``, ``cp.async``); fp32 rows, and K1, on CUDA
-cores.
+``mma.sync``, ``ldmatrix``, ``cp.async``); fp32 rows on CUDA cores.
 
 Nothing is built or loaded at import time: the module imports on a machine
 with no CUDA toolkit. Each launch function checks devices, types, shapes and
@@ -49,7 +48,7 @@ SOURCES = {
     "grouped_skip_sum_bwd": "grouped_skip_sum_bwd.cu",
 }
 LIB = KernelLib(CSRC, SOURCES, {
-    "skip_lora_fwd": [P] * 5 + [I] * 6 + [P],
+    "skip_lora_fwd": [P] * 5 + [I] * 7 + [P],
     "skip_lora_bwd": [P] * 10 + [I] * 7 + [P],
     "skip_lora_fwd_int8": [P] * 6 + [I] * 6 + [P],
     "grouped_skip_sum_fwd": [P] * 7 + [I] * 9 + [P],
@@ -106,14 +105,18 @@ def _check_adapters(x, a, b, lnum, d):
 
 def skip_lora_fwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K1: x (L, M, D) fp32/bf16, a (L, D, R), b (L, R, D) fp32/bf16 ->
-    (M, D) in x.dtype."""
+    (M, D) in x.dtype, on the route ``grouped_fwd_route`` gives. bf16 rows
+    take K5's tensor-core passes with one slot (every row its own position,
+    one row a tile), in the geometry ``grouped_fwd_geometry(M, M)`` gives
+    (many rows); fp32 rows the CUDA-core passes. z in ``_grouped_scratch``."""
     check_tensor(x, "x", x.device, x.shape, _FLOAT)
     lnum, m, d = x.shape
     r = _check_adapters(x, a, b, lnum, d)
-    z = torch.empty((lnum, m, r), dtype=torch.float32, device=x.device)
+    geometry = grouped_fwd_geometry(m, m)
+    z = _grouped_scratch(x, lnum, m, r)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     LIB.launch("skip_lora_fwd", x, x.data_ptr(), a.data_ptr(), b.data_ptr(), z.data_ptr(),
-               out.data_ptr(), lnum, m, d, r, _bf16(x), _bf16(a))
+               out.data_ptr(), lnum, m, d, r, _bf16(x), _bf16(a), int(geometry == "few_rows"))
     return out
 
 
@@ -199,12 +202,12 @@ def _check_float_pool(x, a_pool, b_pool, lnum, d):
 
 
 def grouped_fwd_route(dtype: torch.dtype) -> str:
-    """The route of the grouped forwards K5-K8 (and K3, K8's one-slot form)
-    for rows of ``dtype``, whatever the number of rows: ``"tensor_cores"``
-    for bf16 rows (K5, K6, K7) and int8 rows (K3, K8, dequantised to bf16 in
-    the kernel); ``"cuda_cores"`` for fp32 rows (K5, K6, K7), since the
-    tensor cores' fp32 input is TF32, which would break the float32 cases'
-    1e-5 bar."""
+    """The route of the grouped forwards K5-K8 (and K1 and K3, K5's and K8's
+    one-slot forms) for rows of ``dtype``, whatever the number of rows:
+    ``"tensor_cores"`` for bf16 rows (K1, K5, K6, K7) and int8 rows (K3, K8,
+    dequantised to bf16 in the kernel); ``"cuda_cores"`` for fp32 rows (K1,
+    K5, K6, K7), since the tensor cores' fp32 input is TF32, which would
+    break the float32 cases' 1e-5 bar."""
     return "cuda_cores" if dtype == torch.float32 else "tensor_cores"
 
 
@@ -224,9 +227,9 @@ def grouped_fwd_geometry(m: int, m_pad: int) -> str:
 
 
 def _grouped_scratch(x, lnum, m_pad, r):
-    """z of the grouped forwards (and K3) for rows ``x``: (M_pad, L * RP)
-    bf16 on the tensor cores (``bwd_scratch_rank``), (L, M_pad, R) fp32 on
-    CUDA cores."""
+    """z of the grouped forwards (and K1 and K3) for rows ``x``: (M_pad,
+    L * RP) bf16 on the tensor cores (``bwd_scratch_rank``), (L, M_pad, R)
+    fp32 on CUDA cores."""
     if grouped_fwd_route(x.dtype) == "tensor_cores":
         return torch.empty((m_pad, lnum * bwd_scratch_rank(r, torch.bfloat16)), dtype=torch.bfloat16,
                            device=x.device)

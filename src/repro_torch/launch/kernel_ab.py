@@ -11,7 +11,10 @@ the repo and the change alike) and writes a digest of every output (the
 outputs themselves for ``KEEP``'s kernels, whose bits a change may move),
 each time and the package's path into OUT. ``--compare`` prints, for the first two files, how many
 outputs are the same bits and, where both kept them, the largest
-difference of the others; then each time in every file, in the order
+difference of the others (for bf16 outputs also in bf16 ulps of the
+output's largest value and of each row's: a value near zero after
+cancellation carries the rounding of its row's scale); then each time in
+every file, in the order
 given, so a run of parent, change, change, parent on one card reads as two
 pairs.
 
@@ -34,7 +37,7 @@ L, D, RANK = 24, 2048, 8
 SPIN = 10_000_000        # ~5 ms at the H100's ~2 GHz
 STEP_SPIN = 500_000_000  # ~250 ms: longer than one eager step's host time
 DECODE, PREFILL = (1, 1, 1, 1, 1, 0), (128, 128, 128, 128, 128, 0)
-KEEP = ("K3", "K6")      # kernels whose outputs are saved whole, the others as digests
+KEEP = ("K1", "K3", "K6")   # kernels whose outputs are saved whole, the others as digests
 
 
 def time_ms(fn, reps: int = 20, spin: int = SPIN) -> float:
@@ -155,6 +158,17 @@ def outputs() -> dict[str, torch.Tensor]:
                     if dtype == torch.bfloat16:
                         q, s = quantize_int8(x)
                         out[f"K3 {key}"] = K.skip_lora_fwd_int8(q, s, aw, bw).cpu()
+    for label, d, off in (("D200", 200, 0), ("x 6 bytes off 16", D, 3)):   # K1's plain loads
+        for dtype in (torch.bfloat16, torch.float32):
+            g = _gen(17)
+            x = torch.randn((L, 1000, d), generator=g, device="cuda").to(dtype)
+            if off:
+                x = torch.empty(x.numel() + off, dtype=dtype, device="cuda")[off:].view(x.shape).copy_(x)
+            a = torch.randn((L, d, RANK), generator=g, device="cuda") / d**0.5
+            b = torch.randn((L, RANK, d), generator=g, device="cuda") * 0.02
+            for wd in (torch.float32, torch.bfloat16):
+                out[f"K1 {label} M1000 R{RANK} {str(dtype)[6:]} rows {str(wd)[6:]} adapters"] = K.skip_lora_fwd(
+                    x, a.to(wd), b.to(wd)).cpu()
     for b_, h, hkv, s_, hd, window, cap, dtype in ((8, 32, 32, 128, 64, 0, 0.0, torch.bfloat16),
                                                    (8, 32, 32, 128, 64, 0, 0.0, torch.float32),
                                                    (1, 16, 8, 1024, 256, 512, 50.0, torch.bfloat16)):
@@ -169,13 +183,23 @@ def outputs() -> dict[str, torch.Tensor]:
 
 
 def kernel_times() -> dict[str, object]:
-    """K3 at the cached step; K6 at the serve shape, fleet serving's decode
-    step and 5 slots of 128 rows: device ms and the profiler's pass split."""
+    """K1 (bf16 and fp32 rows) and K3 at the cached step; K6 at the serve
+    shape, fleet serving's decode step and 5 slots of 128 rows: device ms
+    and the profiler's pass split."""
     from repro_torch.core.lm_skiplora import quantize_int8
     from repro_torch.kernels.skip_lora import kernel as K
     from repro_torch.kernels.skip_lora import ops
 
     times: dict[str, object] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = _gen(11)
+        x = torch.randn((L, 1024, D), generator=g, device="cuda").to(dtype)
+        a = torch.randn((L, D, RANK), generator=g, device="cuda") / D**0.5
+        b = torch.randn((L, RANK, D), generator=g, device="cuda") * 0.02
+        run = lambda: K.skip_lora_fwd(x, a, b)  # noqa: E731
+        key = f"K1 cached-step {str(dtype)[6:]}"
+        times[f"{key} ms"], times[f"{key} passes"] = time_ms(run), passes(run)
+    del x
     g = _gen(11)
     x = torch.randn((L, 1024, D), generator=g, device="cuda").to(torch.bfloat16)
     a = torch.randn((L, D, RANK), generator=g, device="cuda") / D**0.5
@@ -232,8 +256,16 @@ def compare(files: list[str]) -> None:
     for k in differ:
         if k in kept_a and k in kept_b:
             x, y = kept_a[k].float(), kept_b[k].float()
+            ulps = ""
+            if kept_a[k].dtype == torch.bfloat16:   # one bf16 ulp at |v| in [2^e, 2^(e+1)) is 2^(e-7)
+                def ulp(v):
+                    return 2.0 ** (torch.floor(torch.log2(v.clamp_min(2.0**-126))) - 7)
+
+                d, big = (x - y).abs(), torch.maximum(x.abs(), y.abs())
+                ulps = (f", {(d.max() / ulp(big.max())).item():.2f} bf16 ulps of the largest value, "
+                        f"{(d / ulp(big.amax(dim=-1, keepdim=True))).max().item():.2f} of each row's largest")
             print(f"  differ: {k}: max |diff| {(x - y).abs().max().item():.3e} (max |value| "
-                  f"{x.abs().max().item():.3e})")
+                  f"{x.abs().max().item():.3e}){ulps}")
         else:
             print(f"  differ: {k}")
     for key in runs[0]["times"]:

@@ -49,9 +49,9 @@ def ref_params():
     return jp, C.params_from_reference(jax.tree.map(np.asarray, jp), CFG)
 
 
-def _data(n_t=N_T, n_per=N_PER, seed=1):
-    tok = jax.random.randint(jax.random.key(seed), (n_t, n_per, SEQ), 0, CFG.vocab_size)
-    lab = jax.random.randint(jax.random.key(seed + 1), (n_t, n_per, SEQ), 0, CFG.vocab_size)
+def _data(n_t=N_T, n_per=N_PER, seed=1, seq=SEQ, cfg=CFG):
+    tok = jax.random.randint(jax.random.key(seed), (n_t, n_per, seq), 0, cfg.vocab_size)
+    lab = jax.random.randint(jax.random.key(seed + 1), (n_t, n_per, seq), 0, cfg.vocab_size)
     return tok, lab, C.to_tensor(np.asarray(tok)), C.to_tensor(np.asarray(lab))
 
 
@@ -60,8 +60,8 @@ def _sl(mode, use_kernel):
     return JSL.SkipLoRAConfig(**kw), TSL.SkipLoRAConfig(**kw)
 
 
-def _init(jsl, n_t, seed=3):
-    stacked = JFF.init_fleet_adapters(jax.random.key(seed), CFG, jsl, n_t)
+def _init(jsl, n_t, seed=3, cfg=CFG):
+    stacked = JFF.init_fleet_adapters(jax.random.key(seed), cfg, jsl, n_t)
     return stacked, C.adapters_from_reference(jax.tree.map(np.asarray, stacked))
 
 
@@ -81,6 +81,49 @@ def test_fleet_finetune_matches_reference(ref_params, mode, use_kernel):
     for k in ("A", "B"):
         np.testing.assert_allclose(C.to_numpy(got.adapters[k]), np.asarray(want.adapters[k]), atol=tol[1])
     assert len(got.epoch_times_s) == EPOCHS and got.cache.valid.all()
+
+
+@pytest.fixture(scope="module", params=["gemma2-9b", "gemma3-27b"])
+def local_params(request):
+    """Reduced gemma2-9b and gemma3-27b: local attention (window 8), sandwich
+    norms, gemma2's softcaps."""
+    cfg = reduce_config(get_config(request.param))
+    jp = j_init_lm(jax.random.key(0), cfg)
+    return cfg, jp, C.params_from_reference(jax.tree.map(np.asarray, jp), cfg)
+
+
+def _acts_max(cache):
+    """Largest magnitude of the cached layer inputs (dequantised in mode int8)."""
+    s = cache.slots
+    if "acts" in s:
+        return float(s["acts"].abs().max())
+    return float((s["acts_q"].float() * s["acts_scale"][..., None]).abs().max())
+
+
+@pytest.mark.parametrize("mode,use_kernel", [("full", True), ("full", False), ("int8", True), ("int8", False)])
+def test_fleet_finetune_matches_reference_on_local_attention(local_params, mode, use_kernel):
+    """The reference's fleet trajectory on gemma2-9b and gemma3-27b, 12
+    tokens a sample (past the 8-token window), with the bars of
+    ``test_fleet_finetune_matches_reference``, the adapters' scaled by the
+    cached activations' max where it passes 1: the gradients are sums of
+    those activations, so their float32 rounding grows with them (gemma2's
+    reach 10, gemma3's 21), and AdamW's normalised step turns a gradient
+    element's rounding near zero into a whole step's difference."""
+    cfg, jp, tp = local_params
+    jsl, tsl = _sl(mode, use_kernel)
+    jtok, jlab, ttok, tlab = _data(seq=12, cfg=cfg)
+    want = JFF.fleet_finetune(jax.random.key(3), cfg, jsl, jp, jtok, jlab, epochs=EPOCHS,
+                              batch_per_tenant=BPT, lr=LR, use_kernel=use_kernel)
+    _, t_init = _init(jsl, N_T, cfg=cfg)
+    got = TFF.fleet_finetune(None, cfg, tsl, tp, ttok, tlab, epochs=EPOCHS, batch_per_tenant=BPT,
+                             lr=LR, use_kernel=use_kernel, adapters=t_init)
+    assert got.losses.shape == want.losses.shape == (EPOCHS, N_PER // BPT, N_T)
+    tol = (1e-5, 2e-5) if mode == "full" else (1e-4, 1e-4)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=tol[0])
+    scale = max(1.0, _acts_max(got.cache))
+    for k in ("A", "B"):
+        np.testing.assert_allclose(C.to_numpy(got.adapters[k]), np.asarray(want.adapters[k]), atol=tol[1] * scale)
+    assert got.cache.valid.all()
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])

@@ -544,6 +544,18 @@ def test_fused_kernels_match_plain_versions(cuda, m, rank, dtype):
         got = K.skip_lora_fwd_int8(q, s, a, b)
         _close(got, R.skip_lora_int8_fwd_ref(q, s, a, b), "bfloat16")
         assert torch.equal(got, _k8_one_slot(q, s, a, b))       # K3 is K8's one-slot form
+        if dtype == "bfloat16":                                 # K1's bf16 rows are K5's one-slot form
+            assert torch.equal(K.skip_lora_fwd(x, a, b), _k5_one_slot(x, a, b))
+
+
+def _k5_one_slot(x, a, b):
+    """K5 over one slot holding a and b, every row its own tile (tm 1): the
+    launch K1 makes for bf16 rows with null row_src and tile_slot, made
+    explicit."""
+    m = x.shape[1]
+    row_src = torch.arange(m, dtype=torch.int32, device=x.device)
+    tile_slot = torch.zeros(m, dtype=torch.int32, device=x.device)
+    return K.grouped_skip_sum_fwd(x, a[None], b[None], row_src, tile_slot, 1)
 
 
 def _k8_one_slot(q, s, a, b):
@@ -576,6 +588,41 @@ def test_int8_cache_forward_on_the_tensor_cores(cuda, d, rank):
         one = torch.zeros(m, dtype=torch.int32, device=cuda)
         assert torch.equal(got, K.grouped_skip_sum_fwd(rows, aw[None], bw[None],
                                                        torch.arange(m, dtype=torch.int32, device=cuda), one, 1))
+
+
+@pytest.mark.parametrize("d", [2048, 200])
+@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64])
+def test_dense_forward_on_the_tensor_cores(cuda, d, rank):
+    """K1's bf16 rows at the cached step's M and L (D 2048; D 200 takes the
+    plain loads) within two bf16 ulps of the plain version, the same bits on
+    a second run, and bitwise K5's one-slot launch."""
+    x, a, b, _ = _dense(cuda, 24, 1024, d, rank, "bfloat16", seed=rank)
+    assert K.grouped_fwd_route(x.dtype) == "tensor_cores"
+    for wdtype in (torch.float32, torch.bfloat16):
+        aw, bw = a.to(wdtype), b.to(wdtype)
+        got = K.skip_lora_fwd(x, aw, bw)
+        _close(got, R.skip_lora_fwd_ref(x, aw, bw), "bfloat16")
+        assert torch.equal(got, K.skip_lora_fwd(x, aw, bw))
+        assert torch.equal(got, _k5_one_slot(x, aw, bw))
+
+
+@pytest.mark.parametrize("case", [
+    # (layers, M, D, rank, adapter dtype, offset of x in elements)
+    (24, 1000, 2048, 8, torch.float32, 0),   # ragged M: the last tiles pad past M
+    (3, 1, 256, 8, torch.bfloat16, 0),       # one row
+    (3, 257, 200, 40, torch.float32, 0),     # D 200, R 33-64: z L * 64 wide
+    (2, 300, 100, 9, torch.bfloat16, 0),     # D 100, not a multiple of 8: plain loads
+    (3, 300, 256, 8, torch.float32, 3),      # x 6 bytes off a 16-byte boundary: plain loads
+])
+def test_dense_forward_tensor_core_edges(cuda, case):
+    lnum, m, d, rank, wdtype, off = case
+    x, a, b, _ = _dense(cuda, lnum, m, d, rank, "bfloat16", wdtype, seed=5)
+    if off:
+        x = torch.empty(x.numel() + off, dtype=x.dtype, device=cuda)[off:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16
+    got = K.skip_lora_fwd(x, a, b)
+    _close(got, R.skip_lora_fwd_ref(x, a, b), "bfloat16")
+    assert torch.equal(got, _k5_one_slot(x, a, b))
 
 
 def test_int8_cache_forward_rows_off_a_16_byte_boundary(cuda):

@@ -1,7 +1,9 @@
 """The port's ``RequestScheduler`` and serving ``SessionRuntime`` against the
 reference's, on the CPU.
 
-Reduced stablelm-1.6b in float32, params from the reference's ``init_lm``
+Reduced stablelm-1.6b in float32 (the traces also on gemma2-9b: local
+attention, sandwich norms, softcaps), params from the reference's
+``init_lm``
 carried across by ``repro_torch.convert``; both sessions hold the same two
 adapters (``pool.register``, as the reference's serve CLI fills its pool).
 Prompts are made with numpy from seeds.
@@ -47,27 +49,39 @@ RECYCLE = dict(max_batch=2, max_prompt=16, max_new_cap=3, admit_bucket=2, inflig
                chunk=2, kv_block=4)
 
 
-def _adapters(seed):
+def _adapters(seed, cfg=CFG):
     rng = np.random.default_rng(seed)
-    l, d = CFG.n_layers, CFG.d_model
+    l, d = cfg.n_layers, cfg.d_model
     return {
         "A": (rng.normal(size=(l, d, RANK)) / np.sqrt(d)).astype(np.float32),
         "B": (rng.normal(size=(l, RANK, d)) * 0.1).astype(np.float32),
     }
 
 
+def _sessions(cfg):
+    """(reference runtime, port runtime) over the same weights and adapters."""
+    jp = JL.init_lm(jax.random.key(0), cfg)
+    tp = C.params_from_reference(jax.tree.map(np.asarray, jp), cfg)
+    jrt = JRuntime(cfg, JSL.SkipLoRAConfig(rank=RANK, mode="full", cache_dtype="float32"), jp,
+                   max_tenants=2, samples_per_tenant=1, seq=8)
+    trt = SessionRuntime(cfg, TSL.SkipLoRAConfig(rank=RANK), tp, max_tenants=2, device="cpu")
+    for i in range(2):
+        jrt.pool.register(f"u{i}", _adapters(10 + i, cfg))
+        trt.pool.register(f"u{i}", _adapters(10 + i, cfg))
+    return jrt, trt
+
+
 @pytest.fixture(scope="module")
 def sessions():
-    """(reference runtime, port runtime) over the same weights and adapters."""
-    jp = JL.init_lm(jax.random.key(0), CFG)
-    tp = C.params_from_reference(jax.tree.map(np.asarray, jp), CFG)
-    jrt = JRuntime(CFG, JSL.SkipLoRAConfig(rank=RANK, mode="full", cache_dtype="float32"), jp,
-                   max_tenants=2, samples_per_tenant=1, seq=8)
-    trt = SessionRuntime(CFG, TSL.SkipLoRAConfig(rank=RANK), tp, max_tenants=2, device="cpu")
-    for i in range(2):
-        jrt.pool.register(f"u{i}", _adapters(10 + i))
-        trt.pool.register(f"u{i}", _adapters(10 + i))
-    return jrt, trt
+    return _sessions(CFG)
+
+
+@pytest.fixture(scope="module")
+def local_sessions():
+    """Reduced gemma2-9b: local attention (window 8, which the 16-token
+    prompts pass), sandwich norms, softcaps. gemma3-27b's parity runs in the
+    fine-tuning and fleet files, where it costs the tier-1 run less."""
+    return _sessions(reduce_config(get_config("gemma2-9b")))
 
 
 def _prompts(n, length, seed):
@@ -109,7 +123,18 @@ TRACES = {
 @pytest.mark.parametrize("reuse", [True, False], ids=["reuse-on", "reuse-off"])
 @pytest.mark.parametrize("trace", list(TRACES))
 def test_tokens_and_counters_equal_the_reference(sessions, trace, reuse):
-    jrt, trt = sessions
+    _check_trace(*sessions, trace, reuse)
+
+
+@pytest.mark.parametrize("reuse", [True, False], ids=["reuse-on", "reuse-off"])
+@pytest.mark.parametrize("trace", list(TRACES))
+def test_tokens_and_counters_equal_the_reference_on_local_attention(local_sessions, trace, reuse):
+    _check_trace(*local_sessions, trace, reuse)
+
+
+def _check_trace(jrt, trt, trace, reuse):
+    """Tokens and counters of the reference's scheduler on ``trace``, and the
+    port's own invariants after it."""
     prompts, who, gen, kw = TRACES[trace]()
     want, want_c, _ = _run(JScheduler, jrt, prompts, who, gen, prefix_reuse=reuse, **kw)
     got, got_c, sched = _run(S.RequestScheduler, trt, prompts, who, gen, prefix_reuse=reuse, **kw)

@@ -1,7 +1,10 @@
 """The port's serving path against the reference, end to end on the CPU.
 
-Reduced stablelm-1.6b and gemma-7b (float32), params from
-``repro.models.lm.init_lm`` carried across by ``repro_torch.convert``.
+Reduced stablelm-1.6b, gemma-7b and gemma2-9b (float32; gemma2-9b brings
+local attention, which the 17 positions of a generation run past its
+8-token window, sandwich norms and softcaps; gemma3-27b's parity runs in
+the fine-tuning and fleet files, where it costs the tier-1 run less), params
+from ``repro.models.lm.init_lm`` carried across by ``repro_torch.convert``.
 
 Bars: logits within atol 1e-4 (float32, different GEMM summation orders);
 temperature-0 tokens equal; final bf16 KV caches within one bf16 ulp at the
@@ -28,7 +31,7 @@ from repro_torch.core.runtime import generate, generate_grouped  # noqa: E402
 from repro_torch.launch import serve as cli  # noqa: E402
 from repro_torch.models import lm as TL  # noqa: E402
 
-ARCHS = ["stablelm-1.6b", "gemma-7b"]
+ARCHS = ["stablelm-1.6b", "gemma-7b", "gemma2-9b"]
 RANK, NEW = 4, 8
 LOGIT_ATOL = 1e-4
 

@@ -1,5 +1,5 @@
-"""What the tensor-core routes of K5, K6, K7, K8, K3 and K2 take from their
-wrappers, checked on the CPU.
+"""What the tensor-core routes of K5, K6, K7, K8, K1, K3 and K2 take from
+their wrappers, checked on the CPU.
 
 K5's bf16 rows (``kernel.grouped_fwd_route``) take the tensor cores: z
 per (grouped position, layer) into an (M_pad, L * RP) bf16 scratch whose k
@@ -9,8 +9,8 @@ each row written back through ``row_src``; K6 (bf16 rows over an int8
 pool), K7 (bf16 rows over a packed 4-bit pool) and K8 (int8 rows) run the
 same passes with each pool element dequantised as bf16(float(q) scale) or
 bf16(code[nibble] scale) and each row element built as bf16(q s) where it
-becomes an mma fragment, and K3 is K8 with one slot (null ``row_src`` and
-``tile_slot``: position p is row p, every position slot 0). At a few rows
+becomes an mma fragment, and K1 and K3 are K5 and K8 with one slot (null
+``row_src`` and ``tile_slot``: position p is row p, every position slot 0). At a few rows
 (``kernel.grouped_fwd_geometry``) every block of both passes takes 16
 positions of one row tile. K2's bf16 route rounds z and gz
 to bf16 into (L, M, RP) scratch and sums over M in ``BWD_CHUNK``-row chunks
@@ -721,5 +721,53 @@ def test_int8_cache_tensor_core_model_gives_the_plain_sum(m, rank, w_dtype):
     rows = (q.float() * s[..., None]).to(BF16)
     got = _k5_model(rows, a[None].float(), b[None].float(), None, None, 1)
     want = R.skip_lora_int8_fwd_ref(q, s, a, b)
+    tol = 2.0**-7 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# K1: K5's passes with one slot over bf16 rows; fp32 rows on CUDA cores.
+
+@pytest.mark.parametrize("m", [1, 100, 1000, 1024])
+@pytest.mark.parametrize("rank", [4, 8, 16, 24, 32, 64])
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("w_dtype", [BF16, torch.float32])
+def test_dense_forward_launch_arguments_and_scratch(recorded, scratch, m, rank, dtype, w_dtype):
+    """K1 records one launch whose z is the (M, L RP) bf16 scratch of the
+    tensor-core route for bf16 rows (M positions of one row a tile) and the
+    (L, M, R) fp32 scratch of the CUDA-core passes for fp32 rows, and the
+    geometry flag of ``grouped_fwd_geometry(M, M)``: many rows, whatever M."""
+    lnum, d = 3, 64
+    x = torch.zeros((lnum, m, d), dtype=dtype)
+    a, b = torch.zeros((lnum, d, rank), dtype=w_dtype), torch.zeros((lnum, rank, d), dtype=w_dtype)
+    out = K.skip_lora_fwd(x, a, b)
+    assert out.dtype == dtype and out.shape == (m, d)
+    assert K.LAUNCHES["skip_lora_fwd"] == 1 and sum(K.LAUNCHES.values()) == 1
+    assert K.ROW_LAUNCHES == {}                      # not a grouped forward
+    (name, args), = recorded
+    (z,) = scratch
+    if dtype == BF16:
+        assert z.shape == (m, lnum * K.bwd_scratch_rank(rank, BF16)) and z.dtype == BF16
+    else:
+        assert z.shape == (lnum, m, rank) and z.dtype == torch.float32
+    assert args[3] == z.data_ptr() and args[4] == out.data_ptr()
+    assert K.grouped_fwd_geometry(m, m) == "many_rows"
+    assert args[5:] == (lnum, m, d, rank, int(dtype == BF16), int(w_dtype == BF16), 0)
+
+
+@pytest.mark.parametrize("m", [1, 33, 100, 257])
+@pytest.mark.parametrize("rank", [4, 8, 16, 24, 32, 64])
+@pytest.mark.parametrize("w_dtype", [BF16, torch.float32])
+def test_dense_forward_tensor_core_model_gives_the_plain_sum(m, rank, w_dtype):
+    """K1: bf16 rows, the adapters a pool of one slot, null row_src and
+    tile_slot with one row a tile: the K5 model's sum over k = l RP + r gives
+    the plain version (one fp32 sum over every layer's product) within the
+    bf16 bar, at ranks 4-64 and M off every tile size."""
+    lnum, d = 3, 48
+    rng = np.random.default_rng(m + rank)
+    x, a, b = _inputs(rng, lnum, m, d, 1, rank)
+    a, b = a[0].to(w_dtype), b[0].to(w_dtype)
+    got = _k5_model(x, a[None].float(), b[None].float(), None, None, 1)
+    want = R.skip_lora_fwd_ref(x, a, b)
+    assert got.dtype == want.dtype == BF16 and got.shape == want.shape == (m, d)
     tol = 2.0**-7 * want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
