@@ -87,10 +87,24 @@ Phases, each printing one line (or a few) before the last line:
      admission (3 x 128 tokens, bucket 1, 8 new) continuous vs sequential
      vs solo ``serve``. A reduced float32 scheduler with reuse gives the
      same tokens on the card as on the CPU.
+ 11. session: the session runtime (``SessionRuntime``) at full width on the
+     fleet phase's inputs, ``use_kernel=True``: mode full over a resident
+     engine (a base serve, 32 ingests of 2 rows, one K5 launch each over the
+     last position; ``adapt(epochs=3)`` on the scan path, 24 K5 and 24 K9;
+     a serve of the 4 tenants and a base row), whose adapters, per-step
+     losses and pool slots equal the fleet phase's offline ``fleet_finetune``
+     bitwise; mode full over a tiered engine holding half the rows (the
+     stream path, spills, the resident run's numbers); mode int8 over an
+     int8 pool (K6 at ingest and serve, K8 + K9 at adapt, every tenant's
+     loss falling); one ``enqueue_ingest`` between decode dispatches equal
+     to a direct ingest. Ingest rows/s and device ms, each path's adapt
+     time, HBM hit rates. A reduced float32 session (a control plane, a disk
+     host tier) gives the same losses, adapters, gate decisions and tokens
+     on the card as on the CPU.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
-step's must take many rows, and each ``generate_grouped`` call's a few
-(its prefill's skip-sum reads each prompt's last position only).
+step's must take many rows, and each ``generate_grouped`` call's and each
+ingest's a few (their skip-sums read each prompt's last position only).
 The kernels line {"kernels": [...]} comes next, then the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is
 nonzero; without CUDA, or without the repo's ``src`` next to this file, it
@@ -1192,8 +1206,8 @@ def fleet_phase(torch, device_name):
     ``--use-kernel``), modes full and int8: one populate and two cached
     epochs, exact launch counts per epoch, every tenant's loss falling, one
     cached step's gradients against the einsum route, frozen and empty slots
-    exactly zero. Returns each kernel's launches and the full-mode run (for
-    write-back)."""
+    exactly zero. Returns each kernel's launches and the full-mode run's
+    inputs and results (for write-back and the session phase)."""
     from repro_torch.launch import fleet as FL
 
     totals = {k: 0 for k in ("grouped_skip_sum_fwd", "grouped_skip_sum_fwd_actint8", "grouped_skip_sum_bwd")}
@@ -1239,7 +1253,8 @@ def fleet_phase(torch, device_name):
         _fleet_step_split(torch, cfg, sl, params, res, device_name, mode)
         res.cache = None
         if mode == "full":
-            kept = (cfg, sl, params, res.adapters)
+            kept = dict(cfg=cfg, sl=sl, params=params, tokens=tokens, labels=labels, adapters=res.adapters,
+                        losses=losses, times=times)
         del params, res, out
         torch.cuda.empty_cache()
     return totals, kept
@@ -1372,7 +1387,7 @@ def fleet_serve_phase(torch, device_name, kept):
     from repro_torch.kernels.skip_lora import kernel as K
     from repro_torch.models.lm import model_dtype
 
-    cfg, sl, params, stacked = kept
+    cfg, sl, params, stacked = (kept[k] for k in ("cfg", "sl", "params", "adapters"))
     dev = torch.device("cuda")
     tenants = [f"tenant-{t}" for t in range(FLEET_TENANTS)]
     who = tenants + [None]
@@ -1463,6 +1478,303 @@ def small_fleet_check(torch):
         print(f"fleet small: reduced {ARCH} float32 mode={mode} --use-kernel, 3 tenants, populate + 2 cached "
               f"epochs: card (kernels) vs CPU (plain versions) max loss rel diff {loss_err:.3e}, max adapter "
               f"diff {ad_err:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the session runtime (serve -> ingest -> adapt -> serve)
+# ---------------------------------------------------------------------------
+
+
+def _window(torch, want, rows=None):
+    """Hold the launches since the last reset to ``want`` (kernel -> count,
+    every other kernel 0) and the grouped forwards' launches by row class to
+    ``rows`` ((kernel, {row class: count}), or none at all); reset the counts
+    and return the launches."""
+    from repro_torch.kernels.skip_lora import kernel as K
+
+    torch.cuda.synchronize()
+    counts = _launches()
+    full = {k: 0 for k in counts}
+    full.update(want)
+    check(counts == full, f"session: launches {counts} != {full}")
+    if rows is None:
+        check(not K.ROW_LAUNCHES, f"session: grouped forwards {dict(K.ROW_LAUNCHES)} where none was wanted")
+    else:
+        _tally_rows(*rows)
+    _reset_launches()
+    return counts
+
+
+def session_phase(torch, device_name, kept):
+    """The session runtime at full width on the fleet phase's inputs (4
+    tenants x 16 samples x seq 128, seed-0 weights, batch per tenant 2, rank
+    8, AdamW lr 1e-3, fp32 cache, ``use_kernel=True``):
+      - mode full, resident engine: a base serve (no grouped launch), 32
+        ingests of 2 rows (one K5 launch each, few rows; logits against the
+        same forward with ``use_kernel=False``), ``adapt(epochs=3)`` on the
+        scan path (exactly 24 K5, many rows, and 24 K9), a serve of the 4
+        tenants and a base row (33 K5, few rows; the base row equal to the
+        base serve's). The adapters and every per-step loss equal, bitwise,
+        the offline ``fleet_finetune`` of the fleet phase, and the pool
+        slots ``write_back_to_pool``'s;
+      - mode full, tiered engine (half of the 64 rows on the card, the host
+        tier in memory): the stream path, spills, and the resident run's
+        losses and adapters (the reference's bar 1e-6; bitwise or not is
+        printed);
+      - mode int8 over an int8 pool: K6 at ingest and serve, K8 + K9 at
+        adapt, exact counts, every tenant's loss falling;
+      - one ``enqueue_ingest`` between decode dispatches lands as a direct
+        ``ingest`` does (logits and cached rows bitwise).
+    Prints ingest rows/s and one ingest's device time (profiler), each
+    path's adapt time beside the offline cached epoch, the HBM hit rates.
+    Returns each kernel's launches."""
+    import numpy as np
+
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.adapter_pool import AdapterPool
+    from repro_torch.core.fleet_finetune import write_back_to_pool
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.launch import fleet as FL
+    from repro_torch.models.lm import ingest_prefill
+    from repro_torch.optim.optimizers import adamw
+
+    dev = torch.device("cuda")
+    cfg, params, tokens, labels = (kept[k] for k in ("cfg", "params", "tokens", "labels"))
+    who = list(range(FLEET_TENANTS)) + [None]
+    prompts = torch.randint(0, cfg.vocab_size, (len(who), PROMPT),
+                            generator=torch.Generator(device=dev).manual_seed(21), device=dev)
+    n_ingests = FLEET_TENANTS * FLEET_SAMPLES // FLEET_BPT
+    n_steps = 3 * FLEET_STEPS
+    totals: dict[str, int] = {}
+
+    def window(want, rows=None):
+        for k, n in _window(torch, want, rows).items():
+            totals[k] = totals.get(k, 0) + n
+
+    def runtime(mode, **kw):
+        sl = FL.setup(FL.parse_args([*FLEET_ARGS, "--mode", mode]))[1]
+        return SessionRuntime(cfg, sl, params, max_tenants=FLEET_TENANTS, samples_per_tenant=FLEET_SAMPLES,
+                              seq=FLEET_SEQ, optimizer=adamw(1e-3), use_kernel=True, device=dev, **kw)
+
+    def ingest_all(rt, fwd, compare):
+        """The 32 ingests; the last under the profiler. Returns (rows/s over
+        the first 31, device ms of the last, logits error vs use_kernel=False
+        or None)."""
+        batches = [(t, lo) for t in range(FLEET_TENANTS) for lo in range(0, FLEET_SAMPLES, FLEET_BPT)]
+        logits = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t, lo in batches[:-1]:
+            logits.append(rt.ingest(t, tokens[t, lo:lo + FLEET_BPT], labels[t, lo:lo + FLEET_BPT]))
+        torch.cuda.synchronize()
+        rate = (len(batches) - 1) * FLEET_BPT / (time.perf_counter() - t0)
+        t, lo = batches[-1]
+        box = []
+        _, per_kernel = _profile(lambda: box.append(rt.ingest(t, tokens[t, lo:lo + FLEET_BPT],
+                                                               labels[t, lo:lo + FLEET_BPT])))
+        logits += box
+        dev_ms = sum(ms for ms, _ in per_kernel.values())
+        window({fwd: n_ingests}, (fwd, {"few_rows": n_ingests}))
+        err = None
+        if compare:   # every row in the zero slot: the same forward through the plain versions
+            idx = rt.pool.lookup([None] * FLEET_BPT)
+            errs = []
+            for (t, lo), got in zip(batches, logits):
+                want = ingest_prefill(params, cfg, tokens[t, lo:lo + FLEET_BPT], rt.pool.pools(), idx,
+                                      use_kernel=False)[0]
+                e, mag = _rel_err(got, want)
+                check(e <= 2.0**-7 * mag, f"session ingest {t}/{lo}: logits differ by {e:.3e} (max {mag:.3e})")
+                errs.append(e)
+            window({})
+            err = max(errs)
+        return rate, dev_ms, err
+
+    def adapt(rt, fwd, path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rt.adapt(epochs=3, batch_per_tenant=FLEET_BPT, generator=torch.Generator(device=dev).manual_seed(3))
+        dt = time.perf_counter() - t0                     # the losses are on the host: the epochs have ended
+        window({fwd: n_steps, "grouped_skip_sum_bwd": n_steps}, (fwd, {"many_rows": n_steps}))
+        check(out["path"] == path and out["groups"] == [list(range(FLEET_TENANTS))],
+              f"session adapt: path {out['path']} groups {out['groups']}, not one group on the {path} path")
+        losses = np.stack([out["losses"][t] for t in range(FLEET_TENANTS)], axis=-1)   # (3, steps, N)
+        check(losses.shape == (3, FLEET_STEPS, FLEET_TENANTS) and np.isfinite(losses).all(),
+              f"session adapt: losses {losses.shape} not finite")
+        return losses, dt
+
+    def serve(rt, fwd, base):
+        out = rt.serve(who, prompts, max_new=NEW)
+        window({fwd: 1 + NEW}, (fwd, {"few_rows": 1 + NEW}))
+        check(torch.equal(out[-1], base[-1]), f"session serve: base row {out[-1].tolist()} != {base[-1].tolist()}")
+        return out
+
+    _reset_launches()
+    # -- mode full, resident engine --------------------------------------------
+    rt = runtime("full")
+    base = rt.serve([None] * len(who), prompts, max_new=NEW)
+    window({})
+    rate, ingest_ms, logit_err = ingest_all(rt, "grouped_skip_sum_fwd", compare=True)
+    losses, scan_s = adapt(rt, "grouped_skip_sum_fwd", "scan")
+    scan_hit = rt.engine.stats.hbm_hit_rate()
+    check(np.array_equal(losses, kept["losses"]), "session: per-step losses != the offline fleet_finetune's "
+          f"(max diff {np.abs(losses - kept['losses']).max():.3e})")
+    for k in ("A", "B"):
+        for t in range(FLEET_TENANTS):
+            check(torch.equal(rt.tenant(t).adapters[k], kept["adapters"][k][t]),
+                  f"session: tenant {t} adapters {k} != the offline fleet_finetune's")
+    pool = AdapterPool(FLEET_TENANTS + 1, cfg, RANK, device=dev)
+    write_back_to_pool(pool, list(range(FLEET_TENANTS)), kept["adapters"])
+    check(all(torch.equal(v, pool.pools()[k]) for k, v in rt.pool.pools().items()),
+          "session: pool slots != write_back_to_pool's")
+    serve(rt, "grouped_skip_sum_fwd", base)
+    resident = {t: dict(rt.tenant(t).adapters) for t in range(FLEET_TENANTS)}
+    trained0 = resident[0]
+    del rt, pool
+    torch.cuda.empty_cache()
+
+    # -- mode full, tiered engine: half the rows on the card ---------------------
+    sl_full = FL.setup(FL.parse_args([*FLEET_ARGS, "--mode", "full"]))[1]
+    half = FLEET_TENANTS * FLEET_SAMPLES // 2
+    rt = runtime("full", hbm_budget_bytes=half * SL.cache_nbytes_per_sample(cfg, sl_full, FLEET_SEQ))
+    check(rt.engine.capacity == half, f"tiered engine holds {rt.engine.capacity} rows, not {half}")
+    ingest_all(rt, "grouped_skip_sum_fwd", compare=False)
+    t_losses, stream_s = adapt(rt, "grouped_skip_sum_fwd", "stream")
+    st = rt.engine.stats
+    check(st.spills > 0, "tiered session: no spills")
+    loss_diff = float(np.abs(t_losses - losses).max())
+    ad_diff = max(float((rt.tenant(t).adapters[k] - resident[t][k]).abs().max())
+                  for t in range(FLEET_TENANTS) for k in ("A", "B"))
+    check(loss_diff <= 1e-6 and ad_diff <= 1e-6,
+          f"tiered session: stream vs scan losses {loss_diff:.3e}, adapters {ad_diff:.3e} > 1e-6")
+    stream_stats = (st.hbm_hit_rate(), st.spills, st.host_hits, st.staged_hits)
+    del rt
+    torch.cuda.empty_cache()
+
+    # -- mode int8 over an int8 pool -------------------------------------------
+    rt = runtime("int8", pool_compress="int8")
+    i_rate, i_ms, i_err = ingest_all(rt, "grouped_skip_sum_fwd_int8", compare=True)
+    i_losses, int8_s = adapt(rt, "grouped_skip_sum_fwd_actint8", "scan")
+    means = i_losses.mean(axis=1)                  # (epochs, tenants)
+    check(bool((means[-1] < means[0]).all()), f"int8 session: a tenant's mean loss did not fall: {means.tolist()}")
+    serve(rt, "grouped_skip_sum_fwd_int8", base)
+    del rt
+    torch.cuda.empty_cache()
+
+    # -- one enqueue_ingest between decode dispatches == a direct ingest --------
+    twins = []
+    for _ in range(2):
+        rt = SessionRuntime(cfg, sl_full, params, max_tenants=1, samples_per_tenant=FLEET_BPT, seq=FLEET_SEQ,
+                            device=dev)
+        rt.pool.register(0, trained0)
+        twins.append(rt)
+    queued, direct = twins
+    sched = queued.attach_scheduler(max_batch=2, max_prompt=PROMPT, max_new_cap=4, chunk=1)
+    req = queued.enqueue_serve(0, prompts[0].cpu().numpy(), max_new=4)
+    ing = queued.enqueue_ingest(0, tokens[0, :FLEET_BPT], labels[0, :FLEET_BPT])
+    check(sched.step() == 1 and ing.done and not req.done, "enqueue_ingest did not run at the first step boundary")
+    queued.drain()
+    want = direct.ingest(0, tokens[0, :FLEET_BPT], labels[0, :FLEET_BPT])
+    check(req.done and torch.equal(ing.logits, want), "enqueue_ingest logits != a direct ingest's")
+    rows = np.arange(FLEET_BPT)
+    a, b = queued.engine.read(rows), direct.engine.read(rows)
+    check(all(torch.equal(a[k], b[k]) for k in b), "enqueue_ingest cached rows != a direct ingest's")
+    del twins, queued, direct, rt
+    _reset_launches()
+    torch.cuda.empty_cache()
+
+    off = kept["times"]
+    print(f"session {ARCH} full width on {device_name}: {FLEET_TENANTS} tenants x {FLEET_SAMPLES} samples x seq "
+          f"{FLEET_SEQ}, batch/tenant {FLEET_BPT}, rank {RANK}, fp32 cache, use_kernel=True; ingest "
+          f"{rate:.1f} rows/s (2 rows a call, engine write included), one ingest {ingest_ms:.3f} ms on the device "
+          f"(profiler), logits vs use_kernel=False max diff {logit_err:.3e}; adapt 3 epochs: scan path "
+          f"{scan_s:.3f} s ({scan_s / 3:.3f} s/epoch, the cache's export included; hbm hit rate {scan_hit:.2f}), "
+          f"stream path {stream_s:.3f} s ({stream_s / 3:.3f} s/epoch; half the rows on the card, host tier in "
+          f"memory, spills and promotions wait for the device; hbm hit rate {stream_stats[0]:.2f}, spills "
+          f"{stream_stats[1]}, host hits {stream_stats[2]}, staged hits {stream_stats[3]}); the offline cached "
+          f"epochs {off[1]:.3f} / {off[2]:.3f} s; session == offline fleet_finetune bitwise (losses, adapters, "
+          f"pool slots); stream vs scan: losses {loss_diff:.3e}, adapters {ad_diff:.3e} "
+          f"({'bitwise' if loss_diff == ad_diff == 0.0 else 'not bitwise'}); launches: ingest "
+          f"grouped_skip_sum_fwd x{n_ingests} (few rows), adapt grouped_skip_sum_fwd x{n_steps} (many rows) + "
+          f"grouped_skip_sum_bwd x{n_steps}, serve grouped_skip_sum_fwd x{1 + NEW} (few rows)")
+    print(f"session int8 (int8 pool) on {device_name}: ingest {i_rate:.1f} rows/s, one ingest {i_ms:.3f} ms on the "
+          f"device, logits vs use_kernel=False max diff {i_err:.3e}; adapt 3 epochs {int8_s:.3f} s; per-tenant "
+          f"mean losses by epoch {[[round(float(v), 4) for v in row] for row in means]}; launches: ingest "
+          f"grouped_skip_sum_fwd_int8 x{n_ingests}, adapt grouped_skip_sum_fwd_actint8 x{n_steps} + "
+          f"grouped_skip_sum_bwd x{n_steps}, serve grouped_skip_sum_fwd_int8 x{1 + NEW}; enqueue_ingest between "
+          f"decode dispatches == direct ingest (logits, cached rows bitwise)")
+    return totals
+
+
+def small_session_check(torch):
+    """Reduced float32 stablelm-1.6b, 2 tenants x 8 samples x seq 16, a
+    control plane (every 4th row held out, threshold 0) and a disk host tier
+    holding half the rows (``cache_dir``, stream path): serve -> ingest ->
+    gated adapt (twice) -> serve -> rollback -> serve on the card (kernels)
+    and on the CPU (plain versions), from the same initial adapters (a CPU
+    generator). The labels are one token, so the held-out loss falls and the
+    gate accepts by a margin. Same per-step losses (rtol 1e-4), adapters
+    (atol 1e-4), held-out losses (rtol 1e-4), gate decisions and
+    temperature-0 tokens."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.control_plane import ControlConfig
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.models.lm import init_lm
+
+    cfg = reduce_config(get_config(ARCH))
+    sl = SL.SkipLoRAConfig(rank=RANK, mode="full", cache_dtype="float32", use_fused_kernel=True)
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8, 16), generator=g)
+    labels = torch.full((2, 8, 16), 7)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 8), generator=g)
+    (ROOT / "build").mkdir(exist_ok=True)
+    res = {}
+    for where in ("cpu", "cuda"):
+        cache_dir = tempfile.mkdtemp(prefix="session_cache_", dir=ROOT / "build")
+        try:
+            rt = SessionRuntime(cfg, sl, _to(params, where), max_tenants=2, samples_per_tenant=8, seq=16,
+                                lr=1e-2, cache_capacity=8, cache_dir=cache_dir, use_kernel=True, device=where,
+                                control=ControlConfig(holdout_every=4, threshold=0.0))
+            toks = [rt.serve([None, None, None], prompts, max_new=4).cpu()]
+            for t in range(2):
+                for lo in range(0, 8, 2):
+                    rt.ingest(t, tokens[t, lo:lo + 2], labels[t, lo:lo + 2])
+            losses = []
+            for _ in range(2):
+                out = rt.adapt(epochs=2, batch_per_tenant=2, generator=torch.Generator().manual_seed(3))
+                check(out["path"] == "stream", f"small session {where}: path {out['path']}")
+                losses.append(np.stack([out["losses"][t] for t in range(2)], axis=-1))
+            toks.append(rt.serve([0, 1, None], prompts, max_new=4).cpu())
+            ledger = dict(rt.control_metrics()["tenants"])
+            rt.rollback(0)
+            toks.append(rt.serve([0, 1, None], prompts, max_new=4).cpu())
+            check(any(f.endswith(".bin") for f in os.listdir(cache_dir)),
+                  f"small session {where}: nothing spilled to the disk tier")
+            res[where] = (np.stack(losses), {k: np.stack([rt.tenant(t).adapters[k].cpu().numpy() for t in range(2)])
+                                             for k in ("A", "B")}, ledger, toks)
+        finally:
+            shutil.rmtree(cache_dir, ignore_errors=True)
+    (lc, ac, gc, tc), (lg, ag, gg, tg) = res["cpu"], res["cuda"]
+    loss_err = float((np.abs(lg - lc) / np.abs(lc)).max())
+    ad_err = max(float(np.abs(ag[k] - ac[k]).max()) for k in ac)
+    check(loss_err <= 1e-4 and ad_err <= 1e-4, f"small session: card vs CPU losses {loss_err:.3e}, adapters {ad_err:.3e}")
+    check({t: r["decision"] for t, r in gc.items()} == {t: r["decision"] for t, r in gg.items()} ==
+          {0: "accept", 1: "accept"}, f"small session: gate decisions card {gg} vs CPU {gc}")
+    ev_err = max(abs(gg[t][k] - gc[t][k]) / abs(gc[t][k]) for t in gc for k in ("pre", "post"))
+    check(ev_err <= 1e-4 and all(gc[t]["post"] < gc[t]["pre"] for t in gc),
+          f"small session: held-out losses card {gg} vs CPU {gc}")
+    check(all(torch.equal(a, b) for a, b in zip(tc, tg)), f"small session: tokens card {tg} vs CPU {tc}")
+    print(f"session small: reduced {ARCH} float32, 2 tenants x 8 samples, control plane + disk host tier (stream "
+          f"path), serve -> ingest -> gated adapt x2 -> serve -> rollback -> serve: card (kernels) vs CPU (plain "
+          f"versions) max loss rel diff {loss_err:.3e}, max adapter diff {ad_err:.3e}, held-out loss rel diff "
+          f"{ev_err:.3e}, gate decisions and temperature-0 tokens equal")
 
 
 # ---------------------------------------------------------------------------
@@ -1756,7 +2068,7 @@ def small_scheduler_check(torch):
     prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 4).astype(np.int32)]) for _ in range(6)]
     toks = {}
     for where in ("cpu", "cuda"):
-        rt = SessionRuntime(cfg, sl, _to(params, where), max_tenants=2, device=where)
+        rt = SessionRuntime(cfg, sl, _to(params, where), max_tenants=2, samples_per_tenant=1, seq=8, device=where)
         for t, ad in enumerate(adapters):
             rt.pool.register(f"tenant-{t}", ad)
         for reuse in (True, False):
@@ -1862,12 +2174,15 @@ def main() -> None:
     attention_check(torch)
     fleet_launches, kept = fleet_phase(torch, smi)
     serve_launches = fleet_serve_phase(torch, smi, kept)
+    session_launches = session_phase(torch, smi, kept)
     del kept
+    torch.cuda.empty_cache()
     small_fleet_check(torch)
+    small_session_check(torch)
     sched_launches = scheduler_phase(torch, smi)
     small_scheduler_check(torch)
     # each kernel's launches over every main path that runs it
-    for counts in (fleet_launches, serve_launches, sched_launches):
+    for counts in (fleet_launches, serve_launches, session_launches, sched_launches):
         for kname, n in counts.items():
             launches[kname] = launches.get(kname, 0) + n
     for kname, n in launches.items():

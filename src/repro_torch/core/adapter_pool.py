@@ -27,6 +27,9 @@ write-back ``gate``.
 ``version`` counts changes of the tenant -> slot map (and rollbacks), as
 the reference's does; ``touch`` refreshes recency without a lookup.
 
+``pin`` keeps a tenant with in-flight training state (the session
+runtime's trained tenants) out of LRU eviction.
+
 Not ported yet: the checkpoint plane (``state_arrays`` / ``load_state`` /
 ``slot_table``), the dense ``fused`` skip-sum and ``ShardedAdapterPool``.
 """
@@ -62,6 +65,9 @@ class PoolStats:
     rollbacks: int = 0
     gate_rejected: int = 0
     gate_quarantined: int = 0
+
+    def as_rows(self, prefix: str = "adapter_pool") -> list[tuple[str, float]]:
+        return [(f"{prefix}/{f.name}", float(getattr(self, f.name))) for f in dataclasses.fields(self)]
 
 
 class AdapterPool:
@@ -352,6 +358,9 @@ class AdapterPool:
     def unpin(self, tenant) -> None:
         self._pinned.discard(tenant)
 
+    def pinned(self) -> set:
+        return set(self._pinned)
+
     # -- lookup -------------------------------------------------------------
 
     def lookup(self, tenants) -> torch.Tensor:
@@ -391,24 +400,27 @@ class AdapterPool:
 
 
 def grouped_skip_sum(
-    acts: torch.Tensor, pools: dict[str, torch.Tensor], idx: torch.Tensor
+    acts: torch.Tensor, pools: dict[str, torch.Tensor], idx: torch.Tensor, *, use_kernel: bool = True
 ) -> torch.Tensor:
     """Per-row skip-sum over a stacked pool: picks the float, int8 or 4-bit
     layout and forwards to the grouped wrappers, which own the row
-    flattening and the kernel / plain-version dispatch. acts: (L, B, S, D);
-    idx: (B,) -> (B, S, D)."""
-    from repro_torch.kernels.skip_lora.ops import (
-        skip_lora_grouped,
-        skip_lora_grouped_int8,
-        skip_lora_grouped_q4,
-    )
+    flattening and the kernel / plain-version dispatch. ``use_kernel=False``
+    runs the plain versions on any device instead, as the reference's flag
+    sends its sum to its oracle. acts: (L, B, S, D); idx: (B,) -> (B, S, D)."""
+    from repro_torch.kernels.skip_lora import ops
+    from repro_torch.kernels.skip_lora import ref as R
 
     if "qa4" in pools:
-        return skip_lora_grouped_q4(
-            acts, pools["qa4"], pools["sa"], pools["qb4"], pools["sb"], pools["code"], idx
-        )
-    if "qa" in pools:
-        return skip_lora_grouped_int8(
-            acts, pools["qa"], pools["sa"], pools["qb"], pools["sb"], idx
-        )
-    return skip_lora_grouped(acts, pools["A"], pools["B"], idx)
+        wrapper, plain = ops.skip_lora_grouped_q4, R.skip_lora_grouped_q4_ref
+        args = (pools["qa4"], pools["sa"], pools["qb4"], pools["sb"], pools["code"])
+    elif "qa" in pools:
+        wrapper, plain = ops.skip_lora_grouped_int8, R.skip_lora_grouped_int8_ref
+        args = (pools["qa"], pools["sa"], pools["qb"], pools["sb"])
+    else:
+        wrapper, plain = ops.skip_lora_grouped, R.skip_lora_grouped_ref
+        args = (pools["A"], pools["B"])
+    if use_kernel:
+        return wrapper(acts, *args, idx)
+    lnum, bsz, s, d = acts.shape
+    rows = plain(acts.detach().reshape(lnum, bsz * s, d), *args, idx.repeat_interleave(s))
+    return rows.reshape(bsz, s, d)

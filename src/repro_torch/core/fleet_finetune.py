@@ -26,9 +26,11 @@ Counterpart of ``repro.core.fleet_finetune``. Instead of N single-tenant
 The reference's epochs are ``lax.scan`` loops compiled into one dispatch;
 here they are Python loops over the rows of the index matrix, the cache is
 written in place, and each step's per-tenant losses stay on the device until
-the epoch returns them stacked. The reference's tiered-cache-engine route
-(``fleet_cached_epoch_via_engine``, ``engine=``) belongs to the session
-runtime's slice and is not ported.
+the epoch returns them stacked. With a ``TieredCacheEngine`` (``engine=``),
+cached epochs stream their batches out of the engine
+(``fleet_cached_epoch_via_engine``), the next batch's host rows prefetched
+while a step runs: the path of a fleet whose cache exceeds its device
+budget, and of the session runtime's ``adapt`` over a spilling engine.
 """
 
 from __future__ import annotations
@@ -355,6 +357,19 @@ def make_fleet_populate_epoch(
     return epoch
 
 
+def fleet_cached_epoch_via_engine(step, params, stacked, opt_state, engine, idx_mat, row_tenant):
+    """A fleet cached epoch streamed through a ``TieredCacheEngine``: one
+    engine read a step, the next fleet batch prefetched on the engine's
+    background thread while the step runs. ``step`` is a
+    ``make_fleet_cached_step_from_vals`` product. Returns (stacked,
+    opt_state, losses (steps, N))."""
+    pers = []
+    for _, vals in engine.stream_batches(idx_mat):
+        stacked, opt_state, per = step(params, stacked, opt_state, vals, row_tenant)
+        pers.append(per)
+    return stacked, opt_state, torch.stack(pers)
+
+
 # ---------------------------------------------------------------------------
 # Driver
 # ---------------------------------------------------------------------------
@@ -367,6 +382,7 @@ class FleetResult:
     losses: np.ndarray                # (epochs, steps, n_tenants)
     epoch_times_s: list[float]
     cache: SkipCache | None = None
+    engine: Any = None
 
 
 def fleet_finetune(
@@ -385,6 +401,7 @@ def fleet_finetune(
     freeze_mask: Optional[torch.Tensor] = None,
     seed: int = 0,
     adapters: Optional[Params] = None,
+    engine=None,
     on_epoch=None,
 ) -> FleetResult:
     """Algorithm 1 for a whole fleet, on the device the params live on:
@@ -393,7 +410,13 @@ def fleet_finetune(
     backbone compute. ``adapters`` gives the initial stacked adapters
     (default: ``init_fleet_adapters(generator, ...)``). Each epoch's time
     is taken once its losses are on the host; ``on_epoch(epoch, losses
-    (steps, N), seconds)`` is called after each epoch."""
+    (steps, N), seconds)`` is called after each epoch.
+
+    With ``engine`` (a ``TieredCacheEngine`` laid out for ``n_tenants *
+    n_per`` samples) the populated rows go into the engine after epoch 0,
+    outside its time, and the cached epochs stream out of it
+    (``fleet_cached_epoch_via_engine``). The populate epoch still holds the
+    whole fleet cache once: the engine's budget governs the cached epochs."""
     _check_fleet_mode(sl)
     n_tenants, n_per, seq = tokens.shape
     batch_per_tenant = min(batch_per_tenant, n_per)   # fleet_index_matrix clamps the same way
@@ -408,6 +431,7 @@ def fleet_finetune(
     kw = dict(use_kernel=use_kernel, freeze_mask=freeze_mask)
     populate_epoch = make_fleet_populate_epoch(cfg, sl, opt, n_tenants, **kw)
     cached_epoch = make_fleet_cached_epoch(cfg, sl, opt, n_tenants, **kw)
+    engine_step = make_fleet_cached_step_from_vals(cfg, sl, opt, n_tenants, **kw)
 
     losses, times = [], []
     for e in range(epochs):
@@ -419,15 +443,26 @@ def fleet_finetune(
             stacked, opt_state, cache, ls = populate_epoch(
                 params, stacked, opt_state, cache, tokens_flat, labels_flat, idx_mat, row_tenant
             )
-        else:
+        elif engine is None:
             stacked, opt_state, ls = cached_epoch(params, stacked, opt_state, cache, idx_mat, row_tenant)
+        else:
+            stacked, opt_state, ls = fleet_cached_epoch_via_engine(
+                engine_step, params, stacked, opt_state, engine, idx_mat, row_tenant
+            )
         ls = ls.cpu().numpy()   # waits for the device
         times.append(time.perf_counter() - t0)
         losses.append(ls)
+        if e == 0 and engine is not None:
+            # Hand the populated partitions to the engine (a one-off staging
+            # cost outside the epochs); rows past its budget spill to host.
+            for row in idx_mat:
+                engine.write(row, cache_read(cache, row))
+            cache = None
         if on_epoch is not None:
             on_epoch(e, ls, times[-1])
     return FleetResult(
-        adapters=stacked, opt_state=opt_state, losses=np.stack(losses), epoch_times_s=times, cache=cache
+        adapters=stacked, opt_state=opt_state, losses=np.stack(losses), epoch_times_s=times, cache=cache,
+        engine=engine,
     )
 
 

@@ -1,4 +1,4 @@
-"""Generation entry points and the serving session.
+"""Generation entry points and the session runtime: serve + ingest + adapt.
 
 Counterpart of ``repro.core.runtime`` on one device:
   - ``generate`` / ``generate_grouped``: one prefill, then ``decode_scan``'s
@@ -6,31 +6,61 @@ Counterpart of ``repro.core.runtime`` on one device:
     the caller asks for "cpu"); params and pool must already live there. On
     a CUDA device the grouped skip-sum goes through the hand-written
     kernels, on the CPU through their plain versions.
-  - ``SessionRuntime``: the serving part of the reference's session, which
-    the request scheduler needs: an ``AdapterPool``, batch-level ``serve``,
-    the paged KV pool and radix prefix index, and the request-level front
-    door (``attach_scheduler`` / ``enqueue_serve`` / ``drain``).
+  - ``SessionRuntime``: the continual-learning session over ONE
+    ``AdapterPool`` and ONE ``TieredCacheEngine`` (every tenant's skip-cache
+    partition), processing an interleaved event stream:
+      - ``serve(tenants, prompts)``: generation routed per batch, the
+        single-stack path when every row is the base model, the grouped one
+        otherwise;
+      - ``ingest(tenant, tokens, labels)``: a populate forward that writes
+        the tenant's cache partition and returns its last-position adapted
+        logits (``models.lm.ingest_prefill``): ingestion doubles as serving;
+      - ``adapt(tenants, epochs)``: cached fleet epochs over the grouped
+        trainable sums, with no backbone compute, then one batched
+        write-back into the pool (``register_many``) and a pin on every
+        trained slot. The cache already holds what the populate forward
+        saw, so a serve -> ingest -> adapt -> serve session reproduces the
+        offline ``fleet_finetune`` adapters and losses bitwise in mode
+        ``full`` with an fp32 cache;
+      - the request-level front door (``attach_scheduler`` /
+        ``enqueue_serve`` / ``enqueue_ingest`` / ``drain``), the paged KV
+        pool and the radix prefix index of the request scheduler;
+      - with a ``ControlConfig``, shadow eval, a gated write-back and
+        rollback (``core.control_plane``).
 
-Eager PyTorch needs no compiled-function cache. Not ported yet (slice 5 of
-the port, and slice 7 for meshes): ``ingest`` / ``adapt`` / ``enqueue_ingest``
-and the cache engine behind them, checkpoints, the control plane, more than
-one shard, pipelined admission and ``decode_fuse``.
+Batch planning goes through ``core.batch_plan`` with explicit tenant
+partitions, so an ``adapt`` group that is a subset or a reordering of the
+ingested tenants still replays each tenant's own order.
+
+Eager PyTorch needs no compiled-function cache. Not ported yet: the
+checkpoint plane (``session_state`` / ``load_session_state``), more than one
+shard or a mesh and pipelined admission (slice 7), and ``decode_fuse``
+(one-dispatch decode).
 """
 
 from __future__ import annotations
 
-from collections import Counter
+import dataclasses
+from collections import Counter, OrderedDict
 from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 
+from repro_torch.core import batch_plan
+from repro_torch.core import fleet_finetune as FF
+from repro_torch.core import lm_skiplora as SL
+from repro_torch.core.cache_engine import TieredCacheEngine
+from repro_torch.core.control_plane import ControlConfig, ControlPlane
 from repro_torch.models.lm import (
     decode_scan,
+    ingest_prefill,
     init_serve_caches,
     sample_token,
     serve_prefill,
     serve_prefill_grouped,
 )
+from repro_torch.optim.optimizers import OptState, adamw
 
 Params = Any
 
@@ -98,56 +128,142 @@ def generate_grouped(
     return toks
 
 
-class SessionRuntime:
-    """One-device serving session over one adapter pool.
 
-    ``max_tenants`` sizes the pool (``max_tenants + 1`` slots, slot 0 pinned
-    zero); ``pool_compress`` picks its layout (None, "int8",
-    "int4", "nf4"). The kernels are picked by the device: on a CUDA device
-    the grouped skip-sum and the scheduler's prefix-reuse gather (K10) run
-    their kernels, on the CPU their plain versions. ``seed`` derives the per-call sampling generators. ``params``
-    must live on ``device``."""
+
+@dataclasses.dataclass
+class TenantState:
+    """Per-tenant continual-learning state the runtime keeps between
+    events. ``adapters`` / ``opt_*`` are the tenant's slices of the stacked
+    fleet trees (flat {"A": (L, D, R), "B": (L, R, D)} layout)."""
+
+    partition: int                      # cache partition index
+    n_ingested: int = 0                 # rows written into the partition
+    epochs_done: int = 0                # position in the planner's epoch stream
+    step: int = 0                       # optimizer step count
+    adapters: Optional[Params] = None
+    opt_mu: Optional[Params] = None
+    opt_nu: Optional[Params] = None
+
+    @property
+    def trained(self) -> bool:
+        return self.adapters is not None
+
+
+class SessionRuntime:
+    """One session engine for serve + ingest + adapt over a shared pool, on
+    one device.
+
+    ``max_tenants`` bounds the cache partitions (``samples_per_tenant`` rows
+    each, global id = partition * samples_per_tenant + local id: the fleet
+    trainer's convention, so offline and interleaved training address the
+    same cache rows) at ``seq`` tokens a row. The pool defaults to
+    ``max_tenants + 1`` slots (slot 0 pinned zero; ``pool_slots`` overrides)
+    in the layout ``pool_compress`` picks (None, "int8", "int4", "nf4"). The
+    engine defaults to fully device-resident; ``cache_capacity`` /
+    ``hbm_budget_bytes`` force tiered placement (``cache_dir`` puts the host
+    tier on disk), which sends ``adapt`` down the streaming path instead of
+    the resident one. ``lr`` / ``optimizer`` train the adapters (AdamW at
+    ``lr`` by default). ``seed`` derives the serve generators, the epoch
+    plans and the default initial adapters. ``idx_memo_slots`` bounds the
+    serve slot-index memo. ``control`` turns on the control plane.
+
+    ``use_kernel`` picks the skip-sum route of ``ingest`` and ``adapt``: the
+    grouped wrappers (on a CUDA device the hand-written kernels K5, K6, K8
+    and K9, which launch or raise; on the CPU their plain versions), or with
+    ``False`` the plain versions and the ``blocked_skip_sum`` einsum, as the
+    reference's flag does. ``serve`` always runs the grouped wrappers.
+    ``params`` must live on ``device``."""
 
     def __init__(
         self,
         cfg,
-        sl,
+        sl: SL.SkipLoRAConfig,
         params,
         *,
         max_tenants: int,
+        samples_per_tenant: int,
+        seq: int,
+        lr: float = 1e-3,
+        optimizer=None,
+        pool_slots: Optional[int] = None,
         pool_compress: Optional[str] = None,
+        cache_capacity: Optional[int] = None,
+        hbm_budget_bytes: Optional[int] = None,
+        cache_dir: Optional[str] = None,
+        use_kernel: bool = True,
         decode_fuse: bool = False,
         seed: int = 0,
         mesh=None,
         placement_shards: Optional[int] = None,
         pipeline_stages: int = 0,
+        idx_memo_slots: int = 256,
+        control: Optional[ControlConfig] = None,
         device="cuda",
     ):
         from repro_torch.core.adapter_pool import AdapterPool
 
+        if sl.mode not in ("full", "int8"):
+            raise ValueError(f"the session runtime trains fleet modes 'full'/'int8', not {sl.mode!r}")
         if mesh is not None or (placement_shards or 1) != 1:
             raise NotImplementedError(
-                "a mesh or more than one shard is not ported (slice 5, with multiple GPUs "
-                "in slice 7): the port's session runs on one device"
+                "a mesh or more than one shard is not ported (slice 7: multiple GPUs): "
+                "the port's session runs on one device"
             )
         if pipeline_stages:
             raise NotImplementedError(
-                "pipeline_stages is not ported (slice 5, with multiple GPUs in slice 7): "
-                "pipelined admission needs a mesh"
+                "pipeline_stages is not ported (slice 7: multiple GPUs): pipelined admission needs a mesh"
             )
         if decode_fuse:
             raise NotImplementedError(
-                "decode_fuse=True is not ported (slice 5): the decode skip term goes "
+                "decode_fuse=True is not ported (one-dispatch decode): the decode skip term goes "
                 "through the grouped kernels"
             )
+        if idx_memo_slots < 1:
+            raise ValueError(f"idx_memo_slots {idx_memo_slots} < 1")
         self.cfg, self.sl = cfg, sl
         self.max_tenants = max_tenants
+        self.samples_per_tenant = samples_per_tenant
+        self.seq = seq
+        self.use_kernel = use_kernel
         self.seed = seed
         self.device = torch.device(device)
         if params["embed"]["table"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed']['table'].device}, the session on {self.device}")
         self.params = params
-        self.pool = AdapterPool(max_tenants + 1, cfg, sl.rank, compress=pool_compress, device=self.device)
+        self.optimizer = optimizer if optimizer is not None else adamw(lr)
+        #: Opt-in control plane: with ``control=None`` the session plans,
+        #: trains and writes back exactly the uncontrolled trajectory. With a
+        #: ``ControlConfig`` every tenant's epochs skip its held-out rows,
+        #: ``adapt`` computes the pre/post held-out loss in the same epoch
+        #: call as training, and write-back is gated.
+        self.control_cfg = control
+        self.control = ControlPlane(control) if control is not None else None
+
+        n_samples = max_tenants * samples_per_tenant
+        if cache_capacity is None and hbm_budget_bytes is None:
+            cache_capacity = n_samples  # fully resident: the resident adapt path
+        self.engine = TieredCacheEngine(
+            n_samples, SL.lm_cache_layout(cfg, sl, seq), capacity=cache_capacity,
+            hbm_budget_bytes=hbm_budget_bytes, directory=cache_dir, device=self.device,
+        )
+        self.pool = AdapterPool(
+            pool_slots if pool_slots is not None else max_tenants + 1, cfg, sl.rank,
+            compress=pool_compress, device=self.device,
+            history=control.history_depth if control is not None else 0,
+        )
+        self._tenants: dict[Any, TenantState] = {}
+        #: free cache partitions, popped smallest first
+        self._free_partitions = list(range(max_tenants - 1, -1, -1))
+        #: the resident adapt path's id-indexed cache (``export_skipcache``),
+        #: kept across adapt calls until the next ingest writes new rows
+        self._export = None
+        #: (tenant tuple, pool version) -> slot-index tensor, LRU: repeated
+        #: serve batches skip the host-to-device slot-index build, a slot-map
+        #: change moves the version, and live traffic's unbounded orderings
+        #: are capped at ``idx_memo_slots`` (``counters`` keeps
+        #: ``idx_memo/{hits,misses,evictions}``).
+        self._idx_cache: OrderedDict[tuple, torch.Tensor] = OrderedDict()
+        self._idx_cache_cap = int(idx_memo_slots)
         self._serve_calls = 0
         self._scheduler = None
         #: The scheduler's prefix-reuse state, built lazily by ``kv_pool()``,
@@ -160,6 +276,31 @@ class SessionRuntime:
         """Counter-derived generator: call ``n`` of an identically seeded
         session draws the same numbers, two calls never share a stream."""
         return torch.Generator(device=self.device).manual_seed((self.seed << 32) + n)
+
+    # -- tenant bookkeeping --------------------------------------------------
+
+    def tenant(self, tenant) -> TenantState:
+        st = self._tenants.get(tenant)
+        if st is None:
+            raise KeyError(f"unknown tenant {tenant!r}")
+        return st
+
+    def _add_tenant(self, tenant) -> TenantState:
+        if not self._free_partitions:
+            raise RuntimeError(f"session full: all {self.max_tenants} cache partitions in use")
+        st = TenantState(partition=self._free_partitions.pop())
+        self._tenants[tenant] = st
+        return st
+
+    def release(self, tenant) -> None:
+        """Drop a tenant's training state and cache partition. Its pool slot,
+        if any, stays registered but is unpinned, so LRU applies again."""
+        st = self._tenants.pop(tenant)
+        self._free_partitions.append(st.partition)
+        if self.pool.has(tenant):
+            self.pool.unpin(tenant)
+        if self._prefix_index is not None:
+            self._prefix_index.drop_tenant(tenant)
 
     # -- paged KV prefix cache ----------------------------------------------
 
@@ -241,25 +382,285 @@ class SessionRuntime:
         else:
             path = f"serve/grouped/{'int8' if self.pool.compress == 'int8' else 'float'}"
             toks = generate_grouped(
-                self.params, self.cfg, prompts, self.pool.pools(), self.pool.lookup(tenants),
+                self.params, self.cfg, prompts, self.pool.pools(), self._slot_idx(tenants),
                 max_new=max_new, temperature=temperature, generator=generator, device=self.device,
             )
         self.counters[path] += 1
         self.counters["serve/tokens"] += int(toks.numel())
         return toks
 
-    def ingest(self, tenant, tokens, labels):
-        raise NotImplementedError("SessionRuntime.ingest is not ported (slice 5: the session runtime)")
+    def _slot_idx(self, tenants) -> torch.Tensor:
+        """The batch's slot indices through the LRU memo."""
+        key = (tuple(tenants), self.pool.version)
+        idx = self._idx_cache.get(key)
+        if idx is None:
+            self.counters["idx_memo/misses"] += 1
+            while len(self._idx_cache) >= self._idx_cache_cap:
+                self._idx_cache.popitem(last=False)
+                self.counters["idx_memo/evictions"] += 1
+            idx = self._idx_cache[key] = self.pool.lookup(tenants)
+        else:
+            self.counters["idx_memo/hits"] += 1
+            self._idx_cache.move_to_end(key)
+            self.pool.touch(tenants)   # recency still follows traffic
+        return idx
 
-    def adapt(self, *args, **kwargs):
-        raise NotImplementedError("SessionRuntime.adapt is not ported (slice 5: the session runtime)")
+    @torch.no_grad()
+    def ingest(self, tenant, tokens, labels) -> torch.Tensor:
+        """Populate forward for new samples: writes the batch into the
+        tenant's cache partition AND returns the last-position logits under
+        the tenant's current adapters (the zero slot until its first
+        ``adapt`` write-back): ingestion doubles as serving. tokens, labels:
+        (B, seq). Returns (B, 1, V) logits."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        labels = torch.as_tensor(labels, device=self.device)
+        # Validate before registering: a rejected batch must not leak a
+        # cache partition or leave a tenant with nothing ingested.
+        st = self._tenants.get(tenant)
+        b, s = tokens.shape
+        if s != self.seq:
+            raise ValueError(f"seq {s} != session cache layout seq {self.seq}")
+        filled = st.n_ingested if st is not None else 0
+        if filled + b > self.samples_per_tenant:
+            raise ValueError(f"tenant {tenant!r} partition full: {filled}+{b} > {self.samples_per_tenant}")
+        if st is None:
+            st = self._add_tenant(tenant)
+        idx = self.pool.lookup([tenant if self.pool.has(tenant) else None] * b)
+        logits, acts, y_base = ingest_prefill(
+            self.params, self.cfg, tokens, self.pool.pools(), idx, use_kernel=self.use_kernel
+        )
+        values = SL._encode_acts(acts, None, self.sl)
+        values["y_base"] = y_base
+        values["labels"] = labels
+        first = st.partition * self.samples_per_tenant + st.n_ingested
+        self.engine.write(range(first, first + b), values)
+        self._export = None   # new rows: the resident path's export is stale
+        st.n_ingested += b
+        self.counters["ingest/rows"] += b
+        return logits
+
+    def adapt(
+        self,
+        tenants: Optional[Sequence] = None,
+        *,
+        epochs: int = 1,
+        batch_per_tenant: int = 4,
+        generator: Optional[torch.Generator] = None,
+    ) -> dict:
+        """Cached fleet epochs over the tenants' ingested partitions (every
+        ingested tenant by default), then one batched write-back into the
+        pool (``register_many``) and a pin on every trained slot.
+
+        Tenants new to training draw their initial adapters from
+        ``generator`` (on any device, the draw then moves to the session's;
+        default: seeded from ``seed`` on the session's device) as
+        ``fleet_finetune`` does (``init_fleet_adapters`` row i ->
+        i-th new tenant in call order), and the planner replays each
+        tenant's own order, so a fresh session's first ``adapt`` reproduces
+        the offline trainer. Tenants are grouped by (optimizer step, epoch
+        position, partition fill): only tenants on one trajectory can share
+        the stacked optimizer's step count.
+
+        The engine's placement picks the path: fully resident -> "scan" (the
+        epochs read an id-indexed export of the cache), tiered -> "stream"
+        (``fleet_cached_epoch_via_engine``). Returns {"losses": {tenant:
+        (epochs, steps) np.ndarray}, "groups": [tenant lists], "path"}."""
+        order = list(self._tenants) if tenants is None else list(tenants)
+        if not order:
+            raise ValueError("no tenants to adapt")
+        for t in order:
+            if self.tenant(t).n_ingested == 0:
+                raise ValueError(f"tenant {t!r} has no ingested samples")
+
+        fresh = [t for t in order if not self.tenant(t).trained]
+        if fresh:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            stacked0 = {k: v.to(self.device) for k, v in
+                        FF.init_fleet_adapters(generator, self.cfg, self.sl, len(fresh)).items()}
+            opt0 = self.optimizer.init(stacked0)
+            for i, t in enumerate(fresh):
+                st = self.tenant(t)
+                st.adapters = _slice(stacked0, i)
+                st.opt_mu, st.opt_nu = _slice(opt0.mu, i), _slice(opt0.nu, i)
+                st.step = 0
+
+        groups: dict[tuple, list] = {}
+        for t in order:
+            st = self.tenant(t)
+            groups.setdefault((st.step, st.epochs_done, st.n_ingested), []).append(t)
+        losses: dict[Any, np.ndarray] = {}
+        paths = set()
+        for (step0, epoch0, spt), group in groups.items():
+            ls_epochs, path = self._adapt_group(
+                group, spt, epochs=epochs, epoch0=epoch0, step0=step0, batch_per_tenant=batch_per_tenant,
+            )
+            paths.add(path)
+            ls = np.stack([l.cpu().numpy() for l in ls_epochs])   # (epochs, steps, n)
+            for g, t in enumerate(group):
+                losses[t] = ls[:, :, g]
+        self.counters["adapt/epochs"] += epochs * len(groups)
+        return {"losses": losses, "groups": list(groups.values()),
+                "path": "stream" if "stream" in paths else "scan"}
+
+    def _adapt_group(self, group, spt, *, epochs, epoch0, step0, batch_per_tenant) -> tuple[list, str]:
+        """One same-trajectory group's cached epochs and write-back. Returns
+        the per-epoch (steps, N) losses on the device and the path."""
+        n, dev, engine = len(group), self.device, self.engine
+        states = [self.tenant(t) for t in group]
+        stacked = _stack([st.adapters for st in states])
+        opt_state = OptState(
+            step=torch.tensor(step0, dtype=torch.int32, device=dev),
+            mu=_stack([st.opt_mu for st in states]),
+            nu=_stack([st.opt_nu for st in states]),
+        )
+        # Shadow split: with a control plane each tenant's epochs permute its
+        # train rows only; every holdout_every-th ingested row is held out.
+        holdout = self.control_cfg.holdout_every if self.control is not None else None
+        train_rows, eval_rows = batch_plan.shadow_split(spt, every=holdout)
+        do_eval = self.control is not None and eval_rows.size > 0
+        bpt = min(batch_per_tenant, train_rows.size)
+        row_tenant = FF.fleet_row_tenant(n, bpt, device=dev)
+        partitions = [st.partition for st in states]
+        kw = dict(use_kernel=self.use_kernel)
+        resident = engine.capacity >= engine.num_samples
+        if do_eval:
+            eval_idx = torch.as_tensor(batch_plan.fleet_eval_index(
+                n, spt, holdout_every=holdout, partitions=partitions,
+                partition_stride=self.samples_per_tenant,
+            ), device=dev)
+            eval_row_tenant = FF.fleet_row_tenant(n, eval_rows.size, device=dev)
+        if resident:
+            if self._export is None:
+                self._export = engine.export_skipcache()
+            cache = self._export
+            epoch_fn = FF.make_fleet_cached_epoch(self.cfg, self.sl, self.optimizer, n, **kw)
+        else:
+            step_fn = FF.make_fleet_cached_step_from_vals(self.cfg, self.sl, self.optimizer, n, **kw)
+            ev_fn = FF.make_fleet_eval_loss(self.cfg, self.sl, n, **kw)
+
+        pre_loss = post_loss = None
+        if do_eval and not resident:
+            # Streaming path: eval is its own (backbone-free) call over the
+            # engine-read cached rows.
+            pre_loss = ev_fn(self.params, stacked, engine.read(eval_idx), eval_row_tenant)
+        all_losses, steps_per_epoch = [], 0
+        for e in range(epochs):
+            idx_mat = batch_plan.fleet_index_matrix(
+                epoch0 + e, n, spt, bpt, seed=self.seed, partitions=partitions, streams=partitions,
+                partition_stride=self.samples_per_tenant, holdout_every=holdout,
+            )
+            steps_per_epoch = idx_mat.shape[0]
+            want_pre = do_eval and resident and e == 0
+            want_post = do_eval and resident and e == epochs - 1
+            if want_pre or want_post:
+                # Shadow eval folded into the epoch call, on the cached rows.
+                eval_epoch = FF.make_fleet_cached_epoch_eval(
+                    self.cfg, self.sl, self.optimizer, n, eval_pre=want_pre, eval_post=want_post, **kw
+                )
+                stacked, opt_state, ls, pre, post = eval_epoch(
+                    self.params, stacked, opt_state, cache, torch.as_tensor(idx_mat, device=dev),
+                    row_tenant, eval_idx, eval_row_tenant,
+                )
+                pre_loss = pre if want_pre else pre_loss
+                post_loss = post if want_post else post_loss
+            elif resident:
+                stacked, opt_state, ls = epoch_fn(
+                    self.params, stacked, opt_state, cache, torch.as_tensor(idx_mat, device=dev), row_tenant
+                )
+            else:
+                stacked, opt_state, ls = FF.fleet_cached_epoch_via_engine(
+                    step_fn, self.params, stacked, opt_state, engine, idx_mat, row_tenant
+                )
+            all_losses.append(ls)
+        if do_eval and not resident:
+            post_loss = ev_fn(self.params, stacked, engine.read(eval_idx), eval_row_tenant)
+        step_after = step0 + steps_per_epoch * epochs
+        path = "scan" if resident else "stream"
+
+        if self.control is None:
+            for g, st in enumerate(states):
+                self._advance(st, stacked, opt_state, g, step_after, epoch0 + epochs)
+            self.pool.register_many(group, stacked)
+            for t in group:
+                self.pool.pin(t)   # in-flight session state: never LRU-evicted
+            return all_losses, path
+
+        # -- gated write-back (control plane on): the gate reads the eval
+        # losses on the host, which waits for this group's epochs.
+        pre_np = None if pre_loss is None else pre_loss.cpu().numpy()
+        post_np = None if post_loss is None else post_loss.cpu().numpy()
+        decisions: dict[Any, str] = {}
+        meta: dict[Any, dict] = {}
+        for g, t in enumerate(group):
+            pre_g = None if pre_np is None else float(pre_np[g])
+            post_g = None if post_np is None else float(post_np[g])
+            # A first-ever write-back has no served version to protect.
+            dec = self.control.decide(t, pre_g, post_g) if self.pool.has(t) else "accept"
+            decisions[t] = dec
+            meta[t] = {"step": step_after, "eval_loss": post_g}
+            self.control.record(t, dec, pre=pre_g, post=post_g, step=step_after)
+            self.counters[f"control/{dec}"] += 1
+        for g, (t, st) in enumerate(zip(group, states)):
+            if decisions[t] != "reject":   # reject: retrain the same plan next adapt
+                self._advance(st, stacked, opt_state, g, step_after, epoch0 + epochs)
+        self.pool.register_many(group, stacked, gate=decisions.__getitem__, meta=meta)
+        for t in group:
+            self.pool.pin(t)
+        # Auto-rollback: a tenant whose last N gated write-backs all failed is
+        # presumed to diverge. Restore its previous served version (when the
+        # slot has one) and restart its optimizer from zero.
+        for t, st in zip(group, states):
+            if decisions[t] == "accept" or not self.control.should_auto_rollback(t):
+                continue
+            if self.pool.has(t) and self.pool.history_len(t) > 0:
+                self.pool.rollback(t)
+            st.opt_mu, st.opt_nu = _zeros(st.opt_mu), _zeros(st.opt_nu)
+            st.step = 0
+            self.control.record_rollback(t, auto=True)
+            self.counters["control/rollbacks"] += 1
+            self.counters["control/auto_rollbacks"] += 1
+        return all_losses, path
+
+    @staticmethod
+    def _advance(st: TenantState, stacked, opt_state, g: int, step: int, epochs_done: int) -> None:
+        st.adapters = _slice(stacked, g)
+        st.opt_mu, st.opt_nu = _slice(opt_state.mu, g), _slice(opt_state.nu, g)
+        st.step, st.epochs_done = step, epochs_done
+
+    # -- control plane -------------------------------------------------------
+
+    def rollback(self, tenant) -> dict:
+        """Serve-plane rollback: restore the tenant's previous adapter
+        version into its pool slot, bitwise, and move the pool version so
+        every slot-index memo invalidates. Training state is not rewound (a
+        quantised pool's payload cannot rebuild float training state). Needs
+        a pool with version history (a session with a ``ControlConfig``)."""
+        meta = self.pool.rollback(tenant)
+        if self.control is not None:
+            self.control.record_rollback(tenant)
+        self.counters["control/rollbacks"] += 1
+        return meta
+
+    def control_metrics(self) -> Optional[dict]:
+        """The control plane's JSON-able ledger (None when disabled)."""
+        return None if self.control is None else self.control.metrics()
+
+    # -- introspection -------------------------------------------------------
+
+    def stats(self) -> dict[str, float]:
+        out = {f"runtime/{k}": float(v) for k, v in sorted(self.counters.items())}
+        out.update(dict(self.engine.stats.as_rows()))
+        out.update(dict(self.pool.stats.as_rows()))
+        return out
 
     # -- request-level surface (continuous batching; core.scheduler) ---------
 
     def attach_scheduler(self, **kw):
         """Construct the session's ``RequestScheduler`` with explicit limits
-        (see ``core.scheduler.RequestScheduler``). ``serve`` stays available
-        beside it: the scheduler is a front door, not a replacement."""
+        (see ``core.scheduler.RequestScheduler``). ``serve`` and ``ingest``
+        stay available beside it: the scheduler is a front door, not a
+        replacement."""
         from repro_torch.core.scheduler import RequestScheduler
 
         if self._scheduler is not None:
@@ -280,11 +681,23 @@ class SessionRuntime:
         return self.scheduler.submit(tenant, prompt, max_new=max_new, temperature=temperature)
 
     def enqueue_ingest(self, tenant, tokens, labels):
-        raise NotImplementedError(
-            "SessionRuntime.enqueue_ingest is not ported (slice 5: the session runtime)"
-        )
+        """Queue fine-tuning ingestion to run at a step boundary between
+        decode dispatches; returns its ``IngestRequest``."""
+        return self.scheduler.submit_ingest(tenant, tokens, labels)
 
     def drain(self):
         """Run the scheduler until every queued request completes."""
         return self.scheduler.drain()
 
+
+def _stack(trees: list) -> Optional[Params]:
+    """Per-tenant trees -> one stacked tree (optimizer moments may be None)."""
+    return None if trees[0] is None else FF.stack_tenant_adapters(trees)
+
+
+def _slice(tree: Optional[Params], i: int) -> Optional[Params]:
+    return None if tree is None else FF.tenant_adapters(tree, i)
+
+
+def _zeros(tree: Optional[Params]) -> Optional[Params]:
+    return None if tree is None else {k: torch.zeros_like(v) for k, v in tree.items()}

@@ -39,8 +39,13 @@ seeded scheduler, never one stream for two dispatches. ``mode="sequential"``
 runs the same machinery but admits a request only into an empty batch,
 the one-request-at-a-time baseline.
 
+Fine-tuning ingestion rides the same loop: ``submit_ingest`` queues an
+``IngestRequest``, which runs (``SessionRuntime.ingest``) at the end of the
+next ``step``, between decode dispatches. ``quality_metrics`` reports the
+runtime's control-plane events beside the serving counters.
+
 Not ported: pipelined admission and multi-shard routing (slice 7 of the
-port), ``submit_ingest`` (slice 5).
+port).
 """
 
 from __future__ import annotations
@@ -102,6 +107,18 @@ class Request:
         if self.finished_at is None:
             raise RuntimeError(f"request {self.rid} still in flight")
         return self.finished_at - self.submitted_at
+
+
+@dataclasses.dataclass(eq=False)
+class IngestRequest:
+    """Queued fine-tuning work, run at the next step boundary."""
+
+    rid: int
+    tenant: Any
+    tokens: Any
+    labels: Any
+    logits: Optional[torch.Tensor] = None
+    done: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +283,7 @@ class RequestScheduler:
         self.kv_block = int(kv_block) if kv_block else None
         self.counters = Counter()
         self._pending: deque[Request] = deque()
+        self._ingest_queue: deque[IngestRequest] = deque()
         self._completed: list[Request] = []
         self._lb = _LiveBatch(runtime.cfg, max_batch, self.max_seq, runtime.device)
         self._in_flight: Counter = Counter()
@@ -289,8 +307,26 @@ class RequestScheduler:
         self.counters["submitted"] += 1
         return req
 
-    def submit_ingest(self, tenant, tokens, labels):
-        raise NotImplementedError("submit_ingest is not ported (slice 5: the session runtime)")
+    def submit_ingest(self, tenant, tokens, labels) -> IngestRequest:
+        """Queue ``runtime.ingest(tenant, tokens, labels)`` for the next step
+        boundary; the request's ``logits`` are set when it has run."""
+        req = IngestRequest(rid=self._next_rid, tenant=tenant, tokens=tokens, labels=labels)
+        self._next_rid += 1
+        self._ingest_queue.append(req)
+        return req
+
+    def quality_metrics(self) -> dict:
+        """The runtime's control-plane events (gate decisions, rollbacks,
+        quarantines), shaped for the serving metrics beside latency. No
+        ``gate`` section when the runtime has no control plane."""
+        out: dict[str, Any] = {
+            k.split("/", 1)[1]: int(v) for k, v in sorted(self.rt.counters.items()) if k.startswith("control/")
+        }
+        cm = self.rt.control_metrics()
+        if cm is not None:
+            out["gate"] = {k: cm[k] for k in ("accepted", "rejected", "quarantined", "rollbacks", "auto_rollbacks")}
+            out["quarantined_tenants"] = cm["quarantined_tenants"]
+        return out
 
     def _refresh_idx(self, lb: _LiveBatch) -> None:
         """Re-resolve occupied rows' pool slots when the pool's slot map
@@ -307,31 +343,40 @@ class RequestScheduler:
     def step(self) -> int:
         """One scheduler tick: admit + dispatch when there is work, harvest
         the produced tokens, and, when the harvest freed rows while requests
-        wait, one follow-up admission wave. Returns the dispatches issued."""
+        wait, one follow-up admission wave; then run the queued ingest work.
+        Returns the dispatches issued."""
         admits = self._plan()
-        if admits is None:
-            return 0
-        issued = 1
-        done0 = self.counters["completed"]
-        self._harvest(*self._dispatch(admits))
-        # Row recycle: rows released by this step's retirements are
-        # admissible at once, not one step later.
-        if self._pending and self.counters["completed"] > done0:
-            admits = self._plan()
-            if admits:
-                self._harvest(*self._dispatch(admits))
-                self.counters["recycle_waves"] += 1
-                issued += 1
+        issued = 0
+        if admits is not None:
+            issued = 1
+            done0 = self.counters["completed"]
+            self._harvest(*self._dispatch(admits))
+            # Row recycle: rows released by this step's retirements are
+            # admissible at once, not one step later.
+            if self._pending and self.counters["completed"] > done0:
+                admits = self._plan()
+                if admits:
+                    self._harvest(*self._dispatch(admits))
+                    self.counters["recycle_waves"] += 1
+                    issued += 1
+        self._run_ingest()
         return issued
 
     def drain(self) -> list[Request]:
         """Pump the loop until every queued request has completed; returns
         the requests completed during the drain, in completion order."""
         done0 = len(self._completed)
-        while self._pending or self._lb.n_active():
-            if self.step() == 0:
+        while self._pending or self._ingest_queue or self._lb.n_active():
+            if self.step() == 0 and (self._pending or self._lb.n_active()):   # step ran the ingest queue
                 raise RuntimeError("scheduler stalled with queued work")
         return self._completed[done0:]
+
+    def _run_ingest(self) -> None:
+        while self._ingest_queue:
+            req = self._ingest_queue.popleft()
+            req.logits = self.rt.ingest(req.tenant, req.tokens, req.labels)
+            req.done = True
+            self.counters["ingested"] += 1
 
     def _plan(self) -> Optional[list[Request]]:
         """The admissions of the next dispatch under the fairness policy

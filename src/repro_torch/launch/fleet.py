@@ -4,28 +4,36 @@
       --tenants 4 --samples 16 --batch-per-tenant 2 --seq 128 --rank 8 \
       --epochs 3 --lr 1e-3 --mode full --use-kernel
 
-N tenants' adapters trained in one loop (``core.fleet_finetune``): epoch 0
-populates every tenant's cache partition with one backbone forward per fleet
-batch, later epochs are cached grouped steps. Each epoch prints its mean
-per-tenant loss and wall time in the reference's format.
+N tenants' adapters trained as one session, as the reference's CLI runs
+them (its ``_runtime_main``): a ``SessionRuntime`` ingests every tenant's
+samples (populate forwards that fill each tenant's cache partition, one
+batch of ``--batch-per-tenant`` rows at a time), then runs one grouped
+``adapt`` epoch per epoch with write-back into the session's pool. Each
+epoch prints its mean per-tenant loss and wall time in the reference's
+format.
+
+``--check-parity`` also runs the offline trainer (``core.fleet_finetune``:
+epoch 0 populates with an adapter step, later epochs are cached grouped
+steps) on the same inputs and initial adapters, and exits nonzero unless
+the session's losses and adapters equal it bitwise (mode ``full``; mode
+``int8`` trains on the quantised cache in every session epoch, the offline
+populate epoch on full-precision activations, so it is refused).
+``--devices`` other than 1 needs more than one device (slice 7 of the port)
+and exits with a message.
 
 Same flags as the reference's CLI, plus ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions). ``--use-kernel`` sends the
 grouped skip sum through K5 (``full``) or K8 (``int8``) forward and K9
-backward; without it the sum is the ``blocked_skip_sum`` einsum. Weights are
-random from seed 0, tokens and labels from seeds 1 and 2, adapters from
-seed 3.
-
-The reference drives its fleet through ``SessionRuntime.ingest`` and
-``.adapt``, which at ``--devices 1`` equals the offline ``fleet_finetune``
-bitwise (its ``--check-parity``); this CLI runs ``fleet_finetune`` directly.
-``--devices`` other than 1 and ``--check-parity`` need the session runtime,
-which belongs to a later slice of the port: they exit with a message.
+backward, and ingest's last-position sum through K5; without it the sums are
+the plain versions and the ``blocked_skip_sum`` einsum. Weights are random
+from seed 0, tokens and labels from seeds 1 and 2, adapters from seed 3.
+``run`` is the offline trainer on its own.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -45,7 +53,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--tenants", type=int, default=4)
     ap.add_argument("--devices", type=int, default=1,
-                    help="tenant-parallel devices (the session runtime: not ported)")
+                    help="tenant-parallel devices (more than one: not ported)")
     ap.add_argument("--samples", type=int, default=8, help="samples per tenant")
     ap.add_argument("--batch-per-tenant", type=int, default=4)
     ap.add_argument("--seq", type=int, default=16)
@@ -56,18 +64,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--use-kernel", action="store_true",
                     help="grouped CUDA kernels on the card (their plain versions on the CPU)")
     ap.add_argument("--check-parity", action="store_true",
-                    help="session runtime against the offline trainer (the session runtime: not ported)")
+                    help="hold the session's losses and adapters to the offline trainer's, bitwise")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
 
 def setup(args: argparse.Namespace):
-    """(cfg, sl) for the flags; refuses what needs the session runtime."""
-    if args.devices != 1 or args.check_parity:
+    """(cfg, sl) for the flags; refuses what the port does not run."""
+    if args.devices != 1:
         raise SystemExit(
-            "--devices > 1 and --check-parity run the fleet through the session runtime "
-            "(SessionRuntime ingest/adapt), which belongs to a later slice of the port; "
-            "this CLI runs the offline fleet_finetune on one device"
+            "--devices > 1 places tenants on several devices, which belongs to a later slice "
+            "of the port (slice 7); the session runs on one device"
+        )
+    if args.check_parity and args.mode != "full":
+        raise SystemExit(
+            "--check-parity requires --mode full: int8 session epochs train on the quantised "
+            "cache, while the offline populate epoch steps on full-precision activations"
         )
     cfg = get_config(args.arch)
     if args.reduced:
@@ -89,19 +101,24 @@ def make_inputs(args: argparse.Namespace, cfg, device) -> tuple[Any, torch.Tenso
     return init_lm(torch.Generator(device=device).manual_seed(0), cfg), ints(1), ints(2)
 
 
-def run(args, cfg, sl, params, tokens, labels, *, adapters: Optional[Any] = None, on_epoch=None) -> dict:
-    """``fleet_finetune`` on the given inputs, printing one line as each
-    epoch ends, then calling ``on_epoch(epoch, losses, seconds)`` if given.
-    ``adapters``: initial stacked adapters (default: drawn from seed 3 on
-    the params' device)."""
-    n_t = args.tenants
-    bpt = min(args.batch_per_tenant, args.samples)   # fleet_index_matrix clamp
-    dev = params["embed"]["table"].device
+def _build_kernels(args, sl, dev) -> None:
+    """Build the grouped kernels before any epoch is timed."""
     if dev.type == "cuda" and args.use_kernel:
         from repro_torch.kernels.skip_lora import kernel as K
 
         fwd = "grouped_skip_sum_fwd_actint8" if sl.mode == "int8" else "grouped_skip_sum_fwd"
-        K.build(["grouped_skip_sum_fwd", fwd, "grouped_skip_sum_bwd"])   # not inside an epoch's time
+        K.build(["grouped_skip_sum_fwd", fwd, "grouped_skip_sum_bwd"])
+
+
+def run(args, cfg, sl, params, tokens, labels, *, adapters: Optional[Any] = None, on_epoch=None) -> dict:
+    """The offline ``fleet_finetune`` on the given inputs, printing one line
+    as each epoch ends, then calling ``on_epoch(epoch, losses, seconds)`` if
+    given. ``adapters``: initial stacked adapters (default: drawn from seed
+    3 on the params' device)."""
+    n_t = args.tenants
+    bpt = min(args.batch_per_tenant, args.samples)   # fleet_index_matrix clamp
+    dev = params["embed"]["table"].device
+    _build_kernels(args, sl, dev)
 
     def report(e, ls, dt):
         kind = "populate" if e == 0 else "cached  "
@@ -118,6 +135,46 @@ def run(args, cfg, sl, params, tokens, labels, *, adapters: Optional[Any] = None
     return {"losses": res.losses, "epoch_times": res.epoch_times_s, "devices": 1, "result": res}
 
 
+def run_session(args, cfg, sl, params, tokens, labels, *, on_epoch=None) -> dict:
+    """The fleet as one session: ingest every tenant's samples, then one
+    ``adapt`` epoch per epoch, printing one line as each epoch ends and
+    calling ``on_epoch(epoch, losses (steps, N), seconds)`` if given. Fresh
+    tenants draw their adapters from seed 3 on the params' device, as
+    ``run`` does."""
+    from repro_torch.core.runtime import SessionRuntime
+
+    n_t, n_per = args.tenants, args.samples
+    bpt = min(args.batch_per_tenant, n_per)   # fleet_index_matrix clamp
+    dev = params["embed"]["table"].device
+    _build_kernels(args, sl, dev)
+    rt = SessionRuntime(cfg, sl, params, max_tenants=n_t, samples_per_tenant=n_per, seq=args.seq,
+                        optimizer=adamw(args.lr), use_kernel=args.use_kernel, device=dev)
+    t0 = time.perf_counter()
+    for t in range(n_t):
+        for lo in range(0, n_per, bpt):
+            rt.ingest(t, tokens[t, lo:lo + bpt], labels[t, lo:lo + bpt])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    ingest_s = time.perf_counter() - t0
+    generator = torch.Generator(device=dev).manual_seed(3)
+    losses, times = [], []
+    for e in range(args.epochs):
+        t0 = time.perf_counter()
+        out = rt.adapt(epochs=1, batch_per_tenant=bpt, generator=generator)
+        ls = np.stack([out["losses"][t][0] for t in range(n_t)], axis=-1)   # on the host
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        losses.append(ls)
+        kind = "populate" if e == 0 else "cached  "
+        extra = f" (+{ingest_s:.2f}s ingest)" if e == 0 else ""
+        print(f"epoch {e} [{kind}] mean loss {float(np.mean(ls)):.4f} time {dt:.2f}s{extra} "
+              f"({n_t / dt:.1f} tenants/s/epoch, {len(out['groups'])} group(s), {out['path']} path)")
+        if on_epoch is not None:
+            on_epoch(e, ls, dt)
+    return {"losses": np.stack(losses), "epoch_times": times, "ingest_s": ingest_s, "devices": 1,
+            "runtime": rt}
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg, sl = setup(args)
@@ -126,7 +183,21 @@ def main(argv=None) -> dict:
     print(f"arch={cfg.name} mode={sl.mode} rank={sl.rank} tenants={args.tenants} "
           f"samples/tenant={args.samples} batch/tenant={args.batch_per_tenant} seq={args.seq} "
           f"use_kernel={args.use_kernel} device={device}")
-    return run(args, cfg, sl, params, tokens, labels)
+    out = run_session(args, cfg, sl, params, tokens, labels)
+    if args.check_parity:
+        ref = run(args, cfg, sl, params, tokens, labels)["result"]
+        rt = out["runtime"]
+        diff = float(np.max(np.abs(ref.losses - out["losses"])))
+        adiff = max(
+            float((rt.tenant(t).adapters[k] - ref.adapters[k][t]).abs().max())
+            for t in range(args.tenants) for k in ("A", "B")
+        )
+        print(f"parity_max_abs_diff={diff:.3e}")
+        print(f"parity_adapter_diff={adiff:.3e}")
+        out.update(parity_max_abs_diff=diff, parity_adapter_diff=adiff)
+        if diff > 0.0 or adiff > 0.0:
+            raise SystemExit(f"session/offline parity broken: losses {diff:.3e} adapters {adiff:.3e} (tol 0)")
+    return out
 
 
 if __name__ == "__main__":

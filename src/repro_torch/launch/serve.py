@@ -54,7 +54,7 @@ def demo_pool(cfg, n_tenants: int, rank: int, compress, device) -> AdapterPool:
 def demo_runtime(cfg, n_tenants: int, rank: int, compress, params, device) -> SessionRuntime:
     """Serving session whose pool holds ``demo_pool``'s tenants."""
     rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=rank), params, max_tenants=n_tenants,
-                        pool_compress=compress, device=device)
+                        samples_per_tenant=1, seq=8, pool_compress=compress, device=device)
     _register_demo(rt.pool, cfg, n_tenants, rank, device)
     return rt
 

@@ -10,6 +10,8 @@ Counterpart of ``repro.models.lm``:
   - ``init_serve_caches``: per-layer bf16 KV caches.
   - ``serve_prefill`` / ``serve_decode`` and the multi-tenant ``_grouped``
     variants, whose skip term goes through the grouped skip-LoRA kernels.
+  - ``ingest_prefill``: the session runtime's ingest forward, which fills
+    the Skip-Cache and returns each row's adapted last-position logits.
   - ``sample_token``, ``decode_step`` and ``decode_scan``: the reference
     scans over decode steps; here ``decode_scan`` is a Python loop of
     exactly ``max_new`` steps, so tokens and final caches compare one to one.
@@ -294,6 +296,35 @@ def serve_decode_grouped(
     skip = grouped_skip_sum(out["acts"], pools, idx)
     y = out["y_base"] + skip.to(out["y_base"].dtype)
     return readout(params, cfg, y), out["caches"]
+
+
+@torch.no_grad()
+def ingest_prefill(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                          # (B, S) int
+    pools: Optional[dict[str, torch.Tensor]] = None,
+    idx: Optional[torch.Tensor] = None,            # (B,) int32 slot per row
+    *,
+    use_kernel: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Populate-phase forward that doubles as serving: one train-mode
+    backbone pass with activation collection gives the Skip-Cache payload
+    (``acts``, ``y_base``: what the offline populate epoch writes, the
+    backbone being frozen) and, through one grouped skip-sum over the last
+    position, each row's adapted logits. ``pools``/``idx`` pick each row's
+    adapter slot (``None`` pools: the base model); ``use_kernel=False`` sums
+    through the plain versions. Returns (last-position logits (B, 1, V),
+    acts (L, B, S, D), y_base (B, S, D))."""
+    from repro_torch.core.adapter_pool import grouped_skip_sum
+
+    out = lm_forward(params, cfg, tokens, mode="train", collect_acts=True)
+    acts, y_base = out["acts"], out["y_base"]
+    y_last = y_base[:, -1:]
+    if pools is not None:
+        skip = grouped_skip_sum(acts[:, :, -1:], pools, idx, use_kernel=use_kernel)
+        y_last = y_last + skip.to(y_last.dtype)
+    return readout(params, cfg, y_last), acts, y_base
 
 
 # ---------------------------------------------------------------------------

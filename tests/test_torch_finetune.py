@@ -22,7 +22,10 @@ land one count apart (1 of 16384 entries in the stablelm case); final
 adapters atol 2e-5 and AdamW moments atol 2e-6 at lr 1e-3 (observed
 differences are below a third of these: summation order in the products
 and in the readout's log-softmax). The port's epoch loops equal its
-stepwise loops bitwise, as the reference holds for its own scans."""
+stepwise loops bitwise, as the reference holds for its own scans. The CLI
+runs modes ``full`` and ``int8`` as a one-tenant ``SessionRuntime`` (ingest,
+then one adapt an epoch) and ``freeze_a`` as the single-tenant loop; with
+``--hbm-mb`` its adapt epochs stream out of the tiered engine."""
 
 import numpy as np
 import pytest
@@ -250,6 +253,20 @@ def test_cli_runs_each_mode_with_the_loss_falling(flags, capsys):
     assert "cached-epoch speedup vs populate epoch" in text
 
 
-def test_cli_refuses_the_tiered_engine():
-    with pytest.raises(NotImplementedError, match="session-runtime slice"):
-        cli.main(["--device", "cpu", "--hbm-mb", "0.05"])
+@pytest.mark.parametrize("cache_dir", [False, True], ids=["memory-tier", "disk-tier"])
+def test_cli_streams_through_the_tiered_engine(tmp_path, capsys, cache_dir):
+    """``--hbm-mb`` places the one-tenant session's cache under a device
+    budget (2 of 16 rows resident), so every adapt epoch takes the stream
+    path and the tier counts print; ``--cache-dir`` puts the host tier on
+    disk. ``--mode freeze_a`` runs the single-tenant loop, which has no
+    engine, and refuses both flags."""
+    flags = ["--device", "cpu", "--epochs", "3", "--samples", "16", "--batch", "4", "--seq", "32",
+             "--hbm-mb", "0.05"]
+    out = cli.main(flags + (["--cache-dir", str(tmp_path)] if cache_dir else []))
+    assert out["paths"] == ["stream"] * 3 and np.isfinite(out["losses"]).all()
+    assert out["cache_stats"].staged_hits + out["cache_stats"].host_hits > 0
+    text = capsys.readouterr().out
+    assert "2/16 rows resident" in text and "(stream path)" in text and "cache tiers: hbm_hits=" in text
+    assert any(p.name.endswith(".bin") for p in tmp_path.iterdir()) == cache_dir
+    with pytest.raises(SystemExit, match="session runtime"):
+        cli.main(flags + ["--mode", "freeze_a"])

@@ -20,7 +20,9 @@ reference holds them (``tests/test_fleet_finetune.py``): fleet n = 1 equals
 the single-tenant populate + cached trajectory (losses atol 1e-5, adapters
 atol 1e-6 through the grouped plain versions, 5e-4 through the einsum route,
 whose contractions run in another order), and a tenant trained in a fleet
-equals the tenant trained alone (atol 1e-6)."""
+equals the tenant trained alone (atol 1e-6). The CLI runs the fleet as a
+``SessionRuntime``; its ``--check-parity`` holds that session to the
+offline trainer at zero tolerance."""
 
 import numpy as np
 import pytest
@@ -252,7 +254,24 @@ def test_cli_runs_on_the_cpu_with_the_loss_falling(flags, capsys):
     assert "tenants/s/epoch" in text
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--check-parity"]])
+@pytest.mark.parametrize("flags", [["--devices", "2"]])
 def test_cli_refuses_what_needs_the_session_runtime(flags):
-    with pytest.raises(SystemExit, match="session runtime"):
+    with pytest.raises(SystemExit, match="slice 7"):
         cli.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_cli_check_parity_holds_the_offline_trainer_bitwise(capsys, use_kernel):
+    """The CLI's session (ingest every tenant, then one adapt a epoch)
+    against the offline ``fleet_finetune`` at zero tolerance, as the
+    reference's ``--check-parity`` holds it at ``--devices 1``; mode int8 is
+    refused, as the reference refuses it."""
+    flags = ["--device", "cpu", "--tenants", "2", "--samples", "4", "--batch-per-tenant", "2", "--seq", "8",
+             "--epochs", "2", "--check-parity"] + (["--use-kernel"] if use_kernel else [])
+    out = cli.main(flags)
+    assert out["parity_max_abs_diff"] == 0.0 and out["parity_adapter_diff"] == 0.0
+    text = capsys.readouterr().out
+    assert "parity_max_abs_diff=0.000e+00" in text and "parity_adapter_diff=0.000e+00" in text
+    assert "(+" in text and "scan path" in text
+    with pytest.raises(SystemExit, match="--mode full"):
+        cli.main(flags + ["--mode", "int8"])

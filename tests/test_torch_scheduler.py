@@ -14,7 +14,8 @@ agree exactly), on the reference's mid-decode admission, shared-prefix
 reuse and row-recycling traces. Against the port itself: continuous ==
 sequential == solo ``serve``; reuse on == reuse off; no block leaks after a
 drain; a failed dispatch unwinds its admissions; freed rows readmit in the
-same step."""
+same step; ingest queued with ``enqueue_ingest`` runs at a step boundary
+and lands as a direct ``ingest`` does."""
 
 import contextlib
 import io
@@ -64,7 +65,8 @@ def _sessions(cfg):
     tp = C.params_from_reference(jax.tree.map(np.asarray, jp), cfg)
     jrt = JRuntime(cfg, JSL.SkipLoRAConfig(rank=RANK, mode="full", cache_dtype="float32"), jp,
                    max_tenants=2, samples_per_tenant=1, seq=8)
-    trt = SessionRuntime(cfg, TSL.SkipLoRAConfig(rank=RANK), tp, max_tenants=2, device="cpu")
+    trt = SessionRuntime(cfg, TSL.SkipLoRAConfig(rank=RANK), tp, max_tenants=2, samples_per_tenant=1, seq=8,
+                         device="cpu")
     for i in range(2):
         jrt.pool.register(f"u{i}", _adapters(10 + i, cfg))
         trt.pool.register(f"u{i}", _adapters(10 + i, cfg))
@@ -263,14 +265,16 @@ def test_validation(sessions):
         S.RequestScheduler(trt, mode="warp")
     with pytest.raises(ValueError, match="admit_bucket"):
         S.RequestScheduler(trt, max_batch=2, admit_bucket=3)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        sched.submit_ingest("u0", None, None)
+    ing = sched.submit_ingest("u0", np.zeros((1, 8), np.int32), np.zeros((1, 8), np.int32))
+    assert not ing.done and list(sched._ingest_queue) == [ing]   # runs at the next step boundary
+    sched._ingest_queue.clear()
 
 
 def test_runtime_front_door_and_what_it_leaves_out(sessions):
     _, trt = sessions
     tp = trt.params
-    rt = SessionRuntime(CFG, TSL.SkipLoRAConfig(rank=RANK), tp, max_tenants=2, device="cpu")
+    rt = SessionRuntime(CFG, TSL.SkipLoRAConfig(rank=RANK), tp, max_tenants=2, samples_per_tenant=1, seq=8,
+                        device="cpu")
     rt.pool.register("u0", _adapters(10))
     rt.attach_scheduler(max_batch=2, max_prompt=4, max_new_cap=3, chunk=2)
     with pytest.raises(RuntimeError, match="already"):
@@ -293,17 +297,55 @@ def test_runtime_front_door_and_what_it_leaves_out(sessions):
     assert rt.kv_pool() is pool and rt.prefix_index().pool is pool
     with pytest.raises(ValueError, match="block=4"):
         rt.kv_pool(block=8)
-    for call in (lambda: rt.ingest("u0", None, None), lambda: rt.adapt(epochs=1),
-                 lambda: rt.enqueue_ingest("u0", None, None)):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            call()
+    with pytest.raises(ValueError, match="seq"):
+        rt.ingest("u0", np.zeros((1, 4), np.int32), np.zeros((1, 4), np.int32))
+    with pytest.raises(ValueError, match="no tenants"):
+        rt.adapt(epochs=1)
+    ing = rt.enqueue_ingest("u0", np.zeros((1, 8), np.int32), np.zeros((1, 8), np.int32))
+    assert not ing.done and not rt._tenants       # queued until a step boundary
+    rt.drain()
+    assert ing.done and ing.logits.shape == (1, 1, CFG.vocab_size) and rt.tenant("u0").n_ingested == 1
     sl = TSL.SkipLoRAConfig(rank=RANK)
-    for kw in (dict(mesh=object()), dict(placement_shards=2), dict(pipeline_stages=2),
-               dict(decode_fuse=True)):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            SessionRuntime(CFG, sl, tp, max_tenants=2, device="cpu", **kw)
+    kw0 = dict(max_tenants=2, samples_per_tenant=1, seq=8, device="cpu")
+    for kw, where in ((dict(mesh=object()), "slice 7"), (dict(placement_shards=2), "slice 7"),
+                      (dict(pipeline_stages=2), "slice 7"), (dict(decode_fuse=True), "one-dispatch decode")):
+        with pytest.raises(NotImplementedError, match=where):
+            SessionRuntime(CFG, sl, tp, **kw0, **kw)
     with pytest.raises(ValueError, match="params live on"):
-        SessionRuntime(CFG, sl, tp, max_tenants=2, device="meta")
+        SessionRuntime(CFG, sl, tp, **{**kw0, "device": "meta"})
+
+
+def test_enqueue_ingest_runs_at_step_boundaries(sessions):
+    """The reference's ``test_ingest_runs_at_step_boundaries``: ingest work
+    queued between decode dispatches runs at the step's end and lands in
+    the tenant's cache partition exactly as a direct ``ingest`` does (same
+    logits and cached rows, bitwise), while the serve request's tokens equal
+    a solo ``serve``. ``quality_metrics`` has no gate section without a
+    control plane."""
+    _, trt = sessions
+    rng = np.random.default_rng(16)
+    tokens, labels = (rng.integers(0, CFG.vocab_size, (2, 8)).astype(np.int32) for _ in range(2))
+    prompt = _prompts(1, 4, 17)[0]
+    rts = []
+    for _ in range(2):
+        rt = SessionRuntime(CFG, TSL.SkipLoRAConfig(rank=RANK, cache_dtype="float32"), trt.params,
+                            max_tenants=2, samples_per_tenant=4, seq=8, device="cpu")
+        rt.pool.register("u0", _adapters(10))
+        rts.append(rt)
+    queued, direct = rts
+    sched = queued.attach_scheduler(max_batch=2, max_prompt=4, max_new_cap=3, chunk=1)
+    r = queued.enqueue_serve("u0", prompt, max_new=3)
+    ing = queued.enqueue_ingest("u0", tokens, labels)
+    assert sched.step() == 1 and ing.done and not r.done      # ingested at the first step's end
+    queued.drain()
+    assert r.done and sched.counters["ingested"] == 1 and queued.tenant("u0").n_ingested == 2
+    want = direct.ingest("u0", tokens, labels)
+    assert torch.equal(ing.logits, want) and ing.logits.shape == (2, 1, CFG.vocab_size)
+    ids = np.arange(2)
+    got, ref = queued.engine.read(ids), direct.engine.read(ids)
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    np.testing.assert_array_equal(r.result(), direct.serve(["u0"], prompt[None], max_new=3)[0].numpy())
+    assert sched.quality_metrics() == {}
 
 
 def test_sample_token_per_row_temperatures():
