@@ -98,9 +98,20 @@ Phases, each printing one line (or a few) before the last line:
      int8 pool (K6 at ingest and serve, K8 + K9 at adapt, every tenant's
      loss falling); one ``enqueue_ingest`` between decode dispatches equal
      to a direct ingest. Ingest rows/s and device ms, each path's adapt
-     time, HBM hit rates. A reduced float32 session (a control plane, a disk
-     host tier) gives the same losses, adapters, gate decisions and tokens
-     on the card as on the CPU.
+     time, HBM hit rates. The checkpoint plane: the trained resident session
+     saved (``save_runtime_session``: its 64 cache rows, ~1.7 GB, under
+     build/), restored into a fresh runtime (``restore_runtime_session``),
+     and both continuing one adapt epoch (8 K5 + 8 K9 each) and the serve
+     (33 K5 each): losses, adapters, moments, pool, slot table and tokens
+     bitwise; save and restore seconds and the bytes on disk. A reduced
+     float32 session (a control plane, a disk host tier) gives the same
+     losses, adapters, gate decisions and tokens on the card as on the CPU,
+     and, saved after its first gated adapt and restored into a fresh
+     runtime, bitwise the uninterrupted run's on the card; an int4 pool
+     round-trips its bytes and serves the same tokens through K7. The
+     session CLI's crash drill (``repro_torch.launch.run --device cuda
+     --use-kernel --checkpoint-dir D --inject-failure 3``, reduced) restarts
+     exactly once, at event 3, and ends bitwise the unsupervised run.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
 step's must take many rows, and each ``generate_grouped`` call's and each
@@ -1516,7 +1527,10 @@ def session_phase(torch, device_name, kept):
         tenants and a base row (33 K5, few rows; the base row equal to the
         base serve's). The adapters and every per-step loss equal, bitwise,
         the offline ``fleet_finetune`` of the fleet phase, and the pool
-        slots ``write_back_to_pool``'s;
+        slots ``write_back_to_pool``'s. Then the session is saved under
+        build/ (``save_runtime_session``), restored into a fresh runtime,
+        and both run one more epoch (8 K5 + 8 K9 each) and the serve:
+        losses, adapters, moments, pool, slot table and tokens bitwise;
       - mode full, tiered engine (half of the 64 rows on the card, the host
         tier in memory): the stream path, spills, and the resident run's
         losses and adapters (the reference's bar 1e-6; bitwise or not is
@@ -1528,8 +1542,12 @@ def session_phase(torch, device_name, kept):
     Prints ingest rows/s and one ingest's device time (profiler), each
     path's adapt time beside the offline cached epoch, the HBM hit rates.
     Returns each kernel's launches."""
+    import shutil
+    import tempfile
+
     import numpy as np
 
+    from repro_torch.checkpoint.checkpoint import restore_runtime_session, save_runtime_session
     from repro_torch.core import lm_skiplora as SL
     from repro_torch.core.adapter_pool import AdapterPool
     from repro_torch.core.fleet_finetune import write_back_to_pool
@@ -1608,6 +1626,62 @@ def session_phase(torch, device_name, kept):
         check(torch.equal(out[-1], base[-1]), f"session serve: base row {out[-1].tolist()} != {base[-1].tolist()}")
         return out
 
+    def checkpoint_round_trip(rt):
+        """Save the trained session under build/, restore it into a fresh
+        runtime, and run one more adapt epoch (8 K5 at many rows + 8 K9 each)
+        and the serve (33 K5 at few rows each) on both: losses, adapters,
+        optimizer moments, pool, slot table and tokens bitwise. Returns
+        ({"save", "capture", "restore", "load"}: seconds, checkpoint bytes,
+        cache rows, bytes a row)."""
+        spans = {}
+
+        def timed(name, fn):
+            """``fn`` timed into ``spans`` (synchronised on both sides)."""
+            def run(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                spans[name] = time.perf_counter() - t0
+                return out
+            return run
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        directory = tempfile.mkdtemp(prefix="session_ckpt_", dir=ROOT / "build")
+        twin = runtime("full")
+        # the capture and the load inside the two calls, timed on their own
+        rt.session_state = timed("capture", rt.session_state)
+        twin.load_session_state = timed("load", twin.load_session_state)
+        try:
+            path = timed("save", save_runtime_session)(directory, 1, rt)
+            nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+            timed("restore", restore_runtime_session)(path, twin)
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+            del rt.session_state, twin.load_session_state
+        window({})
+        rows = len(twin.engine._present)
+        check(rows == FLEET_TENANTS * FLEET_SAMPLES and twin.pool.slot_table() == rt.pool.slot_table(),
+              f"session checkpoint: {rows} cache rows restored, slot tables equal: "
+              f"{twin.pool.slot_table() == rt.pool.slot_table()}")
+        outs, toks = [], []
+        for r in (rt, twin):
+            outs.append(r.adapt(epochs=1, batch_per_tenant=FLEET_BPT))
+            window({"grouped_skip_sum_fwd": FLEET_STEPS, "grouped_skip_sum_bwd": FLEET_STEPS},
+                   ("grouped_skip_sum_fwd", {"many_rows": FLEET_STEPS}))
+            toks.append(serve(r, "grouped_skip_sum_fwd", base))
+        for t in range(FLEET_TENANTS):
+            check(np.array_equal(outs[0]["losses"][t], outs[1]["losses"][t]),
+                  f"session checkpoint: tenant {t} continued losses differ")
+            for name in ("adapters", "opt_mu", "opt_nu"):
+                for k in ("A", "B"):
+                    check(torch.equal(getattr(rt.tenant(t), name)[k], getattr(twin.tenant(t), name)[k]),
+                          f"session checkpoint: tenant {t} {name} {k} differ after the continued epoch")
+        check(all(torch.equal(v, twin.pool.pools()[k]) for k, v in rt.pool.pools().items())
+              and rt.pool.slot_table() == twin.pool.slot_table(), "session checkpoint: pools differ")
+        check(torch.equal(toks[0], toks[1]), "session checkpoint: temperature-0 tokens differ")
+        return spans, nbytes, rows, twin.engine.row_nbytes()
+
     _reset_launches()
     # -- mode full, resident engine --------------------------------------------
     rt = runtime("full")
@@ -1626,10 +1700,11 @@ def session_phase(torch, device_name, kept):
     write_back_to_pool(pool, list(range(FLEET_TENANTS)), kept["adapters"])
     check(all(torch.equal(v, pool.pools()[k]) for k, v in rt.pool.pools().items()),
           "session: pool slots != write_back_to_pool's")
-    serve(rt, "grouped_skip_sum_fwd", base)
     resident = {t: dict(rt.tenant(t).adapters) for t in range(FLEET_TENANTS)}
     trained0 = resident[0]
-    del rt, pool
+    del pool
+    ckpt = checkpoint_round_trip(rt)
+    del rt
     torch.cuda.empty_cache()
 
     # -- mode full, tiered engine: half the rows on the card ---------------------
@@ -1696,6 +1771,17 @@ def session_phase(torch, device_name, kept):
           f"({'bitwise' if loss_diff == ad_diff == 0.0 else 'not bitwise'}); launches: ingest "
           f"grouped_skip_sum_fwd x{n_ingests} (few rows), adapt grouped_skip_sum_fwd x{n_steps} (many rows) + "
           f"grouped_skip_sum_bwd x{n_steps}, serve grouped_skip_sum_fwd x{1 + NEW} (few rows)")
+    spans, ck_bytes, ck_rows, row_bytes = ckpt
+    print(f"session checkpoint {ARCH} full width on {device_name}: save_runtime_session {spans['save']:.3f} s "
+          f"= capture {spans['capture']:.3f} s (session_state: the rows read through the engine, copied to the "
+          f"host) + write {spans['save'] - spans['capture']:.3f} s (np.savez, manifest, rename); "
+          f"restore_runtime_session into a fresh runtime {spans['restore']:.3f} s = read "
+          f"{spans['restore'] - spans['load']:.3f} s (np.load of every leaf) + load {spans['load']:.3f} s "
+          f"(load_session_state: to the card, engine write; synchronised); "
+          f"{ck_bytes} bytes on disk ({ck_bytes / 1e9:.3f} GB: {ck_rows} cache rows of {row_bytes / 1e6:.1f} MB = "
+          f"{ck_rows * row_bytes / 1e9:.3f} GB, then pool, adapters and moments); both continued adapt(epochs=1) "
+          f"({FLEET_STEPS} K5 many rows + {FLEET_STEPS} K9 each) and the serve ({1 + NEW} K5 few rows each): "
+          f"losses, adapters, moments, pool, slot table and temperature-0 tokens bitwise")
     print(f"session int8 (int8 pool) on {device_name}: ingest {i_rate:.1f} rows/s, one ingest {i_ms:.3f} ms on the "
           f"device, logits vs use_kernel=False max diff {i_err:.3e}; adapt 3 epochs {int8_s:.3f} s; per-tenant "
           f"mean losses by epoch {[[round(float(v), 4) for v in row] for row in means]}; launches: ingest "
@@ -1714,17 +1800,26 @@ def small_session_check(torch):
     generator). The labels are one token, so the held-out loss falls and the
     gate accepts by a margin. Same per-step losses (rtol 1e-4), adapters
     (atol 1e-4), held-out losses (rtol 1e-4), gate decisions and
-    temperature-0 tokens."""
+    temperature-0 tokens.
+
+    On the card the session runs a second time, saved after the first gated
+    adapt (``save_runtime_session``) and restored into a fresh runtime with
+    its own disk tier, which continues: losses, adapters, ledger, gate
+    decisions and tokens bitwise the uninterrupted run's. An int4-pool
+    session round-trips its pool bytes and codebook and serves the same
+    tokens through K7 after the restore."""
     import os
     import shutil
     import tempfile
 
     import numpy as np
 
+    from repro_torch.checkpoint.checkpoint import restore_runtime_session, save_runtime_session
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.core import lm_skiplora as SL
     from repro_torch.core.control_plane import ControlConfig
     from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.kernels.skip_lora import kernel as K
     from repro_torch.models.lm import init_lm
 
     cfg = reduce_config(get_config(ARCH))
@@ -1735,46 +1830,136 @@ def small_session_check(torch):
     labels = torch.full((2, 8, 16), 7)
     prompts = torch.randint(0, cfg.vocab_size, (3, 8), generator=g)
     (ROOT / "build").mkdir(exist_ok=True)
-    res = {}
-    for where in ("cpu", "cuda"):
-        cache_dir = tempfile.mkdtemp(prefix="session_cache_", dir=ROOT / "build")
-        try:
-            rt = SessionRuntime(cfg, sl, _to(params, where), max_tenants=2, samples_per_tenant=8, seq=16,
-                                lr=1e-2, cache_capacity=8, cache_dir=cache_dir, use_kernel=True, device=where,
-                                control=ControlConfig(holdout_every=4, threshold=0.0))
-            toks = [rt.serve([None, None, None], prompts, max_new=4).cpu()]
-            for t in range(2):
-                for lo in range(0, 8, 2):
-                    rt.ingest(t, tokens[t, lo:lo + 2], labels[t, lo:lo + 2])
-            losses = []
-            for _ in range(2):
-                out = rt.adapt(epochs=2, batch_per_tenant=2, generator=torch.Generator().manual_seed(3))
-                check(out["path"] == "stream", f"small session {where}: path {out['path']}")
-                losses.append(np.stack([out["losses"][t] for t in range(2)], axis=-1))
-            toks.append(rt.serve([0, 1, None], prompts, max_new=4).cpu())
-            ledger = dict(rt.control_metrics()["tenants"])
-            rt.rollback(0)
-            toks.append(rt.serve([0, 1, None], prompts, max_new=4).cpu())
-            check(any(f.endswith(".bin") for f in os.listdir(cache_dir)),
-                  f"small session {where}: nothing spilled to the disk tier")
-            res[where] = (np.stack(losses), {k: np.stack([rt.tenant(t).adapters[k].cpu().numpy() for t in range(2)])
-                                             for k in ("A", "B")}, ledger, toks)
-        finally:
-            shutil.rmtree(cache_dir, ignore_errors=True)
-    (lc, ac, gc, tc), (lg, ag, gg, tg) = res["cpu"], res["cuda"]
-    loss_err = float((np.abs(lg - lc) / np.abs(lc)).max())
-    ad_err = max(float(np.abs(ag[k] - ac[k]).max()) for k in ac)
-    check(loss_err <= 1e-4 and ad_err <= 1e-4, f"small session: card vs CPU losses {loss_err:.3e}, adapters {ad_err:.3e}")
-    check({t: r["decision"] for t, r in gc.items()} == {t: r["decision"] for t, r in gg.items()} ==
-          {0: "accept", 1: "accept"}, f"small session: gate decisions card {gg} vs CPU {gc}")
-    ev_err = max(abs(gg[t][k] - gc[t][k]) / abs(gc[t][k]) for t in gc for k in ("pre", "post"))
-    check(ev_err <= 1e-4 and all(gc[t]["post"] < gc[t]["pre"] for t in gc),
-          f"small session: held-out losses card {gg} vs CPU {gc}")
-    check(all(torch.equal(a, b) for a, b in zip(tc, tg)), f"small session: tokens card {tg} vs CPU {tc}")
+    scratch = tempfile.mkdtemp(prefix="session_small_", dir=ROOT / "build")
+
+    def runtime(where, tag, **kw):
+        cache_dir = tempfile.mkdtemp(prefix=f"cache_{tag}_", dir=scratch)
+        return SessionRuntime(cfg, sl, _to(params, where), max_tenants=2, samples_per_tenant=8, seq=16,
+                              lr=1e-2, cache_capacity=8, cache_dir=cache_dir, use_kernel=True, device=where,
+                              control=ControlConfig(holdout_every=4, threshold=0.0), **kw), cache_dir
+
+    def session(where, tag, restore=False):
+        rt, cache_dir = runtime(where, tag)
+        toks = [rt.serve([None, None, None], prompts, max_new=4).cpu()]
+        for t in range(2):
+            for lo in range(0, 8, 2):
+                rt.ingest(t, tokens[t, lo:lo + 2], labels[t, lo:lo + 2])
+        losses = []
+        for i in range(2):
+            out = rt.adapt(epochs=2, batch_per_tenant=2, generator=torch.Generator().manual_seed(3))
+            check(out["path"] == "stream", f"small session {where}: path {out['path']}")
+            losses.append(np.stack([out["losses"][t] for t in range(2)], axis=-1))
+            if restore and i == 0:
+                path = save_runtime_session(tempfile.mkdtemp(prefix="ckpt_", dir=scratch), 1, rt)
+                rt, cache_dir = runtime(where, tag + "_restored")
+                restore_runtime_session(path, rt)
+        toks.append(rt.serve([0, 1, None], prompts, max_new=4).cpu())
+        ledger = dict(rt.control_metrics()["tenants"])
+        rt.rollback(0)
+        toks.append(rt.serve([0, 1, None], prompts, max_new=4).cpu())
+        check(any(f.endswith(".bin") for f in os.listdir(cache_dir)),
+              f"small session {where}: nothing spilled to the disk tier")
+        return (np.stack(losses), {k: np.stack([rt.tenant(t).adapters[k].cpu().numpy() for t in range(2)])
+                                   for k in ("A", "B")}, ledger, toks)
+
+    try:
+        res = {where: session(where, where) for where in ("cpu", "cuda")}
+        (lc, ac, gc, tc), (lg, ag, gg, tg) = res["cpu"], res["cuda"]
+        loss_err = float((np.abs(lg - lc) / np.abs(lc)).max())
+        ad_err = max(float(np.abs(ag[k] - ac[k]).max()) for k in ac)
+        check(loss_err <= 1e-4 and ad_err <= 1e-4,
+              f"small session: card vs CPU losses {loss_err:.3e}, adapters {ad_err:.3e}")
+        check({t: r["decision"] for t, r in gc.items()} == {t: r["decision"] for t, r in gg.items()} ==
+              {0: "accept", 1: "accept"}, f"small session: gate decisions card {gg} vs CPU {gc}")
+        ev_err = max(abs(gg[t][k] - gc[t][k]) / abs(gc[t][k]) for t in gc for k in ("pre", "post"))
+        check(ev_err <= 1e-4 and all(gc[t]["post"] < gc[t]["pre"] for t in gc),
+              f"small session: held-out losses card {gg} vs CPU {gc}")
+        check(all(torch.equal(a, b) for a, b in zip(tc, tg)), f"small session: tokens card {tg} vs CPU {tc}")
+
+        # the card, saved after the first gated adapt and restored: bitwise
+        lr_, ar, gr, tr = session("cuda", "cuda_ck", restore=True)
+        check(np.array_equal(lr_, lg) and all(np.array_equal(ar[k], ag[k]) for k in ag),
+              "small session: the restored run's losses or adapters != the uninterrupted run's")
+        check(gr == gg and all(torch.equal(a, b) for a, b in zip(tr, tg)),
+              f"small session: the restored run's ledger {gr} or tokens != the uninterrupted run's {gg}")
+
+        # an int4 pool: bytes and codebook round-trip, K7 serves the same tokens
+        q4 = []
+        for restore in (False, True):
+            rt, _ = runtime("cuda", f"q4_{restore}", pool_compress="int4")
+            if restore:
+                restore_runtime_session(path, rt)
+            else:
+                for t in range(2):
+                    rt.ingest(t, tokens[t, :4], labels[t, :4])
+                rt.adapt(epochs=1, batch_per_tenant=2, generator=torch.Generator().manual_seed(3))
+                path = save_runtime_session(tempfile.mkdtemp(prefix="ckpt_q4_", dir=scratch), 1, rt)
+            before = K.LAUNCHES.get("grouped_skip_sum_fwd_q4", 0)
+            q4.append((rt.serve([0, 1, None], prompts, max_new=4).cpu(), rt.pool.pools()))
+            check(K.LAUNCHES.get("grouped_skip_sum_fwd_q4", 0) - before == 1 + 4,
+                  "small session int4: the serve did not launch K7 once a step")
+        (tok_a, pool_a), (tok_b, pool_b) = q4
+        check(set(pool_a) == {"qa4", "sa", "qb4", "sb", "code"} and pool_a["qa4"].dtype == torch.uint8
+              and all(torch.equal(pool_a[k], pool_b[k]) for k in pool_a),
+              "small session int4: pool bytes or codebook differ after the restore")
+        check(torch.equal(tok_a, tok_b), "small session int4: tokens differ after the restore")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     print(f"session small: reduced {ARCH} float32, 2 tenants x 8 samples, control plane + disk host tier (stream "
           f"path), serve -> ingest -> gated adapt x2 -> serve -> rollback -> serve: card (kernels) vs CPU (plain "
           f"versions) max loss rel diff {loss_err:.3e}, max adapter diff {ad_err:.3e}, held-out loss rel diff "
-          f"{ev_err:.3e}, gate decisions and temperature-0 tokens equal")
+          f"{ev_err:.3e}, gate decisions and temperature-0 tokens equal; saved after the first gated adapt and "
+          f"restored into a fresh runtime on the card: losses, adapters, ledger, gate decisions and tokens bitwise "
+          f"the uninterrupted run's; an int4 pool round-trips its bytes and codebook, K7 serves the same tokens")
+
+
+def cli_drill_check(torch):
+    """The session CLI's crash drill on the card, in process, reduced:
+    ``python -m repro_torch.launch.run --device cuda --use-kernel
+    --checkpoint-dir D --inject-failure 3`` restarts exactly once, resumes at
+    event 3, runs each completed event once and the failed one twice, and
+    ends with the adapters, moments, pool and slot table of the same CLI
+    without ``--checkpoint-dir``, bitwise. Any other exception (a kernel
+    raising, say) fails the run: one restart, not more, is accepted."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import run
+
+    args = ["--device", "cuda", "--use-kernel", "--tenants", "2", "--rounds", "2", "--samples-per-round", "4",
+            "--seq", "16", "--prompt-len", "8", "--gen", "4", "--rank", str(RANK)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="session_drill_", dir=ROOT / "build")
+    log = io.StringIO()   # the CLI's own per-event lines
+    try:
+        with contextlib.redirect_stdout(log):
+            plain = run.main(args)["runtime"]
+            t0 = time.perf_counter()
+            sup = run.main([*args, "--checkpoint-dir", directory, "--inject-failure", "3"])
+            drill_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    check("1 restarts, resumed at event 3" in log.getvalue(), "cli drill: the CLI did not report its restart")
+    info, rt = sup["supervisor"], sup["runtime"]
+    n_events = 1 + 2 * (2 + 2)
+    check(info["restarts"] == 1 and info["resumed_at"] == 3,
+          f"cli drill: {info['restarts']} restarts, resumed at {info['resumed_at']} (want 1 and 3)")
+    check(info["executions"] == [2 if i == 3 else 1 for i in range(n_events)],
+          f"cli drill: event executions {info['executions']}")
+    for t in ("tenant-0", "tenant-1"):
+        for name in ("adapters", "opt_mu", "opt_nu"):
+            for k in ("A", "B"):
+                check(torch.equal(getattr(rt.tenant(t), name)[k], getattr(plain.tenant(t), name)[k]),
+                      f"cli drill: {t} {name} {k} != the unsupervised run's")
+    check(rt.pool.slot_table() == plain.pool.slot_table()
+          and all(torch.equal(v, plain.pool.pools()[k]) for k, v in rt.pool.pools().items()),
+          "cli drill: pool or slot table != the unsupervised run's")
+    print(f"session cli drill: reduced {ARCH}, --device cuda --use-kernel --checkpoint-dir D --inject-failure 3: "
+          f"{info['restarts']} restart, resumed at event {info['resumed_at']}, executions {info['executions']}, "
+          f"{drill_s:.2f} s with a checkpoint at each of {n_events} event boundaries; adapters, moments, pool and "
+          f"slot table bitwise the run without --checkpoint-dir")
 
 
 # ---------------------------------------------------------------------------
@@ -2179,6 +2364,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     small_fleet_check(torch)
     small_session_check(torch)
+    cli_drill_check(torch)
     sched_launches = scheduler_phase(torch, smi)
     small_scheduler_check(torch)
     # each kernel's launches over every main path that runs it

@@ -25,6 +25,10 @@ Layouts:
     and the port's have the same slots in the same layouts.
   - optimizer states: ``OptState`` (step, mu, nu) in both packages, with
     dicts of arrays (tensors) for the moments.
+  - session captures (``SessionRuntime.session_state``): the reference's
+    keeps its pool per shard (arrays under "s0", table under "shards") and
+    its KV pool in the periods/remainder layout; ``session_from_reference``
+    maps a one-shard capture onto the port's.
 """
 
 from __future__ import annotations
@@ -48,7 +52,10 @@ def _map(fn, tree):
 
 
 def to_tensor(arr, device="cpu") -> torch.Tensor:
-    """numpy array -> tensor of the same dtype (bfloat16 included)."""
+    """numpy array (or tensor) -> tensor of the same dtype (bfloat16
+    included)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
@@ -154,3 +161,41 @@ def opt_state_to_numpy(state) -> dict[str, Any]:
         "mu": None if state.mu is None else _map(conv, state.mu),
         "nu": None if state.nu is None else _map(conv, state.nu),
     }
+
+
+def _stack_layers(kv: dict, cfg: ModelConfig, device) -> dict[str, torch.Tensor]:
+    """The reference's KV pool capture ({"periods": {"i": {"k", "v"}},
+    "remainder": {"j": ...}}, period leaves (n_periods, NB, block, n_kv, hd))
+    -> the port's {"k", "v"}: (L, NB, block, n_kv, hd). The inverse of
+    ``stacked_to_reference``."""
+    periods = [kv["periods"][str(i)] for i in range(cfg.period)] if cfg.n_periods else []
+    layers = [{n: periods[i][n][p] for n in ("k", "v")} for p in range(cfg.n_periods) for i in range(cfg.period)]
+    layers += [kv["remainder"][str(j)] for j in range(len(kv.get("remainder", {})))]
+    return {n: torch.stack([to_tensor(layer[n], device) for layer in layers]) for n in ("k", "v")}
+
+
+def session_from_reference(arrays: dict, meta: dict, cfg: ModelConfig, *, device="cpu") -> tuple[dict, dict]:
+    """A reference ``session_state`` capture (its ``_load_dict_tree`` gives
+    numpy leaves; the port's gives tensors: either works) -> the port's
+    (arrays, meta) for ``SessionRuntime.load_session_state``: the pool's
+    arrays and table unwrapped from shard 0, adapters and moments through
+    ``adapters_from_reference``, cache rows by slot name (the names match),
+    the KV pool mapped to {"k", "v"}. A capture of more than one shard is
+    refused: the port's session has one (slice 7)."""
+    table = meta["pool_table"]
+    n_shards = int(meta["layout"].get("n_shards", 1))
+    if n_shards != 1 or int(table["n_shards"]) != 1:
+        raise ValueError(f"a capture of {n_shards} shards: the port's session has one (slice 7)")
+    out: dict = {}
+    for name in ("adapters", "opt_mu", "opt_nu"):
+        if name in arrays:
+            out[name] = adapters_from_reference(arrays[name], device=device)
+    out["pool"] = _map(lambda x: to_tensor(x, device), arrays["pool"]["s0"])
+    if "cache" in arrays:
+        out["cache"] = {k: to_tensor(v, device) for k, v in arrays["cache"].items()}
+    new_meta = dict(meta, pool_table=table["shards"][0])
+    if "kv_pool" in arrays:
+        if set(arrays["kv_pool"]) != {"0"}:
+            raise ValueError(f"kv pools of shards {sorted(arrays['kv_pool'])}: the port's session has one")
+        out["kv_pool"] = {"0": _stack_layers(arrays["kv_pool"]["0"], cfg, device)}
+    return out, new_meta

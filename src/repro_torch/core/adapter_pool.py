@@ -30,8 +30,13 @@ the reference's does; ``touch`` refreshes recency without a lookup.
 ``pin`` keeps a tenant with in-flight training state (the session
 runtime's trained tenants) out of LRU eviction.
 
-Not ported yet: the checkpoint plane (``state_arrays`` / ``load_state`` /
-``slot_table``), the dense ``fused`` skip-sum and ``ShardedAdapterPool``.
+Checkpoint plane: ``slot_table`` (JSON-able LRU map, free list, pins,
+version meta and history metadata), ``state_arrays`` (data plane plus
+archived payloads keyed ``hist/h{k}``) and ``load_state``, in the
+reference's layout, so one session's capture reads like the reference's.
+
+Not ported yet: the dense ``fused`` skip-sum (one-dispatch decode) and
+``ShardedAdapterPool`` with its per-shard ``s<i>`` state (slice 7).
 """
 
 from __future__ import annotations
@@ -397,6 +402,85 @@ class AdapterPool:
         that tells int4 from nf4). Writes go in place, so the dict stays live
         across registrations."""
         return dict(self._arrays)
+
+    # -- session state (checkpoint plane) ------------------------------------
+
+    def slot_table(self) -> dict:
+        """JSON-able control plane: LRU-ordered (tenant, slot) pairs, free
+        list, pinned tenants, plus the versioning plane: per-tenant version
+        meta and history *metadata* ([step, eval_loss] per archived version,
+        oldest..newest; payloads travel in ``state_arrays``, keyed
+        ``hist/h{k}`` in ``_hist_enumeration`` order). Tenant ids must be
+        JSON-serialisable to round-trip through a checkpoint manifest."""
+        return {
+            "lru": [[t, s] for t, s in self._lru.items()],
+            "free": list(self._free),
+            "pinned": [t for t in self._lru if t in self._pinned],
+            "history_depth": self.history_depth,
+            "meta": [
+                [t, [m["step"], m["eval_loss"]]]
+                for t, m in ((t, self._vmeta[t]) for t in self._lru)
+                if t in self._vmeta
+            ],
+            "history": [
+                [t, [[r["step"], r["eval_loss"]] for r in self._hist[t]]]
+                for t in self._lru
+                if self._hist.get(t)
+            ],
+        }
+
+    def _hist_enumeration(self) -> list[tuple[Any, int]]:
+        """(tenant, depth index) pairs in the order history payloads are
+        keyed in ``state_arrays``: LRU order, oldest..newest within a
+        tenant, row for row ``slot_table()``'s "history"."""
+        return [(t, j) for t in self._lru for j in range(len(self._hist.get(t, ())))]
+
+    def state_arrays(self) -> dict:
+        """Everything array-valued a checkpoint carries: the data plane under
+        "data" (``pools()`` layout, on the pool's device) and archived version
+        payloads under "hist" as ``h{k}/{name}`` (host tensors)."""
+        hist = {f"h{k}": dict(self._hist[t][j]["payload"])
+                for k, (t, j) in enumerate(self._hist_enumeration())}
+        return {"data": self.pools(), "hist": hist}
+
+    def load_state(self, arrays: dict, table: dict) -> None:
+        """Restore the data and control planes saved from a pool of the same
+        geometry. ``arrays`` is a ``state_arrays()`` layout ({"data",
+        "hist"}) with tensor or numpy leaves. The data lands in place, bit
+        for bit (4-bit payloads and the codebook included), so live
+        ``pools()`` dicts see it; ``version`` moves, so every slot-index memo
+        misses."""
+        data, hist_payloads = arrays["data"], arrays.get("hist", {})
+        want = set(self._arrays)
+        if set(data) != want:
+            raise ValueError(f"pool arrays {set(data)} != expected {want}")
+        for name, arr in data.items():
+            cur = self._arrays[name]
+            arr = torch.as_tensor(arr)
+            if tuple(arr.shape) != tuple(cur.shape):
+                raise ValueError(f"pool array {name}: {tuple(arr.shape)} != {tuple(cur.shape)}")
+            cur.copy_(arr.to(cur.dtype))
+        self._lru = OrderedDict((t, int(s)) for t, s in table["lru"])
+        self._free = [int(s) for s in table["free"]]
+        self._pinned = set(table.get("pinned", ()))
+        self._vmeta = {t: {"step": int(step), "eval_loss": loss} for t, (step, loss) in table.get("meta", [])}
+        self._hist = {}
+        hist_meta = {t: metas for t, metas in table.get("history", [])}
+        k = 0
+        for t in self._lru:
+            for step, loss in hist_meta.get(t, ()):
+                payload = hist_payloads.get(f"h{k}")
+                if payload is None:
+                    raise ValueError(f"history payload h{k} (tenant {t!r}) missing from checkpoint arrays")
+                self._hist.setdefault(t, []).append({
+                    "payload": {n: torch.as_tensor(v).detach().cpu().clone() for n, v in payload.items()},
+                    "step": int(step),
+                    "eval_loss": loss,
+                })
+                k += 1
+        if k != len(hist_payloads):
+            raise ValueError(f"{len(hist_payloads)} history payloads in checkpoint, manifest accounts for {k}")
+        self.version += 1
 
 
 def grouped_skip_sum(

@@ -37,8 +37,10 @@ decode into private dense cache rows, so divergence materialises privately;
 block itself when exclusively held and a fresh copy when shared, moving the
 caller's ref.
 
-Not ported yet: the checkpoint plane (``state_arrays`` / ``state_meta`` /
-``load_state``), which belongs with the session runtime's checkpoints.
+Checkpoint plane: ``state_arrays`` (the port's own ``{"k", "v"}`` layout;
+``convert.session_from_reference`` maps the reference's periods/remainder
+capture onto it), ``state_meta`` and ``load_state``, which the session
+runtime's ``session_state`` / ``load_session_state`` carry.
 """
 
 from __future__ import annotations
@@ -208,3 +210,39 @@ class KVBlockPool:
         self.version += 1
         self.counters["cow_copies"] += 1
         return dst
+
+    # -- checkpoint ----------------------------------------------------------
+
+    def state_arrays(self) -> dict[str, torch.Tensor]:
+        """The data plane, {"k", "v"}: (L, n_blocks, block, n_kv, hd) bf16."""
+        return dict(self.data)
+
+    def state_meta(self) -> dict:
+        return {
+            "n_blocks": self.n_blocks,
+            "block": self.block,
+            "refs": [int(r) for r in self.refs],
+            "free": list(self.free),
+            "version": self.version,
+        }
+
+    def load_state(self, arrays: dict, meta: dict) -> None:
+        """Restore a ``state_arrays`` / ``state_meta`` capture of a pool of
+        the same size: the data lands on this pool's device in bf16; refs and
+        free list as saved (the radix index's ``load_state`` then recomputes
+        them from its tree); ``version`` and ``generation`` move."""
+        if (int(meta["n_blocks"]), int(meta["block"])) != (self.n_blocks, self.block):
+            raise ValueError(
+                f"checkpoint kv pool ({meta['n_blocks']} x {meta['block']}) "
+                f"!= this pool ({self.n_blocks} x {self.block}): restore "
+                "requires an identically-sized block pool"
+            )
+        for n, cur in self.data.items():
+            arr = torch.as_tensor(arrays[n])
+            if tuple(arr.shape) != tuple(cur.shape):
+                raise ValueError(f"kv pool {n}: {tuple(arr.shape)} != {tuple(cur.shape)}")
+            cur.copy_(arr.to(cur.dtype))
+        self.refs = np.asarray(meta["refs"], np.int32).copy()
+        self.free = [int(i) for i in meta["free"]]
+        self.version += 1
+        self.generation += 1

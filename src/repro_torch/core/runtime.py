@@ -26,15 +26,19 @@ Counterpart of ``repro.core.runtime`` on one device:
         ``enqueue_serve`` / ``enqueue_ingest`` / ``drain``), the paged KV
         pool and the radix prefix index of the request scheduler;
       - with a ``ControlConfig``, shadow eval, a gated write-back and
-        rollback (``core.control_plane``).
+        rollback (``core.control_plane``);
+      - the checkpoint plane: ``session_state`` / ``load_session_state``
+        capture and restore the whole session (adapters and optimizer
+        moments, the pool, every cached row, the control plane, the paged KV
+        pool with its radix tree) in the reference's manifest layout, which
+        ``checkpoint.save_runtime_session`` writes to disk.
 
 Batch planning goes through ``core.batch_plan`` with explicit tenant
 partitions, so an ``adapt`` group that is a subset or a reordering of the
 ingested tenants still replays each tenant's own order.
 
-Eager PyTorch needs no compiled-function cache. Not ported yet: the
-checkpoint plane (``session_state`` / ``load_session_state``), more than one
-shard or a mesh and pipelined admission (slice 7), and ``decode_fuse``
+Eager PyTorch needs no compiled-function cache. Not ported yet: more than
+one shard or a mesh and pipelined admission (slice 7), and ``decode_fuse``
 (one-dispatch decode).
 """
 
@@ -173,6 +177,10 @@ class SessionRuntime:
     ``False`` the plain versions and the ``blocked_skip_sum`` einsum, as the
     reference's flag does. ``serve`` always runs the grouped wrappers.
     ``params`` must live on ``device``."""
+
+    #: the session's layout on one device (a checkpoint's ``layout`` block):
+    #: one logical shard, no model axis, no pipeline (slice 7 brings more)
+    n_shards, model_parallel, pipeline_stages = 1, 1, 0
 
     def __init__(
         self,
@@ -688,6 +696,118 @@ class SessionRuntime:
     def drain(self):
         """Run the scheduler until every queued request completes."""
         return self.scheduler.drain()
+
+    # -- checkpoint plane ----------------------------------------------------
+
+    def session_state(self) -> tuple[dict, dict]:
+        """(arrays, meta) for ``checkpoint.save_runtime_session``: the trained
+        tenants' stacked adapters and optimizer moments (tenant order in
+        meta), the pool's arrays and slot table, every present cache row in
+        logical layout (read in chunks of the engine's capacity, copied to
+        the host), the control plane and the paged KV pool with its radix
+        tree. The manifest keys and nesting are the reference's for one
+        shard (``"kv_pool": {"0": ...}``). Tenant ids must be
+        JSON-serialisable."""
+        order = list(self._tenants)
+        trained = [t for t in order if self._tenants[t].trained]
+        arrays: dict[str, Any] = {}
+        if trained:
+            sts = [self._tenants[t] for t in trained]
+            arrays["adapters"] = _stack([st.adapters for st in sts])
+            for name in ("opt_mu", "opt_nu"):
+                moments = _stack([getattr(st, name) for st in sts])
+                if moments is not None:
+                    arrays[name] = moments
+        arrays["pool"] = self.pool.state_arrays()
+        eng = self.engine
+        present = sorted(eng._present)
+        chunk = max(1, eng.capacity)
+        parts = [{n: v.cpu() for n, v in eng.read(present[lo:lo + chunk]).items()}
+                 for lo in range(0, len(present), chunk)]
+        if parts:
+            arrays["cache"] = {n: parts[0][n] if len(parts) == 1 else torch.cat([p[n] for p in parts])
+                               for n in parts[0]}
+        meta = {
+            "tenants": [
+                {"id": t, "partition": st.partition, "n_ingested": st.n_ingested,
+                 "epochs_done": st.epochs_done, "step": st.step}
+                for t, st in self._tenants.items()
+            ],
+            "trained": trained,
+            "pool_table": self.pool.slot_table(),
+            "present": present,
+            "layout": {"seq": self.seq, "rank": self.sl.rank, "mode": self.sl.mode,
+                       "samples_per_tenant": self.samples_per_tenant, "n_shards": self.n_shards,
+                       # restore-compared: another pool would reinterpret packed bytes
+                       "pool_compress": self.pool.compress, "pool_slots": self.pool.n_slots,
+                       "max_tenants": self.max_tenants,
+                       # informational: the device layout the session ran on
+                       "mesh_shape": [1], "mesh_axes": ["data"],
+                       "model_parallel": self.model_parallel, "pipeline_stages": self.pipeline_stages},
+        }
+        if self.control is not None:
+            meta["control"] = self.control.state()
+        if self._kv_pool is not None:
+            arrays["kv_pool"] = {"0": self._kv_pool.state_arrays()}
+            meta["kv_pool"] = {"0": {
+                **self._kv_pool.state_meta(),
+                "radix": self._prefix_index.state() if self._prefix_index is not None else [],
+            }}
+        return arrays, meta
+
+    def load_session_state(self, arrays: dict, meta: dict) -> None:
+        """Restore a ``session_state`` capture (tensor or numpy leaves) into
+        this fresh runtime. The layout (seq, rank, mode, samples per tenant,
+        shards) and the pool (compression, slots, tenant capacity) must match
+        the saving session's; the engine re-places the cache rows under its
+        own budget (written through ``engine.write`` in chunks of its
+        capacity). Control state needs a runtime built with a
+        ``ControlConfig``. The KV pool's refcounts are rebuilt from the radix
+        tree: a fresh session has no rows in flight."""
+        if self._tenants:
+            raise RuntimeError("restore requires a fresh runtime")
+        lay = meta["layout"]
+        saved = (lay["seq"], lay["rank"], lay["mode"], lay["samples_per_tenant"], int(lay.get("n_shards", 1)))
+        if saved != (self.seq, self.sl.rank, self.sl.mode, self.samples_per_tenant, self.n_shards):
+            raise ValueError(f"session layout {lay} != runtime configuration")
+        for k, mine in (("pool_compress", self.pool.compress), ("pool_slots", self.pool.n_slots),
+                        ("max_tenants", self.max_tenants)):
+            if k in lay and lay[k] != mine:
+                raise ValueError(
+                    f"checkpoint {k}={lay[k]!r} != this runtime's {mine!r}: "
+                    "restore requires an identically-configured session"
+                )
+        if "control" in meta:
+            if self.control is None:
+                raise ValueError(
+                    "checkpoint carries control-plane state (gate ledger, quarantine set) but this "
+                    "runtime was built without a ControlConfig: restoring would silently drop it"
+                )
+            self.control.load_state(meta["control"])
+        for ent in meta["tenants"]:
+            st = TenantState(partition=int(ent["partition"]), n_ingested=int(ent["n_ingested"]),
+                             epochs_done=int(ent["epochs_done"]), step=int(ent["step"]))
+            self._tenants[ent["id"]] = st
+            self._free_partitions.remove(st.partition)   # keeps the smallest-first order
+        stacked = {name: {k: torch.as_tensor(v).to(self.device) for k, v in arrays[name].items()}
+                   for name in ("adapters", "opt_mu", "opt_nu") if name in arrays}
+        for i, t in enumerate(meta["trained"]):
+            st = self._tenants[t]
+            st.adapters = _slice(stacked["adapters"], i)
+            st.opt_mu, st.opt_nu = _slice(stacked.get("opt_mu"), i), _slice(stacked.get("opt_nu"), i)
+        self.pool.load_state(arrays["pool"], meta["pool_table"])
+        present = [int(i) for i in meta["present"]]
+        chunk = max(1, self.engine.capacity)
+        for lo in range(0, len(present), chunk):
+            self.engine.write(present[lo:lo + chunk], {
+                n: torch.as_tensor(v)[lo:lo + chunk].to(self.device) for n, v in arrays["cache"].items()
+            })
+        for s, pmeta in meta.get("kv_pool", {}).items():
+            if s != "0":
+                raise ValueError(f"checkpoint kv pool of shard {s}: the port's session has one shard (slice 7)")
+            pool = self.kv_pool(block=int(pmeta["block"]), n_blocks=int(pmeta["n_blocks"]))
+            pool.load_state(arrays["kv_pool"][s], pmeta)
+            self.prefix_index().load_state(pmeta.get("radix", []))
 
 
 def _stack(trees: list) -> Optional[Params]:

@@ -1,0 +1,300 @@
+"""Interleaved continual-learning session CLI, the counterpart of
+``repro.launch.run`` on one device.
+
+One ``SessionRuntime`` processes an interleaved stream of serve, ingest and
+adapt events over its adapter pool and skip-cache engine: ``serve/base``,
+then each round every tenant ingests freshly "collected" samples (the
+populate forward that writes its cache partition and returns logits),
+``adapt/r{n}`` runs a grouped cached adapt whose write-back changes what the
+next serve returns, and ``serve/mixed/r{n}`` serves the base model next to
+every tenant.
+
+  python -m repro_torch.launch.run --arch stablelm-1.6b --tenants 3 \
+      --rounds 2 --samples-per-round 4 --seq 16 --gen 8 --adapt-epochs 2
+
+Same flags as the reference's CLI, plus ``--device`` (default ``cuda``;
+``cpu`` runs the kernels' plain versions). ``--scheduler`` serves through the
+continuous-batching request scheduler; ``--control*`` turns on the control
+plane; ``--hbm-mb`` bounds the cache's device tier; ``--checkpoint-dir D``
+runs the stream under a ``SessionSupervisor`` (a session checkpoint at every
+event boundary, a restart replays no completed event) and
+``--inject-failure K`` raises inside event K on its first execution (the
+crash drill). Weights are random from seed 0, prompts from seed 1; each
+(round, tenant) draws its samples from its own seed, so a restarted session
+regenerates the same batches. Fresh tenants draw their adapters from seed 3.
+
+Not ported: ``--devices`` > 1, ``--mesh``, ``--pipeline-stages``,
+``--shards`` > 1, ``--check-parity`` and ``--elastic-devices`` need several
+devices (slice 7); ``--unroll`` other than 1 needs one-dispatch decode
+(slice 5b). Each exits with a message.
+
+``main`` returns the metrics (the reference's names) with the live runtime
+under "runtime" and, when supervised, {"restarts", "resumed_at",
+"executions"} under "supervisor"; ``--json`` writes the metrics without the
+runtime.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+
+def _parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--tenants", type=int, default=3)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--samples-per-round", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--adapt-epochs", type=int, default=1)
+    ap.add_argument("--batch-per-tenant", type=int, default=4)
+    ap.add_argument("--rank", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--mode", default="full", choices=["full", "int8"])
+    ap.add_argument("--pool-compress", choices=["int8", "int4", "nf4"], default=None)
+    ap.add_argument("--control", action="store_true",
+                    help="enable the adapter control plane: per-tenant shadow eval inside adapt, "
+                         "regression gate on write-back, versioned slots with rollback")
+    ap.add_argument("--control-threshold", type=float, default=0.0,
+                    help="max tolerated held-out regression (post - pre) before the gate fires")
+    ap.add_argument("--control-mode", default="reject", choices=["reject", "quarantine"],
+                    help="what a gated write-back does to training state")
+    ap.add_argument("--holdout-every", type=int, default=4,
+                    help="every N-th ingested row per tenant is held out for shadow eval")
+    ap.add_argument("--history-depth", type=int, default=2,
+                    help="previous adapter versions kept per tenant for rollback")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="grouped CUDA kernels on the card (their plain versions on the CPU)")
+    ap.add_argument("--hbm-mb", type=float, default=0.0,
+                    help="cache device-tier budget in MiB; 0 = fully device-resident")
+    ap.add_argument("--unroll", type=int, default=1, help="(one-dispatch decode; not ported)")
+    ap.add_argument("--devices", type=int, default=1, help="data-mesh devices (more than one: not ported)")
+    ap.add_argument("--mesh", default=None, metavar="DxM", help="2-D session mesh (not ported)")
+    ap.add_argument("--pipeline-stages", type=int, default=0, metavar="N",
+                    help="pipelined admission prefill (not ported)")
+    ap.add_argument("--shards", type=int, default=None, help="logical shard count (more than one: not ported)")
+    ap.add_argument("--check-parity", action="store_true",
+                    help="sharded session vs its 1-device twin (not ported)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="supervise the event stream with per-event session checkpoints")
+    ap.add_argument("--inject-failure", type=int, default=None, metavar="K",
+                    help="crash inside event K once (requires --checkpoint-dir)")
+    ap.add_argument("--elastic-devices", type=int, default=None, metavar="M",
+                    help="restart on only M devices after the injected failure (not ported)")
+    ap.add_argument("--scheduler", action="store_true",
+                    help="serve through the continuous-batching request scheduler (per-request "
+                         "admission + drain) instead of pre-formed serve batches")
+    ap.add_argument("--sched-chunk", type=int, default=4, help="decode steps per scheduler dispatch")
+    ap.add_argument("--json", default=None, help="write metrics to this path")
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def _refuse(args: argparse.Namespace) -> None:
+    """Exit with a message for what the port does not run."""
+    for flag, on in (("--devices > 1", args.devices > 1), ("--mesh", args.mesh is not None),
+                     ("--pipeline-stages", bool(args.pipeline_stages)),
+                     ("--shards > 1", args.shards is not None and args.shards != 1),
+                     ("--check-parity", args.check_parity),
+                     ("--elastic-devices", args.elastic_devices is not None)):
+        if on:
+            raise SystemExit(
+                f"{flag} needs a session over several devices, which belongs to a later slice of the "
+                "port (slice 7: multiple GPUs); the session runs on one device"
+            )
+    if args.unroll != 1:
+        raise SystemExit(
+            "--unroll other than 1 needs one-dispatch decode, which belongs to a later slice of the "
+            "port (slice 5b); the port decodes one eager step at a time"
+        )
+    if args.inject_failure is not None and not args.checkpoint_dir:
+        raise SystemExit("--inject-failure requires --checkpoint-dir")
+
+
+def main(argv=None) -> dict:
+    args = _parse_args(argv)
+    _refuse(args)
+
+    import torch
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.control_plane import ControlConfig
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.models.lm import init_lm
+    from repro_torch.runtime.fault import SessionSupervisor
+
+    dev = torch.device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_config(cfg)
+    sl = SL.SkipLoRAConfig(rank=args.rank, mode=args.mode, cache_dtype="float32",
+                           use_fused_kernel=args.use_kernel)
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    control_cfg = (
+        ControlConfig(holdout_every=args.holdout_every, threshold=args.control_threshold,
+                      mode=args.control_mode, history_depth=args.history_depth)
+        if args.control else None
+    )
+    names = [f"tenant-{t}" for t in range(args.tenants)]
+
+    def ints(seed: int, shape) -> torch.Tensor:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev, dtype=torch.int32)
+
+    prompts = ints(1, (args.tenants + 1, args.prompt_len))
+
+    def make_runtime() -> SessionRuntime:
+        return SessionRuntime(
+            cfg, sl, params, max_tenants=args.tenants,
+            samples_per_tenant=args.rounds * args.samples_per_round, seq=args.seq, lr=args.lr,
+            use_kernel=args.use_kernel, pool_compress=args.pool_compress,
+            hbm_budget_bytes=(int(args.hbm_mb * 2**20) if args.hbm_mb > 0 else None),
+            control=control_cfg, device=dev,
+        )
+
+    # ---- the event stream: one closure per serve / ingest / adapt ---------
+    # Per-tenant samples come from (round, tenant), not from a carried
+    # generator, so a restarted session regenerates the same batches.
+    def tenant_batch(rnd: int, t: int):
+        seed = (2 << 32) + 2 * (rnd * args.tenants + t)
+        shape = (args.samples_per_round, args.seq)
+        return ints(seed, shape), ints(seed + 1, shape)
+
+    def sched_serve(rt: SessionRuntime, who):
+        """One serve event through the request scheduler: each row its own
+        request, drained, the token streams stacked back into (B, gen)."""
+        if rt._scheduler is None:
+            rt.attach_scheduler(max_batch=args.tenants + 1, max_prompt=args.prompt_len,
+                                max_new_cap=args.gen, chunk=args.sched_chunk,
+                                admit_bucket=min(2, args.tenants + 1))
+        reqs = [rt.enqueue_serve(t, prompts[j].cpu().numpy(), max_new=args.gen) for j, t in enumerate(who)]
+        rt.drain()
+        return torch.stack([torch.as_tensor(r.result()) for r in reqs])
+
+    def serve_event(rt, who):
+        if args.scheduler:
+            return sched_serve(rt, who)
+        return rt.serve(who, prompts, max_new=args.gen)
+
+    events, labels = [], []
+
+    def ev(label, fn):
+        events.append(fn)
+        labels.append(label)
+
+    ev("serve/base", lambda rt, i: serve_event(rt, [None] * (args.tenants + 1)))
+    for rnd in range(args.rounds):
+        for t, name in enumerate(names):
+            ev(f"ingest/{name}/r{rnd}", lambda rt, i, rnd=rnd, t=t, name=name:
+               rt.ingest(name, *tenant_batch(rnd, t)))
+        ev(f"adapt/r{rnd}", lambda rt, i: rt.adapt(
+            names, epochs=args.adapt_epochs, batch_per_tenant=args.batch_per_tenant,
+            generator=torch.Generator().manual_seed(3),
+        ))
+        ev(f"serve/mixed/r{rnd}", lambda rt, i: serve_event(rt, [None] + names))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    timings: dict[str, float] = {}
+
+    def run_stream(rt: SessionRuntime) -> dict[int, object]:
+        results = {}
+        for i, (fn, label) in enumerate(zip(events, labels)):
+            t0 = time.perf_counter()
+            out = fn(rt, i)
+            sync()
+            dt = time.perf_counter() - t0
+            kind = label.split("/")[0]
+            timings[kind] = timings.get(kind, 0.0) + dt
+            print(f"{label:<24s} {dt:6.2f}s")
+            results[i] = out
+        return results
+
+    supervisor = None
+    t_session0 = time.perf_counter()
+    if args.checkpoint_dir:
+        # ---- supervised session: checkpoint / restart at event boundaries --
+        fail_at = {"k": args.inject_failure}
+        executions = [0] * len(events)
+
+        def wrap(fn):
+            def run_event(rt, idx):
+                executions[idx] += 1
+                if fail_at["k"] == idx:
+                    fail_at["k"] = None   # crash once
+                    raise RuntimeError(f"injected failure in event {idx}")
+                out = fn(rt, idx)
+                sync()
+                return out
+            return run_event
+
+        sup = SessionSupervisor(args.checkpoint_dir, save_every=1)
+        rt, info = sup.run(make_runtime, [wrap(fn) for fn in events])
+        print(f"supervised: {len(events)} events, {info['restarts']} restarts, resumed at event "
+              f"{info['resumed_at']}, {len(info['results'])} executed this incarnation "
+              f"(zero replay of completed events)")
+        supervisor = {"restarts": info["restarts"], "resumed_at": info["resumed_at"], "executions": executions}
+    else:
+        rt = make_runtime()
+        run_stream(rt)
+    session_s = time.perf_counter() - t_session0
+
+    stats = rt.stats()
+    # backbone bytes: every parameter lives on the one device
+    bytes_total = sum(x.numel() * x.element_size() for x in _leaves(params))
+    metrics = {
+        **{f"time/{k}_s": v for k, v in timings.items()},
+        "session/tenants_per_s": args.tenants * args.rounds / session_s,
+        "session/wall_s": session_s,
+        "session/devices": 1.0,
+        "session/shards": float(rt.n_shards),
+        "session/model_parallel": float(rt.model_parallel),
+        "session/pipeline_stages": float(rt.pipeline_stages),
+        "session/backbone_bytes_total": float(bytes_total),
+        "session/backbone_bytes_per_device_peak": float(bytes_total),
+        **stats,
+    }
+    cm = rt.control_metrics()
+    if cm is not None:
+        # scalar gate counters next to the runtime counters; the per-tenant
+        # ledger nests under "control"
+        for k in ("accepted", "rejected", "quarantined", "rollbacks"):
+            metrics[f"control/{k}"] = float(cm[k])
+        metrics["control"] = cm
+    if supervisor is not None:
+        metrics["supervisor"] = supervisor
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"\nsession: {args.tenants} tenants x {args.rounds} rounds on 1 device ({where}) / 1 shard in "
+          f"{session_s:.2f}s ({metrics['session/tenants_per_s']:.2f} tenant-rounds/s)")
+    for k in sorted(stats):
+        print(f"  {k} = {stats[k]:.3f}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(metrics, f, indent=2, sort_keys=True)
+        print(f"wrote {args.json}")
+    metrics["runtime"] = rt
+    return metrics
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    main()

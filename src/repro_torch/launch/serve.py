@@ -14,7 +14,8 @@ runs. ``--scheduler`` serves the same rows as one request each through a
 ``SessionRuntime``'s continuous-batching ``RequestScheduler`` (admission
 bucket 2, ``--chunk`` decode steps a dispatch; ``max(--tenants, 1)`` demo
 tenants). Weights and prompts are random, drawn from fixed seeds.
-``--loop`` and ``--unroll`` other than 1 are not ported yet and raise.
+``--loop`` and ``--unroll`` other than 1 need one-dispatch decode (slice 5b)
+and raise.
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     for flag, on in (("--loop", args.loop), ("--unroll", args.unroll != 1)):
         if on:
-            raise NotImplementedError(f"{flag} is not yet ported")
+            raise NotImplementedError(f"{flag} is not yet ported (slice 5b: one-dispatch decode)")
 
     device = torch.device(args.device)
     cfg = get_config(args.arch)

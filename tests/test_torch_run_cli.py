@@ -1,0 +1,84 @@
+"""The port's session CLI (``repro_torch.launch.run``) on the CPU, tiny.
+
+  - It runs the reference's event stream (``serve/base``, then each round
+    the ingests, ``adapt/r{n}`` and ``serve/mixed/r{n}``) and reports the
+    reference's metric names.
+  - The crash drill (``--checkpoint-dir D --inject-failure 3``, a
+    ``SessionSupervisor`` with a checkpoint at every event boundary) restarts
+    exactly once, resumes at event 3, runs every completed event once and the
+    failed one twice, and ends with the adapters, optimizer moments, pool and
+    slot table of the same CLI run without a checkpoint directory, bitwise;
+    so through the scheduler, with the control plane and an int4 pool, over
+    a tiered engine.
+  - The flags that need several devices exit naming slice 7, and
+    ``--unroll 2`` naming slice 5b (one-dispatch decode)."""
+
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.launch import run  # noqa: E402
+
+TINY = ["--device", "cpu", "--tenants", "2", "--rounds", "2", "--samples-per-round", "2", "--seq", "8",
+        "--prompt-len", "6", "--gen", "4", "--rank", "4", "--batch-per-tenant", "2"]
+LABELS = ["serve/base", "ingest/tenant-0/r0", "ingest/tenant-1/r0", "adapt/r0", "serve/mixed/r0",
+          "ingest/tenant-0/r1", "ingest/tenant-1/r1", "adapt/r1", "serve/mixed/r1"]
+
+
+def test_runs_the_reference_event_stream(tmp_path, capsys):
+    out = tmp_path / "m.json"
+    metrics = run.main([*TINY, "--json", str(out)])
+    printed = [line.split()[0] for line in capsys.readouterr().out.splitlines() if line.strip()]
+    assert [p for p in printed if p in LABELS] == LABELS
+    saved = json.loads(out.read_text())
+    assert "runtime" not in saved and saved["session/devices"] == 1.0 and saved["session/shards"] == 1.0
+    for k in ("time/serve_s", "time/ingest_s", "time/adapt_s", "session/tenants_per_s", "session/wall_s",
+              "session/model_parallel", "session/pipeline_stages", "session/backbone_bytes_total",
+              "session/backbone_bytes_per_device_peak", "runtime/ingest/rows", "runtime/adapt/epochs",
+              "cache_engine/hbm_hit_rate", "adapter_pool/registrations"):
+        assert k in saved, k
+    assert saved["runtime/ingest/rows"] == 8 and saved["runtime/adapt/epochs"] == 2
+    assert saved["runtime/serve/single/base"] == 1 and saved["runtime/serve/grouped/float"] == 2
+    assert saved["session/backbone_bytes_total"] == saved["session/backbone_bytes_per_device_peak"] > 0
+    rt = metrics["runtime"]
+    assert sorted(rt.pool.pinned()) == ["tenant-0", "tenant-1"] and rt.tenant("tenant-0").n_ingested == 4
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--scheduler", "--control", "--pool-compress", "int4", "--hbm-mb", "0.01"],
+], ids=["plain", "scheduler-control-int4-tiered"])
+def test_crash_drill_restarts_once_and_matches_the_unsupervised_run(tmp_path, capsys, extra):
+    plain = run.main([*TINY, *extra])["runtime"]
+    sup = run.main([*TINY, *extra, "--checkpoint-dir", str(tmp_path / "ck"), "--inject-failure", "3"])
+    assert "1 restarts, resumed at event 3" in capsys.readouterr().out
+    info = sup["supervisor"]
+    assert info["restarts"] == 1 and info["resumed_at"] == 3
+    assert info["executions"] == [1, 1, 1, 2, 1, 1, 1, 1, 1]
+    rt = sup["runtime"]
+    for t in ("tenant-0", "tenant-1"):
+        for name in ("adapters", "opt_mu", "opt_nu"):
+            for k in ("A", "B"):
+                assert torch.equal(getattr(rt.tenant(t), name)[k], getattr(plain.tenant(t), name)[k]), (t, name, k)
+    assert rt.pool.slot_table() == plain.pool.slot_table()
+    assert all(torch.equal(v, plain.pool.pools()[k]) for k, v in rt.pool.pools().items())
+    if extra:
+        assert rt.control_metrics() == plain.control_metrics()
+        assert rt.engine.capacity < rt.engine.num_samples and rt.pool.compress == "int4"
+
+
+@pytest.mark.parametrize("flags,slice_", [
+    (["--devices", "2"], "slice 7"),
+    (["--mesh", "2x1"], "slice 7"),
+    (["--pipeline-stages", "2"], "slice 7"),
+    (["--shards", "2"], "slice 7"),
+    (["--check-parity"], "slice 7"),
+    (["--elastic-devices", "1"], "slice 7"),
+    (["--unroll", "2"], "slice 5b"),
+    (["--inject-failure", "3"], "requires --checkpoint-dir"),
+])
+def test_unported_flags_exit_naming_their_slice(flags, slice_):
+    with pytest.raises(SystemExit, match=slice_):
+        run.main([*TINY, *flags])
