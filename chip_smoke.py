@@ -29,13 +29,22 @@ Phases, each printing one line (or a few) before the last line:
          at the scheduler's reuse wave (pool (24, 128, 32, 32, 64) bf16,
          tables (2, 14)) and a ragged shape, beside ``index_select``.
   4. serve: full-width stablelm-1.6b (24 layers, seeded random weights)
-     through ``generate_grouped`` with a float and an int8 adapter pool:
-     3 demo tenants plus the zero slot, 4 prompts of 128 tokens, 32 greedy
-     new tokens. Each kernel's launch count must rise by 1 + 32, and the
-     zero-slot row must equal row 0 of base ``generate``. A reduced config
-     must give the same tokens on the card as on the CPU.
-  5. trace: one float-pool call under torch.profiler, device busy share and
-     the grouped skip-sum kernels' share of device time.
+     through ``generate_grouped`` (CUDA-graph replays of the decode steps,
+     ``core.decode_graph``) and ``generate_loop`` (eager steps) with float,
+     int8, int4 and nf4 adapter pools: 3 demo tenants plus the zero slot, 4
+     prompts of 128 tokens, 32 greedy new tokens. The pool's kernel (K5, K6
+     or K7) launches exactly 1 + 32 times a call either way, counted per
+     launch executed (32 replays a call at unroll 1); graph tokens equal
+     loop tokens; the zero-slot row equals row 0 of base ``generate``. From
+     one prefill, the graph replays (``decode_scan`` at unroll 1, 3, 32)
+     give the eager loop's (``decode_loop``) tokens, final caches and
+     generator state bitwise, greedy and at temperature 0.8. Tokens/s both
+     ways and at unroll 32 (one replay a call), and the host time a replay
+     takes. A reduced config must give the same tokens on the card as on
+     the CPU.
+  5. trace: one float-pool graphed call and one eager-loop call under
+     torch.profiler: device busy share and the grouped skip-sum kernels'
+     share of device time.
   6. train: the paper's loop through ``repro_torch.launch.finetune`` at full
      width (stablelm-1.6b, bf16, 64 samples, batch 8, seq 128, rank 8,
      ``--use-kernel``), modes full and int8, one populate and two cached
@@ -82,6 +91,8 @@ Phases, each printing one line (or a few) before the last line:
      happens, K10 launches twice a reuse wave and K5 as the dispatch
      counters imply, no block leaks, the first reuse wave's gathered K/V
      bitwise the dense admission's live rows, temperature-0 tokens equal;
+     the same replays with eager chunks (``loop=True``) give the graphed
+     chunks' tokens, counters and launches bitwise;
      tokens/s both ways, the share of prefill tokens skipped, the device
      time of one reuse and one dense admission dispatch; mid-decode
      admission (3 x 128 tokens, bucket 1, 8 new) continuous vs sequential
@@ -414,7 +425,8 @@ def k5_many_rows_phase(torch):
 
 def serve_phase(torch, device_name):
     from repro_torch.configs import get_config, reduce_config
-    from repro_torch.core.runtime import generate, generate_grouped
+    from repro_torch.core import decode_graph as DG
+    from repro_torch.core.runtime import generate, generate_grouped, generate_loop
     from repro_torch.kernels.skip_lora import kernel as K
     from repro_torch.launch.serve import demo_pool
     from repro_torch.models.lm import init_lm
@@ -445,57 +457,136 @@ def serve_phase(torch, device_name):
     tenants = [None] + [f"tenant-{i % TENANTS}" for i in range(1, BATCH)]
     base = generate(params, cfg, prompts, max_new=NEW, device=dev)
     launches, pools = {}, {}
-    for compress, kname in ((None, "grouped_skip_sum_fwd"), ("int8", "grouped_skip_sum_fwd_int8")):
+    kernels = {None: "grouped_skip_sum_fwd", "int8": "grouped_skip_sum_fwd_int8",
+               "int4": "grouped_skip_sum_fwd_q4", "nf4": "grouped_skip_sum_fwd_q4"}
+    for compress, kname in kernels.items():
         pool = pools[compress] = demo_pool(cfg, TENANTS, RANK, compress, dev)
         idx = pool.lookup(tenants)
         generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)  # warm-up
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        out = generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = dict(K.LAUNCHES)
-        launches[kname] = counts[kname]
-        check(counts[kname] >= 1 + NEW, f"{kname}: {counts[kname]} launches < {1 + NEW}")
-        # the prefill's skip-sum reads each prompt's last position: one row a slot, as a decode step's
-        _tally_rows(kname, {"few_rows": counts[kname]})
+        timed = {}
+        for path in ("graph", "loop"):
+            run = generate_grouped if path == "graph" else generate_loop
+            kw = {} if path == "graph" else {"pools": pool.pools(), "idx": idx}
+            args = (params, cfg, prompts, pool.pools(), idx) if path == "graph" else (params, cfg, prompts)
+            torch.cuda.synchronize()
+            _reset_launches()
+            stats0 = dict(DG.GRAPHS.stats)
+            t0 = time.perf_counter()
+            out = run(*args, max_new=NEW, device=dev, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            replays = DG.GRAPHS.stats["replays"] - stats0.get("replays", 0)
+            replay_us = 1e6 * (DG.GRAPHS.stats["replay_s"] - stats0.get("replay_s", 0.0)) / max(replays, 1)
+            counts = _launches()
+            want = {k: 0 for k in counts}
+            want[kname] = 1 + NEW
+            check(counts == want, f"pool {compress} {path}: launches {counts} != {want}")
+            check(replays == (NEW if path == "graph" else 0), f"pool {compress} {path}: {replays} replays")
+            if path == "graph":
+                # the prefill's skip-sum reads each prompt's last position: one row a slot, as a decode step's
+                _tally_rows(kname, {"few_rows": counts[kname]})
+                launches[kname] = launches.get(kname, 0) + counts[kname]
+            timed[path] = (out, dt, replays, replay_us)
+        out, dt, replays, replay_us = timed["graph"]
         check(tuple(out.shape) == (BATCH, NEW), f"tokens shape {tuple(out.shape)}")
         check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids out of range")
+        check(torch.equal(out, timed["loop"][0]), f"pool {compress}: graph tokens {out.tolist()} != loop tokens "
+              f"{timed['loop'][0].tolist()}")
         check(torch.equal(out[0], base[0]), f"pool {compress}: zero-slot row {out[0].tolist()} "
               f"!= base row {base[0].tolist()}")
         check(not torch.equal(out[1:], base[1:]), f"pool {compress}: adapters changed no token")
-        print(f"serve {ARCH} full width, pool={compress or 'float'}: {BATCH}x{PROMPT} prompt + {NEW} new "
-              f"in {dt:.3f} s = {BATCH * NEW / dt:.1f} tok/s on {device_name}; launches {counts}; "
-              f"zero-slot row == base generate")
+        bits = _graph_vs_loop(torch, cfg, params, prompts, pool, idx)
+        # one replay a call: the unroll-32 graph, warm (captured by _graph_vs_loop's decode_scan at unroll 32)
+        generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, unroll=NEW, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, unroll=NEW, device=dev)
+        torch.cuda.synchronize()
+        dt32 = time.perf_counter() - t0
+        loop_dt = timed["loop"][1]
+        print(f"serve {ARCH} full width, pool={compress or 'float'}: {BATCH}x{PROMPT} prompt + {NEW} new on "
+              f"{device_name}: graph {dt:.3f} s = {BATCH * NEW / dt:.1f} tok/s ({replays} replays a call, "
+              f"unroll 1, {replay_us:.1f} us of host time a replay), unroll {NEW} {dt32:.3f} s = "
+              f"{BATCH * NEW / dt32:.1f} tok/s (1 replay a call), loop {loop_dt:.3f} s = "
+              f"{BATCH * NEW / loop_dt:.1f} tok/s ({loop_dt / dt:.2f}x); "
+              f"{kname} x{1 + NEW} a call both ways; graph tokens == loop tokens; zero-slot row == base "
+              f"generate; {bits}")
     trace_phase(torch, device_name, cfg, params, prompts, pools[None], pools[None].lookup(tenants))
     return launches
 
 
+def _graph_vs_loop(torch, cfg, params, prompts, pool, idx):
+    """From one prefill: the eager loop (``decode_loop``) against graph
+    replays (``decode_scan``) at unroll 1, 3 and 32, greedy and at
+    temperature 0.8 with one generator seed: tokens, final caches and the
+    generator's state bitwise. Returns the line's summary."""
+    from repro_torch.models import lm as LM
+
+    b, s = prompts.shape
+    caches = LM.init_serve_caches(cfg, b, s + NEW, device=prompts.device)
+    logits, caches = LM.serve_prefill_grouped(params, cfg, prompts, caches, pool.pools(), idx)
+    tok0 = LM.sample_token(logits, 0.0)
+
+    def fresh():
+        return [{n: t.clone() for n, t in c.items()} for c in caches]
+
+    for temp in (0.0, 0.8):
+        g = torch.Generator(device=prompts.device).manual_seed(17)
+        want, want_c = LM.decode_loop(params, cfg, tok0, s, fresh(), max_new=NEW, temperature=temp, generator=g,
+                                      pools=pool.pools(), idx=idx)
+        want_g = g.get_state()
+        for unroll in (1, 3, NEW):
+            g = torch.Generator(device=prompts.device).manual_seed(17)
+            got, got_c = LM.decode_scan(params, cfg, tok0, s, fresh(), max_new=NEW, temperature=temp,
+                                        generator=g, pools=pool.pools(), idx=idx, unroll=unroll)
+            what = f"temperature {temp}, unroll {unroll}"
+            check(torch.equal(got, want), f"{what}: graph tokens {got.tolist()} != loop tokens {want.tolist()}")
+            check(all(torch.equal(x[n], y[n]) for x, y in zip(got_c, want_c) for n in x),
+                  f"{what}: graph caches != loop caches")
+            check(torch.equal(g.get_state(), want_g), f"{what}: generator state differs")
+    return "graph == loop bitwise (tokens, caches, generator) at temperature 0 and 0.8, unroll 1, 3, 32"
+
+
 def trace_phase(torch, device_name, cfg, params, prompts, pool, idx):
-    """One float-pool ``generate_grouped`` call under ``torch.profiler``:
-    device kernel time against the host clock, and the share of the grouped
-    skip-sum kernels. Reports "not measured" if the profiler saw no device
-    time."""
-    from repro_torch.core.runtime import generate_grouped
+    """One float-pool ``generate_grouped`` call (graph replays) and one
+    ``generate_loop`` call (eager steps) under ``torch.profiler``: device
+    kernel time against the host clock, the grouped skip-sum kernels'
+    share, and the host time a replay takes. Reports "not
+    measured" where the profiler saw no device time."""
+    from repro_torch.core import decode_graph as DG
+    from repro_torch.core.runtime import generate_grouped, generate_loop
 
     dev = torch.device("cuda")
-    wall_ms, per_kernel = _profile(
-        lambda: generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev))
-    busy = sum(t for t, _ in per_kernel.values())
-    if not busy:
-        print("trace: device time not measured (the profiler recorded no device activity)")
-        return
-    # K5's two passes on its bf16 (tensor-core) route
-    phase = {p: sum(t for k, (t, _) in per_kernel.items() if p in k) for p in ("project_tc", "expand_tc")}
-    skip = sum(phase.values())
-    top = "; ".join(f"{k[:50]} x{c} {t:.2f} ms"
-                    for k, (t, c) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6])
-    print(f"trace {ARCH} float pool, one generate_grouped call on {device_name}: wall {wall_ms:.1f} ms "
-          f"(profiled), device kernels {busy:.1f} ms = {100 * busy / wall_ms:.1f}% busy, "
-          f"grouped skip-sum kernels {skip:.2f} ms = {100 * skip / busy:.2f}% of device time "
-          f"(project_tc {phase['project_tc']:.2f} ms, expand_tc {phase['expand_tc']:.2f} ms over {1 + NEW} calls); "
-          f"top: {top}")
+    calls = {
+        "graph": lambda: generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev),
+        "loop": lambda: generate_loop(params, cfg, prompts, pools=pool.pools(), idx=idx, max_new=NEW, device=dev),
+    }
+    parts = []
+    for path, fn in calls.items():
+        fn()   # warm: the graph call replays a cached graph
+        torch.cuda.synchronize()
+        stats0 = dict(DG.GRAPHS.stats)
+        wall_ms, per_kernel = _profile(fn)
+        replays = DG.GRAPHS.stats["replays"] - stats0.get("replays", 0)
+        host_us = 1e6 * (DG.GRAPHS.stats["replay_s"] - stats0.get("replay_s", 0.0)) / max(replays, 1)
+        busy = sum(t for t, _ in per_kernel.values())
+        spent = (f"{replays} replays at {host_us:.1f} us of host time each under the profiler" if path == "graph"
+                 else f"{NEW} eager steps, {wall_ms / NEW:.2f} ms of wall time each")
+        if not busy:
+            parts.append(f"{path}: wall {wall_ms:.1f} ms (profiled), device time not measured (the profiler "
+                         f"recorded no device activity), {spent}")
+            continue
+        # K5's two passes on its bf16 (tensor-core) route
+        phase = {p: sum(t for k, (t, _) in per_kernel.items() if p in k) for p in ("project_tc", "expand_tc")}
+        skip = sum(phase.values())
+        top = "; ".join(f"{k[:50]} x{c} {t:.2f} ms"
+                        for k, (t, c) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6])
+        parts.append(
+            f"{path}: wall {wall_ms:.1f} ms (profiled), device kernels {busy:.1f} ms = {100 * busy / wall_ms:.1f}% "
+            f"busy, {spent}; grouped skip-sum kernels {skip:.2f} ms = {100 * skip / busy:.2f}% of device time "
+            f"(project_tc {phase['project_tc']:.2f} ms, expand_tc {phase['expand_tc']:.2f} ms over {1 + NEW} "
+            f"calls); top: {top}")
+    print(f"trace {ARCH} float pool, one call each way on {device_name}: " + " || ".join(parts))
 
 
 def _bound_ms(nbytes, ops, dtype_name):
@@ -1394,7 +1485,7 @@ def fleet_serve_phase(torch, device_name, kept):
     payload bitwise. Returns each kernel's launches."""
     from repro_torch.core.adapter_pool import AdapterPool
     from repro_torch.core.fleet_finetune import init_fleet_adapters, write_back_to_pool
-    from repro_torch.core.runtime import generate, generate_grouped
+    from repro_torch.core.runtime import generate, generate_grouped, generate_loop
     from repro_torch.kernels.skip_lora import kernel as K
     from repro_torch.models.lm import model_dtype
 
@@ -1442,8 +1533,9 @@ def fleet_serve_phase(torch, device_name, kept):
         passes = ""
         if compress:   # K6 or K7 with the model's bf16 rows: the tensor-core passes only
             check(K.grouped_fwd_route(model_dtype(cfg)) == "tensor_cores", f"pool {compress}: not bf16 rows")
-            every = _passes(lambda: generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW,
-                                                     device=dev))
+            # the eager loop: the same launches, each traced on its own
+            every = _passes(lambda: generate_loop(params, cfg, prompts, pools=pool.pools(), idx=idx, max_new=NEW,
+                                                  device=dev))
             passes = "; ".join(k for k in every.split("; ") if k.startswith(("stc::", "gss::")))
             check("stc::project_tc" in passes and "stc::expand_tc" in passes and "gss::" not in passes,
                   f"pool {compress}: {kname} not on the tensor-core passes: {passes}")
@@ -2106,8 +2198,8 @@ def scheduler_phase(torch, device_name):
 
     real_gather = KV.gather_blocks
 
-    def gather(data, tables):
-        out = real_gather(data, tables)
+    def gather(data, tables, **kw):
+        out = real_gather(data, tables, **kw)
         captured.setdefault("gathered", {n: v.clone() for n, v in out.items()})
         return out
 
@@ -2117,9 +2209,9 @@ def scheduler_phase(torch, device_name):
             return fn(*a, **kw)
         return wrapper
 
-    def replay(prompts, reuse, cls=S.RequestScheduler):
+    def replay(prompts, reuse, cls=S.RequestScheduler, loop=False):
         rt.reset_prefix_cache()
-        sched = cls(rt, prefix_reuse=reuse, **SCHED_ARGS)
+        sched = cls(rt, prefix_reuse=reuse, loop=loop, **SCHED_ARGS)
         reqs = [sched.submit(tenant, p, max_new=SCHED_NEW) for p in prompts]
         torch.cuda.synchronize()
         _reset_launches()
@@ -2141,6 +2233,18 @@ def scheduler_phase(torch, device_name):
         off, off_toks, off_dt, off_counts = replay(prompts, False)
     finally:
         KV.gather_blocks, S._sched_admit, S._sched_admit_reuse = saved
+    # the same replays with every chunk as eager steps: the graphed chunks' tokens and counters, bitwise
+    eager = {}
+    for reuse, (sched, toks, dt, counts) in ((True, (on, on_toks, on_dt, on_counts)),
+                                              (False, (off, off_toks, off_dt, off_counts))):
+        e_sched, e_toks, e_dt, e_counts = replay(prompts, reuse, loop=True)
+        check(all(np.array_equal(a, b) for a, b in zip(toks, e_toks)),
+              f"scheduler reuse={reuse}: graphed chunks' tokens {[t.tolist() for t in toks]} != eager chunks' "
+              f"{[t.tolist() for t in e_toks]}")
+        check(e_sched.counters == sched.counters and e_counts == counts,
+              f"scheduler reuse={reuse}: eager chunks' counters or launches differ: {dict(e_sched.counters)} "
+              f"{e_counts} != {dict(sched.counters)} {counts}")
+        eager[reuse] = e_dt
     c, chunk = on.counters, SCHED_ARGS["chunk"]
     check(c["dispatch/admit_reuse"] >= 1 and c["prefix/hits"] >= 1,
           f"scheduler: no prefix reuse on the shared-prefix trace: {dict(c)}")
@@ -2174,6 +2278,10 @@ def scheduler_phase(torch, device_name):
           f"{on_dt:.3f} s = {total / on_dt:.1f} tok/s, reuse off {off_dt:.3f} s = {total / off_dt:.1f} tok/s "
           f"({off_dt / on_dt:.2f}x); prefill tokens skipped {100 * skipped:.1f}%; counters on "
           f"{dict(sorted(c.items()))}; off {dict(sorted(off.counters.items()))}")
+    print(f"scheduler graphed chunks vs eager chunks on {device_name}: tokens, counters and launches bitwise "
+          f"equal with reuse on and off; reuse on {on_dt:.3f} s graphed vs {eager[True]:.3f} s eager "
+          f"({total / on_dt:.1f} vs {total / eager[True]:.1f} tok/s), reuse off {off_dt:.3f} s vs "
+          f"{eager[False]:.3f} s ({total / off_dt:.1f} vs {total / eager[False]:.1f} tok/s)")
     print(f"scheduler checks: launches per replay exact (K5 = admissions x 3 + steps x 2, K10 = 2 x reuse "
           f"waves); no block leaks after the reuse-on drain; first reuse wave's gathered K/V bitwise the "
           f"dense admission's live row (the two dense rows' prefixes {'equal' if same_rows else 'differ'}); "

@@ -483,14 +483,42 @@ class AdapterPool:
         self.version += 1
 
 
+def _pool_slots(pools: dict[str, torch.Tensor]) -> int:
+    return pools["qa4" if "qa4" in pools else "qa" if "qa" in pools else "A"].shape[0]
+
+
+def grouped_plan(pools: Optional[dict[str, torch.Tensor]], idx: Optional[torch.Tensor], *,
+                 use_kernel: bool = True, fused: bool = False, positions: int = 1):
+    """The grouped kernels' plan for rows ``idx`` (B,), ``positions`` each,
+    over ``pools`` (``ops.grouped_plan``), to hand to every
+    ``grouped_skip_sum`` over the same rows with the same ``use_kernel`` and
+    ``fused``; None where that sum launches no kernel (no pools, the CPU's
+    plain versions, ``use_kernel=False``, ``fused``)."""
+    from repro_torch.kernels.skip_lora import ops
+
+    if pools is None or not use_kernel or fused or idx.device.type != "cuda":
+        return None
+    return ops.grouped_plan(idx, _pool_slots(pools), positions)
+
+
 def grouped_skip_sum(
-    acts: torch.Tensor, pools: dict[str, torch.Tensor], idx: torch.Tensor, *, use_kernel: bool = True
+    acts: torch.Tensor,
+    pools: dict[str, torch.Tensor],
+    idx: torch.Tensor,
+    *,
+    use_kernel: bool = True,
+    fused: bool = False,
+    plan=None,
 ) -> torch.Tensor:
     """Per-row skip-sum over a stacked pool: picks the float, int8 or 4-bit
     layout and forwards to the grouped wrappers, which own the row
     flattening and the kernel / plain-version dispatch. ``use_kernel=False``
     runs the plain versions on any device instead, as the reference's flag
-    sends its sum to its oracle. acts: (L, B, S, D); idx: (B,) -> (B, S, D)."""
+    sends its sum to its oracle. ``fused=True`` (the reference's decode
+    option) skips the grouped kernel and computes the dense per-row gather
+    and einsum, the plain version, inline in the decode step. ``plan``
+    (``grouped_plan``) spares the kernel launch building its own. acts:
+    (L, B, S, D); idx: (B,) -> (B, S, D)."""
     from repro_torch.kernels.skip_lora import ops
     from repro_torch.kernels.skip_lora import ref as R
 
@@ -503,8 +531,8 @@ def grouped_skip_sum(
     else:
         wrapper, plain = ops.skip_lora_grouped, R.skip_lora_grouped_ref
         args = (pools["A"], pools["B"])
-    if use_kernel:
-        return wrapper(acts, *args, idx)
+    if use_kernel and not fused:
+        return wrapper(acts, *args, idx, plan=plan)
     lnum, bsz, s, d = acts.shape
     rows = plain(acts.detach().reshape(lnum, bsz * s, d), *args, idx.repeat_interleave(s))
     return rows.reshape(bsz, s, d)

@@ -77,12 +77,17 @@ class KVPoolExhausted(RuntimeError):
     """Allocation failed even after the caller's eviction pass."""
 
 
-def gather_blocks(data: dict[str, torch.Tensor], tables: torch.Tensor) -> dict[str, torch.Tensor]:
+def gather_blocks(
+    data: dict[str, torch.Tensor], tables: torch.Tensor, *, use_kernel: bool = True
+) -> dict[str, torch.Tensor]:
     """Gather a batch of block tables (B, T) int32 out of the pool: each of
     K and V (L, NB, block, n_kv, hd) -> (L, B, T * block, n_kv, hd), one
-    ``paged.gather`` each (K10 on a CUDA pool). Padded
+    ``paged.gather`` each (K10 on a CUDA pool; ``use_kernel=False``: its
+    plain version on any device, as the reference's flag routes it). Padded
     table entries must be valid ids (callers mask the padded key
     positions)."""
+    if not use_kernel:
+        return {n: paged.paged_gather_ref(x, tables) for n, x in data.items()}
     return {n: paged.gather(x, tables) for n, x in data.items()}
 
 

@@ -2,10 +2,12 @@
 
 Counterpart of ``repro.core.runtime`` on one device:
   - ``generate`` / ``generate_grouped``: one prefill, then ``decode_scan``'s
-    loop of ``max_new`` decode steps. Both run on ``device`` ("cuda" unless
+    ``max_new`` decode steps, CUDA-graph replays of ``unroll`` steps each on
+    the card (``core.decode_graph``). Both run on ``device`` ("cuda" unless
     the caller asks for "cpu"); params and pool must already live there. On
     a CUDA device the grouped skip-sum goes through the hand-written
-    kernels, on the CPU through their plain versions.
+    kernels, on the CPU through their plain versions. ``generate_loop`` is
+    the eager per-token loop the replays are held against.
   - ``SessionRuntime``: the continual-learning session over ONE
     ``AdapterPool`` and ONE ``TieredCacheEngine`` (every tenant's skip-cache
     partition), processing an interleaved event stream:
@@ -37,9 +39,8 @@ Batch planning goes through ``core.batch_plan`` with explicit tenant
 partitions, so an ``adapt`` group that is a subset or a reordering of the
 ingested tenants still replays each tenant's own order.
 
-Eager PyTorch needs no compiled-function cache. Not ported yet: more than
-one shard or a mesh and pipelined admission (slice 7), and ``decode_fuse``
-(one-dispatch decode).
+The decode's CUDA graphs are cached in ``core.decode_graph``. Not ported
+yet: more than one shard or a mesh and pipelined admission (slice 7).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from repro_torch.core import lm_skiplora as SL
 from repro_torch.core.cache_engine import TieredCacheEngine
 from repro_torch.core.control_plane import ControlConfig, ControlPlane
 from repro_torch.models.lm import (
+    decode_loop,
     decode_scan,
     ingest_prefill,
     init_serve_caches,
@@ -87,10 +89,13 @@ def generate(
     adapters_stack: Optional[list[Params]] = None,
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    unroll: int = 1,
     device="cuda",
 ) -> torch.Tensor:
     """Batched generation with optional single-stack adapters (per-layer
-    list, see ``lm_skiplora.adapters_to_stack``). Returns (B, max_new)."""
+    list, see ``lm_skiplora.adapters_to_stack``): one prefill, then
+    ``decode_scan``, whose ``max_new`` steps are CUDA-graph replays of
+    ``unroll`` steps each on the card. Returns (B, max_new)."""
     tokens, dev = _on_device(params, tokens, device)
     b, s = tokens.shape
     caches = init_serve_caches(cfg, b, s + max_new, device=dev)
@@ -98,7 +103,7 @@ def generate(
     tok0 = sample_token(logits, temperature, generator)
     toks, _ = decode_scan(
         params, cfg, tok0, s, caches, max_new=max_new, temperature=temperature,
-        generator=generator, adapters=adapters_stack,
+        generator=generator, adapters=adapters_stack, unroll=unroll,
     )
     return toks
 
@@ -114,24 +119,67 @@ def generate_grouped(
     max_new: int,
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    use_kernel: bool = True,
+    fuse_skip: bool = False,
+    unroll: int = 1,
     device="cuda",
 ) -> torch.Tensor:
     """Multi-tenant generation: batch row b decodes under adapter slot
-    ``idx[b]`` of the stacked pool (float or int8 layout, see
+    ``idx[b]`` of the stacked pool (float, int8 or 4-bit layout, see
     ``AdapterPool.pools()``). One grouped skip-sum launch for the prefill and
-    one per decode step: ``1 + max_new`` per call. Returns (B, max_new)."""
+    one per decode step: ``1 + max_new`` per call, the steps' inside
+    CUDA-graph replays of ``unroll`` steps on the card. ``use_kernel=False``
+    sums through the plain versions on any device; ``fuse_skip=True``
+    computes the decode steps' skip term as dense per-row math (the prefill
+    keeps the grouped kernel either way). Returns (B, max_new)."""
     tokens, dev = _on_device(params, tokens, device)
     b, s = tokens.shape
     caches = init_serve_caches(cfg, b, s + max_new, device=dev)
-    logits, caches = serve_prefill_grouped(params, cfg, tokens, caches, pools, idx)
+    logits, caches = serve_prefill_grouped(params, cfg, tokens, caches, pools, idx, use_kernel=use_kernel)
     tok0 = sample_token(logits, temperature, generator)
     toks, _ = decode_scan(
         params, cfg, tok0, s, caches, max_new=max_new, temperature=temperature,
-        generator=generator, pools=pools, idx=idx,
+        generator=generator, pools=pools, idx=idx, use_kernel=use_kernel, fuse_skip=fuse_skip,
+        unroll=unroll,
     )
     return toks
 
 
+@torch.no_grad()
+def generate_loop(
+    params: Params,
+    cfg,
+    tokens,
+    *,
+    max_new: int,
+    adapters_stack: Optional[list[Params]] = None,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    pools: Optional[dict[str, torch.Tensor]] = None,
+    idx: Optional[torch.Tensor] = None,
+    use_kernel: bool = True,
+    fuse_skip: bool = False,
+    device="cuda",
+) -> torch.Tensor:
+    """The per-token Python decode loop, the reference's ``generate_loop``:
+    one prefill, then ``max_new`` eager steps (``decode_loop``), kept as
+    what the CUDA-graph replays are held against. Single-stack, as the
+    reference's; ``pools``/``idx`` run ``generate_grouped``'s prefill and
+    steps instead, so the grouped path has its loop too. Returns
+    (B, max_new)."""
+    tokens, dev = _on_device(params, tokens, device)
+    b, s = tokens.shape
+    caches = init_serve_caches(cfg, b, s + max_new, device=dev)
+    if pools is not None:
+        logits, caches = serve_prefill_grouped(params, cfg, tokens, caches, pools, idx, use_kernel=use_kernel)
+    else:
+        logits, caches = serve_prefill(params, cfg, tokens, caches, adapters=adapters_stack)
+    tok0 = sample_token(logits, temperature, generator)
+    toks, _ = decode_loop(
+        params, cfg, tok0, s, caches, max_new=max_new, temperature=temperature, generator=generator,
+        adapters=adapters_stack, pools=pools, idx=idx, use_kernel=use_kernel, fuse_skip=fuse_skip,
+    )
+    return toks
 
 
 @dataclasses.dataclass
@@ -171,12 +219,14 @@ class SessionRuntime:
     plans and the default initial adapters. ``idx_memo_slots`` bounds the
     serve slot-index memo. ``control`` turns on the control plane.
 
-    ``use_kernel`` picks the skip-sum route of ``ingest`` and ``adapt``: the
-    grouped wrappers (on a CUDA device the hand-written kernels K5, K6, K8
-    and K9, which launch or raise; on the CPU their plain versions), or with
-    ``False`` the plain versions and the ``blocked_skip_sum`` einsum, as the
-    reference's flag does. ``serve`` always runs the grouped wrappers.
-    ``params`` must live on ``device``."""
+    ``use_kernel`` picks the skip-sum route of ``serve``, the scheduler,
+    ``ingest`` and ``adapt``: the grouped wrappers (on a CUDA device the
+    hand-written kernels K5-K9, which launch or raise; on the CPU their
+    plain versions), or with ``False`` the plain versions and the
+    ``blocked_skip_sum`` einsum, as the reference's flag does.
+    ``decode_fuse=True`` computes the decode steps' skip term as dense
+    per-row math instead of a grouped kernel launch (the prefills keep the
+    kernel). ``params`` must live on ``device``."""
 
     #: the session's layout on one device (a checkpoint's ``layout`` block):
     #: one logical shard, no model axis, no pipeline (slice 7 brings more)
@@ -221,11 +271,6 @@ class SessionRuntime:
             raise NotImplementedError(
                 "pipeline_stages is not ported (slice 7: multiple GPUs): pipelined admission needs a mesh"
             )
-        if decode_fuse:
-            raise NotImplementedError(
-                "decode_fuse=True is not ported (one-dispatch decode): the decode skip term goes "
-                "through the grouped kernels"
-            )
         if idx_memo_slots < 1:
             raise ValueError(f"idx_memo_slots {idx_memo_slots} < 1")
         self.cfg, self.sl = cfg, sl
@@ -233,6 +278,7 @@ class SessionRuntime:
         self.samples_per_tenant = samples_per_tenant
         self.seq = seq
         self.use_kernel = use_kernel
+        self.decode_fuse = decode_fuse
         self.seed = seed
         self.device = torch.device(device)
         if params["embed"]["table"].device.type != self.device.type:
@@ -372,11 +418,14 @@ class SessionRuntime:
         max_new: int,
         temperature: float = 0.0,
         generator: Optional[torch.Generator] = None,
+        unroll: int = 1,
     ) -> torch.Tensor:
         """Generation for a mixed-tenant batch: row b decodes under
         ``tenants[b]``'s pool slot (``None`` -> base model). A batch of base
         rows only goes through ``generate``, any other through
-        ``generate_grouped`` over the pool. Returns (B, max_new)."""
+        ``generate_grouped`` over the pool with the session's ``use_kernel``
+        and ``decode_fuse``; on the card ``unroll`` decode steps a CUDA-graph
+        replay. Returns (B, max_new)."""
         prompts = torch.as_tensor(prompts, device=self.device)
         if len(tenants) != prompts.shape[0]:
             raise ValueError(f"{len(tenants)} tenants for batch {prompts.shape[0]}")
@@ -385,13 +434,14 @@ class SessionRuntime:
         self._serve_calls += 1
         if all(t is None for t in tenants):
             path = "serve/single/base"
-            toks = generate(self.params, self.cfg, prompts, max_new=max_new,
-                            temperature=temperature, generator=generator, device=self.device)
+            toks = generate(self.params, self.cfg, prompts, max_new=max_new, temperature=temperature,
+                            generator=generator, unroll=unroll, device=self.device)
         else:
             path = f"serve/grouped/{'int8' if self.pool.compress == 'int8' else 'float'}"
             toks = generate_grouped(
                 self.params, self.cfg, prompts, self.pool.pools(), self._slot_idx(tenants),
-                max_new=max_new, temperature=temperature, generator=generator, device=self.device,
+                max_new=max_new, temperature=temperature, generator=generator, use_kernel=self.use_kernel,
+                fuse_skip=self.decode_fuse, unroll=unroll, device=self.device,
             )
         self.counters[path] += 1
         self.counters["serve/tokens"] += int(toks.numel())

@@ -14,9 +14,12 @@ Event model (one ``step()`` = one dispatch when there is work):
   2. *Dispatch*: with admissions, the padded admission prefill
      (``lm.sched_prefill``), each new row's first token, the scatter of
      caches/tokens/positions into the live batch, then ``chunk`` decode
-     steps; without admissions, the ``chunk`` steps alone. The decode is a
-     loop of ``lm.decode_step`` over per-row positions, per-row temperatures
-     and per-row adapter slots.
+     steps; without admissions, the ``chunk`` steps alone. The decode is
+     ``chunk`` in-place ``lm.decode_step_``s over per-row positions, per-row
+     temperatures and per-row adapter slots: on the card one CUDA-graph
+     replay over the live batch's resident buffers (``core.decode_graph``),
+     on the CPU (or with ``loop=True``) eager steps. The admission prefill
+     stays eager.
   3. *Harvest*: pull the dispatch's tokens to the host, append per row,
      retire rows whose requests hit ``max_new`` (their rows are recyclable
      at once: a follow-up admission wave runs in the same step).
@@ -61,7 +64,7 @@ import torch
 from repro_torch.core import batch_plan
 from repro_torch.models.blocks import ATTN_KINDS
 from repro_torch.models.lm import (
-    decode_step,
+    decode_step_,
     init_stacked_caches,
     layer_caches,
     sample_token,
@@ -132,55 +135,68 @@ def _temps(host: np.ndarray, device):
     return torch.as_tensor(host, dtype=torch.float32, device=device) if (host > 0).any() else 0.0
 
 
-def _chunk_scan(params, cfg, chunk, pools, idx, caches, tok, pos, active, temps, generator,
-                max_seq):
-    """``chunk`` decode steps over the live batch, retired rows frozen in
-    place, live positions clamped so a chunk overshooting a finishing row
-    never writes past the cache. Returns (tok, pos, tokens sampled at each
-    step (chunk, B)): each chunk hands back exactly the tokens the host has
-    not seen."""
-    layers = layer_caches(caches)
+def _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, pos, active, temps,
+                generator, max_seq, loop=False):
+    """``chunk`` decode steps over the live batch's stacked ``caches``,
+    ``tok`` and ``pos``, updated in place: retired rows frozen, live
+    positions clamped so a chunk overshooting a finishing row never writes
+    past the cache. On the card one CUDA-graph replay
+    (``decode_graph.chunk``); on the CPU, or with ``loop``, the same steps
+    eagerly. ``fuse`` computes each step's skip term as dense per-row math
+    instead of a grouped kernel launch. Returns (tok, pos, tokens sampled at
+    each step (chunk, B)): each chunk hands back exactly the tokens the host
+    has not seen."""
+    if tok.is_cuda and not loop:
+        from repro_torch.core import decode_graph
+
+        toks = decode_graph.chunk(params, cfg, chunk, pools, idx, caches, tok, pos, active, temps, generator,
+                                  max_seq, use_kernel=use_kernel, fuse=fuse)
+        return tok, pos, toks
+    from repro_torch.core.adapter_pool import grouped_plan
+
+    plan = grouped_plan(pools, idx, use_kernel=use_kernel, fused=fuse)
+    state = {"tok": tok, "pos": pos, "caches": layer_caches(caches)}
     toks = []
     for _ in range(chunk):
-        ntok, _ = decode_step(params, cfg, tok, pos, layers, temperature=temps,
-                              generator=generator, pools=pools, idx=idx)
-        tok = torch.where(active[:, None], ntok, tok)
-        pos = torch.where(active, torch.clamp(pos + 1, max=max_seq - 1), pos)
-        toks.append(tok[:, 0])
+        decode_step_(params, cfg, state, active=active, max_seq=max_seq, temperature=temps,
+                     generator=generator, pools=pools, idx=idx, use_kernel=use_kernel, fuse_skip=fuse,
+                     plan=plan)
+        toks.append(tok[:, 0].clone())
     return tok, pos, torch.stack(toks)
 
 
-def _admit_epilogue(params, cfg, chunk, max_seq, pools, idx, logits, adm, rows, start_pos,
+def _admit_epilogue(params, cfg, how, chunk, max_seq, pools, idx, logits, adm, rows, start_pos,
                     caches, tok, pos, active, temps, adm_temps, generator):
     """Sample each admitted row's first token, scatter the first
     ``len(rows)`` admission rows' caches, tokens and positions into live
     rows ``rows`` (the padding rows behind them are dropped), then decode
-    the chunk. Returns (tok, pos, toks, tok0 (A, 1))."""
+    the chunk (``how``: ``_chunk_scan``'s use_kernel, fuse and loop).
+    Returns (tok, pos, toks, tok0 (A, 1))."""
     tok0 = sample_token(logits, adm_temps, generator)
     k, p = rows.shape[0], adm["k"].shape[2]
     for n in ("k", "v"):
         caches[n][:, rows, :p] = adm[n][:, :k]
-    tok, pos = tok.clone(), pos.clone()
     tok[rows] = tok0[:k]
     pos[rows] = start_pos[:k]
-    tok, pos, toks = _chunk_scan(params, cfg, chunk, pools, idx, caches, tok, pos, active, temps,
-                                 generator, max_seq)
+    use_kernel, fuse, loop = how
+    tok, pos, toks = _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, pos, active,
+                                 temps, generator, max_seq, loop)
     return tok, pos, toks, tok0
 
 
-def _sched_admit(params, cfg, chunk, max_seq, pools, idx, new_tokens, new_lens, new_idx, rows,
+def _sched_admit(params, cfg, how, chunk, max_seq, pools, idx, new_tokens, new_lens, new_idx, rows,
                  caches, tok, pos, active, temps, adm_temps, generator):
     """Dense admission: prefill the padded (A, P) prompts into fresh
     admission caches, then the common epilogue."""
     a, p = new_tokens.shape
     adm = init_stacked_caches(cfg, a, p, device=tok.device)
     logits, _ = sched_prefill(params, cfg, new_tokens, new_lens, pools, new_idx,
-                              caches=layer_caches(adm))
-    return _admit_epilogue(params, cfg, chunk, max_seq, pools, idx, logits, adm, rows,
+                              caches=layer_caches(adm), use_kernel=how[0])
+    return _admit_epilogue(params, cfg, how, chunk, max_seq, pools, idx, logits, adm, rows,
                            new_lens.long(), caches, tok, pos, active, temps, adm_temps, generator)
 
 
-def _sched_admit_reuse(params, cfg, chunk, max_seq, pools, idx, pool_data, tables, tail_tokens,
+def _sched_admit_reuse(params, cfg, how, chunk, max_seq, pools, idx, pool_data, tables, tail_tokens,
                        tail_lens, prefix_lens, new_idx, rows, caches, tok, pos, active, temps,
                        adm_temps, generator, *, prompt):
     """Prefix-reuse admission: every prompt of the wave matched >= 1 pooled
@@ -191,13 +207,13 @@ def _sched_admit_reuse(params, cfg, chunk, max_seq, pools, idx, pool_data, table
 
     a = tables.shape[0]
     adm = init_stacked_caches(cfg, a, prompt, device=tok.device)
-    prefix = gather_blocks(pool_data, tables)
+    prefix = gather_blocks(pool_data, tables, use_kernel=how[0])
     span = prefix["k"].shape[2]
     for n in ("k", "v"):
         adm[n][:, :, :span] = prefix[n]
     logits, _ = sched_prefill_reuse(params, cfg, tail_tokens, tail_lens, prefix_lens,
-                                    layer_caches(adm), pools, new_idx)
-    return _admit_epilogue(params, cfg, chunk, max_seq, pools, idx, logits, adm, rows,
+                                    layer_caches(adm), pools, new_idx, use_kernel=how[0])
+    return _admit_epilogue(params, cfg, how, chunk, max_seq, pools, idx, logits, adm, rows,
                            (prefix_lens + tail_lens).long(), caches, tok, pos, active, temps,
                            adm_temps, generator)
 
@@ -240,9 +256,11 @@ class RequestScheduler:
     ``max_seq = max_prompt + max_new_cap`` sizes the live KV caches.
     ``inflight_per_tenant`` caps one tenant's simultaneous batch rows;
     ``admit_bucket`` is the (padded) admission width of one dispatch;
-    ``chunk`` is how many decode steps each dispatch runs. ``prefix_reuse``
-    turns on the paged KV prefix cache; ``kv_block`` overrides the default
-    block size. The pool
+    ``chunk`` is how many decode steps each dispatch runs, one CUDA-graph
+    replay on the card (``loop=True`` runs them as eager steps, what the
+    replays are held against). ``prefix_reuse`` turns on the paged KV prefix
+    cache; ``kv_block`` overrides the default block size. The skip-sums
+    follow the runtime's ``use_kernel`` and ``decode_fuse``. The pool
     and index live on the runtime, so a later scheduler reuses what an
     earlier one published (``runtime.reset_prefix_cache()`` clears them)."""
 
@@ -259,6 +277,7 @@ class RequestScheduler:
         mode: str = "continuous",
         prefix_reuse: bool = True,
         kv_block: Optional[int] = None,
+        loop: bool = False,
     ):
         if mode not in ("continuous", "sequential"):
             raise ValueError(f"unknown scheduler mode {mode!r}")
@@ -281,6 +300,8 @@ class RequestScheduler:
         self.mode = mode
         self.prefix_reuse = bool(prefix_reuse)
         self.kv_block = int(kv_block) if kv_block else None
+        #: (use_kernel, fuse, loop) of every dispatch's skip-sums and chunk
+        self._how = (runtime.use_kernel, runtime.decode_fuse, bool(loop))
         self.counters = Counter()
         self._pending: deque[Request] = deque()
         self._ingest_queue: deque[IngestRequest] = deque()
@@ -450,9 +471,10 @@ class RequestScheduler:
         active = torch.as_tensor(lb.active, device=dev)
         temps = _temps(lb.temps, dev)
         if not admits:
+            use_kernel, fuse, loop = self._how
             lb.tok, lb.pos, toks = _chunk_scan(
-                params, self.rt.cfg, self.chunk, pools, idx, lb.caches, lb.tok, lb.pos, active,
-                temps, generator, self.max_seq,
+                params, self.rt.cfg, use_kernel, fuse, self.chunk, pools, idx, lb.caches, lb.tok, lb.pos,
+                active, temps, generator, self.max_seq, loop,
             )
             self.counters["dispatch/step"] += 1
             return [], (toks, None)
@@ -471,7 +493,7 @@ class RequestScheduler:
         pick = np.minimum(new_rows, self.max_batch - 1)
         try:
             lb.tok, lb.pos, toks, tok0 = _sched_admit(
-                params, self.rt.cfg, self.chunk, self.max_seq, pools, idx,
+                params, self.rt.cfg, self._how, self.chunk, self.max_seq, pools, idx,
                 torch.as_tensor(new_tokens, device=dev), torch.as_tensor(new_lens, device=dev),
                 torch.as_tensor(lb.idx[pick], device=dev), torch.as_tensor(rows, device=dev),
                 lb.caches, lb.tok, lb.pos, active, temps, _temps(lb.temps[pick], dev), generator,
@@ -522,7 +544,7 @@ class RequestScheduler:
         pick = np.minimum(new_rows, self.max_batch - 1)
         try:
             lb.tok, lb.pos, toks, tok0 = _sched_admit_reuse(
-                params, self.rt.cfg, self.chunk, self.max_seq, pools, idx, pool.data,
+                params, self.rt.cfg, self._how, self.chunk, self.max_seq, pools, idx, pool.data,
                 torch.as_tensor(tables, device=dev), torch.as_tensor(tail_tokens, device=dev),
                 torch.as_tensor(tail_lens, device=dev), torch.as_tensor(prefix_lens, device=dev),
                 torch.as_tensor(lb.idx[pick], device=dev), torch.as_tensor(rows, device=dev),

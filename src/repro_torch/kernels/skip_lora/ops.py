@@ -41,7 +41,9 @@ copy of x: ``_grouped_scatter`` turns the plan into ``row_src``, the
 original row of each grouped position (or -1 for padding), and the kernels
 gather and scatter rows through it. ``tm`` is the GPU's own row tile (the
 reference's ``grid_order`` is a TPU grid knob with no meaning here); it does
-not change the result.
+not change the result. A caller that launches many times over the same
+slots (a decode call) builds the plan once with ``grouped_plan`` and passes
+it to the serving wrappers as ``plan=``.
 """
 
 from __future__ import annotations
@@ -200,6 +202,30 @@ def _plan(idx: torch.Tensor, n_adapters: int, m: int, tm: int):
     return _row_sources(dest, m_pad), tile_slot
 
 
+def grouped_plan(idx: torch.Tensor, n_adapters: int, positions: int = 1, *, tm: int = TM):
+    """The plan (row_src, tile_slot) of the grouped forwards for per-row
+    slots ``idx`` (B,), ``positions`` rows each, over a pool of
+    ``n_adapters`` slots. Device ops only, no host synchronisation: a
+    caller whose slots stay fixed over many launches (a decode call's
+    steps) builds it once, or into a CUDA graph's static buffers, and hands
+    it to each launch as ``plan=``."""
+    row_idx = idx.repeat_interleave(positions)
+    return _plan(row_idx, n_adapters, row_idx.shape[0], tm)
+
+
+def _given_plan(plan, row_idx: torch.Tensor, n_adapters: int, m: int, tm: int):
+    """``plan`` when given, checked against the launch's rows, else one built
+    for ``row_idx``."""
+    if plan is None:
+        return _plan(row_idx, n_adapters, m, tm)
+    row_src, tile_slot = plan
+    m_pad = (m + tm - 1) // tm * tm + min(n_adapters, m) * tm
+    K.check(tuple(row_src.shape) == (m_pad,) and tuple(tile_slot.shape) == (m_pad // tm,),
+            f"plan {tuple(row_src.shape)}/{tuple(tile_slot.shape)} is not one of {m} rows over "
+            f"{n_adapters} slots at row tile {tm}")
+    return row_src, tile_slot
+
+
 def _rows(acts: torch.Tensor, idx: torch.Tensor):
     """(L, B, S, D) acts + (B,) slots -> (L, B*S, D) rows + (B*S,) row slots."""
     lnum, bsz, s, d = acts.shape
@@ -208,19 +234,21 @@ def _rows(acts: torch.Tensor, idx: torch.Tensor):
 
 def skip_lora_grouped(
     acts: torch.Tensor, a_pool: torch.Tensor, b_pool: torch.Tensor, idx: torch.Tensor,
-    *, tm: int = TM,
+    *, tm: int = TM, plan=None,
 ) -> torch.Tensor:
     """Multi-tenant skip-sum: row b gets its own adapter stack.
 
     acts: (L, B, S, D); a_pool: (N, L, D, R); b_pool: (N, L, R, D);
-    idx: (B,) int slot per batch row -> (B, S, D) in acts.dtype."""
+    idx: (B,) int slot per batch row -> (B, S, D) in acts.dtype. ``plan``
+    (``grouped_plan(idx, N, S)``) spares the launch building its own; the
+    CPU's plain version takes none."""
     _, bsz, s, d = acts.shape
     x, row_idx = _rows(acts, idx)
     a_pool, b_pool = a_pool.detach(), b_pool.detach()
     if _device_kind(x) == "cpu":
         out = R.skip_lora_grouped_ref(x, a_pool, b_pool, row_idx)
     else:
-        row_src, tile_slot = _plan(row_idx, a_pool.shape[0], x.shape[1], tm)
+        row_src, tile_slot = _given_plan(plan, row_idx, a_pool.shape[0], x.shape[1], tm)
         out = K.grouped_skip_sum_fwd(x, a_pool, b_pool, row_src, tile_slot, tm)
     return out.reshape(bsz, s, d)
 
@@ -234,17 +262,19 @@ def skip_lora_grouped_int8(
     idx: torch.Tensor,
     *,
     tm: int = TM,
+    plan=None,
 ) -> torch.Tensor:
     """Multi-tenant skip-sum over an int8 pool: qa (N, L, D, R) int8 with
     sa (N, L, D) fp32, qb (N, L, R, D) int8 with sb (N, L, R) fp32. The
-    kernel dequantises gathered elements in registers."""
+    kernel dequantises gathered elements in registers. ``plan`` as in
+    ``skip_lora_grouped``."""
     _, bsz, s, d = acts.shape
     x, row_idx = _rows(acts, idx)
     sa, sb = sa.detach(), sb.detach()
     if _device_kind(x) == "cpu":
         out = R.skip_lora_grouped_int8_ref(x, qa, sa, qb, sb, row_idx)
     else:
-        row_src, tile_slot = _plan(row_idx, qa.shape[0], x.shape[1], tm)
+        row_src, tile_slot = _given_plan(plan, row_idx, qa.shape[0], x.shape[1], tm)
         out = K.grouped_skip_sum_fwd_int8(x, qa, sa, qb, sb, row_src, tile_slot, tm)
     return out.reshape(bsz, s, d)
 
@@ -259,18 +289,20 @@ def skip_lora_grouped_q4(
     idx: torch.Tensor,
     *,
     tm: int = TM,
+    plan=None,
 ) -> torch.Tensor:
     """Multi-tenant skip-sum over a packed 4-bit pool (int4 or nf4: the
     codebook decides): qa (N, L, D, R//2) uint8 with sa (N, L, D) fp32, qb
     (N, L, R, D//2) uint8 with sb (N, L, R) fp32, code (16,) fp32. The kernel
-    unpacks and dequantises gathered elements in registers."""
+    unpacks and dequantises gathered elements in registers. ``plan`` as in
+    ``skip_lora_grouped``."""
     _, bsz, s, d = acts.shape
     x, row_idx = _rows(acts, idx)
     sa, sb = sa.detach(), sb.detach()
     if _device_kind(x) == "cpu":
         out = R.skip_lora_grouped_q4_ref(x, qa, sa, qb, sb, code, row_idx)
     else:
-        row_src, tile_slot = _plan(row_idx, qa.shape[0], x.shape[1], tm)
+        row_src, tile_slot = _given_plan(plan, row_idx, qa.shape[0], x.shape[1], tm)
         out = K.grouped_skip_sum_fwd_q4(x, qa, sa, qb, sb, code, row_src, tile_slot, tm)
     return out.reshape(bsz, s, d)
 

@@ -25,8 +25,8 @@ regenerates the same batches. Fresh tenants draw their adapters from seed 3.
 
 Not ported: ``--devices`` > 1, ``--mesh``, ``--pipeline-stages``,
 ``--shards`` > 1, ``--check-parity`` and ``--elastic-devices`` need several
-devices (slice 7); ``--unroll`` other than 1 needs one-dispatch decode
-(slice 5b). Each exits with a message.
+devices (slice 7). Each exits with a message. ``--unroll N`` serves with one
+CUDA-graph replay for every N decode steps on the card.
 
 ``main`` returns the metrics (the reference's names) with the live runtime
 under "runtime" and, when supervised, {"restarts", "resumed_at",
@@ -73,7 +73,7 @@ def _parse_args(argv=None) -> argparse.Namespace:
                     help="grouped CUDA kernels on the card (their plain versions on the CPU)")
     ap.add_argument("--hbm-mb", type=float, default=0.0,
                     help="cache device-tier budget in MiB; 0 = fully device-resident")
-    ap.add_argument("--unroll", type=int, default=1, help="(one-dispatch decode; not ported)")
+    ap.add_argument("--unroll", type=int, default=1, help="decode steps per CUDA-graph replay of a serve")
     ap.add_argument("--devices", type=int, default=1, help="data-mesh devices (more than one: not ported)")
     ap.add_argument("--mesh", default=None, metavar="DxM", help="2-D session mesh (not ported)")
     ap.add_argument("--pipeline-stages", type=int, default=0, metavar="N",
@@ -108,11 +108,8 @@ def _refuse(args: argparse.Namespace) -> None:
                 f"{flag} needs a session over several devices, which belongs to a later slice of the "
                 "port (slice 7: multiple GPUs); the session runs on one device"
             )
-    if args.unroll != 1:
-        raise SystemExit(
-            "--unroll other than 1 needs one-dispatch decode, which belongs to a later slice of the "
-            "port (slice 5b); the port decodes one eager step at a time"
-        )
+    if args.unroll < 1:
+        raise SystemExit(f"--unroll {args.unroll} < 1")
     if args.inject_failure is not None and not args.checkpoint_dir:
         raise SystemExit("--inject-failure requires --checkpoint-dir")
 
@@ -181,7 +178,7 @@ def main(argv=None) -> dict:
     def serve_event(rt, who):
         if args.scheduler:
             return sched_serve(rt, who)
-        return rt.serve(who, prompts, max_new=args.gen)
+        return rt.serve(who, prompts, max_new=args.gen, unroll=args.unroll)
 
     events, labels = [], []
 

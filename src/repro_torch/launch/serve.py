@@ -14,8 +14,11 @@ runs. ``--scheduler`` serves the same rows as one request each through a
 ``SessionRuntime``'s continuous-batching ``RequestScheduler`` (admission
 bucket 2, ``--chunk`` decode steps a dispatch; ``max(--tenants, 1)`` demo
 tenants). Weights and prompts are random, drawn from fixed seeds.
-``--loop`` and ``--unroll`` other than 1 need one-dispatch decode (slice 5b)
-and raise.
+``--unroll N`` replays one CUDA graph for every N decode steps on the card
+(the CPU runs the same steps eagerly); ``--loop`` runs single-stack serving
+as the per-token eager loop (``generate_loop``) instead, and is refused with
+``--scheduler`` or ``--tenants``, as the reference refuses it. The last
+lines say how the decode ran: graph replays and eager steps.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ import time
 import torch
 
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.core import decode_graph
 from repro_torch.core import lm_skiplora as SL
 from repro_torch.core.adapter_pool import AdapterPool
-from repro_torch.core.runtime import SessionRuntime, generate, generate_grouped
+from repro_torch.core.runtime import SessionRuntime, generate, generate_grouped, generate_loop
 from repro_torch.models.lm import init_lm
 
 
@@ -74,8 +78,9 @@ def main(argv=None) -> None:
     ap.add_argument("--rank", type=int, default=8)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--unroll", type=int, default=1,
-                    help="(reference's scan knob; not ported)")
-    ap.add_argument("--loop", action="store_true", help="(not ported)")
+                    help="decode steps per CUDA-graph replay")
+    ap.add_argument("--loop", action="store_true",
+                    help="use the per-token eager loop instead of the graph replays")
     ap.add_argument("--scheduler", action="store_true",
                     help="serve through the continuous-batching request scheduler (one "
                          "request per batch row, staggered admission) instead of one "
@@ -84,9 +89,13 @@ def main(argv=None) -> None:
                     help="decode steps per scheduler dispatch")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    for flag, on in (("--loop", args.loop), ("--unroll", args.unroll != 1)):
-        if on:
-            raise NotImplementedError(f"{flag} is not yet ported (slice 5b: one-dispatch decode)")
+    if args.loop and args.scheduler:
+        ap.error("--loop and --scheduler are mutually exclusive")
+    if args.loop and args.tenants > 0:
+        ap.error("--loop applies to single-stack serving; the grouped multi-tenant path always "
+                 "replays the decode graph")
+    if args.unroll < 1:
+        ap.error(f"--unroll {args.unroll} < 1")
 
     device = torch.device(args.device)
     cfg = get_config(args.arch)
@@ -100,6 +109,7 @@ def main(argv=None) -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    stats0 = dict(decode_graph.GRAPHS.stats)
     if args.scheduler:
         n_t = max(args.tenants, 1)
         rt = demo_runtime(cfg, n_t, args.rank, args.pool_compress, params, device)
@@ -126,7 +136,7 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         toks = generate_grouped(
             params, cfg, prompts, pool.pools(), pool.lookup(tenants),
-            max_new=args.gen, temperature=args.temperature, device=device,
+            max_new=args.gen, temperature=args.temperature, unroll=args.unroll, device=device,
         )
         sync()
         dt = time.perf_counter() - t0
@@ -140,15 +150,27 @@ def main(argv=None) -> None:
             adapters_stack = SL.adapters_to_stack(ad)
         sync()
         t0 = time.perf_counter()
-        toks = generate(
-            params, cfg, prompts, max_new=args.gen, adapters_stack=adapters_stack,
-            temperature=args.temperature, device=device,
-        )
+        if args.loop:
+            toks = generate_loop(params, cfg, prompts, max_new=args.gen, adapters_stack=adapters_stack,
+                                 temperature=args.temperature, device=device)
+        else:
+            toks = generate(params, cfg, prompts, max_new=args.gen, adapters_stack=adapters_stack,
+                            temperature=args.temperature, unroll=args.unroll, device=device)
         sync()
         dt = time.perf_counter() - t0
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    stats = decode_graph.GRAPHS.stats
+    replays = stats["replays"] - stats0.get("replays", 0)
+    eager = stats["eager_steps"] - stats0.get("eager_steps", 0)
+    if args.loop:
+        decode = f"{args.gen} eager decode steps (per-token loop)"
+    elif device.type == "cpu":
+        decode = "eager decode steps (CPU)"
+    else:
+        decode = (f"{replays} decode graph replay{'s' if replays != 1 else ''}"
+                  f"{f' + {eager} eager warm-up step' if eager else ''}, unroll {args.unroll}")
     print(f"generated {tuple(toks.shape)} in {dt:.2f}s "
-          f"({args.batch * args.gen / dt:.1f} tok/s on {where}, first call)")
+          f"({args.batch * args.gen / dt:.1f} tok/s on {where}, first call; {decode})")
     print("first sequences:", toks[:2, :8].tolist())
 
 

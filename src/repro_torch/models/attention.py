@@ -12,9 +12,10 @@ Entry points:
     positions [0, s) of the KV cache.
   - ``attn_prefill_ext``: per-row *offset* prefill over the cache (the
     scheduler's prefix-reuse admission).
-  - ``attn_decode``: one step against the cache, at one scalar position for
-    the whole batch or, given a (b,) tensor, at each row's own position
-    (continuous batching).
+  - ``attn_decode``: one step against the cache, at one position for the
+    whole batch (an int, or a 0-d device tensor that a CUDA graph can
+    replay) or, given a (b,) tensor, at each row's own position (continuous
+    batching).
   - ``attn_decode_paged``: the per-row decode over KV pool blocks behind a
     block table, gathered through ``kernels.flash_attn.paged`` (K10).
 
@@ -127,8 +128,9 @@ def _sdpa(
     return out.reshape(b, sq, n, h)
 
 
-def causal_mask(sq: int, sk: int, q_offset: int, window: int, *, device=None) -> torch.Tensor:
-    """(1, sq, sk) mask: key t attends iff t <= q_pos and q_pos - t < window."""
+def causal_mask(sq: int, sk: int, q_offset, window: int, *, device=None) -> torch.Tensor:
+    """(1, sq, sk) mask: key t attends iff t <= q_pos and q_pos - t < window.
+    ``q_offset`` is an int or a 0-d tensor on ``device``."""
     q_pos = torch.arange(sq, device=device) + q_offset
     k_pos = torch.arange(sk, device=device)
     m = k_pos[None, :] <= q_pos[:, None]
@@ -255,12 +257,26 @@ def attn_decode(
     """One decode step: write K/V at ``pos``, attend over cache[0:pos+1].
 
     An ``int`` ``pos`` is the reference's scalar branch (every row at the
-    same position). A (b,) tensor selects the continuous-batching branch:
-    each row writes its K/V at its own position and masks keys per row,
-    what the request scheduler needs once rows admitted at different times
-    share one live batch. Positions must lie inside the cache."""
+    same position). A 0-d tensor is the same step with the position on the
+    device: K/V go in through an index op and the mask is built from the
+    tensor, so a CUDA graph can replay the step at a later position; it
+    gives the int branch's booleans and bits. A (b,) tensor selects the
+    continuous-batching branch: each row writes its K/V at its own position
+    and masks keys per row, what the request scheduler needs once rows
+    admitted at different times share one live batch. Positions must lie
+    inside the cache."""
     b = x.shape[0]
-    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
+    if isinstance(pos, torch.Tensor) and pos.dim() == 0:
+        pos = pos.long()
+        q, k, v = _qkv(params, x, pos.expand(b, 1), spec)
+        at = pos.reshape(1)
+        cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
+        ck, cv = cache["k"], cache["v"]
+        mask = causal_mask(1, ck.shape[1], pos, spec.window, device=x.device)
+        out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask, spec)
+        return _out(out, params["wo"]), cache
+    if isinstance(pos, torch.Tensor):
         pos = pos.long()
         q, k, v = _qkv(params, x, pos[:, None], spec)
         rows = torch.arange(b, device=x.device)

@@ -12,11 +12,14 @@ Counterpart of ``repro.models.lm``:
     variants, whose skip term goes through the grouped skip-LoRA kernels.
   - ``ingest_prefill``: the session runtime's ingest forward, which fills
     the Skip-Cache and returns each row's adapted last-position logits.
-  - ``sample_token``, ``decode_step`` and ``decode_scan``: the reference
-    scans over decode steps; here ``decode_scan`` is a Python loop of
-    exactly ``max_new`` steps, so tokens and final caches compare one to one.
-    ``decode_step`` also takes per-row positions and ``sample_token``
-    per-row temperatures, for the request scheduler.
+  - ``sample_token``, ``decode_step``, ``decode_step_`` and ``decode_scan``:
+    the reference scans over decode steps in one dispatch; here
+    ``decode_scan`` replays a CUDA graph of ``unroll`` in-place steps
+    (``decode_step_``, captured by ``core.decode_graph``) on the card and
+    runs the same steps eagerly on the CPU, exactly ``max_new`` of them, so
+    tokens and final caches compare one to one with ``decode_loop``, the
+    eager per-step loop. ``decode_step`` also takes per-row positions and
+    ``sample_token`` per-row temperatures, for the request scheduler.
   - ``init_stacked_caches``, ``sched_prefill`` and ``sched_prefill_reuse``:
     the request scheduler's admission prefills (dense, and over the unseen
     tail of a prompt whose prefix K/V came from the paged pool).
@@ -266,15 +269,18 @@ def serve_prefill_grouped(
     caches: list[Params],
     pools: dict[str, torch.Tensor],   # AdapterPool.pools() layout (float or int8)
     idx: torch.Tensor,                # (B,) int32 slot per batch row
+    *,
+    use_kernel: bool = True,
 ) -> tuple[torch.Tensor, list[Params]]:
     """Prefill with per-row adapters. The backbone runs adapter-free,
     activations are collected, and one grouped skip-sum over the *last*
-    position yields the per-tenant logits."""
+    position yields the per-tenant logits (``use_kernel=False``: through
+    the plain versions on any device)."""
     from repro_torch.core.adapter_pool import grouped_skip_sum
 
     out = lm_forward(params, cfg, tokens, mode="prefill", caches=caches, collect_acts=True)
     y_last = out["y_base"][:, -1:]
-    skip = grouped_skip_sum(out["acts"][:, :, -1:], pools, idx)
+    skip = grouped_skip_sum(out["acts"][:, :, -1:], pools, idx, use_kernel=use_kernel)
     logits = readout(params, cfg, y_last + skip.to(y_last.dtype))
     return logits, out["caches"]
 
@@ -287,13 +293,21 @@ def serve_decode_grouped(
     caches: list[Params],
     pools: dict[str, torch.Tensor],
     idx: torch.Tensor,                # (B,) int32
+    *,
+    use_kernel: bool = True,
+    fuse_skip: bool = False,
+    plan=None,
 ) -> tuple[torch.Tensor, list[Params]]:
     """One grouped decode step: per-row adapters via one grouped skip-sum
-    over the (L, B, 1, D) collected block inputs."""
+    over the (L, B, 1, D) collected block inputs. ``fuse_skip=True``
+    computes the skip term as dense per-row math inside the step instead of
+    a grouped kernel launch (``grouped_skip_sum(fused=True)``); the
+    temperature-0 tokens are the same either way. ``plan`` is the call's
+    grouping plan (``adapter_pool.grouped_plan``)."""
     from repro_torch.core.adapter_pool import grouped_skip_sum
 
     out = lm_forward(params, cfg, token, mode="decode", caches=caches, pos=pos, collect_acts=True)
-    skip = grouped_skip_sum(out["acts"], pools, idx)
+    skip = grouped_skip_sum(out["acts"], pools, idx, use_kernel=use_kernel, fused=fuse_skip, plan=plan)
     y = out["y_base"] + skip.to(out["y_base"].dtype)
     return readout(params, cfg, y), out["caches"]
 
@@ -363,7 +377,7 @@ def decode_step(
     params: Params,
     cfg: ModelConfig,
     tok: torch.Tensor,             # (B, 1)
-    pos,                           # int, or (B,) tensor: each row's position
+    pos,                           # int, 0-d tensor, or (B,) tensor: each row's position
     caches: list[Params],
     *,
     temperature=0.0,               # float, or (B,) tensor: see sample_token
@@ -371,16 +385,50 @@ def decode_step(
     adapters: Optional[list[Params]] = None,
     pools: Optional[dict[str, torch.Tensor]] = None,
     idx: Optional[torch.Tensor] = None,
+    use_kernel: bool = True,
+    fuse_skip: bool = False,
+    plan=None,
 ) -> tuple[torch.Tensor, list[Params]]:
     """One decode step at position ``pos``: returns (next token (B, 1),
-    caches). ``pools``/``idx`` select the grouped path, ``adapters`` the
-    single-stack path. A (B,) ``pos`` decodes every row at its own
+    caches). ``pools``/``idx`` select the grouped path (``use_kernel``,
+    ``fuse_skip`` and ``plan`` as in ``serve_decode_grouped``), ``adapters``
+    the single-stack path. A (B,) ``pos`` decodes every row at its own
     position (continuous batching; see ``attention.attn_decode``)."""
     if pools is not None:
-        logits, caches = serve_decode_grouped(params, cfg, tok, pos, caches, pools, idx)
+        logits, caches = serve_decode_grouped(params, cfg, tok, pos, caches, pools, idx,
+                                              use_kernel=use_kernel, fuse_skip=fuse_skip, plan=plan)
     else:
         logits, caches = serve_decode(params, cfg, tok, pos, caches, adapters=adapters)
     return sample_token(logits, temperature, generator), caches
+
+
+def decode_step_(
+    params: Params,
+    cfg: ModelConfig,
+    state: dict[str, Any],
+    *,
+    active: Optional[torch.Tensor] = None,
+    max_seq: int = 0,
+    **step,
+) -> None:
+    """The step a CUDA graph captures (``core.decode_graph``), and the one
+    the CPU runs eagerly: one ``decode_step`` over the buffers of ``state``
+    ({"tok": (B, 1), "pos": 0-d or (B,) int64 tensor, "caches": per-layer
+    list}), updated in place, as the reference's decode carry (tok, pos,
+    caches) is. The sampled token lands in ``state["tok"]`` and the position
+    moves on by one. With ``active`` (B,) bool (the request scheduler's
+    live batch) retired rows keep their token and position and live
+    positions stop at ``max_seq - 1``, so a chunk that overshoots a
+    finishing row never writes past the cache. ``step`` holds
+    ``decode_step``'s keywords."""
+    tok, pos = state["tok"], state["pos"]
+    ntok, _ = decode_step(params, cfg, tok, pos, state["caches"], **step)
+    if active is None:
+        tok.copy_(ntok)
+        pos.add_(1)
+        return
+    tok.copy_(torch.where(active[:, None], ntok, tok))
+    pos.copy_(torch.where(active, torch.clamp(pos + 1, max=max_seq - 1), pos))
 
 
 def decode_scan(
@@ -391,23 +439,69 @@ def decode_scan(
     caches: list[Params],
     *,
     max_new: int,
-    temperature: float = 0.0,
+    temperature=0.0,
     generator: Optional[torch.Generator] = None,
     adapters: Optional[list[Params]] = None,
     pools: Optional[dict[str, torch.Tensor]] = None,
     idx: Optional[torch.Tensor] = None,
+    use_kernel: bool = True,
+    fuse_skip: bool = False,
+    unroll: int = 1,
 ) -> tuple[torch.Tensor, list[Params]]:
     """Generate ``max_new`` tokens: exactly ``max_new`` decode steps, as the
     reference's scan runs (the last step's token is dropped, its K/V kept).
-    Returns (tokens (B, max_new) with tok0 first, final caches)."""
-    toks = []
-    tok = tok0
+    On CUDA tensors the steps are CUDA-graph replays, ``unroll`` steps a
+    replay (``core.decode_graph``: the card's form of the reference's one
+    ``lax.scan`` dispatch; ``max_new`` need not be a multiple); on CPU
+    tensors the same step function (``decode_step_``) runs eagerly. The
+    caches are updated in place. Returns (tokens (B, max_new) with tok0
+    first, final caches)."""
+    if unroll < 1:
+        raise ValueError(f"unroll {unroll} < 1")
+    kw = dict(temperature=temperature, adapters=adapters, pools=pools, idx=idx,
+              use_kernel=use_kernel, fuse_skip=fuse_skip)
+    if tok0.is_cuda:
+        from repro_torch.core import decode_graph
+
+        return decode_graph.decode(params, cfg, tok0, start_pos, caches, max_new=max_new,
+                                   generator=generator, unroll=unroll, **kw)
+    state = {"tok": tok0.clone(), "pos": torch.tensor(start_pos, device=tok0.device), "caches": caches}
+    toks = torch.empty((tok0.shape[0], max_new), dtype=tok0.dtype, device=tok0.device)
+    for i in range(max_new):
+        toks[:, i] = state["tok"][:, 0]
+        decode_step_(params, cfg, state, generator=generator, **kw)
+    return toks, caches
+
+
+def decode_loop(
+    params: Params,
+    cfg: ModelConfig,
+    tok0: torch.Tensor,
+    start_pos: int,
+    caches: list[Params],
+    *,
+    max_new: int,
+    temperature=0.0,
+    generator: Optional[torch.Generator] = None,
+    adapters: Optional[list[Params]] = None,
+    pools: Optional[dict[str, torch.Tensor]] = None,
+    idx: Optional[torch.Tensor] = None,
+    use_kernel: bool = True,
+    fuse_skip: bool = False,
+) -> tuple[torch.Tensor, list[Params]]:
+    """``decode_scan``'s steps as an eager Python loop on any device, one
+    ``decode_step`` at an int position each (the reference's
+    ``generate_loop`` body): the path a CUDA-graph replay is held against.
+    Same arguments and results as ``decode_scan``."""
+    from repro_torch.core.adapter_pool import grouped_plan
+
+    step = dict(temperature=temperature, generator=generator, adapters=adapters, pools=pools, idx=idx,
+                use_kernel=use_kernel, fuse_skip=fuse_skip,
+                plan=grouped_plan(pools, idx, use_kernel=use_kernel, fused=fuse_skip))
+    toks, tok = [], tok0
     for i in range(max_new):
         toks.append(tok)
-        tok, caches = decode_step(
-            params, cfg, tok, start_pos + i, caches, temperature=temperature,
-            generator=generator, adapters=adapters, pools=pools, idx=idx,
-        )
+        tok, caches = decode_step(params, cfg, tok, start_pos + i, caches, **step)
     return torch.cat(toks, dim=1), caches
 
 
@@ -416,7 +510,7 @@ def decode_scan(
 # ---------------------------------------------------------------------------
 
 
-def _last_logits(params, cfg, out, last, pools, idx) -> torch.Tensor:
+def _last_logits(params, cfg, out, last, pools, idx, use_kernel) -> torch.Tensor:
     """Logits at each row's position ``last`` (A,): the adapter-free hidden
     there plus, with ``pools``, one grouped skip-sum over the block inputs
     at that position -> (A, 1, V)."""
@@ -426,7 +520,7 @@ def _last_logits(params, cfg, out, last, pools, idx) -> torch.Tensor:
         from repro_torch.core.adapter_pool import grouped_skip_sum
 
         acts_last = out["acts"][:, rows, last][:, :, None]       # (L, A, 1, D)
-        y_last = y_last + grouped_skip_sum(acts_last, pools, idx).to(y_last.dtype)
+        y_last = y_last + grouped_skip_sum(acts_last, pools, idx, use_kernel=use_kernel).to(y_last.dtype)
     return readout(params, cfg, y_last)
 
 
@@ -439,10 +533,12 @@ def sched_prefill(
     idx: Optional[torch.Tensor] = None,     # (A,) int32 slot per row
     *,
     caches: Optional[list[Params]] = None,
+    use_kernel: bool = True,
 ) -> tuple[torch.Tensor, list[Params]]:
     """Admission prefill of the request scheduler: ragged prompts in one
     padded (A, P) batch, the logits read at each row's own last *real*
-    position (``lens[a] - 1``) rather than column -1. Pad positions write
+    position (``lens[a] - 1``) rather than column -1 (``use_kernel=False``: the
+    skip-sum through the plain versions on any device). Pad positions write
     garbage K/V at indices >= len, which decode overwrites (it resumes at
     ``pos = len``) before the causal mask ever exposes them. ``caches``
     (per-layer, at (A, P)) defaults to fresh zeroed ones; the scheduler
@@ -453,7 +549,7 @@ def sched_prefill(
         caches = init_serve_caches(cfg, a, p, device=tokens.device)
     out = lm_forward(params, cfg, tokens, mode="prefill", caches=caches, collect_acts=True)
     last = (lens.clamp(min=1) - 1).long()
-    return _last_logits(params, cfg, out, last, pools, idx), out["caches"]
+    return _last_logits(params, cfg, out, last, pools, idx, use_kernel), out["caches"]
 
 
 def sched_prefill_reuse(
@@ -465,6 +561,8 @@ def sched_prefill_reuse(
     caches: list[Params],                   # (A, P) caches, prefix K/V pre-written
     pools: Optional[dict[str, torch.Tensor]] = None,
     idx: Optional[torch.Tensor] = None,     # (A,) int32 slot per row
+    *,
+    use_kernel: bool = True,
 ) -> tuple[torch.Tensor, list[Params]]:
     """Admission prefill over only the unseen tail of each prompt: the
     prefix's K/V were gathered from the paged pool into
@@ -478,4 +576,4 @@ def sched_prefill_reuse(
         collect_acts=True,
     )
     last = (tail_lens.clamp(min=1) - 1).long()
-    return _last_logits(params, cfg, out, last, pools, idx), out["caches"]
+    return _last_logits(params, cfg, out, last, pools, idx, use_kernel), out["caches"]

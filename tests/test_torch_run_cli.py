@@ -10,8 +10,8 @@
     slot table of the same CLI run without a checkpoint directory, bitwise;
     so through the scheduler, with the control plane and an int4 pool, over
     a tiered engine.
-  - The flags that need several devices exit naming slice 7, and
-    ``--unroll 2`` naming slice 5b (one-dispatch decode)."""
+  - The flags that need several devices exit naming slice 7; ``--unroll 2``
+    (decode steps per CUDA-graph replay on the card) runs the same stream."""
 
 import json
 
@@ -76,9 +76,21 @@ def test_crash_drill_restarts_once_and_matches_the_unsupervised_run(tmp_path, ca
     (["--shards", "2"], "slice 7"),
     (["--check-parity"], "slice 7"),
     (["--elastic-devices", "1"], "slice 7"),
-    (["--unroll", "2"], "slice 5b"),
     (["--inject-failure", "3"], "requires --checkpoint-dir"),
 ])
 def test_unported_flags_exit_naming_their_slice(flags, slice_):
     with pytest.raises(SystemExit, match=slice_):
         run.main([*TINY, *flags])
+
+
+def test_unroll_runs_the_same_stream(capsys):
+    """``--unroll 2`` serves through ``decode_scan(unroll=2)``: the same
+    event stream, and the same session state at its end, as ``--unroll 1``."""
+    one = run.main(TINY)["runtime"]
+    two = run.main([*TINY, "--unroll", "2"])["runtime"]
+    printed = [line.split()[0] for line in capsys.readouterr().out.splitlines() if line.strip()]
+    assert [p for p in printed if p in LABELS] == LABELS * 2
+    assert two.counters == one.counters and two.pool.slot_table() == one.pool.slot_table()
+    assert all(torch.equal(v, one.pool.pools()[k]) for k, v in two.pool.pools().items())
+    with pytest.raises(SystemExit, match="unroll"):
+        run.main([*TINY, "--unroll", "0"])

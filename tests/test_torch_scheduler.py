@@ -308,9 +308,11 @@ def test_runtime_front_door_and_what_it_leaves_out(sessions):
     sl = TSL.SkipLoRAConfig(rank=RANK)
     kw0 = dict(max_tenants=2, samples_per_tenant=1, seq=8, device="cpu")
     for kw, where in ((dict(mesh=object()), "slice 7"), (dict(placement_shards=2), "slice 7"),
-                      (dict(pipeline_stages=2), "slice 7"), (dict(decode_fuse=True), "one-dispatch decode")):
+                      (dict(pipeline_stages=2), "slice 7")):
         with pytest.raises(NotImplementedError, match=where):
             SessionRuntime(CFG, sl, tp, **kw0, **kw)
+    fused = SessionRuntime(CFG, sl, tp, **kw0, decode_fuse=True)
+    assert fused.decode_fuse and fused.attach_scheduler()._how == (True, True, False)
     with pytest.raises(ValueError, match="params live on"):
         SessionRuntime(CFG, sl, tp, **{**kw0, "device": "meta"})
 
@@ -366,5 +368,6 @@ def test_serve_cli_scheduler_on_the_cpu():
                   "--prompt-len", "8", "--gen", "4", "--chunk", "2"])
     text = out.getvalue()
     assert "[scheduler: 2 admit" in text and "generated (3, 4)" in text
-    with pytest.raises(NotImplementedError, match="--loop"):
+    with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()) as err:
         cli.main(["--scheduler", "--loop", "--device", "cpu"])
+    assert "--loop and --scheduler are mutually exclusive" in err.getvalue()

@@ -198,11 +198,22 @@ def test_serve_cli_tenants(capsys, extra):
     assert "generated (3, 3)" in out and "grouped x2 tenants" in out
 
 
-def test_serve_cli_flags():
-    with pytest.raises(NotImplementedError, match="--unroll"):
-        cli.main(["--unroll", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="--loop"):
-        cli.main(["--loop", "--device", "cpu"])
+def test_serve_cli_flags(capsys):
+    """``--loop`` serves single-stack through the per-token loop and is a
+    usage error with ``--tenants`` or ``--scheduler``, as in the reference;
+    ``--unroll 3`` gives ``--unroll 1``'s tokens."""
+    small = ["--device", "cpu", "--batch", "2", "--prompt-len", "6", "--gen", "5"]
+    outs = {}
+    for flags in ([], ["--loop"], ["--unroll", "3"]):
+        cli.main([*small, *flags])
+        outs[" ".join(flags)] = capsys.readouterr().out.splitlines()
+    assert all(lines[0].startswith("generated (2, 5)") for lines in outs.values())
+    assert "5 eager decode steps (per-token loop)" in outs["--loop"][0]
+    assert outs["--loop"][1] == outs[""][1] == outs["--unroll 3"][1]
+    for flags in (["--loop", "--tenants", "2"], ["--loop", "--scheduler"]):
+        with pytest.raises(SystemExit):
+            cli.main([*small, *flags])
+        assert "--loop" in capsys.readouterr().err
     with pytest.raises(NotImplementedError):
         TL.init_lm(torch.Generator().manual_seed(0), reduce_config(get_config("xlstm-350m")))
 
