@@ -123,6 +123,22 @@ Phases, each printing one line (or a few) before the last line:
      session CLI's crash drill (``repro_torch.launch.run --device cuda
      --use-kernel --checkpoint-dir D --inject-failure 3``, reduced) restarts
      exactly once, at event 3, and ends bitwise the unsupervised run.
+ 12. paper: the source paper's own experiment (Section 5.1), which reaches
+     no hand-written kernel (as in the reference; the launch counters stay
+     at 0 through it): the damage1, damage2 and HAR twins
+     (``data.synthetic``); Fan (256-96-96-3) and HAR (561-96-96-6)
+     pre-trained 30 and 10 epochs; all eight methods fine-tuned 40 epochs
+     (batch 20, lr 0.05), each epoch one CUDA-graph replay
+     (``core.finetune``). Gates: damage1's accuracy below 0.5 before and
+     Skip2-LoRA's above 0.8 after; every method's last loss below its
+     first; Skip2-LoRA within 1e-4 of Skip-LoRA after 3 epochs; 47 of 47
+     rows cached after epoch 0; graph replays bitwise the eager loop for
+     every method and Skip2-LoRA's cache; a reduced 32-24-3 config equal on
+     the card and the CPU within 1e-5 relative. Times (host clock,
+     synchronised, medians): each method's epoch graphed and eager, a
+     graphed epoch's busy share (torch.profiler), the per-batch forward /
+     backward / update split, and Skip2-LoRA's time against LoRA-All's at
+     the paper's epoch counts beside the cost model's FLOP reduction.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
 step's must take many rows, and each ``generate_grouped`` call's and each
@@ -2385,6 +2401,222 @@ def small_scheduler_check(torch):
           f"and off")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the paper's own experiment (the 3-layer MLP; no hand-written kernel)
+# ---------------------------------------------------------------------------
+
+#: the quickstart's settings: 40 epochs, batch 20, lr 0.05, rank 4
+PAPER_EPOCHS, PAPER_BATCH, PAPER_LR = 40, 20, 0.05
+#: the paper's epoch counts (the reference's benchmarks/paper_tables.py setup)
+PAPER_RUN_EPOCHS = {"fan": 300, "har": 600}
+
+
+def _host_ms(torch, fn, reps: int = 5) -> float:
+    """Median host ms of ``fn`` over ``reps`` calls, each synchronised, after
+    one warm-up call."""
+    import statistics
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def _bitwise(torch, a, b) -> bool:
+    from repro_torch.optim.optimizers import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def paper_phase(torch, device_name):
+    """The paper's experiment on the card (Section 5.1, Tables 3/4/6/7):
+    damage1, damage2 and HAR twins; Fan (256-96-96-3) and HAR (561-96-96-6)
+    pre-trained, then all eight methods fine-tuned, each epoch one CUDA-graph
+    replay (``core.finetune``). Gates: the drift collapses and Skip2-LoRA
+    recovers it; every loss falls; Skip2-LoRA == Skip-LoRA; the cache full
+    after epoch 0 with a remainder batch; graph == eager loop bitwise; a
+    reduced config as on the CPU; no hand-written kernel launched. Then the
+    times: per-method epochs graphed and eager, Skip2-LoRA's populate and
+    cached epochs, the per-batch phase split, the cached batch against
+    LoRA-All's, the reduction beside the cost model, and a graphed epoch's
+    device busy share."""
+    from repro_torch.core import compute_model as CM
+    from repro_torch.core import finetune as F
+    from repro_torch.core import methods as M
+    from repro_torch.core import skip_cache as C
+    from repro_torch.data.synthetic import make_drifted_dataset
+    from repro_torch.models.mlp import MLPConfig, accuracy, mlp_forward, pretrain
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t_phase = time.perf_counter()
+    _reset_launches()
+    dev = torch.device("cuda")
+    gen = lambda seed: torch.Generator().manual_seed(seed)  # noqa: E731
+    cfgs = {"fan": MLPConfig(256, 96, 3, lora_rank=4), "har": MLPConfig(561, 96, 6, lora_rank=4)}
+    data = {name: make_drifted_dataset(gen(0), name, device=dev) for name in ("damage1", "damage2", "har")}
+    print("paper data: " + "; ".join(
+        f"{n} {ds.x_pre.shape[0]}/{ds.x_ft.shape[0]}/{ds.x_test.shape[0]} x {ds.n_features}, {ds.n_classes} classes"
+        for n, ds in data.items()) + " (pre-train/fine-tune/test rows)")
+
+    # pre-train, then the drifted accuracy before fine-tuning (Table 3 "Before")
+    backbones, before = {}, {}
+    for name, ds in data.items():
+        arch = "har" if name == "har" else "fan"
+        t0 = time.perf_counter()
+        bb = backbones[name] = pretrain(gen(1), cfgs[arch], ds.x_pre, ds.y_pre, epochs=10 if arch == "har" else 30)
+        with torch.no_grad():
+            before[name] = float(accuracy(mlp_forward(bb, ds.x_test, cfgs[arch])[0], ds.y_test))
+        print(f"paper pretrain {name}: {arch} {'-'.join(map(str, cfgs[arch].dims))}, "
+              f"{10 if arch == 'har' else 30} epochs (eager SGD) in {time.perf_counter() - t0:.2f} s; drifted test "
+              f"accuracy before fine-tuning {before[name]:.3f}")
+
+    # all eight methods, 40 epochs each, every epoch one graph replay
+    after = {}
+    for name, ds in data.items():
+        cfg = cfgs["har" if name == "har" else "fan"]
+        accs = []
+        for method in M.METHODS:
+            res = F.finetune(gen(2), method, cfg, backbones[name], ds.x_ft, ds.y_ft, epochs=PAPER_EPOCHS,
+                             batch_size=PAPER_BATCH, lr=PAPER_LR)
+            check(all(abs(v) < float("inf") for v in res.losses), f"paper {name} {method}: non-finite losses")
+            check(res.losses[-1] < res.losses[0], f"paper {name} {method}: loss {res.losses[0]:.4f} -> "
+                  f"{res.losses[-1]:.4f} did not fall")
+            after[name, method] = F.evaluate(method, cfg, res, ds.x_test, ds.y_test)
+            accs.append(f"{method} {after[name, method]:.3f} (loss {res.losses[0]:.3f} -> {res.losses[-1]:.4f})")
+        print(f"paper finetune {name}: {PAPER_EPOCHS} epochs, batch {PAPER_BATCH}, lr {PAPER_LR}, graph replays, "
+              f"test accuracy before {before[name]:.3f}, after: " + ", ".join(accs))
+    check(before["damage1"] < 0.5 and after["damage1", "skip2_lora"] > 0.8,
+          f"paper damage1: before {before['damage1']:.3f} (bar < 0.5), Skip2-LoRA after "
+          f"{after['damage1', 'skip2_lora']:.3f} (bar > 0.8)")
+
+    # the bars of Algorithm 1, and graph replays == the eager loop, bitwise
+    cfg, ds, bb = cfgs["fan"], data["damage1"], backbones["damage1"]
+    skip = F.finetune(gen(9), "skip_lora", cfg, bb, ds.x_ft, ds.y_ft, epochs=3)
+    skip2 = F.finetune(gen(9), "skip2_lora", cfg, bb, ds.x_ft, ds.y_ft, epochs=3)
+    diff = max((a - b).abs().max().item() for a, b in zip(tree_leaves(skip.trainable), tree_leaves(skip2.trainable)))
+    check(diff <= 1e-4, f"paper: Skip2-LoRA vs Skip-LoRA after 3 epochs differ by {diff:.3e} > 1e-4")
+    rem = F.finetune(gen(11), "skip2_lora", cfg, bb, ds.x_ft[:47], ds.y_ft[:47], epochs=1)
+    check(int(rem.cache.hit_count()) == 47, f"paper: {int(rem.cache.hit_count())} of 47 rows cached after epoch 0")
+    for method in M.METHODS:
+        runs = [F.finetune(gen(5), method, cfg, bb, ds.x_ft, ds.y_ft, epochs=3, loop=loop) for loop in (False, True)]
+        check(runs[0].losses == runs[1].losses and _bitwise(torch, runs[0].trainable, runs[1].trainable),
+              f"paper {method}: graph replays differ from the eager loop")
+        if method == "skip2_lora":
+            check(_bitwise(torch, runs[0].cache.slots, runs[1].cache.slots)
+                  and torch.equal(runs[0].cache.valid, runs[1].cache.valid),
+                  "paper skip2_lora: the graphed populate epoch's cache differs from the eager loop's")
+    print(f"paper algorithm 1: Skip2-LoRA vs Skip-LoRA after 3 epochs max |diff| {diff:.3e} (bar 1e-4); "
+          f"47 of 47 rows cached after epoch 0 (batch 20, a wrapped remainder); graph replays == eager loop "
+          f"bitwise (losses, trainable leaves) for all 8 methods x 3 epochs, and Skip2-LoRA's populate + "
+          f"cached epochs with their cache slots and validity")
+
+    # a reduced config on the card as on the CPU
+    small = MLPConfig(32, 24, 3, lora_rank=4)
+    g = gen(20)
+    x_s, y_s = torch.randn((40, 32), generator=g), torch.randint(0, 3, (40,), generator=g)
+    bb_s = pretrain(gen(21), small, x_s, y_s, epochs=2)
+    loss_err = leaf_err = 0.0
+    for method in M.METHODS:
+        cpu = F.finetune(gen(22), method, small, bb_s, x_s, y_s, epochs=3)
+        card = F.finetune(gen(22), method, small, _to(bb_s, dev), x_s.to(dev), y_s.to(dev), epochs=3)
+        for a, b in zip(card.losses, cpu.losses):
+            loss_err = max(loss_err, abs(a - b) / abs(b))
+        for a, b in zip(tree_leaves(card.trainable), tree_leaves(cpu.trainable)):
+            leaf_err = max(leaf_err, (a.cpu() - b).abs().max().item() / b.abs().max().item())
+    check(loss_err <= 1e-5 and leaf_err <= 1e-5,
+          f"paper small: card vs CPU losses {loss_err:.3e}, trainable leaves {leaf_err:.3e} (bar 1e-5 relative)")
+    print(f"paper small: 32-24-3 float32, 40 samples, 3 epochs, all 8 methods: card (graph replays, TF32 off) vs "
+          f"CPU (eager) max rel diff losses {loss_err:.3e}, trainable leaves {leaf_err:.3e} (of each leaf's "
+          f"largest value)")
+
+    # times: each method's epoch graphed and eager (host clock, synchronised, median of 5)
+    reduction, times = {}, {}
+    for arch, name in (("fan", "damage1"), ("har", "har")):
+        cfg, ds, bb = cfgs[arch], data[name], backbones[name]
+        n = ds.x_ft.shape[0]
+        idx = F.epoch_index_matrix(gen(30), n, PAPER_BATCH, device=dev)
+        steps = idx.shape[0]
+        ms = times[arch] = {}
+        busy = {}
+        for method in M.METHODS:
+            t, f = M.init_method(gen(31), cfg, bb, method)
+            if method == "skip2_lora":
+                c0 = C.cache_for_mlp(n, cfg.dims, device=dev)
+                for loop in (False, True):
+                    pop, cached = F.make_skip2_epoch_fns(cfg, loop=loop)
+                    t1, cache, _ = pop(t, f, c0, ds.x_ft, ds.y_ft, idx, PAPER_LR)
+                    ms["populate", loop] = _host_ms(torch, lambda: pop(t, f, c0, ds.x_ft, ds.y_ft, idx, PAPER_LR))
+                    ms[method, loop] = _host_ms(torch, lambda: cached(t1, cache, ds.x_ft, ds.y_ft, idx, PAPER_LR))
+                pop, cached = F.make_skip2_epoch_fns(cfg)
+                busy["populate"] = _busy(torch, lambda: pop(t, f, c0, ds.x_ft, ds.y_ft, idx, PAPER_LR))
+                busy[method] = _busy(torch, lambda: cached(t1, cache, ds.x_ft, ds.y_ft, idx, PAPER_LR))
+                continue
+            for loop in (False, True):
+                epoch = F.make_epoch_fn(method, cfg, loop=loop)
+                ms[method, loop] = _host_ms(torch, lambda: epoch(t, f, ds.x_ft, ds.y_ft, idx, PAPER_LR))
+            epoch = F.make_epoch_fn(method, cfg)
+            busy[method] = _busy(torch, lambda: epoch(t, f, ds.x_ft, ds.y_ft, idx, PAPER_LR))
+        rows = list(M.METHODS[:-1]) + ["populate", "skip2_lora"]
+        print(f"paper epoch {arch} ({name}, {steps} steps of batch {PAPER_BATCH}) on {device_name}, host ms, median "
+              f"of 5, graph replay / eager loop: " + ", ".join(
+                  f"{m if m != 'skip2_lora' else 'skip2_lora cached'} {ms[m, False]:.3f} / {ms[m, True]:.3f} "
+                  f"({ms[m, True] / ms[m, False]:.1f}x)" for m in rows))
+        print(f"paper trace {arch}: a graphed epoch's device time (torch.profiler) over its profiled wall time "
+              f"and over its unprofiled median above, and its device ops a step: " + ", ".join(
+                  f"{m if m != 'skip2_lora' else 'skip2_lora cached'} {busy[m][0]:.3f} ms, "
+                  f"{100 * busy[m][0] / busy[m][1]:.1f}% of {busy[m][1]:.3f} / {100 * busy[m][0] / ms[m, False]:.1f}% "
+                  f"of {ms[m, False]:.3f}, {busy[m][2] / steps:.1f}" for m in rows))
+        epochs = PAPER_RUN_EPOCHS[arch]
+        model = 1 - (CM.method_cost("skip2_lora", PAPER_BATCH, cfg.dims, 4,
+                                    cache_hit_rate=CM.expected_hit_rate(epochs)).total
+                     / CM.method_cost("lora_all", PAPER_BATCH, cfg.dims, 4).total)
+        for loop in (False, True):
+            t_skip2 = ms["populate", loop] + (epochs - 1) * ms["skip2_lora", loop]
+            reduction[arch, loop] = 1 - t_skip2 / (epochs * ms["lora_all", loop])
+        print(f"paper reduction {arch}: {epochs} epochs of Skip2-LoRA (populate + {epochs - 1} cached) against "
+              f"LoRA-All, from the epoch times above: graph replays {100 * reduction[arch, False]:.1f}%, eager loop "
+              f"{100 * reduction[arch, True]:.1f}%; cost model (FLOPs) {100 * model:.1f}%")
+
+    # per batch (eager): the forward / backward / update split, and the cached batch against LoRA-All's
+    cfg, ds, bb = cfgs["fan"], data["damage1"], backbones["damage1"]
+    xb, yb = ds.x_ft[:PAPER_BATCH], ds.y_ft[:PAPER_BATCH]
+    split = []
+    for method in M.METHODS:
+        fwd_m = "skip_lora" if method == "skip2_lora" else method
+        t, f = M.init_method(gen(31), cfg, bb, method)
+        ph = M.make_phase_fns(fwd_m, cfg)
+        grads = ph["backward"](t, f, xb, yb)
+        split.append(f"{method} {_host_ms(torch, lambda: ph['forward'](t, f, xb), 20):.3f} / "
+                     f"{_host_ms(torch, lambda: ph['backward'](t, f, xb, yb), 20):.3f} / "
+                     f"{_host_ms(torch, lambda: ph['update'](t, grads, 0.0), 20):.3f}")
+    print(f"paper phases fan on {device_name}, one batch of {PAPER_BATCH} eager, host ms (median of 20), forward / "
+          f"backward / update: " + ", ".join(split))
+    t, f = M.init_method(gen(31), cfg, bb, "lora_all")
+    lora_ms = _host_ms(torch, lambda: M.train_step("lora_all", cfg, t, f, xb, yb, PAPER_LR), 20)
+    t, f = M.init_method(gen(31), cfg, bb, "skip2_lora")
+    cache = C.cache_for_mlp(ds.x_ft.shape[0], cfg.dims, device=dev)
+    bidx = torch.arange(PAPER_BATCH, device=dev)
+    F._populate_step(cfg)(t, f, cache, bidx, xb, yb, PAPER_LR)
+    cached_ms = _host_ms(torch, lambda: F._cached_step(cfg)(t, cache, bidx, xb, yb, PAPER_LR), 20)
+    graphed = times["fan"]["skip2_lora", False] / times["fan"]["lora_all", False]
+    print(f"paper batch fan: Skip2-LoRA cached step {cached_ms:.3f} ms against LoRA-All's {lora_ms:.3f} ms (eager, "
+          f"host ms, median of 20): {100 * (1 - cached_ms / lora_ms):.1f}% less; a graphed cached epoch against a "
+          f"graphed LoRA-All epoch: {100 * (1 - graphed):.1f}% less")
+
+    counts = {k: v for k, v in _launches().items() if v}
+    from repro_torch.kernels.skip_lora import kernel as K
+
+    check(not counts and not K.ROW_LAUNCHES, f"paper: hand-written kernels launched on the MLP path: {counts}")
+    print(f"paper phase: {time.perf_counter() - t_phase:.1f} s, no hand-written kernel launched (the MLP path "
+          f"reaches none, as in the reference)")
+
+
 def _tensor_core_ptxas(logs):
     """One line per instantiation of the tensor-core kernels from nvcc's
     ``-Xptxas -v`` output (registers, shared memory, spills): K4's bf16
@@ -2475,6 +2707,7 @@ def main() -> None:
     cli_drill_check(torch)
     sched_launches = scheduler_phase(torch, smi)
     small_scheduler_check(torch)
+    paper_phase(torch, smi)
     # each kernel's launches over every main path that runs it
     for counts in (fleet_launches, serve_launches, session_launches, sched_launches):
         for kname, n in counts.items():

@@ -21,6 +21,9 @@ Layouts:
     KV pool {"k", "v"}: (L, NB, block, n_kv, hd), whose reference
     (``KVBlockPool.data``) is the serve-cache tree with the batch axis read
     as the block axis.
+  - the paper's MLP: backbones and ``init_method`` splits are the same
+    nested dicts and lists in both packages; a ``DriftedDataset``'s labels
+    come across as int64.
   - Skip-Caches: the reference's ``SkipCache`` (``slots`` dict + ``valid``)
     and the port's have the same slots in the same layouts.
   - optimizer states: ``OptState`` (step, mu, nu) in both packages, with
@@ -199,3 +202,35 @@ def session_from_reference(arrays: dict, meta: dict, cfg: ModelConfig, *, device
             raise ValueError(f"kv pools of shards {sorted(arrays['kv_pool'])}: the port's session has one")
         out["kv_pool"] = {"0": _stack_layers(arrays["kv_pool"]["0"], cfg, device)}
     return out, new_meta
+
+
+def mlp_from_reference(backbone: Params, *, device="cpu") -> Params:
+    """The reference's MLP backbone ({"fc": [{"W", "b"}], "bn": [{"gamma",
+    "beta", "mean", "var"}]}, numpy leaves) -> the port's, as tensors."""
+    return _map(lambda x: to_tensor(x, device), backbone)
+
+
+def method_params_from_reference(trainable: Params, frozen: Params, *, device="cpu") -> tuple[Params, Params]:
+    """A reference ``methods.init_method`` split (numpy leaves) -> the port's
+    (trainable, frozen): the same nested dicts and lists, as tensors."""
+    conv = lambda x: to_tensor(x, device)  # noqa: E731
+    return _map(conv, trainable), _map(conv, frozen)
+
+
+def method_params_to_reference(trainable: Params, frozen: Params) -> tuple[Params, Params]:
+    """The port's (trainable, frozen) -> numpy trees in the reference's
+    layout. The inverse of ``method_params_from_reference``."""
+    return _map(to_numpy, trainable), _map(to_numpy, frozen)
+
+
+def dataset_from_reference(ds, *, device="cpu"):
+    """The reference's ``DriftedDataset`` (arrays or numpy) -> the port's:
+    float32 features as they are, labels as int64."""
+    from repro_torch.data.synthetic import DriftedDataset
+
+    conv = lambda x, dtype: to_tensor(np.asarray(x), device).to(dtype)  # noqa: E731
+    return DriftedDataset(
+        ds.name,
+        *(conv(getattr(ds, f"{kind}_{split}"), torch.float32 if kind == "x" else torch.long)
+          for split in ("pre", "ft", "test") for kind in ("x", "y")),
+    )

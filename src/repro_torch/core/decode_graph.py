@@ -49,19 +49,17 @@ steps' draws.
 from __future__ import annotations
 
 import contextlib
-import gc
 import time
-from collections import Counter, OrderedDict
+from collections import Counter
 from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core.adapter_pool import grouped_plan
+from repro_torch.core.cuda_graph import GraphCache, GraphCaptureError, capture, on_side_stream
 from repro_torch.models import lm as LM
 
-
-class GraphCaptureError(RuntimeError):
-    """A decode step could not be captured into a CUDA graph."""
+__all__ = ["GRAPHS", "GraphCache", "GraphCaptureError", "LaunchTape", "chunk", "decode", "segments"]
 
 
 def _counters() -> tuple[dict, ...]:
@@ -186,12 +184,7 @@ class _Entry:
         if self.sampling:
             gen = torch.Generator(device=self.device)
             gen.set_state(state)
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self.body(1, gen)
-        main.wait_stream(side)
+        on_side_stream(lambda: self.body(1, gen), self.device)
         self.stats["eager_steps"] += 1
         return gen.get_state() if gen is not None else None
 
@@ -205,19 +198,8 @@ class _Entry:
             gen = torch.Generator(device=self.device)
             graph.register_generator_state(gen)
         tape = LaunchTape()
-        # No cycle collection inside the capture: freeing another graph there
-        # (``cudaGraphExecDestroy``) would invalidate this one.
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with tape.recording(), torch.cuda.graph(graph, pool=self._pool):
-                self.body(n, gen)
-        except (RuntimeError, ValueError) as err:
-            raise GraphCaptureError(
-                f"capturing {n} step(s) of {self.what} into a CUDA graph failed: {err}") from err
-        finally:
-            if collecting:
-                gc.enable()
+        with tape.recording():
+            capture(graph, lambda: self.body(n, gen), what=f"{n} step(s) of {self.what}", pool=self._pool)
         if self._pool is None:
             self._pool = graph.pool()
         self._graphs[n] = got = (graph, tape, gen)
@@ -229,40 +211,6 @@ class _Entry:
             graph.reset()
         self._graphs.clear()
         self._pool = self.live = None
-
-
-class GraphCache:
-    """The ``capacity`` most recently used graph entries (LRU). ``stats``
-    counts hits, misses, captures, replays, eager warm-up steps and
-    evictions, and sums the host seconds spent in ``replay()`` calls
-    (``replay_s``)."""
-
-    def __init__(self, capacity: int = 4):
-        if capacity < 1:
-            raise ValueError(f"graph cache capacity {capacity} < 1")
-        self.capacity = capacity
-        self._entries: OrderedDict[tuple, _Entry] = OrderedDict()
-        self.stats: Counter = Counter()
-
-    def __len__(self) -> int:
-        return len(self._entries)
-
-    def entry(self, key: tuple, make: Callable[[], _Entry]) -> _Entry:
-        e = self._entries.get(key)
-        if e is not None:
-            self.stats["hits"] += 1
-            self._entries.move_to_end(key)
-            return e
-        self.stats["misses"] += 1
-        while len(self._entries) >= self.capacity:
-            self._entries.popitem(last=False)[1].free()
-            self.stats["evictions"] += 1
-        e = self._entries[key] = make()
-        return e
-
-    def clear(self) -> None:
-        while self._entries:
-            self._entries.popitem(last=False)[1].free()
 
 
 #: the graphs ``lm.decode_scan`` and the scheduler's chunks replay

@@ -58,7 +58,9 @@ def cache_write(cache: SkipCache, idx: torch.Tensor, values: dict[str, torch.Ten
     idx = idx.long()
     for name, val in values.items():
         cache.slots[name][idx] = val.to(cache.slots[name].dtype)
-    cache.valid[idx] = True
+    # a fill, not ``valid[idx] = True``: that copies a CPU scalar to the
+    # device, which a CUDA graph capture refuses
+    cache.valid.index_fill_(0, idx, True)
     return cache
 
 

@@ -32,7 +32,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "          'repro_torch.kernels.skip_lora.quant', 'repro_torch.core.batch_plan',\n"
         "          'repro_torch.core.fleet_finetune', 'repro_torch.launch.fleet',\n"
         "          'repro_torch.kernels.flash_attn.paged', 'repro_torch.core.kv_pool',\n"
-        "          'repro_torch.core.prefix_index', 'repro_torch.core.scheduler'):\n"
+        "          'repro_torch.core.prefix_index', 'repro_torch.core.scheduler',\n"
+        "          'repro_torch.models.mlp', 'repro_torch.core.methods', 'repro_torch.core.finetune',\n"
+        "          'repro_torch.core.compute_model', 'repro_torch.data.synthetic',\n"
+        "          'repro_torch.core.cuda_graph', 'repro_torch.examples.quickstart'):\n"
         "    assert m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
