@@ -139,6 +139,25 @@ Phases, each printing one line (or a few) before the last line:
      graphed epoch's busy share (torch.profiler), the per-batch forward /
      backward / update split, and Skip2-LoRA's time against LoRA-All's at
      the paper's epoch counts beside the cost model's FLOP reduction.
+ 13. tooling (``kernels.autotune``, ``launch.roofline``, ``launch.train``),
+     with the launch counters reset before and after it, so the kernels line
+     counts the main paths only: ``tune_grouped`` of K5, K6 and K7 (int4,
+     nf4) at the serve cell's decode step (4 rows in 4 slots) and fleet
+     serving's (one row in each of 5 slots), and of K5 at the fleet step
+     (M 1024 in 4 slots), every (tile, geometry) candidate timed beside its
+     roofline prediction and holding the default's bits, from a cold cache
+     under build/, then a warm pass that is all cache hits with the same
+     choices; one winner installed (``apply_choice``) and reset;
+     ``tune_decode_unroll`` (graph replays of 1, 2 or 4 dispatches) and
+     ``tune_kv_block`` (K10) at full width. The full-backprop trainer
+     (``launch.train --full --steps 4 --batch 8 --seq 128``) per step and
+     with ``--scan-chunk 2`` (one CUDA-graph replay a chunk): losses finite
+     and falling, the chunked losses and final parameters bitwise the
+     per-step ones, step ms and peak memory. Then ``model_flops``, device ms
+     and MFU_model against the card's bf16 peak for the cached and populate
+     steps, a graphed decode step and the trainer's step, and the cached
+     step's readout against the fp32 peak. The tuned defaults are the
+     untuned ones afterwards.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
 step's must take many rows, and each ``generate_grouped`` call's and each
@@ -152,6 +171,7 @@ exits nonzero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -512,6 +532,8 @@ def serve_phase(torch, device_name):
               f"!= base row {base[0].tolist()}")
         check(not torch.equal(out[1:], base[1:]), f"pool {compress}: adapters changed no token")
         bits = _graph_vs_loop(torch, cfg, params, prompts, pool, idx)
+        if compress is None:
+            STEP_MS["decode"] = _decode_step_ms(torch, cfg, params, prompts, pool, idx)
         # one replay a call: the unroll-32 graph, warm (captured by _graph_vs_loop's decode_scan at unroll 32)
         generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, unroll=NEW, device=dev)
         torch.cuda.synchronize()
@@ -561,6 +583,28 @@ def _graph_vs_loop(torch, cfg, params, prompts, pool, idx):
                   f"{what}: graph caches != loop caches")
             check(torch.equal(g.get_state(), want_g), f"{what}: generator state differs")
     return "graph == loop bitwise (tokens, caches, generator) at temperature 0 and 0.8, unroll 1, 3, 32"
+
+
+#: device ms of the steps the main paths run at full width (CUDA events,
+#: L2 flushed), for the roofline lines of the tooling phase
+STEP_MS: dict = {}
+
+
+def _decode_step_ms(torch, cfg, params, prompts, pool, idx):
+    """Device ms of one graphed decode step of the serve cell: one replay of
+    a graph of all NEW steps (``decode_scan`` at unroll NEW) over one
+    prefill's caches, divided by NEW. The steps write K/V at positions
+    PROMPT to PROMPT + NEW - 1 and read only the positions before their own,
+    so every call does the same work over the same caches."""
+    from repro_torch.models import lm as LM
+
+    b, s = prompts.shape
+    caches = LM.init_serve_caches(cfg, b, s + NEW, device=prompts.device)
+    logits, caches = LM.serve_prefill_grouped(params, cfg, prompts, caches, pool.pools(), idx)
+    tok0 = LM.sample_token(logits, 0.0)
+    run = lambda: LM.decode_scan(params, cfg, tok0, s, caches, max_new=NEW, pools=pool.pools(),  # noqa: E731
+                                 idx=idx, unroll=NEW)
+    return time_ms(run, reps=5, spin=STEP_SPIN) / NEW
 
 
 def trace_phase(torch, device_name, cfg, params, prompts, pool, idx):
@@ -994,6 +1038,9 @@ def _step_split(torch, run, device_name):
         ("step", cached), ("readout", readout), ("k1", k1), ("k2", k2), ("adamw", adam), ("populate", populate))}
     total = ms["step"]
     m, d, v = x.shape[1], x.shape[2], run.cfg.vocab_size
+    STEP_MS[f"finetune_cached {mode}"] = total
+    STEP_MS[f"finetune_populate {mode}"] = ms["populate"]
+    STEP_MS[f"readout {mode}"] = ms["readout"]
     tflops = 2 * 2 * m * d * v / (ms["readout"] * 1e-3) / 1e12
     rest = total - ms["readout"] - ms["k1"] - ms["k2"] - ms["adamw"]
     busy = {name: _busy(torch, fn) for name, fn in (("step", cached), ("populate", populate))}
@@ -2617,6 +2664,245 @@ def paper_phase(torch, device_name):
           f"reaches none, as in the reference)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the kernel tooling (autotune, roofline) and the full-backprop
+# trainer
+# ---------------------------------------------------------------------------
+
+TOOLING_DIR = ROOT / "build" / "tooling"
+#: grouped forwards whose tile / geometry candidates may differ from the
+#: default's bits, with the tolerance that holds them instead (relative to
+#: the largest output); empty: every candidate must give the default's bits
+TILE_TOL: dict[str, float] = {}
+
+
+def _tune_cases(torch):
+    """(label, variants, x, a_pool, b_pool, idx) of the sweeps at
+    stablelm-1.6b widths (L 24, D 2048, R 8, bf16 rows, fp32 pools): the
+    serve cell's decode step (4 rows in 4 slots, slot 0 the zero slot), fleet
+    serving's (one row in each of 5 slots of a 6-slot pool) and, for K5
+    alone, the fleet step (M 1024 in 4 slots of 256)."""
+    from repro_torch.kernels import autotune as AT
+
+    x, (a, b), idx = _case(torch, torch.bfloat16, BATCH, (1,) * BATCH, seed=21, int8=False)
+    yield "serve-decode", AT.VARIANTS, x, a, b, idx
+    x, (a, b), idx = _case(torch, torch.bfloat16, 5, SERVE_DECODE, seed=22, int8=False)
+    yield "fleet-serve-decode", AT.VARIANTS, x, a, b, idx
+    x, a, b, _, idx = _fleet_rows(torch, (256,) * FLEET_TENANTS, seed=23)
+    yield "fleet-step", ("grouped",), x, a, b, idx
+
+
+def _autotune_part(torch, device_name):
+    """``tune_grouped`` over every case and variant with a real timer and a
+    cold cache, each candidate's output held against the default's bits; a
+    warm pass that must be all cache hits with the same choices;
+    ``apply_choice`` of one winner and its reset; ``tune_decode_unroll`` at
+    the decode shape and ``tune_kv_block`` at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import kv_pool as KV
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels.skip_lora import kernel as K
+    from repro_torch.kernels.skip_lora import ops
+
+    cfg = get_config(ARCH)
+    TOOLING_DIR.mkdir(parents=True, exist_ok=True)
+    path = TOOLING_DIR / "autotune.json"
+    path.unlink(missing_ok=True)
+    cache = AT.AutotuneCache(str(path))
+    timer = AT.median_timer(iters=20, warmup=3)
+    base = AT.config_key(cfg, RANK)
+    choices, decode = {}, None
+    for label, variants, x, a, b, idx in _tune_cases(torch):
+        m = x.shape[1]
+        for variant in variants:
+            record = []
+            ch = AT.tune_grouped(x, a, b, idx, variant, config=f"{base}-{label}", cache=cache, timer=timer,
+                                 record=record)
+            check(ch.source == "measured" and ch.time_s <= ch.default_time_s, f"autotune {variant} {label}: {ch}")
+            want = next(out for tm, g, _, _, out in record if (tm, g) == (ops.TM, "rule"))
+            check(bool(torch.isfinite(want.float()).all()), f"autotune {variant} {label}: non-finite output")
+            worst = 0.0
+            for tm, g, _, _, out in record:
+                if torch.equal(out, want):
+                    continue
+                err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+                check(variant in TILE_TOL and err <= TILE_TOL[variant],
+                      f"autotune {variant} {label}: tile {tm} {g} differs from the default's bits by {err:.3e} "
+                      f"of the largest output")
+                worst = max(worst, err)
+            cands = "; ".join(f"{tm}/{g} {t * 1e6:.1f} ({p * 1e6:.2f})" for tm, g, t, p, _ in record)
+            bits = ("every candidate bitwise the default's" if not worst
+                    else f"candidates within {worst:.2e} of the default's largest output (TILE_TOL)")
+            print(f"autotune {variant} {label} M={m} on {device_name}: tm/geometry measured us (predicted us): "
+                  f"{cands}; winner tm {ch.tm} {ch.grid_order} {ch.time_s * 1e6:.1f} us against the default "
+                  f"(tm {ops.TM}, rule) {ch.default_time_s * 1e6:.1f} us ({ch.default_time_s / ch.time_s:.2f}x), "
+                  f"predicted {ch.predicted_s * 1e6:.2f} us; {bits}")
+            choices[variant, label] = ch
+            if (variant, label) == ("grouped", "serve-decode"):
+                decode = (x, a, b, idx, ch)
+    check(cache.misses == len(choices) and cache.hits == 0, f"cold pass: {cache.hits} hits, {cache.misses} misses")
+
+    def poisoned(fn):
+        raise AssertionError("a warm autotune pass timed a candidate")
+
+    warm = AT.AutotuneCache(str(path))
+    for label, variants, x, a, b, idx in _tune_cases(torch):
+        for variant in variants:
+            ch = AT.tune_grouped(x, a, b, idx, variant, config=f"{base}-{label}", cache=warm, timer=poisoned)
+            was = choices[variant, label]
+            check(ch.source == "cache" and (ch.tm, ch.grid_order) == (was.tm, was.grid_order),
+                  f"warm autotune {variant} {label}: {ch} != {was}")
+    check(warm.hits == len(choices) and warm.misses == 0, f"warm pass: {warm.hits} hits, {warm.misses} misses")
+    print(f"autotune warm pass: {warm.hits} cache hits, 0 misses, the same {len(choices)} choices ({path.name})")
+
+    x, a, b, idx, ch = decode
+    want = ops.skip_lora_grouped(x[:, :, None], a, b, idx)[:, 0]
+    K.ROW_LAUNCHES.clear()
+    try:
+        AT.apply_choice(ch)
+        check(ops.get_default_tile() == (ch.tm, ch.grid_order), f"apply_choice installed {ops.get_default_tile()}")
+        plan = ops.grouped_plan(idx, a.shape[0])
+        check(ops.plan_tile(plan) == ch.tm, "the plan ignores the installed tile")
+        got = ops.skip_lora_grouped(x[:, :, None], a, b, idx, plan=plan)[:, 0]
+        check(torch.equal(got, want), "the installed winner changed the serve decode's bits")
+        taken = ch.grid_order if ch.grid_order != "rule" else K.grouped_fwd_geometry(x.shape[1], plan[0].numel())
+        check(K.ROW_LAUNCHES == {("grouped_skip_sum_fwd", taken): 1}, f"row classes {K.ROW_LAUNCHES}")
+    finally:
+        ops.set_default_tile(None, None)
+
+    times = []
+
+    def recording(fn, real=AT.median_timer(iters=10, warmup=2)):
+        times.append(real(fn))
+        return times[-1]
+
+    u, t = AT.tune_decode_unroll(x, a, b, idx, tm=ch.tm, grid_order=ch.grid_order, steps=16, timer=recording)
+    check(u in AT.UNROLL_CANDIDATES and t == min(times), f"tune_decode_unroll: {u}, {t}, {times}")
+    per = ", ".join(f"unroll {c} {tt * 1e6:.1f} us" for c, tt in zip(AT.UNROLL_CANDIDATES, times))
+    print(f"autotune decode unroll (K5, serve decode, tm {ch.tm} {ch.grid_order}, 16 dispatches as 16 / unroll "
+          f"graph replays) on {device_name}: {per}; winner unroll {u}")
+    times.clear()
+    kv = AT.tune_kv_block(cfg, config=base, seq=64, batch=4, cache=cache, timer=recording)
+    blocks = sorted(set(AT.KV_BLOCK_CANDIDATES) | {KV.DEFAULT_BLOCK})
+    check(len(times) == len(blocks) and kv.time_s == min(times), f"tune_kv_block: {kv}, {times}")
+    per = ", ".join(f"block {blk} {tt * 1e6:.1f} us" for blk, tt in zip(blocks, times))
+    print(f"autotune kv block ({ARCH}, seq 64, batch 4: publish + gather_blocks, K10) on {device_name}: {per}; "
+          f"winner block {kv.tm} ({kv.default_time_s / kv.time_s:.2f}x the default block {KV.DEFAULT_BLOCK})")
+    check(KV.get_default_block() == KV.DEFAULT_BLOCK, "tune_kv_block changed the default block")
+
+
+def _trainer_part(torch, device_name):
+    """``launch/train.py --full --steps 4 --batch 8 --seq 128`` per step and
+    with ``--scan-chunk 2`` (one CUDA-graph replay a chunk): losses finite
+    and the last below the first, the chunked losses and final parameters bitwise the
+    per-step ones; step ms both ways and the peak memory; a replayed step's
+    time for the roofline."""
+    import shutil
+    import statistics
+
+    from repro_torch.core import decode_graph as DG
+    from repro_torch.launch import train as TT
+    from repro_torch.optim.optimizers import tree_leaves
+
+    steps, bsz, seq = 4, 8, 128
+    base = TOOLING_DIR / "train_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    DG.GRAPHS.clear()   # the serve and scheduler phases' graphs hold full-width weights and caches
+    argv = ["--arch", ARCH, "--full", "--steps", str(steps), "--batch", str(bsz), "--seq", str(seq),
+            "--device", "cuda", "--ckpt-every", "1000", "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = TT.main([*argv, "--ckpt-dir", str(base / "step")])
+    peak_step = torch.cuda.max_memory_allocated() / 2**30
+    losses = per_step["losses"]
+    check(len(losses) == steps and all(map(math.isfinite, losses)), f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    step_ms = 1e3 * statistics.median(per_step["step_s"][1:])
+    params = per_step["params"]
+    del per_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    chunked = TT.main([*argv, "--ckpt-dir", str(base / "chunk"), "--scan-chunk", "2"])
+    peak_chunk = torch.cuda.max_memory_allocated() / 2**30
+    check(chunked["chunks"] == [2, 2], f"train chunks {chunked['chunks']}")
+    check(chunked["losses"] == losses, f"train: chunked losses {chunked['losses']} != per-step {losses}")
+    same = all(torch.equal(p, q) for p, q in zip(tree_leaves(chunked["params"]), tree_leaves(params), strict=True))
+    check(same, "train: the chunked run's final parameters differ from the per-step run's")
+    # a replay holds only device work: its synchronised host time is the
+    # steps' device time (an eager step's thousands of launches outlast any
+    # spin that holds the stream, so CUDA events around one would count the
+    # host's issue too)
+    chunk_ms = STEP_MS["train"] = 1e3 * chunked["step_s"][-1] / chunked["chunks"][-1]
+    first_ms = 1e3 * chunked["step_s"][0] / chunked["chunks"][0]
+    del chunked, params
+    TT.GRAPHS.clear()
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"train full backprop {ARCH} full width (24 layers, bf16, AdamW fp32 moments) on {device_name}: "
+          f"{steps} steps of batch {bsz} x seq {seq}, losses {' / '.join(f'{v:.4f}' for v in losses)}; per-step "
+          f"path {step_ms:.1f} ms a step (host clock, median of steps 1-3), peak {peak_step:.1f} GiB; "
+          f"--scan-chunk 2: {chunk_ms:.1f} ms a step in a replay (the first chunk, warm-up and capture included, "
+          f"{first_ms:.1f}), peak {peak_chunk:.1f} GiB; chunked losses and final parameters bitwise the per-step "
+          f"run's")
+
+
+def _roofline_part(device_name):
+    """model_flops, measured device ms and MFU_model against the card's bf16
+    peak for the steps the main paths time at full width, and the cached
+    step's readout against the fp32 peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import flops as FL
+    from repro_torch.launch import roofline as RL
+
+    cfg = get_config(ARCH)
+    rows = [("finetune_cached", "finetune_cached full", (8, 128)),
+            ("finetune_cached", "finetune_cached int8", (8, 128)),
+            ("finetune_populate", "finetune_populate full", (8, 128)),
+            ("finetune_populate", "finetune_populate int8", (8, 128)),
+            ("decode", "decode", (BATCH, PROMPT + NEW)),
+            ("train", "train", (8, 128))]
+    for step, key, shape in rows:
+        check(key in STEP_MS, f"roofline: no device time for {key}")
+        mf, ms = FL.model_flops(cfg, shape, step), STEP_MS[key]
+        how = "a chunk replay's step" if step == "train" else "CUDA events"
+        print(f"roofline {key} {ARCH} batch {shape[0]} x {'context' if step == 'decode' else 'seq'} {shape[1]} on "
+              f"{device_name}: model_flops {mf:.4e}, device {ms:.3f} ms ({how}), MFU_model "
+              f"{RL.mfu(mf, ms / 1e3):.5f} of PEAK_FLOPS {RL.PEAK_FLOPS:.3e} ({mf / (ms / 1e3) / 1e12:.2f} TFLOP/s)")
+    ro = FL.readout_flops(cfg, 8 * 128)
+    ms, cached = STEP_MS["readout full"], STEP_MS["finetune_cached full"]
+    print(f"roofline readout of the cached step (full) on {device_name}: model_flops counts 3 x readout_flops = "
+          f"{3 * ro:.4e} (of {FL.model_flops(cfg, (8, 128), 'finetune_cached'):.4e}); the port computes 2 x = "
+          f"{2 * ro:.4e} in {ms:.3f} ms ({100 * ms / cached:.1f}% of the step) = {2 * ro / (ms / 1e3) / 1e12:.2f} "
+          f"TFLOP/s, {RL.mfu(2 * ro, ms / 1e3, peak=RL.PEAK_FLOPS_FP32):.4f} of PEAK_FLOPS_FP32 "
+          f"{RL.PEAK_FLOPS_FP32:.2e}")
+
+
+def tooling_phase(torch, device_name):
+    """The kernel tooling and the trainer, with the launch counters reset
+    around them: nothing here adds to the main paths' counts. The defaults
+    (tile, geometry, KV block) are the untuned ones afterwards."""
+    from repro_torch.core import kv_pool as KV
+    from repro_torch.kernels.skip_lora import kernel as K
+    from repro_torch.kernels.skip_lora import ops
+
+    t_phase = time.perf_counter()
+    print(device_name)
+    _reset_launches()
+    try:
+        _autotune_part(torch, device_name)
+        _trainer_part(torch, device_name)
+        _roofline_part(device_name)
+    finally:
+        ops.set_default_tile(None, None)
+        KV.set_default_block(None)
+        _reset_launches()
+    check(ops.get_default_tile() == (ops.TM, "rule") and KV.get_default_block() == KV.DEFAULT_BLOCK,
+          "the tooling phase left a tuned default installed")
+    check(not K.ROW_LAUNCHES and not any(_launches().values()), "launch counters not reset")
+    print(f"tooling phase: {time.perf_counter() - t_phase:.1f} s; defaults restored (tm {ops.TM}, rule, kv block "
+          f"{KV.DEFAULT_BLOCK}); launch counters reset: the kernels line counts the main paths only")
+
+
 def _tensor_core_ptxas(logs):
     """One line per instantiation of the tensor-core kernels from nvcc's
     ``-Xptxas -v`` output (registers, shared memory, spills): K4's bf16
@@ -2708,6 +2994,7 @@ def main() -> None:
     sched_launches = scheduler_phase(torch, smi)
     small_scheduler_check(torch)
     paper_phase(torch, smi)
+    tooling_phase(torch, smi)
     # each kernel's launches over every main path that runs it
     for counts in (fleet_launches, serve_launches, session_launches, sched_launches):
         for kname, n in counts.items():

@@ -488,17 +488,18 @@ def _pool_slots(pools: dict[str, torch.Tensor]) -> int:
 
 
 def grouped_plan(pools: Optional[dict[str, torch.Tensor]], idx: Optional[torch.Tensor], *,
-                 use_kernel: bool = True, fused: bool = False, positions: int = 1):
+                 use_kernel: bool = True, fused: bool = False, positions: int = 1, tm: Optional[int] = None):
     """The grouped kernels' plan for rows ``idx`` (B,), ``positions`` each,
-    over ``pools`` (``ops.grouped_plan``), to hand to every
-    ``grouped_skip_sum`` over the same rows with the same ``use_kernel`` and
-    ``fused``; None where that sum launches no kernel (no pools, the CPU's
-    plain versions, ``use_kernel=False``, ``fused``)."""
+    over ``pools`` (``ops.grouped_plan``, at row tile ``tm``, None: the
+    default tile), to hand to every ``grouped_skip_sum`` over the same rows
+    with the same ``use_kernel`` and ``fused``; None where that sum launches
+    no kernel (no pools, the CPU's plain versions, ``use_kernel=False``,
+    ``fused``)."""
     from repro_torch.kernels.skip_lora import ops
 
     if pools is None or not use_kernel or fused or idx.device.type != "cuda":
         return None
-    return ops.grouped_plan(idx, _pool_slots(pools), positions)
+    return ops.grouped_plan(idx, _pool_slots(pools), positions, tm=tm)
 
 
 def grouped_skip_sum(

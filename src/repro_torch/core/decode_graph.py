@@ -57,6 +57,7 @@ import torch
 
 from repro_torch.core.adapter_pool import grouped_plan
 from repro_torch.core.cuda_graph import GraphCache, GraphCaptureError, capture, on_side_stream
+from repro_torch.kernels.skip_lora.ops import plan_tile
 from repro_torch.models import lm as LM
 
 __all__ = ["GRAPHS", "GraphCache", "GraphCaptureError", "LaunchTape", "chunk", "decode", "segments"]
@@ -226,10 +227,11 @@ def _generator(generator: Optional[torch.Generator], device: torch.device) -> to
 
 
 def _load_plan(plan, pools, idx) -> None:
-    """The call's grouping plan, built once, into the entry's static plan
-    buffers."""
+    """The call's grouping plan, built once at the tile the entry was
+    captured with (a later ``ops.set_default_tile`` leaves a captured graph
+    as it is), into the entry's static plan buffers."""
     if plan is not None:
-        for buf, new in zip(plan, grouped_plan(pools, idx)):
+        for buf, new in zip(plan, grouped_plan(pools, idx, tm=plan_tile(plan))):
             buf.copy_(new)
 
 

@@ -226,6 +226,21 @@ def grouped_fwd_geometry(m: int, m_pad: int) -> str:
     return "few_rows" if 4 * m <= 3 * m_pad else "many_rows"
 
 
+#: the geometries a grouped forward can be forced to ("rule": ``grouped_fwd_geometry``'s pick)
+GEOMETRIES = ("rule", "few_rows", "many_rows")
+
+
+def _launch_geometry(dtype: torch.dtype, m: int, m_pad: int, geometry) -> str:
+    """The geometry a grouped forward takes: ``geometry`` when it forces one
+    on the tensor-core route, else the rule ``grouped_fwd_geometry`` (the
+    CUDA-core route has one geometry, and counts its launches by the rule's
+    row class)."""
+    check(geometry in (None,) + GEOMETRIES, f"unknown geometry {geometry!r}")
+    if geometry in (None, "rule") or grouped_fwd_route(dtype) != "tensor_cores":
+        return grouped_fwd_geometry(m, m_pad)
+    return geometry
+
+
 def _grouped_scratch(x, lnum, m_pad, r):
     """z of the grouped forwards (and K1 and K3) for rows ``x``: (M_pad,
     L * RP) bf16 on the tensor cores (``bwd_scratch_rank``), (L, M_pad, R)
@@ -243,14 +258,16 @@ def grouped_skip_sum_fwd(
     row_src: torch.Tensor,    # (n_tiles * tm,) int32 original row or -1
     tile_slot: torch.Tensor,  # (n_tiles,) int32, non-decreasing
     tm: int,
+    geometry: str | None = None,
 ) -> torch.Tensor:
     """K5: float-pool grouped skip-sum on the card -> (M, D) in x.dtype, on
     the route ``grouped_fwd_route`` gives (and, on the tensor cores, the
-    geometry ``grouped_fwd_geometry`` gives); z in ``_grouped_scratch``."""
+    geometry ``geometry`` forces or else ``grouped_fwd_geometry`` gives,
+    ``_launch_geometry``); z in ``_grouped_scratch``."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     _, r = _check_float_pool(x, a_pool, b_pool, lnum, d)
     m_pad = n_tiles * tm
-    geometry = grouped_fwd_geometry(m, m_pad)
+    geometry = _launch_geometry(x.dtype, m, m_pad, geometry)
     z = _grouped_scratch(x, lnum, m_pad, r)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     LIB.launch(
@@ -272,10 +289,11 @@ def grouped_skip_sum_fwd_int8(
     row_src: torch.Tensor,
     tile_slot: torch.Tensor,
     tm: int,
+    geometry: str | None = None,
 ) -> torch.Tensor:
     """K6: int8-pool grouped skip-sum on the card -> (M, D) in x.dtype, on
     the route ``grouped_fwd_route`` gives (and, on the tensor cores, the
-    geometry ``grouped_fwd_geometry`` gives); z in ``_grouped_scratch``."""
+    geometry ``_launch_geometry`` gives); z in ``_grouped_scratch``."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     n, _, _, r = qa.shape
     check(1 <= r <= R_MAX, f"rank {r} outside 1..{R_MAX}")
@@ -285,7 +303,7 @@ def grouped_skip_sum_fwd_int8(
     check_tensor(qb, "qb", x.device, (n, lnum, r, d), i8)
     check_tensor(sb, "sb", x.device, (n, lnum, r), f32)
     m_pad = n_tiles * tm
-    geometry = grouped_fwd_geometry(m, m_pad)
+    geometry = _launch_geometry(x.dtype, m, m_pad, geometry)
     z = _grouped_scratch(x, lnum, m_pad, r)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     LIB.launch(
@@ -313,10 +331,11 @@ def grouped_skip_sum_fwd_q4(
     row_src: torch.Tensor,
     tile_slot: torch.Tensor,
     tm: int,
+    geometry: str | None = None,
 ) -> torch.Tensor:
     """K7: packed-4-bit-pool grouped skip-sum on the card -> (M, D) in
     x.dtype, on the route ``grouped_fwd_route`` gives (and, on the tensor
-    cores, the geometry ``grouped_fwd_geometry`` gives); z in
+    cores, the geometry ``_launch_geometry`` gives); z in
     ``_grouped_scratch``."""
     lnum, m, d, n_tiles = _check_plan(x, row_src, tile_slot, tm)
     n, _, _, rp = qa.shape
@@ -330,7 +349,7 @@ def grouped_skip_sum_fwd_q4(
     check_tensor(sb, "sb", x.device, (n, lnum, r), f32)
     check_tensor(code, "code", x.device, (16,), f32)
     m_pad = n_tiles * tm
-    geometry = grouped_fwd_geometry(m, m_pad)
+    geometry = _launch_geometry(x.dtype, m, m_pad, geometry)
     z = _grouped_scratch(x, lnum, m_pad, r)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     LIB.launch(
@@ -351,16 +370,17 @@ def grouped_skip_sum_fwd_actint8(
     row_src: torch.Tensor,
     tile_slot: torch.Tensor,
     tm: int,
+    geometry: str | None = None,
 ) -> torch.Tensor:
     """K8: grouped skip-sum over int8 activations dequantised to bf16 in the
     kernel, float pool -> (M, D) bf16, on the tensor cores
     (``grouped_fwd_route(torch.int8)``) in the geometry
-    ``grouped_fwd_geometry`` gives; z in ``_grouped_scratch``."""
+    ``_launch_geometry`` gives; z in ``_grouped_scratch``."""
     lnum, m, d, n_tiles = _check_plan(q, row_src, tile_slot, tm, (torch.int8,))
     check_tensor(s, "s", q.device, (lnum, m), (torch.float32,))
     _, r = _check_float_pool(q, a_pool, b_pool, lnum, d)
     m_pad = n_tiles * tm
-    geometry = grouped_fwd_geometry(m, m_pad)
+    geometry = _launch_geometry(q.dtype, m, m_pad, geometry)
     z = _grouped_scratch(q, lnum, m_pad, r)
     out = torch.empty((m, d), dtype=torch.bfloat16, device=q.device)
     LIB.launch(

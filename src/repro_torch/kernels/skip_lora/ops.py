@@ -43,10 +43,26 @@ gather and scatter rows through it. ``tm`` is the GPU's own row tile (the
 reference's ``grid_order`` is a TPU grid knob with no meaning here); it does
 not change the result. A caller that launches many times over the same
 slots (a decode call) builds the plan once with ``grouped_plan`` and passes
-it to the serving wrappers as ``plan=``.
+it to the serving wrappers as ``plan=``; a plan carries its tile
+(``plan_tile``).
+
+The tuned defaults. The grouped wrappers, ``grouped_plan`` and the
+trainable grouped sums take ``tm: Optional[int] = None``, and the serving
+wrappers ``geometry: Optional[str] = None``; ``None`` resolves against the
+process-wide default that ``set_default_tile`` installs
+(``kernels.autotune.apply_choice`` installs a measured winner), whose own
+``None`` is the untuned fallback: ``TM`` and ``"rule"``, the geometry
+``kernel.grouped_fwd_geometry`` picks. A forced geometry (``"few_rows"``,
+``"many_rows"``) replaces that rule on the tensor-core route; the CUDA-core
+route (fp32 rows) has one geometry and ignores it. The tile is resolved when
+the plan is built and the geometry when the kernel is launched: a CUDA
+graph captured before ``set_default_tile`` keeps the tile and geometry it
+was captured with, as a traced dispatch keeps its tile in the reference.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -54,8 +70,44 @@ from repro_torch.kernels.skip_lora import kernel as K
 from repro_torch.kernels.skip_lora import ref as R
 from repro_torch.kernels.skip_lora.quant import unpack_nibbles
 
-#: default row tile of the CUDA kernels
+#: untuned row tile of the CUDA kernels
 TM = 16
+#: the tensor-core route's block geometries; "rule" is ``kernel.grouped_fwd_geometry``'s pick
+GEOMETRIES = K.GEOMETRIES
+
+_DEFAULT_TILE: dict = {"tm": None, "geometry": None}
+
+
+def set_default_tile(tm: Optional[int] = None, geometry: Optional[str] = None) -> None:
+    """Install tuned kernel parameters as process-wide defaults (``None``
+    resets a field to the untuned fallback: ``TM`` / ``"rule"``). Raises for
+    a tile the kernels do not take (1 to ``kernel.TM_MAX`` rows) or an
+    unknown geometry."""
+    if tm is not None and (isinstance(tm, bool) or not isinstance(tm, int) or not 1 <= tm <= K.TM_MAX):
+        raise ValueError(f"row tile {tm!r} outside the kernels' 1..{K.TM_MAX}")
+    if geometry is not None and geometry not in GEOMETRIES:
+        raise ValueError(f"unknown geometry {geometry!r}; options: {GEOMETRIES}")
+    _DEFAULT_TILE["tm"] = tm
+    _DEFAULT_TILE["geometry"] = geometry
+
+
+def get_default_tile() -> tuple[int, str]:
+    return (_DEFAULT_TILE["tm"] or TM, _DEFAULT_TILE["geometry"] or "rule")
+
+
+def _resolve_tm(tm: Optional[int]) -> int:
+    return tm if tm is not None else get_default_tile()[0]
+
+
+def _resolve_geometry(geometry: Optional[str]) -> str:
+    """``geometry``, or the default's; the launch checks it."""
+    return geometry if geometry is not None else get_default_tile()[1]
+
+
+def plan_tile(plan) -> int:
+    """The row tile a grouping plan (row_src, tile_slot) was built at."""
+    row_src, tile_slot = plan
+    return row_src.shape[0] // tile_slot.shape[0]
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -202,28 +254,32 @@ def _plan(idx: torch.Tensor, n_adapters: int, m: int, tm: int):
     return _row_sources(dest, m_pad), tile_slot
 
 
-def grouped_plan(idx: torch.Tensor, n_adapters: int, positions: int = 1, *, tm: int = TM):
+def grouped_plan(idx: torch.Tensor, n_adapters: int, positions: int = 1, *, tm: Optional[int] = None):
     """The plan (row_src, tile_slot) of the grouped forwards for per-row
     slots ``idx`` (B,), ``positions`` rows each, over a pool of
-    ``n_adapters`` slots. Device ops only, no host synchronisation: a
-    caller whose slots stay fixed over many launches (a decode call's
-    steps) builds it once, or into a CUDA graph's static buffers, and hands
-    it to each launch as ``plan=``."""
+    ``n_adapters`` slots, at row tile ``tm`` (None: the default tile).
+    Device ops only, no host synchronisation: a caller whose slots stay
+    fixed over many launches (a decode call's steps) builds it once, or
+    into a CUDA graph's static buffers, and hands it to each launch as
+    ``plan=``."""
     row_idx = idx.repeat_interleave(positions)
-    return _plan(row_idx, n_adapters, row_idx.shape[0], tm)
+    return _plan(row_idx, n_adapters, row_idx.shape[0], _resolve_tm(tm))
 
 
-def _given_plan(plan, row_idx: torch.Tensor, n_adapters: int, m: int, tm: int):
-    """``plan`` when given, checked against the launch's rows, else one built
-    for ``row_idx``."""
+def _given_plan(plan, row_idx: torch.Tensor, n_adapters: int, m: int, tm: Optional[int]):
+    """(plan, tm): ``plan`` when given, at its own tile unless ``tm`` names
+    one, checked against the launch's rows; else one built for ``row_idx``
+    at ``tm`` (None: the default tile)."""
     if plan is None:
-        return _plan(row_idx, n_adapters, m, tm)
+        tm = _resolve_tm(tm)
+        return _plan(row_idx, n_adapters, m, tm), tm
+    tm = plan_tile(plan) if tm is None else tm
     row_src, tile_slot = plan
     m_pad = (m + tm - 1) // tm * tm + min(n_adapters, m) * tm
     K.check(tuple(row_src.shape) == (m_pad,) and tuple(tile_slot.shape) == (m_pad // tm,),
             f"plan {tuple(row_src.shape)}/{tuple(tile_slot.shape)} is not one of {m} rows over "
             f"{n_adapters} slots at row tile {tm}")
-    return row_src, tile_slot
+    return (row_src, tile_slot), tm
 
 
 def _rows(acts: torch.Tensor, idx: torch.Tensor):
@@ -234,22 +290,23 @@ def _rows(acts: torch.Tensor, idx: torch.Tensor):
 
 def skip_lora_grouped(
     acts: torch.Tensor, a_pool: torch.Tensor, b_pool: torch.Tensor, idx: torch.Tensor,
-    *, tm: int = TM, plan=None,
+    *, tm: Optional[int] = None, geometry: Optional[str] = None, plan=None,
 ) -> torch.Tensor:
     """Multi-tenant skip-sum: row b gets its own adapter stack.
 
     acts: (L, B, S, D); a_pool: (N, L, D, R); b_pool: (N, L, R, D);
     idx: (B,) int slot per batch row -> (B, S, D) in acts.dtype. ``plan``
     (``grouped_plan(idx, N, S)``) spares the launch building its own; the
-    CPU's plain version takes none."""
+    CPU's plain version takes none, and ignores ``tm`` and ``geometry``
+    (None: the defaults, ``set_default_tile``)."""
     _, bsz, s, d = acts.shape
     x, row_idx = _rows(acts, idx)
     a_pool, b_pool = a_pool.detach(), b_pool.detach()
     if _device_kind(x) == "cpu":
         out = R.skip_lora_grouped_ref(x, a_pool, b_pool, row_idx)
     else:
-        row_src, tile_slot = _given_plan(plan, row_idx, a_pool.shape[0], x.shape[1], tm)
-        out = K.grouped_skip_sum_fwd(x, a_pool, b_pool, row_src, tile_slot, tm)
+        (row_src, tile_slot), tm = _given_plan(plan, row_idx, a_pool.shape[0], x.shape[1], tm)
+        out = K.grouped_skip_sum_fwd(x, a_pool, b_pool, row_src, tile_slot, tm, _resolve_geometry(geometry))
     return out.reshape(bsz, s, d)
 
 
@@ -261,7 +318,8 @@ def skip_lora_grouped_int8(
     sb: torch.Tensor,
     idx: torch.Tensor,
     *,
-    tm: int = TM,
+    tm: Optional[int] = None,
+    geometry: Optional[str] = None,
     plan=None,
 ) -> torch.Tensor:
     """Multi-tenant skip-sum over an int8 pool: qa (N, L, D, R) int8 with
@@ -274,8 +332,8 @@ def skip_lora_grouped_int8(
     if _device_kind(x) == "cpu":
         out = R.skip_lora_grouped_int8_ref(x, qa, sa, qb, sb, row_idx)
     else:
-        row_src, tile_slot = _given_plan(plan, row_idx, qa.shape[0], x.shape[1], tm)
-        out = K.grouped_skip_sum_fwd_int8(x, qa, sa, qb, sb, row_src, tile_slot, tm)
+        (row_src, tile_slot), tm = _given_plan(plan, row_idx, qa.shape[0], x.shape[1], tm)
+        out = K.grouped_skip_sum_fwd_int8(x, qa, sa, qb, sb, row_src, tile_slot, tm, _resolve_geometry(geometry))
     return out.reshape(bsz, s, d)
 
 
@@ -288,7 +346,8 @@ def skip_lora_grouped_q4(
     code: torch.Tensor,
     idx: torch.Tensor,
     *,
-    tm: int = TM,
+    tm: Optional[int] = None,
+    geometry: Optional[str] = None,
     plan=None,
 ) -> torch.Tensor:
     """Multi-tenant skip-sum over a packed 4-bit pool (int4 or nf4: the
@@ -302,8 +361,9 @@ def skip_lora_grouped_q4(
     if _device_kind(x) == "cpu":
         out = R.skip_lora_grouped_q4_ref(x, qa, sa, qb, sb, code, row_idx)
     else:
-        row_src, tile_slot = _given_plan(plan, row_idx, qa.shape[0], x.shape[1], tm)
-        out = K.grouped_skip_sum_fwd_q4(x, qa, sa, qb, sb, code, row_src, tile_slot, tm)
+        (row_src, tile_slot), tm = _given_plan(plan, row_idx, qa.shape[0], x.shape[1], tm)
+        out = K.grouped_skip_sum_fwd_q4(x, qa, sa, qb, sb, code, row_src, tile_slot, tm,
+                                        _resolve_geometry(geometry))
     return out.reshape(bsz, s, d)
 
 
@@ -350,7 +410,7 @@ class _GroupedRowsTrain(torch.autograd.Function):
     def forward(ctx, x, a_pool, b_pool, idx, tm):
         plan = _train_plan(idx, a_pool.shape[0], x.shape[1], tm, x)
         if plan:
-            out = K.grouped_skip_sum_fwd(x, a_pool, b_pool, *plan, tm)
+            out = K.grouped_skip_sum_fwd(x, a_pool, b_pool, *plan, tm, _resolve_geometry(None))
         else:
             out = R.skip_lora_grouped_ref(x, a_pool, b_pool, idx)
         ctx.save_for_backward(x, a_pool, b_pool, idx, *plan)
@@ -373,7 +433,7 @@ class _GroupedRowsTrainInt8(torch.autograd.Function):
     def forward(ctx, q, s, a_pool, b_pool, idx, tm):
         plan = _train_plan(idx, a_pool.shape[0], q.shape[1], tm, q)
         if plan:
-            out = K.grouped_skip_sum_fwd_actint8(q, s, a_pool, b_pool, *plan, tm)
+            out = K.grouped_skip_sum_fwd_actint8(q, s, a_pool, b_pool, *plan, tm, _resolve_geometry(None))
         else:
             out = R.skip_lora_grouped_actint8_ref(q, s, a_pool, b_pool, idx)
         ctx.save_for_backward(q, s, a_pool, b_pool, idx, *plan)
@@ -398,7 +458,7 @@ class _GroupedRowsTrainQ4(torch.autograd.Function):
     def forward(ctx, x, qa, sa, qb, sb, code, idx, tm):
         plan = _train_plan(idx, qa.shape[0], x.shape[1], tm, x)
         if plan:
-            out = K.grouped_skip_sum_fwd_q4(x, qa, sa, qb, sb, code, *plan, tm)
+            out = K.grouped_skip_sum_fwd_q4(x, qa, sa, qb, sb, code, *plan, tm, _resolve_geometry(None))
         else:
             out = R.skip_lora_grouped_q4_ref(x, qa, sa, qb, sb, code, idx)
         ctx.save_for_backward(x, qa, sa, qb, sb, code, idx, *plan)
@@ -440,7 +500,7 @@ def skip_lora_grouped_train(
     idx: torch.Tensor,
     *,
     freeze_mask: torch.Tensor | None = None,
-    tm: int = TM,
+    tm: Optional[int] = None,
 ) -> torch.Tensor:
     """Trainable multi-tenant skip-sum: ``skip_lora_grouped`` differentiable
     in the pools, the fleet fine-tuning primitive.
@@ -452,7 +512,7 @@ def skip_lora_grouped_train(
     _, bsz, s, d = acts.shape
     a_pool, b_pool = _freeze(freeze_mask, a_pool, b_pool)
     x, row_idx = _rows(acts, idx)
-    out = _GroupedRowsTrain.apply(x, a_pool.contiguous(), b_pool.contiguous(), row_idx, tm)
+    out = _GroupedRowsTrain.apply(x, a_pool.contiguous(), b_pool.contiguous(), row_idx, _resolve_tm(tm))
     return out.reshape(bsz, s, d)
 
 
@@ -464,7 +524,7 @@ def skip_lora_grouped_train_int8(
     idx: torch.Tensor,
     *,
     freeze_mask: torch.Tensor | None = None,
-    tm: int = TM,
+    tm: Optional[int] = None,
 ) -> torch.Tensor:
     """Trainable grouped skip-sum over a raw int8 activation cache: acts_q
     (L, B, S, D) int8, acts_scale (L, B, S) fp32 (the ``mode="int8"`` cache
@@ -474,7 +534,7 @@ def skip_lora_grouped_train_int8(
     q = acts_q.reshape(lnum, bsz * s, d).contiguous()
     sc = acts_scale.detach().reshape(lnum, bsz * s).contiguous()
     out = _GroupedRowsTrainInt8.apply(q, sc, a_pool.contiguous(), b_pool.contiguous(),
-                                      idx.repeat_interleave(s), tm)
+                                      idx.repeat_interleave(s), _resolve_tm(tm))
     return out.reshape(bsz, s, d)
 
 
@@ -488,7 +548,7 @@ def skip_lora_grouped_train_q4(
     idx: torch.Tensor,
     *,
     freeze_mask: torch.Tensor | None = None,
-    tm: int = TM,
+    tm: Optional[int] = None,
 ) -> torch.Tensor:
     """Trainable grouped skip-sum over packed 4-bit pools, by scale
     refinement: the nibble payload is frozen and gradients reach (sa, sb)
@@ -497,5 +557,5 @@ def skip_lora_grouped_train_q4(
     _, bsz, s, d = acts.shape
     sa, sb = _freeze(freeze_mask, sa, sb)
     x, row_idx = _rows(acts, idx)
-    out = _GroupedRowsTrainQ4.apply(x, qa, sa.contiguous(), qb, sb.contiguous(), code, row_idx, tm)
+    out = _GroupedRowsTrainQ4.apply(x, qa, sa.contiguous(), qb, sb.contiguous(), code, row_idx, _resolve_tm(tm))
     return out.reshape(bsz, s, d)

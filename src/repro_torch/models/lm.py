@@ -105,16 +105,20 @@ def readout(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 class _ChunkLogLik(torch.autograd.Function):
     """Log-likelihood sums of one readout chunk: hn (B, c, D) normed hidden,
-    table (V, D) frozen fp32 readout, labels (B, c) with -1 masked -> (ll (B,),
+    table (V, D) fp32 readout, labels (B, c) with -1 masked -> (ll (B,),
     count (B,)) fp32.
 
     The (B, c, V) fp32 logits live only inside the forward, which also
-    computes the gradient for hn when one is wanted: d ll / d logits =
-    mask (onehot - softmax), through the softcap, times the table. The
-    backward scales it by the upstream gradient of ``ll``. The reference
-    gets the same by rematerialising each chunk in its backward
-    (``jax.checkpoint``), which computes the vocab-wide product three times
-    per chunk; here it is computed twice."""
+    computes the gradient for hn when one is wanted and the table is frozen:
+    d ll / d logits = mask (onehot - softmax), through the softcap, times
+    the table. The backward scales it by the upstream gradient of ``ll``.
+    The reference gets the same by rematerialising each chunk in its
+    backward (``jax.checkpoint``), which computes the vocab-wide product
+    three times per chunk; here it is computed twice. When the table
+    trains too (the full-backprop step, ``launch.train``), the forward keeps
+    d ll / d logits (B, c, V) and the backward contracts it, scaled by the
+    upstream gradient, with the table (for hn) and with hn (for the
+    table)."""
 
     @staticmethod
     def forward(ctx, hn, table, labels, cap):
@@ -127,20 +131,30 @@ class _ChunkLogLik(torch.autograd.Function):
         ll = torch.gather(logp, -1, tgt)[..., 0]
         total, count = torch.sum(ll * mask, dim=-1), torch.sum(mask, dim=-1)
         ctx.hn_dtype = hn.dtype
-        if ctx.needs_input_grad[0]:
+        ctx.trains_table = ctx.needs_input_grad[1]
+        if ctx.needs_input_grad[0] or ctx.trains_table:
             dlogits = logp.exp_().neg_()          # -softmax, in place of logp
             dlogits.scatter_add_(-1, tgt, torch.ones_like(tgt, dtype=dlogits.dtype))
             dlogits.mul_(mask[..., None])
             if cap:
                 dlogits.mul_(1 - torch.square(logits / cap))
             del logits
-            ctx.save_for_backward(dlogits @ table)
+            if ctx.trains_table:
+                ctx.save_for_backward(dlogits, hn, table)
+            else:
+                ctx.save_for_backward(dlogits @ table)
         return total, count
 
     @staticmethod
     def backward(ctx, g_total, g_count):
-        (g_hn,) = ctx.saved_tensors
-        return (g_hn * g_total[:, None, None]).to(ctx.hn_dtype), None, None, None
+        if not ctx.trains_table:
+            (g_hn,) = ctx.saved_tensors
+            return (g_hn * g_total[:, None, None]).to(ctx.hn_dtype), None, None, None
+        dlogits, hn, table = ctx.saved_tensors
+        g = dlogits * g_total[:, None, None]
+        g_hn = (g @ table).to(ctx.hn_dtype) if ctx.needs_input_grad[0] else None
+        g_table = g.reshape(-1, g.shape[-1]).T @ hn.float().reshape(-1, hn.shape[-1])
+        return g_hn, g_table, None, None
 
 
 def lm_loss_rows(
@@ -153,16 +167,14 @@ def lm_loss_rows(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row next-token log-likelihood sums with chunked readout ->
     (ll (B,) fp32 summed log-likelihood per row, count (B,) fp32 unmasked
-    tokens per row). A ragged tail chunk is padded with label -1. The
-    readout table is frozen: it gets no gradient."""
+    tokens per row). A ragged tail chunk is padded with label -1. A
+    readout table that requires grad gets its gradient (``_ChunkLogLik``)."""
     b, s, d = h.shape
     hn = apply_norm(
         cfg.norm_type, params["final_norm"], h, eps=cfg.norm_eps,
         unit_offset=cfg.rmsnorm_unit_offset,
     )
     table = (params["head"] if not cfg.tie_embeddings else params["embed"])["table"]
-    if table.requires_grad:
-        raise NotImplementedError("the chunked readout loss takes a frozen readout table")
     table = table.float()   # once for all chunks
     chunk = min(chunk, s)
     n_chunks = -(-s // chunk)

@@ -35,7 +35,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "          'repro_torch.core.prefix_index', 'repro_torch.core.scheduler',\n"
         "          'repro_torch.models.mlp', 'repro_torch.core.methods', 'repro_torch.core.finetune',\n"
         "          'repro_torch.core.compute_model', 'repro_torch.data.synthetic',\n"
-        "          'repro_torch.core.cuda_graph', 'repro_torch.examples.quickstart'):\n"
+        "          'repro_torch.core.cuda_graph', 'repro_torch.examples.quickstart',\n"
+        "          'repro_torch.kernels.autotune', 'repro_torch.launch.train', 'repro_torch.launch.roofline',\n"
+        "          'repro_torch.launch.flops', 'repro_torch.launch.shapes'):\n"
         "    assert m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
