@@ -123,6 +123,21 @@ Phases, each printing one line (or a few) before the last line:
      session CLI's crash drill (``repro_torch.launch.run --device cuda
      --use-kernel --checkpoint-dir D --inject-failure 3``, reduced) restarts
      exactly once, at event 3, and ends bitwise the unsupervised run.
+ 11b. shard: the session's data axis at full width on the session phase's
+     inputs, ``placement_shards=2`` over [cuda:0] (``shard_phase``):
+     round-robin placement and adapt groups [[0, 2], [1, 3]]; exact launches
+     a shard (ingest 16 K5 at few rows, ``adapt(epochs=3)`` 24 K5 at many
+     rows + 24 K9, each 2-tenant group 8 steps an epoch; a continued epoch 8
+     + 8; a serve one dispatch and 33 K5 at few rows); the adapters, moments
+     and temperature-0 tokens bitwise the one-shard session's, the loss
+     difference in float32 ulps printed; the session saved and restored
+     into a fresh 2-shard runtime, both continuing bitwise, a 1-shard
+     runtime refusing it; the scheduler on the shared-prefix trace with a
+     live batch, a KV pool and K10 a shard, no leaks, tokens bitwise a
+     one-shard scheduler's; over [cuda:0, cuda:1] when there are two cards
+     (else one line says it did not run); a reduced 2-shard session card vs
+     CPU. Adapt s an epoch with 1 and 2 shards, serve and scheduler tok/s,
+     save and restore s, decode-graph captures and replays.
  12. paper: the source paper's own experiment (Section 5.1), which reaches
      no hand-written kernel (as in the reference; the launch counters stay
      at 0 through it): the damage1, damage2 and HAR twins
@@ -1835,6 +1850,12 @@ def session_phase(torch, device_name, kept):
         check(all(torch.equal(v, twin.pool.pools()[k]) for k, v in rt.pool.pools().items())
               and rt.pool.slot_table() == twin.pool.slot_table(), "session checkpoint: pools differ")
         check(torch.equal(toks[0], toks[1]), "session checkpoint: temperature-0 tokens differ")
+        # the one-shard session after its 4th epoch and serve: the shard phase's bar
+        kept["one_shard"] = dict(
+            losses=outs[0]["losses"], tokens=toks[0],
+            tenants={t: {name: dict(getattr(rt.tenant(t), name)) for name in ("adapters", "opt_mu", "opt_nu")}
+                     for t in range(FLEET_TENANTS)},
+        )
         return spans, nbytes, rows, twin.engine.row_nbytes()
 
     _reset_launches()
@@ -1844,6 +1865,7 @@ def session_phase(torch, device_name, kept):
     window({})
     rate, ingest_ms, logit_err = ingest_all(rt, "grouped_skip_sum_fwd", compare=True)
     losses, scan_s = adapt(rt, "grouped_skip_sum_fwd", "scan")
+    kept.update(session_prompts=prompts, session_base=base, session_scan_s=scan_s)
     scan_hit = rt.engine.stats.hbm_hit_rate()
     check(np.array_equal(losses, kept["losses"]), "session: per-step losses != the offline fleet_finetune's "
           f"(max diff {np.abs(losses - kept['losses']).max():.3e})")
@@ -2115,6 +2137,555 @@ def cli_drill_check(torch):
           f"{info['restarts']} restart, resumed at event {info['resumed_at']}, executions {info['executions']}, "
           f"{drill_s:.2f} s with a checkpoint at each of {n_events} event boundaries; adapters, moments, pool and "
           f"slot table bitwise the run without --checkpoint-dir")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11b: the session's data axis (logical shards)
+# ---------------------------------------------------------------------------
+
+SHARDS = 2
+
+
+def _ulps(a, b) -> int:
+    """Largest distance in float32 ulps between two arrays of one sign each."""
+    import numpy as np
+
+    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(ia - ib).max())
+
+
+class _PerShard:
+    """Each call of the wrapped runtime or scheduler methods, synchronised on
+    both sides, adds its launches (and the grouped forwards' launches by row
+    class, and the scheduler's dispatch counters) to its shard's tally."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.launches: dict[int, dict] = {}
+        self.rows: dict[int, dict] = {}
+        self.counters: dict[int, dict] = {}
+        self._wrapped: list = []
+
+    def wrap(self, obj, name, shard_of, counters=None):
+        from repro_torch.kernels.skip_lora import kernel as K
+
+        real = getattr(obj, name)
+        torch = self.torch
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            l0, r0 = _launches(), dict(K.ROW_LAUNCHES)
+            c0 = dict(counters) if counters is not None else {}
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            s = shard_of(*a, **kw)
+            for tally, now, then in ((self.launches, _launches(), l0), (self.rows, dict(K.ROW_LAUNCHES), r0),
+                                     (self.counters, dict(counters) if counters is not None else {}, c0)):
+                mine = tally.setdefault(s, {})
+                for k, v in now.items():
+                    if v - then.get(k, 0):
+                        mine[k] = mine.get(k, 0) + v - then.get(k, 0)
+            return out
+
+        setattr(obj, name, wrapper)
+        self._wrapped.append((obj, name))
+
+    def take(self) -> tuple[dict, dict, dict]:
+        """(launches, row launches, counters) by shard since the last take."""
+        out = (self.launches, self.rows, self.counters)
+        self.launches, self.rows, self.counters = {}, {}, {}
+        return out
+
+    def unwrap(self):
+        for obj, name in self._wrapped:
+            delattr(obj, name)
+        self._wrapped.clear()
+
+
+def shard_phase(torch, device_name, kept):
+    """The session's data axis at full width on the session phase's inputs
+    (stablelm-1.6b, 24 layers, d 2048; 4 tenants x 16 samples x seq 128,
+    batch per tenant 2, rank 8, fp32 cache, ``use_kernel=True``), with
+    ``placement_shards=2`` over ``[cuda:0]``:
+      - placement: tenants and partitions round robin (tenant t on shard
+        t % 2, partition t), adapt groups [[0, 2], [1, 3]];
+      - the base serve equals the one-shard session's; 32 ingests, 16 a
+        shard, one K5 each at few rows; ``adapt(epochs=3)``: each shard's
+        2-tenant group runs 8 steps an epoch, so 24 K5 at many rows and 24 K9
+        a shard; the adapters equal the one-shard session's (the offline
+        fleet's) bitwise, and the largest loss difference in float32 ulps is
+        printed (the groups' readout runs at M 512, the one-shard group's at
+        M 1024);
+      - save and restore: the 2-shard session saved under build/ and
+        restored into a fresh 2-shard runtime (64 rows over both engines,
+        slot tables equal); restoring it into a 1-shard runtime raises; both
+        run one more epoch (8 K5 many rows + 8 K9 a shard each) and a serve
+        of the 4 tenants and a base row (one dispatch a shard, 33 K5 at few
+        rows each): losses, adapters, moments, pools, slot tables and tokens
+        bitwise between them, and adapters, moments and tokens bitwise the
+        one-shard session's after its 4th epoch;
+      - the scheduler over the restored 2-shard session on the shared-prefix
+        trace (8 requests of tenants 0..3 in turn, reuse on, batch 4 a
+        shard): a live batch and a KV pool a shard, K10 twice a reuse wave
+        and K5 as each shard's dispatch counters imply, no leaks on either
+        shard, temperature-0 tokens bitwise a one-shard scheduler's over the
+        same adapters;
+      - over two cards when the machine has them: the same session over
+        ``[cuda:0, cuda:1]`` equal to the 1-card session bitwise (the
+        ``--check-parity`` bar) and an elastic 2 -> 1 restore that continues
+        bitwise; otherwise one line saying it did not run.
+    Prints adapt s an epoch with 1 and 2 shards, serve and scheduler tokens/s,
+    save and restore s, and the decode graphs' captures and replays. Returns
+    each kernel's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpoint import restore_runtime_session, save_runtime_session
+    from repro_torch.core import decode_graph as DG
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.launch import fleet as FL
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.runtime.sharding import make_mesh
+
+    dev = torch.device("cuda")
+    cfg, params, tokens, labels = (kept[k] for k in ("cfg", "params", "tokens", "labels"))
+    prompts, base_one, one = kept["session_prompts"], kept["session_base"], kept["one_shard"]
+    who = list(range(FLEET_TENANTS)) + [None]
+    sl = FL.setup(FL.parse_args([*FLEET_ARGS, "--mode", "full"]))[1]
+    graphs0 = dict(DG.GRAPHS.stats)
+    totals: dict[str, int] = {}
+    tally = _PerShard(torch)
+
+    def runtime(devices=(dev,), shards=SHARDS, **kw):
+        mesh = make_mesh((len(devices),), ("data",), devices=list(devices))
+        return SessionRuntime(cfg, sl, params, max_tenants=FLEET_TENANTS, samples_per_tenant=FLEET_SAMPLES,
+                              seq=FLEET_SEQ, optimizer=adamw(1e-3), use_kernel=True, mesh=mesh,
+                              placement_shards=shards, **kw)
+
+    def watch(rt):
+        tally.wrap(rt, "ingest", lambda tenant, *a: rt.pool.shard_of(tenant))
+        tally.wrap(rt, "_adapt_group", lambda group, spt, shard, **kw: shard)
+        tally.wrap(rt, "_serve_shard", lambda s, *a, **kw: s)
+
+    def held(what, want_launches, want_rows, taken=None):
+        """Hold this window's launches by shard (each shard: kernel -> count)
+        and the grouped forwards' by shard and row class (``taken``: a
+        ``tally.take()`` already made)."""
+        torch.cuda.synchronize()
+        got, rows, _ = taken if taken is not None else tally.take()
+        check(got == want_launches, f"shard {what}: launches by shard {got} != {want_launches}")
+        check(rows == want_rows, f"shard {what}: grouped forwards by shard and row class {rows} != {want_rows}")
+        counts = _launches()
+        check(sum(counts.values()) == sum(n for s in got.values() for n in s.values()),
+              f"shard {what}: {counts} launched outside the per-shard calls")
+        for key, n in _merge_rows(rows).items():
+            MAIN_ROWS[key] = MAIN_ROWS.get(key, 0) + n
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        _reset_launches()
+
+    fwd, bwd = "grouped_skip_sum_fwd", "grouped_skip_sum_bwd"
+    per = FLEET_TENANTS // SHARDS
+    both = range(SHARDS)
+    _reset_launches()
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="shard_ckpt_", dir=ROOT / "build")
+    try:
+        # -- placement, ingest, adapt ------------------------------------------
+        rt = runtime()
+        watch(rt)
+        base = rt.serve([None] * len(who), prompts, max_new=NEW)
+        check(torch.equal(base, base_one), "shard: the base serve differs from the one-shard session's")
+        held("base serve", {}, {})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(FLEET_TENANTS):
+            for lo in range(0, FLEET_SAMPLES, FLEET_BPT):
+                rt.ingest(t, tokens[t, lo:lo + FLEET_BPT], labels[t, lo:lo + FLEET_BPT])
+        torch.cuda.synchronize()
+        ingest_rate = FLEET_TENANTS * FLEET_SAMPLES / (time.perf_counter() - t0)
+        n_ing = per * FLEET_SAMPLES // FLEET_BPT
+        held("ingest", {s: {fwd: n_ing} for s in both}, {s: {(fwd, "few_rows"): n_ing} for s in both})
+        check([rt.tenant(t).partition for t in range(FLEET_TENANTS)] == list(range(FLEET_TENANTS))
+              and [rt.pool.shard_of(t) for t in range(FLEET_TENANTS)] == [t % SHARDS for t in range(FLEET_TENANTS)]
+              and [len(e._present) for e in rt.engines] == [per * FLEET_SAMPLES] * SHARDS,
+              "shard: tenants, partitions or cache rows not round robin")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rt.adapt(epochs=3, batch_per_tenant=FLEET_BPT, generator=torch.Generator(device=dev).manual_seed(3))
+        adapt_s = time.perf_counter() - t0            # the losses are on the host: the epochs have ended
+        steps = 3 * FLEET_STEPS
+        held("adapt", {s: {fwd: steps, bwd: steps} for s in both}, {s: {(fwd, "many_rows"): steps} for s in both})
+        check(out["groups"] == [[0, 2], [1, 3]] and out["path"] == "scan",
+              f"shard adapt: groups {out['groups']} on the {out['path']} path")
+        losses = np.stack([out["losses"][t] for t in range(FLEET_TENANTS)], axis=-1)
+        loss_ulps = _ulps(losses, kept["losses"])
+        loss_diff = float(np.abs(losses - kept["losses"]).max())
+        for t in range(FLEET_TENANTS):
+            for k in ("A", "B"):
+                check(torch.equal(rt.tenant(t).adapters[k], kept["adapters"][k][t]),
+                      f"shard adapt: tenant {t} adapters {k} != the one-shard session's (max diff "
+                      f"{(rt.tenant(t).adapters[k] - kept['adapters'][k][t]).abs().max().item():.3e}; "
+                      f"losses {loss_ulps} ulps apart)")
+        after3 = {t: dict(rt.tenant(t).adapters) for t in range(FLEET_TENANTS)}
+
+        # -- save, restore, continue --------------------------------------------
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_runtime_session(scratch, 1, rt)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        twin = runtime()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_runtime_session(path, twin)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        watch(twin)
+        check(sum(len(e._present) for e in twin.engines) == FLEET_TENANTS * FLEET_SAMPLES
+              and twin.pool.slot_table() == rt.pool.slot_table() and twin.pool.slot_table()["n_shards"] == SHARDS,
+              "shard checkpoint: rows or slot tables not restored")
+        lone = runtime(shards=1)
+        try:
+            restore_runtime_session(path, lone)
+            fail("shard checkpoint: a 2-shard capture restored into a 1-shard runtime")
+        except ValueError as err:
+            check("layout" in str(err), f"shard checkpoint: 1-shard restore raised {err}")
+        del lone
+        torch.cuda.empty_cache()
+        held("checkpoint", {}, {})
+        outs, toks, serve_s = [], [], []
+        for r in (rt, twin):
+            outs.append(r.adapt(epochs=1, batch_per_tenant=FLEET_BPT))
+            held("continued epoch", {s: {fwd: FLEET_STEPS, bwd: FLEET_STEPS} for s in both},
+                 {s: {(fwd, "many_rows"): FLEET_STEPS} for s in both})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks.append(r.serve(who, prompts, max_new=NEW))
+            torch.cuda.synchronize()
+            serve_s.append(time.perf_counter() - t0)
+            held("serve", {s: {fwd: 1 + NEW} for s in both}, {s: {(fwd, "few_rows"): 1 + NEW} for s in both})
+        for t in range(FLEET_TENANTS):
+            check(np.array_equal(outs[0]["losses"][t], outs[1]["losses"][t]),
+                  f"shard checkpoint: tenant {t} continued losses differ")
+            for name in ("adapters", "opt_mu", "opt_nu"):
+                for k in ("A", "B"):
+                    mine = getattr(rt.tenant(t), name)[k]
+                    check(torch.equal(mine, getattr(twin.tenant(t), name)[k]),
+                          f"shard checkpoint: tenant {t} {name} {k} differ after the continued epoch")
+                    check(torch.equal(mine, one["tenants"][t][name][k]),
+                          f"shard: tenant {t} {name} {k} after 4 epochs != the one-shard session's")
+        check(all(torch.equal(v, twin.pool.shard_pools(s)[k]) for s in both for k, v in rt.pool.shard_pools(s).items())
+              and rt.pool.slot_table() == twin.pool.slot_table(), "shard checkpoint: pools differ")
+        check(torch.equal(toks[0], toks[1]) and torch.equal(toks[0], one["tokens"]),
+              "shard: temperature-0 tokens differ between the 2-shard session, its restored twin and the "
+              "one-shard session")
+        loss4_ulps = max(_ulps(outs[0]["losses"][t], one["losses"][t]) for t in range(FLEET_TENANTS))
+        check(rt.counters["serve/shard_dispatches"] == SHARDS, f"shard: {dict(rt.counters)}")
+        after4 = dict(tenants={t: {name: dict(getattr(rt.tenant(t), name)) for name in ("adapters", "opt_mu",
+                                                                                         "opt_nu")}
+                               for t in range(FLEET_TENANTS)}, tokens=toks[0], adapters3=after3)
+        tally.unwrap()
+        del rt
+        torch.cuda.empty_cache()
+
+        # -- the scheduler: a live batch and a KV pool a shard ---------------------
+        sched_out = _shard_scheduler(torch, twin, tally, held, prompts, who)
+        del twin
+        torch.cuda.empty_cache()
+
+        # -- two cards ----------------------------------------------------------------
+        if torch.cuda.device_count() >= 2:
+            two = _two_cards(torch, runtime, after4, tokens, labels, prompts, who, scratch)
+        else:
+            two = None
+    finally:
+        tally.unwrap()
+        shutil.rmtree(scratch, ignore_errors=True)
+    graphs = {k: DG.GRAPHS.stats.get(k, 0) - graphs0.get(k, 0) for k in ("captures", "replays", "hits", "misses",
+                                                                          "evictions")}
+    rd_diff, rd_same, rd_batched, rd_rows = _readout_rows(torch, params, cfg)
+    check(rd_same, "shard: the readout gradient one row a call differs between batches of 8 and 4 rows")
+    one_s = kept["session_scan_s"]
+    total = len(who) * NEW
+    print(f"shard {ARCH} full width on {device_name}: placement_shards={SHARDS} over [cuda:0], {FLEET_TENANTS} "
+          f"tenants x {FLEET_SAMPLES} samples x seq {FLEET_SEQ}, batch/tenant {FLEET_BPT}, rank {RANK}, fp32 "
+          f"cache, use_kernel=True; tenants and partitions round robin, adapt groups [[0, 2], [1, 3]]; ingest "
+          f"{ingest_rate:.1f} rows/s; adapt 3 epochs {adapt_s:.3f} s ({adapt_s / 3:.3f} s/epoch) vs one shard "
+          f"{one_s:.3f} s ({one_s / 3:.3f} s/epoch); adapters and moments bitwise the one-shard session's "
+          f"(the offline fleet's), losses {loss_ulps} ulps apart (max diff {loss_diff:.3e}) after 3 epochs and "
+          f"{loss4_ulps} after the 4th; serve of 4 tenants + base, {NEW} new, first call: "
+          f"{total / serve_s[0]:.1f} tok/s (2 shard dispatches), tokens bitwise the one-shard session's; "
+          f"launches a shard: ingest K5 x{n_ing} (few rows), adapt K5 x{steps} "
+          f"(many rows) + K9 x{steps}, continued epoch K5 x{FLEET_STEPS} + K9 x{FLEET_STEPS}, serve K5 x{1 + NEW} "
+          f"(few rows)")
+    print(f"shard checkpoint on {device_name}: save_runtime_session of the 2-shard session {save_s:.3f} s, "
+          f"restore_runtime_session into a fresh 2-shard runtime {restore_s:.3f} s (synchronised), {nbytes} bytes "
+          f"({nbytes / 1e9:.3f} GB); a 1-shard runtime refuses it; both continued one epoch and a serve: losses, "
+          f"adapters, moments, pools, slot tables and tokens bitwise")
+    print(sched_out)
+    print(f"shard readout gradient dlogits @ table (fp32, K {cfg.vocab_size}, 8 x {FLEET_SEQ} rows): one cuBLAS "
+          f"product over the batch gives a row other bits at M {4 * FLEET_SEQ} than at M {8 * FLEET_SEQ} (max diff "
+          f"{rd_diff:.3e}), one row a call (lm._per_row_matmul) the same bits; {rd_batched:.3f} ms batched vs "
+          f"{rd_rows:.3f} ms a row a call (CUDA events, warm)")
+    print(f"shard decode graphs (core.decode_graph.GRAPHS, LRU of {DG.GRAPHS.capacity}) over the phase: "
+          f"{graphs['captures']} captures, {graphs['replays']} replays, {graphs['hits']} hits, {graphs['misses']} "
+          f"misses, {graphs['evictions']} evictions")
+    if two is None:
+        print(f"shard two cards: not run, this machine has {torch.cuda.device_count()} card "
+              f"(the 2-card --check-parity and the elastic 2 -> 1 restore need two)")
+    else:
+        print(two)
+    return totals
+
+
+def _readout_rows(torch, params, cfg):
+    """The readout gradient's product ``dlogits @ table`` (K = the vocab) at
+    the fleet step's shape, 8 rows x 128 positions, fp32: as one cuBLAS
+    product over the batch (M 1024) and over half of it (M 512), and one row
+    a call (``lm._per_row_matmul``, what ``lm_loss_rows`` runs) for both.
+    Returns (the batched product's largest difference between the two batch
+    sizes, per-row bitwise, batched ms, per-row ms): CUDA events, warm."""
+    from repro_torch.models.lm import _per_row_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    table = (params["head"] if not cfg.tie_embeddings else params["embed"])["table"].float()
+    dl = torch.randn((8, FLEET_SEQ, cfg.vocab_size), generator=g, device="cuda")
+    half = [0, 2, 4, 6]
+    batched = (dl @ table)[half]
+    diff = (batched - dl[half] @ table).abs().max().item()
+    rows = _per_row_matmul(dl, table)[half]
+    same = torch.equal(rows, _per_row_matmul(dl[half].contiguous(), table))
+
+    def ms(fn):
+        for _ in range(3):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 10
+
+    return diff, same, ms(lambda: dl @ table), ms(lambda: _per_row_matmul(dl, table))
+
+
+def _merge_rows(rows: dict) -> dict:
+    out: dict = {}
+    for per in rows.values():
+        for key, n in per.items():
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def _shard_scheduler(torch, rt, tally, held, serve_prompts, serve_who):
+    """The scheduler over the 2-shard session ``rt`` and over a one-shard
+    serve session holding the same adapters, on the shared-prefix trace with
+    tenants 0..3 in turn and reuse on, after a warm-up on other prompts; and
+    a ``serve`` of ``serve_who`` on each, timed after a warm one. Returns the
+    lines to print."""
+    import numpy as np
+
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.core.scheduler import RequestScheduler
+
+    cfg = rt.cfg
+    one = SessionRuntime(cfg, rt.sl, rt.params, max_tenants=FLEET_TENANTS, samples_per_tenant=1, seq=8,
+                         use_kernel=True, device=rt.device)
+    ids = list(range(FLEET_TENANTS))
+    one.pool.register_many(ids, {k: torch.stack([rt.tenant(t).adapters[k] for t in ids]) for k in ("A", "B")})
+    args = dict(SCHED_ARGS, inflight_per_tenant=SCHED_REQS)
+    who = [i % FLEET_TENANTS for i in range(SCHED_REQS)]
+    serve_s, served = {}, {}
+    for name, r in (("one", one), ("two", rt)):
+        for _ in range(2):   # the first call captures its decode graphs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served[name] = r.serve(serve_who, serve_prompts, max_new=NEW)
+            torch.cuda.synchronize()
+            serve_s[name] = time.perf_counter() - t0
+    check(torch.equal(served["one"], served["two"]), "shard serve: tokens differ between 1 and 2 shards")
+    _reset_launches()
+    tally.take()
+    runtimes = {"one": one, "two": rt}
+
+    def replay(name, prompts, tallied=False):
+        r = runtimes[name]
+        r.reset_prefix_cache()
+        sched = RequestScheduler(r, prefix_reuse=True, **args)
+        if tallied:
+            tally.wrap(sched, "_dispatch", lambda shard, admits: shard, counters=sched.counters)
+        reqs = [sched.submit(t, p, max_new=SCHED_NEW) for t, p in zip(who, prompts)]
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        sched.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        r.check_prefix_no_leaks()
+        return [q.result() for q in reqs], dt, sched
+
+    for name in runtimes:   # warm-up: other prompts
+        replay(name, _shared_prefix_trace(cfg.vocab_size, 17, 4))
+    prompts = _shared_prefix_trace(cfg.vocab_size, 13, SCHED_REQS)
+    times = {"one": [], "two": []}
+    for i, name in enumerate(("one", "two", "two", "one")):   # in turns
+        toks, dt, sched = replay(name, prompts, tallied=i == 1)
+        times[name].append(dt)
+        if i != 1:
+            _reset_launches()   # the main-path count is the tallied replay's
+        if i == 0:
+            t_one, s_one = toks, sched
+        elif i == 1:
+            t_two, s_two = toks, sched
+            launches, rows, counters = tally.take()
+            tally._wrapped.remove((sched, "_dispatch"))
+            del sched._dispatch
+            chunk = args["chunk"]
+            for s in range(SHARDS):
+                c = counters.get(s, {})
+                check(c.get("dispatch/admit_reuse", 0) >= 1, f"shard scheduler: shard {s} never reused: {c}")
+                want = {"grouped_skip_sum_fwd": (c.get("dispatch/admit", 0) + c["dispatch/admit_reuse"])
+                        * (1 + chunk) + c.get("dispatch/step", 0) * chunk,
+                        "paged_gather": 2 * c["dispatch/admit_reuse"]}
+                check(launches.get(s) == want, f"shard scheduler: shard {s} launches {launches.get(s)} != "
+                      f"{want} (counters {c})")
+            check(sorted(sched._batches) == list(range(SHARDS))
+                  and sorted(sched.prefix_metrics()["pools"]) == [str(s) for s in range(SHARDS)],
+                  f"shard scheduler: live batches {sorted(sched._batches)}, pools "
+                  f"{sorted(sched.prefix_metrics()['pools'])}")
+            held("scheduler", launches, rows, (launches, rows, counters))
+            per_shard = {s: launches[s]["paged_gather"] for s in range(SHARDS)}
+        else:
+            check(all(np.array_equal(a, b) for a, b in zip(toks, t_one)), f"shard scheduler: replay {i} tokens")
+    check(all(np.array_equal(a, b) for a, b in zip(t_one, t_two)),
+          f"shard scheduler: tokens {[t.tolist() for t in t_two]} != the one-shard scheduler's "
+          f"{[t.tolist() for t in t_one]}")
+    check(s_one.counters["prefix/hits"] == s_two.counters["prefix/hits"],
+          f"shard scheduler: prefix hits {dict(s_two.counters)} vs one shard {dict(s_one.counters)}")
+    total, n_serve = SCHED_REQS * SCHED_NEW, len(serve_who) * NEW
+    del one
+    return (f"shard serve {ARCH} full width, {len(serve_who)} rows x {PROMPT} prompt + {NEW} new, the graphs "
+            f"warm: 2 shards {serve_s['two']:.3f} s = {n_serve / serve_s['two']:.1f} tok/s (2 dispatches) vs one "
+            f"shard {serve_s['one']:.3f} s = {n_serve / serve_s['one']:.1f} tok/s, same tokens\n"
+            f"shard scheduler {ARCH} full width: {SCHED_REQS} requests of tenants 0..3 in turn x ({SCHED_SHARE} "
+            f"shared + {SCHED_TAIL} tail) prompt + {SCHED_NEW} new, reuse on, batch 4 a shard, bucket 2, chunk 2, "
+            f"kv block 32, after a warm-up, in turns (1, 2, 2, 1 shards): 2 shards "
+            f"{' / '.join(f'{t:.3f}' for t in times['two'])} s = "
+            f"{' / '.join(f'{total / t:.1f}' for t in times['two'])} tok/s vs one shard "
+            f"{' / '.join(f'{t:.3f}' for t in times['one'])} s = "
+            f"{' / '.join(f'{total / t:.1f}' for t in times['one'])} tok/s; a live batch and a KV pool a shard, "
+            f"K10 a shard {per_shard} = 2 x its reuse waves, K5 as each shard's dispatch counters imply, no leaks "
+            f"on either shard; temperature-0 tokens bitwise the one-shard scheduler's in every replay")
+
+
+def _two_cards(torch, runtime, ref, tokens, labels, prompts, who, scratch):
+    """The 2-shard session over [cuda:0, cuda:1] against the same session on
+    cuda:0 alone (``ref``: its adapters after 3 epochs, its state and tokens
+    after the 4th; the ``--check-parity`` bar: bitwise), then saved after its
+    adapt and restored onto cuda:0 alone (the elastic 2 -> 1 restore), both
+    continuing one epoch and a serve bitwise. Returns the line to print."""
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpoint import restore_runtime_session, save_runtime_session
+
+    cards = (torch.device("cuda", 0), torch.device("cuda", 1))
+
+    def run(rt):
+        rt.serve([None] * len(who), prompts, max_new=NEW)
+        for t in range(FLEET_TENANTS):
+            for lo in range(0, FLEET_SAMPLES, FLEET_BPT):
+                rt.ingest(t, tokens[t, lo:lo + FLEET_BPT], labels[t, lo:lo + FLEET_BPT])
+        torch.cuda.synchronize(cards[1])
+        t0 = time.perf_counter()
+        out = rt.adapt(epochs=3, batch_per_tenant=FLEET_BPT, generator=torch.Generator(device=cards[0]).manual_seed(3))
+        return out, time.perf_counter() - t0
+
+    def same(a, b, what):
+        for t in range(FLEET_TENANTS):
+            for name in ("adapters", "opt_mu", "opt_nu"):
+                for k in ("A", "B"):
+                    check(torch.equal(getattr(a.tenant(t), name)[k].cpu(), getattr(b.tenant(t), name)[k].cpu()),
+                          f"shard two cards: {what}: tenant {t} {name} {k} differ")
+
+    two = runtime(cards)
+    out2, dt2 = run(two)
+    check({two.tenant(t).adapters["A"].device.index for t in range(FLEET_TENANTS)} == {0, 1},
+          "shard two cards: the shards' state is not on both cards")
+    for t in range(FLEET_TENANTS):
+        for k in ("A", "B"):
+            check(torch.equal(two.tenant(t).adapters[k].cpu(), ref["adapters3"][t][k].cpu()),
+                  f"shard two cards: tenant {t} adapters {k} != the 1-card session's")
+    path = save_runtime_session(scratch, 2, two)
+    back = runtime()
+    restore_runtime_session(path, back)
+    outs, toks = [], []
+    for r in (two, back):
+        outs.append(r.adapt(epochs=1, batch_per_tenant=FLEET_BPT))
+        toks.append(r.serve(who, prompts, max_new=NEW).cpu())
+    same(two, back, "elastic 2 -> 1 restore")
+    for t in range(FLEET_TENANTS):
+        check(np.array_equal(outs[0]["losses"][t], outs[1]["losses"][t]), f"shard two cards: tenant {t} losses")
+        for name in ("adapters", "opt_mu", "opt_nu"):
+            for k in ("A", "B"):
+                check(torch.equal(getattr(two.tenant(t), name)[k].cpu(), ref["tenants"][t][name][k].cpu()),
+                      f"shard two cards: tenant {t} {name} {k} after 4 epochs != the 1-card session's")
+    check(torch.equal(toks[0], toks[1]) and torch.equal(toks[0], ref["tokens"].cpu()),
+          "shard two cards: tokens differ")
+    del two, back
+    torch.cuda.empty_cache()
+    _reset_launches()   # a measurement beside the main path: its launches are not counted
+    return (f"shard two cards: the 2-shard session over [cuda:0, cuda:1] (adapt 3 epochs {dt2:.3f} s) bitwise the "
+            f"1-card session (adapters, moments, tokens); saved and restored onto cuda:0 alone (elastic 2 -> 1), "
+            f"both continued one epoch and a serve bitwise")
+
+
+def small_shard_check(torch):
+    """Reduced float32 stablelm-1.6b, 4 tenants x 4 samples x seq 16, rank
+    8, ``placement_shards=2``: serve -> ingest -> adapt(epochs=2) -> serve on
+    the card (kernels) and on the CPU (plain versions), from the same
+    initial adapters (a CPU generator): the same adapt groups, per-step
+    losses (rtol 1e-4), adapters (atol 1e-4) and temperature-0 tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.models.lm import init_lm
+
+    cfg = reduce_config(get_config(ARCH))
+    sl = SL.SkipLoRAConfig(rank=RANK, mode="full", cache_dtype="float32", use_fused_kernel=True)
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4, 16), generator=g)
+    labels = torch.randint(0, cfg.vocab_size, (4, 4, 16), generator=g)
+    prompts = torch.randint(0, cfg.vocab_size, (5, 8), generator=g)
+    who = [None, 0, 1, 2, 3]
+    res = {}
+    for where in ("cpu", "cuda"):
+        rt = SessionRuntime(cfg, sl, _to(params, where), max_tenants=4, samples_per_tenant=4, seq=16, lr=1e-2,
+                            use_kernel=True, placement_shards=SHARDS, device=where)
+        base = rt.serve([None] * 5, prompts, max_new=4).cpu()
+        for t in range(4):
+            rt.ingest(t, tokens[t], labels[t])
+        out = rt.adapt(epochs=2, batch_per_tenant=2, generator=torch.Generator().manual_seed(3))
+        res[where] = (out["groups"], np.stack([out["losses"][t] for t in range(4)], axis=-1),
+                      {k: np.stack([rt.tenant(t).adapters[k].cpu().numpy() for t in range(4)]) for k in ("A", "B")},
+                      base, rt.serve(who, prompts, max_new=4).cpu(), rt.counters["serve/shard_dispatches"])
+    (gc, lc, ac, bc, tc, dc), (gg, lg, ag, bg, tg, dg) = res["cpu"], res["cuda"]
+    loss_err = float((np.abs(lg - lc) / np.abs(lc)).max())
+    ad_err = max(float(np.abs(ag[k] - ac[k]).max()) for k in ac)
+    check(gc == gg == [[0, 2], [1, 3]] and dc == dg == SHARDS, f"small shard: groups {gg} vs {gc}")
+    check(loss_err <= 1e-4 and ad_err <= 1e-4, f"small shard: card vs CPU losses {loss_err:.3e}, adapters {ad_err:.3e}")
+    check(torch.equal(bc, bg) and torch.equal(tc, tg), f"small shard: tokens card {tg} vs CPU {tc}")
+    print(f"shard small: reduced {ARCH} float32, 4 tenants x 4 samples, {SHARDS} shards: card (kernels) vs CPU "
+          f"(plain versions) groups {gg}, max loss rel diff {loss_err:.3e}, max adapter diff {ad_err:.3e}, "
+          f"temperature-0 tokens equal")
 
 
 # ---------------------------------------------------------------------------
@@ -2986,17 +3557,19 @@ def main() -> None:
     fleet_launches, kept = fleet_phase(torch, smi)
     serve_launches = fleet_serve_phase(torch, smi, kept)
     session_launches = session_phase(torch, smi, kept)
+    shard_launches = shard_phase(torch, smi, kept)
     del kept
     torch.cuda.empty_cache()
     small_fleet_check(torch)
     small_session_check(torch)
+    small_shard_check(torch)
     cli_drill_check(torch)
     sched_launches = scheduler_phase(torch, smi)
     small_scheduler_check(torch)
     paper_phase(torch, smi)
     tooling_phase(torch, smi)
     # each kernel's launches over every main path that runs it
-    for counts in (fleet_launches, serve_launches, session_launches, sched_launches):
+    for counts in (fleet_launches, serve_launches, session_launches, shard_launches, sched_launches):
         for kname, n in counts.items():
             launches[kname] = launches.get(kname, 0) + n
     for kname, n in launches.items():

@@ -16,11 +16,14 @@ a checkpoint written by either package loads in the other.
   - ``CheckpointManager`` keeps the last K checkpoints and reaps ``.tmp``
     directories only once they are older than ``tmp_grace_s``.
   - ``save_runtime_session`` / ``restore_runtime_session`` checkpoint a whole
-    ``SessionRuntime`` (``session_state`` / ``load_session_state``); the
-    session's control plane travels in ``extra["session"]``.
-
-The reference's ``shardings=`` (restore onto another mesh) needs more than
-one device and is not ported (slice 7).
+    ``SessionRuntime`` (``session_state`` / ``load_session_state``), one
+    shard or several (pools keyed ``s<i>``, KV pools by shard, cache rows
+    under global ids); the session's control plane travels in
+    ``extra["session"]``. A session restores onto another device count with
+    the same logical shards (the elastic path).
+  - ``restore_checkpoint(shardings=)`` takes a tree of ``torch.device``
+    shaped like ``like``: the port's form of a data-only mesh's shardings
+    (every leaf whole on one device).
 """
 
 from __future__ import annotations
@@ -136,18 +139,24 @@ def _read(path: str) -> tuple[dict, Any]:
 
 def restore_checkpoint(path: str, like: Params, *, shardings: Optional[Params] = None) -> tuple[Params, dict]:
     """Restore into the structure of ``like`` (a tree of tensors): each leaf
-    comes back as a tensor on the ``like`` leaf's device and in its dtype.
-    Returns (tree, manifest)."""
+    comes back as a tensor in the ``like`` leaf's dtype, on the ``like``
+    leaf's device or, with ``shardings`` (a tree of ``torch.device`` of the
+    same structure), on its device there: the elastic path, where the saved
+    devices do not matter. Returns (tree, manifest)."""
+    places = {}
     if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=) reshards onto a device mesh, which is not ported "
-            "(slice 7: multiple GPUs); the port restores onto each like leaf's device"
-        )
+        places = dict(_flatten_with_names(shardings))
+        for name, dev in places.items():
+            if not isinstance(dev, torch.device):
+                raise ValueError(
+                    f"shardings[{name!r}] is {type(dev).__name__}: the port's shardings are a tree of "
+                    "torch.device (a data-only mesh places every leaf whole on one device)"
+                )
     manifest, data = _read(path)
     leaves = {}
     for name, leaf in _flatten_with_names(like):
         t = _from_numpy(data[name], manifest["leaves"][name]["dtype"])
-        leaves[name] = t.to(device=leaf.device, dtype=leaf.dtype)
+        leaves[name] = t.to(device=places.get(name, leaf.device), dtype=leaf.dtype)
     return _unflatten(like, leaves), manifest
 
 

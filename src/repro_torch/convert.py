@@ -31,7 +31,9 @@ Layouts:
   - session captures (``SessionRuntime.session_state``): the reference's
     keeps its pool per shard (arrays under "s0", table under "shards") and
     its KV pool in the periods/remainder layout; ``session_from_reference``
-    maps a one-shard capture onto the port's.
+    maps a capture onto the port's (one shard: the pool unwrapped from
+    "s0"; several: kept per shard, as the port's multi-shard session keeps
+    it).
 """
 
 from __future__ import annotations
@@ -180,27 +182,33 @@ def _stack_layers(kv: dict, cfg: ModelConfig, device) -> dict[str, torch.Tensor]
 def session_from_reference(arrays: dict, meta: dict, cfg: ModelConfig, *, device="cpu") -> tuple[dict, dict]:
     """A reference ``session_state`` capture (its ``_load_dict_tree`` gives
     numpy leaves; the port's gives tensors: either works) -> the port's
-    (arrays, meta) for ``SessionRuntime.load_session_state``: the pool's
-    arrays and table unwrapped from shard 0, adapters and moments through
-    ``adapters_from_reference``, cache rows by slot name (the names match),
-    the KV pool mapped to {"k", "v"}. A capture of more than one shard is
-    refused: the port's session has one (slice 7)."""
+    (arrays, meta) for ``SessionRuntime.load_session_state`` of a runtime
+    with the same logical shards: adapters and moments through
+    ``adapters_from_reference``, cache rows by slot name (the names match,
+    ids global in both), each shard's KV pool mapped to {"k", "v"}. One
+    shard: the pool's arrays and table unwrapped from shard 0 (the port's
+    one-shard layout); several: kept per shard (``s<i>``, the table's
+    ``shards`` and placement)."""
     table = meta["pool_table"]
     n_shards = int(meta["layout"].get("n_shards", 1))
-    if n_shards != 1 or int(table["n_shards"]) != 1:
-        raise ValueError(f"a capture of {n_shards} shards: the port's session has one (slice 7)")
+    if int(table["n_shards"]) != n_shards or len(table["shards"]) != n_shards:
+        raise ValueError(f"pool table of {table['n_shards']} shards in a capture laid out for {n_shards}")
     out: dict = {}
     for name in ("adapters", "opt_mu", "opt_nu"):
         if name in arrays:
             out[name] = adapters_from_reference(arrays[name], device=device)
-    out["pool"] = _map(lambda x: to_tensor(x, device), arrays["pool"]["s0"])
+    pool = _map(lambda x: to_tensor(x, device), arrays["pool"])
+    if n_shards == 1:
+        out["pool"], new_meta = pool["s0"], dict(meta, pool_table=table["shards"][0])
+    else:
+        out["pool"], new_meta = pool, dict(meta)
     if "cache" in arrays:
         out["cache"] = {k: to_tensor(v, device) for k, v in arrays["cache"].items()}
-    new_meta = dict(meta, pool_table=table["shards"][0])
     if "kv_pool" in arrays:
-        if set(arrays["kv_pool"]) != {"0"}:
-            raise ValueError(f"kv pools of shards {sorted(arrays['kv_pool'])}: the port's session has one")
-        out["kv_pool"] = {"0": _stack_layers(arrays["kv_pool"]["0"], cfg, device)}
+        bad = [s for s in arrays["kv_pool"] if not 0 <= int(s) < n_shards]
+        if bad:
+            raise ValueError(f"kv pools of shards {sorted(bad)} in a capture of {n_shards} shard(s)")
+        out["kv_pool"] = {s: _stack_layers(kv, cfg, device) for s, kv in arrays["kv_pool"].items()}
     return out, new_meta
 
 

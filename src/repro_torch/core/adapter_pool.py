@@ -1,6 +1,6 @@
 """Adapter pool: slot-based registry of per-tenant Skip-LoRA stacks.
 
-Counterpart of ``repro.core.adapter_pool`` on one device. Serving applies a
+Counterpart of ``repro.core.adapter_pool``. Serving applies a
 *different* adapter stack per batch row, and the skip topology taps every
 layer, so the adapters stay in a stacked device-resident pool
 
@@ -35,8 +35,11 @@ version meta and history metadata), ``state_arrays`` (data plane plus
 archived payloads keyed ``hist/h{k}``) and ``load_state``, in the
 reference's layout, so one session's capture reads like the reference's.
 
-Not ported yet: the dense ``fused`` skip-sum (one-dispatch decode) and
-``ShardedAdapterPool`` with its per-shard ``s<i>`` state (slice 7).
+``ShardedAdapterPool`` shards the registry along the session's data axis
+by tenant: one ``AdapterPool`` per logical shard on the shard's device,
+balanced round-robin placement, sticky afterwards. Its state is keyed
+``s<i>`` with the placement in the table, the reference's layout; with one
+shard every method is the one pool's.
 """
 
 from __future__ import annotations
@@ -481,6 +484,234 @@ class AdapterPool:
         if k != len(hist_payloads):
             raise ValueError(f"{len(hist_payloads)} history payloads in checkpoint, manifest accounts for {k}")
         self.version += 1
+
+
+class ShardedAdapterPool:
+    """Adapter registry sharded along the session's ``data`` axis by tenant.
+
+    Every tenant is *placed* on a logical shard the first time the session
+    sees it (balanced round robin: the shard with the fewest placed tenants,
+    lowest index on ties), and its slot, cache partition, training state and
+    serve rows stay there. Each shard holds its own ``AdapterPool`` on the
+    shard's device (``devices[s % len(devices)]``), so grouped serve and
+    adapt batches route rows to the shard holding their slot and never
+    gather adapters across devices. The shard count is a session-layout
+    property carried through checkpoints; the devices are placement only.
+
+    With ``n_shards == 1`` every method is the wrapped ``AdapterPool``'s,
+    its state and slot table included: the one-device path, bitwise."""
+
+    def __init__(self, n_slots_per_shard: int, cfg: ModelConfig, rank: int, *, n_shards: int = 1,
+                 devices: Optional[list] = None, compress: Optional[str] = None, dtype=torch.float32,
+                 history: int = 0):
+        if n_shards < 1:
+            raise ValueError(f"need >= 1 shard, got {n_shards}")
+        devs = list(devices) if devices else ["cuda"]
+        self.n_shards = n_shards
+        self.compress = compress
+        self.history_depth = history
+        self.shards = [
+            AdapterPool(n_slots_per_shard, cfg, rank, compress=compress, dtype=dtype,
+                        device=devs[s % len(devs)], history=history)
+            for s in range(n_shards)
+        ]
+        self.n_slots = self.shards[0].n_slots
+        self.rank = rank
+        self._placement: dict[Any, int] = {}
+
+    # -- placement ------------------------------------------------------------
+
+    def place(self, tenant) -> int:
+        """The tenant's logical shard: balanced round robin at first sight,
+        sticky afterwards."""
+        s = self._placement.get(tenant)
+        if s is None:
+            counts = [0] * self.n_shards
+            for sh in self._placement.values():
+                counts[sh] += 1
+            s = self._placement[tenant] = min(range(self.n_shards), key=lambda i: (counts[i], i))
+        return s
+
+    def shard_of(self, tenant) -> int:
+        """The tenant's placed shard (``None``: shard 0, the zero slot)."""
+        if tenant is None or self.n_shards == 1:
+            return 0
+        s = self._placement.get(tenant)
+        if s is None:
+            raise KeyError(f"tenant {tenant!r} has no shard placement")
+        return s
+
+    def unplace(self, tenant) -> None:
+        self._placement.pop(tenant, None)
+
+    def placement(self) -> dict:
+        return dict(self._placement)
+
+    def route(self, tenants) -> list[tuple[list[int], list]]:
+        """Split a batch by slot shard: per shard, the (row positions,
+        tenants) of the rows it owns. Base rows (``None``) ride shard 0's
+        zero slot."""
+        out: list[tuple[list[int], list]] = [([], []) for _ in range(self.n_shards)]
+        for pos, t in enumerate(tenants):
+            rows, subs = out[self.shard_of(t)]
+            rows.append(pos)
+            subs.append(t)
+        return out
+
+    # -- lookups --------------------------------------------------------------
+
+    def _only(self) -> AdapterPool:
+        if self.n_shards != 1:
+            raise RuntimeError("multi-shard pool: use route() / shard_pools(s) / lookup_local()")
+        return self.shards[0]
+
+    def pools(self) -> dict[str, torch.Tensor]:
+        return self._only().pools()
+
+    def lookup(self, tenants) -> torch.Tensor:
+        return self._only().lookup(tenants)
+
+    def shard_pools(self, s: int) -> dict[str, torch.Tensor]:
+        return self.shards[s].pools()
+
+    def lookup_local(self, s: int, tenants) -> torch.Tensor:
+        """Shard-local slot indices of a routed sub-batch."""
+        return self.shards[s].lookup(tenants)
+
+    # -- registry -------------------------------------------------------------
+
+    def _home(self, tenant) -> Optional[AdapterPool]:
+        """The pool holding the tenant's placement (None: unplaced)."""
+        if self.n_shards == 1:
+            return self.shards[0]
+        s = self._placement.get(tenant)
+        return None if s is None else self.shards[s]
+
+    def has(self, tenant) -> bool:
+        p = self._home(tenant)
+        return p is not None and p.has(tenant)
+
+    def tenants(self) -> list:
+        return [t for p in self.shards for t in p.tenants()]
+
+    def __len__(self) -> int:
+        return sum(len(p.tenants()) for p in self.shards)
+
+    def nbytes(self) -> int:
+        return sum(p.nbytes() for p in self.shards)
+
+    @property
+    def version(self) -> int:
+        """Moves with every shard's slot-map change (a memo key)."""
+        return sum(p.version for p in self.shards)
+
+    @property
+    def stats(self) -> PoolStats:
+        if self.n_shards == 1:
+            return self.shards[0].stats
+        agg = PoolStats()
+        for p in self.shards:
+            for f in dataclasses.fields(PoolStats):
+                setattr(agg, f.name, getattr(agg, f.name) + getattr(p.stats, f.name))
+        return agg
+
+    def register(self, tenant, adapters: Params, *, meta: Optional[dict] = None) -> int:
+        return self.shards[self.place(tenant)].register(tenant, adapters, meta=meta)
+
+    def register_many(self, tenants, stacked: Params, *, gate=None, meta: Optional[dict] = None) -> list[int]:
+        """Batched write-back routed by placement: one write per shard, on
+        the shard's device (a same-shard group, the session's adapt groups,
+        is one write). ``gate`` / ``meta`` are tenant-keyed and pass through."""
+        tenants = list(tenants)
+        by_shard: dict[int, list[int]] = {}
+        for i, t in enumerate(tenants):
+            by_shard.setdefault(self.place(t), []).append(i)
+        slots = [0] * len(tenants)
+        for s, rows in by_shard.items():
+            if len(rows) == len(tenants):
+                sub = stacked
+            else:
+                sel = torch.tensor(rows)
+                sub = {k: v[sel.to(v.device)] for k, v in stacked.items()}
+            got = self.shards[s].register_many([tenants[i] for i in rows], sub, gate=gate, meta=meta)
+            for i, slot in zip(rows, got):
+                slots[i] = slot
+        return slots
+
+    def _of(self, tenant) -> AdapterPool:
+        return self.shards[self.shard_of(tenant)]
+
+    def rollback(self, tenant) -> dict:
+        return self._of(tenant).rollback(tenant)
+
+    def version_info(self, tenant) -> dict:
+        return self._of(tenant).version_info(tenant)
+
+    def history_len(self, tenant) -> int:
+        return self._of(tenant).history_len(tenant)
+
+    def set_eval_loss(self, tenant, eval_loss) -> None:
+        self._of(tenant).set_eval_loss(tenant, eval_loss)
+
+    def slot_payload(self, tenant) -> dict[str, torch.Tensor]:
+        return self._of(tenant).slot_payload(tenant)
+
+    def evict(self, tenant) -> None:
+        self._of(tenant).evict(tenant)
+
+    def pin(self, tenant) -> None:
+        self._of(tenant).pin(tenant)
+
+    def unpin(self, tenant) -> None:
+        p = self._home(tenant)
+        if p is not None:
+            p.unpin(tenant)
+
+    def pinned(self) -> set:
+        return set().union(*(p.pinned() for p in self.shards))
+
+    def touch(self, tenants) -> None:
+        for t in tenants:
+            p = None if t is None else self._home(t)
+            if p is not None:
+                p.touch([t])
+
+    # -- session state (checkpoint plane) ------------------------------------
+
+    def state_arrays(self) -> dict:
+        """One shard: the pool's own. Several: each shard's keyed ``s<i>``."""
+        if self.n_shards == 1:
+            return self.shards[0].state_arrays()
+        return {f"s{i}": p.state_arrays() for i, p in enumerate(self.shards)}
+
+    def slot_table(self) -> dict:
+        """One shard: the pool's own table. Several: the placement and each
+        shard's table (the reference's layout)."""
+        if self.n_shards == 1:
+            return self.shards[0].slot_table()
+        return {
+            "n_shards": self.n_shards,
+            "placement": [[t, s] for t, s in self._placement.items()],
+            "shards": [p.slot_table() for p in self.shards],
+        }
+
+    def load_state(self, arrays: dict, table: dict) -> None:
+        """Restore ``state_arrays`` / ``slot_table`` of a pool with the same
+        shard count (the count is a layout property: an elastic restart
+        changes devices, not shards)."""
+        saved = int(table.get("n_shards", 1))
+        if saved != self.n_shards:
+            raise ValueError(
+                f"checkpoint has {saved} pool shards, this session is laid out for {self.n_shards} "
+                "(logical shard count is a session-layout property; elastic restarts change devices, not shards)"
+            )
+        if "n_shards" not in table:
+            self.shards[0].load_state(arrays, table)
+            self._placement = {t: 0 for t, _ in table["lru"]}
+            return
+        self._placement = {t: int(s) for t, s in table["placement"]}
+        for i, p in enumerate(self.shards):
+            p.load_state(arrays[f"s{i}"], table["shards"][i])
 
 
 def _pool_slots(pools: dict[str, torch.Tensor]) -> int:

@@ -12,6 +12,7 @@ steps.
 from __future__ import annotations
 
 import gc
+import warnings
 from collections import Counter, OrderedDict
 from typing import Any, Callable
 
@@ -22,17 +23,31 @@ class GraphCaptureError(RuntimeError):
     """A step could not be captured into a CUDA graph."""
 
 
+#: one capture stream a device: ``torch.cuda.graph``'s own default is made
+#: once, on whichever device is current at its first use, and a capture on
+#: another device through it records nothing
+_STREAMS: dict[int, "torch.cuda.Stream"] = {}
+
+
 def capture(graph: "torch.cuda.CUDAGraph", fn: Callable[[], None], *, what: str, pool=None) -> None:
-    """Capture ``fn``'s work into ``graph`` (``pool``: a memory pool to share
-    with other graphs). No cycle collection runs inside the capture: freeing
-    another graph there (``cudaGraphExecDestroy``) would invalidate this one.
-    A failure raises ``GraphCaptureError`` naming ``what``."""
+    """Capture ``fn``'s work into ``graph`` on the current CUDA device
+    (``pool``: a memory pool to share with other graphs). No cycle
+    collection runs inside the capture: freeing another graph there
+    (``cudaGraphExecDestroy``) would invalidate this one. A failure, and a
+    capture that records nothing (work sent to another device's stream),
+    raise ``GraphCaptureError`` naming ``what``."""
+    dev = torch.cuda.current_device()
+    stream = _STREAMS.get(dev)
+    if stream is None:
+        stream = _STREAMS[dev] = torch.cuda.Stream(dev)
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool):
-            fn()
-    except (RuntimeError, ValueError) as err:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message="The CUDA Graph is empty")
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                fn()
+    except (RuntimeError, ValueError, UserWarning) as err:
         raise GraphCaptureError(f"capturing {what} into a CUDA graph failed: {err}") from err
     finally:
         if collecting:

@@ -157,7 +157,12 @@ class _Entry:
     def run(self, steps: int, unroll: int, emit: Callable[[int, int], None], generator) -> None:
         """``steps`` decode steps: on a fresh entry the first eagerly on a
         side stream (the warm-up), the rest as replays; ``emit(at, n)``
-        after each segment takes its ``n`` tokens out as steps ``at...``."""
+        after each segment takes its ``n`` tokens out as steps ``at...``.
+        Captures and replays run with the entry's device current."""
+        with torch.cuda.device(self.device):
+            self._run(steps, unroll, emit, generator)
+
+    def _run(self, steps, unroll, emit, generator) -> None:
         state = generator.get_state() if self.sampling else None
         done = 0
         if not self._warm and steps:

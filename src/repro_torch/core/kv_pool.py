@@ -1,6 +1,6 @@
 """Paged KV block pool: the serve-path analog of the Skip-Cache.
 
-Counterpart of ``repro.core.kv_pool`` on one device. Skip2-LoRA's thesis is
+Counterpart of ``repro.core.kv_pool`` (a session keeps one a shard). Skip2-LoRA's thesis is
 cache-to-skip-compute: pay for a forward once, then reuse its intermediate
 state instead of recomputing it. The adapt path does it with cached
 activations; this module does it for *prefill*: a fixed pool of KV blocks

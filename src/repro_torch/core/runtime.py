@@ -1,6 +1,6 @@
 """Generation entry points and the session runtime: serve + ingest + adapt.
 
-Counterpart of ``repro.core.runtime`` on one device:
+Counterpart of ``repro.core.runtime``:
   - ``generate`` / ``generate_grouped``: one prefill, then ``decode_scan``'s
     ``max_new`` decode steps, CUDA-graph replays of ``unroll`` steps each on
     the card (``core.decode_graph``). Both run on ``device`` ("cuda" unless
@@ -8,12 +8,13 @@ Counterpart of ``repro.core.runtime`` on one device:
     a CUDA device the grouped skip-sum goes through the hand-written
     kernels, on the CPU through their plain versions. ``generate_loop`` is
     the eager per-token loop the replays are held against.
-  - ``SessionRuntime``: the continual-learning session over ONE
-    ``AdapterPool`` and ONE ``TieredCacheEngine`` (every tenant's skip-cache
-    partition), processing an interleaved event stream:
+  - ``SessionRuntime``: the continual-learning session over a
+    ``ShardedAdapterPool`` and one ``TieredCacheEngine`` per logical shard
+    (the shard's tenants' skip-cache partitions), processing an interleaved
+    event stream:
       - ``serve(tenants, prompts)``: generation routed per batch, the
         single-stack path when every row is the base model, the grouped one
-        otherwise;
+        otherwise, one dispatch per shard with rows;
       - ``ingest(tenant, tokens, labels)``: a populate forward that writes
         the tenant's cache partition and returns its last-position adapted
         logits (``models.lm.ingest_prefill``): ingestion doubles as serving;
@@ -39,12 +40,21 @@ Batch planning goes through ``core.batch_plan`` with explicit tenant
 partitions, so an ``adapt`` group that is a subset or a reordering of the
 ingested tenants still replays each tenant's own order.
 
-The decode's CUDA graphs are cached in ``core.decode_graph``. Not ported
-yet: more than one shard or a mesh and pipelined admission (slice 7).
+The data axis (``mesh=`` / ``placement_shards=``): tenants are placed on
+logical shards, shard ``s`` lives on ``devices[s % n_devices]`` of a
+data-only mesh (``runtime.sharding``), and no value crosses shards. One
+process drives every device; each shard's serve, ingest, adapt and
+scheduler dispatches run on its device, against its pool, engine and KV
+pool. The logical layout travels in checkpoints, so a session restored onto
+another device count continues bitwise.
+
+The decode's CUDA graphs are cached in ``core.decode_graph``. A model axis
+above 1 and pipelined admission raise (slice 7b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import Counter, OrderedDict
 from typing import Any, Optional, Sequence
@@ -202,22 +212,33 @@ class TenantState:
 
 
 class SessionRuntime:
-    """One session engine for serve + ingest + adapt over a shared pool, on
-    one device.
+    """One session engine for serve + ingest + adapt over a shared pool,
+    on one device or over a data-only device mesh.
 
     ``max_tenants`` bounds the cache partitions (``samples_per_tenant`` rows
     each, global id = partition * samples_per_tenant + local id: the fleet
     trainer's convention, so offline and interleaved training address the
     same cache rows) at ``seq`` tokens a row. The pool defaults to
-    ``max_tenants + 1`` slots (slot 0 pinned zero; ``pool_slots`` overrides)
-    in the layout ``pool_compress`` picks (None, "int8", "int4", "nf4"). The
-    engine defaults to fully device-resident; ``cache_capacity`` /
-    ``hbm_budget_bytes`` force tiered placement (``cache_dir`` puts the host
-    tier on disk), which sends ``adapt`` down the streaming path instead of
-    the resident one. ``lr`` / ``optimizer`` train the adapters (AdamW at
-    ``lr`` by default). ``seed`` derives the serve generators, the epoch
-    plans and the default initial adapters. ``idx_memo_slots`` bounds the
-    serve slot-index memo. ``control`` turns on the control plane.
+    ``max_tenants / shards + 1`` slots a shard (slot 0 pinned zero;
+    ``pool_slots`` overrides the per-shard count) in the layout
+    ``pool_compress`` picks (None, "int8", "int4", "nf4"). The engines
+    default to fully device-resident; ``cache_capacity`` /
+    ``hbm_budget_bytes`` (split evenly over the shards) force tiered
+    placement (``cache_dir`` puts the host tier on disk, ``shard_{s}`` below
+    it for each shard of a multi-shard session), which sends ``adapt`` down
+    the streaming path instead of the resident one. ``lr`` / ``optimizer``
+    train the adapters (AdamW at ``lr`` by default). ``seed`` derives the
+    serve generators, the epoch plans and the default initial adapters.
+    ``idx_memo_slots`` bounds the serve slot-index memo. ``control`` turns
+    on the control plane.
+
+    ``mesh`` (default: the one-device mesh of ``device``, "cuda" unless the
+    caller asks for the CPU) supplies the devices; ``placement_shards`` fixes
+    the *logical* shard count (default: the mesh's data size). Partition
+    ``p`` belongs to shard ``p % shards``, shard ``s`` lives on
+    ``devices[s % n_devices]``, and the backbone is one replica per distinct
+    device (``params`` serve where they live). ``max_tenants`` must divide
+    over the shards.
 
     ``use_kernel`` picks the skip-sum route of ``serve``, the scheduler,
     ``ingest`` and ``adapt``: the grouped wrappers (on a CUDA device the
@@ -226,11 +247,7 @@ class SessionRuntime:
     ``blocked_skip_sum`` einsum, as the reference's flag does.
     ``decode_fuse=True`` computes the decode steps' skip term as dense
     per-row math instead of a grouped kernel launch (the prefills keep the
-    kernel). ``params`` must live on ``device``."""
-
-    #: the session's layout on one device (a checkpoint's ``layout`` block):
-    #: one logical shard, no model axis, no pipeline (slice 7 brings more)
-    n_shards, model_parallel, pipeline_stages = 1, 1, 0
+    kernel). ``params`` must live on a device of the session's type."""
 
     def __init__(
         self,
@@ -256,20 +273,17 @@ class SessionRuntime:
         pipeline_stages: int = 0,
         idx_memo_slots: int = 256,
         control: Optional[ControlConfig] = None,
-        device="cuda",
+        device=None,
     ):
-        from repro_torch.core.adapter_pool import AdapterPool
+        from repro_torch.core.adapter_pool import ShardedAdapterPool
+        from repro_torch.runtime import sharding as SH
 
         if sl.mode not in ("full", "int8"):
             raise ValueError(f"the session runtime trains fleet modes 'full'/'int8', not {sl.mode!r}")
-        if mesh is not None or (placement_shards or 1) != 1:
-            raise NotImplementedError(
-                "a mesh or more than one shard is not ported (slice 7: multiple GPUs): "
-                "the port's session runs on one device"
-            )
         if pipeline_stages:
             raise NotImplementedError(
-                "pipeline_stages is not ported (slice 7: multiple GPUs): pipelined admission needs a mesh"
+                f"pipeline_stages is not ported ({SH.MODEL_AXIS_SLICE}): pipelined admission runs over a "
+                "model axis"
             )
         if idx_memo_slots < 1:
             raise ValueError(f"idx_memo_slots {idx_memo_slots} < 1")
@@ -280,10 +294,30 @@ class SessionRuntime:
         self.use_kernel = use_kernel
         self.decode_fuse = decode_fuse
         self.seed = seed
-        self.device = torch.device(device)
-        if params["embed"]["table"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed']['table'].device}, the session on {self.device}")
-        self.params = params
+
+        # -- the mesh and the logical shard layout --------------------------
+        if mesh is None:
+            mesh = SH.make_mesh((1,), ("data",), devices=[device if device is not None else "cuda"])
+        elif device is not None and torch.device(device).type != SH.session_devices(mesh)[0].type:
+            raise ValueError(f"device {device} != the mesh's {SH.session_devices(mesh)[0]}")
+        self.mesh = mesh
+        self.devices = SH.session_devices(mesh)
+        n_groups = len(self.devices)
+        self.model_parallel, self.pipeline_stages = 1, 0
+        self.n_shards = int(placement_shards) if placement_shards is not None else n_groups
+        if self.n_shards < 1:
+            raise ValueError(f"placement_shards {self.n_shards} < 1")
+        if max_tenants % self.n_shards:
+            raise ValueError(f"max_tenants {max_tenants} must divide over {self.n_shards} shards")
+        self.device = self.devices[0]
+        home = params["embed"]["table"].device
+        if any(d.type != home.type for d in self.devices):
+            raise ValueError(f"params live on {home}, the session on {[str(d) for d in self.devices]}")
+        #: shard -> its device and its backbone replica
+        self._shard_device = [self.devices[s % n_groups] for s in range(self.n_shards)]
+        replicas = SH.replicate_backbone(params, self.devices)
+        self._shard_params = [replicas[s % n_groups] for s in range(self.n_shards)]
+        self.params = self._shard_params[0]
         self.optimizer = optimizer if optimizer is not None else adamw(lr)
         #: Opt-in control plane: with ``control=None`` the session plans,
         #: trains and writes back exactly the uncontrolled trajectory. With a
@@ -293,43 +327,78 @@ class SessionRuntime:
         self.control_cfg = control
         self.control = ControlPlane(control) if control is not None else None
 
-        n_samples = max_tenants * samples_per_tenant
+        # -- per-shard engines, pool, partitions ----------------------------
+        n = self.n_shards
+        tenants_per_shard = max_tenants // n
+        shard_samples = tenants_per_shard * samples_per_tenant
         if cache_capacity is None and hbm_budget_bytes is None:
-            cache_capacity = n_samples  # fully resident: the resident adapt path
-        self.engine = TieredCacheEngine(
-            n_samples, SL.lm_cache_layout(cfg, sl, seq), capacity=cache_capacity,
-            hbm_budget_bytes=hbm_budget_bytes, directory=cache_dir, device=self.device,
-        )
-        self.pool = AdapterPool(
-            pool_slots if pool_slots is not None else max_tenants + 1, cfg, sl.rank,
-            compress=pool_compress, device=self.device,
+            cache_capacity = shard_samples * n   # fully resident: the resident adapt path
+        split = (lambda v: v) if n == 1 else (lambda v: max(1, v // n))
+        self.engines = [
+            TieredCacheEngine(
+                shard_samples, SL.lm_cache_layout(cfg, sl, seq),
+                capacity=None if cache_capacity is None else split(cache_capacity),
+                hbm_budget_bytes=None if hbm_budget_bytes is None else split(hbm_budget_bytes),
+                directory=cache_dir if cache_dir is None or n == 1 else f"{cache_dir}/shard_{s}",
+                device=self._shard_device[s],
+            )
+            for s in range(n)
+        ]
+        self.engine = self.engines[0]
+        self.pool = ShardedAdapterPool(
+            pool_slots if pool_slots is not None else tenants_per_shard + 1, cfg, sl.rank, n_shards=n,
+            devices=self._shard_device, compress=pool_compress,
             history=control.history_depth if control is not None else 0,
         )
         self._tenants: dict[Any, TenantState] = {}
-        #: free cache partitions, popped smallest first
+        #: free cache partitions, partition p of shard p % shards; each
+        #: shard pops its smallest first (``_add_tenant``)
         self._free_partitions = list(range(max_tenants - 1, -1, -1))
-        #: the resident adapt path's id-indexed cache (``export_skipcache``),
-        #: kept across adapt calls until the next ingest writes new rows
-        self._export = None
-        #: (tenant tuple, pool version) -> slot-index tensor, LRU: repeated
-        #: serve batches skip the host-to-device slot-index build, a slot-map
-        #: change moves the version, and live traffic's unbounded orderings
-        #: are capped at ``idx_memo_slots`` (``counters`` keeps
-        #: ``idx_memo/{hits,misses,evictions}``).
+        #: per shard, the resident adapt path's id-indexed cache
+        #: (``export_skipcache``), kept across adapt calls until the next
+        #: ingest on the shard writes new rows
+        self._export: list = [None] * n
+        #: (shard, tenant tuple, shard pool version) -> slot-index tensor,
+        #: LRU: repeated serve batches skip the host-to-device slot-index
+        #: build, a slot-map change moves the version, and live traffic's
+        #: unbounded orderings are capped at ``idx_memo_slots``
+        #: (``counters`` keeps ``idx_memo/{hits,misses,evictions}``).
         self._idx_cache: OrderedDict[tuple, torch.Tensor] = OrderedDict()
         self._idx_cache_cap = int(idx_memo_slots)
         self._serve_calls = 0
         self._scheduler = None
-        #: The scheduler's prefix-reuse state, built lazily by ``kv_pool()``,
-        #: so reuse-off sessions pay nothing.
-        self._kv_pool = None
-        self._prefix_index = None
+        #: The scheduler's prefix-reuse state per shard, built lazily by
+        #: ``kv_pool(shard, ...)``, so reuse-off sessions pay nothing.
+        self._kv_pools: dict[int, Any] = {}
+        self._prefix_indexes: dict[int, Any] = {}
         self.counters = Counter()
 
-    def _generator(self, n: int) -> torch.Generator:
-        """Counter-derived generator: call ``n`` of an identically seeded
-        session draws the same numbers, two calls never share a stream."""
-        return torch.Generator(device=self.device).manual_seed((self.seed << 32) + n)
+    def _on(self, shard: int):
+        """The shard's device as the current CUDA device (a no-op on the
+        CPU): its graphs capture and its kernels launch there."""
+        dev = self._shard_device[shard]
+        return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+    def _generator(self, n: int, shard: int = 0) -> torch.Generator:
+        """Counter-derived generator of serve call ``n`` on ``shard``: an
+        identically seeded session draws the same numbers, two calls or two
+        shards never share a stream (one shard: call ``n``'s stream)."""
+        return torch.Generator(device=self._shard_device[shard]).manual_seed(
+            (self.seed << 32) + n * self.n_shards + shard)
+
+    # -- shard arithmetic ----------------------------------------------------
+
+    def _shard_of_partition(self, partition: int) -> int:
+        return partition % self.n_shards
+
+    def _local_ids(self, partition: int, rows) -> list[int]:
+        """Global partition + partition-local row ids -> the shard engine's ids."""
+        off = (partition // self.n_shards) * self.samples_per_tenant
+        return [off + int(r) for r in rows]
+
+    def _global_id(self, shard: int, local_id: int) -> int:
+        part = (local_id // self.samples_per_tenant) * self.n_shards + shard
+        return part * self.samples_per_tenant + local_id % self.samples_per_tenant
 
     # -- tenant bookkeeping --------------------------------------------------
 
@@ -340,72 +409,87 @@ class SessionRuntime:
         return st
 
     def _add_tenant(self, tenant) -> TenantState:
-        if not self._free_partitions:
-            raise RuntimeError(f"session full: all {self.max_tenants} cache partitions in use")
-        st = TenantState(partition=self._free_partitions.pop())
+        shard = self.pool.place(tenant)
+        free = self._free_partitions
+        pick = next((i for i in range(len(free) - 1, -1, -1) if free[i] % self.n_shards == shard), None)
+        if pick is None:
+            where = "" if self.n_shards == 1 else f" of shard {shard}"
+            raise RuntimeError(
+                f"session full: all {self.max_tenants // self.n_shards} cache partitions{where} in use "
+                f"({self.max_tenants} session-wide)"
+            )
+        st = TenantState(partition=free.pop(pick))
         self._tenants[tenant] = st
         return st
 
     def release(self, tenant) -> None:
         """Drop a tenant's training state and cache partition. Its pool slot,
-        if any, stays registered but is unpinned, so LRU applies again."""
+        if any, stays registered but is unpinned, so LRU applies again; a
+        tenant without a slot loses its shard placement too."""
         st = self._tenants.pop(tenant)
         self._free_partitions.append(st.partition)
         if self.pool.has(tenant):
             self.pool.unpin(tenant)
-        if self._prefix_index is not None:
-            self._prefix_index.drop_tenant(tenant)
+        else:
+            self.pool.unplace(tenant)
+        for idx in self._prefix_indexes.values():
+            idx.drop_tenant(tenant)
 
     # -- paged KV prefix cache ----------------------------------------------
 
-    def kv_pool(self, *, block: Optional[int] = None, n_blocks: Optional[int] = None):
-        """The paged KV block pool, built on first call. ``block`` is the
-        pool's identity: asking again for another block size raises (tables
-        and radix paths are block-granular). ``n_blocks`` sizes the first
-        call and is ignored once the pool exists."""
+    def kv_pool(self, shard: int = 0, *, block: Optional[int] = None, n_blocks: Optional[int] = None):
+        """The shard's paged KV block pool, built on its device at the first
+        call. ``block`` is the pool's identity: asking again for another
+        block size raises (tables and radix paths are block-granular).
+        ``n_blocks`` sizes the first call and is ignored once the pool
+        exists."""
         from repro_torch.core.kv_pool import KVBlockPool, get_default_block
 
-        pool = self._kv_pool
+        pool = self._kv_pools.get(shard)
         if pool is not None:
             if block is not None and int(block) != pool.block:
-                raise ValueError(f"kv pool already built with block={pool.block}; requested {block}")
+                raise ValueError(f"kv pool shard {shard} already built with block={pool.block}; requested {block}")
             return pool
         if n_blocks is None:
-            raise ValueError("the first kv_pool() call must size it (n_blocks)")
-        self._kv_pool = KVBlockPool(
+            raise ValueError(f"the first kv_pool() call of shard {shard} must size it (n_blocks)")
+        pool = self._kv_pools[shard] = KVBlockPool(
             self.cfg, n_blocks=int(n_blocks), block=int(block) if block else get_default_block(),
-            device=self.device,
+            device=self._shard_device[shard],
         )
-        return self._kv_pool
+        return pool
 
-    def prefix_index(self):
+    def prefix_index(self, shard: int = 0):
         from repro_torch.core.prefix_index import RadixPrefixIndex
 
-        if self._prefix_index is None:
-            if self._kv_pool is None:
-                raise ValueError("prefix_index() needs kv_pool(...) built first")
-            self._prefix_index = RadixPrefixIndex(self._kv_pool)
-        return self._prefix_index
+        idx = self._prefix_indexes.get(shard)
+        if idx is None:
+            pool = self._kv_pools.get(shard)
+            if pool is None:
+                raise ValueError(f"prefix_index({shard}) needs kv_pool({shard}, ...) built first")
+            idx = self._prefix_indexes[shard] = RadixPrefixIndex(pool)
+        return idx
 
     def reset_prefix_cache(self) -> None:
-        """Forget every pooled prefix: radix tree cleared, pool refcounts
-        zeroed, generation bumped so in-flight handles turn stale."""
-        if self._prefix_index is not None:
-            self._prefix_index.reset()
-        elif self._kv_pool is not None:
-            self._kv_pool.reset()
+        """Forget every pooled prefix on every shard: radix trees cleared,
+        pool refcounts zeroed, generations bumped so in-flight handles turn
+        stale."""
+        for shard, pool in self._kv_pools.items():
+            idx = self._prefix_indexes.get(shard)
+            if idx is not None:
+                idx.reset()
+            else:
+                pool.reset()
 
     def check_prefix_no_leaks(self) -> None:
-        """Drained-state ref invariant, raised on violation: every held
-        block is owned by exactly one radix node and nothing else (no
-        in-flight refs survive a drain; free + held == n_blocks)."""
-        pool, idx = self._kv_pool, self._prefix_index
-        if pool is None:
-            return
-        pool.check_no_leaks(idx.n_nodes() if idx is not None else 0)
-        extra = int(pool.refs.sum()) - int((pool.refs > 0).sum())
-        if extra:
-            raise RuntimeError(f"kv pool: {extra} in-flight ref(s) outstanding after drain")
+        """Drained-state ref invariant on every shard, raised on violation:
+        every held block is owned by exactly one radix node and nothing else
+        (no in-flight refs survive a drain; free + held == n_blocks)."""
+        for shard, pool in self._kv_pools.items():
+            idx = self._prefix_indexes.get(shard)
+            pool.check_no_leaks(idx.n_nodes() if idx is not None else 0)
+            extra = int(pool.refs.sum()) - int((pool.refs > 0).sum())
+            if extra:
+                raise RuntimeError(f"kv pool shard {shard}: {extra} in-flight ref(s) outstanding after drain")
 
     # -- events --------------------------------------------------------------
 
@@ -425,57 +509,84 @@ class SessionRuntime:
         rows only goes through ``generate``, any other through
         ``generate_grouped`` over the pool with the session's ``use_kernel``
         and ``decode_fuse``; on the card ``unroll`` decode steps a CUDA-graph
-        replay. Returns (B, max_new)."""
+        replay. On a multi-shard session the batch splits by slot shard:
+        each shard decodes its rows against its own pool on its own device
+        (base rows ride shard 0), from a generator of its own (drawn from
+        ``generator`` when one is given), and the rows stitch back in order
+        on shard 0's device. Returns (B, max_new)."""
         prompts = torch.as_tensor(prompts, device=self.device)
         if len(tenants) != prompts.shape[0]:
             raise ValueError(f"{len(tenants)} tenants for batch {prompts.shape[0]}")
-        if generator is None:
-            generator = self._generator(self._serve_calls)
+        call = self._serve_calls
         self._serve_calls += 1
         if all(t is None for t in tenants):
             path = "serve/single/base"
-            toks = generate(self.params, self.cfg, prompts, max_new=max_new, temperature=temperature,
-                            generator=generator, unroll=unroll, device=self.device)
+            with self._on(0):
+                toks = generate(self.params, self.cfg, prompts, max_new=max_new, temperature=temperature,
+                                generator=generator if generator is not None else self._generator(call),
+                                unroll=unroll, device=self.device)
         else:
             path = f"serve/grouped/{'int8' if self.pool.compress == 'int8' else 'float'}"
-            toks = generate_grouped(
-                self.params, self.cfg, prompts, self.pool.pools(), self._slot_idx(tenants),
-                max_new=max_new, temperature=temperature, generator=generator, use_kernel=self.use_kernel,
-                fuse_skip=self.decode_fuse, unroll=unroll, device=self.device,
-            )
+            if self.n_shards == 1:
+                toks = self._serve_shard(0, tenants, prompts, max_new=max_new, temperature=temperature,
+                                         generator=generator if generator is not None else self._generator(call),
+                                         unroll=unroll)
+            else:
+                base = None
+                if generator is not None:
+                    base = int(torch.randint(0, 1 << 62, (1,), generator=generator, device=generator.device))
+                parts = []
+                for s, (rows, subs) in enumerate(self.pool.route(tenants)):
+                    if not rows:
+                        continue
+                    gen = self._generator(call, s) if base is None else \
+                        torch.Generator(device=self._shard_device[s]).manual_seed(base + s)
+                    sub = prompts[torch.tensor(rows, device=prompts.device)].to(self._shard_device[s])
+                    parts.append((rows, self._serve_shard(s, subs, sub, max_new=max_new, temperature=temperature,
+                                                          generator=gen, unroll=unroll)))
+                    self.counters["serve/shard_dispatches"] += 1
+                toks = None
+                for rows, sub_toks in parts:   # dispatched above, gathered here
+                    if toks is None:
+                        toks = torch.empty((len(tenants), max_new), dtype=sub_toks.dtype, device=self.device)
+                    toks[torch.tensor(rows, device=self.device)] = sub_toks.to(self.device)
         self.counters[path] += 1
         self.counters["serve/tokens"] += int(toks.numel())
         return toks
 
-    def _slot_idx(self, tenants) -> torch.Tensor:
-        """The batch's slot indices through the LRU memo."""
-        key = (tuple(tenants), self.pool.version)
+    def _serve_shard(self, s: int, tenants, prompts, *, max_new, temperature, generator, unroll) -> torch.Tensor:
+        """Grouped decode of one shard's rows against its pool, on its
+        device (on a one-shard session, the whole grouped path)."""
+        key = (s, tuple(tenants), self.pool.shards[s].version)
         idx = self._idx_cache.get(key)
         if idx is None:
             self.counters["idx_memo/misses"] += 1
             while len(self._idx_cache) >= self._idx_cache_cap:
                 self._idx_cache.popitem(last=False)
                 self.counters["idx_memo/evictions"] += 1
-            idx = self._idx_cache[key] = self.pool.lookup(tenants)
+            idx = self._idx_cache[key] = self.pool.lookup_local(s, tenants)
         else:
             self.counters["idx_memo/hits"] += 1
             self._idx_cache.move_to_end(key)
             self.pool.touch(tenants)   # recency still follows traffic
-        return idx
+        with self._on(s):
+            return generate_grouped(
+                self._shard_params[s], self.cfg, prompts, self.pool.shard_pools(s), idx,
+                max_new=max_new, temperature=temperature, generator=generator, use_kernel=self.use_kernel,
+                fuse_skip=self.decode_fuse, unroll=unroll, device=self._shard_device[s],
+            )
 
     @torch.no_grad()
     def ingest(self, tenant, tokens, labels) -> torch.Tensor:
-        """Populate forward for new samples: writes the batch into the
-        tenant's cache partition AND returns the last-position logits under
-        the tenant's current adapters (the zero slot until its first
-        ``adapt`` write-back): ingestion doubles as serving. tokens, labels:
-        (B, seq). Returns (B, 1, V) logits."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        labels = torch.as_tensor(labels, device=self.device)
+        """Populate forward for new samples on the tenant's shard: writes the
+        batch into the tenant's cache partition AND returns the last-position
+        logits under the tenant's current adapters (the zero slot until its
+        first ``adapt`` write-back): ingestion doubles as serving. tokens,
+        labels: (B, seq). Returns (B, 1, V) logits on the shard's device."""
         # Validate before registering: a rejected batch must not leak a
         # cache partition or leave a tenant with nothing ingested.
         st = self._tenants.get(tenant)
-        b, s = tokens.shape
+        b, s = torch.as_tensor(tokens).shape
         if s != self.seq:
             raise ValueError(f"seq {s} != session cache layout seq {self.seq}")
         filled = st.n_ingested if st is not None else 0
@@ -483,16 +594,22 @@ class SessionRuntime:
             raise ValueError(f"tenant {tenant!r} partition full: {filled}+{b} > {self.samples_per_tenant}")
         if st is None:
             st = self._add_tenant(tenant)
-        idx = self.pool.lookup([tenant if self.pool.has(tenant) else None] * b)
-        logits, acts, y_base = ingest_prefill(
-            self.params, self.cfg, tokens, self.pool.pools(), idx, use_kernel=self.use_kernel
-        )
-        values = SL._encode_acts(acts, None, self.sl)
-        values["y_base"] = y_base
-        values["labels"] = labels
-        first = st.partition * self.samples_per_tenant + st.n_ingested
-        self.engine.write(range(first, first + b), values)
-        self._export = None   # new rows: the resident path's export is stale
+        shard = self._shard_of_partition(st.partition)
+        dev = self._shard_device[shard]
+        tokens = torch.as_tensor(tokens, device=dev)
+        labels = torch.as_tensor(labels, device=dev)
+        with self._on(shard):
+            idx = self.pool.lookup_local(shard, [tenant if self.pool.has(tenant) else None] * b)
+            logits, acts, y_base = ingest_prefill(
+                self._shard_params[shard], self.cfg, tokens, self.pool.shard_pools(shard), idx,
+                use_kernel=self.use_kernel,
+            )
+            values = SL._encode_acts(acts, None, self.sl)
+            values["y_base"] = y_base
+            values["labels"] = labels
+            self.engines[shard].write(self._local_ids(st.partition, range(st.n_ingested, st.n_ingested + b)),
+                                      values)
+        self._export[shard] = None   # new rows: the resident path's export is stale
         st.n_ingested += b
         self.counters["ingest/rows"] += b
         return logits
@@ -510,14 +627,16 @@ class SessionRuntime:
         pool (``register_many``) and a pin on every trained slot.
 
         Tenants new to training draw their initial adapters from
-        ``generator`` (on any device, the draw then moves to the session's;
-        default: seeded from ``seed`` on the session's device) as
+        ``generator`` (on any device, the draw then moves to the shard's;
+        default: seeded from ``seed`` on the session's first device) as
         ``fleet_finetune`` does (``init_fleet_adapters`` row i ->
         i-th new tenant in call order), and the planner replays each
         tenant's own order, so a fresh session's first ``adapt`` reproduces
         the offline trainer. Tenants are grouped by (optimizer step, epoch
-        position, partition fill): only tenants on one trajectory can share
-        the stacked optimizer's step count.
+        position, partition fill, shard): only tenants on one trajectory can
+        share the stacked optimizer's step count, and only tenants of one
+        shard share a device. Every group runs on its shard's device; the
+        losses come to the host after every group has been issued.
 
         The engine's placement picks the path: fully resident -> "scan" (the
         epochs read an id-indexed export of the cache), tiered -> "stream"
@@ -546,13 +665,19 @@ class SessionRuntime:
         groups: dict[tuple, list] = {}
         for t in order:
             st = self.tenant(t)
-            groups.setdefault((st.step, st.epochs_done, st.n_ingested), []).append(t)
+            groups.setdefault((st.step, st.epochs_done, st.n_ingested, self._shard_of_partition(st.partition)),
+                              []).append(t)
+        pending = []
+        for (step0, epoch0, spt, shard), group in groups.items():
+            with self._on(shard):
+                ls_epochs, path = self._adapt_group(
+                    group, spt, shard, epochs=epochs, epoch0=epoch0, step0=step0,
+                    batch_per_tenant=batch_per_tenant,
+                )
+            pending.append((group, ls_epochs, path))
         losses: dict[Any, np.ndarray] = {}
         paths = set()
-        for (step0, epoch0, spt), group in groups.items():
-            ls_epochs, path = self._adapt_group(
-                group, spt, epochs=epochs, epoch0=epoch0, step0=step0, batch_per_tenant=batch_per_tenant,
-            )
+        for group, ls_epochs, path in pending:   # to the host after every group is issued
             paths.add(path)
             ls = np.stack([l.cpu().numpy() for l in ls_epochs])   # (epochs, steps, n)
             for g, t in enumerate(group):
@@ -561,16 +686,18 @@ class SessionRuntime:
         return {"losses": losses, "groups": list(groups.values()),
                 "path": "stream" if "stream" in paths else "scan"}
 
-    def _adapt_group(self, group, spt, *, epochs, epoch0, step0, batch_per_tenant) -> tuple[list, str]:
-        """One same-trajectory group's cached epochs and write-back. Returns
-        the per-epoch (steps, N) losses on the device and the path."""
-        n, dev, engine = len(group), self.device, self.engine
+    def _adapt_group(self, group, spt, shard, *, epochs, epoch0, step0, batch_per_tenant) -> tuple[list, str]:
+        """One same-(trajectory, shard) group's cached epochs and write-back
+        on the shard's device and engine. Returns the per-epoch (steps, N)
+        losses on the device and the path."""
+        n, dev, engine = len(group), self._shard_device[shard], self.engines[shard]
+        params = self._shard_params[shard]
         states = [self.tenant(t) for t in group]
-        stacked = _stack([st.adapters for st in states])
+        stacked = _to(_stack([st.adapters for st in states]), dev)
         opt_state = OptState(
             step=torch.tensor(step0, dtype=torch.int32, device=dev),
-            mu=_stack([st.opt_mu for st in states]),
-            nu=_stack([st.opt_nu for st in states]),
+            mu=_to(_stack([st.opt_mu for st in states]), dev),
+            nu=_to(_stack([st.opt_nu for st in states]), dev),
         )
         # Shadow split: with a control plane each tenant's epochs permute its
         # train rows only; every holdout_every-th ingested row is held out.
@@ -580,18 +707,22 @@ class SessionRuntime:
         bpt = min(batch_per_tenant, train_rows.size)
         row_tenant = FF.fleet_row_tenant(n, bpt, device=dev)
         partitions = [st.partition for st in states]
+        # the plan offsets into the shard's id space while each tenant's
+        # stream follows its global partition: a re-sharded (or elastically
+        # restored) session replays the same orders
+        local_parts = [p // self.n_shards for p in partitions]
         kw = dict(use_kernel=self.use_kernel)
         resident = engine.capacity >= engine.num_samples
         if do_eval:
             eval_idx = torch.as_tensor(batch_plan.fleet_eval_index(
-                n, spt, holdout_every=holdout, partitions=partitions,
+                n, spt, holdout_every=holdout, partitions=local_parts,
                 partition_stride=self.samples_per_tenant,
             ), device=dev)
             eval_row_tenant = FF.fleet_row_tenant(n, eval_rows.size, device=dev)
         if resident:
-            if self._export is None:
-                self._export = engine.export_skipcache()
-            cache = self._export
+            if self._export[shard] is None:
+                self._export[shard] = engine.export_skipcache()
+            cache = self._export[shard]
             epoch_fn = FF.make_fleet_cached_epoch(self.cfg, self.sl, self.optimizer, n, **kw)
         else:
             step_fn = FF.make_fleet_cached_step_from_vals(self.cfg, self.sl, self.optimizer, n, **kw)
@@ -601,11 +732,11 @@ class SessionRuntime:
         if do_eval and not resident:
             # Streaming path: eval is its own (backbone-free) call over the
             # engine-read cached rows.
-            pre_loss = ev_fn(self.params, stacked, engine.read(eval_idx), eval_row_tenant)
+            pre_loss = ev_fn(params, stacked, engine.read(eval_idx), eval_row_tenant)
         all_losses, steps_per_epoch = [], 0
         for e in range(epochs):
             idx_mat = batch_plan.fleet_index_matrix(
-                epoch0 + e, n, spt, bpt, seed=self.seed, partitions=partitions, streams=partitions,
+                epoch0 + e, n, spt, bpt, seed=self.seed, partitions=local_parts, streams=partitions,
                 partition_stride=self.samples_per_tenant, holdout_every=holdout,
             )
             steps_per_epoch = idx_mat.shape[0]
@@ -617,22 +748,23 @@ class SessionRuntime:
                     self.cfg, self.sl, self.optimizer, n, eval_pre=want_pre, eval_post=want_post, **kw
                 )
                 stacked, opt_state, ls, pre, post = eval_epoch(
-                    self.params, stacked, opt_state, cache, torch.as_tensor(idx_mat, device=dev),
+                    params, stacked, opt_state, cache, torch.as_tensor(idx_mat, device=dev),
                     row_tenant, eval_idx, eval_row_tenant,
                 )
                 pre_loss = pre if want_pre else pre_loss
                 post_loss = post if want_post else post_loss
             elif resident:
                 stacked, opt_state, ls = epoch_fn(
-                    self.params, stacked, opt_state, cache, torch.as_tensor(idx_mat, device=dev), row_tenant
+                    params, stacked, opt_state, cache, torch.as_tensor(idx_mat, device=dev), row_tenant
                 )
             else:
                 stacked, opt_state, ls = FF.fleet_cached_epoch_via_engine(
-                    step_fn, self.params, stacked, opt_state, engine, idx_mat, row_tenant
+                    step_fn, params, stacked, opt_state, engine, idx_mat, row_tenant
                 )
             all_losses.append(ls)
         if do_eval and not resident:
-            post_loss = ev_fn(self.params, stacked, engine.read(eval_idx), eval_row_tenant)
+            post_loss = ev_fn(params, stacked, engine.read(eval_idx), eval_row_tenant)
+        # from the plan: reading opt_state.step would wait for the device
         step_after = step0 + steps_per_epoch * epochs
         path = "scan" if resident else "stream"
 
@@ -706,9 +838,18 @@ class SessionRuntime:
 
     # -- introspection -------------------------------------------------------
 
+    def _engine_stats(self):
+        if self.n_shards == 1:
+            return self.engine.stats
+        agg = type(self.engine.stats)()
+        for eng in self.engines:
+            for f in dataclasses.fields(agg):
+                setattr(agg, f.name, getattr(agg, f.name) + getattr(eng.stats, f.name))
+        return agg
+
     def stats(self) -> dict[str, float]:
         out = {f"runtime/{k}": float(v) for k, v in sorted(self.counters.items())}
-        out.update(dict(self.engine.stats.as_rows()))
+        out.update(dict(self._engine_stats().as_rows()))
         out.update(dict(self.pool.stats.as_rows()))
         return out
 
@@ -752,31 +893,38 @@ class SessionRuntime:
     def session_state(self) -> tuple[dict, dict]:
         """(arrays, meta) for ``checkpoint.save_runtime_session``: the trained
         tenants' stacked adapters and optimizer moments (tenant order in
-        meta), the pool's arrays and slot table, every present cache row in
-        logical layout (read in chunks of the engine's capacity, copied to
-        the host), the control plane and the paged KV pool with its radix
-        tree. The manifest keys and nesting are the reference's for one
-        shard (``"kv_pool": {"0": ...}``). Tenant ids must be
-        JSON-serialisable."""
+        meta; stacked on the first device), the pool's arrays and slot table,
+        every present cache row under its *global* id in logical layout (read
+        from each shard's engine in chunks of its capacity, copied to the
+        host), the control plane and each shard's paged KV pool with its
+        radix tree. The manifest keys and nesting are the reference's (one
+        shard: the pool's own table and arrays; several: keyed ``s<i>`` with
+        the placement). Tenant ids must be JSON-serialisable."""
         order = list(self._tenants)
         trained = [t for t in order if self._tenants[t].trained]
         arrays: dict[str, Any] = {}
         if trained:
             sts = [self._tenants[t] for t in trained]
-            arrays["adapters"] = _stack([st.adapters for st in sts])
+            arrays["adapters"] = _stack([_to(st.adapters, self.device) for st in sts])
             for name in ("opt_mu", "opt_nu"):
-                moments = _stack([getattr(st, name) for st in sts])
+                moments = _stack([_to(getattr(st, name), self.device) for st in sts])
                 if moments is not None:
                     arrays[name] = moments
         arrays["pool"] = self.pool.state_arrays()
-        eng = self.engine
-        present = sorted(eng._present)
-        chunk = max(1, eng.capacity)
-        parts = [{n: v.cpu() for n, v in eng.read(present[lo:lo + chunk]).items()}
-                 for lo in range(0, len(present), chunk)]
+        ids, parts = [], []
+        for s, eng in enumerate(self.engines):
+            present = sorted(eng._present)
+            chunk = max(1, eng.capacity)
+            for lo in range(0, len(present), chunk):
+                ids += [self._global_id(s, i) for i in present[lo:lo + chunk]]
+                parts.append({n: v.cpu() for n, v in eng.read(present[lo:lo + chunk]).items()})
+        present = sorted(ids)
         if parts:
-            arrays["cache"] = {n: parts[0][n] if len(parts) == 1 else torch.cat([p[n] for p in parts])
-                               for n in parts[0]}
+            cat = {n: parts[0][n] if len(parts) == 1 else torch.cat([p[n] for p in parts]) for n in parts[0]}
+            if present != ids:
+                order_ = torch.as_tensor(np.argsort(np.asarray(ids), kind="stable"))
+                cat = {n: v[order_] for n, v in cat.items()}
+            arrays["cache"] = cat
         meta = {
             "tenants": [
                 {"id": t, "partition": st.partition, "n_ingested": st.n_ingested,
@@ -792,34 +940,37 @@ class SessionRuntime:
                        "pool_compress": self.pool.compress, "pool_slots": self.pool.n_slots,
                        "max_tenants": self.max_tenants,
                        # informational: the device layout the session ran on
-                       "mesh_shape": [1], "mesh_axes": ["data"],
+                       "mesh_shape": list(self.mesh.shape), "mesh_axes": list(self.mesh.axis_names),
                        "model_parallel": self.model_parallel, "pipeline_stages": self.pipeline_stages},
         }
         if self.control is not None:
             meta["control"] = self.control.state()
-        if self._kv_pool is not None:
-            arrays["kv_pool"] = {"0": self._kv_pool.state_arrays()}
-            meta["kv_pool"] = {"0": {
-                **self._kv_pool.state_meta(),
-                "radix": self._prefix_index.state() if self._prefix_index is not None else [],
-            }}
+        if self._kv_pools:
+            arrays["kv_pool"] = {str(s): p.state_arrays() for s, p in sorted(self._kv_pools.items())}
+            meta["kv_pool"] = {
+                str(s): {**p.state_meta(),
+                         "radix": self._prefix_indexes[s].state() if s in self._prefix_indexes else []}
+                for s, p in sorted(self._kv_pools.items())
+            }
         return arrays, meta
 
     def load_session_state(self, arrays: dict, meta: dict) -> None:
         """Restore a ``session_state`` capture (tensor or numpy leaves) into
         this fresh runtime. The layout (seq, rank, mode, samples per tenant,
-        shards) and the pool (compression, slots, tenant capacity) must match
-        the saving session's; the engine re-places the cache rows under its
-        own budget (written through ``engine.write`` in chunks of its
-        capacity). Control state needs a runtime built with a
-        ``ControlConfig``. The KV pool's refcounts are rebuilt from the radix
-        tree: a fresh session has no rows in flight."""
+        logical shards) and the pool (compression, slots, tenant capacity)
+        must match the saving session's; the mesh need not: an elastic
+        restart restores the same logical layout onto however many devices
+        this runtime has, and each shard's engine re-places its cache rows
+        under its own budget (written through ``engine.write`` in chunks of
+        its capacity). Control state needs a runtime built with a
+        ``ControlConfig``. The KV pools' refcounts are rebuilt from their
+        radix trees: a fresh session has no rows in flight."""
         if self._tenants:
             raise RuntimeError("restore requires a fresh runtime")
         lay = meta["layout"]
         saved = (lay["seq"], lay["rank"], lay["mode"], lay["samples_per_tenant"], int(lay.get("n_shards", 1)))
         if saved != (self.seq, self.sl.rank, self.sl.mode, self.samples_per_tenant, self.n_shards):
-            raise ValueError(f"session layout {lay} != runtime configuration")
+            raise ValueError(f"session layout {lay} != runtime configuration (logical shards {self.n_shards})")
         for k, mine in (("pool_compress", self.pool.compress), ("pool_slots", self.pool.n_slots),
                         ("max_tenants", self.max_tenants)):
             if k in lay and lay[k] != mine:
@@ -838,26 +989,37 @@ class SessionRuntime:
             st = TenantState(partition=int(ent["partition"]), n_ingested=int(ent["n_ingested"]),
                              epochs_done=int(ent["epochs_done"]), step=int(ent["step"]))
             self._tenants[ent["id"]] = st
-            self._free_partitions.remove(st.partition)   # keeps the smallest-first order
-        stacked = {name: {k: torch.as_tensor(v).to(self.device) for k, v in arrays[name].items()}
+            self._free_partitions.remove(st.partition)   # keeps each shard's smallest-first order
+        stacked = {name: {k: torch.as_tensor(v) for k, v in arrays[name].items()}
                    for name in ("adapters", "opt_mu", "opt_nu") if name in arrays}
         for i, t in enumerate(meta["trained"]):
             st = self._tenants[t]
-            st.adapters = _slice(stacked["adapters"], i)
-            st.opt_mu, st.opt_nu = _slice(stacked.get("opt_mu"), i), _slice(stacked.get("opt_nu"), i)
+            dev = self._shard_device[self._shard_of_partition(st.partition)]
+            st.adapters = _to(_slice(stacked["adapters"], i), dev)
+            st.opt_mu = _to(_slice(stacked.get("opt_mu"), i), dev)
+            st.opt_nu = _to(_slice(stacked.get("opt_nu"), i), dev)
         self.pool.load_state(arrays["pool"], meta["pool_table"])
-        present = [int(i) for i in meta["present"]]
-        chunk = max(1, self.engine.capacity)
-        for lo in range(0, len(present), chunk):
-            self.engine.write(present[lo:lo + chunk], {
-                n: torch.as_tensor(v)[lo:lo + chunk].to(self.device) for n, v in arrays["cache"].items()
-            })
-        for s, pmeta in meta.get("kv_pool", {}).items():
-            if s != "0":
-                raise ValueError(f"checkpoint kv pool of shard {s}: the port's session has one shard (slice 7)")
-            pool = self.kv_pool(block=int(pmeta["block"]), n_blocks=int(pmeta["n_blocks"]))
-            pool.load_state(arrays["kv_pool"][s], pmeta)
-            self.prefix_index().load_state(pmeta.get("radix", []))
+        by_shard: dict[int, list[tuple[int, int]]] = {}
+        for pos, gid in enumerate(int(i) for i in meta["present"]):
+            part = gid // self.samples_per_tenant
+            local = self._local_ids(part, [gid % self.samples_per_tenant])[0]
+            by_shard.setdefault(self._shard_of_partition(part), []).append((pos, local))
+        for s, entries in sorted(by_shard.items()):
+            eng, dev = self.engines[s], self._shard_device[s]
+            chunk = max(1, eng.capacity)
+            for lo in range(0, len(entries), chunk):
+                sub = entries[lo:lo + chunk]
+                pos = torch.tensor([p for p, _ in sub])
+                eng.write([l for _, l in sub], {
+                    n: torch.as_tensor(v)[pos].to(dev) for n, v in arrays["cache"].items()
+                })
+        for s_str, pmeta in meta.get("kv_pool", {}).items():
+            s = int(s_str)
+            if not 0 <= s < self.n_shards:
+                raise ValueError(f"checkpoint kv pool of shard {s}: this session has {self.n_shards} shard(s)")
+            pool = self.kv_pool(s, block=int(pmeta["block"]), n_blocks=int(pmeta["n_blocks"]))
+            pool.load_state(arrays["kv_pool"][s_str], pmeta)
+            self.prefix_index(s).load_state(pmeta.get("radix", []))
 
 
 def _stack(trees: list) -> Optional[Params]:
@@ -871,3 +1033,7 @@ def _slice(tree: Optional[Params], i: int) -> Optional[Params]:
 
 def _zeros(tree: Optional[Params]) -> Optional[Params]:
     return None if tree is None else {k: torch.zeros_like(v) for k, v in tree.items()}
+
+
+def _to(tree: Optional[Params], device) -> Optional[Params]:
+    return None if tree is None else {k: v.to(device) for k, v in tree.items()}

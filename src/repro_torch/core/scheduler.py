@@ -1,11 +1,11 @@
 """Continuous-batching request scheduler over ``SessionRuntime``.
 
-Counterpart of ``repro.core.scheduler`` on one device. ``serve()`` takes
+Counterpart of ``repro.core.scheduler``. ``serve()`` takes
 pre-formed batches: every row starts together, decodes in lockstep and
 finishes together. This module is the request-level event loop instead:
 per-tenant requests in, step-synchronous dispatches out.
 
-Event model (one ``step()`` = one dispatch when there is work):
+Event model (one ``step()`` = one dispatch per shard with work):
 
   1. *Admit*: ``batch_plan.plan_admissions`` walks the arrival-ordered
      queue under the per-tenant in-flight cap (FIFO within tenant, no
@@ -20,9 +20,15 @@ Event model (one ``step()`` = one dispatch when there is work):
      replay over the live batch's resident buffers (``core.decode_graph``),
      on the CPU (or with ``loop=True``) eager steps. The admission prefill
      stays eager.
-  3. *Harvest*: pull the dispatch's tokens to the host, append per row,
-     retire rows whose requests hit ``max_new`` (their rows are recyclable
-     at once: a follow-up admission wave runs in the same step).
+  3. *Harvest*: after every shard's dispatch is issued, pull the tokens
+     to the host, append per row, retire rows whose requests hit
+     ``max_new`` (their rows are recyclable at once: a follow-up admission
+     wave runs in the same step on each shard with admissions).
+
+Shards: a request decodes on its tenant's slot shard (base traffic and
+tenants without a slot ride shard 0), in that shard's live batch, on the
+shard's device, against the shard's pool and its paged KV pool and radix
+index; nothing crosses shards.
 
 Rows never wait for each other: a row admitted at step k decodes from its
 own position while its neighbours are mid-sequence. Retired rows keep
@@ -36,19 +42,19 @@ caches (``kv_pool.gather_blocks``: K10 on the card, two launches a wave)
 and prefills only the tails (``lm.sched_prefill_reuse``); a dense wave
 publishes its prompts' full blocks into the pool afterwards.
 
-Sampling: each dispatch draws from a ``torch.Generator`` seeded from
-``(seed, dispatch counter)``: deterministic replay for a fresh, identically
-seeded scheduler, never one stream for two dispatches. ``mode="sequential"``
-runs the same machinery but admits a request only into an empty batch,
-the one-request-at-a-time baseline.
+Sampling: each dispatch draws from a ``torch.Generator`` on its shard's
+device seeded from ``(seed, dispatch counter)``: deterministic replay for a
+fresh, identically seeded scheduler, never one stream for two dispatches.
+``mode="sequential"`` runs the same machinery but admits a request only
+into an empty session, the one-request-at-a-time baseline.
 
 Fine-tuning ingestion rides the same loop: ``submit_ingest`` queues an
 ``IngestRequest``, which runs (``SessionRuntime.ingest``) at the end of the
 next ``step``, between decode dispatches. ``quality_metrics`` reports the
 runtime's control-plane events beside the serving counters.
 
-Not ported: pipelined admission and multi-shard routing (slice 7 of the
-port).
+Pipelined admission (the reference's ``microbatch``, over a model axis)
+belongs to slice 7b of the port.
 """
 
 from __future__ import annotations
@@ -224,8 +230,8 @@ def _sched_admit_reuse(params, cfg, how, chunk, max_seq, pools, idx, pool_data, 
 
 
 class _LiveBatch:
-    """The resident decode state: device tensors (stacked caches (L, B,
-    max_seq, n_kv, hd), tok (B, 1), pos (B,)) plus host-side row
+    """One shard's resident decode state: device tensors (stacked caches
+    (L, B, max_seq, n_kv, hd), tok (B, 1), pos (B,)) plus host-side row
     bookkeeping. ``rows[i]`` is the request occupying batch row ``i`` (None
     = free)."""
 
@@ -306,7 +312,7 @@ class RequestScheduler:
         self._pending: deque[Request] = deque()
         self._ingest_queue: deque[IngestRequest] = deque()
         self._completed: list[Request] = []
-        self._lb = _LiveBatch(runtime.cfg, max_batch, self.max_seq, runtime.device)
+        self._batches: dict[int, _LiveBatch] = {}
         self._in_flight: Counter = Counter()
         self._next_rid = 0
         self._dispatches = 0
@@ -349,46 +355,71 @@ class RequestScheduler:
             out["quarantined_tenants"] = cm["quarantined_tenants"]
         return out
 
-    def _refresh_idx(self, lb: _LiveBatch) -> None:
-        """Re-resolve occupied rows' pool slots when the pool's slot map
+    # -- shard routing -------------------------------------------------------
+
+    def _shard_of(self, tenant) -> int:
+        """A tenant with a pool slot decodes on its slot's shard; base
+        traffic and tenants without a slot ride shard 0's zero slot."""
+        pool = self.rt.pool
+        return pool.shard_of(tenant) if tenant is not None and pool.has(tenant) else 0
+
+    def _batch(self, shard: int) -> _LiveBatch:
+        lb = self._batches.get(shard)
+        if lb is None:
+            with self.rt._on(shard):
+                lb = self._batches[shard] = _LiveBatch(self.rt.cfg, self.max_batch, self.max_seq,
+                                                       self.rt._shard_device[shard])
+        return lb
+
+    @property
+    def _lb(self) -> _LiveBatch:
+        """Shard 0's live batch (a one-shard session's only one)."""
+        return self._batch(0)
+
+    def _refresh_idx(self, shard: int, lb: _LiveBatch) -> None:
+        """Re-resolve occupied rows' pool slots when the shard's slot map
         changed (its ``version`` moved) or the occupancy did."""
         pool = self.rt.pool
-        if lb.idx_version == pool.version:
+        version = pool.shards[shard].version
+        if lb.idx_version == version:
             return
         who = [r.tenant if r is not None and pool.has(r.tenant) else None for r in lb.rows]
-        lb.idx = pool.lookup(who).cpu().numpy()
-        lb.idx_version = pool.version
+        lb.idx = pool.lookup_local(shard, who).cpu().numpy()
+        lb.idx_version = version
 
     # -- the event loop ------------------------------------------------------
 
     def step(self) -> int:
-        """One scheduler tick: admit + dispatch when there is work, harvest
-        the produced tokens, and, when the harvest freed rows while requests
-        wait, one follow-up admission wave; then run the queued ingest work.
-        Returns the dispatches issued."""
-        admits = self._plan()
-        issued = 0
-        if admits is not None:
-            issued = 1
-            done0 = self.counters["completed"]
-            self._harvest(*self._dispatch(admits))
-            # Row recycle: rows released by this step's retirements are
-            # admissible at once, not one step later.
-            if self._pending and self.counters["completed"] > done0:
-                admits = self._plan()
-                if admits:
-                    self._harvest(*self._dispatch(admits))
-                    self.counters["recycle_waves"] += 1
-                    issued += 1
+        """One scheduler tick: admit + dispatch on every shard with work,
+        harvest the produced tokens after every dispatch is issued, and,
+        when the harvest freed rows while requests wait, one follow-up
+        admission wave on the shards with admissions; then run the queued
+        ingest work. Returns the dispatches issued."""
+        issued = [self._dispatch(shard, admits) for shard, admits in self._plan()]
+        done0 = self.counters["completed"]
+        for out in issued:
+            self._harvest(*out)
+        # Row recycle: rows released by this step's retirements are
+        # admissible at once, not one step later.
+        if self._pending and self.counters["completed"] > done0:
+            extra = [self._dispatch(shard, admits) for shard, admits in self._plan() if admits]
+            for out in extra:
+                self._harvest(*out)
+            if extra:
+                self.counters["recycle_waves"] += 1
+            issued += extra
         self._run_ingest()
-        return issued
+        return len(issued)
+
+    def _active(self) -> int:
+        return sum(lb.n_active() for lb in self._batches.values())
 
     def drain(self) -> list[Request]:
         """Pump the loop until every queued request has completed; returns
         the requests completed during the drain, in completion order."""
         done0 = len(self._completed)
-        while self._pending or self._ingest_queue or self._lb.n_active():
-            if self.step() == 0 and (self._pending or self._lb.n_active()):   # step ran the ingest queue
+        while self._pending or self._ingest_queue or self._active():
+            if self.step() == 0 and (self._pending or self._active()):   # step ran the ingest queue
                 raise RuntimeError("scheduler stalled with queued work")
         return self._completed[done0:]
 
@@ -399,46 +430,61 @@ class RequestScheduler:
             req.done = True
             self.counters["ingested"] += 1
 
-    def _plan(self) -> Optional[list[Request]]:
-        """The admissions of the next dispatch under the fairness policy
-        ([] to step the live rows alone), or None when there is nothing to
-        dispatch. Sequential mode admits one request, and only into an idle
-        batch."""
+    def _plan(self) -> list[tuple[int, list[Request]]]:
+        """Route the pending queue by shard and pick each shard's admissions
+        under the fairness policy: (shard, admissions) for every shard with
+        work ([] steps its live rows alone). Sequential mode admits one
+        request at a time over the whole session, and only into an idle
+        one."""
         pending = list(self._pending)
-        lb = self._lb
         if self.mode == "sequential":
-            if lb.n_active() == 0 and pending:
-                return pending[:1]
-            return [] if lb.n_active() else None
-        picks = batch_plan.plan_admissions(
-            pending, self._in_flight, len(lb.free_rows()),
-            cap=self.inflight_per_tenant, bucket=self.admit_bucket,
-        )
-        admits = [pending[i] for i in picks]
-        return admits if admits or lb.n_active() else None
+            if self._active() == 0 and pending:
+                return [(self._shard_of(pending[0].tenant), pending[:1])]
+            return [(s, []) for s, lb in sorted(self._batches.items()) if lb.n_active()]
+        by_shard: dict[int, list[Request]] = {}
+        for r in pending:
+            by_shard.setdefault(self._shard_of(r.tenant), []).append(r)
+        plans = []
+        for shard in sorted(set(by_shard) | {s for s, lb in self._batches.items() if lb.n_active()}):
+            lb = self._batch(shard)
+            queue = by_shard.get(shard, [])
+            picks = batch_plan.plan_admissions(
+                queue, self._in_flight, len(lb.free_rows()),
+                cap=self.inflight_per_tenant, bucket=self.admit_bucket,
+            )
+            admits = [queue[i] for i in picks]
+            if admits or lb.n_active():
+                plans.append((shard, admits))
+        return plans
 
-    def _prefix_state(self):
-        """(pool, index) of the runtime's paged prefix cache, built lazily.
-        Disabled, ``(None, None)``, when no full block can ever be matched
-        (a match is capped at ``(len - 1) // block`` so a tail token
-        survives)."""
+    def _prefix_state(self, shard: int = 0):
+        """(pool, index) of the shard's paged prefix cache on the runtime,
+        built lazily. Disabled, ``(None, None)``, when no full block can ever
+        be matched (a match is capped at ``(len - 1) // block`` so a tail
+        token survives)."""
         from repro_torch.core import kv_pool as KV
 
         blk = self.kv_block or KV.get_default_block()
         if (self.max_prompt - 1) // blk < 1:
             return None, None
         n_blocks = max(8, 2 * self.max_batch * (self.max_prompt // blk))
-        pool = self.rt.kv_pool(block=blk, n_blocks=n_blocks)
-        return pool, self.rt.prefix_index()
+        pool = self.rt.kv_pool(shard, block=blk, n_blocks=n_blocks)
+        return pool, self.rt.prefix_index(shard)
 
     @torch.no_grad()
-    def _dispatch(self, admits: list[Request]):
-        lb = self._lb
-        dev = self.rt.device
+    def _dispatch(self, shard: int, admits: list[Request]):
+        """One shard's dispatch, on its device. Returns (shard, [(request,
+        row)] admitted, (tokens (chunk, B), first tokens or None))."""
+        with self.rt._on(shard):
+            return self._dispatch_on(shard, admits)
+
+    def _dispatch_on(self, shard: int, admits: list[Request]):
+        lb = self._batch(shard)
+        dev = self.rt._shard_device[shard]
         matches = None
         pool = pidx = None
         if admits and self.prefix_reuse:
-            pool, pidx = self._prefix_state()
+            pool, pidx = self._prefix_state(shard)
             if pidx is not None:
                 m = [pidx.match(r.tenant, r.prompt) for r in admits]
                 # One dispatch is one kind: split a mixed wave at the first
@@ -463,10 +509,10 @@ class RequestScheduler:
             self._in_flight[req.tenant] += 1
             req.started_at = now
         lb.idx_version = None            # occupancy changed: re-resolve slots
-        self._refresh_idx(lb)
+        self._refresh_idx(shard, lb)
         generator = torch.Generator(device=dev).manual_seed((self.rt.seed << 32) + self._dispatches)
         self._dispatches += 1
-        params, pools = self.rt.params, self.rt.pool.pools()
+        params, pools = self.rt._shard_params[shard], self.rt.pool.shard_pools(shard)
         idx = torch.as_tensor(lb.idx, device=dev)
         active = torch.as_tensor(lb.active, device=dev)
         temps = _temps(lb.temps, dev)
@@ -477,11 +523,11 @@ class RequestScheduler:
                 active, temps, generator, self.max_seq, loop,
             )
             self.counters["dispatch/step"] += 1
-            return [], (toks, None)
+            return shard, [], (toks, None)
         a, p = self.admit_bucket, self.max_prompt
         rows = free[: len(admits)]
         if matches is not None:
-            return self._dispatch_reuse(lb, admits, rows, matches, pool, pidx, params, pools, idx,
+            return self._dispatch_reuse(shard, lb, admits, rows, matches, pool, pidx, params, pools, idx,
                                         active, temps, generator)
         new_tokens = np.zeros((a, p), np.int32)
         new_lens = np.ones((a,), np.int32)
@@ -505,14 +551,14 @@ class RequestScheduler:
         if pidx is not None:
             self._publish_rows(pool, pidx, lb, admits, rows)
             self.counters["prefix/misses"] += len(admits)
-        return list(zip(admits, rows)), (toks, tok0)
+        return shard, list(zip(admits, rows)), (toks, tok0)
 
-    def _dispatch_reuse(self, lb: _LiveBatch, admits, rows, matches, pool, pidx, params, pools,
+    def _dispatch_reuse(self, shard: int, lb: _LiveBatch, admits, rows, matches, pool, pidx, params, pools,
                         idx, active, temps, generator):
         """Reuse-wave dispatch: every admit matched >= 1 pooled block. Pin
         the matched blocks for the rows' lifetimes, then gather them into
         the admission caches and prefill only the tails."""
-        dev = self.rt.device
+        dev = self.rt._shard_device[shard]
         a, p = self.admit_bucket, self.max_prompt
         blk = pool.block
         nbs = [len(ids) for ids in matches]
@@ -555,7 +601,7 @@ class RequestScheduler:
             self._abort_admits(lb, admits, rows, err)
             raise
         self.counters["dispatch/admit_reuse"] += 1
-        return list(zip(admits, rows)), (toks, tok0)
+        return shard, list(zip(admits, rows)), (toks, tok0)
 
     def _publish_rows(self, pool, pidx, lb: _LiveBatch, admits, rows) -> None:
         """After a dense admission, index the wave's full prompt blocks and
@@ -577,24 +623,27 @@ class RequestScheduler:
             pidx.release(h)
 
     def prefix_metrics(self) -> dict:
-        """Prefix-reuse counters plus the pool's occupancy. After a drain
-        every held block belongs to exactly one radix node, so ``refs_total
-        == held == nodes`` (``SessionRuntime.check_prefix_no_leaks``)."""
+        """Prefix-reuse counters plus each shard's pool occupancy, keyed by
+        shard. After a drain every held block belongs to exactly one radix
+        node, so ``refs_total == held == nodes``
+        (``SessionRuntime.check_prefix_no_leaks``)."""
         out: dict[str, Any] = {
             k.split("/", 1)[1]: int(v)
             for k, v in sorted(self.counters.items())
             if k.startswith("prefix/")
         }
-        # keyed by shard as the reference's: one device, shard "0"
-        p, idx = self.rt._kv_pool, self.rt._prefix_index
-        out["pools"] = {} if p is None else {"0": {
-            "block": p.block,
-            "n_blocks": p.n_blocks,
-            "free": p.n_free(),
-            "held": int((p.refs > 0).sum()),
-            "refs_total": int(p.refs.sum()),
-            "nodes": idx.n_nodes() if idx is not None else 0,
-        }}
+        indexes = self.rt._prefix_indexes
+        out["pools"] = {
+            str(s): {
+                "block": p.block,
+                "n_blocks": p.n_blocks,
+                "free": p.n_free(),
+                "held": int((p.refs > 0).sum()),
+                "refs_total": int(p.refs.sum()),
+                "nodes": indexes[s].n_nodes() if s in indexes else 0,
+            }
+            for s, p in sorted(self.rt._kv_pools.items())
+        }
         return out
 
     def _abort_admits(self, lb: _LiveBatch, admits, rows, err) -> None:
@@ -618,8 +667,8 @@ class RequestScheduler:
             self.counters["failed"] += 1
         lb.idx_version = None
 
-    def _harvest(self, admitted, out) -> None:
-        lb = self._lb
+    def _harvest(self, shard: int, admitted, out) -> None:
+        lb = self._batch(shard)
         toks, tok0 = out
         toks = toks.cpu().numpy()                    # (chunk, B): the sync point
         if tok0 is not None:

@@ -1,5 +1,5 @@
 """Interleaved continual-learning session CLI, the counterpart of
-``repro.launch.run`` on one device.
+``repro.launch.run``.
 
 One ``SessionRuntime`` processes an interleaved stream of serve, ingest and
 adapt events over its adapter pool and skip-cache engine: ``serve/base``,
@@ -23,10 +23,17 @@ crash drill). Weights are random from seed 0, prompts from seed 1; each
 (round, tenant) draws its samples from its own seed, so a restarted session
 regenerates the same batches. Fresh tenants draw their adapters from seed 3.
 
-Not ported: ``--devices`` > 1, ``--mesh``, ``--pipeline-stages``,
-``--shards`` > 1, ``--check-parity`` and ``--elastic-devices`` need several
-devices (slice 7). Each exits with a message. ``--unroll N`` serves with one
-CUDA-graph replay for every N decode steps on the card.
+The data axis: ``--devices N`` runs the session over a data mesh of the
+first N CUDA devices (with ``--device cpu``, N repeated CPU entries, the
+port's form of the reference's forced host devices), ``--shards S`` fixes
+the logical shard count (default N; the tenants must divide over it),
+``--check-parity`` replays the same stream on a 1-device twin with the same
+logical layout and exits nonzero unless adapters, adapt losses, slot tables
+and serve tokens are equal bitwise (it prints ``parity OK``), and
+``--elastic-devices M`` restarts the crash drill on only M devices.
+``--mesh`` and ``--pipeline-stages`` (the model axis) exit naming slice 7b.
+``--unroll N`` serves with one CUDA-graph replay for every N decode steps
+on the card.
 
 ``main`` returns the metrics (the reference's names) with the live runtime
 under "runtime" and, when supervised, {"restarts", "resumed_at",
@@ -74,19 +81,20 @@ def _parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--hbm-mb", type=float, default=0.0,
                     help="cache device-tier budget in MiB; 0 = fully device-resident")
     ap.add_argument("--unroll", type=int, default=1, help="decode steps per CUDA-graph replay of a serve")
-    ap.add_argument("--devices", type=int, default=1, help="data-mesh devices (more than one: not ported)")
-    ap.add_argument("--mesh", default=None, metavar="DxM", help="2-D session mesh (not ported)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="data-mesh devices (with --device cpu, repeated CPU entries)")
+    ap.add_argument("--mesh", default=None, metavar="DxM", help="2-D session mesh (slice 7b, not ported)")
     ap.add_argument("--pipeline-stages", type=int, default=0, metavar="N",
-                    help="pipelined admission prefill (not ported)")
-    ap.add_argument("--shards", type=int, default=None, help="logical shard count (more than one: not ported)")
+                    help="pipelined admission prefill (slice 7b, not ported)")
+    ap.add_argument("--shards", type=int, default=None, help="logical shard count (default: --devices)")
     ap.add_argument("--check-parity", action="store_true",
-                    help="sharded session vs its 1-device twin (not ported)")
+                    help="sharded session vs 1-device same-layout twin at zero tolerance (requires --devices >= 2)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="supervise the event stream with per-event session checkpoints")
     ap.add_argument("--inject-failure", type=int, default=None, metavar="K",
                     help="crash inside event K once (requires --checkpoint-dir)")
     ap.add_argument("--elastic-devices", type=int, default=None, metavar="M",
-                    help="restart on only M devices after the injected failure (not ported)")
+                    help="restart on only M devices after the injected failure")
     ap.add_argument("--scheduler", action="store_true",
                     help="serve through the continuous-batching request scheduler (per-request "
                          "admission + drain) instead of pre-formed serve batches")
@@ -97,21 +105,46 @@ def _parse_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse(args: argparse.Namespace) -> None:
-    """Exit with a message for what the port does not run."""
-    for flag, on in (("--devices > 1", args.devices > 1), ("--mesh", args.mesh is not None),
-                     ("--pipeline-stages", bool(args.pipeline_stages)),
-                     ("--shards > 1", args.shards is not None and args.shards != 1),
-                     ("--check-parity", args.check_parity),
-                     ("--elastic-devices", args.elastic_devices is not None)):
+    """Exit with a message for what the port does not run and for flags
+    that do not fit together."""
+    for flag, on in (("--mesh", args.mesh is not None), ("--pipeline-stages", bool(args.pipeline_stages))):
         if on:
             raise SystemExit(
-                f"{flag} needs a session over several devices, which belongs to a later slice of the "
-                "port (slice 7: multiple GPUs); the session runs on one device"
+                f"{flag} shards the backbone over a model axis, which belongs to a later slice of the "
+                "port (slice 7b: the model axis); the data axis runs with --devices / --shards"
             )
     if args.unroll < 1:
         raise SystemExit(f"--unroll {args.unroll} < 1")
+    if args.devices < 1:
+        raise SystemExit(f"--devices {args.devices} < 1")
+    n_shards = args.shards if args.shards is not None else args.devices
+    if n_shards < 1 or args.tenants % n_shards:
+        raise SystemExit(f"--tenants {args.tenants} must divide over {n_shards} shards")
+    if args.check_parity and args.devices < 2:
+        raise SystemExit(
+            "--check-parity compares an N-device mesh against its 1-device twin (--devices >= 2); for "
+            "the one-device session's bitwise bar against the offline trainer use launch/fleet.py "
+            "--devices 1 --check-parity"
+        )
     if args.inject_failure is not None and not args.checkpoint_dir:
         raise SystemExit("--inject-failure requires --checkpoint-dir")
+    if args.elastic_devices is not None and (args.inject_failure is None or args.elastic_devices < 1):
+        raise SystemExit("--elastic-devices M restarts the crash drill on M >= 1 devices: it requires "
+                         "--checkpoint-dir and --inject-failure")
+
+
+def mesh_devices(device: str, n: int) -> list:
+    """The first ``n`` devices of the kind ``device`` names: CUDA devices in
+    order (exits when there are fewer), or ``n`` repeated CPU entries."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [dev] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise SystemExit(f"need {n} devices, have {have}")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def main(argv=None) -> dict:
@@ -125,9 +158,12 @@ def main(argv=None) -> dict:
     from repro_torch.core.control_plane import ControlConfig
     from repro_torch.core.runtime import SessionRuntime
     from repro_torch.models.lm import init_lm
-    from repro_torch.runtime.fault import SessionSupervisor
+    from repro_torch.runtime.fault import SessionSupervisor, elastic_session_mesh
+    from repro_torch.runtime.sharding import make_mesh
 
-    dev = torch.device(args.device)
+    devices = mesh_devices(args.device, args.devices)
+    n_shards = args.shards if args.shards is not None else args.devices
+    dev = devices[0]
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
@@ -147,14 +183,17 @@ def main(argv=None) -> dict:
 
     prompts = ints(1, (args.tenants + 1, args.prompt_len))
 
-    def make_runtime() -> SessionRuntime:
+    def make_runtime(mesh) -> SessionRuntime:
         return SessionRuntime(
             cfg, sl, params, max_tenants=args.tenants,
             samples_per_tenant=args.rounds * args.samples_per_round, seq=args.seq, lr=args.lr,
             use_kernel=args.use_kernel, pool_compress=args.pool_compress,
             hbm_budget_bytes=(int(args.hbm_mb * 2**20) if args.hbm_mb > 0 else None),
-            control=control_cfg, device=dev,
+            control=control_cfg, mesh=mesh, placement_shards=n_shards,
         )
+
+    def data_mesh(n: int):
+        return make_mesh((n,), ("data",), devices=devices[:n])
 
     # ---- the event stream: one closure per serve / ingest / adapt ---------
     # Per-tenant samples come from (round, tenant), not from a carried
@@ -198,8 +237,9 @@ def main(argv=None) -> dict:
         ev(f"serve/mixed/r{rnd}", lambda rt, i: serve_event(rt, [None] + names))
 
     def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     timings: dict[str, float] = {}
 
@@ -221,13 +261,21 @@ def main(argv=None) -> dict:
     if args.checkpoint_dir:
         # ---- supervised session: checkpoint / restart at event boundaries --
         fail_at = {"k": args.inject_failure}
+        healthy = {"n": args.devices}
         executions = [0] * len(events)
+
+        def boot_runtime():
+            # elastic re-mesh over whatever survived: the logical shard
+            # layout travels in the checkpoint, only the devices change
+            return make_runtime(elastic_session_mesh(devices[:healthy["n"]]))
 
         def wrap(fn):
             def run_event(rt, idx):
                 executions[idx] += 1
                 if fail_at["k"] == idx:
                     fail_at["k"] = None   # crash once
+                    if args.elastic_devices is not None:
+                        healthy["n"] = args.elastic_devices   # devices lost
                     raise RuntimeError(f"injected failure in event {idx}")
                 out = fn(rt, idx)
                 sync()
@@ -235,24 +283,25 @@ def main(argv=None) -> dict:
             return run_event
 
         sup = SessionSupervisor(args.checkpoint_dir, save_every=1)
-        rt, info = sup.run(make_runtime, [wrap(fn) for fn in events])
+        rt, info = sup.run(boot_runtime, [wrap(fn) for fn in events])
+        results = info["results"]
         print(f"supervised: {len(events)} events, {info['restarts']} restarts, resumed at event "
               f"{info['resumed_at']}, {len(info['results'])} executed this incarnation "
-              f"(zero replay of completed events)")
+              f"(zero replay of completed events), on {len(rt.devices)} device(s) at the end")
         supervisor = {"restarts": info["restarts"], "resumed_at": info["resumed_at"], "executions": executions}
     else:
-        rt = make_runtime()
-        run_stream(rt)
+        rt = make_runtime(data_mesh(args.devices))
+        results = run_stream(rt)
     session_s = time.perf_counter() - t_session0
 
     stats = rt.stats()
-    # backbone bytes: every parameter lives on the one device
+    # backbone bytes: every device holds one whole replica
     bytes_total = sum(x.numel() * x.element_size() for x in _leaves(params))
     metrics = {
         **{f"time/{k}_s": v for k, v in timings.items()},
         "session/tenants_per_s": args.tenants * args.rounds / session_s,
         "session/wall_s": session_s,
-        "session/devices": 1.0,
+        "session/devices": float(args.devices),
         "session/shards": float(rt.n_shards),
         "session/model_parallel": float(rt.model_parallel),
         "session/pipeline_stages": float(rt.pipeline_stages),
@@ -270,16 +319,55 @@ def main(argv=None) -> dict:
     if supervisor is not None:
         metrics["supervisor"] = supervisor
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"\nsession: {args.tenants} tenants x {args.rounds} rounds on 1 device ({where}) / 1 shard in "
-          f"{session_s:.2f}s ({metrics['session/tenants_per_s']:.2f} tenant-rounds/s)")
+    print(f"\nsession: {args.tenants} tenants x {args.rounds} rounds on {args.devices} device(s) ({where}) / "
+          f"{rt.n_shards} shard(s) in {session_s:.2f}s ({metrics['session/tenants_per_s']:.2f} tenant-rounds/s)")
     for k in sorted(stats):
         print(f"  {k} = {stats[k]:.3f}")
+
+    if args.check_parity:
+        # The 1-device twin: the same logical layout and events. Placement
+        # along the data axis moves no value, so everything is bitwise.
+        print("\n--check-parity: replaying on the 1-device same-layout twin")
+        twin = make_runtime(data_mesh(1))
+        twin_results = run_stream(twin)
+        diffs = _parity_diffs(rt, twin, names, labels, results, twin_results)
+        metrics["parity/diffs"] = float(len(diffs))
+        if diffs:
+            raise SystemExit(f"sharded/twin parity broken: {diffs}")
+        print(f"parity OK: {args.devices}-device session == 1-device twin, bitwise (adapters, losses, tokens, "
+              "slot tables)")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(metrics, f, indent=2, sort_keys=True)
         print(f"wrote {args.json}")
     metrics["runtime"] = rt
     return metrics
+
+
+def _parity_diffs(rt, twin, names, labels, results, twin_results) -> list[str]:
+    """What differs between a session and its twin: every tenant's adapters,
+    each adapt event's losses, each serve event's tokens, the slot tables."""
+    import numpy as np
+    import torch
+
+    diffs = []
+    for name in names:
+        for k in ("A", "B"):
+            if not torch.equal(rt.tenant(name).adapters[k].cpu(), twin.tenant(name).adapters[k].cpu()):
+                diffs.append(f"adapters[{name}][{k}]")
+    for i, label in enumerate(labels):
+        if i not in results:
+            continue
+        if label.startswith("adapt/"):
+            for name in names:
+                if not np.array_equal(results[i]["losses"][name], twin_results[i]["losses"][name]):
+                    diffs.append(f"losses[{label}][{name}]")
+        if label.startswith("serve/") and not torch.equal(torch.as_tensor(results[i]).cpu(),
+                                                          torch.as_tensor(twin_results[i]).cpu()):
+            diffs.append(f"tokens[{label}]")
+    if rt.pool.slot_table() != twin.pool.slot_table():
+        diffs.append("pool slot tables")
+    return diffs
 
 
 def _leaves(tree):

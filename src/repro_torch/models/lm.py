@@ -122,7 +122,7 @@ class _ChunkLogLik(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hn, table, labels, cap):
-        logits = hn.float() @ table.T
+        logits = _per_row_matmul(hn.float(), table.T)
         if cap:
             logits = softcap(logits, cap)
         logp = torch.log_softmax(logits, dim=-1)
@@ -142,7 +142,7 @@ class _ChunkLogLik(torch.autograd.Function):
             if ctx.trains_table:
                 ctx.save_for_backward(dlogits, hn, table)
             else:
-                ctx.save_for_backward(dlogits @ table)
+                ctx.save_for_backward(_per_row_matmul(dlogits, table))
         return total, count
 
     @staticmethod
@@ -157,6 +157,18 @@ class _ChunkLogLik(torch.autograd.Function):
         return g_hn, g_table, None, None
 
 
+def _per_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, K) @ w (K, N) as B products of S rows each, so a row's
+    result does not depend on how many rows the batch holds: cuBLAS picks
+    its split of K by the product's shape (the vocab-wide K of the readout
+    gradient splits differently at 1024 rows than at 512), and a session's
+    adapt groups hold as many rows as their shard's tenants."""
+    out = torch.empty((*x.shape[:-1], w.shape[-1]), dtype=torch.result_type(x, w), device=x.device)
+    for i in range(x.shape[0]):
+        torch.matmul(x[i], w, out=out[i])
+    return out
+
+
 def lm_loss_rows(
     params: Params,
     cfg: ModelConfig,
@@ -168,7 +180,9 @@ def lm_loss_rows(
     """Per-row next-token log-likelihood sums with chunked readout ->
     (ll (B,) fp32 summed log-likelihood per row, count (B,) fp32 unmasked
     tokens per row). A ragged tail chunk is padded with label -1. A
-    readout table that requires grad gets its gradient (``_ChunkLogLik``)."""
+    readout table that requires grad gets its gradient (``_ChunkLogLik``).
+    Each row's readout products run on their own (``_per_row_matmul``), so
+    its loss and gradient are the same bits in a batch of any size."""
     b, s, d = h.shape
     hn = apply_norm(
         cfg.norm_type, params["final_norm"], h, eps=cfg.norm_eps,

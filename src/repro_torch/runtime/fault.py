@@ -1,4 +1,4 @@
-"""Fault tolerance on one device, the counterpart of ``repro.runtime.fault``.
+"""Fault tolerance, the counterpart of ``repro.runtime.fault``.
 
   - ``Supervisor.run`` wraps a step loop: an exception rolls back to the
     latest checkpoint and resumes, up to ``max_restarts`` times; past that
@@ -8,10 +8,12 @@
     replays no completed event.
   - ``StragglerMonitor`` flags a step far slower than the trailing median.
   - ``healthy_mesh_shape`` picks the (data, model) grid that survives on a
-    number of devices.
-
-Not ported: ``elastic_remesh`` and ``elastic_session_mesh``, which rebuild a
-device mesh over the surviving devices (slice 7: multiple GPUs).
+    number of devices; ``elastic_remesh`` / ``elastic_session_mesh`` rebuild
+    a mesh over the surviving devices. A session's logical shard layout
+    travels in its checkpoint, so ``SessionSupervisor``'s ``make_runtime``
+    may build its runtime over fewer devices after a failure: restored shard
+    ``s`` lands on ``devices[s % len(devices)]`` and the run continues
+    bitwise. A model axis above 1 raises (slice 7b of the port).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.checkpoint.checkpoint import (
     restore_runtime_session,
     save_runtime_session,
 )
+from repro_torch.runtime.sharding import MODEL_AXIS_SLICE, Mesh, make_mesh
 
 Params = Any
 
@@ -62,6 +65,33 @@ def healthy_mesh_shape(n_devices: int, model_parallel: int) -> tuple[int, int]:
     return (data, model_parallel)
 
 
+def elastic_remesh(model_parallel: int, devices=None) -> Mesh:
+    """The (data, model) mesh over the surviving ``devices`` (default: every
+    CUDA device). Model parallel 1 only: a larger model axis is slice 7b."""
+    if model_parallel > 1:
+        raise NotImplementedError(f"elastic_remesh(model_parallel={model_parallel}) is not ported ({MODEL_AXIS_SLICE})")
+    devices = _devices(devices)
+    return make_mesh(healthy_mesh_shape(len(devices), model_parallel), ("data", "model"), devices=devices)
+
+
+def elastic_session_mesh(devices=None) -> Mesh:
+    """The data-only session mesh over the surviving ``devices`` (default:
+    every CUDA device): the session's logical shards are a checkpoint
+    property and stay; only their devices change."""
+    devices = _devices(devices)
+    return make_mesh((len(devices),), ("data",), devices=devices)
+
+
+def _devices(devices) -> list:
+    if devices is not None:
+        return list(devices)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device survives: pass the surviving devices explicitly")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 @dataclasses.dataclass
 class SessionSupervisor:
     """Checkpoint / restart of a session's event stream at event boundaries.
@@ -71,7 +101,8 @@ class SessionSupervisor:
     runtime from ``make_runtime``, restores the latest boundary into it and
     resumes at the first event past it: at ``save_every=1`` completed events
     never run again and only the failed event re-executes, against the state
-    it first saw. With ``save_every=k`` up to ``k-1`` completed events re-run
+    it first saw. ``make_runtime`` is called at every (re)start and may build
+    its mesh from whatever devices survive (``elastic_session_mesh``). With ``save_every=k`` up to ``k-1`` completed events re-run
     after a crash. Every exception counts as a restart; past
     ``max_restarts`` it propagates."""
 

@@ -205,8 +205,10 @@ def test_restore_takes_like_leaves_device_and_dtype_and_refuses_shardings(tmp_pa
     got, _ = CK.restore_checkpoint(path, {"a": torch.zeros(4, dtype=torch.float64)})
     assert got["a"].dtype == torch.float64 and got["a"].device.type == "cpu"
     assert torch.equal(got["a"], torch.arange(4, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        CK.restore_checkpoint(path, {"a": torch.zeros(4)}, shardings={"a": None})
+    got, _ = CK.restore_checkpoint(path, {"a": torch.zeros(4)}, shardings={"a": torch.device("cpu")})
+    assert got["a"].device.type == "cpu" and torch.equal(got["a"], torch.arange(4, dtype=torch.float32))
+    with pytest.raises(ValueError, match="tree of torch.device"):
+        CK.restore_checkpoint(path, {"a": torch.zeros(4)}, shardings={"a": "a jax sharding"})
 
 
 def test_save_restore_roundtrip(tmp_path):
@@ -603,8 +605,10 @@ def test_reference_kv_pool_and_radix_restore_into_the_port_bitwise(jp, tp, tmp_p
 
 
 def test_session_from_reference_refuses_several_shards(jp):
-    meta = {"layout": {"n_shards": 2}, "pool_table": {"n_shards": 2, "placement": [], "shards": [{}, {}]}}
-    with pytest.raises(ValueError, match="slice 7"):
+    """A capture whose pool table disagrees with its layout's shard count is
+    refused (a multi-shard capture itself converts: test_torch_session_shard)."""
+    meta = {"layout": {"n_shards": 2}, "pool_table": {"n_shards": 1, "placement": [], "shards": [{}]}}
+    with pytest.raises(ValueError, match="laid out for 2"):
         C.session_from_reference({"pool": {}}, meta, CFG)
 
 
@@ -666,3 +670,28 @@ def test_session_supervisor_gives_up_past_max_restarts(tp, tmp_path):
     with pytest.raises(RuntimeError, match="boom"):
         SessionSupervisor(str(tmp_path / "ckpt"), max_restarts=1).run(lambda: _runtime(tp), [always_fails])
     assert calls == [0, 0]
+
+
+@pytest.mark.parametrize("compress", ["int4", "nf4"])
+def test_quantized_pool_roundtrip_bitwise_sharded(tp, tmp_path, compress):
+    """``test_quantized_pool_roundtrip_bitwise`` over 2 logical shards
+    (``tests/test_runtime.py``'s ``shards=2`` case): each shard's packed
+    nibbles, scales and codebook survive save -> restore bit for bit, the
+    arrays keyed ``s<i>``, and the restored session serves the same tokens."""
+    rt = _start(tp, pool_compress=compress, placement_shards=2)
+    prompts = _prompts()
+    served = rt.serve(["u0", "u1"], prompts, max_new=NEW)
+    path = CK.save_runtime_session(str(tmp_path), 1, rt)
+    rt_new = _runtime(tp, pool_compress=compress, placement_shards=2)
+    CK.restore_runtime_session(path, rt_new)
+    arrays, _ = CK._load_dict_tree(path)
+    assert set(arrays["pool"]) == {"s0", "s1"}
+    for t, s in (("u0", 0), ("u1", 1)):
+        assert rt_new.pool.shard_of(t) == s
+        old, new = rt.pool.slot_payload(t), rt_new.pool.slot_payload(t)
+        assert set(old) == set(new) == {"qa4", "sa", "qb4", "sb"}
+        for n in old:
+            assert old[n].dtype == new[n].dtype and torch.equal(old[n], new[n]), n
+        assert torch.equal(rt.pool.shard_pools(s)["code"], rt_new.pool.shard_pools(s)["code"])
+    assert rt_new.pool.slot_table() == rt.pool.slot_table()
+    assert torch.equal(served, rt_new.serve(["u0", "u1"], prompts, max_new=NEW))

@@ -254,9 +254,9 @@ def test_cli_runs_on_the_cpu_with_the_loss_falling(flags, capsys):
     assert "tenants/s/epoch" in text
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"]])
+@pytest.mark.parametrize("flags", [["--devices", "3"]])
 def test_cli_refuses_what_needs_the_session_runtime(flags):
-    with pytest.raises(SystemExit, match="slice 7"):
+    with pytest.raises(SystemExit, match="must divide over --devices 3"):
         cli.main(["--device", "cpu", *flags])
 
 
@@ -275,3 +275,16 @@ def test_cli_check_parity_holds_the_offline_trainer_bitwise(capsys, use_kernel):
     assert "(+" in text and "scan path" in text
     with pytest.raises(SystemExit, match="--mode full"):
         cli.main(flags + ["--mode", "int8"])
+
+
+def test_cli_devices_2_check_parity_on_the_cpu(capsys):
+    """``--device cpu --devices 2 --check-parity``: the session over a mesh
+    of 2 (repeated CPU) devices, one shard and one adapt group a device,
+    against the offline fleet within the reference's 1e-5."""
+    out = cli.main(["--device", "cpu", "--devices", "2", "--tenants", "2", "--samples", "4",
+                    "--batch-per-tenant", "2", "--seq", "8", "--epochs", "2", "--check-parity"])
+    assert out["devices"] == 2 and out["parity_max_abs_diff"] <= 1e-5 and out["parity_adapter_diff"] <= 1e-5
+    rt = out["runtime"]
+    assert rt.n_shards == 2 and [rt.pool.shard_of(t) for t in range(2)] == [0, 1]
+    text = capsys.readouterr().out
+    assert "2 group(s)" in text and "parity_max_abs_diff=" in text

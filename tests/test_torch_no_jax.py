@@ -37,7 +37,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "          'repro_torch.core.compute_model', 'repro_torch.data.synthetic',\n"
         "          'repro_torch.core.cuda_graph', 'repro_torch.examples.quickstart',\n"
         "          'repro_torch.kernels.autotune', 'repro_torch.launch.train', 'repro_torch.launch.roofline',\n"
-        "          'repro_torch.launch.flops', 'repro_torch.launch.shapes'):\n"
+        "          'repro_torch.launch.flops', 'repro_torch.launch.shapes',\n"
+        "          'repro_torch.runtime.sharding', 'repro_torch.launch.mesh'):\n"
         "    assert m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -10,8 +10,10 @@
     slot table of the same CLI run without a checkpoint directory, bitwise;
     so through the scheduler, with the control plane and an int4 pool, over
     a tiered engine.
-  - The flags that need several devices exit naming slice 7; ``--unroll 2``
-    (decode steps per CUDA-graph replay on the card) runs the same stream."""
+  - The model-axis flags exit naming slice 7b, and the data-axis flags that
+    do not fit together exit with a message (the data axis itself runs in
+    ``tests/test_torch_session_shard.py``); ``--unroll 2`` (decode steps per
+    CUDA-graph replay on the card) runs the same stream."""
 
 import json
 
@@ -70,12 +72,12 @@ def test_crash_drill_restarts_once_and_matches_the_unsupervised_run(tmp_path, ca
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--devices", "2"], "slice 7"),
-    (["--mesh", "2x1"], "slice 7"),
-    (["--pipeline-stages", "2"], "slice 7"),
-    (["--shards", "2"], "slice 7"),
-    (["--check-parity"], "slice 7"),
-    (["--elastic-devices", "1"], "slice 7"),
+    (["--devices", "3"], "must divide over 3 shards"),
+    (["--mesh", "2x1"], "slice 7b"),
+    (["--pipeline-stages", "2"], "slice 7b"),
+    (["--shards", "3"], "must divide over 3 shards"),
+    (["--check-parity"], "1-device twin"),
+    (["--elastic-devices", "1"], "requires --checkpoint-dir and --inject-failure"),
     (["--inject-failure", "3"], "requires --checkpoint-dir"),
 ])
 def test_unported_flags_exit_naming_their_slice(flags, slice_):

@@ -307,9 +307,13 @@ def test_runtime_front_door_and_what_it_leaves_out(sessions):
     assert ing.done and ing.logits.shape == (1, 1, CFG.vocab_size) and rt.tenant("u0").n_ingested == 1
     sl = TSL.SkipLoRAConfig(rank=RANK)
     kw0 = dict(max_tenants=2, samples_per_tenant=1, seq=8, device="cpu")
-    for kw, where in ((dict(mesh=object()), "slice 7"), (dict(placement_shards=2), "slice 7"),
-                      (dict(pipeline_stages=2), "slice 7")):
-        with pytest.raises(NotImplementedError, match=where):
+    from repro_torch.runtime.sharding import make_mesh
+
+    model_axis = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
+    for kw, err, where in ((dict(mesh=model_axis), NotImplementedError, "slice 7b"),
+                           (dict(placement_shards=3), ValueError, "divide over 3 shards"),
+                           (dict(pipeline_stages=2), NotImplementedError, "slice 7b")):
+        with pytest.raises(err, match=where):
             SessionRuntime(CFG, sl, tp, **kw0, **kw)
     fused = SessionRuntime(CFG, sl, tp, **kw0, decode_fuse=True)
     assert fused.decode_fuse and fused.attach_scheduler()._how == (True, True, False)
@@ -371,3 +375,39 @@ def test_serve_cli_scheduler_on_the_cpu():
     with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()) as err:
         cli.main(["--scheduler", "--loop", "--device", "cpu"])
     assert "--loop and --scheduler are mutually exclusive" in err.getvalue()
+
+
+def _sharded_sessions():
+    """(reference, port) 2-shard runtimes on one device: u0 on shard 0, u1
+    on shard 1."""
+    jp = JL.init_lm(jax.random.key(0), CFG)
+    tp = C.params_from_reference(jax.tree.map(np.asarray, jp), CFG)
+    jrt = JRuntime(CFG, JSL.SkipLoRAConfig(rank=RANK, mode="full", cache_dtype="float32"), jp,
+                   max_tenants=2, samples_per_tenant=1, seq=8, placement_shards=2)
+    trt = SessionRuntime(CFG, TSL.SkipLoRAConfig(rank=RANK), tp, max_tenants=2, samples_per_tenant=1, seq=8,
+                         placement_shards=2, device="cpu")
+    for i in range(2):
+        jrt.pool.register(f"u{i}", _adapters(10 + i))
+        trt.pool.register(f"u{i}", _adapters(10 + i))
+    return jrt, trt
+
+
+def test_multi_shard_routing_matches_solo():
+    """Tenants placed on different logical shards decode in their own live
+    batches against their own KV pools, solo-bitwise, with the reference's
+    tokens and counters (``tests/test_scheduler.py``'s
+    ``test_multi_shard_routing_matches_solo``, on the shared-prefix trace
+    with reuse on)."""
+    jrt, trt = _sharded_sessions()
+    assert [trt.pool.shard_of(f"u{i}") for i in range(2)] == [jrt.pool.shard_of(f"u{i}") for i in range(2)] == [0, 1]
+    prompts = _shared_prefix(6)
+    who = ["u0", "u1", "u1", None, "u0", "u1"]
+    got, got_c, sched = _run(S.RequestScheduler, trt, prompts, who, 3, **SHARED)
+    want, want_c, _ = _run(JScheduler, jrt, prompts, who, 3, **SHARED)
+    assert sorted(sched._batches) == [0, 1] and got_c == want_c and got_c["prefix/hits"] >= 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(g, trt.serve([who[i]], prompts[i][None], max_new=3)[0].numpy())
+    pools = sched.prefix_metrics()["pools"]
+    assert sorted(pools) == ["0", "1"] and all(p["held"] == p["refs_total"] == p["nodes"] for p in pools.values())
+    trt.check_prefix_no_leaks()
