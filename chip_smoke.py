@@ -173,6 +173,27 @@ Phases, each printing one line (or a few) before the last line:
      steps, a graphed decode step and the trainer's step, and the cached
      step's readout against the fp32 peak. The tuned defaults are the
      untuned ones afterwards.
+ 14. families (``families_phase``): the other model families, after the
+     earlier phases' graphs and cached device memory are freed. K1, K2, K5
+     and K9 against their plain versions at D 1024 and 1536 (the vector
+     branches of the new widths). qwen2-moe-a2.7b at full width (24 layers,
+     d 2048, 60 experts top-4 and a 5632-wide shared FFN, vocab 151936,
+     seeded bf16 weights drawn on the card, RMSNorm scales 1): grouped
+     serving of 3 tenants and a base row (exactly 33 K5 a call, graph ==
+     eager loop, the base row equal to base ``generate``'s or apart at a
+     near tie, from one prefill the replays bitwise the eager loop); the
+     finetune launcher's loop in modes full and int8 (32 samples, batch 8,
+     seq 128, a populate and two cached epochs, K1 or K3 and K2 exactly 4
+     times a cached epoch, none during populate, the mean loss falling);
+     one ``SessionRuntime`` round in mode int8 (2 K5 ingests, one adapt
+     epoch of 2 K8 + 2 K9 steps, a serve of 33 K5). xlstm-350m (grouped
+     serving, a populate and a cached epoch), paligemma-3b and
+     musicgen-medium (``serve_prefill(prefix_embeds=)`` of seeded prefix
+     embeddings, 256 and 64, then a graphed decode bitwise the eager loop;
+     a populate and a cached epoch), each at full width. Reduced float32
+     phi3.5-moe and jamba-1.5-large on the card and the CPU within 1e-5 of
+     each output's largest value. Each family's epoch times, serve tok/s
+     and peak GiB.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
 step's must take many rows, and each ``generate_grouped`` call's and each
@@ -185,6 +206,7 @@ exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -903,6 +925,41 @@ def _reset_launches():
     PG.reset_launches()
 
 
+def _train_epochs(torch, run, what, steps):
+    """Every epoch of ``run`` through the finetune launcher's own
+    ``run_epoch``: no kernel during populate, K1 (K3 in mode int8) and K2
+    exactly ``steps`` times each cached epoch, ``steps`` finite losses an
+    epoch, and the mean loss falling over the cached epochs (from populate
+    when there is one cached epoch). Returns (launches of K1 or K3 and K2,
+    epoch seconds, mean losses)."""
+    from repro_torch.launch import finetune as FT
+
+    check(run.device.type == "cuda", f"{what}: the launcher runs on {run.device}, not the card")
+    fwd = "skip_lora_fwd_int8" if run.args.mode == "int8" else "skip_lora_fwd"
+    totals = {fwd: 0, "skip_lora_bwd": 0}
+    times, means = [], []
+    for epoch in range(run.args.epochs):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        losses = FT.run_epoch(run, epoch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = _launches()
+        want = {k: 0 for k in counts}
+        if epoch > 0:
+            want[fwd] = want["skip_lora_bwd"] = steps
+        check(counts == want, f"{what} epoch {epoch}: launches {counts} != {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        check(tuple(losses.shape) == (steps,) and bool(torch.isfinite(losses).all()),
+              f"{what} epoch {epoch}: losses {losses.tolist()}")
+        means.append(float(losses.mean()))
+    falling = means[1:] if len(means) > 2 else means
+    check(all(b < a for a, b in zip(falling, falling[1:])), f"{what}: mean losses {means} do not fall")
+    return totals, times, means
+
+
 def train_phase(torch, device_name):
     """Populate + 2 cached epochs per mode through the launcher's own
     functions; returns each kernel's launches over the phase's epochs."""
@@ -910,28 +967,10 @@ def train_phase(torch, device_name):
 
     totals = {"skip_lora_fwd": 0, "skip_lora_bwd": 0, "skip_lora_fwd_int8": 0, "flash_attn_fwd": 0}
     for mode, fwd in (("full", "skip_lora_fwd"), ("int8", "skip_lora_fwd_int8")):
-        args = FT.parse_args([*TRAIN_ARGS, "--mode", mode])
-        run = FT.prepare(args)
-        check(run.device.type == "cuda", f"the launcher runs on {run.device}, not the card")
-        times, means = [], []
-        for epoch in range(args.epochs):
-            torch.cuda.synchronize()
-            _reset_launches()
-            t0 = time.perf_counter()
-            losses = FT.run_epoch(run, epoch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            counts = _launches()
-            want = {k: 0 for k in counts}
-            if epoch > 0:
-                want[fwd] = want["skip_lora_bwd"] = TRAIN_STEPS
-            check(counts == want, f"train {mode} epoch {epoch}: launches {counts} != {want}")
-            for k in totals:
-                totals[k] += counts[k]
-            check(tuple(losses.shape) == (TRAIN_STEPS,), f"losses shape {tuple(losses.shape)}")
-            check(bool(torch.isfinite(losses).all()), f"train {mode} epoch {epoch}: non-finite loss")
-            means.append(float(losses.mean()))
-        check(means[2] < means[1], f"train {mode}: cached-epoch mean loss did not fall: {means}")
+        run = FT.prepare(FT.parse_args([*TRAIN_ARGS, "--mode", mode]))
+        counts, times, means = _train_epochs(torch, run, f"train {mode}", TRAIN_STEPS)
+        for k, n in counts.items():
+            totals[k] += n
         speedup = times[0] / (sum(times[1:]) / 2)
         print(f"train {ARCH} full width mode={mode} --use-kernel on {device_name}: 64 samples, batch 8, "
               f"seq 128, rank {RANK}: populate epoch {times[0]:.3f} s, cached epochs {times[1]:.3f} / "
@@ -2763,28 +2802,29 @@ def _shared_prefix_trace(vocab, seed, n):
             for _ in range(n)]
 
 
-def _near_tie_flips(torch, rt, what, prompts, tenants, toks_a, toks_b):
+def _near_tie_flips(torch, params, cfg, pool, what, prompts, tenants, toks_a, toks_b):
     """Temperature-0 tokens of two runs of the same requests: where request
     i first differs (token d), the dense path's logits for prompt i + the
-    first d tokens of run b must have their top two within ``TOP2_REL_TOL``
-    of the largest |logit|, else the check fails. Returns one line per flip."""
+    first d tokens of run b (``tenants[i]``'s adapters from ``pool``) must
+    have their top two within ``TOP2_REL_TOL`` of the largest |logit|, else
+    the check fails. Returns one line per flip."""
     import numpy as np
 
     from repro_torch.models.lm import sched_prefill
 
-    dev, flips = rt.device, []
+    dev, flips = params["embed"]["table"].device, []
     for i, (a, b) in enumerate(zip(toks_a, toks_b)):
         a, b = np.asarray(a), np.asarray(b)
         if np.array_equal(a, b):
             continue
         d = int(np.flatnonzero(a != b)[0])
-        ctx = torch.as_tensor(np.concatenate([prompts[i], b[:d]])[None], device=dev)
+        ctx = torch.as_tensor(np.concatenate([np.asarray(prompts[i]), b[:d]])[None], device=dev)
         with torch.no_grad():
-            logits, _ = sched_prefill(rt.params, rt.cfg, ctx, torch.tensor([ctx.shape[1]], device=dev),
-                                      rt.pool.pools(), rt.pool.lookup([tenants[i]]))
+            logits, _ = sched_prefill(params, cfg, ctx, torch.tensor([ctx.shape[1]], device=dev),
+                                      pool.pools(), pool.lookup([tenants[i]]))
         top = torch.topk(logits[0, 0].float(), 2).values
         gap, mag = (top[0] - top[1]).item(), logits.float().abs().max().item()
-        check(gap <= TOP2_REL_TOL * mag, f"scheduler: request {i} token {d} differs, {what} "
+        check(gap <= TOP2_REL_TOL * mag, f"{what}: request {i} token {d} differs "
               f"({a.tolist()} vs {b.tolist()}) at a top-2 logit gap {gap:.3e} > {TOP2_REL_TOL * mag:.3e}")
         flips.append(f"request {i} token {d}: top-2 gap {gap:.3e} (max |logit| {mag:.3e})")
     return flips
@@ -2904,7 +2944,8 @@ def scheduler_phase(torch, device_name):
                   f"scheduler: reuse wave row {j} gathered {n} != the dense admission's live row {rows[0]}")
     same_rows = all(torch.equal(dense[n][:, 0], dense[n][:, 1]) for n in ("k", "v"))
     # temperature 0: reuse on and off give the same tokens, or a flip at a near tie
-    flips = _near_tie_flips(torch, rt, "reuse on vs off", prompts, [tenant] * SCHED_REQS, on_toks, off_toks)
+    flips = _near_tie_flips(torch, rt.params, rt.cfg, rt.pool, "scheduler: reuse on vs off", prompts,
+                            [tenant] * SCHED_REQS, on_toks, off_toks)
     total = SCHED_REQS * SCHED_NEW
     skipped = c["prefix/tokens_reused"] / (SCHED_REQS * (SCHED_SHARE + SCHED_TAIL))
     print(f"scheduler {ARCH} full width on {device_name}: {SCHED_REQS} requests x ({SCHED_SHARE} shared + "
@@ -2956,7 +2997,8 @@ def scheduler_phase(torch, device_name):
     check(np.array_equal(runs["continuous"], runs["sequential"]),
           f"mid-decode: continuous {runs['continuous'].tolist()} != sequential {runs['sequential'].tolist()}")
     # a solo serve is a batch of one: equal tokens, or a flip at a near tie
-    solo_flips = _near_tie_flips(torch, rt, "scheduler vs solo serve", mid, who, runs["continuous"], runs["solo"])
+    solo_flips = _near_tie_flips(torch, rt.params, rt.cfg, rt.pool, "scheduler vs solo serve", mid, who,
+                                 runs["continuous"], runs["solo"])
     n = runs["solo"].size
     print(f"scheduler mid-decode admission {ARCH} full width: 3 requests x 128 tokens, bucket 1, 8 new: equal tokens "
           f"continuous vs sequential {(runs['continuous'] == runs['sequential']).sum()}/{n} (checked equal), "
@@ -3474,6 +3516,442 @@ def tooling_phase(torch, device_name):
           f"{KV.DEFAULT_BLOCK}); launch counters reset: the kernels line counts the main paths only")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the other model families at full width
+# ---------------------------------------------------------------------------
+
+#: the families' fine-tuning: the train phase's shape with 32 samples
+FAM_TRAIN = ["--full", "--use-kernel", "--samples", "32", "--batch", "8", "--seq", "128", "--rank", str(RANK)]
+FAM_STEPS = 32 // 8
+#: the families' session round: 2 tenants x 8 samples, batch per tenant 4 (1024 rows a step)
+FAM_TENANTS, FAM_SAMPLES, FAM_BPT = 2, 8, 4
+REDUCED_TOL = 1e-5
+
+
+def _live_norms(params, cfg):
+    """The reference initialises an RMSNorm scale at 0, which without gemma's
+    unit offset zeroes every block's input and the readout's: such a
+    model's seeded weights get scale 1 instead, so routing, scans and
+    fine-tuning see real activations. Other norms keep their init."""
+    if cfg.norm_type != "rmsnorm" or cfg.rmsnorm_unit_offset:
+        return params
+    norms = [params["final_norm"]] + [p for layer in params["stack"] for name, p in layer.items()
+                                      if name.startswith(("norm", "post_norm"))]
+    for p in norms:
+        p["scale"].fill_(1.0)
+    return params
+
+
+def _free_device(torch):
+    """Drop what earlier phases left on the card: the decode, MLP-epoch and
+    trainer graphs (and their memory pools), then the allocator's cache."""
+    import gc
+
+    from repro_torch.core import decode_graph as DG
+    from repro_torch.core import finetune as MF
+    from repro_torch.launch import train as TR
+
+    for graphs in (DG.GRAPHS, MF.GRAPHS, TR.GRAPHS):
+        graphs.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def _width_kernels(torch):
+    """K1, K2, K5 and K9 against their plain versions at the new widths
+    (D 1024: xlstm-350m; D 1536: musicgen-medium), at the shapes the new
+    paths launch: K1/K2 at a cached step (L of the config, M 1024 = batch 8
+    x seq 128, R 8, bf16 rows; D 1536 runs the vector branches of width 16,
+    1024 those of 32), K5 at a grouped decode step (4 rows in 4 slots), K9
+    at a session adapt step (M 1024 in 2 slots). Comparison launches: the
+    counters are reset after them."""
+    from repro_torch.kernels.skip_lora import kernel as K
+    from repro_torch.kernels.skip_lora import ops, ref as R
+
+    lines = []
+    for arch, lnum, d in (("xlstm-350m", 24, 1024), ("musicgen-medium", 48, 1536)):
+        g = torch.Generator(device="cuda").manual_seed(d)
+        m, r = 1024, RANK
+        x = torch.randn((lnum, m, d), generator=g, device="cuda").to(torch.bfloat16)
+        a = torch.randn((lnum, d, r), generator=g, device="cuda") / d**0.5
+        b = torch.randn((lnum, r, d), generator=g, device="cuda") * 0.02
+        gr = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
+        pa = torch.randn((4, lnum, d, r), generator=g, device="cuda") / d**0.5
+        pb = torch.randn((4, lnum, r, d), generator=g, device="cuda") * 0.02
+        pa[0] = 0
+        pb[0] = 0
+        x4 = x[:, :4].contiguous()
+        idx4 = torch.arange(4, dtype=torch.int32, device="cuda")
+        idx2 = torch.repeat_interleave(torch.arange(2, dtype=torch.int32, device="cuda"), m // 2)
+        plan4, plan2 = ops._plan(idx4, 4, 4, ops.TM), ops._plan(idx2, 2, m, ops.TM)
+        cases = (
+            ("skip_lora_fwd", lambda: K.skip_lora_fwd(x, a, b), lambda: R.skip_lora_fwd_ref(x, a, b), 2.0**-7),
+            ("skip_lora_bwd", lambda: K.skip_lora_bwd(x, a, b, gr), lambda: R.skip_lora_bwd_ref(x, a, b, gr),
+             2.0**-6),
+            ("grouped_skip_sum_fwd", lambda: K.grouped_skip_sum_fwd(x4, pa, pb, *plan4, ops.TM),
+             lambda: R.skip_lora_grouped_ref(x4, pa, pb, idx4), 2.0**-7),
+            ("grouped_skip_sum_bwd", lambda: K.grouped_skip_sum_bwd(x, pa[:2], pb[:2], gr, *plan2, ops.TM),
+             lambda: R.skip_lora_grouped_bwd_ref(x, pa[:2], pb[:2], gr, idx2), 2.0**-6),
+        )
+        errs = []
+        for name, run, plain, tol in cases:
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            gots = got if isinstance(got, tuple) else (got,)
+            wants = want if isinstance(want, tuple) else (want,)
+            worst = 0.0
+            for gt, wt in zip(gots, wants):
+                check(bool(torch.isfinite(gt).all()), f"{name} D={d}: non-finite output")
+                err, mag = _rel_err(gt, wt)
+                check(err <= tol * mag, f"{name} D={d}: max |kernel - plain| {err:.3e} > {tol * mag:.3e}")
+                worst = max(worst, err / max(mag, 1e-30))
+            errs.append(f"{name} {worst:.2e}")
+        lines.append(f"{arch} L={lnum} D={d}: " + ", ".join(errs))
+    _reset_launches()
+    print("families kernels at the new widths, kernel vs plain (max |diff| / max |plain|; tol 2^-7 forward, "
+          "2^-6 backward): " + "; ".join(lines))
+
+
+def _decode_bitwise(torch, cfg, params, tok0, start, caches, **kw):
+    """From one prefill's caches: ``decode_scan``'s graph replays against
+    the eager ``decode_loop``, greedy, tokens and final caches (KV and
+    recurrent states) bitwise. Returns the graph's tokens."""
+    from repro_torch.models import lm as LM
+
+    def fresh():
+        return [{n: t.clone() for n, t in c.items()} for c in caches]
+
+    want, want_c = LM.decode_loop(params, cfg, tok0, start, fresh(), max_new=NEW, **kw)
+    got, got_c = LM.decode_scan(params, cfg, tok0, start, fresh(), max_new=NEW, **kw)
+    check(torch.equal(got, want), f"{cfg.name}: graph tokens {got.tolist()} != loop tokens {want.tolist()}")
+    check(all(torch.equal(x[n], y[n]) for x, y in zip(got_c, want_c) for n in x),
+          f"{cfg.name}: graph caches / states != the eager loop's")
+    return got
+
+
+@contextlib.contextmanager
+def _cell_clock(torch):
+    """Host seconds spent inside the recurrent blocks' sequence and step
+    forms (``blocks._RECURRENT``: projections and the eager time loop),
+    synchronised around each call, and the number of calls."""
+    from repro_torch.models import blocks as BL
+
+    got, saved = {"s": 0.0, "calls": 0}, dict(BL._RECURRENT)
+
+    def clocked(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            got["s"] += time.perf_counter() - t0
+            got["calls"] += 1
+            return out
+        return run
+
+    BL._RECURRENT = {k: (init, state, clocked(seq), clocked(step)) for k, (init, state, seq, step) in saved.items()}
+    try:
+        yield got
+    finally:
+        BL._RECURRENT = saved
+
+
+def _family_serve(torch, cfg, params, device_name):
+    """Grouped serving of 3 demo tenants and the base row (4 x 128 prompt
+    tokens, 32 new, float pool): a warm-up call, then ``generate_grouped``
+    (graph replays) and ``generate_loop`` (eager steps), each exactly 33 K5
+    (few rows); graph tokens == loop tokens; the base row equal to base
+    ``generate``'s or apart at a near tie; from one prefill the replays
+    bitwise the eager loop (tokens, KV caches, recurrent states). Returns
+    (K5 launches, tok/s)."""
+    from repro_torch.core.runtime import generate, generate_grouped, generate_loop
+    from repro_torch.launch.serve import demo_pool
+    from repro_torch.models import lm as LM
+
+    dev = torch.device("cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=torch.Generator(device=dev).manual_seed(3),
+                            device=dev)
+    pool = demo_pool(cfg, TENANTS, RANK, None, dev)
+    idx = pool.lookup([None] + [f"tenant-{i % TENANTS}" for i in range(1, BATCH)])
+    generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)   # warm-up: captures
+    timed = {}
+    for path in ("graph", "loop"):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        if path == "graph":
+            out = generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)
+        else:
+            out = generate_loop(params, cfg, prompts, max_new=NEW, pools=pool.pools(), idx=idx, device=dev)
+        torch.cuda.synchronize()
+        timed[path] = (out, time.perf_counter() - t0)
+        counts = _launches()
+        want = {k: 0 for k in counts}
+        want["grouped_skip_sum_fwd"] = 1 + NEW
+        check(counts == want, f"{cfg.name} serve {path}: launches {counts} != {want}")
+        if path == "graph":
+            _tally_rows("grouped_skip_sum_fwd", {"few_rows": 1 + NEW})
+    out, dt = timed["graph"]
+    check(tuple(out.shape) == (BATCH, NEW) and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{cfg.name} serve: tokens {tuple(out.shape)} out of range")
+    check(torch.equal(out, timed["loop"][0]), f"{cfg.name} serve: graph tokens != loop tokens")
+    base = generate(params, cfg, prompts, max_new=NEW, device=dev)
+    flips = _near_tie_flips(torch, params, cfg, pool, f"{cfg.name} serve: base row vs base generate",
+                            prompts[:1].cpu(), [None], out[:1].cpu(), base[:1].cpu())
+    check(not torch.equal(out[1:], base[1:]), f"{cfg.name} serve: the adapters changed no token")
+    b, s = prompts.shape
+    caches = LM.init_serve_caches(cfg, b, s + NEW, device=dev)
+    with _cell_clock(torch) as cells:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = LM.serve_prefill_grouped(params, cfg, prompts, caches, pool.pools(), idx)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    _decode_bitwise(torch, cfg, params, LM.sample_token(logits, 0.0), s, caches, pools=pool.pools(), idx=idx)
+    _reset_launches()
+    loop_dt = timed["loop"][1]
+    share = ""
+    if cells["calls"]:
+        share = (f"; the prefill {prefill_s:.3f} s, of which the recurrent cells {cells['s']:.3f} s "
+                 f"({100 * cells['s'] / prefill_s:.1f} %: {cells['calls']} cells x {s} time steps, eager)")
+    print(f"families serve {cfg.name} full width: {BATCH}x{PROMPT} prompt + {NEW} new, 3 tenants + base row on "
+          f"{device_name}: graph {dt:.3f} s = {BATCH * NEW / dt:.1f} tok/s, eager loop {loop_dt:.3f} s = "
+          f"{BATCH * NEW / loop_dt:.1f} tok/s; grouped_skip_sum_fwd x{1 + NEW} a call both ways; graph == loop "
+          f"tokens; from one prefill graph == loop bitwise (tokens, caches, states); base row == base "
+          f"generate{'' if not flips else ' but at a near tie: ' + flips[0]}{share}")
+    return 1 + NEW, BATCH * NEW / dt
+
+
+def _family_prefix_serve(torch, cfg, params, device_name):
+    """A frontend config: ``serve_prefill(prefix_embeds=)`` of seeded bf16
+    prefix embeddings (the config's ``frontend_seq``) ahead of 4 x 128
+    prompt tokens, then 32 new tokens from position P + 128, graph replays
+    bitwise the eager loop; no grouped launch (single stack, base model).
+    Returns tok/s of prefill + graphed decode."""
+    from repro_torch.models import frontend as FE
+    from repro_torch.models import lm as LM
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=g, device=dev)
+    shape, dtype = FE.prefix_spec(cfg, BATCH)
+    prefix = torch.randn(shape, generator=g, device=dev).to(dtype)
+    p = FE.frontend_prefix_len(cfg)
+
+    def call():
+        caches = LM.init_serve_caches(cfg, BATCH, p + PROMPT + NEW, device=dev)
+        logits, caches = LM.serve_prefill(params, cfg, prompts, caches, prefix_embeds=prefix)
+        tok0 = LM.sample_token(logits, 0.0)
+        return tok0, caches, LM.decode_scan(params, cfg, tok0, p + PROMPT, caches, max_new=NEW)[0]
+
+    _reset_launches()
+    with torch.no_grad():
+        call()   # warm-up: captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok0, _, out = call()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        caches = LM.init_serve_caches(cfg, BATCH, p + PROMPT + NEW, device=dev)
+        _, caches = LM.serve_prefill(params, cfg, prompts, caches, prefix_embeds=prefix)
+        got = _decode_bitwise(torch, cfg, params, tok0, p + PROMPT, caches)
+    check(torch.equal(got, out), f"{cfg.name}: a second prefill decoded other tokens")
+    check(not any(_launches().values()), f"{cfg.name} prefix serve: a kernel launched: {_launches()}")
+    print(f"families serve {cfg.name} full width: prefix {p} x {cfg.d_model} embeddings + {PROMPT} prompt tokens "
+          f"x{BATCH}, {NEW} new on {device_name}: serve_prefill(prefix_embeds=) + graphed decode {dt:.3f} s = "
+          f"{BATCH * NEW / dt:.1f} tok/s; graph == loop bitwise (tokens, caches); no kernel launched")
+    return BATCH * NEW / dt
+
+
+def _family_train(torch, arch, mode, epochs, device_name, params):
+    """Populate + cached epochs through the finetune launcher's own
+    single-tenant loop (``prepare`` / ``run_epoch``, ``--use-kernel``) over
+    ``params``, the launcher's own seed-0 draw with live norms
+    (``_train_epochs``' bars). Returns (launches, epoch times)."""
+    from repro_torch.launch import finetune as FT
+
+    args = FT.parse_args(["--arch", arch, *FAM_TRAIN, "--mode", mode, "--epochs", str(epochs)])
+    run = FT.prepare(args, params=params)
+    totals, times, means = _train_epochs(torch, run, f"families train {arch} {mode}", FAM_STEPS)
+    fwd = next(iter(totals))
+    print(f"families train {arch} full width mode={mode} --use-kernel on {device_name}: {args.samples} samples, "
+          f"batch {args.batch}, seq {args.seq}, rank {args.rank}: populate epoch {times[0]:.3f} s, cached epoch(s) "
+          f"{' / '.join(f'{t:.3f}' for t in times[1:])} s; mean losses {' / '.join(f'{v:.4f}' for v in means)}; "
+          f"{fwd} and skip_lora_bwd x{FAM_STEPS} a cached epoch, none during populate")
+    return totals, times
+
+
+def _family_session(torch, cfg, params, device_name):
+    """One ``SessionRuntime`` round (mode int8, float pool, ``use_kernel``):
+    2 tenants x 8 samples ingested (one K5 a call, few rows), one
+    ``adapt(epochs=1)`` (2 steps of 1024 rows: K8 + K9 each, many rows), a
+    serve of the 2 tenants and 2 base rows (33 K5, few rows). Returns the
+    launches."""
+    import numpy as np
+
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.optim.optimizers import adamw
+
+    dev = torch.device("cuda")
+    sl = SL.SkipLoRAConfig(rank=RANK, mode="int8", cache_dtype="float32", use_fused_kernel=True)
+    rt = SessionRuntime(cfg, sl, params, max_tenants=FAM_TENANTS, samples_per_tenant=FAM_SAMPLES, seq=PROMPT,
+                        optimizer=adamw(1e-3), use_kernel=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    toks = torch.randint(0, cfg.vocab_size, (FAM_TENANTS, FAM_SAMPLES, PROMPT + 1), generator=g, device=dev)
+    totals: dict[str, int] = {}
+
+    def window(want, rows):
+        for k, n in _window(torch, want, rows).items():
+            totals[k] = totals.get(k, 0) + n
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    for t in range(FAM_TENANTS):
+        rt.ingest(t, toks[t, :, :-1], toks[t, :, 1:])
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    window({"grouped_skip_sum_fwd": FAM_TENANTS}, ("grouped_skip_sum_fwd", {"few_rows": FAM_TENANTS}))
+    steps = FAM_SAMPLES // FAM_BPT
+    t0 = time.perf_counter()
+    out = rt.adapt(epochs=1, batch_per_tenant=FAM_BPT, generator=torch.Generator(device=dev).manual_seed(3))
+    t_adapt = time.perf_counter() - t0
+    window({"grouped_skip_sum_fwd_actint8": steps, "grouped_skip_sum_bwd": steps},
+           ("grouped_skip_sum_fwd_actint8", {"many_rows": steps}))
+    check(out["path"] == "scan" and all(np.isfinite(out["losses"][t]).all() for t in range(FAM_TENANTS)),
+          f"{cfg.name} session adapt: path {out['path']}, losses {out['losses']}")
+    prompts = toks[[0, 1, 0, 1], 0, :PROMPT]
+    t0 = time.perf_counter()
+    served = rt.serve([0, 1, None, None], prompts, max_new=NEW)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    window({"grouped_skip_sum_fwd": 1 + NEW}, ("grouped_skip_sum_fwd", {"few_rows": 1 + NEW}))
+    check(tuple(served.shape) == (4, NEW), f"{cfg.name} session serve: tokens {tuple(served.shape)}")
+    print(f"families session {cfg.name} full width mode=int8 on {device_name}: {FAM_TENANTS} tenants x "
+          f"{FAM_SAMPLES} ingested in {t_ingest:.3f} s ({FAM_TENANTS * FAM_SAMPLES / t_ingest:.1f} rows/s), "
+          f"adapt(epochs=1) {t_adapt:.3f} s ({steps} steps: grouped_skip_sum_fwd_actint8 + grouped_skip_sum_bwd "
+          f"x{steps}), serve 2 tenants + 2 base rows {t_serve:.3f} s ({4 * NEW / t_serve:.1f} tok/s, "
+          f"grouped_skip_sum_fwd x{1 + NEW}); mean losses "
+          f"{', '.join(f'{float(np.mean(out['losses'][t])):.4f}' for t in range(FAM_TENANTS))}")
+    return totals
+
+
+def _reduced_card_vs_cpu(torch, arch):
+    """A reduced float32 config (live norms) on the card and on the CPU,
+    within ``REDUCED_TOL`` of each fp32 output's largest value: the train
+    forward's hidden states and aux, a prefill's logits and fp32 states
+    (its bf16 cache leaves within one bf16 ulp of theirs), and a decode
+    step's logits from the CPU prefill's caches on both (a cache entry one
+    bf16 ulp apart would move a step's logits by ~1e-4); grouped greedy
+    tokens equal. Returns (largest relative difference, its output)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.runtime import generate_grouped
+    from repro_torch.launch.serve import demo_pool
+    from repro_torch.models import lm as LM
+
+    cfg = reduce_config(get_config(arch))
+    params = _live_norms(LM.init_lm(torch.Generator().manual_seed(0), cfg), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, 12), generator=torch.Generator().manual_seed(4))
+    pool = demo_pool(cfg, TENANTS, RANK, None, "cpu")
+    idx = pool.lookup([None, "tenant-0", "tenant-1", "tenant-2"])
+    kinds = cfg.layer_kinds()
+    outs, cpu_caches = {}, None
+    for where in ("cpu", "cuda"):
+        p = _to(params, where)
+        with torch.no_grad():
+            fwd = LM.lm_forward(p, cfg, tokens.to(where), mode="train")
+            caches = LM.init_serve_caches(cfg, BATCH, 16, device=where)
+            logits, caches = LM.serve_prefill(p, cfg, tokens.to(where), caches)
+            if cpu_caches is None:
+                cpu_caches = [{n: t.clone() for n, t in c.items()} for c in caches]
+            same = [{n: t.to(where, copy=True) for n, t in c.items()} for c in cpu_caches]
+            step, _ = LM.serve_decode(p, cfg, tokens[:, -1:].to(where), 12, same)
+        toks = generate_grouped(p, cfg, tokens.to(where), _to(pool.pools(), where), idx.to(where), max_new=8,
+                                device=where)
+        named = {"forward h": fwd["h"], "aux": fwd["aux"], "prefill logits": logits, "decode-step logits": step}
+        named.update({f"layer {i} {kinds[i]} {n}": t for i, c in enumerate(caches) for n, t in c.items()})
+        outs[where] = (named, toks)
+    worst = (0.0, "")
+    for name, a in outs["cpu"][0].items():
+        b = outs["cuda"][0][name].cpu()
+        err, mag = _rel_err(b.float(), a.float())
+        rel = err / max(mag, 1e-30)
+        tol = 2.0**-7 if a.dtype == torch.bfloat16 else REDUCED_TOL
+        check(rel <= tol, f"reduced {arch}: {name} card vs CPU {rel:.3e} of its largest value > {tol:g}")
+        if a.dtype != torch.bfloat16:
+            worst = max(worst, (rel, name))
+    check(torch.equal(outs["cpu"][1], outs["cuda"][1].cpu()), f"reduced {arch}: card tokens "
+          f"{outs['cuda'][1].tolist()} != CPU tokens {outs['cpu'][1].tolist()}")
+    return worst
+
+
+def families_phase(torch, device_name):
+    """The other model families (``models/moe.py``, ``models/ssm.py``,
+    ``models/frontend.py``) on the card, after the earlier phases' device
+    memory is freed:
+      - K1, K2, K5 and K9 against their plain versions at D 1024 and 1536;
+      - qwen2-moe-a2.7b at full width (24 layers, d 2048, 60 experts top-4
+        + a 5632-wide shared FFN, vocab 151936, seeded bf16 weights drawn on
+        the card): grouped serving (K5), the finetune loop in modes full
+        and int8, a populate and two cached epochs (K1/K3 + K2), one
+        session round (K5, K8, K9);
+      - xlstm-350m (grouped serving, a populate and a cached epoch),
+        paligemma-3b and musicgen-medium (a prefix serve, a populate and a
+        cached epoch), each at full width;
+      - phi3.5-moe and jamba-1.5-large reduced, float32, card vs CPU.
+    Each family's populate and cached epoch s, serve tok/s and peak GiB.
+    Returns each kernel's launches on these paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as LM
+
+    t_phase = time.perf_counter()
+    held = _free_device(torch)
+    print(f"families phase: {held:.2f} GiB still allocated after freeing the earlier phases' graphs")
+    _width_kernels(torch)
+    totals: dict[str, int] = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    dev = torch.device("cuda")
+    summary = []
+    for arch in ("qwen2-moe-a2.7b", "xlstm-350m", "paligemma-3b", "musicgen-medium"):
+        t_fam = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        params = _live_norms(LM.init_lm(torch.Generator(device=dev).manual_seed(0), cfg), cfg)
+        if cfg.frontend is None:
+            k5, tps = _family_serve(torch, cfg, params, device_name)
+            add({"grouped_skip_sum_fwd": k5})
+        else:
+            tps = _family_prefix_serve(torch, cfg, params, device_name)
+        epoch_s = []
+        for mode in (("full", "int8") if cfg.moe is not None else ("full",)):
+            counts, times = _family_train(torch, arch, mode, 3 if cfg.moe is not None else 2, device_name, params)
+            add(counts)
+            epoch_s.append(f"{mode} populate {times[0]:.3f} s, cached {' / '.join(f'{t:.3f}' for t in times[1:])} s")
+        if cfg.moe is not None:
+            add(_family_session(torch, cfg, params, device_name))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        summary.append(f"{arch}: {'; '.join(epoch_s)}; serve {tps:.1f} tok/s; peak {peak:.2f} GiB; "
+                       f"{time.perf_counter() - t_fam:.1f} s")
+        del params
+        _free_device(torch)
+    for arch in ("phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b"):
+        worst, what = _reduced_card_vs_cpu(torch, arch)
+        print(f"families small: reduced {arch} float32 card vs CPU: forward, aux, prefill logits and states, a "
+              f"decode step from the same caches within {REDUCED_TOL:g} of each output's largest value (max "
+              f"{worst:.2e}, {what}; bf16 cache leaves within one ulp), grouped greedy tokens equal")
+    _reset_launches()
+    for line in summary:
+        print(f"families {line} on {device_name}")
+    print(f"families phase: {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
 def _tensor_core_ptxas(logs):
     """One line per instantiation of the tensor-core kernels from nvcc's
     ``-Xptxas -v`` output (registers, shared memory, spills): K4's bf16
@@ -3568,8 +4046,10 @@ def main() -> None:
     small_scheduler_check(torch)
     paper_phase(torch, smi)
     tooling_phase(torch, smi)
+    families_launches = families_phase(torch, smi)
     # each kernel's launches over every main path that runs it
-    for counts in (fleet_launches, serve_launches, session_launches, shard_launches, sched_launches):
+    for counts in (fleet_launches, serve_launches, session_launches, shard_launches, sched_launches,
+                   families_launches):
         for kname, n in counts.items():
             launches[kname] = launches.get(kname, 0) + n
     for kname, n in launches.items():

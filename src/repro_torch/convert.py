@@ -15,8 +15,9 @@ Layouts:
   - pools: ``AdapterPool.pools()`` dicts, float {"A", "B"}, int8
     {"qa", "sa", "qb", "sb"} or 4-bit {"qa4", "sa", "qb4", "sb", "code"}
     (uint8 payloads carried bit for bit), in both packages.
-  - KV caches: the port's per-layer list goes back to the reference's
-    periods/remainder layout, as float32 (bf16 values are exact in fp32).
+  - serve caches (KV caches and the recurrent blocks' states): the port's
+    per-layer list goes back to the reference's periods/remainder layout,
+    as float32 (bf16 values are exact in fp32), and comes from it.
     So do its stacked caches {"k", "v"}: (L, B, S, n_kv, hd) and its paged
     KV pool {"k", "v"}: (L, NB, block, n_kv, hd), whose reference
     (``KVBlockPool.data``) is the serve-cache tree with the batch axis read
@@ -116,8 +117,8 @@ def pools_to_reference(pools: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
 
 
 def caches_to_reference(caches: list[Params], cfg: ModelConfig) -> Params:
-    """The port's per-layer KV caches -> the reference's periods/remainder
-    layout, as float32 numpy."""
+    """The port's per-layer serve caches (KV caches, recurrent states) ->
+    the reference's periods/remainder layout, as float32 numpy."""
     flat = [_map(to_numpy, c) for c in caches]
     n_per, period = cfg.n_periods, cfg.period
     periods = []
@@ -125,6 +126,14 @@ def caches_to_reference(caches: list[Params], cfg: ModelConfig) -> Params:
         per_pos = [flat[p * period + i] for p in range(n_per)]
         periods.append({k: np.stack([c[k] for c in per_pos]) for k in per_pos[0]})
     return {"periods": periods, "remainder": flat[n_per * period :]}
+
+
+def caches_from_reference(tree: Params, cfg: ModelConfig, *, device="cpu") -> list[Params]:
+    """The reference's serve caches (``init_serve_caches`` / a prefill's, as
+    numpy, periods/remainder layout) -> the port's per-layer list: KV caches
+    and recurrent states, bf16 leaves bit for bit. The inverse of
+    ``caches_to_reference`` (which returns float32)."""
+    return [_map(lambda x: to_tensor(x, device), layer) for layer in _flat_layers(tree, cfg)]
 
 
 def stacked_to_reference(stacked: dict[str, torch.Tensor], cfg: ModelConfig) -> Params:

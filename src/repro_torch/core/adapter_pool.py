@@ -150,6 +150,9 @@ class AdapterPool:
 
     # -- capacity -----------------------------------------------------------
 
+    def __len__(self) -> int:
+        return len(self._lru)
+
     def tenants(self) -> list:
         return list(self._lru.keys())
 
@@ -595,7 +598,7 @@ class ShardedAdapterPool:
         return [t for p in self.shards for t in p.tenants()]
 
     def __len__(self) -> int:
-        return sum(len(p.tenants()) for p in self.shards)
+        return sum(len(p) for p in self.shards)
 
     def nbytes(self) -> int:
         return sum(p.nbytes() for p in self.shards)

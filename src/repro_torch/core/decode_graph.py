@@ -10,10 +10,12 @@ replays them:
 
   - ``decode``: ``lm.decode_scan`` on CUDA tensors. Graphs of ``unroll``
     steps over buffers the entry owns (token, 0-d position, slot index,
-    grouping plan, per-row temperatures, KV caches). A call copies the
-    prefill's caches, ``tok0`` and the start position in, replays the
-    ``unroll``-step graph ``max_new // unroll`` times and a graph of the
-    remaining ``max_new % unroll`` steps once, and copies the caches back.
+    grouping plan, per-row temperatures, serve caches: KV caches and, for
+    recurrent blocks, their states, which the forward writes in place). A
+    call copies the prefill's caches, ``tok0`` and the start position in,
+    replays the ``unroll``-step graph ``max_new // unroll`` times and a
+    graph of the remaining ``max_new % unroll`` steps once, and copies the
+    caches back.
   - ``chunk``: the request scheduler's ``chunk`` steps, over the live
     batch's resident caches, token and position, with the slot index, the
     live-row mask, the temperatures and the plan copied into static buffers.
@@ -242,7 +244,8 @@ def _load_plan(plan, pools, idx) -> None:
 
 class _Decode(_Entry):
     """``decode``'s entry: token, 0-d position, slot index, plan, per-row
-    temperatures and KV caches of its own; steps emit the carried token."""
+    temperatures and serve caches (KV, recurrent states) of its own; steps
+    emit the carried token."""
 
     def __init__(self, stats, cfg, tok0, caches, *, temperature, pools, idx, use_kernel, fuse_skip, unroll):
         dev = tok0.device

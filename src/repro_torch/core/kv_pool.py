@@ -78,12 +78,12 @@ class KVPoolExhausted(RuntimeError):
 
 
 def gather_blocks(
-    data: dict[str, torch.Tensor], tables: torch.Tensor, *, use_kernel: bool = True
+    data: dict[str, torch.Tensor], tables: torch.Tensor, *, use_kernel: bool = False
 ) -> dict[str, torch.Tensor]:
     """Gather a batch of block tables (B, T) int32 out of the pool: each of
     K and V (L, NB, block, n_kv, hd) -> (L, B, T * block, n_kv, hd), one
-    ``paged.gather`` each (K10 on a CUDA pool; ``use_kernel=False``: its
-    plain version on any device, as the reference's flag routes it). Padded
+    ``paged.gather`` each with ``use_kernel=True`` (K10 on a CUDA pool), its
+    plain version on any device otherwise, the reference's default. Padded
     table entries must be valid ids (callers mask the padded key
     positions)."""
     if not use_kernel:
@@ -95,9 +95,9 @@ class KVBlockPool:
     """One device's paged KV block pool (device data + host accounting)."""
 
     def __init__(self, cfg, *, n_blocks: int, block: int, device="cuda"):
-        from repro_torch.models.blocks import check_supported
+        from repro_torch.models.blocks import require_attention
 
-        check_supported(cfg)
+        require_attention(cfg, "a paged KV pool")
         if n_blocks < 1 or block < 1:
             raise ValueError(f"kv pool needs n_blocks, block >= 1; got {n_blocks}, {block}")
         self.cfg = cfg

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.core.skip_cache import SkipCache, cache_read, cache_write
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import lm_forward, lm_loss, model_dtype
+from repro_torch.models.lm import lm_forward, lm_loss, model_dtype, pad_prefix_labels
 from repro_torch.optim.optimizers import apply_updates
 
 Params = Any
@@ -217,13 +217,16 @@ def value_and_grad(loss_fn, trainable: Params):
 
 
 def populate_loss_fn(params: Params, cfg: ModelConfig, adapters: Params, batch: dict[str, torch.Tensor]):
-    """Full forward with activation collection. Returns (loss, (acts, y_base, labels))."""
+    """Full forward with activation collection. Returns (loss, (acts, y_base,
+    labels)). With ``batch["prefix_embeds"]`` (B, P, D) the acts, y_base and
+    labels cover P + S positions, the labels -1 over the prefix. The loss
+    leaves out the MoE aux loss, as the reference's does."""
     out = lm_forward(
         params, cfg, batch["tokens"], mode="train",
         adapters=adapters_to_stack(adapters), collect_acts=True,
         prefix_embeds=batch.get("prefix_embeds"),
     )
-    labels = batch["labels"]
+    labels = pad_prefix_labels(batch["labels"], batch.get("prefix_embeds"))
     loss = lm_loss(params, cfg, out["h"], labels)
     return loss, (out["acts"].detach(), out["y_base"].detach(), labels)
 

@@ -265,7 +265,9 @@ class RequestScheduler:
     ``chunk`` is how many decode steps each dispatch runs, one CUDA-graph
     replay on the card (``loop=True`` runs them as eager steps, what the
     replays are held against). ``prefix_reuse`` turns on the paged KV prefix
-    cache; ``kv_block`` overrides the default block size. The skip-sums
+    cache; ``kv_block`` overrides the default block size and
+    ``kv_pool_blocks`` the pool's block count (default: enough for twice
+    the live batch's prompts, at least 8). The skip-sums
     follow the runtime's ``use_kernel`` and ``decode_fuse``. The pool
     and index live on the runtime, so a later scheduler reuses what an
     earlier one published (``runtime.reset_prefix_cache()`` clears them)."""
@@ -283,6 +285,7 @@ class RequestScheduler:
         mode: str = "continuous",
         prefix_reuse: bool = True,
         kv_block: Optional[int] = None,
+        kv_pool_blocks: Optional[int] = None,
         loop: bool = False,
     ):
         if mode not in ("continuous", "sequential"):
@@ -306,6 +309,7 @@ class RequestScheduler:
         self.mode = mode
         self.prefix_reuse = bool(prefix_reuse)
         self.kv_block = int(kv_block) if kv_block else None
+        self.kv_pool_blocks = int(kv_pool_blocks) if kv_pool_blocks else None
         #: (use_kernel, fuse, loop) of every dispatch's skip-sums and chunk
         self._how = (runtime.use_kernel, runtime.decode_fuse, bool(loop))
         self.counters = Counter()
@@ -467,7 +471,7 @@ class RequestScheduler:
         blk = self.kv_block or KV.get_default_block()
         if (self.max_prompt - 1) // blk < 1:
             return None, None
-        n_blocks = max(8, 2 * self.max_batch * (self.max_prompt // blk))
+        n_blocks = self.kv_pool_blocks or max(8, 2 * self.max_batch * (self.max_prompt // blk))
         pool = self.rt.kv_pool(shard, block=blk, n_blocks=n_blocks)
         return pool, self.rt.prefix_index(shard)
 

@@ -462,8 +462,10 @@ def tune_kv_block(
 ) -> Choice:
     """Pick the paged-KV block size by timing the pool round trip the
     scheduler's prefix reuse dispatches: one ``publish`` (a live row -> pool
-    blocks) plus one ``gather_blocks`` (block tables -> admission layout,
-    K10 on the card) over a ``seq``-token prompt for ``batch`` rows, on the
+    blocks) plus one ``gather_blocks`` (block tables -> admission layout)
+    with ``use_kernel=True``, so it times K10 on the card, the gather the
+    scheduler launches (the reference's tuner times its oracle, the
+    default), over a ``seq``-token prompt for ``batch`` rows, on the
     torch device ``on``. The live row comes from ``lm.init_stacked_caches``,
     the stacked layout the port's ``publish`` reads.
 
@@ -497,7 +499,7 @@ def tune_kv_block(
 
         def run(pool=pool, ids=ids, slots=slots, tables=tables):
             pool.publish(caches, 0, ids, slots)
-            return KV.gather_blocks(pool.data, tables)["k"]
+            return KV.gather_blocks(pool.data, tables, use_kernel=True)["k"]
 
         results.append((timer(run), blk))
     default_t = min(t for t, blk in results if blk == KV.DEFAULT_BLOCK)

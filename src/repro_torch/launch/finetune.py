@@ -102,15 +102,17 @@ def epoch_index_matrix(epoch: int, n: int, batch: int, device) -> torch.Tensor:
     return torch.as_tensor(index_matrix(perm, batch, tail="wrap"), device=device)
 
 
-def _setup(args: argparse.Namespace):
-    """(device, cfg, sl, params, tokens, labels) for the flags."""
+def _setup(args: argparse.Namespace, params=None):
+    """(device, cfg, sl, params, tokens, labels) for the flags; ``params``
+    defaults to the seed-0 draw."""
     device = torch.device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
     sl = SL.SkipLoRAConfig(rank=args.rank, mode=args.mode, cache_dtype="float32",
                            use_fused_kernel=args.use_kernel)
-    params = init_lm(torch.Generator(device=device).manual_seed(0), cfg)
+    if params is None:
+        params = init_lm(torch.Generator(device=device).manual_seed(0), cfg)
     store, _ = make_pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                         global_batch=args.batch, num_samples=args.samples))
     staged = store.batch(np.arange(args.samples))
@@ -118,10 +120,11 @@ def _setup(args: argparse.Namespace):
             torch.as_tensor(staged["labels"], device=device))
 
 
-def prepare(args: argparse.Namespace) -> Run:
+def prepare(args: argparse.Namespace, params=None) -> Run:
     """The single-tenant loop's model, data, adapters, optimizer and empty
-    cache on ``args.device``."""
-    device, cfg, sl, params, tokens, labels = _setup(args)
+    cache on ``args.device``; ``params``, a backbone already drawn for
+    ``args.arch`` on that device, saves drawing it again."""
+    device, cfg, sl, params, tokens, labels = _setup(args, params)
     adapters = SL.init_adapters(torch.Generator(device=device).manual_seed(1), cfg, sl)
     trainable, static = SL.split_trainable(adapters, sl)
     opt = adamw(args.lr)

@@ -17,7 +17,8 @@ Entry points:
     replay) or, given a (b,) tensor, at each row's own position (continuous
     batching).
   - ``attn_decode_paged``: the per-row decode over KV pool blocks behind a
-    block table, gathered through ``kernels.flash_attn.paged`` (K10).
+    block table, gathered through ``kernels.flash_attn.paged`` (K10 with
+    ``use_kernel=True``).
 
 The caches are updated in place (the reference returns new arrays); the
 functions still return the cache so callers read like the reference.
@@ -303,6 +304,8 @@ def attn_decode_paged(
     spec: AttnSpec,
     pool: dict[str, torch.Tensor],   # {"k", "v"}: (n_blocks, block, n_kv, hd)
     table: torch.Tensor,             # (b, T) int32 pool block ids
+    *,
+    use_kernel: bool = False,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Block-table variant of ``attn_decode``'s per-row branch: row b's K/V
     for token position t lives in pool block ``table[b, t // block]`` at
@@ -312,8 +315,9 @@ def attn_decode_paged(
     place (the caller must hold that block exclusively: the copy-on-write
     rule, ``KVBlockPool.copy_block`` first if shared), then attends over the
     gathered per-row keys with the dense branch's per-row mask, so given
-    equal KV bytes the output is bitwise the dense ``attn_decode``'s. The
-    gather is K10 on a CUDA pool. Returns (y, the updated pool)."""
+    equal KV bytes the output is bitwise the dense ``attn_decode``'s. With
+    ``use_kernel`` the gather is K10 on a CUDA pool, else its plain version
+    on any device (the reference's default). Returns (y, the updated pool)."""
     from repro_torch.kernels.flash_attn import paged
 
     blk = pool["k"].shape[1]
@@ -323,8 +327,8 @@ def attn_decode_paged(
     off = pos % blk
     pool["k"][owner, off] = k[:, 0].to(pool["k"].dtype)
     pool["v"][owner, off] = v[:, 0].to(pool["v"].dtype)
-    ck = paged.gather(pool["k"], table)
-    cv = paged.gather(pool["v"], table)
+    gather = paged.gather if use_kernel else paged.paged_gather_ref
+    ck, cv = gather(pool["k"], table), gather(pool["v"], table)
     mask = row_mask(pos[:, None], ck.shape[1], spec.window)
     out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask, spec)
     return _out(out, params["wo"]), pool

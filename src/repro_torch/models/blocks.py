@@ -1,19 +1,23 @@
 """Per-layer blocks and the layer stack.
 
 Counterpart of ``repro.models.blocks``. A *block* is one residual layer:
-pre-norm -> attention -> residual add, then pre-norm -> FFN -> residual add,
-with the gemma2/3 sandwich post-norms where the config asks for them.
+pre-norm -> mixer (attention / mamba / mLSTM / sLSTM) -> residual add, then,
+for attention and mamba layers, pre-norm -> FFN or MoE -> residual add,
+with the gemma2/3 sandwich post-norms where the config asks for them. The
+xLSTM cells have no external FFN.
 
 The reference stacks the layers of each period position and scans over
 periods; the port keeps one flat list of per-layer dicts in execution order
-(layer ``l = p * period + i``, remainder at the tail) and loops over it.
-``convert.py`` maps between the two layouts. The stack also implements the
-single-stack Skip-LoRA tap: every block's *input* is projected through its
-(A_k, B_k) pair and summed into a skip term the LM adds to the final hidden
-state.
+(layer ``l = p * period + i``, remainder at the tail) and loops over it, so
+mixed periods (jamba's attention and mamba layers, MoE on every other
+layer) and remainders need nothing more. ``convert.py`` maps between the
+two layouts. The stack also implements the single-stack Skip-LoRA tap:
+every block's *input* is projected through its (A_k, B_k) pair and summed
+into a skip term the LM adds to the final hidden state.
 
-Only the attention kinds are ported; mamba / mLSTM / sLSTM blocks and MoE
-FFNs raise ``NotImplementedError``.
+Serve caches are updated in place: the attention functions write their K/V
+into the cache, and a recurrent block's new state is copied into its cache
+dict, so a CUDA graph of a decode step replays over the same buffers.
 """
 
 from __future__ import annotations
@@ -23,25 +27,30 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn, init_ffn
 from repro_torch.models.layers import apply_norm, make_norm
+from repro_torch.models.moe import init_moe, moe_ffn
 
 Params = Any
 
 ATTN_KINDS = ("attn", "attn_local")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: non-attention blocks, MoE
-    FFNs and modality frontends."""
-    other = sorted(set(cfg.layer_kinds()) - set(ATTN_KINDS))
-    if other:
-        raise NotImplementedError(f"{cfg.name}: block kinds {other} are not ported")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported")
+def require_attention(cfg: ModelConfig, what: str) -> None:
+    """Raise for a stack with recurrent blocks: ``what`` (a KV layout)
+    holds attention layers only."""
+    kinds = sorted(set(cfg.layer_kinds()) - set(ATTN_KINDS))
+    if kinds:
+        raise NotImplementedError(f"{cfg.name}: {what} holds attention layers only, not {kinds}")
+
+#: recurrent kinds -> (init, init_state, seq form, step form)
+_RECURRENT = {
+    "mamba": (S.init_mamba, S.init_mamba_state, S.mamba_seq, S.mamba_step),
+    "mlstm": (S.init_mlstm, S.init_mlstm_state, S.mlstm_seq, S.mlstm_step),
+    "slstm": (S.init_slstm, S.init_slstm_state, S.slstm_seq, S.slstm_step),
+}
 
 
 def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -55,19 +64,27 @@ def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig, dtype) -> Params:
-    """One layer's params; norm params are fp32 as ``make_norm`` makes them."""
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
+def init_block(generator: torch.Generator, kind: str, layer_idx: int, cfg: ModelConfig, dtype) -> Params:
+    """Layer ``layer_idx``'s params; norm params are fp32 as ``make_norm``
+    makes them. An MoE FFN where ``cfg.layer_has_moe(layer_idx)``."""
     d, dev = cfg.d_model, generator.device
     p: dict[str, Params] = {"norm1": make_norm(cfg.norm_type, d, device=dev)}
-    p["attn"] = A.init_attn(generator, cfg, dtype)
+    if kind in ATTN_KINDS:
+        p["attn"] = A.init_attn(generator, cfg, dtype)
+    elif kind in _RECURRENT:
+        p[kind] = _RECURRENT[kind][0](generator, cfg, dtype)
+    else:
+        raise ValueError(kind)
     if cfg.use_post_norm:
         p["post_norm1"] = make_norm(cfg.norm_type, d, device=dev)
-    if cfg.d_ff:
-        p["norm2"] = make_norm(cfg.norm_type, d, device=dev)
-        p["ffn"] = init_ffn(generator, d, cfg.d_ff, gated=cfg.ffn_gated, dtype=dtype)
-        if cfg.use_post_norm:
+    if kind in ATTN_KINDS or kind == "mamba":
+        if cfg.layer_has_moe(layer_idx):
+            p["norm2"] = make_norm(cfg.norm_type, d, device=dev)
+            p["moe"] = init_moe(generator, d, cfg.moe, dtype)
+        elif cfg.d_ff:
+            p["norm2"] = make_norm(cfg.norm_type, d, device=dev)
+            p["ffn"] = init_ffn(generator, d, cfg.d_ff, gated=cfg.ffn_gated, dtype=dtype)
+        if cfg.use_post_norm and ("moe" in p or "ffn" in p):
             p["post_norm2"] = make_norm(cfg.norm_type, d, device=dev)
     return p
 
@@ -75,15 +92,26 @@ def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig, dtype) -
 def init_block_cache(
     kind: str, batch: int, max_seq: int, cfg: ModelConfig, dtype, *, device=None
 ) -> Params:
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
-    spec = A.AttnSpec.from_config(cfg, local=(kind == "attn_local"))
-    return A.init_kv_cache(batch, max_seq, spec, dtype, device=device)
+    """A KV cache for an attention kind, the recurrent state otherwise
+    (its memories fp32, its conv window and sLSTM's ``h`` in ``dtype``)."""
+    if kind in ATTN_KINDS:
+        spec = A.AttnSpec.from_config(cfg, local=(kind == "attn_local"))
+        return A.init_kv_cache(batch, max_seq, spec, dtype, device=device)
+    if kind in _RECURRENT:
+        return _RECURRENT[kind][1](batch, cfg, dtype, device=device)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
 # Block forward
 # ---------------------------------------------------------------------------
+
+
+def _write_state(cache: Params, new: Params) -> Params:
+    """Copy a recurrent block's new state into its cache dict, in place."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return cache
 
 
 def block_forward(
@@ -95,37 +123,51 @@ def block_forward(
     mode: str,                     # "train" | "prefill" | "decode"
     cache: Params = None,
     pos=None,                      # int, or a (b,) tensor of per-row positions
-) -> tuple[torch.Tensor, Params]:
-    """Apply one block. Returns (h_out, cache); the cache is None in train
-    mode. ``pos`` routes as in the reference: in prefill a (b,) tensor is
-    each row's start offset (``attn_prefill_ext``, the prefix-reuse
-    admission) and None the classic prefill; in decode an ``int`` is the
-    scalar branch and a (b,) tensor the per-row branch."""
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
+) -> tuple[torch.Tensor, Params, Optional[torch.Tensor]]:
+    """Apply one block. Returns (h_out, cache, moe_aux): the cache is None in
+    train mode, the aux the MoE FFN's load-balance loss (fp32 scalar) or
+    None for a block without one (the reference's zero). ``pos`` routes the
+    attention kinds as in the reference: in prefill a (b,) tensor is each
+    row's start offset (``attn_prefill_ext``, the prefix-reuse admission)
+    and None the classic prefill; in decode an ``int`` is the scalar branch
+    and a (b,) tensor the per-row branch. The recurrent kinds read their
+    state, not ``pos``; a prefill starts from the (zeroed) cache's state."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
     x = _norm(cfg, params["norm1"], h)
-    spec = A.AttnSpec.from_config(cfg, local=(kind == "attn_local"))
-    if mode == "train":
-        y = A.attn_train(params["attn"], x, spec)
-    elif mode == "prefill":
-        if pos is not None:
+    if kind in ATTN_KINDS:
+        spec = A.AttnSpec.from_config(cfg, local=(kind == "attn_local"))
+        if mode == "train":
+            y = A.attn_train(params["attn"], x, spec)
+        elif mode == "prefill" and pos is not None:
             y, cache = A.attn_prefill_ext(params["attn"], x, pos, spec, cache)
-        else:
+        elif mode == "prefill":
             y, cache = A.attn_prefill(params["attn"], x, spec, cache)
-    elif mode == "decode":
-        y, cache = A.attn_decode(params["attn"], x, pos, spec, cache)
+        else:
+            y, cache = A.attn_decode(params["attn"], x, pos, spec, cache)
+    elif kind in _RECURRENT:
+        _, _, seq, step = _RECURRENT[kind]
+        if mode == "train":
+            y, _ = seq(params[kind], x, cfg, None)
+        else:
+            y, new = (seq if mode == "prefill" else step)(params[kind], x, cfg, cache)
+            cache = _write_state(cache, new)
     else:
-        raise NotImplementedError(f"mode {mode!r} is not ported")
+        raise ValueError(kind)
     if "post_norm1" in params:
         y = _norm(cfg, params["post_norm1"], y)
     h = h + y
-    if "ffn" in params:
+    aux = None
+    if "moe" in params or "ffn" in params:
         z = _norm(cfg, params["norm2"], h)
-        y2 = ffn(params["ffn"], z, act=cfg.ffn_activation, gated=cfg.ffn_gated)
+        if "moe" in params:
+            y2, aux = moe_ffn(params["moe"], z, cfg.moe, act=cfg.ffn_activation)
+        else:
+            y2 = ffn(params["ffn"], z, act=cfg.ffn_activation, gated=cfg.ffn_gated)
         if "post_norm2" in params:
             y2 = _norm(cfg, params["post_norm2"], y2)
         h = h + y2
-    return h, cache
+    return h, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -135,14 +177,13 @@ def block_forward(
 
 def init_stack(generator: torch.Generator, cfg: ModelConfig, dtype) -> list[Params]:
     """Per-layer params in execution order."""
-    check_supported(cfg)
-    return [init_block(generator, kind, cfg, dtype) for kind in cfg.layer_kinds()]
+    return [init_block(generator, kind, i, cfg, dtype) for i, kind in enumerate(cfg.layer_kinds())]
 
 
 def init_stack_caches(
     batch: int, max_seq: int, cfg: ModelConfig, dtype, *, device=None
 ) -> list[Params]:
-    """Per-layer KV caches in execution order."""
+    """Per-layer KV caches and recurrent states in execution order."""
     return [
         init_block_cache(kind, batch, max_seq, cfg, dtype, device=device)
         for kind in cfg.layer_kinds()
@@ -170,25 +211,29 @@ def stack_forward(
     skip    : accumulated Skip-LoRA term (zeros if no adapters)
     caches  : the (updated in place) per-layer caches; None in train mode
     acts    : per-layer block inputs (n_layers, B, S, D) if collect_acts
+    aux     : the MoE FFNs' summed aux loss (fp32 scalar; zero without one)
 
     In train mode the backbone params never require grad, so autograd
     records only the adapters' skip path, which reads the block inputs
     and nothing inside the blocks: the counterpart of the reference's
     rematerialised (``jax.checkpoint``) layer scan."""
     skip = torch.zeros_like(h)
-    acts = []
+    acts, aux = [], None
     for l, kind in enumerate(cfg.layer_kinds()):
         if collect_acts:
             acts.append(h)
         if adapters is not None:
             skip = skip + _apply_adapter(adapters[l], h)
         cache = None if caches is None else caches[l]
-        h, cache = block_forward(kind, stack[l], h, cfg, mode=mode, cache=cache, pos=pos)
+        h, cache, a = block_forward(kind, stack[l], h, cfg, mode=mode, cache=cache, pos=pos)
         if caches is not None:
             caches[l] = cache
+        if a is not None:
+            aux = a if aux is None else aux + a
     return {
         "h": h,
         "skip": skip,
         "caches": caches,
         "acts": torch.stack(acts) if collect_acts else None,
+        "aux": aux if aux is not None else torch.zeros((), dtype=torch.float32, device=h.device),
     }

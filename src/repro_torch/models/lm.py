@@ -7,7 +7,8 @@ Counterpart of ``repro.models.lm``:
   - ``lm_loss_rows`` / ``lm_loss`` / ``train_loss_fn``: next-token cross
     entropy with a chunked fp32 readout that never holds (B, S, vocab)
     logits.
-  - ``init_serve_caches``: per-layer bf16 KV caches.
+  - ``init_serve_caches``: per-layer serve caches (bf16 KV caches, and the
+    recurrent blocks' states with bf16 conv windows).
   - ``serve_prefill`` / ``serve_decode`` and the multi-tenant ``_grouped``
     variants, whose skip term goes through the grouped skip-LoRA kernels.
   - ``ingest_prefill``: the session runtime's ingest forward, which fills
@@ -25,7 +26,10 @@ Counterpart of ``repro.models.lm``:
     tail of a prompt whose prefix K/V came from the paged pool).
 
 Params are plain dicts of tensors: {"embed": {"table"}, "stack": [per-layer
-dicts], "final_norm", and "head" when embeddings are untied}.
+dicts], "final_norm", and "head" when embeddings are untied}. The forward
+returns the MoE FFNs' aux loss beside the hidden states, and
+``train_loss_fn`` adds it to the loss. Modality prefixes
+(``prefix_embeds``, ``models.frontend``) go ahead of the embedded tokens.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch.models import blocks as B
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontend import splice_prefix
 from repro_torch.models.layers import apply_norm, embed, init_embedding, make_norm, softcap, unembed
 
 Params = Any
@@ -49,7 +54,6 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Random params from ``generator``; tensors live on ``generator.device``.
     Same shapes and dtypes as the reference's ``init_lm`` (not the same
     numbers: torch and JAX draw differently from one seed)."""
-    B.check_supported(cfg)
     dtype = model_dtype(cfg)
     params = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype),
@@ -74,20 +78,20 @@ def lm_forward(
     prefix_embeds: Optional[torch.Tensor] = None,
 ) -> dict[str, Any]:
     """Returns {"h": final hidden (pre-norm, incl. skip term), "caches",
-    "acts", "y_base": final hidden *without* the skip term}. Modality
-    prefixes (``prefix_embeds``) need a frontend, which is not ported."""
-    B.check_supported(cfg)
-    if prefix_embeds is not None:
-        raise NotImplementedError("prefix_embeds need a modality frontend, which is not ported")
+    "acts", "aux": the MoE aux loss, "y_base": final hidden *without* the
+    skip term}. ``prefix_embeds`` (B, P, D), a frontend's precomputed
+    embeddings, go ahead of the embedded tokens, so every output covers
+    P + S positions."""
     dtype = model_dtype(cfg)
     h = embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.scale_embed_by_sqrt_dim, dtype=dtype)
+    h = splice_prefix(h, prefix_embeds)
     out = B.stack_forward(
         params["stack"], h, cfg, mode=mode, caches=caches, pos=pos,
         adapters=adapters, collect_acts=collect_acts,
     )
     y_base = out["h"]
     y = y_base + out["skip"].to(y_base.dtype) if adapters is not None else y_base
-    return {"h": y, "y_base": y_base, "caches": out["caches"], "acts": out["acts"]}
+    return {"h": y, "y_base": y_base, "caches": out["caches"], "acts": out["acts"], "aux": out["aux"]}
 
 
 def readout(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -225,17 +229,30 @@ def train_loss_fn(
     *,
     adapters: Optional[list[Params]] = None,
 ) -> torch.Tensor:
-    """Loss of one batch {"tokens", "labels"} through the train forward,
-    with optional per-layer adapters (``lm_skiplora.adapters_to_stack``)."""
+    """Loss of one batch {"tokens", "labels"[, "prefix_embeds"]} through the
+    train forward, with optional per-layer adapters
+    (``lm_skiplora.adapters_to_stack``), plus the MoE aux loss. Prefix
+    positions carry no next-token loss (label -1)."""
     out = lm_forward(
         params, cfg, batch["tokens"], mode="train", adapters=adapters,
         prefix_embeds=batch.get("prefix_embeds"),
     )
-    return lm_loss(params, cfg, out["h"], batch["labels"])
+    return lm_loss(params, cfg, out["h"], pad_prefix_labels(batch["labels"], batch.get("prefix_embeds"))) + out["aux"]
+
+
+def pad_prefix_labels(labels: torch.Tensor, prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Labels (B, S) -> (B, P + S) with -1 over a frontend prefix of P
+    positions (unchanged without one)."""
+    if prefix_embeds is None:
+        return labels
+    pad = torch.full((labels.shape[0], prefix_embeds.shape[1]), -1, dtype=labels.dtype, device=labels.device)
+    return torch.cat([pad, labels], dim=1)
 
 
 def init_serve_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> list[Params]:
-    """bf16 KV caches whatever the model dtype, as the reference makes them."""
+    """Per-layer serve caches with the cache dtype bf16 whatever the model
+    dtype, as the reference makes them: bf16 KV caches, recurrent states
+    with fp32 memories and bf16 conv windows (sLSTM's ``h`` bf16 too)."""
     return B.init_stack_caches(batch, max_seq, cfg, torch.bfloat16, device=device)
 
 
@@ -245,7 +262,7 @@ def init_stacked_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -
     (or a block) of every layer at once. ``layer_caches`` gives the
     per-layer views the forward takes. Attention-only configs, whose layers
     all share one KV shape."""
-    B.check_supported(cfg)
+    B.require_attention(cfg, "the stacked KV layout")
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {n: torch.zeros(shape, dtype=torch.bfloat16, device=device) for n in ("k", "v")}
 
@@ -263,9 +280,13 @@ def serve_prefill(
     caches: list[Params],
     *,
     adapters: Optional[list[Params]] = None,
+    prefix_embeds: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, list[Params]]:
-    """Prefill: process the prompt, return (last-position logits, caches)."""
-    out = lm_forward(params, cfg, tokens, mode="prefill", caches=caches, adapters=adapters)
+    """Prefill: process the prompt (behind ``prefix_embeds`` (B, P, D), a
+    frontend's embeddings, if given: the caches then hold P + S positions
+    and decode resumes at P + S), return (last-position logits, caches)."""
+    out = lm_forward(params, cfg, tokens, mode="prefill", caches=caches, adapters=adapters,
+                     prefix_embeds=prefix_embeds)
     return readout(params, cfg, out["h"][:, -1:]), out["caches"]
 
 

@@ -1,0 +1,116 @@
+"""Mixture-of-Experts FFN: top-k routing with grouped, capacity-bounded
+dispatch (GShard-style).
+
+Counterpart of ``repro.models.moe``. Tokens are routed *within groups* (the
+leading dims, the batch rows), so a row's routing never depends on the
+other rows. Per group: route -> each (token, k) assignment's position in
+its expert by an exclusive cumsum over the S*K assignments -> (G, E, C, D)
+expert buffers (C = the per-group capacity) -> gated expert products ->
+gate-weighted combine back. An assignment at position >= C drops. Shared
+(always-on) experts (qwen2-moe) and a Switch-style aux loss.
+
+Every one of the E*C slots of a group is formed, kept or empty, so the
+shapes do not depend on the routing: a step captures into a CUDA graph.
+The reference scatters dropped assignments to the out-of-range slot E*C
+with ``mode="drop"``; here they go to a dump row E*C that is sliced away.
+The reference scatter-adds each slot's output back to its token; here each
+assignment gathers its slot's output (the dump row reads zeros) and a
+token sums its K in order, so the combine is deterministic on the card,
+where a scatter-add's atomics are not. The expert products are plain
+``einsum``s, as in the reference, where no Pallas kernel runs them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import MoEConfig
+from repro_torch.models.ffn import _normal, ffn, init_ffn
+from repro_torch.models.layers import activation
+
+Params = Any
+
+
+def init_moe(generator: torch.Generator, d: int, mcfg: MoEConfig, dtype) -> Params:
+    """Router (D, E) fp32, experts ``w_gate``/``w_up`` (E, D, F) and
+    ``w_down`` (E, F, D) in ``dtype``, and the shared gated FFN if any."""
+    e, f = mcfg.n_experts, mcfg.d_ff_expert
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    params = {
+        "router": _normal(generator, (d, e), s_in, torch.float32),
+        "w_gate": _normal(generator, (e, d, f), s_in, dtype),
+        "w_up": _normal(generator, (e, d, f), s_in, dtype),
+        "w_down": _normal(generator, (e, f, d), s_out, dtype),
+    }
+    if mcfg.n_shared:
+        params["shared"] = init_ffn(generator, d, mcfg.shared_d_ff, gated=True, dtype=dtype)
+    return params
+
+
+def _capacity(tokens_per_group: int, mcfg: MoEConfig) -> int:
+    cap = int(mcfg.top_k * tokens_per_group * mcfg.capacity_factor / mcfg.n_experts)
+    return max(cap, mcfg.top_k)
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor, mcfg: MoEConfig):
+    """x: (G, S, D). Returns (gates (G,S,K) fp32 renormalised, expert_idx
+    (G,S,K), probs (G,S,E) fp32): fp32 logits, softmax, top-k."""
+    probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+    gates, expert_idx = torch.topk(probs, mcfg.top_k, dim=-1)
+    gates = gates / torch.clamp(torch.sum(gates, dim=-1, keepdim=True), min=1e-9)
+    return gates, expert_idx, probs
+
+
+def moe_ffn(params: Params, x: torch.Tensor, mcfg: MoEConfig, *, act: str = "silu"):
+    """Apply the MoE FFN. x: (..., S, D) with leading group dims. Returns
+    (y, aux_loss fp32 scalar)."""
+    orig_shape = x.shape
+    s, d = x.shape[-2], x.shape[-1]
+    xg = x.reshape(-1, s, d)                                       # (G, S, D)
+    g_dim = xg.shape[0]
+    e, k = mcfg.n_experts, mcfg.top_k
+    c = _capacity(s, mcfg)
+    dtype = xg.dtype
+
+    gates, expert_idx, probs = route(params["router"], xg, mcfg)
+
+    # Position of each (token, k) assignment within its expert, per group.
+    flat_e = expert_idx.reshape(g_dim, s * k)                      # (G, S*K)
+    onehot = F.one_hot(flat_e, e)                                  # (G, S*K, E)
+    pos = (torch.cumsum(onehot, dim=1) - onehot).gather(2, flat_e[..., None])[..., 0]
+    keep = pos < c
+    slot = torch.where(keep, flat_e * c + pos, e * c)              # (G, S*K); E*C: the dump row
+
+    # Each kept slot's token; kept slots are distinct, drops all land on the dump row.
+    token_ids = (torch.arange(s * k, device=x.device) // k).expand(g_dim, s * k)
+    slot_token = torch.zeros((g_dim, e * c + 1), dtype=torch.long, device=x.device)
+    slot_token.scatter_(1, slot, token_ids)
+    slot_valid = torch.zeros((g_dim, e * c + 1), dtype=torch.bool, device=x.device)
+    slot_valid.scatter_(1, slot, True)
+    slot_token, slot_valid = slot_token[:, : e * c], slot_valid[:, : e * c]
+
+    xe = xg.gather(1, slot_token[..., None].expand(-1, -1, d))     # (G, E*C, D)
+    xe = (xe * slot_valid[..., None].to(dtype)).reshape(g_dim, e, c, d)
+    g_act = activation(act, torch.einsum("gecd,edf->gecf", xe, params["w_gate"].to(dtype)))
+    u = torch.einsum("gecd,edf->gecf", xe, params["w_up"].to(dtype))
+    ye = torch.einsum("gecf,efd->gecd", g_act * u, params["w_down"].to(dtype))
+
+    # Combine: every assignment reads its slot's output (a drop the zero
+    # dump row), gate-weighted, and a token sums its K.
+    ye = torch.cat([ye.reshape(g_dim, e * c, d), ye.new_zeros((g_dim, 1, d))], dim=1)
+    picked = ye.gather(1, slot[..., None].expand(-1, -1, d))      # (G, S*K, D)
+    w = (gates.reshape(g_dim, s * k) * keep.to(gates.dtype))[..., None].to(dtype)
+    y = torch.sum((picked * w).reshape(g_dim, s, k, d), dim=2)
+
+    if mcfg.n_shared:
+        y = y + ffn(params["shared"], xg, act=act, gated=True)
+
+    # Switch-style load-balance auxiliary loss.
+    frac_tokens = torch.mean(F.one_hot(expert_idx, e).float().sum(dim=2), dim=(0, 1))
+    frac_probs = torch.mean(probs, dim=(0, 1))
+    aux = mcfg.router_aux_weight * e * torch.sum(frac_tokens * frac_probs)
+    return y.reshape(orig_shape), aux

@@ -335,3 +335,23 @@ def test_generate_grouped_after_fleet_write_back_gives_the_reference_tokens(trai
     assert torch.equal(got[1], base[1])                       # the zero slot's row is base-model
     np.testing.assert_array_equal(base.numpy(), np.asarray(j_generate(jparams, CFG, jnp.asarray(prompts),
                                                                       max_new=6)))
+
+
+def test_len_counts_tenants_as_the_reference_does():
+    """``len(pool)`` is the tenant count, as the reference's pool gives it
+    (``tests/test_adapter_pool.py``): after registers, a re-register, an
+    eviction past capacity and an explicit evict; the sharded pool sums its
+    shards'."""
+    jp, tp = _pools(None, n_slots=3)
+    assert len(tp) == len(jp) == 0
+    for i, t in enumerate(["a", "b", "a", "c", "d"]):
+        jp.register(t, _adapters(i))
+        tp.register(t, _adapters(i))
+        assert len(tp) == len(jp)
+    jp.evict("d")
+    tp.evict("d")
+    assert len(tp) == len(jp) == 1
+    sharded = TP.ShardedAdapterPool(3, CFG, RANK, n_shards=2, devices=["cpu"])
+    for i, t in enumerate(["a", "b", "c"]):
+        sharded.register(t, _adapters(i))
+    assert len(sharded) == sum(len(p) for p in sharded.shards) == 3

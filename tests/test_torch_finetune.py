@@ -223,8 +223,15 @@ def test_train_forward_and_chunked_loss_match_reference(arch):
     batch_t = {"tokens": torch.as_tensor(tok), "labels": torch.as_tensor(lab)}
     np.testing.assert_allclose(float(TL.train_loss_fn(st.tp, cfg, batch_t, adapters=t_ad)),
                                float(JL.train_loss_fn(st.jp, cfg, batch_j, adapters=j_ad)), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        TL.lm_forward(st.tp, cfg, torch.as_tensor(tok), prefix_embeds=torch.zeros(2, 1, cfg.d_model))
+    # prefix embeddings go ahead of the tokens, the loss masked over them, as in the reference
+    pre = np.random.default_rng(7).normal(size=(2, 3, cfg.d_model)).astype(np.float32)
+    jo = JL.lm_forward(st.jp, cfg, jnp.asarray(tok), mode="train", adapters=j_ad, prefix_embeds=jnp.asarray(pre))
+    to = TL.lm_forward(st.tp, cfg, torch.as_tensor(tok), mode="train", adapters=t_ad,
+                       prefix_embeds=torch.as_tensor(pre))
+    np.testing.assert_allclose(C.to_numpy(to["h"]), np.asarray(jo["h"]), atol=1e-5, rtol=1e-5)
+    batch_j["prefix_embeds"], batch_t["prefix_embeds"] = jnp.asarray(pre), torch.as_tensor(pre)
+    np.testing.assert_allclose(float(TL.train_loss_fn(st.tp, cfg, batch_t, adapters=t_ad)),
+                               float(JL.train_loss_fn(st.jp, cfg, batch_j, adapters=j_ad)), rtol=1e-5)
 
 
 @pytest.mark.parametrize("mode", ["full", "int8", "freeze_a"])

@@ -763,7 +763,7 @@ def test_paged_decode_through_k10_is_bitwise_the_dense_branch(cuda):
     table = torch.arange(b * t // blk, dtype=torch.int32, device=cuda).reshape(b, t // blk)
     pos = torch.tensor([0, t // 2, t - 1], device=cuda)
     PG.reset_launches()
-    y_p, pool = A.attn_decode_paged(params, x, pos, spec, pool, table)
+    y_p, pool = A.attn_decode_paged(params, x, pos, spec, pool, table, use_kernel=True)
     assert PG.LAUNCHES["paged_gather"] == 2
     y_d, cache = A.attn_decode(params, x, pos, spec, cache)
     assert torch.equal(y_p, y_d)

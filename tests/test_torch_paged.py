@@ -473,3 +473,30 @@ def test_state_roundtrip_rebuilds_refs_exactly():
     assert idx2.match("u", b) == idx.match("u", b)
     assert idx2.n_nodes() == idx.n_nodes()
     idx2.pool.check_no_leaks(idx2.n_nodes())
+
+
+def test_paged_gathers_default_to_the_plain_version_as_the_reference(attn, monkeypatch):
+    """``gather_blocks`` and ``attn_decode_paged`` take ``use_kernel=False``
+    by default, as the reference's do, and only ``use_kernel=True`` goes
+    through ``paged.gather`` (K10 on a CUDA pool); both routes give the same
+    bits."""
+    import inspect
+
+    for port, ref in ((KV.gather_blocks, JKV.gather_blocks), (TA.attn_decode_paged, JA.attn_decode_paged)):
+        assert inspect.signature(port).parameters["use_kernel"].default is False
+        assert inspect.signature(ref).parameters["use_kernel"].default is False
+    calls = []
+    real = PG.gather
+    monkeypatch.setattr(PG, "gather", lambda *a: calls.append(1) or real(*a))
+    jp, tp, jspec, tspec, x, cache = attn
+    pool, table = _paged(cache)
+    outs = []
+    for use_kernel in (False, True):
+        tpool = {n: torch.as_tensor(c) for n, c in pool.items()}
+        y, _ = TA.attn_decode_paged(tp, torch.as_tensor(x), torch.as_tensor([0, T // 2, T - 1]), tspec, tpool,
+                                    torch.as_tensor(table), **({"use_kernel": True} if use_kernel else {}))
+        g = KV.gather_blocks({"k": tpool["k"][None]}, torch.as_tensor(table),
+                             **({"use_kernel": True} if use_kernel else {}))
+        outs.append((y, g["k"]))
+        assert len(calls) == (3 if use_kernel else 0)
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

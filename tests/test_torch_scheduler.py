@@ -411,3 +411,21 @@ def test_multi_shard_routing_matches_solo():
     pools = sched.prefix_metrics()["pools"]
     assert sorted(pools) == ["0", "1"] and all(p["held"] == p["refs_total"] == p["nodes"] for p in pools.values())
     trt.check_prefix_no_leaks()
+
+
+def test_kv_pool_blocks_sizes_the_shard_pool_as_the_reference():
+    """``kv_pool_blocks`` reaches ``runtime.kv_pool(n_blocks=)``; a pool of 9
+    blocks (the heuristic would give 32) gives the reference's tokens and
+    counters on the shared-prefix trace, evictions and all."""
+    jrt, trt = _sessions(CFG)
+    prompts, who = _shared_prefix(6, seed=24), [None, "u0"] * 3
+    want, want_c, _ = _run(JScheduler, jrt, prompts, who, 3, kv_pool_blocks=9, **SHARED)
+    got, got_c, _ = _run(S.RequestScheduler, trt, prompts, who, 3, kv_pool_blocks=9, **SHARED)
+    assert trt.kv_pool(0).n_blocks == jrt.kv_pool(0).n_blocks == 9
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert got_c == want_c and got_c["dispatch/admit_reuse"] >= 1
+    trt.check_prefix_no_leaks()
+    fresh = _sessions(CFG)[1]
+    _run(S.RequestScheduler, fresh, prompts[:2], [None] * 2, 3, **SHARED)
+    assert fresh.kv_pool(0).n_blocks == 2 * SHARED["max_batch"] * (SHARED["max_prompt"] // SHARED["kv_block"])

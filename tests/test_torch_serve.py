@@ -214,8 +214,13 @@ def test_serve_cli_flags(capsys):
         with pytest.raises(SystemExit):
             cli.main([*small, *flags])
         assert "--loop" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError):
-        TL.init_lm(torch.Generator().manual_seed(0), reduce_config(get_config("xlstm-350m")))
+    # a recurrent config builds as the reference's does: same leaves, shapes and dtypes
+    cfg = reduce_config(get_config("xlstm-350m"))
+    got = TL.init_lm(torch.Generator().manual_seed(0), cfg)
+    want = C.params_from_reference(jax.tree.map(np.asarray, JL.init_lm(jax.random.key(0), cfg)), cfg)
+    meta = lambda tree: [(tuple(t.shape), t.dtype) for t in jax.tree.leaves(tree)]  # noqa: E731
+    assert jax.tree.structure(C._map(lambda t: 0, got)) == jax.tree.structure(C._map(lambda t: 0, want))
+    assert meta(got) == meta(want)
 
 
 def test_configs_are_copies_of_the_reference():
