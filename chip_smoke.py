@@ -194,6 +194,41 @@ Phases, each printing one line (or a few) before the last line:
      phi3.5-moe and jamba-1.5-large on the card and the CPU within 1e-5 of
      each output's largest value. Each family's epoch times, serve tok/s
      and peak GiB.
+ 15. model axis (``model_axis_phase``; ``models.tp``,
+     ``runtime.pipeline_par``): qwen2-moe-a2.7b at full width (bf16, seeded,
+     RMSNorm scales 1), its unsplit outputs first (prefill logits, the
+     grouped serve's eager loop, which the graphed serve equals, the
+     admission prefill, one cached-loss step), then split two ways over
+     the group ``[cuda:0, cuda:0]`` (``sharding.shard_backbone``; the
+     one-card form ``make_mesh`` refuses) and the unsplit params freed.
+     Each member's bytes equal ``per_device_bytes`` of the spec tree, the
+     whole over a member above 1.5; with the MoE routing pinned to the
+     unsplit run's (``_routing``: a one-ulp change of a router input near
+     a tie picks another expert), prefill logits within ``TP_LOGIT_BAR``
+     of their largest value and the grouped serve's greedy tokens equal
+     (float pool, ``use_kernel=False``, 3 tenants and a base row, 32 new,
+     the caches split by the heads each member reads: ``tp.HeadSplit``),
+     a flip allowed only where the unsplit run ranks the split's pick
+     within ``TOP2_REL_TOL`` of its largest |logit| below its argmax (the
+     near-tie rule of ``_near_tie_flips``) and the two tokens' own
+     differences, within the bar, cover that gap; the
+     routing flips and the unpinned differences printed beside them; the
+     cached-loss step's loss and adapter gradients within ``TP_LOSS_BAR``
+     / ``TP_GRAD_BAR``; the split's own routing unpinned in float32 at
+     reduced width (``_model_axis_fp32``: hidden and logits within
+     ``TP_FP32_BAR``, greedy serve tokens equal); ``lm.pipeline_sched_prefill``
+     with 2 stages on ``[cuda:0, cuda:0]`` against ``sched_prefill`` a
+     microbatch at a time within ``PIPE_LOGIT_BAR`` and within
+     ``PIPE_SKIP_SHARE`` of what the adapters' skip terms move the logits
+     by, tokens equal. Host seconds of each, the peak. No hand-written
+     kernel launches (a model axis refuses them, as in the reference).
+     With two cards: the reduced float32 (1 x 2) session over
+     ``[cuda:0, cuda:1]`` (``make_mesh``), with ``pipeline_stages=2`` and
+     without, against the same over ``["cpu", "cpu"]``, and
+     phi3.5-moe-42b-a6.6b at full width over them, drawn a part at a time
+     and split as it comes (``tp.init_group_params``; each card at most
+     0.55 of its 83.75 GB), one ingest / adapt / serve round with its
+     tok/s; on one card a line says that part did not run.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
 step's must take many rows, and each ``generate_grouped`` call's and each
@@ -3533,13 +3568,22 @@ def _live_norms(params, cfg):
     unit offset zeroes every block's input and the readout's: such a
     model's seeded weights get scale 1 instead, so routing, scans and
     fine-tuning see real activations. Other norms keep their init."""
-    if cfg.norm_type != "rmsnorm" or cfg.rmsnorm_unit_offset:
-        return params
-    norms = [params["final_norm"]] + [p for layer in params["stack"] for name, p in layer.items()
-                                      if name.startswith(("norm", "post_norm"))]
-    for p in norms:
-        p["scale"].fill_(1.0)
+    _live_part(cfg, "final_norm", params["final_norm"])
+    for i, layer in enumerate(params["stack"]):
+        _live_part(cfg, ("stack", i), layer)
     return params
+
+
+def _live_part(cfg, key, tree):
+    """``_live_norms`` of one of ``lm.init_parts``' parts, in place."""
+    if cfg.norm_type != "rmsnorm" or cfg.rmsnorm_unit_offset:
+        return
+    if key == "final_norm":
+        tree["scale"].fill_(1.0)
+    elif isinstance(key, tuple):
+        for name, p in tree.items():
+            if name.startswith(("norm", "post_norm")):
+                p["scale"].fill_(1.0)
 
 
 def _free_device(torch):
@@ -3952,6 +3996,474 @@ def families_phase(torch, device_name):
     return totals
 
 
+#: the model axis phase's bars, stated before any run: the split backbone
+#: against the unsplit one in bf16 at full width, the largest difference
+#: over the largest |value| (the split reorders bf16 partial sums in every
+#: layer); the pipelined admission reuses the unsplit layers. The MoE's
+#: top-4 routing turns a one-ulp change of a router input near a tie into
+#: another expert, so the full-width split is held against the unsplit
+#: run's routing (``_routing``) and the unpinned difference is printed
+#: beside it; the split's own routing is held in float32 at reduced width
+#: (``_model_axis_fp32``, ``TP_FP32_BAR``, greedy tokens equal). The
+#: pipelined admission's logits must also stay under
+#: ``PIPE_SKIP_SHARE`` of what the adapters' skip terms move them by, so a
+#: pipeline that drops one of its two stages' terms fails
+TP_LOGIT_BAR = 0.05
+TP_LOSS_BAR = 1e-2
+TP_GRAD_BAR = 0.05
+TP_FP32_BAR = 1e-4
+PIPE_LOGIT_BAR = 1e-2
+PIPE_SKIP_SHARE = 0.25
+MODEL_AXIS_ARCH = "qwen2-moe-a2.7b"
+
+
+def _rel_max(torch, got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def _explained(torch, got, want, what) -> str:
+    """A flip of the greedy token between two computations of one row's
+    logits (``want`` the unsplit's, ``got`` the other's, (V,)) is a near
+    tie when ``want`` ranks the other's pick within ``TOP2_REL_TOL`` of its
+    largest |logit| below its own argmax (``_near_tie_flips``' rule), and
+    the two competing tokens' own differences cover that gap (|d top1| +
+    |d pick| >= gap). Fails otherwise; returns the line to print."""
+    w, g = want.float(), got.float()
+    t1, pick = int(w.argmax()), int(g.argmax())
+    gap, mag = (w[t1] - w[pick]).item(), w.abs().max().item()
+    own = ((g[t1] - w[t1]).abs() + (g[pick] - w[pick]).abs()).item()
+    check(gap <= TOP2_REL_TOL * mag and gap <= own,
+          f"{what}: the argmax moves from {t1} to {pick} at a gap {gap:.3e} (bar {TOP2_REL_TOL * mag:.3e}), the two "
+          f"tokens' own differences {own:.3e}")
+    return (f"gap {gap:.3e} <= {TOP2_REL_TOL} x max |logit| {TOP2_REL_TOL * mag:.3e} and <= |d top1| + |d pick| "
+            f"{own:.3e}")
+
+
+def _argmax_flips(torch, got, want, what):
+    """Rows of (A, 1, V) logits whose argmax differs, each explained by
+    ``_explained``. Returns one line per flip."""
+    flips = []
+    for i in torch.nonzero(got.argmax(-1).flatten() != want.argmax(-1).flatten()).flatten().tolist():
+        flips.append(f"row {i}: {_explained(torch, got[i, -1], want[i, -1], what)}")
+    return flips
+
+
+def _split_flips(torch, toks_a, toks_b, logits_a, logits_b):
+    """Greedy tokens of the unsplit run (``toks_a``) and the split one
+    (``toks_b``) with the logits each sampled from (``_sampled``): where
+    row i first differs (token d, so both saw the same tokens before it),
+    the two runs' logits of that sample must differ by at most
+    ``TP_LOGIT_BAR`` of the largest |logit| and explain the flip
+    (``_explained``). Returns one line per flip."""
+    flips = []
+    for i in range(toks_a.shape[0]):
+        diff = torch.nonzero(toks_a[i] != toks_b[i]).flatten()
+        if not diff.numel():
+            continue
+        d = int(diff[0])
+        la, lb = logits_a[d][i, -1], logits_b[d][i, -1]
+        err = _rel_max(torch, lb, la)
+        check(err <= TP_LOGIT_BAR, f"model axis serve: row {i} token {d}: logits {err:.3e} > {TP_LOGIT_BAR}")
+        flips.append(f"row {i} token {d}: {_explained(torch, lb, la, 'model axis serve')}")
+    return flips
+
+
+@contextlib.contextmanager
+def _sampled(torch, log):
+    """Every greedy sample inside (``lm.sample_token``, as the decode steps
+    and the generation entry points call it) logs the logits it read."""
+    from repro_torch.core import runtime as RT
+    from repro_torch.models import lm as LM
+
+    real = LM.sample_token
+
+    def sample(logits, *a, **kw):
+        log.append(logits.float().cpu())
+        return real(logits, *a, **kw)
+
+    LM.sample_token = RT.sample_token = sample
+    try:
+        yield
+    finally:
+        LM.sample_token = RT.sample_token = real
+
+
+@contextlib.contextmanager
+def _routing(torch, log, replay):
+    """Every MoE routing (``moe.route``) inside: recorded into ``log`` in
+    call order, or, with ``replay``, the next recorded decision returned in
+    its place (the same call order: the split run of the unsplit run's
+    calls). Yields a dict whose "flips" counts, on replay, the tokens whose
+    own routing would have picked other experts, and "tokens" all."""
+    from repro_torch.models import moe as MOE
+
+    real, seen = MOE.route, {"flips": 0, "tokens": 0}
+
+    def record(router_w, x, mcfg):
+        out = real(router_w, x, mcfg)
+        log.append(out)
+        return out
+
+    def pinned(router_w, x, mcfg):
+        out, own = log.pop(0), real(router_w, x, mcfg)
+        check(out[1].shape == own[1].shape, f"replayed routing {tuple(out[1].shape)} for {tuple(own[1].shape)}")
+        seen["flips"] += int((out[1].sort(-1).values != own[1].sort(-1).values).any(-1).sum())
+        seen["tokens"] += own[1][..., 0].numel()
+        return out
+
+    MOE.route = pinned if replay else record
+    try:
+        yield seen
+    finally:
+        MOE.route = real
+
+
+def _skip_loss(torch, params, cfg, acts, y_base, labels, adapters):
+    """One cached-loss step (the session's adapt step without the update):
+    the skip term of ``adapters`` over the cached block inputs, the readout
+    loss of the cached hidden plus it, and the adapters' gradients."""
+    from repro_torch.models import lm as LM
+
+    a, b = (adapters[k].detach().clone().requires_grad_(True) for k in ("A", "B"))
+    skip = torch.einsum("lbsr,lrd->bsd", torch.einsum("lbsd,ldr->lbsr", acts.float(), a), b)
+    loss = LM.lm_loss(params, cfg, y_base + skip.to(y_base.dtype), labels)
+    loss.backward()
+    return loss.detach(), a.grad, b.grad
+
+
+def model_axis_phase(torch, device_name):
+    """The model axis (``models.tp``, ``runtime.pipeline_par``) on one card:
+    qwen2-moe-a2.7b at full width (bf16, seeded weights, RMSNorm scales 1),
+    its outputs unsplit first, then the backbone split two ways over the
+    group ``[cuda:0, cuda:0]`` (``sharding.shard_backbone``) and the unsplit
+    params freed: member bytes against ``per_device_bytes``, prefill logits,
+    greedy grouped serving (float pool, ``use_kernel=False``, 3 tenants and a
+    base row) and one cached-loss step against the unsplit ones, the
+    split's own routing in float32 at reduced width (``_model_axis_fp32``),
+    and the pipelined admission (``lm.pipeline_sched_prefill``, 2 stages on
+    ``[cuda:0, cuda:0]``) against ``sched_prefill``. With two cards, the
+    reduced 2-D session over ``[cuda:0, cuda:1]`` against the same over
+    ``["cpu", "cpu"]``. No hand-written kernel launches here, as in the
+    reference, where a model axis refuses them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import generate_grouped, generate_loop
+    from repro_torch.launch.serve import demo_pool
+    from repro_torch.models import lm as LM
+    from repro_torch.models import tp as TP
+    from repro_torch.runtime import sharding as SH
+
+    t_phase = time.perf_counter()
+    _free_device(torch)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda", 0)
+    group = [dev, dev]
+    cfg = get_config(MODEL_AXIS_ARCH)
+    params = _live_norms(LM.init_lm(torch.Generator(device=dev).manual_seed(0), cfg), cfg)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+    pool = demo_pool(cfg, TENANTS, RANK, None, dev)
+    who = [None] + [f"tenant-{i % TENANTS}" for i in range(1, BATCH)]
+    idx = pool.lookup(who)
+    tokens = torch.randint(0, cfg.vocab_size, (2, PROMPT), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.vocab_size, (2, PROMPT), generator=gen, device=dev)
+    lens = torch.tensor([PROMPT, PROMPT * 3 // 4, PROMPT // 2, 1], device=dev)
+    adapters = {"A": torch.randn((cfg.n_layers, cfg.d_model, RANK), generator=gen, device=dev) / cfg.d_model**0.5,
+                "B": torch.randn((cfg.n_layers, RANK, cfg.d_model), generator=gen, device=dev) * 0.01}
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # -- the unsplit outputs, kept alone, their routing recorded -----------
+    prefill_routes, serve_routes = [], []
+    with torch.no_grad():
+        with _routing(torch, prefill_routes, False):
+            want_logits = timed("prefill 1-way", lambda: LM.serve_prefill(
+                params, cfg, prompts, LM.init_serve_caches(cfg, BATCH, PROMPT, device=dev))[0])
+        want_samples = []
+        with _routing(torch, serve_routes, False), _sampled(torch, want_samples):
+            want_toks = timed("serve 1-way (eager loop)", lambda: generate_loop(
+                params, cfg, prompts, max_new=NEW, pools=pool.pools(), idx=idx, use_kernel=False, device=dev))
+        graphed = timed("serve 1-way (graphed)", lambda: generate_grouped(
+            params, cfg, prompts, pool.pools(), idx, max_new=NEW, use_kernel=False, device=dev))
+        check(torch.equal(graphed, want_toks), "model axis: the unsplit graphed serve != its eager loop")
+        out = LM.lm_forward(params, cfg, tokens, mode="train", collect_acts=True)
+        acts, y_base = out["acts"], out["y_base"]
+        del out
+        # the admission a microbatch at a time (the pipeline's row counts,
+        # so its products' shapes and routing inputs), without the
+        # adapters, and whole; its tenants' B drawn 10x the demo's, so
+        # their skip terms move the logits well above bf16 rounding
+        adm_pools = {k: v.clone() for k, v in pool.pools().items()}
+        adm_pools["B"].mul_(10.0)
+        mb = BATCH // 2
+
+        def admission(slots):
+            return torch.cat([LM.sched_prefill(params, cfg, prompts[m:m + mb], lens[m:m + mb], adm_pools,
+                                               slots[m:m + mb], use_kernel=False)[0] for m in range(0, BATCH, mb)])
+
+        want_adm = timed("admission 1-way", lambda: admission(idx))
+        skip_share = _rel_max(torch, admission(torch.zeros_like(idx)), want_adm)
+        whole_adm = LM.sched_prefill(params, cfg, prompts, lens, adm_pools, idx, use_kernel=False)[0]
+    want_loss = timed("loss 1-way", lambda: _skip_loss(torch, params, cfg, acts, y_base, labels, adapters))
+
+    # -- the pipelined admission: 2 GPipe stages of the unsplit layers --------
+    stages, valid = LM.pipeline_stage_params(params, cfg, 2)
+    with torch.no_grad():
+        got_adm = timed("admission pipelined", lambda: LM.pipeline_sched_prefill(
+            params, cfg, stages, valid, prompts, lens, adm_pools, idx, devices=group, n_micro=2)[0])
+    pipe_err = _rel_max(torch, got_adm, want_adm)
+    check(pipe_err <= PIPE_LOGIT_BAR and pipe_err <= PIPE_SKIP_SHARE * skip_share,
+          f"model axis pipelined admission: logits {pipe_err:.3e} > {PIPE_LOGIT_BAR} or > {PIPE_SKIP_SHARE} of the "
+          f"skip terms' {skip_share:.3e}")
+    pipe_flips = _argmax_flips(torch, got_adm, want_adm, "model axis pipelined admission")
+    whole_err = _rel_max(torch, got_adm, whole_adm)
+    whole_same = int((got_adm.argmax(-1) == whole_adm.argmax(-1)).sum())
+    del stages, valid, got_adm, whole_adm, adm_pools
+
+    # -- the split: two members on one card, the unsplit params freed ---------
+    gp = timed("shard_backbone", lambda: TP.group_params(params, group))
+    total = sum(t.numel() * t.element_size() for t in SH._leaves(params))
+    del params
+    _free_device(torch)   # the unsplit serve's decode graphs too
+    mesh = SH.group_mesh(group)
+    shapes = LM.param_shapes(cfg)
+    want_bytes = SH.per_device_bytes(shapes, SH.param_specs(shapes, mesh), mesh)
+    member_bytes = [sum(t.numel() * t.element_size() for t in SH._leaves(m)) for m in gp.members]
+    check(all(b == want_bytes for b in member_bytes),
+          f"model axis: member bytes {member_bytes} != per_device_bytes {want_bytes}")
+    check(total / max(member_bytes) > 1.5, f"model axis: total / member bytes {total / max(member_bytes):.3f} <= 1.5")
+
+    def split_prefill():
+        caches = LM.init_serve_caches(cfg, BATCH, PROMPT, device=dev, params=gp)
+        check(isinstance(caches[0]["k"], TP.HeadSplit), "model axis: the split's caches are not split by heads")
+        return LM.serve_prefill(gp, cfg, prompts, caches)[0]
+
+    def split_serve():
+        return generate_grouped(gp, cfg, prompts, pool.pools(), idx, max_new=NEW, use_kernel=False, device=dev)
+
+    with torch.no_grad():
+        with _routing(torch, prefill_routes, True) as pinned_prefill:
+            got_logits = timed("prefill split", split_prefill)
+        got_samples = []
+        with _routing(torch, serve_routes, True) as pinned_serve, _sampled(torch, got_samples):
+            got_toks = timed("serve split", split_serve)
+        free_logits = split_prefill()
+        free_toks = split_serve()
+    check(not prefill_routes and not serve_routes, "model axis: the split made other routing calls")
+    logit_err = _rel_max(torch, got_logits, want_logits)
+    check(logit_err <= TP_LOGIT_BAR, f"model axis prefill logits: {logit_err:.3e} > {TP_LOGIT_BAR}")
+    free_err = _rel_max(torch, free_logits, want_logits)
+    free_rows = int((free_toks == want_toks).all(-1).sum())
+    serve_flips = _split_flips(torch, want_toks.cpu(), got_toks.cpu(), want_samples, got_samples)
+    del want_samples, got_samples
+    got_loss = timed("loss split", lambda: _skip_loss(torch, gp, cfg, acts, y_base, labels, adapters))
+    loss_err = abs(got_loss[0].item() - want_loss[0].item()) / abs(want_loss[0].item())
+    grad_err = max(_rel_max(torch, g, w) for g, w in zip(got_loss[1:], want_loss[1:]))
+    check(loss_err <= TP_LOSS_BAR and grad_err <= TP_GRAD_BAR,
+          f"model axis cached-loss step: loss {loss_err:.3e} (bar {TP_LOSS_BAR}), gradients {grad_err:.3e} "
+          f"(bar {TP_GRAD_BAR})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = _launches()
+    check(not any(counts.values()), f"model axis: hand-written kernels launched {counts}")
+    del gp, acts, y_base
+    torch.cuda.empty_cache()
+    fp32 = _model_axis_fp32(torch)
+    two = _model_axis_two_cards(torch) if torch.cuda.device_count() >= 2 else None
+    check(not any(_launches().values()), f"model axis: hand-written kernels launched {_launches()}")
+    _reset_launches()
+
+    print(f"model axis {MODEL_AXIS_ARCH} full width bf16 split 2 ways over [cuda:0, cuda:0] on {device_name}: "
+          f"member bytes {member_bytes[0]} ({member_bytes[0] / 1e9:.2f} GB) each == per_device_bytes, the whole "
+          f"{total} ({total / 1e9:.2f} GB), ratio {total / max(member_bytes):.3f}; peak {peak:.2f} GiB "
+          f"(the unsplit params beside the split at the shard_backbone call)")
+    print(f"model axis prefill logits ({BATCH}x{PROMPT}), routing pinned to the unsplit run's: split vs unsplit "
+          f"max diff / max |logit| {logit_err:.3e} (bar {TP_LOGIT_BAR}); the split's own routing would pick other "
+          f"experts for {pinned_prefill['flips']} of {pinned_prefill['tokens']} token-layers, and unpinned the "
+          f"logits differ by {free_err:.3e}")
+    print(f"model axis grouped serve (float pool, use_kernel=False, 3 tenants + base row, {NEW} new, greedy), "
+          f"routing pinned: split tokens == the unsplit eager loop's"
+          f"{' except where numerics explain a flip: ' + '; '.join(serve_flips) if serve_flips else ''} "
+          f"(unsplit graphed == eager); "
+          f"the split's own routing differs at {pinned_serve['flips']} of {pinned_serve['tokens']} token-layers; "
+          f"unpinned, {free_rows} of {BATCH} rows keep every token")
+    print(f"model axis cached-loss step (2x{PROMPT}, rank {RANK}): loss {got_loss[0].item():.6f} vs "
+          f"{want_loss[0].item():.6f}, rel diff {loss_err:.3e} (bar {TP_LOSS_BAR}); adapter gradients max diff / max "
+          f"{grad_err:.3e} (bar {TP_GRAD_BAR})")
+    print(fp32)
+    print(f"model axis pipelined admission (pipeline_sched_prefill, 2 stages on [cuda:0, cuda:0], 2 microbatches, "
+          f"lens {lens.tolist()}, tenants' B 10x the demo's): logits vs sched_prefill a microbatch at a time max "
+          f"diff / max |logit| {pipe_err:.3e} (bars {PIPE_LOGIT_BAR} and {PIPE_SKIP_SHARE} x {skip_share:.3e}, "
+          f"what the skip terms move the logits by: no adapters vs adapters), admission tokens equal"
+          f"{' except where numerics explain a flip: ' + '; '.join(pipe_flips) if pipe_flips else ''}; against one "
+          f"sched_prefill of "
+          f"all {BATCH} rows (other product shapes, other routing inputs) {whole_err:.3e}, {whole_same} of "
+          f"{BATCH} tokens equal")
+    print("model axis host seconds (synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    if two is None:
+        print(f"model axis two cards: not run, this machine has {torch.cuda.device_count()} card (the (1 x 2) "
+              f"session over [cuda:0, cuda:1] and phi3.5-moe-42b-a6.6b split over two cards need two)")
+    else:
+        print(two)
+    print(f"model axis phase: {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched")
+
+
+def _model_axis_fp32(torch):
+    """The split's own routing, unpinned: reduced qwen2-moe-a2.7b in float32
+    (vocabulary 512, TF32 off as ``main`` sets it) split over ``[cuda:0, cuda:0]`` against the
+    unsplit backbone on the card: train forward and serve prefill logits
+    within ``TP_FP32_BAR`` of the largest value, and grouped greedy serving
+    (float pool, ``use_kernel=False``, the caches split by heads) token for
+    token. Returns the line."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.runtime import generate_grouped
+    from repro_torch.launch.serve import demo_pool
+    from repro_torch.models import lm as LM
+    from repro_torch.models import tp as TP
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(reduce_config(get_config(MODEL_AXIS_ARCH)), vocab_size=512, dtype="float32")
+    params = _live_norms(LM.init_lm(torch.Generator(device=dev).manual_seed(0), cfg), cfg)
+    gp = TP.group_params(params, [dev, dev])
+    gen = torch.Generator(device=dev).manual_seed(12)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, 16), generator=gen, device=dev)
+    pool = demo_pool(cfg, TENANTS, RANK, None, dev)
+    idx = pool.lookup([None] + [f"tenant-{i % TENANTS}" for i in range(1, BATCH)])
+    check(not torch.backends.cuda.matmul.allow_tf32, "model axis fp32: TF32 products on")
+    with torch.no_grad():
+        h = [LM.lm_forward(p, cfg, prompts)["h"] for p in (params, gp)]
+        logits = [LM.serve_prefill(p, cfg, prompts, LM.init_serve_caches(cfg, BATCH, 16, device=dev, params=p))[0]
+                  for p in (params, gp)]
+        toks = [generate_grouped(p, cfg, prompts, pool.pools(), idx, max_new=NEW, use_kernel=False, device=dev)
+                for p in (params, gp)]
+    h_err, l_err = _rel_max(torch, h[1], h[0]), _rel_max(torch, logits[1], logits[0])
+    check(h_err <= TP_FP32_BAR and l_err <= TP_FP32_BAR,
+          f"model axis fp32: hidden {h_err:.3e}, logits {l_err:.3e} > {TP_FP32_BAR}")
+    check(torch.equal(toks[0], toks[1]), "model axis fp32: the split's greedy tokens differ from the unsplit's")
+    return (f"model axis fp32 (reduced {MODEL_AXIS_ARCH}, vocab 512, TF32 off) split over [cuda:0, cuda:0], own "
+            f"routing: hidden {h_err:.3e}, prefill logits {l_err:.3e} of the largest value (bar {TP_FP32_BAR}); "
+            f"grouped greedy serve ({BATCH}x16 + {NEW} new, caches split by heads) tokens equal "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def _model_axis_two_cards(torch):
+    """The reduced float32 (1 data x 2 model) session over [cuda:0, cuda:1]
+    (``make_mesh``), with ``pipeline_stages=2`` and without, against the same
+    session over ["cpu", "cpu"] (adapters within rtol 1e-4 / atol 1e-6,
+    slot tables, serve and scheduler tokens equal). Returns the line."""
+    import numpy as np
+
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.models import lm as LM
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.runtime.sharding import _to, make_mesh
+
+    cfg = ModelConfig(name="t", family="test", n_layers=4, d_model=16, n_heads=4, n_kv_heads=2, d_ff=32,
+                      vocab_size=64, pattern=("attn",), dtype="float32")
+
+    def session(devices, stages):
+        params = _live_norms(LM.init_lm(torch.Generator().manual_seed(0), cfg), cfg)
+        params = _to(params, torch.device(devices[0]))
+        rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=2, mode="full"), params, max_tenants=2,
+                            samples_per_tenant=4, seq=6, use_kernel=False, seed=0, pipeline_stages=stages,
+                            mesh=make_mesh((1, 2), ("data", "model"), devices=devices))
+        g = np.random.default_rng(5)
+        for t in ("a", "b"):
+            rt.ingest(t, g.integers(0, 64, (4, 6)), g.integers(0, 64, (4, 6)))
+        rt.adapt(["a", "b"], epochs=2, batch_per_tenant=2, generator=torch.Generator().manual_seed(7))
+        prompts = g.integers(0, 64, (3, 5))
+        toks = rt.serve([None, "a", "b"], prompts, max_new=4).cpu()
+        rt.attach_scheduler(max_batch=4, max_prompt=5, max_new_cap=6, admit_bucket=2, chunk=2)
+        reqs = [rt.enqueue_serve(t, prompts[j, :4 - j], max_new=5) for j, t in enumerate(("a", None, "b"))]
+        rt.drain()
+        return rt, toks, [r.result().tolist() for r in reqs]
+
+    t0 = time.perf_counter()
+    for stages in (0, 2):
+        card, toks_card, sched_card = session([torch.device("cuda", 0), torch.device("cuda", 1)], stages)
+        cpu, toks_cpu, sched_cpu = session(["cpu", "cpu"], stages)
+        for t in ("a", "b"):
+            for k in ("A", "B"):
+                check(np.allclose(card.tenant(t).adapters[k].cpu().numpy(), cpu.tenant(t).adapters[k].numpy(),
+                                  rtol=1e-4, atol=1e-6), f"model axis two cards (stages {stages}): adapters {t} {k}")
+        check(card.pool.slot_table() == cpu.pool.slot_table(), f"model axis two cards (stages {stages}): slots")
+        check(torch.equal(toks_card, toks_cpu) and sched_card == sched_cpu,
+              f"model axis two cards (stages {stages}): tokens differ")
+        del card, cpu
+    small_s = time.perf_counter() - t0
+    return (f"model axis two cards: the reduced float32 (1 x 2) session over [cuda:0, cuda:1], with "
+            f"pipeline_stages=2 and without, == the same over [cpu, cpu] (adapters within rtol 1e-4 / atol 1e-6, "
+            f"slot tables, serve and scheduler tokens equal; {small_s:.1f} s)\n" + _phi_two_cards(torch))
+
+
+def _phi_two_cards(torch):
+    """phi3.5-moe-42b-a6.6b at full width (83.75 GB bf16) over a (1 data x 2
+    model) session mesh on [cuda:0, cuda:1], drawn split
+    (``tp.init_group_params``, a part at a time, RMSNorm scales 1):
+    each card's backbone bytes at most 0.55 of the whole, 2 tenants
+    ingest 4 x 128 tokens each, adapt one epoch, then a grouped serve (4
+    x 128 prompt, 32 new, greedy). Returns the line."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.models import lm as LM
+    from repro_torch.models import tp as TP
+    from repro_torch.runtime import sharding as SH
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    gp = TP.init_group_params(torch.Generator(device=cards[0]).manual_seed(0), cfg, cards,
+                              prepare=lambda key, tree: _live_part(cfg, key, tree))
+    for d in cards:
+        torch.cuda.synchronize(d)
+    draw_s = time.perf_counter() - t0
+    total = sum(t.numel() * t.element_size() for t in SH._leaves(LM.param_shapes(cfg)))
+    per_card = [sum(t.numel() * t.element_size() for t in SH._leaves(m)) for m in gp.members]
+    check(max(per_card) <= 0.55 * total, f"phi3.5 two cards: a card holds {max(per_card)} of {total} bytes")
+    rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=RANK, mode="full"), gp, max_tenants=2, samples_per_tenant=4,
+                        seq=PROMPT, use_kernel=False, mesh=SH.make_mesh((1, 2), ("data", "model"), devices=cards))
+    g = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    for t in ("a", "b"):
+        rt.ingest(t, g.integers(0, cfg.vocab_size, (4, PROMPT)), g.integers(0, cfg.vocab_size, (4, PROMPT)))
+    out = rt.adapt(["a", "b"], epochs=1, batch_per_tenant=2, generator=torch.Generator().manual_seed(7))
+    for d in cards:
+        torch.cuda.synchronize(d)
+    adapt_s = time.perf_counter() - t0
+    check(all(np.isfinite(v).all() for v in out["losses"].values()), "phi3.5 two cards: adapt losses not finite")
+    prompts = g.integers(0, cfg.vocab_size, (BATCH, PROMPT))
+    t0 = time.perf_counter()
+    toks = rt.serve([None, "a", "b", "a"], prompts, max_new=NEW)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    serve_s = time.perf_counter() - t0
+    check(tuple(toks.shape) == (BATCH, NEW) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "phi3.5 two cards: serve tokens out of range")
+    peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+    del rt, gp
+    torch.cuda.empty_cache()
+    return (f"model axis phi3.5-moe-42b-a6.6b full width over (1 x 2) [cuda:0, cuda:1], drawn split in "
+            f"{draw_s:.1f} s: backbone bytes a card {per_card} of {total} ({max(per_card) / total:.3f} of the "
+            f"whole, bar 0.55); 2 tenants x 4 x {PROMPT} ingested and one adapt epoch {adapt_s:.2f} s (losses "
+            f"finite); grouped serve {BATCH}x{PROMPT} + {NEW} new {serve_s:.2f} s = {BATCH * NEW / serve_s:.1f} tok/s "
+            f"(eager decode); peaks {peaks[0]:.2f} / {peaks[1]:.2f} GiB")
+
+
 def _tensor_core_ptxas(logs):
     """One line per instantiation of the tensor-core kernels from nvcc's
     ``-Xptxas -v`` output (registers, shared memory, spills): K4's bf16
@@ -3992,6 +4504,7 @@ def main() -> None:
         fail("CUDA is not available")
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
+    t_run = time.perf_counter()
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -4047,6 +4560,7 @@ def main() -> None:
     paper_phase(torch, smi)
     tooling_phase(torch, smi)
     families_launches = families_phase(torch, smi)
+    model_axis_phase(torch, smi)
     # each kernel's launches over every main path that runs it
     for counts in (fleet_launches, serve_launches, session_launches, shard_launches, sched_launches,
                    families_launches):
@@ -4063,6 +4577,7 @@ def main() -> None:
               f"{launches[kname]} launches")
         results[kname].update(launches_many_rows=many, launches_few_rows=few)
     check(len(results) == 10, f"{len(results)} kernels in the kernels line, not 10")
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s, the builds included")
     check(all(r["launches"] is not None for r in results.values()), "a kernel has no launch count")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -29,6 +29,11 @@ Layouts:
     and the port's have the same slots in the same layouts.
   - optimizer states: ``OptState`` (step, mu, nu) in both packages, with
     dicts of arrays (tensors) for the moments.
+  - spec trees (``runtime.sharding``): the reference's ``param_specs``
+    tree, its ``PartitionSpec`` leaves given as tuples, keeps a leading
+    None on every periods leaf (the stacked axis, never split);
+    ``specs_from_reference`` drops it and lays the layers out flat, each
+    period's copy of its position's specs.
   - session captures (``SessionRuntime.session_state``): the reference's
     keeps its pool per shard (arrays under "s0", table under "shards") and
     its KV pool in the periods/remainder layout; ``session_from_reference``
@@ -97,6 +102,29 @@ def params_from_reference(tree: Params, cfg: ModelConfig, *, device="cpu") -> Pa
     if "head" in tree:
         params["head"] = _map(conv, tree["head"])
     return params
+
+
+def specs_from_reference(specs: Params, cfg: ModelConfig) -> Params:
+    """The reference's parameter spec tree (dicts and lists with tuple
+    leaves) -> the port's: periods leaves lose their leading stacked-axis
+    entry, and the stack becomes the flat per-layer list."""
+
+    def tree(t, fn):
+        if isinstance(t, dict):
+            return {k: tree(v, fn) for k, v in t.items()}
+        if isinstance(t, list):
+            return [tree(v, fn) for v in t]
+        return fn(tuple(t))
+
+    def unstack(spec):
+        if spec[:1] != (None,):
+            raise ValueError(f"a periods spec {spec} splits its stacked axis")
+        return spec[1:]
+
+    stack = specs["stack"]
+    layers = [tree(stack["periods"][i], unstack) for _ in range(cfg.n_periods) for i in range(cfg.period)]
+    layers.extend(tree(t, lambda x: x) for t in stack["remainder"])
+    return {k: layers if k == "stack" else tree(v, lambda x: x) for k, v in specs.items()}
 
 
 def adapters_from_reference(adapters: Params, *, device="cpu") -> Params:

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attn import paged
+from repro_torch.models.tp import whole
 
 #: Fallback block size (tokens per KV block); ``set_default_block``
 #: installs another as the process-wide default (resolved at pool
@@ -185,8 +186,9 @@ class KVBlockPool:
         """Copy live cache row ``row``'s prompt blocks into the pool: block
         ``slots[j]`` of the row (token span [slots[j] * block, (slots[j] + 1)
         * block)) lands in pool block ``ids[j]``, for every layer. ``caches``
-        are stacked live caches {"k", "v"}: (L, B, S, n_kv, hd). One gather
-        and one indexed write per tensor."""
+        are stacked live caches {"k", "v"}: (L, B, S, n_kv, hd), whole or
+        split by heads over a model group (``tp.HeadSplit``, gathered onto
+        the pool's device). One gather and one indexed write per tensor."""
         ids = np.asarray(ids, np.int64).reshape(-1)
         slots = np.asarray(slots, np.int64).reshape(-1)
         if ids.size == 0:
@@ -195,7 +197,7 @@ class KVBlockPool:
         cols = (slots[:, None] * blk + np.arange(blk)[None]).reshape(-1)
         cols_t, ids_t = (torch.as_tensor(x, device=self.device) for x in (cols, ids))
         for n, pool in self.data.items():
-            src = caches[n][:, int(row)].index_select(1, cols_t)         # (L, m * blk, n_kv, hd)
+            src = whole(caches[n][:, int(row)]).index_select(1, cols_t)  # (L, m * blk, n_kv, hd)
             pool[:, ids_t] = src.reshape(src.shape[0], m, blk, *src.shape[2:]).to(pool.dtype)
         self.version += 1
         self.counters["published"] += m

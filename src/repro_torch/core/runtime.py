@@ -48,8 +48,13 @@ scheduler dispatches run on its device, against its pool, engine and KV
 pool. The logical layout travels in checkpoints, so a session restored onto
 another device count continues bitwise.
 
-The decode's CUDA graphs are cached in ``core.decode_graph``. A model axis
-above 1 and pipelined admission raise (slice 7b).
+The model axis (a mesh with ``model`` above 1): each logical shard's
+backbone is one replica split over its model group (``models.tp``), its
+dispatches run under the shard's ``ShardScope``, and with
+``pipeline_stages`` the scheduler's admission prefill runs as GPipe
+microbatches over the group's devices (``lm.pipeline_sched_prefill``).
+
+The decode's CUDA graphs are cached in ``core.decode_graph``.
 """
 
 from __future__ import annotations
@@ -67,11 +72,13 @@ from repro_torch.core import fleet_finetune as FF
 from repro_torch.core import lm_skiplora as SL
 from repro_torch.core.cache_engine import TieredCacheEngine
 from repro_torch.core.control_plane import ControlConfig, ControlPlane
+from repro_torch.models import tp as TP
 from repro_torch.models.lm import (
     decode_loop,
     decode_scan,
     ingest_prefill,
     init_serve_caches,
+    pipeline_stage_params,
     sample_token,
     serve_prefill,
     serve_prefill_grouped,
@@ -83,10 +90,10 @@ Params = Any
 
 def _on_device(params: Params, tokens, device) -> tuple[torch.Tensor, torch.device]:
     device = torch.device(device)
-    table = params["embed"]["table"]
-    if table.device.type != device.type:
-        raise ValueError(f"params live on {table.device}, generation asked for {device}")
-    return torch.as_tensor(tokens, device=table.device), table.device
+    home = TP.home_device(params)
+    if home.type != device.type:
+        raise ValueError(f"params live on {home}, generation asked for {device}")
+    return torch.as_tensor(tokens, device=home), home
 
 
 @torch.no_grad()
@@ -105,10 +112,12 @@ def generate(
     """Batched generation with optional single-stack adapters (per-layer
     list, see ``lm_skiplora.adapters_to_stack``): one prefill, then
     ``decode_scan``, whose ``max_new`` steps are CUDA-graph replays of
-    ``unroll`` steps each on the card. Returns (B, max_new)."""
+    ``unroll`` steps each on the card. ``params`` split over a model group
+    (``models.tp``) keep each member's KV heads on its device and decode in
+    eager steps. Returns (B, max_new)."""
     tokens, dev = _on_device(params, tokens, device)
     b, s = tokens.shape
-    caches = init_serve_caches(cfg, b, s + max_new, device=dev)
+    caches = init_serve_caches(cfg, b, s + max_new, device=dev, params=params)
     logits, caches = serve_prefill(params, cfg, tokens, caches, adapters=adapters_stack)
     tok0 = sample_token(logits, temperature, generator)
     toks, _ = decode_scan(
@@ -141,10 +150,11 @@ def generate_grouped(
     CUDA-graph replays of ``unroll`` steps on the card. ``use_kernel=False``
     sums through the plain versions on any device; ``fuse_skip=True``
     computes the decode steps' skip term as dense per-row math (the prefill
-    keeps the grouped kernel either way). Returns (B, max_new)."""
+    keeps the grouped kernel either way). A model group's ``params`` as in
+    ``generate``. Returns (B, max_new)."""
     tokens, dev = _on_device(params, tokens, device)
     b, s = tokens.shape
-    caches = init_serve_caches(cfg, b, s + max_new, device=dev)
+    caches = init_serve_caches(cfg, b, s + max_new, device=dev, params=params)
     logits, caches = serve_prefill_grouped(params, cfg, tokens, caches, pools, idx, use_kernel=use_kernel)
     tok0 = sample_token(logits, temperature, generator)
     toks, _ = decode_scan(
@@ -179,7 +189,7 @@ def generate_loop(
     (B, max_new)."""
     tokens, dev = _on_device(params, tokens, device)
     b, s = tokens.shape
-    caches = init_serve_caches(cfg, b, s + max_new, device=dev)
+    caches = init_serve_caches(cfg, b, s + max_new, device=dev, params=params)
     if pools is not None:
         logits, caches = serve_prefill_grouped(params, cfg, tokens, caches, pools, idx, use_kernel=use_kernel)
     else:
@@ -190,6 +200,21 @@ def generate_loop(
         adapters=adapters_stack, pools=pools, idx=idx, use_kernel=use_kernel, fuse_skip=fuse_skip,
     )
     return toks
+
+
+def _stages_on(stages: list[list[Params]], devices) -> list[list[Params]]:
+    """Stage i's layers on ``devices[i]`` (one copy of a layer a stage
+    repeats as padding; the caller's own tensors where they already live)."""
+    from repro_torch.runtime.sharding import _to
+
+    out = []
+    for stage, dev in zip(stages, devices):
+        moved: dict[int, Params] = {}
+        for layer in stage:
+            if id(layer) not in moved:
+                moved[id(layer)] = _to(layer, dev)
+        out.append([moved[id(layer)] for layer in stage])
+    return out
 
 
 @dataclasses.dataclass
@@ -213,7 +238,7 @@ class TenantState:
 
 class SessionRuntime:
     """One session engine for serve + ingest + adapt over a shared pool,
-    on one device or over a data-only device mesh.
+    on one device or over a (data, model) device mesh.
 
     ``max_tenants`` bounds the cache partitions (``samples_per_tenant`` rows
     each, global id = partition * samples_per_tenant + local id: the fleet
@@ -239,6 +264,24 @@ class SessionRuntime:
     ``devices[s % n_devices]``, and the backbone is one replica per distinct
     device (``params`` serve where they live). ``max_tenants`` must divide
     over the shards.
+
+    A ``model`` axis above 1 gives each logical shard a group of devices
+    holding ONE backbone replica split Megatron-style over them
+    (``sharding.shard_backbone``, run by ``models.tp``): each device's
+    backbone bytes drop about M-fold, and every serve, ingest, adapt and
+    scheduler dispatch of the shard runs on its group. The KV caches of
+    serving and the scheduler's live batch keep each member's KV heads on
+    its device (``tp.HeadSplit``); the shard's pool, engine, adapters,
+    moments and paged prefix pool live on the group's first device (the
+    reference replicates them over the group).
+    Such a session takes ``use_kernel=False`` (the skip-sums' plain
+    versions) and decodes in eager steps. ``pipeline_stages=N`` (N == the
+    model-axis size, a float pool) also splits each group's devices into N
+    GPipe stages of whole layers (``lm.pipeline_stage_params``) for the
+    scheduler's pipelined admission prefill. ``params`` may come split
+    already (a ``tp.GroupParams`` over the devices of a mesh with one
+    model group): a backbone no card can hold whole, drawn a layer at a
+    time.
 
     ``use_kernel`` picks the skip-sum route of ``serve``, the scheduler,
     ``ingest`` and ``adapt``: the grouped wrappers (on a CUDA device the
@@ -280,11 +323,6 @@ class SessionRuntime:
 
         if sl.mode not in ("full", "int8"):
             raise ValueError(f"the session runtime trains fleet modes 'full'/'int8', not {sl.mode!r}")
-        if pipeline_stages:
-            raise NotImplementedError(
-                f"pipeline_stages is not ported ({SH.MODEL_AXIS_SLICE}): pipelined admission runs over a "
-                "model axis"
-            )
         if idx_memo_slots < 1:
             raise ValueError(f"idx_memo_slots {idx_memo_slots} < 1")
         self.cfg, self.sl = cfg, sl
@@ -302,21 +340,61 @@ class SessionRuntime:
             raise ValueError(f"device {device} != the mesh's {SH.session_devices(mesh)[0]}")
         self.mesh = mesh
         self.devices = SH.session_devices(mesh)
-        n_groups = len(self.devices)
-        self.model_parallel, self.pipeline_stages = 1, 0
+        n_groups, n_model, groups = SH.session_mesh_layout(mesh)
+        self.model_parallel, self.pipeline_stages = n_model, int(pipeline_stages)
         self.n_shards = int(placement_shards) if placement_shards is not None else n_groups
         if self.n_shards < 1:
             raise ValueError(f"placement_shards {self.n_shards} < 1")
         if max_tenants % self.n_shards:
             raise ValueError(f"max_tenants {max_tenants} must divide over {self.n_shards} shards")
+        if self.pipeline_stages:
+            if self.pipeline_stages != n_model or n_model < 2:
+                raise ValueError(
+                    f"pipeline_stages={self.pipeline_stages} must equal the mesh's model-axis size ({n_model}, "
+                    ">= 2): the stages repurpose each shard's tensor-parallel device group"
+                )
+            if pool_compress is not None:
+                raise ValueError("pipeline serve reads the adapter pool per stage and needs the float layout: "
+                                 "pool_compress must be None")
         self.device = self.devices[0]
-        home = params["embed"]["table"].device
-        if any(d.type != home.type for d in self.devices):
-            raise ValueError(f"params live on {home}, the session on {[str(d) for d in self.devices]}")
-        #: shard -> its device and its backbone replica
+        home = TP.home_device(params)
+        if TP.is_group(params) and (n_groups != 1 or params.devices != groups[0] or self.pipeline_stages):
+            raise ValueError("a backbone split beforehand (tp.GroupParams) serves a mesh of one model group over "
+                             "its own devices, without pipeline_stages (which need the unsplit layers)")
+        if any(d.type != home.type for g in groups for d in g):
+            raise ValueError(f"params live on {home}, the session on {[[str(d) for d in g] for g in groups]}")
+        #: shard -> its device (its group's first), its backbone replica and
+        #: its model group as a ShardScope (None: one device)
         self._shard_device = [self.devices[s % n_groups] for s in range(self.n_shards)]
-        replicas = SH.replicate_backbone(params, self.devices)
-        self._shard_params = [replicas[s % n_groups] for s in range(self.n_shards)]
+        if n_model > 1:
+            # Each logical shard's group holds ONE backbone replica split
+            # over its devices (models.tp); the hand-written grouped kernels
+            # take whole tensors on one device, so the skip-sums of a split
+            # session run their plain versions, as the reference's grouped
+            # Pallas kernels do not partition over a model axis.
+            if use_kernel:
+                raise ValueError("the grouped skip-LoRA kernels do not run over a model axis; build "
+                                 "(data, model) sessions with use_kernel=False")
+            TP.require_supported(cfg)
+            subs = [SH.shard_submesh(mesh, g) for g in range(n_groups)]
+            self._scope = [SH.ShardScope(subs[s % n_groups]) for s in range(self.n_shards)]
+            split = [params] if TP.is_group(params) else [TP.group_params(params, list(sm.devices)) for sm in subs]
+            self._shard_params = [split[s % n_groups] for s in range(self.n_shards)]
+        else:
+            # a data-only mesh: every spec replicates, one replica a device
+            assert SH.specs_all_replicated(SH.session_param_specs(params, mesh))
+            self._scope = [None] * self.n_shards
+            replicas = SH.replicate_backbone(params, self.devices)
+            self._shard_params = [replicas[s % n_groups] for s in range(self.n_shards)]
+        #: pipeline_stages: the same groups' devices as GPipe stages, stage i
+        #: of group g's layers (unsplit) on its device i
+        self._stage_blocks: list = [None] * self.n_shards
+        self._stage_valid: list = [None] * self.n_shards
+        if self.pipeline_stages:
+            stages, valid = pipeline_stage_params(params, cfg, self.pipeline_stages)
+            per_group = [_stages_on(stages, groups[g]) for g in range(n_groups)]
+            for s in range(self.n_shards):
+                self._stage_blocks[s], self._stage_valid[s] = per_group[s % n_groups], valid
         self.params = self._shard_params[0]
         self.optimizer = optimizer if optimizer is not None else adamw(lr)
         #: Opt-in control plane: with ``control=None`` the session plans,
@@ -372,6 +450,12 @@ class SessionRuntime:
         self._kv_pools: dict[int, Any] = {}
         self._prefix_indexes: dict[int, Any] = {}
         self.counters = Counter()
+
+    def _group(self, shard: int) -> list[torch.device]:
+        """The shard's model group's devices (its one device on a data-only
+        mesh)."""
+        params = self._shard_params[shard]
+        return params.devices if TP.is_group(params) else [self._shard_device[shard]]
 
     def _on(self, shard: int):
         """The shard's device as the current CUDA device (a no-op on the

@@ -53,8 +53,14 @@ Fine-tuning ingestion rides the same loop: ``submit_ingest`` queues an
 next ``step``, between decode dispatches. ``quality_metrics`` reports the
 runtime's control-plane events beside the serving counters.
 
-Pipelined admission (the reference's ``microbatch``, over a model axis)
-belongs to slice 7b of the port.
+Pipelined admission (a runtime built with ``pipeline_stages=N`` over a
+model axis): the admission prefill runs as GPipe microbatches of
+``microbatch`` rows over the shard's group's devices
+(``lm.pipeline_sched_prefill``), the admission width padded up to
+``n_micro * microbatch`` (``admit_pad``; the pads are dropped rows);
+``predicted_bubble()`` is the schedule's bubble fraction. The pipelined
+prefill keeps the dense caches, so prefix reuse is off under it. Decode
+stays on the group's tensor-parallel path.
 """
 
 from __future__ import annotations
@@ -69,10 +75,12 @@ import torch
 
 from repro_torch.core import batch_plan
 from repro_torch.models.blocks import ATTN_KINDS
+from repro_torch.models.tp import is_group
 from repro_torch.models.lm import (
     decode_step_,
     init_stacked_caches,
     layer_caches,
+    pipeline_sched_prefill,
     sample_token,
     sched_prefill,
     sched_prefill_reuse,
@@ -147,12 +155,12 @@ def _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, p
     ``tok`` and ``pos``, updated in place: retired rows frozen, live
     positions clamped so a chunk overshooting a finishing row never writes
     past the cache. On the card one CUDA-graph replay
-    (``decode_graph.chunk``); on the CPU, or with ``loop``, the same steps
-    eagerly. ``fuse`` computes each step's skip term as dense per-row math
-    instead of a grouped kernel launch. Returns (tok, pos, tokens sampled at
-    each step (chunk, B)): each chunk hands back exactly the tokens the host
-    has not seen."""
-    if tok.is_cuda and not loop:
+    (``decode_graph.chunk``); on the CPU, with ``loop``, or for a backbone
+    split over a model group, the same steps eagerly. ``fuse`` computes
+    each step's skip term as dense per-row math instead of a grouped kernel
+    launch. Returns (tok, pos, tokens sampled at each step (chunk, B)):
+    each chunk hands back exactly the tokens the host has not seen."""
+    if tok.is_cuda and not loop and not is_group(params):
         from repro_torch.core import decode_graph
 
         toks = decode_graph.chunk(params, cfg, chunk, pools, idx, caches, tok, pos, active, temps, generator,
@@ -191,13 +199,20 @@ def _admit_epilogue(params, cfg, how, chunk, max_seq, pools, idx, logits, adm, r
 
 
 def _sched_admit(params, cfg, how, chunk, max_seq, pools, idx, new_tokens, new_lens, new_idx, rows,
-                 caches, tok, pos, active, temps, adm_temps, generator):
+                 caches, tok, pos, active, temps, adm_temps, generator, pipe=None):
     """Dense admission: prefill the padded (A, P) prompts into fresh
-    admission caches, then the common epilogue."""
+    admission caches, then the common epilogue. ``pipe`` (stages, valid,
+    devices, n_micro) runs the prefill as GPipe microbatches."""
     a, p = new_tokens.shape
-    adm = init_stacked_caches(cfg, a, p, device=tok.device)
-    logits, _ = sched_prefill(params, cfg, new_tokens, new_lens, pools, new_idx,
-                              caches=layer_caches(adm), use_kernel=how[0])
+    # the pipeline's stages hold whole layers: their caches are whole too
+    adm = init_stacked_caches(cfg, a, p, device=tok.device, params=None if pipe is not None else params)
+    if pipe is not None:
+        stages, valid, devices, n_micro = pipe
+        logits, _ = pipeline_sched_prefill(params, cfg, stages, valid, new_tokens, new_lens, pools, new_idx,
+                                           devices=devices, n_micro=n_micro, caches=layer_caches(adm))
+    else:
+        logits, _ = sched_prefill(params, cfg, new_tokens, new_lens, pools, new_idx,
+                                  caches=layer_caches(adm), use_kernel=how[0])
     return _admit_epilogue(params, cfg, how, chunk, max_seq, pools, idx, logits, adm, rows,
                            new_lens.long(), caches, tok, pos, active, temps, adm_temps, generator)
 
@@ -212,7 +227,7 @@ def _sched_admit_reuse(params, cfg, how, chunk, max_seq, pools, idx, pool_data, 
     from repro_torch.core.kv_pool import gather_blocks
 
     a = tables.shape[0]
-    adm = init_stacked_caches(cfg, a, prompt, device=tok.device)
+    adm = init_stacked_caches(cfg, a, prompt, device=tok.device, params=params)
     prefix = gather_blocks(pool_data, tables, use_kernel=how[0])
     span = prefix["k"].shape[2]
     for n in ("k", "v"):
@@ -231,12 +246,13 @@ def _sched_admit_reuse(params, cfg, how, chunk, max_seq, pools, idx, pool_data, 
 
 class _LiveBatch:
     """One shard's resident decode state: device tensors (stacked caches
-    (L, B, max_seq, n_kv, hd), tok (B, 1), pos (B,)) plus host-side row
+    (L, B, max_seq, n_kv, hd), split by heads over the shard's model group
+    when ``params`` is one, tok (B, 1), pos (B,)) plus host-side row
     bookkeeping. ``rows[i]`` is the request occupying batch row ``i`` (None
     = free)."""
 
-    def __init__(self, cfg, max_batch: int, max_seq: int, device):
-        self.caches = init_stacked_caches(cfg, max_batch, max_seq, device=device)
+    def __init__(self, cfg, max_batch: int, max_seq: int, device, params=None):
+        self.caches = init_stacked_caches(cfg, max_batch, max_seq, device=device, params=params)
         self.tok = torch.zeros((max_batch, 1), dtype=torch.long, device=device)
         self.pos = torch.zeros((max_batch,), dtype=torch.long, device=device)
         self.rows: list[Optional[Request]] = [None] * max_batch
@@ -270,7 +286,10 @@ class RequestScheduler:
     the live batch's prompts, at least 8). The skip-sums
     follow the runtime's ``use_kernel`` and ``decode_fuse``. The pool
     and index live on the runtime, so a later scheduler reuses what an
-    earlier one published (``runtime.reset_prefix_cache()`` clears them)."""
+    earlier one published (``runtime.reset_prefix_cache()`` clears them).
+    On a runtime built with ``pipeline_stages`` the admission prefill runs
+    as GPipe microbatches of ``microbatch`` rows (default 1), and
+    ``prefix_reuse`` is off."""
 
     def __init__(
         self,
@@ -283,6 +302,7 @@ class RequestScheduler:
         inflight_per_tenant: int = 2,
         chunk: int = 4,
         mode: str = "continuous",
+        microbatch: int = 0,
         prefix_reuse: bool = True,
         kv_block: Optional[int] = None,
         kv_pool_blocks: Optional[int] = None,
@@ -307,7 +327,23 @@ class RequestScheduler:
         self.inflight_per_tenant = inflight_per_tenant
         self.chunk = chunk
         self.mode = mode
-        self.prefix_reuse = bool(prefix_reuse)
+        # Pipelined admission: microbatches of ``microbatch`` rows, the
+        # admission width padded to n_micro * microbatch (dropped rows); more
+        # microbatches a dispatch, a smaller bubble (P-1)/(n_micro+P-1).
+        self.pipeline = runtime.pipeline_stages > 1
+        if self.pipeline:
+            mb = int(microbatch) if microbatch else 1
+            if mb < 1:
+                raise ValueError(f"microbatch {microbatch} < 1")
+            self.n_micro = -(-admit_bucket // mb)
+            self.admit_pad = self.n_micro * mb
+        elif microbatch:
+            raise ValueError("microbatch is a pipelined-admission knob; the runtime was built without "
+                             "pipeline_stages")
+        else:
+            self.admit_pad = admit_bucket
+        # the pipelined prefill keeps the dense caches: no prefix reuse
+        self.prefix_reuse = bool(prefix_reuse) and not self.pipeline
         self.kv_block = int(kv_block) if kv_block else None
         self.kv_pool_blocks = int(kv_pool_blocks) if kv_pool_blocks else None
         #: (use_kernel, fuse, loop) of every dispatch's skip-sums and chunk
@@ -320,6 +356,15 @@ class RequestScheduler:
         self._in_flight: Counter = Counter()
         self._next_rid = 0
         self._dispatches = 0
+
+    def predicted_bubble(self) -> Optional[float]:
+        """The GPipe bubble fraction the pipelined admission is scheduled at
+        (None without pipelining)."""
+        if not self.pipeline:
+            return None
+        from repro_torch.runtime.pipeline_par import bubble_fraction
+
+        return bubble_fraction(self.n_micro, self.rt.pipeline_stages)
 
     # -- submission ----------------------------------------------------------
 
@@ -372,7 +417,7 @@ class RequestScheduler:
         if lb is None:
             with self.rt._on(shard):
                 lb = self._batches[shard] = _LiveBatch(self.rt.cfg, self.max_batch, self.max_seq,
-                                                       self.rt._shard_device[shard])
+                                                       self.rt._shard_device[shard], self.rt._shard_params[shard])
         return lb
 
     @property
@@ -528,7 +573,7 @@ class RequestScheduler:
             )
             self.counters["dispatch/step"] += 1
             return shard, [], (toks, None)
-        a, p = self.admit_bucket, self.max_prompt
+        a, p = self.admit_pad, self.max_prompt
         rows = free[: len(admits)]
         if matches is not None:
             return self._dispatch_reuse(shard, lb, admits, rows, matches, pool, pidx, params, pools, idx,
@@ -547,11 +592,13 @@ class RequestScheduler:
                 torch.as_tensor(new_tokens, device=dev), torch.as_tensor(new_lens, device=dev),
                 torch.as_tensor(lb.idx[pick], device=dev), torch.as_tensor(rows, device=dev),
                 lb.caches, lb.tok, lb.pos, active, temps, _temps(lb.temps[pick], dev), generator,
+                pipe=(self.rt._stage_blocks[shard], self.rt._stage_valid[shard], self.rt._group(shard),
+                      self.n_micro) if self.pipeline else None,
             )
         except Exception as err:
             self._abort_admits(lb, admits, rows, err)
             raise
-        self.counters["dispatch/admit"] += 1
+        self.counters["dispatch/admit_pipe" if self.pipeline else "dispatch/admit"] += 1
         if pidx is not None:
             self._publish_rows(pool, pidx, lb, admits, rows)
             self.counters["prefix/misses"] += len(admits)
@@ -563,7 +610,7 @@ class RequestScheduler:
         the matched blocks for the rows' lifetimes, then gather them into
         the admission caches and prefill only the tails."""
         dev = self.rt._shard_device[shard]
-        a, p = self.admit_bucket, self.max_prompt
+        a, p = self.admit_pad, self.max_prompt
         blk = pool.block
         nbs = [len(ids) for ids in matches]
         max_nb = max(nbs)

@@ -5,7 +5,7 @@ MQA via ``n_kv_heads``, sliding windows, the gemma2 attention-logit softcap,
 partial rotary and ``head_dim != d / heads``. Weights keep the reference's
 layouts: ``wq`` (D, H, hd), ``wk``/``wv`` (D, Hkv, hd), ``wo`` (H, hd, D).
 
-Entry points:
+Entry points (each the projections, ``attend`` and the output product):
   - ``attn_train``: full-sequence causal attention (training / populate);
     ``use_flash=True`` goes through the flash-attention kernel (K4).
   - ``attn_prefill``: full-sequence causal attention that also writes
@@ -150,6 +150,87 @@ def row_mask(q_pos: torch.Tensor, sk: int, window: int) -> torch.Tensor:
     return m
 
 
+def query_positions(x: torch.Tensor, mode: str, pos=None) -> torch.Tensor:
+    """(b, s) query positions of ``x`` (b, s, d) in ``mode``, with ``pos``
+    as the entry points below take it: train / prefill from 0, an offset
+    prefill from each row's ``pos``, a decode step at ``pos`` (an int, a
+    0-d tensor, or a (b,) tensor of per-row positions)."""
+    b, s = x.shape[:2]
+    if mode != "decode" and pos is None:
+        return torch.arange(s, device=x.device)[None].expand(b, s)
+    if mode != "decode":
+        return pos.long()[:, None] + torch.arange(s, device=x.device)[None]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 0:
+        return pos.long().expand(b, 1)
+    if isinstance(pos, torch.Tensor):
+        return pos.long()[:, None]
+    return torch.full((b, 1), pos, device=x.device)
+
+
+def attend(
+    q: torch.Tensor,             # (b, s, n, h), rotated
+    k: torch.Tensor,             # (b, s, nk, h), rotated
+    v: torch.Tensor,             # (b, s, nk, h)
+    spec: AttnSpec,
+    mode: str,
+    cache: Optional[dict[str, torch.Tensor]] = None,
+    pos=None,
+    *,
+    use_flash: bool = False,
+) -> tuple[torch.Tensor, Optional[dict[str, torch.Tensor]]]:
+    """The attention of the entry points below, between the projections
+    and the output product: writes the fresh K/V into ``cache`` (in place)
+    where the mode has one and returns (the heads' outputs (b, s, n, h),
+    cache). ``spec``'s head counts are the ones ``q``/``k`` carry, so a
+    model group's member runs it over its own heads (``models.tp``)."""
+    b, s = q.shape[:2]
+    if mode == "train":
+        if use_flash:
+            from repro_torch.kernels.flash_attn.ops import flash_attention
+
+            out = flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                window=spec.window, softcap=spec.softcap, scale=_scale(spec),
+            ).transpose(1, 2)
+        else:
+            out = _sdpa(q, k, v, causal_mask(s, s, 0, spec.window, device=q.device), spec)
+        return out, None
+    if mode == "prefill" and pos is None:
+        out = _sdpa(q, k, v, causal_mask(s, s, 0, spec.window, device=q.device), spec)
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        return out, cache
+    if mode == "prefill":
+        offs = pos.long()
+        sk = cache["k"].shape[1]
+        src = torch.arange(sk, device=q.device)[None] - offs[:, None]         # (b, sk)
+        hit = ((src >= 0) & (src < s))[:, :, None, None]
+        src = src.clamp(0, s - 1)[:, :, None, None]
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            picked = torch.gather(new.to(c.dtype), 1, src.expand(b, sk, *new.shape[2:]))
+            c.copy_(torch.where(hit, picked, c))
+        mask = row_mask(offs[:, None] + torch.arange(s, device=q.device)[None], sk, spec.window)
+        return _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask, spec), cache
+    if isinstance(pos, torch.Tensor) and pos.dim() == 0:
+        pos = pos.long()
+        at = pos.reshape(1)
+        cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
+        mask = causal_mask(1, cache["k"].shape[1], pos, spec.window, device=q.device)
+    elif isinstance(pos, torch.Tensor):
+        pos = pos.long()
+        rows = torch.arange(b, device=q.device)
+        cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
+        mask = row_mask(pos[:, None], cache["k"].shape[1], spec.window)
+    else:
+        cache["k"][:, pos : pos + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, pos : pos + 1] = v.to(cache["v"].dtype)
+        mask = causal_mask(1, cache["k"].shape[1], pos, spec.window, device=q.device)
+    return _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask, spec), cache
+
+
 def attn_train(
     params: Params,
     x: torch.Tensor,
@@ -162,20 +243,10 @@ def attn_train(
     itself through ``kernels.flash_attn.ops.flash_attention`` (the CUDA
     kernel on the card, its plain version on the CPU), which never
     materialises the (S, S) scores; the reference's model never sets it."""
-    b, s, _ = x.shape
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        positions = query_positions(x, "train")
     q, k, v = _qkv(params, x, positions, spec)
-    if use_flash:
-        from repro_torch.kernels.flash_attn.ops import flash_attention
-
-        out = flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            window=spec.window, softcap=spec.softcap, scale=_scale(spec),
-        ).transpose(1, 2)
-    else:
-        mask = causal_mask(s, s, 0, spec.window, device=x.device)
-        out = _sdpa(q, k, v, mask, spec)
+    out, _ = attend(q, k, v, spec, "train", use_flash=use_flash)
     return _out(out, params["wo"])
 
 
@@ -194,19 +265,18 @@ def init_kv_cache(
     }
 
 
+def _cached(params: Params, x: torch.Tensor, spec: AttnSpec, mode: str, cache, pos):
+    q, k, v = _qkv(params, x, query_positions(x, mode, pos), spec)
+    out, cache = attend(q, k, v, spec, mode, cache, pos)
+    return _out(out, params["wo"]), cache
+
+
 def attn_prefill(
     params: Params, x: torch.Tensor, spec: AttnSpec, cache: dict[str, torch.Tensor]
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Full-sequence forward that also writes positions [0, s) of the cache.
     Attention reads the fresh K/V in the compute dtype, not the cache."""
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    q, k, v = _qkv(params, x, positions, spec)
-    mask = causal_mask(s, s, 0, spec.window, device=x.device)
-    out = _sdpa(q, k, v, mask, spec)
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
-    return _out(out, params["wo"]), cache
+    return _cached(params, x, spec, "prefill", cache, None)
 
 
 def attn_prefill_ext(
@@ -231,21 +301,7 @@ def attn_prefill_ext(
     overwrites before attending there. The write is a select over the whole
     cache row (key t takes tail token t - offs[b] where that is in [0, s)),
     so no index leaves the cache and the host never reads ``offs``."""
-    b, s, _ = x.shape
-    offs = offs.long()
-    positions = offs[:, None] + torch.arange(s, device=x.device)[None]      # (b, s)
-    q, k, v = _qkv(params, x, positions, spec)
-    sk = cache["k"].shape[1]
-    src = torch.arange(sk, device=x.device)[None] - offs[:, None]          # (b, sk)
-    hit = ((src >= 0) & (src < s))[:, :, None, None]
-    src = src.clamp(0, s - 1)[:, :, None, None]
-    for name, new in (("k", k), ("v", v)):
-        c = cache[name]
-        picked = torch.gather(new.to(c.dtype), 1, src.expand(b, sk, *new.shape[2:]))
-        c.copy_(torch.where(hit, picked, c))
-    mask = row_mask(positions, sk, spec.window)
-    out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask, spec)
-    return _out(out, params["wo"]), cache
+    return _cached(params, x, spec, "prefill", cache, offs)
 
 
 def attn_decode(
@@ -266,35 +322,7 @@ def attn_decode(
     and masks keys per row, what the request scheduler needs once rows
     admitted at different times share one live batch. Positions must lie
     inside the cache."""
-    b = x.shape[0]
-    if isinstance(pos, torch.Tensor) and pos.dim() == 0:
-        pos = pos.long()
-        q, k, v = _qkv(params, x, pos.expand(b, 1), spec)
-        at = pos.reshape(1)
-        cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
-        ck, cv = cache["k"], cache["v"]
-        mask = causal_mask(1, ck.shape[1], pos, spec.window, device=x.device)
-        out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask, spec)
-        return _out(out, params["wo"]), cache
-    if isinstance(pos, torch.Tensor):
-        pos = pos.long()
-        q, k, v = _qkv(params, x, pos[:, None], spec)
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
-        ck, cv = cache["k"], cache["v"]
-        mask = row_mask(pos[:, None], ck.shape[1], spec.window)
-        out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask, spec)
-        return _out(out, params["wo"]), cache
-    positions = torch.full((b, 1), pos, device=x.device)
-    q, k, v = _qkv(params, x, positions, spec)
-    cache["k"][:, pos : pos + 1] = k.to(cache["k"].dtype)
-    cache["v"][:, pos : pos + 1] = v.to(cache["v"].dtype)
-    ck, cv = cache["k"], cache["v"]
-    mask = causal_mask(1, ck.shape[1], pos, spec.window, device=x.device)
-    out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask, spec)
-    return _out(out, params["wo"]), cache
+    return _cached(params, x, spec, "decode", cache, pos)
 
 
 def attn_decode_paged(

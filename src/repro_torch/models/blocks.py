@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
+from repro_torch.models import tp as TP
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn, init_ffn
 from repro_torch.models.layers import apply_norm, make_norm
@@ -131,7 +132,11 @@ def block_forward(
     row's start offset (``attn_prefill_ext``, the prefix-reuse admission)
     and None the classic prefill; in decode an ``int`` is the scalar branch
     and a (b,) tensor the per-row branch. The recurrent kinds read their
-    state, not ``pos``; a prefill starts from the (zeroed) cache's state."""
+    state, not ``pos``; a prefill starts from the (zeroed) cache's state.
+    A layer split over a model group (``tp.GroupParams``) runs
+    ``tp.block_forward``."""
+    if isinstance(params, TP.GroupParams):
+        return TP.block_forward(kind, params, h, cfg, mode=mode, cache=cache, pos=pos)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     x = _norm(cfg, params["norm1"], h)
@@ -173,11 +178,6 @@ def block_forward(
 # ---------------------------------------------------------------------------
 # Layer stack: one flat list of layers
 # ---------------------------------------------------------------------------
-
-
-def init_stack(generator: torch.Generator, cfg: ModelConfig, dtype) -> list[Params]:
-    """Per-layer params in execution order."""
-    return [init_block(generator, kind, i, cfg, dtype) for i, kind in enumerate(cfg.layer_kinds())]
 
 
 def init_stack_caches(

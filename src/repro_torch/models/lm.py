@@ -23,10 +23,15 @@ Counterpart of ``repro.models.lm``:
     ``sample_token`` per-row temperatures, for the request scheduler.
   - ``init_stacked_caches``, ``sched_prefill`` and ``sched_prefill_reuse``:
     the request scheduler's admission prefills (dense, and over the unseen
-    tail of a prompt whose prefix K/V came from the paged pool).
+    tail of a prompt whose prefix K/V came from the paged pool);
+    ``pipeline_stage_params`` / ``pipeline_sched_prefill``: the dense one
+    as GPipe microbatches over a model group's devices.
+  - ``param_shapes``: the params on the ``meta`` device.
 
 Params are plain dicts of tensors: {"embed": {"table"}, "stack": [per-layer
-dicts], "final_norm", and "head" when embeddings are untied}. The forward
+dicts], "final_norm", and "head" when embeddings are untied}, or the same
+tree split over a model group (``tp.GroupParams``), which every function
+here runs as Megatron does (``models.tp``). The forward
 returns the MoE FFNs' aux loss beside the hidden states, and
 ``train_loss_fn`` adds it to the loss. Modality prefixes
 (``prefix_embeds``, ``models.frontend``) go ahead of the embedded tokens.
@@ -39,6 +44,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import blocks as B
+from repro_torch.models import tp as TP
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontend import splice_prefix
 from repro_torch.models.layers import apply_norm, embed, init_embedding, make_norm, softcap, unembed
@@ -50,19 +56,50 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
+def init_parts(generator: torch.Generator, cfg: ModelConfig):
+    """``init_lm``'s draws in order, one part at a time: (key, tree) for
+    "embed", ``("stack", i)`` for layer i, "final_norm" and, untied,
+    "head". ``put_part`` places each into a tree."""
+    dtype = model_dtype(cfg)
+    yield "embed", init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype)
+    for i, kind in enumerate(cfg.layer_kinds()):
+        yield ("stack", i), B.init_block(generator, kind, i, cfg, dtype)
+    yield "final_norm", make_norm(cfg.norm_type, cfg.d_model, device=generator.device)
+    if not cfg.tie_embeddings:
+        yield "head", init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype)
+
+
+def put_part(params: Params, key, tree: Params) -> None:
+    """Place one of ``init_parts``' parts into ``params``."""
+    if isinstance(key, tuple):
+        params.setdefault("stack", []).append(tree)
+    else:
+        params[key] = tree
+
+
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Random params from ``generator``; tensors live on ``generator.device``.
     Same shapes and dtypes as the reference's ``init_lm`` (not the same
     numbers: torch and JAX draw differently from one seed)."""
-    dtype = model_dtype(cfg)
-    params = {
-        "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype),
-        "stack": B.init_stack(generator, cfg, dtype),
-        "final_norm": make_norm(cfg.norm_type, cfg.d_model, device=generator.device),
-    }
-    if not cfg.tie_embeddings:
-        params["head"] = init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype)
+    params: Params = {}
+    for key, tree in init_parts(generator, cfg):
+        put_part(params, key, tree)
     return params
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``: ``init_lm`` then
+    makes every tensor on the meta device, shapes and dtypes only."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """``init_lm``'s tree on the ``meta`` device (no memory): the shapes
+    ``runtime.sharding``'s spec trees and byte counts read."""
+    return init_lm(_MetaGenerator(), cfg)
 
 
 def lm_forward(
@@ -82,8 +119,7 @@ def lm_forward(
     skip term}. ``prefix_embeds`` (B, P, D), a frontend's precomputed
     embeddings, go ahead of the embedded tokens, so every output covers
     P + S positions."""
-    dtype = model_dtype(cfg)
-    h = embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.scale_embed_by_sqrt_dim, dtype=dtype)
+    h = _embed(params, cfg, tokens)
     h = splice_prefix(h, prefix_embeds)
     out = B.stack_forward(
         params["stack"], h, cfg, mode=mode, caches=caches, pos=pos,
@@ -94,14 +130,23 @@ def lm_forward(
     return {"h": y, "y_base": y_base, "caches": out["caches"], "acts": out["acts"], "aux": out["aux"]}
 
 
-def readout(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """Final norm + unembed (+ gemma2 final softcap). h: (..., D) -> logits."""
-    hn = apply_norm(
-        cfg.norm_type, params["final_norm"], h, eps=cfg.norm_eps,
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    fn = TP.embed if TP.is_group(params) else embed
+    return fn(params["embed"], tokens, scale_by_sqrt_dim=cfg.scale_embed_by_sqrt_dim, dtype=model_dtype(cfg))
+
+
+def _final_norm(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    return apply_norm(
+        cfg.norm_type, TP.local(params["final_norm"]), h, eps=cfg.norm_eps,
         unit_offset=cfg.rmsnorm_unit_offset,
     )
+
+
+def readout(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """Final norm + unembed (+ gemma2 final softcap). h: (..., D) -> logits."""
+    hn = _final_norm(params, cfg, h)
     table = params["head"] if not cfg.tie_embeddings else params["embed"]
-    logits = unembed(table, hn)
+    logits = TP.unembed(table, hn) if TP.is_group(params) else unembed(table, hn)
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
     return logits
@@ -122,11 +167,15 @@ class _ChunkLogLik(torch.autograd.Function):
     trains too (the full-backprop step, ``launch.train``), the forward keeps
     d ll / d logits (B, c, V) and the backward contracts it, scaled by the
     upstream gradient, with the table (for hn) and with hn (for the
-    table)."""
+    table). A table split by vocabulary over a model group
+    (``tp.VocabShards``, frozen) gives the members' logit slices
+    concatenated, and the hn gradient as the ordered sum of the members'
+    products with their slices."""
 
     @staticmethod
     def forward(ctx, hn, table, labels, cap):
-        logits = _per_row_matmul(hn.float(), table.T)
+        split = isinstance(table, TP.VocabShards)
+        logits = table.logits(hn.float(), _per_row_matmul) if split else _per_row_matmul(hn.float(), table.T)
         if cap:
             logits = softcap(logits, cap)
         logp = torch.log_softmax(logits, dim=-1)
@@ -146,7 +195,8 @@ class _ChunkLogLik(torch.autograd.Function):
             if ctx.trains_table:
                 ctx.save_for_backward(dlogits, hn, table)
             else:
-                ctx.save_for_backward(_per_row_matmul(dlogits, table))
+                ctx.save_for_backward(table.dh(dlogits, _per_row_matmul) if split
+                                      else _per_row_matmul(dlogits, table))
         return total, count
 
     @staticmethod
@@ -188,12 +238,10 @@ def lm_loss_rows(
     Each row's readout products run on their own (``_per_row_matmul``), so
     its loss and gradient are the same bits in a batch of any size."""
     b, s, d = h.shape
-    hn = apply_norm(
-        cfg.norm_type, params["final_norm"], h, eps=cfg.norm_eps,
-        unit_offset=cfg.rmsnorm_unit_offset,
-    )
-    table = (params["head"] if not cfg.tie_embeddings else params["embed"])["table"]
-    table = table.float()   # once for all chunks
+    hn = _final_norm(params, cfg, h)
+    table = params["head"] if not cfg.tie_embeddings else params["embed"]
+    # fp32 once for all chunks
+    table = TP.readout_table(table) if TP.is_group(params) else table["table"].float()
     chunk = min(chunk, s)
     n_chunks = -(-s // chunk)
     padded = n_chunks * chunk
@@ -249,20 +297,27 @@ def pad_prefix_labels(labels: torch.Tensor, prefix_embeds: Optional[torch.Tensor
     return torch.cat([pad, labels], dim=1)
 
 
-def init_serve_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> list[Params]:
+def init_serve_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device, params: Params = None) -> list[Params]:
     """Per-layer serve caches with the cache dtype bf16 whatever the model
     dtype, as the reference makes them: bf16 KV caches, recurrent states
-    with fp32 memories and bf16 conv windows (sLSTM's ``h`` bf16 too)."""
+    with fp32 memories and bf16 conv windows (sLSTM's ``h`` bf16 too).
+    For ``params`` split over a model group, each member's KV heads on its
+    device (``tp.init_caches``)."""
+    if TP.is_group(params):
+        return TP.init_caches(params, cfg, batch, max_seq)
     return B.init_stack_caches(batch, max_seq, cfg, torch.bfloat16, device=device)
 
 
-def init_stacked_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dict[str, torch.Tensor]:
+def init_stacked_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device,
+                        params: Params = None) -> dict[str, torch.Tensor]:
     """The serve caches of every layer as two zeroed bf16 tensors
     {"k", "v"}: (L, batch, max_seq, n_kv, hd), so that one op moves a row
     (or a block) of every layer at once. ``layer_caches`` gives the
     per-layer views the forward takes. Attention-only configs, whose layers
-    all share one KV shape."""
+    all share one KV shape. ``params`` as in ``init_serve_caches``."""
     B.require_attention(cfg, "the stacked KV layout")
+    if TP.is_group(params):
+        return TP.init_caches(params, cfg, batch, max_seq, stacked=True)
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {n: torch.zeros(shape, dtype=torch.bfloat16, device=device) for n in ("k", "v")}
 
@@ -500,14 +555,16 @@ def decode_scan(
     On CUDA tensors the steps are CUDA-graph replays, ``unroll`` steps a
     replay (``core.decode_graph``: the card's form of the reference's one
     ``lax.scan`` dispatch; ``max_new`` need not be a multiple); on CPU
-    tensors the same step function (``decode_step_``) runs eagerly. The
-    caches are updated in place. Returns (tokens (B, max_new) with tok0
+    tensors, and for a backbone split over a model group (the group size
+    picks it: the graphs capture one device's steps), the same step
+    function (``decode_step_``) runs eagerly. The caches are updated in
+    place. Returns (tokens (B, max_new) with tok0
     first, final caches)."""
     if unroll < 1:
         raise ValueError(f"unroll {unroll} < 1")
     kw = dict(temperature=temperature, adapters=adapters, pools=pools, idx=idx,
               use_kernel=use_kernel, fuse_skip=fuse_skip)
-    if tok0.is_cuda:
+    if tok0.is_cuda and not TP.is_group(params):
         from repro_torch.core import decode_graph
 
         return decode_graph.decode(params, cfg, tok0, start_pos, caches, max_new=max_new,
@@ -593,7 +650,7 @@ def sched_prefill(
     caches)."""
     a, p = tokens.shape
     if caches is None:
-        caches = init_serve_caches(cfg, a, p, device=tokens.device)
+        caches = init_serve_caches(cfg, a, p, device=tokens.device, params=params)
     out = lm_forward(params, cfg, tokens, mode="prefill", caches=caches, collect_acts=True)
     last = (lens.clamp(min=1) - 1).long()
     return _last_logits(params, cfg, out, last, pools, idx, use_kernel), out["caches"]
@@ -624,3 +681,85 @@ def sched_prefill_reuse(
     )
     last = (tail_lens.clamp(min=1) - 1).long()
     return _last_logits(params, cfg, out, last, pools, idx, use_kernel), out["caches"]
+
+
+# ---------------------------------------------------------------------------
+# Pipelined admission prefill (SessionRuntime(pipeline_stages=N))
+# ---------------------------------------------------------------------------
+
+
+def pipeline_stage_params(params: Params, cfg: ModelConfig, n_stages: int):
+    """The backbone's layers as ``n_stages`` GPipe stages for
+    ``pipeline_sched_prefill``: ``runtime.pipeline_par.split_stages`` of the
+    (unsplit) layer list, (stages, valid). Uniform attention stacks only,
+    as the reference refuses the others."""
+    from repro_torch.runtime.pipeline_par import split_stages
+
+    kinds = set(cfg.layer_kinds())
+    if len(kinds) != 1 or not kinds <= set(B.ATTN_KINDS):
+        raise NotImplementedError(f"pipeline serve needs a uniform attention-only stack; config has {sorted(kinds)}")
+    return split_stages(params["stack"], n_stages)
+
+
+def pipeline_sched_prefill(
+    params: Params,
+    cfg: ModelConfig,
+    stages: list,                           # pipeline_stage_params' stages, stage s on devices[s]
+    valid: torch.Tensor,                    # (n_stages, per) bool
+    tokens: torch.Tensor,                   # (A, P) int, right-padded per row
+    lens: torch.Tensor,                     # (A,) int
+    pools: dict[str, torch.Tensor],         # float AdapterPool layout {"A", "B"}
+    idx: torch.Tensor,                      # (A,) int32 slot per row
+    *,
+    devices,
+    n_micro: int,
+    caches: Optional[list[Params]] = None,
+) -> tuple[torch.Tensor, list[Params]]:
+    """``sched_prefill`` over GPipe stages: the group's devices run the
+    backbone as ``len(stages)`` stages over ``n_micro`` microbatches, each
+    stage adding its layers' skip-LoRA terms from their block inputs
+    (``runtime.pipeline_par.pipeline_prefill``). The embedding and readout
+    run on ``devices[0]`` with ``params`` (one device's, or the group's
+    split backbone). Temperature-0 tokens match ``sched_prefill`` (the same
+    ``max(len, 1) - 1`` rule); ``caches`` (per layer, at (A, P), on
+    ``devices[0]``; fresh ones by default) take microbatch m's K/V in rows
+    ``[m * mb, (m + 1) * mb)``, so the scheduler's admission scatter does not
+    care which path filled them. Returns (logits (A, 1, V), caches)."""
+    from repro_torch.runtime.pipeline_par import pipeline_prefill
+
+    a, p_len = tokens.shape
+    if a % n_micro:
+        raise ValueError(f"admission width {a} not divisible into {n_micro} microbatches")
+    if "A" not in pools:
+        raise NotImplementedError("pipeline serve needs a float adapter pool")
+    devices = [torch.device(d) for d in devices]
+    mb, n_stages, per = a // n_micro, len(stages), len(stages[0])
+    n_layers = cfg.n_layers
+    h = _embed(params, cfg, tokens)
+    if caches is None:
+        caches = init_serve_caches(cfg, a, p_len, device=h.device)
+    # each stage's adapter rows of its (valid) layers, on its device
+    stage_a = [pools["A"][:, s * per:min((s + 1) * per, n_layers)].to(devices[s]) for s in range(n_stages)]
+    stage_b = [pools["B"][:, s * per:min((s + 1) * per, n_layers)].to(devices[s]) for s in range(n_stages)]
+    kind = cfg.layer_kinds()[0]
+
+    def block_fn(l, m, p_l, hh):
+        # a stage on another device prefills a zeroed buffer there (the
+        # classic prefill reads no cached position) and copies it home once
+        view = {n: caches[l][n][m * mb:(m + 1) * mb] for n in ("k", "v")}
+        mine = view if view["k"].device == hh.device else {n: torch.zeros_like(t, device=hh.device)
+                                                           for n, t in view.items()}
+        h2, _, _ = B.block_forward(kind, p_l, hh, cfg, mode="prefill", cache=mine)
+        if mine is not view:
+            for n in ("k", "v"):
+                view[n].copy_(mine[n])
+        return h2
+
+    y, skip = pipeline_prefill(
+        stages, stage_a, stage_b, valid, h.reshape(n_micro, mb, p_len, -1), lens.reshape(n_micro, mb),
+        idx.reshape(n_micro, mb), block_fn, devices=devices,
+    )
+    y, skip = y.reshape(a, p_len, -1), skip.reshape(a, -1)
+    last = (lens.clamp(min=1) - 1).long()
+    y_last = y[torch.arange(a, device=y.device), last][:, None]                 # (A, 1, D)
+    return readout(params, cfg, y_last + skip[:, None, :].to(y_last.dtype)), caches

@@ -1,0 +1,467 @@
+"""Megatron tensor parallelism over a model group: one backbone replica
+split over a list of devices, run by one process.
+
+``GroupParams`` wraps ``runtime.sharding.shard_backbone``'s member trees
+with the full tree's spec tree and the group's devices; indexing it walks
+all three together, so ``params["stack"][l]`` is layer ``l`` split over
+the group. ``models.lm`` and ``models.blocks`` hand a ``GroupParams`` to
+the functions here and run their own code on anything else, so one device
+runs bitwise as before.
+
+Each member computes with its own shard on its own device; where Megatron
+all-reduces, the members' partial results are copied onto the group's
+first device (the *home*, where activations, caches and pools live) and
+summed there in member order. Activations go out to a member by a copy
+(a no-op for a member on the home device). The branches follow
+``sharding._param_spec_for``:
+
+  - attention: heads split -> each member attends over its heads (KV heads
+    too when they divide, else its query heads' KV heads from the whole
+    K/V), and ``wo`` is row parallel (partials summed); heads that do not
+    divide -> ``d_model`` split, the q/k/v partials summed and attention
+    run once on the home device, ``wo`` splitting its output (the pieces
+    concatenated) or replicated.
+  - KV caches (``init_caches``): split by the KV heads each member's
+    attention reads (``HeadSplit``), each part on its member's device, so
+    a decode step moves no cached position between devices; where heads do
+    not divide, whole on the home device, where attention runs.
+  - dense FFN: ``w_gate``/``w_up`` column split, ``w_down`` row split.
+  - MoE: one dispatch on the home device (the router is replicated, so the
+    drops are the one-device ones); a member forms only its experts' E*C
+    slots (or, where the experts do not divide, every slot over its slice
+    of the expert hidden dimension) and combines them; the shared FFN
+    splits as a dense one; the partial outputs are summed.
+  - vocabulary: each member looks up the embedding rows it owns (zero
+    elsewhere) and the partials are summed (exact); the readout's logits
+    are each member's vocabulary slice, concatenated on the home device;
+    the chunked loss's ``dh`` is the ordered sum of the members'
+    ``dlogits_m @ table_m``.
+  - mamba, mLSTM and sLSTM mixers raise: slice 7c of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import ffn as FFN
+from repro_torch.models import moe as MOE
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import embed as _embed
+from repro_torch.models.layers import unembed as _unembed
+
+Params = Any
+
+#: the slice of the port that brings the recurrent mixers to a model group
+RECURRENT_SLICE = "slice 7c: tensor parallelism of the mamba, mLSTM and sLSTM mixers"
+
+
+class GroupParams:
+    """A params (sub)tree split over a model group: ``members[i]`` is member
+    i's shard tree on ``devices[i]``, ``specs`` the full tree's specs."""
+
+    __slots__ = ("members", "specs", "devices")
+
+    def __init__(self, members: list[Params], specs: Params, devices: list[torch.device]):
+        self.members, self.specs, self.devices = members, specs, devices
+
+    def __getitem__(self, key) -> "GroupParams":
+        return GroupParams([m[key] for m in self.members], self.specs[key], self.devices)
+
+    def __contains__(self, key) -> bool:
+        return key in self.members[0]
+
+    def __len__(self) -> int:
+        return len(self.members[0])
+
+    @property
+    def home(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def local(self) -> Params:
+        """Member 0's tree, on the home device: the replicated leaves."""
+        return self.members[0]
+
+
+def group_params(params: Params, devices) -> GroupParams:
+    """``params`` split over ``devices`` (``sharding.shard_backbone``)."""
+    from repro_torch.runtime import sharding as SH
+
+    mesh = SH.group_mesh(devices)
+    return GroupParams(SH.shard_backbone(params, list(mesh.devices)), SH.param_specs(params, mesh),
+                       list(mesh.devices))
+
+
+def is_group(params) -> bool:
+    return isinstance(params, GroupParams)
+
+
+def home_device(params) -> torch.device:
+    """Where a backbone's activations live: a group's home device, else
+    the embedding table's."""
+    return params.home if is_group(params) else params["embed"]["table"].device
+
+
+def local(params):
+    """A replicated subtree as plain tensors (member 0's for a group)."""
+    return params.local if is_group(params) else params
+
+
+def init_group_params(generator: torch.Generator, cfg, devices, prepare=None) -> GroupParams:
+    """``lm.init_lm``'s draws (``lm.init_parts``: the same order, so the
+    same numbers) split over ``devices`` a part at a time, so no device
+    holds more than its members' shards and one drawn part: a backbone no
+    card holds whole. ``prepare(key, tree)`` may change a part in place
+    before it is split."""
+    from repro_torch.models import lm as LM
+    from repro_torch.runtime import sharding as SH
+
+    mesh = SH.group_mesh(devices)
+    devices = list(mesh.devices)
+    specs = SH.param_specs(LM.param_shapes(cfg), mesh)
+    members: list[Params] = [{} for _ in devices]
+    for key, tree in LM.init_parts(generator, cfg):
+        if prepare is not None:
+            prepare(key, tree)
+        spec = specs["stack"][key[1]] if isinstance(key, tuple) else specs[key]
+        for m, part in zip(members, SH.shard_backbone(tree, devices, specs=spec)):
+            LM.put_part(m, key, part)
+        del tree   # the drawn part goes before the next one is drawn
+    return GroupParams(members, specs, devices)
+
+
+def reduce(parts: list[torch.Tensor], home: torch.device) -> torch.Tensor:
+    """The members' partial results summed on ``home``, in member order."""
+    out = parts[0].to(home)
+    for p in parts[1:]:
+        out = out + p.to(home)
+    return out
+
+
+def _split(spec, axis: int) -> bool:
+    return spec[axis] == "model"
+
+
+# ---------------------------------------------------------------------------
+# Vocabulary: embedding and readout
+# ---------------------------------------------------------------------------
+
+
+def embed(ge: GroupParams, ids: torch.Tensor, *, scale_by_sqrt_dim: bool, dtype) -> torch.Tensor:
+    """Vocab-parallel lookup: each member's rows where it owns the id, zero
+    elsewhere, summed (exactly the one-device rows)."""
+    if not _split(ge.specs["table"], 0):
+        return _embed(ge.local, ids, scale_by_sqrt_dim=scale_by_sqrt_dim, dtype=dtype)
+    parts = []
+    for i, (m, dev) in enumerate(zip(ge.members, ge.devices)):
+        t = m["table"]
+        rows = ids.to(dev) - i * t.shape[0]
+        hit = (rows >= 0) & (rows < t.shape[0])
+        parts.append(t[rows.clamp(0, t.shape[0] - 1)] * hit[..., None].to(t.dtype))
+    x = reduce(parts, ge.home).to(dtype)
+    if scale_by_sqrt_dim:
+        x = x * torch.tensor(math.sqrt(ge.local["table"].shape[1])).to(dtype).item()
+    return x
+
+
+def unembed(ge: GroupParams, h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits: each member's vocabulary slice, concatenated on the home
+    device."""
+    if not _split(ge.specs["table"], 0):
+        return _unembed(ge.local, h)
+    return torch.cat([_unembed(m, h.to(dev)).to(ge.home) for m, dev in zip(ge.members, ge.devices)], dim=-1)
+
+
+@dataclasses.dataclass
+class VocabShards:
+    """A readout table split by vocabulary over a group: fp32 ``tables[i]``
+    on ``devices[i]`` (``lm._ChunkLogLik``'s table)."""
+
+    tables: list[torch.Tensor]
+    devices: list[torch.device]
+
+    def logits(self, hn: torch.Tensor, matmul) -> torch.Tensor:
+        home = hn.device
+        return torch.cat([matmul(hn.to(d), t.T).to(home) for t, d in zip(self.tables, self.devices)], dim=-1)
+
+    def dh(self, dlogits: torch.Tensor, matmul) -> torch.Tensor:
+        """sum_m dlogits[..., vocab of m] @ table_m, in member order."""
+        parts, v0 = [], 0
+        for t, d in zip(self.tables, self.devices):
+            parts.append(matmul(dlogits[..., v0:v0 + t.shape[0]].to(d), t))
+            v0 += t.shape[0]
+        return reduce(parts, dlogits.device)
+
+
+def readout_table(ge: GroupParams):
+    """The fp32 readout table for ``lm._ChunkLogLik``: one tensor where the
+    vocabulary is replicated, else its ``VocabShards``."""
+    if not _split(ge.specs["table"], 0):
+        return ge.local["table"].float()
+    return VocabShards([m["table"].float() for m in ge.members], list(ge.devices))
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+class HeadSplit:
+    """A K or V cache split by KV heads (its second-to-last dimension) over
+    a model group: ``parts[i]``, on member i's device, holds heads
+    ``ranges[i]`` = [lo, hi), the ones member i's attention reads (ranges
+    overlap where members share a KV head). Indexing the leading dimensions
+    gives a ``HeadSplit`` of the parts' views; assigning into them takes a
+    ``HeadSplit`` of the same ranges or a whole tensor (each part its
+    heads). ``whole()`` gathers it on the home device."""
+
+    __slots__ = ("parts", "ranges")
+
+    def __init__(self, parts: list[torch.Tensor], ranges):
+        self.parts, self.ranges = list(parts), [tuple(r) for r in ranges]
+
+    @property
+    def shape(self) -> torch.Size:
+        s = self.parts[0].shape
+        return torch.Size((*s[:-2], self.ranges[-1][1], s[-1]))
+
+    def __len__(self) -> int:
+        return self.parts[0].shape[0]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def _lead(self, idx, dev):
+        t = idx if isinstance(idx, tuple) else (idx,)
+        if any(i is Ellipsis for i in t) or len(t) > self.parts[0].dim() - 2:
+            raise IndexError("a HeadSplit indexes its leading dimensions only")
+        t = tuple(i.to(dev) if isinstance(i, torch.Tensor) else i for i in t)
+        return t if isinstance(idx, tuple) else t[0]
+
+    def __getitem__(self, idx) -> "HeadSplit":
+        return HeadSplit([p[self._lead(idx, p.device)] for p in self.parts], self.ranges)
+
+    def __setitem__(self, idx, value) -> None:
+        if isinstance(value, HeadSplit):
+            if value.ranges != self.ranges:
+                raise ValueError(f"heads {value.ranges} assigned into heads {self.ranges}")
+            values = value.parts
+        else:
+            values = [value[..., lo:hi, :] for lo, hi in self.ranges]
+        for p, v in zip(self.parts, values):
+            p[self._lead(idx, p.device)] = v.to(p.device)
+
+    def whole(self) -> torch.Tensor:
+        """Every head on the home device, each from the first member that
+        holds it."""
+        pieces, top = [], 0
+        for p, (lo, hi) in zip(self.parts, self.ranges):
+            if hi > top:
+                pieces.append(p[..., top - lo:, :].to(self.parts[0].device))
+                top = hi
+        return torch.cat(pieces, dim=-2)
+
+
+def whole(t):
+    """A cache tensor whole on one device (``HeadSplit.whole``)."""
+    return t.whole() if isinstance(t, HeadSplit) else t
+
+
+def _kv_range(i: int, n: int, spec: A.AttnSpec, kv_split: bool) -> tuple[int, int]:
+    """[lo, hi) of the KV heads member i of n reads: its own where the KV
+    heads split, else the KV heads of its query heads."""
+    if kv_split:
+        return i * spec.n_kv_heads // n, (i + 1) * spec.n_kv_heads // n
+    hq, g = spec.n_heads // n, spec.n_heads // spec.n_kv_heads
+    lo, hi = i * hq // g, ((i + 1) * hq - 1) // g + 1
+    if hq % (hi - lo) or (hq >= g and hq % g) or (hq < g and g % hq):
+        raise NotImplementedError(f"{hq} query heads a member do not map onto whole KV groups of {g}")
+    return lo, hi
+
+
+def kv_ranges(ga: GroupParams, spec: A.AttnSpec) -> Optional[list[tuple[int, int]]]:
+    """Each member's ``_kv_range`` in an attention layer ``ga``, or None
+    where the heads do not divide the group (attention runs once, on the
+    home device)."""
+    if not _split(ga.specs["wq"], 1):
+        return None
+    kv_split, n = _split(ga.specs["wk"], 1), len(ga.devices)
+    return [_kv_range(i, n, spec, kv_split) for i in range(n)]
+
+
+def init_caches(gp: GroupParams, cfg, batch: int, max_seq: int, *, stacked: bool = False):
+    """Zeroed bf16 serve caches of a backbone split over ``gp``'s group:
+    one {"k", "v"} dict a layer (``lm.init_serve_caches``' layout) or, with
+    ``stacked``, two (L, batch, max_seq, n_kv, hd) tensors
+    (``lm.init_stacked_caches``'). Each is a ``HeadSplit`` of the heads
+    each member reads, or whole on the home device where heads do not
+    divide. Attention-only stacks (``require_supported``)."""
+    require_supported(cfg)
+    spec = A.AttnSpec.from_config(cfg, local=False)   # local layers' heads are the same
+    ranges = kv_ranges(gp["stack"][0]["attn"], spec)
+    lead = (cfg.n_layers,) if stacked else ()
+
+    def zeros(heads, dev):
+        return torch.zeros(lead + (batch, max_seq, heads, spec.head_dim), dtype=torch.bfloat16, device=dev)
+
+    def kv():
+        if ranges is None:
+            return zeros(spec.n_kv_heads, gp.home)
+        return HeadSplit([zeros(hi - lo, d) for (lo, hi), d in zip(ranges, gp.devices)], ranges)
+
+    if stacked:
+        return {"k": kv(), "v": kv()}
+    return [{"k": kv(), "v": kv()} for _ in range(cfg.n_layers)]
+
+
+def _member_cache(cache, i: int, lo: int, hi: int):
+    """Member i's {"k", "v"}: its ``HeadSplit`` parts, heads [lo, hi)."""
+    if cache is None:
+        return None
+    if not isinstance(cache["k"], HeadSplit):
+        raise ValueError("a group whose heads split takes caches split by heads: make them with params= "
+                         "(lm.init_serve_caches, lm.init_stacked_caches)")
+    if cache["k"].ranges[i] != (lo, hi):
+        raise ValueError(f"member {i} reads KV heads {(lo, hi)}, its cache part holds {cache['k'].ranges[i]}")
+    return {n: cache[n].parts[i] for n in ("k", "v")}
+
+
+def _full_proj(ga: GroupParams, name: str, xs: list[torch.Tensor]) -> torch.Tensor:
+    """A projection whose heads are not split, on the home device: the
+    members' ``d_model`` partials summed, or member 0's where the weight is
+    replicated."""
+    spec = ga.specs[name]
+    if _split(spec, 0):
+        w = ga.members[0][name].shape[0]
+        return reduce([A._proj(x[..., i * w:(i + 1) * w], m[name])
+                       for i, (x, m) in enumerate(zip(xs, ga.members))], ga.home)
+    return A._proj(xs[0], ga.local[name])
+
+
+def attention(ga: GroupParams, x: torch.Tensor, spec: A.AttnSpec, mode: str, cache=None, pos=None):
+    """One attention layer over the group: (y (b, s, d) on the home device,
+    cache)."""
+    n, home = len(ga.devices), ga.home
+    positions = A.query_positions(x, mode, pos)
+    xs = [x.to(d) for d in ga.devices]
+    rope = dict(theta=spec.rope_theta, rope_pct=spec.rope_pct)
+    if not _split(ga.specs["wq"], 1):
+        # heads do not divide the group: d_model split, attention once
+        q, k, v = (_full_proj(ga, w, xs) for w in ("wq", "wk", "wv"))
+        q, k = apply_rope(q, positions, **rope), apply_rope(k, positions, **rope)
+        o, cache = A.attend(q, k, v, spec, mode, cache, pos)
+        if _split(ga.specs["wo"], 2):
+            return torch.cat([A._out(o.to(d), m["wo"]).to(home) for m, d in zip(ga.members, ga.devices)],
+                             dim=-1), cache
+        return A._out(o, ga.local["wo"]), cache
+    kv_split = _split(ga.specs["wk"], 1)
+    if not kv_split:
+        k_all, v_all = _full_proj(ga, "wk", xs), _full_proj(ga, "wv", xs)
+        k_all = apply_rope(k_all, positions, **rope)
+    parts = []
+    for i, (m, dev) in enumerate(zip(ga.members, ga.devices)):
+        lo, hi = _kv_range(i, n, spec, kv_split)
+        pos_i = positions.to(dev)
+        q = apply_rope(A._proj(xs[i], m["wq"]), pos_i, **rope)
+        if kv_split:
+            k = apply_rope(A._proj(xs[i], m["wk"]), pos_i, **rope)
+            v = A._proj(xs[i], m["wv"])
+        else:
+            # the whole K/V: this member's query heads read KV heads [lo, hi)
+            k, v = k_all[:, :, lo:hi].to(dev), v_all[:, :, lo:hi].to(dev)
+        local_spec = dataclasses.replace(spec, n_heads=spec.n_heads // n, n_kv_heads=hi - lo)
+        o, _ = A.attend(q, k, v, local_spec, mode, _member_cache(cache, i, lo, hi),
+                        pos.to(dev) if isinstance(pos, torch.Tensor) else pos)
+        parts.append(A._out(o, m["wo"]))
+    return reduce(parts, home), cache
+
+
+# ---------------------------------------------------------------------------
+# FFN and MoE
+# ---------------------------------------------------------------------------
+
+
+def ffn(gf: GroupParams, z: torch.Tensor, *, act: str, gated: bool) -> torch.Tensor:
+    """Column split ``w_gate``/``w_up``, row split ``w_down``: the members'
+    partials summed; a replicated FFN runs on the home device."""
+    if not _split(gf.specs["w_up"], 1):
+        return FFN.ffn(gf.local, z, act=act, gated=gated)
+    return reduce([FFN.ffn(m, z.to(d), act=act, gated=gated) for m, d in zip(gf.members, gf.devices)], gf.home)
+
+
+def moe_ffn(gm: GroupParams, x: torch.Tensor, mcfg, *, act: str):
+    """The MoE FFN over the group: (y, aux) as ``moe.moe_ffn``."""
+    orig_shape = x.shape
+    s, d = x.shape[-2], x.shape[-1]
+    xg = x.reshape(-1, s, d)
+    disp = MOE.dispatch(gm.local["router"], xg, mcfg)
+    c, n = disp["c"], len(gm.devices)
+    wspec = gm.specs["w_gate"]
+    shared_split = mcfg.n_shared and _split(gm.specs["shared"]["w_up"], 1)
+    if not (_split(wspec, 0) or _split(wspec, 2)):
+        y = MOE.combine(MOE.expert_outputs(gm.local, xg, disp["slot_token"], disp["slot_valid"], c, act=act), disp)
+    else:
+        parts = []
+        for i, (m, dev) in enumerate(zip(gm.members, gm.devices)):
+            e_loc = m["w_gate"].shape[0]
+            lo = i * e_loc * c if _split(wspec, 0) else 0
+            mine = {k: v.to(dev) for k, v in disp.items() if k != "c"}
+            xd = xg.to(dev)
+            ye = MOE.expert_outputs(m, xd, mine["slot_token"][:, lo:lo + e_loc * c],
+                                    mine["slot_valid"][:, lo:lo + e_loc * c], c, act=act)
+            y_i = MOE.combine(ye, mine, lo)
+            if shared_split:
+                y_i = y_i + FFN.ffn(m["shared"], xd, act=act, gated=True)
+            parts.append(y_i)
+        y = reduce(parts, gm.home)
+    if mcfg.n_shared and not shared_split:
+        y = y + FFN.ffn(gm.local["shared"], xg, act=act, gated=True)
+    return y.reshape(orig_shape), MOE.aux_loss(disp, mcfg)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def block_forward(kind: str, gp: GroupParams, h: torch.Tensor, cfg, *, mode: str, cache=None, pos=None):
+    """``blocks.block_forward`` of one layer split over the group: (h_out,
+    cache, moe aux or None), everything on the home device."""
+    from repro_torch.models.blocks import ATTN_KINDS, _norm
+
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(f"a {kind} block on a model group is not ported ({RECURRENT_SLICE})")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
+    p = gp.local
+    x = _norm(cfg, p["norm1"], h)
+    spec = A.AttnSpec.from_config(cfg, local=(kind == "attn_local"))
+    y, cache = attention(gp["attn"], x, spec, mode, cache, pos)
+    if "post_norm1" in p:
+        y = _norm(cfg, p["post_norm1"], y)
+    h = h + y
+    aux: Optional[torch.Tensor] = None
+    if "moe" in p or "ffn" in p:
+        z = _norm(cfg, p["norm2"], h)
+        if "moe" in p:
+            y2, aux = moe_ffn(gp["moe"], z, cfg.moe, act=cfg.ffn_activation)
+        else:
+            y2 = ffn(gp["ffn"], z, act=cfg.ffn_activation, gated=cfg.ffn_gated)
+        if "post_norm2" in p:
+            y2 = _norm(cfg, p["post_norm2"], y2)
+        h = h + y2
+    return h, cache, aux
+
+
+def require_supported(cfg) -> None:
+    """Raise for a stack a model group cannot run yet (recurrent mixers)."""
+    from repro_torch.models.blocks import ATTN_KINDS
+
+    kinds = sorted(set(cfg.layer_kinds()) - set(ATTN_KINDS))
+    if kinds:
+        raise NotImplementedError(f"{cfg.name}: {kinds} blocks on a model group are not ported ({RECURRENT_SLICE})")

@@ -13,7 +13,8 @@
     travels in its checkpoint, so ``SessionSupervisor``'s ``make_runtime``
     may build its runtime over fewer devices after a failure: restored shard
     ``s`` lands on ``devices[s % len(devices)]`` and the run continues
-    bitwise. A model axis above 1 raises (slice 7b of the port).
+    bitwise. ``elastic_remesh`` keeps a model axis and shrinks the data
+    axis.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from repro_torch.checkpoint.checkpoint import (
     restore_runtime_session,
     save_runtime_session,
 )
-from repro_torch.runtime.sharding import MODEL_AXIS_SLICE, Mesh, make_mesh
+from repro_torch.runtime.sharding import Mesh, make_mesh
 
 Params = Any
 
@@ -67,9 +68,8 @@ def healthy_mesh_shape(n_devices: int, model_parallel: int) -> tuple[int, int]:
 
 def elastic_remesh(model_parallel: int, devices=None) -> Mesh:
     """The (data, model) mesh over the surviving ``devices`` (default: every
-    CUDA device). Model parallel 1 only: a larger model axis is slice 7b."""
-    if model_parallel > 1:
-        raise NotImplementedError(f"elastic_remesh(model_parallel={model_parallel}) is not ported ({MODEL_AXIS_SLICE})")
+    CUDA device): ``healthy_mesh_shape`` keeps the model axis and shrinks
+    the data axis."""
     devices = _devices(devices)
     return make_mesh(healthy_mesh_shape(len(devices), model_parallel), ("data", "model"), devices=devices)
 

@@ -73,8 +73,12 @@ def test_crash_drill_restarts_once_and_matches_the_unsupervised_run(tmp_path, ca
 
 @pytest.mark.parametrize("flags,slice_", [
     (["--devices", "3"], "must divide over 3 shards"),
-    (["--mesh", "2x1"], "slice 7b"),
-    (["--pipeline-stages", "2"], "slice 7b"),
+    (["--mesh", "1x2", "--use-kernel"], "do not run over a model axis"),
+    (["--pipeline-stages", "2"], "must equal M"),
+    (["--mesh", "1x2", "--pipeline-stages", "2"], "add --scheduler"),
+    (["--mesh", "2x2", "--pipeline-stages", "3", "--scheduler"], "must equal M"),
+    (["--mesh", "1x2", "--checkpoint-dir", "ck"], "not supported with --mesh M > 1"),
+    (["--mesh", "2xa"], "--mesh wants DxM"),
     (["--shards", "3"], "must divide over 3 shards"),
     (["--check-parity"], "1-device twin"),
     (["--elastic-devices", "1"], "requires --checkpoint-dir and --inject-failure"),

@@ -310,11 +310,13 @@ def test_runtime_front_door_and_what_it_leaves_out(sessions):
     from repro_torch.runtime.sharding import make_mesh
 
     model_axis = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
-    for kw, err, where in ((dict(mesh=model_axis), NotImplementedError, "slice 7b"),
+    for kw, err, where in ((dict(mesh=model_axis), ValueError, "use_kernel=False"),
                            (dict(placement_shards=3), ValueError, "divide over 3 shards"),
-                           (dict(pipeline_stages=2), NotImplementedError, "slice 7b")):
+                           (dict(pipeline_stages=2), ValueError, "must equal the mesh's model-axis size")):
         with pytest.raises(err, match=where):
             SessionRuntime(CFG, sl, tp, **kw0, **kw)
+    split = SessionRuntime(CFG, sl, tp, **{**kw0, "device": None}, mesh=model_axis, use_kernel=False)
+    assert split.model_parallel == 2 and split.attach_scheduler().predicted_bubble() is None
     fused = SessionRuntime(CFG, sl, tp, **kw0, decode_fuse=True)
     assert fused.decode_fuse and fused.attach_scheduler()._how == (True, True, False)
     with pytest.raises(ValueError, match="params live on"):

@@ -13,7 +13,8 @@ checkpoints, the elastic restore and the CLIs), on the CPU: counterparts of
   - ``TestShardedPool``: placement, routing, the split write-back and the
     one-shard pool surface.
   - ``TestSupervisor``: the crash drill over 2 shards, zero replay; giving up.
-  - ``make_mesh`` and the mesh helpers, and what stays with slice 7b.
+  - ``make_mesh`` and the mesh helpers; a model axis's layout and the
+    reference's refusals on it.
   - The multi-device tier in one process, over meshes that repeat the CPU
     device (the port's form of the reference's forced host devices):
     ``launch.run --devices 2 --check-parity`` prints ``parity OK``, an
@@ -298,7 +299,7 @@ class TestSupervisor:
 
 
 # ---------------------------------------------------------------------------
-# Meshes, and what stays with slice 7b
+# Meshes, and the model axis's refusals
 # ---------------------------------------------------------------------------
 
 
@@ -326,15 +327,20 @@ def test_make_mesh_validates():
 
 
 def test_model_axis_and_pipelines_name_slice_7b(tp):
+    """The model axis runs since slice 7b (``test_torch_model_axis.py`` holds
+    its values): a (2, 2) mesh's layout and session, and the reference's
+    remaining refusals."""
     debug = LM.make_debug_mesh(2, 2, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        SH.session_devices(debug)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
+    assert SH.session_devices(debug) == [CPU, CPU] and SH.session_mesh_layout(debug)[:2] == (2, 2)
+    rt = SessionRuntime(CFG, _sl(), tp, max_tenants=2, samples_per_tenant=4, seq=SEQ, mesh=debug, use_kernel=False)
+    assert rt.model_parallel == 2 and rt.n_shards == 2 and rt._scope[1].mesh.axis_names == ("model",)
+    with pytest.raises(ValueError, match="use_kernel=False"):
         SessionRuntime(CFG, _sl(), tp, max_tenants=2, samples_per_tenant=4, seq=SEQ, mesh=debug)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
+    with pytest.raises(ValueError, match="must equal the mesh's model-axis size"):
         _runtime(tp, pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        elastic_remesh(2, ["cpu"] * 4)
+    assert elastic_remesh(2, ["cpu"] * 4).shape == (2, 2)
+    with pytest.raises(RuntimeError, match="cannot keep model_parallel=2"):
+        elastic_remesh(2, ["cpu"])
     with pytest.raises(ValueError, match="divide over 3 shards"):
         _runtime(tp, shards=3)
 
