@@ -229,6 +229,35 @@ Phases, each printing one line (or a few) before the last line:
      and split as it comes (``tp.init_group_params``; each card at most
      0.55 of its 83.75 GB), one ingest / adapt / serve round with its
      tok/s; on one card a line says that part did not run.
+ 16. dryrun (``dryrun_phase``; ``launch.steps``, ``launch.op_analysis``,
+     ``launch.dryrun``, ``optim.quantized``, the recurrent mixers of
+     ``models.tp``): ``dryrun.run_cell`` on the 16 x 16 meta mesh for one
+     cell of each step kind (stablelm-1.6b's six, xlstm-350m x long_500k,
+     jamba-1.5-large-398b x decode_32k), in ``DRY_WORKERS`` worker
+     processes that touch no card, each record's line printed. Meanwhile
+     stablelm-1.6b cells a card holds (``DRY_CARD``) on a 1 x 1 mesh of
+     ``[cuda:0]`` and a 1 x 2 group ``[cuda:0, cuda:0]``, each counted on
+     meta and for real under the same ``OpCounter``: dot FLOPs and
+     collective bytes equal exactly, the argument bytes equal the
+     allocator's (each storage rounded to its 512-B block; on 1 x 1 also
+     the spec trees' count), ``max_memory_allocated`` over the step within
+     ``DRY_PEAK_BAND`` of argument + new storages' peak (all members); each
+     step's device time (CUDA events after a warm-up), its MFU
+     (``roofline.mfu``) and counted dot FLOPs against ``model_flops``.
+     xlstm-350m at full width split two ways over ``[cuda:0, cuda:0]``
+     against the unsplit run: member bytes == ``per_device_bytes``; in
+     float32 a 4 x 128 prefill's logits within ``XLSTM_FP32_LOGIT_BAR``,
+     greedy grouped serve tokens equal but near ties (``_split_flips``), a
+     cached-loss step within ``XLSTM_FP32_LOSS_BAR`` / ``XLSTM_FP32_GRAD_BAR``;
+     in bf16 the split's and the unsplit run's prefill logits are printed, not
+     held to a bar (random full-width weights put the bf16 model itself 0.3
+     of the largest logit from its float32 twin). ``int8_adamw``:
+     three steps on a full-width stablelm block's parameters on the card
+     against the CPU (updates within ``QUANT_UPDATE_BAR``, moment codes at
+     most one step apart, the count printed, the moments' bytes against
+     fp32); ``compress_grads`` / ``decompress_grads`` /
+     ``error_feedback_residual`` bitwise the CPU's. No hand-written kernel
+     launches. The phase's time is printed.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
 step's must take many rows, and each ``generate_grouped`` call's and each
@@ -4464,6 +4493,298 @@ def _phi_two_cards(torch):
             f"(eager decode); peaks {peaks[0]:.2f} / {peaks[1]:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# 16. dryrun: the dry-run's cells, the recurrent mixers on a group, int8 state
+# ---------------------------------------------------------------------------
+
+#: one production cell of each step kind on the 16 x 16 meta mesh
+DRY_META = [("stablelm-1.6b", "train_4k", "train"), ("stablelm-1.6b", "train_4k", "finetune_populate"),
+            ("stablelm-1.6b", "train_4k", "finetune_cached"), ("stablelm-1.6b", "prefill_32k", "prefill"),
+            ("stablelm-1.6b", "decode_32k", "decode"), ("stablelm-1.6b", "decode_32k", "decode_adapted"),
+            ("xlstm-350m", "long_500k", "decode"), ("jamba-1.5-large-398b", "decode_32k", "decode")]
+DRY_WORKERS = 4
+#: (step kind, (batch, seq), groups): stablelm-1.6b cells a card holds;
+#: the cached step at the train phase's shape, 8 x 128 (PERF.md section 7's question)
+DRY_CARD = [("train", (8, 512), (1, 2)), ("finetune_cached", (8, 128), (1,)), ("prefill", (4, 2048), (1, 2)),
+            ("decode", (32, 2048), (1, 2))]
+DRY_PEAK_BAND = (0.8, 1.25)
+XLSTM_FP32_LOGIT_BAR = 1e-3
+XLSTM_FP32_LOSS_BAR = 1e-4
+XLSTM_FP32_GRAD_BAR = 1e-3
+QUANT_UPDATE_BAR = 1e-6
+
+
+def _dry_meta(src, arch, shape, step):
+    """A worker process's production cell on meta (no card is touched)."""
+    sys.path.insert(0, src)
+    import torch
+
+    from repro_torch.launch import dryrun as D
+
+    torch.set_num_threads(1)
+    rec = D.run_cell(arch, shape, step)
+    rec.pop("per_member")
+    return rec
+
+
+def _dry_card_cell(torch, kind, bs, n, device_name):
+    """One stablelm-1.6b cell a card holds, counted on meta and for real."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline
+    from repro_torch.launch.flops import model_flops
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.runtime import sharding as SH
+
+    cfg = get_config(ARCH)
+    cell_shape = ShapeCell(f"{kind}_{bs[0]}x{bs[1]}", "train" if kind.startswith(("train", "fine")) else
+                           ("prefill" if kind == "prefill" else "decode"), bs[1], bs[0])
+    mesh = SH.make_mesh((1, n), ("data", "model"), devices=["meta"] * n)
+    dev = torch.device("cuda", 0)
+    meta = D.count_cell(D.prepare_cell(cfg, cell_shape, kind, mesh=mesh))
+    _free_device(torch)
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    cell = D.prepare_cell(cfg, cell_shape, kind, mesh=mesh, group=[dev] * n)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_stats()["requested_bytes.all.current"] - before
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = D.count_cell(cell)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + held
+    check(held == rec["argument_bytes_all_members"], f"dryrun {kind} 1x{n}: the allocator was asked for {held} B "
+          f"of arguments, their storages hold {rec['argument_bytes_all_members']} B")
+    for f in ("dot_flops", "collective_bytes", "collective_count"):
+        check(rec[f] == meta[f], f"dryrun {kind} 1x{n}: {f} on the card {rec[f]} != meta {meta[f]}")
+    if n == 1:
+        check(rec["argument_size_in_bytes"] == rec["argument_bytes_all_members"],
+              f"dryrun {kind} 1x1: spec-tree argument bytes {rec['argument_size_in_bytes']} != the args' "
+              f"{rec['argument_bytes_all_members']}")
+    predicted = rec["argument_bytes_all_members"] + rec["peak_bytes_all_members"]
+    ratio = peak / predicted
+    check(DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1],
+          f"dryrun {kind} 1x{n}: peak {peak} B / counted {predicted} B = {ratio:.3f} outside {DRY_PEAK_BAND}")
+    # device time: a warm-up, then CUDA events around one step
+    out = cell.fn(*cell.args)
+    del out
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reps = 3 if kind != "train" else 1
+    t0.record()
+    for _ in range(reps):
+        out = cell.fn(*cell.args)
+        del out
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / reps
+    mf = model_flops(cfg, bs, kind)
+    mfu = roofline.mfu(mf, ms / 1e3)
+    line = (f"dryrun card {ARCH} {kind} {bs[0]}x{bs[1]} 1x{n} on {device_name}: meta == card (dot FLOPs "
+            f"{rec['dot_flops']:.4e}, collective bytes {rec['collective_bytes']:.4e}, {rec['collective_count']} "
+            f"collectives); arguments {held} B == the allocator's requested bytes; peak {peak / 2**30:.3f} GiB / counted "
+            f"{predicted / 2**30:.3f} GiB = {ratio:.3f}; {ms:.3f} ms a step (CUDA events, {reps} after a warm-up), "
+            f"MFU {mfu:.4f} of 989 TF/s; counted dot FLOPs / model_flops {rec['dot_flops']:.4e}"
+            f"{' (member 0)' if n > 1 else ''} / {mf:.4e} = {rec['dot_flops'] / mf:.4f}")
+    print(line, flush=True)
+    del cell
+    _free_device(torch)
+    return rec
+
+
+def _xlstm_split(torch, device_name):
+    """xlstm-350m at full width split two ways over ``[cuda:0, cuda:0]``
+    against the unsplit run (slice 7c on the card). In float32: the prefill
+    logits, greedy grouped serving and a cached-loss step within the
+    ``XLSTM_FP32_*`` bars: the checks that can catch a fault of the split.
+    In bf16, where an ulp of a partial sum grows through the exponential
+    gating, the split's and the unsplit run's prefill logits are printed
+    beside their distances from the float32 run's, with no bar: at random
+    full-width weights both lie about 0.3 of the largest logit from it, so
+    a bar there would hold nothing. Member bytes == ``per_device_bytes``
+    in both dtypes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import generate_grouped, generate_loop
+    from repro_torch.launch.serve import demo_pool
+    from repro_torch.models import lm as LM
+    from repro_torch.models import tp as TP
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.runtime import sharding as SH
+
+    dev = torch.device("cuda", 0)
+    group = [dev, dev]
+    cfg16 = get_config("xlstm-350m")
+    cfg = dataclasses.replace(cfg16, dtype="float32")
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+    pool = demo_pool(cfg, TENANTS, RANK, None, dev)
+    who = [None] + [f"tenant-{i % TENANTS}" for i in range(1, BATCH)]
+    idx = pool.lookup(who)
+    tokens = torch.randint(0, cfg.vocab_size, (2, PROMPT), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.vocab_size, (2, PROMPT), generator=gen, device=dev)
+    adapters = {"A": torch.randn((cfg.n_layers, cfg.d_model, RANK), generator=gen, device=dev) / cfg.d_model**0.5,
+                "B": torch.randn((cfg.n_layers, RANK, cfg.d_model), generator=gen, device=dev) * 0.01}
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    def prefill(p, c):
+        return LM.serve_prefill(p, c, prompts, LM.init_serve_caches(c, BATCH, PROMPT, device=dev, params=p))[0]
+
+    def member_bytes(p, c, gp):
+        mesh = SH.group_mesh(group)
+        shapes = LM.param_shapes(c)
+        want = SH.per_device_bytes(shapes, SH.param_specs(shapes, mesh), mesh)
+        got = [sum(t.numel() * t.element_size() for t in SH._leaves(m)) for m in gp.members]
+        check(all(b == want for b in got), f"xlstm split {c.dtype}: member bytes {got} != per_device_bytes {want}")
+        return got[0]
+
+    with torch.no_grad():
+        want_logits = timed("prefill 1-way fp32", lambda: prefill(params, cfg))
+        want_samples = []
+        with _sampled(torch, want_samples):
+            want_toks = timed("serve 1-way fp32 (eager loop)", lambda: generate_loop(
+                params, cfg, prompts, max_new=NEW, pools=pool.pools(), idx=idx, use_kernel=False, device=dev))
+        out = LM.lm_forward(params, cfg, tokens, mode="train", collect_acts=True)
+        acts, y_base = out["acts"], out["y_base"]
+        del out
+    want_loss = timed("loss 1-way fp32", lambda: _skip_loss(torch, params, cfg, acts, y_base, labels, adapters))
+    gp = TP.group_params(params, group)
+    bytes32 = member_bytes(params, cfg, gp)
+    with torch.no_grad():
+        caches = LM.init_serve_caches(cfg, BATCH, PROMPT, device=dev, params=gp)
+        check(isinstance(caches[0]["c"], TP.HeadSplit) and isinstance(caches[0]["conv"], TP.HeadSplit),
+              "xlstm split: the mLSTM states are not split over the members")
+        got_logits = timed("prefill split fp32", lambda: LM.serve_prefill(gp, cfg, prompts, caches)[0])
+        got_samples = []
+        with _sampled(torch, got_samples):
+            got_toks = timed("serve split fp32", lambda: generate_grouped(
+                gp, cfg, prompts, pool.pools(), idx, max_new=NEW, use_kernel=False, device=dev))
+    logit_err = _rel_max(torch, got_logits, want_logits)
+    check(logit_err <= XLSTM_FP32_LOGIT_BAR, f"xlstm split fp32 prefill logits: {logit_err:.3e} > "
+          f"{XLSTM_FP32_LOGIT_BAR}")
+    flips = _split_flips(torch, want_toks.cpu(), got_toks.cpu(), want_samples, got_samples)
+    del want_samples, got_samples, caches
+    got_loss = timed("loss split fp32", lambda: _skip_loss(torch, gp, cfg, acts, y_base, labels, adapters))
+    loss_err = abs(got_loss[0].item() - want_loss[0].item()) / abs(want_loss[0].item())
+    grad_err = max(_rel_max(torch, g, w) for g, w in zip(got_loss[1:], want_loss[1:]))
+    check(loss_err <= XLSTM_FP32_LOSS_BAR and grad_err <= XLSTM_FP32_GRAD_BAR,
+          f"xlstm split fp32 cached-loss step: loss {loss_err:.3e} (bar {XLSTM_FP32_LOSS_BAR}), gradients "
+          f"{grad_err:.3e} (bar {XLSTM_FP32_GRAD_BAR})")
+    del gp, acts, y_base
+    # bf16, the deployed dtype: the split's distance from the float32 logits
+    # against the unsplit bf16 run's
+    p16 = tree_map(lambda t, like: t.to(like.dtype), params, LM.param_shapes(cfg16))
+    del params
+    with torch.no_grad():
+        l16 = prefill(p16, cfg16)
+        gp16 = TP.group_params(p16, group)
+        bytes16 = member_bytes(p16, cfg16, gp16)
+        s16 = prefill(gp16, cfg16)
+    noise, split16, diff16 = (_rel_max(torch, l16, want_logits), _rel_max(torch, s16, want_logits),
+                              _rel_max(torch, s16, l16))
+    del p16, gp16
+    _free_device(torch)
+    return (f"dryrun 7c xlstm-350m full width split 2 ways over [cuda:0, cuda:0] on {device_name}: member bytes "
+            f"{bytes32} (fp32) / {bytes16} (bf16) each == per_device_bytes; fp32: prefill logits ({BATCH}x{PROMPT}) "
+            f"max diff / max |logit| {logit_err:.3e} (bar {XLSTM_FP32_LOGIT_BAR}), grouped serve ({NEW} new, greedy, "
+            f"float pool, use_kernel=False) tokens equal{' except near ties: ' + '; '.join(flips) if flips else ''}, "
+            f"cached-loss step loss rel diff {loss_err:.3e} (bar {XLSTM_FP32_LOSS_BAR}), gradients {grad_err:.3e} "
+            f"(bar {XLSTM_FP32_GRAD_BAR}); bf16 (printed, no bar): split vs unsplit logits {diff16:.3e}, split vs "
+            f"fp32 {split16:.3e}, unsplit vs fp32 {noise:.3e}; host s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+
+
+def _quantized_check(torch, device_name):
+    """``optim.quantized`` on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as B
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import optimizers as O
+    from repro_torch.optim import quantized as Q
+
+    cfg = get_config(ARCH)
+    gen = torch.Generator().manual_seed(13)
+    block = B.init_block(gen, "attn", 0, cfg, LM.model_dtype(cfg))          # on the CPU, seeded
+    cpu = O.tree_map(lambda p: p.float(), block)
+    card = O.tree_map(lambda p: p.cuda(), cpu)
+    grads = [O.tree_map(lambda p: torch.randn(p.shape, generator=gen) * 1e-3, cpu) for _ in range(3)]
+    opts = Q.int8_adamw(1e-3, weight_decay=0.1)
+    states = [opts.init(cpu), opts.init(card)]
+    worst, steps_apart, n_codes = 0.0, 0, 0
+    for g in grads:
+        u_cpu, states[0] = opts.update(g, states[0], cpu)
+        u_gpu, states[1] = opts.update(O.tree_map(lambda t: t.cuda(), g), states[1], card)
+        for a, b in zip(O.tree_leaves(u_cpu), O.tree_leaves(u_gpu)):
+            worst = max(worst, ((b.cpu() - a).abs().max() / a.abs().max().clamp(min=1e-30)).item())
+        for mom in ("mu", "nu"):
+            for a, b in zip(O.tree_leaves(getattr(states[0], mom)), O.tree_leaves(getattr(states[1], mom))):
+                if a.dtype == torch.int8:
+                    d = (b.cpu().int() - a.int()).abs()
+                    check(int(d.max()) <= 1, f"int8_adamw: {mom} codes {int(d.max())} steps apart on the card")
+                    steps_apart += int((d > 0).sum())
+                    n_codes += a.numel()
+        cpu, card = O.apply_updates(cpu, u_cpu), O.apply_updates(card, u_gpu)
+    check(worst <= QUANT_UPDATE_BAR, f"int8_adamw: updates {worst:.3e} apart (bar {QUANT_UPDATE_BAR})")
+    q8 = sum(t.numel() * t.element_size() for t in O.tree_leaves(states[1].mu))
+    f32 = sum(t.numel() * 4 for t in O.tree_leaves(cpu))
+    g = O.tree_map(lambda p: torch.randn(p.shape, generator=gen), cpu)
+    c_cpu, c_gpu = Q.compress_grads(g), Q.compress_grads(O.tree_map(lambda t: t.cuda(), g))
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(O.tree_leaves([c_cpu.q, c_cpu.scale]),
+                                                        O.tree_leaves([c_gpu.q, c_gpu.scale])))
+    back = all(torch.equal(a, b.cpu()) for a, b in zip(O.tree_leaves(Q.decompress_grads(c_cpu, g)), O.tree_leaves(
+        Q.decompress_grads(c_gpu, O.tree_map(lambda t: t.cuda(), g)))))
+    w = g["attn"]["wq"]
+    vals, ix = Q.topk_sparsify(w, 0.01)
+    res_cpu = Q.error_feedback_residual(w, vals, ix)
+    res_gpu = Q.error_feedback_residual(w.cuda(), vals.cuda(), ix.cuda())
+    check(same and back and torch.equal(res_cpu, res_gpu.cpu()),
+          f"compress_grads bitwise {same}, decompress {back}, error-feedback residual "
+          f"{torch.equal(res_cpu, res_gpu.cpu())}")
+    return (f"dryrun int8_adamw {ARCH} block 0 ({sum(t.numel() for t in O.tree_leaves(cpu))} parameters), 3 steps "
+            f"on {device_name} against the CPU: updates max diff / max {worst:.3e} (bar {QUANT_UPDATE_BAR}); "
+            f"{steps_apart} of {n_codes} moment codes (3 steps, mu and nu) one step apart (none further); moments {q8} B int8 + scales "
+            f"against {f32} B fp32: {f32 / q8:.3f}x smaller; compress_grads / decompress_grads / "
+            f"error_feedback_residual bitwise the CPU's")
+
+
+def dryrun_phase(torch, device_name):
+    """The dry-run (phase 16 of the module docstring)."""
+    import concurrent.futures
+    import multiprocessing
+
+    t_phase = time.perf_counter()
+    _reset_launches()
+    for kind, bs, groups in DRY_CARD:
+        for n in groups:
+            _dry_card_cell(torch, kind, bs, n, device_name)
+    t_card = time.perf_counter() - t_phase
+    pool = concurrent.futures.ProcessPoolExecutor(max_workers=DRY_WORKERS,
+                                                  mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futs = [pool.submit(_dry_meta, str(SRC), *c) for c in DRY_META]
+        print(_xlstm_split(torch, device_name), flush=True)
+        print(_quantized_check(torch, device_name), flush=True)
+        meta = [f.result(timeout=600) for f in futs]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    check(not any(_launches().values()), f"dryrun: hand-written kernels launched {_launches()}")
+    for rec in meta:
+        check("error" not in rec and rec["dot_flops"] > 0, f"dryrun meta cell {rec}")
+        print("dryrun meta " + json.dumps(rec, sort_keys=True))
+    print(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s (card cells {t_card:.1f} s; {len(DRY_META)} meta "
+          f"cells on the 16x16 mesh in {DRY_WORKERS} worker processes, counts not timings); no hand-written kernel "
+          f"launched")
+
+
 def _tensor_core_ptxas(logs):
     """One line per instantiation of the tensor-core kernels from nvcc's
     ``-Xptxas -v`` output (registers, shared memory, spills): K4's bf16
@@ -4561,6 +4882,7 @@ def main() -> None:
     tooling_phase(torch, smi)
     families_launches = families_phase(torch, smi)
     model_axis_phase(torch, smi)
+    dryrun_phase(torch, smi)
     # each kernel's launches over every main path that runs it
     for counts in (fleet_launches, serve_launches, session_launches, shard_launches, sched_launches,
                    families_launches):

@@ -375,7 +375,6 @@ class SessionRuntime:
             if use_kernel:
                 raise ValueError("the grouped skip-LoRA kernels do not run over a model axis; build "
                                  "(data, model) sessions with use_kernel=False")
-            TP.require_supported(cfg)
             subs = [SH.shard_submesh(mesh, g) for g in range(n_groups)]
             self._scope = [SH.ShardScope(subs[s % n_groups]) for s in range(self.n_shards)]
             split = [params] if TP.is_group(params) else [TP.group_params(params, list(sm.devices)) for sm in subs]

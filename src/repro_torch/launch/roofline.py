@@ -22,8 +22,8 @@ TB/s; NVLink 4 900 GB/s both ways, 450 GB/s in one direction. The SXM
 card's power limit is 700 W; a card set lower runs slower under load, so
 a measured share names the limit it was taken at.
 
-Usage (a records JSON; the port writes none yet, so ``--in`` has no
-default):
+Usage (the records of the port's dry-run, ``launch.dryrun --out``):
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out RECORDS.json
     PYTHONPATH=src python -m repro_torch.launch.roofline --in RECORDS.json --md
 """
 
@@ -110,7 +110,8 @@ def to_markdown(rows: list[dict]) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--in", dest="inp", required=True, help="records JSON (a list of records)")
+    ap.add_argument("--in", dest="inp", required=True,
+                    help="records JSON (a list of records), as launch.dryrun --out writes them")
     ap.add_argument("--out", default=None, help="write analyzed JSON here")
     ap.add_argument("--md", action="store_true", help="print markdown table")
     ap.add_argument("--mesh", default=None, help="filter: keep records of this mesh only")

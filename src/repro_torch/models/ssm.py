@@ -16,6 +16,9 @@ serve cache in place, as the attention caches are updated.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import math
 from typing import Any, Optional
 
@@ -26,6 +29,52 @@ from repro_torch.models.config import MambaConfig, ModelConfig, XLSTMConfig
 from repro_torch.models.ffn import _normal
 
 Params = Any
+
+#: ``sample_time_loops(k)`` (a dry-run's counter, ``launch.op_analysis.
+#: count``) sets itself here: a time loop over more than ``k`` positions then
+#: issues its first ``k`` steps only, and records its length.
+_LOOP_SAMPLE: contextvars.ContextVar = contextvars.ContextVar("ssm_loop_sample", default=None)
+
+
+@dataclasses.dataclass
+class LoopSample:
+    steps: int
+    lengths: set = dataclasses.field(default_factory=set)   # of the loops cut short
+
+
+@contextlib.contextmanager
+def sample_time_loops(steps: int):
+    """Inside, each time loop over ``s > steps`` positions issues steps
+    ``0 .. steps - 1`` and ``stack_steps`` pads their outputs to ``s`` with
+    zeros: every count is then affine in ``steps`` (a first step, ``steps -
+    2`` middle ones, a last one), so two runs give the whole loop's."""
+    sample = LoopSample(steps)
+    token = _LOOP_SAMPLE.set(sample)
+    try:
+        yield sample
+    finally:
+        _LOOP_SAMPLE.reset(token)
+
+
+def time_steps(s: int) -> range:
+    """The steps of a recurrence over ``s`` positions: ``range(s)``, or its
+    first ones inside ``sample_time_loops``."""
+    sample = _LOOP_SAMPLE.get()
+    if sample is None or s <= sample.steps:
+        return range(s)
+    sample.lengths.add(s)
+    return range(sample.steps)
+
+
+def stack_steps(outs: list, s: int) -> torch.Tensor:
+    """A loop's per-step outputs stacked on dim 1, ``s`` of them: those of a
+    sampled loop and zeros for the steps it did not issue (one ``cat``
+    reads and writes what ``stack`` would)."""
+    if len(outs) == s:
+        return torch.stack(outs, dim=1)
+    first = outs[0]
+    pad = torch.zeros((first.shape[0], s - len(outs), *first.shape[1:]), dtype=first.dtype, device=first.device)
+    return torch.cat([o.unsqueeze(1) for o in outs] + [pad], dim=1)
 
 
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None):
@@ -77,40 +126,54 @@ def init_mamba_state(batch: int, cfg: ModelConfig, dtype, *, device=None) -> Par
     }
 
 
-def _mamba_scan_inputs(params: Params, x: torch.Tensor, cfg: ModelConfig, conv_state):
-    """Shared projections of the seq and step forms. x: (B,S,D)."""
-    mc = cfg.mamba or MambaConfig()
-    dtype = x.dtype
-    di = mc.d_inner(cfg.d_model)
-    xin, z = torch.chunk(x @ params["in_proj"].to(dtype), 2, dim=-1)
+def mamba_conv(params: Params, xin: torch.Tensor, conv_state=None):
+    """The causal conv and SiLU over (a slice of) d_inner: (xc, new conv
+    window)."""
     xc, new_conv = _causal_conv1d(xin, params["conv_w"], conv_state)
-    xc = F.silu(xc)
-    proj = xc @ params["x_proj"].to(dtype)
-    dt_rank = params["dt_proj"].shape[0]
-    dt_r, b, c = torch.split(proj, [dt_rank, mc.d_state, proj.shape[-1] - dt_rank - mc.d_state], dim=-1)
-    dt = F.softplus(dt_r @ params["dt_proj"].to(dtype) + params["dt_bias"].to(dtype))
-    return xc, z, dt, b, c, new_conv, di
+    return F.silu(xc), new_conv
+
+
+def mamba_split_proj(proj: torch.Tensor, dt_rank: int, d_state: int):
+    """``xc @ x_proj`` -> (dt_low, B, C)."""
+    return torch.split(proj, [dt_rank, d_state, proj.shape[-1] - dt_rank - d_state], dim=-1)
+
+
+def mamba_dt(params: Params, dt_r: torch.Tensor) -> torch.Tensor:
+    dtype = dt_r.dtype
+    return F.softplus(dt_r @ params["dt_proj"].to(dtype) + params["dt_bias"].to(dtype))
+
+
+def mamba_scan(params: Params, xc, z, dt, b, c, h=None):
+    """The selective scan over time on (a slice of) d_inner, then the skip
+    and the gate: (y (B,S,Di) in xc's dtype, final fp32 state (B,Di,N))."""
+    a = -torch.exp(params["a_log"].float())                         # (Di, N) fp32
+    if h is None:
+        h = torch.zeros((xc.shape[0], xc.shape[2], a.shape[1]), dtype=torch.float32, device=xc.device)
+    dt_f, b_f, c_f, xc_f = dt.float(), b.float(), c.float(), xc.float()
+    ys = []
+    for t in time_steps(xc.shape[1]):
+        da = torch.exp(dt_f[:, t, :, None] * a[None])               # (B,Di,N)
+        dbx = dt_f[:, t, :, None] * b_f[:, t, None, :] * xc_f[:, t, :, None]
+        h = da * h + dbx
+        ys.append(torch.einsum("bdn,bn->bd", h, c_f[:, t]).to(xc.dtype))
+    y = stack_steps(ys, xc.shape[1]) + xc * params["d_skip"].to(xc.dtype)
+    return y * F.silu(z), h
+
+
+def mamba_mix(params: Params, xin: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, state: Optional[Params] = None):
+    """The mixer after ``in_proj``: conv, projections, scan, gate and
+    ``out_proj`` -> (out, final state)."""
+    mc = cfg.mamba or MambaConfig()
+    xc, new_conv = mamba_conv(params, xin, state["conv"] if state is not None else None)
+    dt_r, b, c = mamba_split_proj(xc @ params["x_proj"].to(xc.dtype), params["dt_proj"].shape[0], mc.d_state)
+    y, h = mamba_scan(params, xc, z, mamba_dt(params, dt_r), b, c, state["ssm"] if state is not None else None)
+    return y @ params["out_proj"].to(xc.dtype), {"ssm": h, "conv": new_conv}
 
 
 def mamba_seq(params: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[Params] = None):
     """Full-sequence selective scan. x: (B,S,D) -> (y, final state)."""
-    mc = cfg.mamba or MambaConfig()
-    conv_state = state["conv"] if state is not None else None
-    xc, z, dt, b, c, new_conv, di = _mamba_scan_inputs(params, x, cfg, conv_state)
-    a = -torch.exp(params["a_log"].float())                         # (Di, N) fp32
-    h = state["ssm"] if state is not None else torch.zeros(
-        (x.shape[0], di, mc.d_state), dtype=torch.float32, device=x.device)
-    dt_f, b_f, c_f, xc_f = dt.float(), b.float(), c.float(), xc.float()
-    ys = []
-    for t in range(x.shape[1]):
-        da = torch.exp(dt_f[:, t, :, None] * a[None])               # (B,Di,N)
-        dbx = dt_f[:, t, :, None] * b_f[:, t, None, :] * xc_f[:, t, :, None]
-        h = da * h + dbx
-        ys.append(torch.einsum("bdn,bn->bd", h, c_f[:, t]).to(x.dtype))
-    y = torch.stack(ys, dim=1) + xc * params["d_skip"].to(x.dtype)
-    y = y * F.silu(z)
-    out = y @ params["out_proj"].to(x.dtype)
-    return out, {"ssm": h, "conv": new_conv}
+    xin, z = torch.chunk(x @ params["in_proj"].to(x.dtype), 2, dim=-1)
+    return mamba_mix(params, xin, z, cfg, state)
 
 
 def mamba_step(params: Params, x: torch.Tensor, cfg: ModelConfig, state: Params):
@@ -162,35 +225,34 @@ def _sqrt_in(n: int, dtype) -> float:
     return torch.sqrt(torch.tensor(float(n)).to(dtype).float()).to(dtype).item()
 
 
-def mlstm_seq(params: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[Params] = None):
-    """Full-sequence mLSTM with stabilised exponential gating."""
-    xc_cfg = cfg.xlstm or XLSTMConfig()
-    dtype = x.dtype
-    b, s, d = x.shape
-    di = int(d * xc_cfg.mlstm_proj_factor)
-    nh = cfg.n_heads
-    hd = di // nh
+def mlstm_conv(params: Params, a_in: torch.Tensor, conv_state=None):
+    a_c, new_conv = _causal_conv1d(a_in, params["conv_w"], conv_state)
+    return F.silu(a_c), new_conv
 
-    a_in, z = torch.chunk(x @ params["up_proj"].to(dtype), 2, dim=-1)
-    a_c, new_conv = _causal_conv1d(a_in, params["conv_w"], state["conv"] if state is not None else None)
-    a_c = F.silu(a_c)
 
-    q = torch.einsum("bsd,dnh->bsnh", a_c, params["wq"].to(dtype)).float()
-    k = (torch.einsum("bsd,dnh->bsnh", a_c, params["wk"].to(dtype)) / _sqrt_in(hd, dtype)).float()
-    v = torch.einsum("bsd,dnh->bsnh", a_in, params["wv"].to(dtype)).float()
-    ig = (a_c @ params["w_i"].to(dtype)).float()                                   # (B,S,H)
-    fg = (a_c @ params["w_f"].to(dtype)).float() + params["f_bias"].float()
-    logf_all = F.logsigmoid(fg)
+def mlstm_proj(params: Params, a_in: torch.Tensor, a_c: torch.Tensor):
+    """The head projections and gate pre-activations of (a slice of)
+    d_inner, in the model dtype: (q, k, v (B,S,H,hd), i, f (B,S,H)), k
+    not yet scaled, f without its bias."""
+    dtype = a_c.dtype
+    q = torch.einsum("bsd,dnh->bsnh", a_c, params["wq"].to(dtype))
+    k = torch.einsum("bsd,dnh->bsnh", a_c, params["wk"].to(dtype))
+    v = torch.einsum("bsd,dnh->bsnh", a_in, params["wv"].to(dtype))
+    return q, k, v, a_c @ params["w_i"].to(dtype), a_c @ params["w_f"].to(dtype)
 
-    if state is None:
-        c = torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=x.device)
-        n = torch.zeros((b, nh, hd), dtype=torch.float32, device=x.device)
-        m = torch.zeros((b, nh), dtype=torch.float32, device=x.device)
-    else:
-        c, n, m = state["c"], state["n"], state["m"]
 
+def mlstm_gates(q, k, v, ig, fg, f_bias):
+    """``mlstm_proj``'s sums -> fp32 (q, k / sqrt(hd), v, i, log f)."""
+    dtype = q.dtype
+    k = (k / _sqrt_in(q.shape[-1], dtype)).float()
+    return q.float(), k, v.float(), ig.float(), F.logsigmoid(fg.float() + f_bias.float())
+
+
+def mlstm_recur(q, k, v, ig, logf_all, c, n, m, dtype):
+    """The stabilised recurrence over time for the heads given: (h
+    (B,S,H,hd) in ``dtype``, c, n, m)."""
     hs = []
-    for t in range(s):
+    for t in time_steps(q.shape[1]):
         i_t, logf = ig[:, t], logf_all[:, t]                       # (B,H)
         m_new = torch.maximum(logf + m, i_t)
         i_p = torch.exp(i_t - m_new)
@@ -202,10 +264,34 @@ def mlstm_seq(params: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional
         den = torch.clamp(torch.abs(torch.sum(n * qf, dim=-1)), min=1.0)
         hs.append((num / den[..., None]).to(dtype))
         m = m_new
-    h = torch.stack(hs, dim=1).reshape(b, s, di)
-    h = h * F.silu(z)
+    return stack_steps(hs, q.shape[1]), c, n, m
+
+
+def mlstm_zero_state(b: int, nh: int, hd: int, device):
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.zeros((b, nh, hd, hd), **f32), torch.zeros((b, nh, hd), **f32), torch.zeros((b, nh), **f32)
+
+
+def mlstm_mix(params: Params, a_in: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
+              state: Optional[Params] = None):
+    """The cell after ``up_proj``: conv, projections, recurrence, gate and
+    ``down_proj`` -> (out, final state)."""
+    dtype = a_in.dtype
+    b, s, di = a_in.shape
+    nh = cfg.n_heads
+    a_c, new_conv = mlstm_conv(params, a_in, state["conv"] if state is not None else None)
+    q, k, v, ig, logf_all = mlstm_gates(*mlstm_proj(params, a_in, a_c), params["f_bias"])
+    c, n, m = mlstm_zero_state(b, nh, di // nh, a_in.device) if state is None else (state["c"], state["n"], state["m"])
+    h, c, n, m = mlstm_recur(q, k, v, ig, logf_all, c, n, m, dtype)
+    h = h.reshape(b, s, di) * F.silu(z)
     out = h @ params["down_proj"].to(dtype)
     return out, {"c": c, "n": n, "m": m, "conv": new_conv}
+
+
+def mlstm_seq(params: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[Params] = None):
+    """Full-sequence mLSTM with stabilised exponential gating."""
+    a_in, z = torch.chunk(x @ params["up_proj"].to(x.dtype), 2, dim=-1)
+    return mlstm_mix(params, a_in, z, cfg, state)
 
 
 def mlstm_step(params: Params, x: torch.Tensor, cfg: ModelConfig, state: Params):
@@ -257,7 +343,7 @@ def slstm_seq(params: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional
 
     h, c, n, m = st["h"].to(dtype), st["c"].float(), st["n"].float(), st["m"].float()
     hs = []
-    for t in range(s):
+    for t in time_steps(s):
         rec = torch.einsum("bnh,gnhk->bgnk", h.reshape(b, nh, hd), r)
         g = (gates_in[:, t] + rec.reshape(b, 4, d) + bias).float()
         i_raw, f_raw, z_raw, o_raw = g.unbind(1)
@@ -270,7 +356,7 @@ def slstm_seq(params: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional
         h = (torch.sigmoid(o_raw) * c / torch.clamp(n, min=1e-6)).to(dtype)
         m = m_new
         hs.append(h)
-    h_seq = torch.stack(hs, dim=1)                                                 # (B,S,D)
+    h_seq = stack_steps(hs, s)                                                     # (B,S,D)
 
     # Gated FF (factor 4/3).
     ug, uu = torch.chunk(h_seq @ params["ff_up"].to(dtype), 2, dim=-1)

@@ -36,28 +36,92 @@ summed there in member order. Activations go out to a member by a copy
     are each member's vocabulary slice, concatenated on the home device;
     the chunked loss's ``dh`` is the ordered sum of the members'
     ``dlogits_m @ table_m``.
-  - mamba, mLSTM and sLSTM mixers raise: slice 7c of the port.
+  - mamba: ``in_proj``'s column blocks gathered on the home device (an
+    all-gather), then each member runs the conv and the selective scan on
+    its slice of ``d_inner``; the ``x_proj`` partials (dt_low, B, C) and
+    ``out_proj``'s are summed. Its ``ssm`` and ``conv`` states are split by
+    ``d_inner`` over the members (``HeadSplit`` on their ``d_inner`` axis).
+  - mLSTM: ``up_proj`` gathered as mamba's ``in_proj``; each member's conv
+    on its ``d_inner`` slice; the q/k/v and gate partials summed; the
+    recurrence runs each member's heads where the heads divide the group
+    (its ``c`` split by heads), else once on the home device; ``down_proj``
+    row parallel. ``n`` and ``m`` stay whole on the home device, as the
+    reference's ``cache_specs`` keeps them.
+  - sLSTM is replicated and runs whole on the home device.
+  A recurrent mixer whose ``d_inner`` does not divide the group runs whole
+  on the home device (its weights are then replicated).
+
+Where Megatron moves data between members, ``reduce`` (an all-reduce of
+the summed tensor) and ``gather`` (an all-gather of the concatenated one)
+tell the listeners of ``on_collective`` (``launch.op_analysis``'s counter);
+the member loops set ``current_member()``, which the counter reads. Neither
+costs anything without a listener.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as FFN
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.layers import embed as _embed
 from repro_torch.models.layers import unembed as _unembed
 
 Params = Any
 
-#: the slice of the port that brings the recurrent mixers to a model group
-RECURRENT_SLICE = "slice 7c: tensor parallelism of the mamba, mLSTM and sLSTM mixers"
+#: the member whose ops run now (0, the home device, outside member loops)
+_MEMBER: contextvars.ContextVar = contextvars.ContextVar("tp_member", default=0)
+#: callables ``fn(op, tensor)`` told of every collective (``on_collective``)
+_LISTENERS: list[Callable] = []
+
+
+def current_member() -> int:
+    return _MEMBER.get()
+
+
+@contextlib.contextmanager
+def as_member(i: int):
+    """Attribute the ops issued inside to member ``i``."""
+    token = _MEMBER.set(i)
+    try:
+        yield
+    finally:
+        _MEMBER.reset(token)
+
+
+def _each(g: "GroupParams"):
+    """(i, member tree, device) over a group, with ``current_member()`` = i
+    while the caller's loop body runs."""
+    for i, (m, d) in enumerate(zip(g.members, g.devices)):
+        with as_member(i):
+            yield i, m, d
+
+
+@contextlib.contextmanager
+def on_collective(fn: Callable):
+    """Call ``fn(op, tensor)`` for every collective the group code makes:
+    ``"all-reduce"`` with the summed tensor, ``"all-gather"`` with the
+    gathered one."""
+    _LISTENERS.append(fn)
+    try:
+        yield
+    finally:
+        _LISTENERS.remove(fn)
+
+
+def _collective(op: str, t: torch.Tensor) -> torch.Tensor:
+    for fn in _LISTENERS:
+        fn(op, t)
+    return t
 
 
 class GroupParams:
@@ -136,11 +200,18 @@ def init_group_params(generator: torch.Generator, cfg, devices, prepare=None) ->
 
 
 def reduce(parts: list[torch.Tensor], home: torch.device) -> torch.Tensor:
-    """The members' partial results summed on ``home``, in member order."""
+    """The members' partial results summed on ``home``, in member order:
+    Megatron's all-reduce."""
     out = parts[0].to(home)
     for p in parts[1:]:
         out = out + p.to(home)
-    return out
+    return _collective("all-reduce", out)
+
+
+def gather(parts: list[torch.Tensor], home: torch.device, dim: int = -1) -> torch.Tensor:
+    """The members' blocks concatenated on ``home`` along ``dim``: an
+    all-gather."""
+    return _collective("all-gather", torch.cat([p.to(home) for p in parts], dim=dim))
 
 
 def _split(spec, axis: int) -> bool:
@@ -158,7 +229,7 @@ def embed(ge: GroupParams, ids: torch.Tensor, *, scale_by_sqrt_dim: bool, dtype)
     if not _split(ge.specs["table"], 0):
         return _embed(ge.local, ids, scale_by_sqrt_dim=scale_by_sqrt_dim, dtype=dtype)
     parts = []
-    for i, (m, dev) in enumerate(zip(ge.members, ge.devices)):
+    for i, m, dev in _each(ge):
         t = m["table"]
         rows = ids.to(dev) - i * t.shape[0]
         hit = (rows >= 0) & (rows < t.shape[0])
@@ -174,7 +245,7 @@ def unembed(ge: GroupParams, h: torch.Tensor) -> torch.Tensor:
     device."""
     if not _split(ge.specs["table"], 0):
         return _unembed(ge.local, h)
-    return torch.cat([_unembed(m, h.to(dev)).to(ge.home) for m, dev in zip(ge.members, ge.devices)], dim=-1)
+    return gather([_unembed(m, h.to(dev)) for _, m, dev in _each(ge)], ge.home)
 
 
 @dataclasses.dataclass
@@ -186,14 +257,18 @@ class VocabShards:
     devices: list[torch.device]
 
     def logits(self, hn: torch.Tensor, matmul) -> torch.Tensor:
-        home = hn.device
-        return torch.cat([matmul(hn.to(d), t.T).to(home) for t, d in zip(self.tables, self.devices)], dim=-1)
+        parts = []
+        for i, (t, d) in enumerate(zip(self.tables, self.devices)):
+            with as_member(i):
+                parts.append(matmul(hn.to(d), t.T))
+        return gather(parts, hn.device)
 
     def dh(self, dlogits: torch.Tensor, matmul) -> torch.Tensor:
         """sum_m dlogits[..., vocab of m] @ table_m, in member order."""
         parts, v0 = [], 0
-        for t, d in zip(self.tables, self.devices):
-            parts.append(matmul(dlogits[..., v0:v0 + t.shape[0]].to(d), t))
+        for i, (t, d) in enumerate(zip(self.tables, self.devices)):
+            with as_member(i):
+                parts.append(matmul(dlogits[..., v0:v0 + t.shape[0]].to(d), t))
             v0 += t.shape[0]
         return reduce(parts, dlogits.device)
 
@@ -212,23 +287,26 @@ def readout_table(ge: GroupParams):
 
 
 class HeadSplit:
-    """A K or V cache split by KV heads (its second-to-last dimension) over
-    a model group: ``parts[i]``, on member i's device, holds heads
-    ``ranges[i]`` = [lo, hi), the ones member i's attention reads (ranges
-    overlap where members share a KV head). Indexing the leading dimensions
-    gives a ``HeadSplit`` of the parts' views; assigning into them takes a
-    ``HeadSplit`` of the same ranges or a whole tensor (each part its
-    heads). ``whole()`` gathers it on the home device."""
+    """A cache tensor split along one axis over a model group: ``parts[i]``,
+    on member i's device, holds indices ``ranges[i]`` = [lo, hi) of axis
+    ``axis`` (negative). K and V caches split by their KV heads (axis -2;
+    the heads member i's attention reads, so ranges overlap where members
+    share a KV head); recurrent states by ``d_inner`` or heads. Indexing
+    the dimensions before ``axis`` gives a ``HeadSplit`` of the parts'
+    views; assigning into them takes a ``HeadSplit`` of the same ranges or
+    a whole tensor (each part its indices). ``whole()`` gathers it on the
+    home device."""
 
-    __slots__ = ("parts", "ranges")
+    __slots__ = ("parts", "ranges", "axis")
 
-    def __init__(self, parts: list[torch.Tensor], ranges):
-        self.parts, self.ranges = list(parts), [tuple(r) for r in ranges]
+    def __init__(self, parts: list[torch.Tensor], ranges, axis: int = -2):
+        self.parts, self.ranges, self.axis = list(parts), [tuple(r) for r in ranges], axis
 
     @property
     def shape(self) -> torch.Size:
-        s = self.parts[0].shape
-        return torch.Size((*s[:-2], self.ranges[-1][1], s[-1]))
+        s = list(self.parts[0].shape)
+        s[self.axis] = self.ranges[-1][1]
+        return torch.Size(s)
 
     def __len__(self) -> int:
         return self.parts[0].shape[0]
@@ -238,13 +316,13 @@ class HeadSplit:
 
     def _lead(self, idx, dev):
         t = idx if isinstance(idx, tuple) else (idx,)
-        if any(i is Ellipsis for i in t) or len(t) > self.parts[0].dim() - 2:
+        if any(i is Ellipsis for i in t) or len(t) > self.parts[0].dim() + self.axis:
             raise IndexError("a HeadSplit indexes its leading dimensions only")
         t = tuple(i.to(dev) if isinstance(i, torch.Tensor) else i for i in t)
         return t if isinstance(idx, tuple) else t[0]
 
     def __getitem__(self, idx) -> "HeadSplit":
-        return HeadSplit([p[self._lead(idx, p.device)] for p in self.parts], self.ranges)
+        return HeadSplit([p[self._lead(idx, p.device)] for p in self.parts], self.ranges, self.axis)
 
     def __setitem__(self, idx, value) -> None:
         if isinstance(value, HeadSplit):
@@ -252,19 +330,19 @@ class HeadSplit:
                 raise ValueError(f"heads {value.ranges} assigned into heads {self.ranges}")
             values = value.parts
         else:
-            values = [value[..., lo:hi, :] for lo, hi in self.ranges]
+            values = [value.narrow(self.axis, lo, hi - lo) for lo, hi in self.ranges]
         for p, v in zip(self.parts, values):
             p[self._lead(idx, p.device)] = v.to(p.device)
 
     def whole(self) -> torch.Tensor:
-        """Every head on the home device, each from the first member that
+        """Every index on the home device, each from the first member that
         holds it."""
         pieces, top = [], 0
         for p, (lo, hi) in zip(self.parts, self.ranges):
             if hi > top:
-                pieces.append(p[..., top - lo:, :].to(self.parts[0].device))
+                pieces.append(p.narrow(self.axis, top - lo, hi - top).to(self.parts[0].device))
                 top = hi
-        return torch.cat(pieces, dim=-2)
+        return torch.cat(pieces, dim=self.axis)
 
 
 def whole(t):
@@ -295,15 +373,19 @@ def kv_ranges(ga: GroupParams, spec: A.AttnSpec) -> Optional[list[tuple[int, int
 
 
 def init_caches(gp: GroupParams, cfg, batch: int, max_seq: int, *, stacked: bool = False):
-    """Zeroed bf16 serve caches of a backbone split over ``gp``'s group:
-    one {"k", "v"} dict a layer (``lm.init_serve_caches``' layout) or, with
-    ``stacked``, two (L, batch, max_seq, n_kv, hd) tensors
-    (``lm.init_stacked_caches``'). Each is a ``HeadSplit`` of the heads
-    each member reads, or whole on the home device where heads do not
-    divide. Attention-only stacks (``require_supported``)."""
-    require_supported(cfg)
+    """Zeroed serve caches of a backbone split over ``gp``'s group: one
+    {"k", "v"} dict an attention layer (``lm.init_serve_caches``' layout)
+    and a recurrent layer's state, or, with ``stacked`` (attention-only
+    stacks), two (L, batch, max_seq, n_kv, hd) tensors
+    (``lm.init_stacked_caches``'). A K or V cache is a ``HeadSplit`` of the
+    heads each member reads, or whole on the home device where heads do
+    not divide; a recurrent state as ``_init_state`` splits it."""
+    from repro_torch.models.blocks import ATTN_KINDS
+
+    kinds = cfg.layer_kinds()
+    attn_at = next((l for l, k in enumerate(kinds) if k in ATTN_KINDS), None)
     spec = A.AttnSpec.from_config(cfg, local=False)   # local layers' heads are the same
-    ranges = kv_ranges(gp["stack"][0]["attn"], spec)
+    ranges = kv_ranges(gp["stack"][attn_at]["attn"], spec) if attn_at is not None else None
     lead = (cfg.n_layers,) if stacked else ()
 
     def zeros(heads, dev):
@@ -316,7 +398,35 @@ def init_caches(gp: GroupParams, cfg, batch: int, max_seq: int, *, stacked: bool
 
     if stacked:
         return {"k": kv(), "v": kv()}
-    return [{"k": kv(), "v": kv()} for _ in range(cfg.n_layers)]
+    return [{"k": kv(), "v": kv()} if kind in ATTN_KINDS else _init_state(gp["stack"][l][kind], kind, cfg, batch)
+            for l, kind in enumerate(kinds)]
+
+
+def _init_state(gk: GroupParams, kind: str, cfg, batch: int) -> dict:
+    """A recurrent layer's zeroed serve state over the group, split as the
+    reference's ``cache_specs`` splits it where the mixer runs split:
+    mamba's ``ssm`` and ``conv`` and mLSTM's ``conv`` by ``d_inner``,
+    mLSTM's ``c`` by heads when they divide the group; the rest (and
+    sLSTM's whole state) on the home device."""
+    from repro_torch.models.blocks import init_block_cache
+
+    state = init_block_cache(kind, batch, 1, cfg, torch.bfloat16, device=gk.home)
+    n = len(gk.devices)
+    axes = {}
+    if kind in ("mamba", "mlstm") and _split(gk.specs["conv_w"], 1):
+        axes["conv"] = -1
+        if kind == "mamba":
+            axes["ssm"] = -2
+        elif cfg.n_heads % n == 0:
+            axes["c"] = -3
+    for name, axis in axes.items():
+        t = state[name]
+        w = t.shape[axis] // n
+        shape = list(t.shape)
+        shape[axis] = w
+        state[name] = HeadSplit([torch.zeros(shape, dtype=t.dtype, device=d) for d in gk.devices],
+                                [(i * w, (i + 1) * w) for i in range(n)], axis)
+    return state
 
 
 def _member_cache(cache, i: int, lo: int, hi: int):
@@ -338,8 +448,7 @@ def _full_proj(ga: GroupParams, name: str, xs: list[torch.Tensor]) -> torch.Tens
     spec = ga.specs[name]
     if _split(spec, 0):
         w = ga.members[0][name].shape[0]
-        return reduce([A._proj(x[..., i * w:(i + 1) * w], m[name])
-                       for i, (x, m) in enumerate(zip(xs, ga.members))], ga.home)
+        return reduce([A._proj(xs[i][..., i * w:(i + 1) * w], m[name]) for i, m, _ in _each(ga)], ga.home)
     return A._proj(xs[0], ga.local[name])
 
 
@@ -356,15 +465,14 @@ def attention(ga: GroupParams, x: torch.Tensor, spec: A.AttnSpec, mode: str, cac
         q, k = apply_rope(q, positions, **rope), apply_rope(k, positions, **rope)
         o, cache = A.attend(q, k, v, spec, mode, cache, pos)
         if _split(ga.specs["wo"], 2):
-            return torch.cat([A._out(o.to(d), m["wo"]).to(home) for m, d in zip(ga.members, ga.devices)],
-                             dim=-1), cache
+            return gather([A._out(o.to(d), m["wo"]) for _, m, d in _each(ga)], home), cache
         return A._out(o, ga.local["wo"]), cache
     kv_split = _split(ga.specs["wk"], 1)
     if not kv_split:
         k_all, v_all = _full_proj(ga, "wk", xs), _full_proj(ga, "wv", xs)
         k_all = apply_rope(k_all, positions, **rope)
     parts = []
-    for i, (m, dev) in enumerate(zip(ga.members, ga.devices)):
+    for i, m, dev in _each(ga):
         lo, hi = _kv_range(i, n, spec, kv_split)
         pos_i = positions.to(dev)
         q = apply_rope(A._proj(xs[i], m["wq"]), pos_i, **rope)
@@ -391,7 +499,7 @@ def ffn(gf: GroupParams, z: torch.Tensor, *, act: str, gated: bool) -> torch.Ten
     partials summed; a replicated FFN runs on the home device."""
     if not _split(gf.specs["w_up"], 1):
         return FFN.ffn(gf.local, z, act=act, gated=gated)
-    return reduce([FFN.ffn(m, z.to(d), act=act, gated=gated) for m, d in zip(gf.members, gf.devices)], gf.home)
+    return reduce([FFN.ffn(m, z.to(d), act=act, gated=gated) for _, m, d in _each(gf)], gf.home)
 
 
 def moe_ffn(gm: GroupParams, x: torch.Tensor, mcfg, *, act: str):
@@ -407,7 +515,7 @@ def moe_ffn(gm: GroupParams, x: torch.Tensor, mcfg, *, act: str):
         y = MOE.combine(MOE.expert_outputs(gm.local, xg, disp["slot_token"], disp["slot_valid"], c, act=act), disp)
     else:
         parts = []
-        for i, (m, dev) in enumerate(zip(gm.members, gm.devices)):
+        for i, m, dev in _each(gm):
             e_loc = m["w_gate"].shape[0]
             lo = i * e_loc * c if _split(wspec, 0) else 0
             mine = {k: v.to(dev) for k, v in disp.items() if k != "c"}
@@ -425,6 +533,130 @@ def moe_ffn(gm: GroupParams, x: torch.Tensor, mcfg, *, act: str):
 
 
 # ---------------------------------------------------------------------------
+# Recurrent mixers
+# ---------------------------------------------------------------------------
+
+
+def _cols(g: GroupParams, name: str, xs: list[torch.Tensor]) -> torch.Tensor:
+    """x @ W for a W (in, out) split on its output axis: the members'
+    column blocks gathered on the home device; a replicated W there."""
+    if not _split(g.specs[name], 1):
+        return xs[0] @ g.local[name].to(xs[0].dtype)
+    return gather([xs[i] @ m[name].to(xs[i].dtype) for i, m, _ in _each(g)], g.home)
+
+
+def _part(state, name: str, i: int):
+    """Member i's part of a state leaf (the whole leaf where it is not
+    split); None without a state."""
+    if state is None:
+        return None
+    t = state[name]
+    return t.parts[i] if isinstance(t, HeadSplit) else t
+
+
+def _split_state(state) -> None:
+    """A mixer split by ``d_inner`` takes its state split as ``_init_state``
+    splits it."""
+    if state is not None and not isinstance(state["conv"], HeadSplit):
+        raise ValueError("a group whose recurrent mixers split takes states split over its members: make them "
+                         "with params= (lm.init_serve_caches)")
+
+
+def _write_whole(state, new: dict) -> None:
+    if state is not None:
+        for name, t in new.items():
+            state[name].copy_(t)
+
+
+def mamba(gm: GroupParams, x: torch.Tensor, cfg, state=None) -> torch.Tensor:
+    """One mamba mixer over the group -> y on the home device; a serve
+    ``state`` (``_init_state``) is updated in place."""
+    xs = [x.to(d) for d in gm.devices]
+    xin, z = torch.chunk(_cols(gm, "in_proj", xs), 2, dim=-1)
+    if not _split(gm.specs["conv_w"], 1):
+        y, new = S.mamba_mix(gm.local, xin, z, cfg, state)
+        _write_whole(state, new)
+        return y
+    _split_state(state)
+    w, d_state = gm.members[0]["conv_w"].shape[1], gm.local["a_log"].shape[1]
+    xcs, convs, projs = [], [], []
+    for i, m, dev in _each(gm):
+        xc, conv = S.mamba_conv(m, xin[..., i * w:(i + 1) * w].to(dev), _part(state, "conv", i))
+        xcs.append(xc)
+        convs.append(conv)
+        projs.append(xc @ m["x_proj"].to(xc.dtype))
+    dt_r, b, c = S.mamba_split_proj(reduce(projs, gm.home), gm.local["dt_proj"].shape[0], d_state)
+    outs = []
+    for i, m, dev in _each(gm):
+        y, h = S.mamba_scan(m, xcs[i], z[..., i * w:(i + 1) * w].to(dev), S.mamba_dt(m, dt_r.to(dev)),
+                            b.to(dev), c.to(dev), _part(state, "ssm", i))
+        outs.append(y @ m["out_proj"].to(y.dtype))
+        if state is not None:
+            _part(state, "ssm", i).copy_(h)
+            _part(state, "conv", i).copy_(convs[i])
+    return reduce(outs, gm.home)
+
+
+def mlstm(gl: GroupParams, x: torch.Tensor, cfg, state=None) -> torch.Tensor:
+    """One mLSTM cell over the group -> y on the home device; a serve
+    ``state`` is updated in place."""
+    xs = [x.to(d) for d in gl.devices]
+    a_in, z = torch.chunk(_cols(gl, "up_proj", xs), 2, dim=-1)
+    if not _split(gl.specs["conv_w"], 1):
+        y, new = S.mlstm_mix(gl.local, a_in, z, cfg, state)
+        _write_whole(state, new)
+        return y
+    _split_state(state)
+    dtype, (b, s, di), n, nh, home = x.dtype, a_in.shape, len(gl.devices), cfg.n_heads, gl.home
+    w = gl.members[0]["conv_w"].shape[1]
+    a_cs, proj = [], []
+    for i, m, dev in _each(gl):
+        a_i = a_in[..., i * w:(i + 1) * w].to(dev)
+        a_c, conv = S.mlstm_conv(m, a_i, _part(state, "conv", i))
+        a_cs.append(a_c)
+        proj.append(S.mlstm_proj(m, a_i, a_c))
+        if state is not None:
+            _part(state, "conv", i).copy_(conv)
+    q, k, v, ig, logf = S.mlstm_gates(*(reduce([p[j] for p in proj], home) for j in range(5)), gl.local["f_bias"])
+    hd = q.shape[-1]
+    if state is None:
+        c0, n0, m0 = S.mlstm_zero_state(b, nh, hd, home)
+    else:
+        c0, n0, m0 = state["c"], state["n"], state["m"]
+    hs = []
+    if nh % n == 0:
+        hn = nh // n
+        for i, m, dev in _each(gl):
+            sl = slice(i * hn, (i + 1) * hn)
+            c_i = c0.parts[i] if isinstance(c0, HeadSplit) else c0[:, sl].to(dev)
+            h, c_i, n_i, m_i = S.mlstm_recur(q[:, :, sl].to(dev), k[:, :, sl].to(dev), v[:, :, sl].to(dev),
+                                             ig[:, :, sl].to(dev), logf[:, :, sl].to(dev), c_i,
+                                             n0[:, sl].to(dev), m0[:, sl].to(dev), dtype)
+            hs.append(h.reshape(b, s, w))
+            if state is not None:
+                state["c"].parts[i].copy_(c_i)
+                state["n"][:, sl].copy_(n_i)
+                state["m"][:, sl].copy_(m_i)
+    else:
+        h, c, nn, mm = S.mlstm_recur(q, k, v, ig, logf, c0, n0, m0, dtype)
+        _write_whole(state, {"c": c, "n": nn, "m": mm})
+        hs = [h.reshape(b, s, di)[..., i * w:(i + 1) * w].to(dev) for i, dev in enumerate(gl.devices)]
+    outs = [(hs[i] * torch.nn.functional.silu(z[..., i * w:(i + 1) * w].to(dev))) @ m["down_proj"].to(dtype)
+            for i, m, dev in _each(gl)]
+    return reduce(outs, home)
+
+
+def slstm(gs: GroupParams, x: torch.Tensor, cfg, state=None) -> torch.Tensor:
+    """sLSTM is replicated: the whole cell on the home device."""
+    y, new = S.slstm_seq(gs.local, x, cfg, state)
+    _write_whole(state, new)
+    return y
+
+
+_MIXERS = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}
+
+
+# ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
@@ -434,14 +666,17 @@ def block_forward(kind: str, gp: GroupParams, h: torch.Tensor, cfg, *, mode: str
     cache, moe aux or None), everything on the home device."""
     from repro_torch.models.blocks import ATTN_KINDS, _norm
 
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"a {kind} block on a model group is not ported ({RECURRENT_SLICE})")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     p = gp.local
     x = _norm(cfg, p["norm1"], h)
-    spec = A.AttnSpec.from_config(cfg, local=(kind == "attn_local"))
-    y, cache = attention(gp["attn"], x, spec, mode, cache, pos)
+    if kind in ATTN_KINDS:
+        spec = A.AttnSpec.from_config(cfg, local=(kind == "attn_local"))
+        y, cache = attention(gp["attn"], x, spec, mode, cache, pos)
+    elif kind in _MIXERS:
+        y = _MIXERS[kind](gp[kind], x, cfg, None if mode == "train" else cache)
+    else:
+        raise ValueError(kind)
     if "post_norm1" in p:
         y = _norm(cfg, p["post_norm1"], y)
     h = h + y
@@ -456,12 +691,3 @@ def block_forward(kind: str, gp: GroupParams, h: torch.Tensor, cfg, *, mode: str
             y2 = _norm(cfg, p["post_norm2"], y2)
         h = h + y2
     return h, cache, aux
-
-
-def require_supported(cfg) -> None:
-    """Raise for a stack a model group cannot run yet (recurrent mixers)."""
-    from repro_torch.models.blocks import ATTN_KINDS
-
-    kinds = sorted(set(cfg.layer_kinds()) - set(ATTN_KINDS))
-    if kinds:
-        raise NotImplementedError(f"{cfg.name}: {kinds} blocks on a model group are not ported ({RECURRENT_SLICE})")

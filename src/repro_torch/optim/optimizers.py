@@ -11,8 +11,7 @@ dtype, AdamW applies the bias correction, and
 
 as the reference writes it (``torch.optim.AdamW`` orders its arithmetic
 differently). Nothing is updated in place: each call returns new tensors.
-The reference's int8 moment quantisation (``repro.optim.quantized``) is not
-ported.
+The int8 moments are ``optim.quantized.int8_adamw``.
 """
 
 from __future__ import annotations

@@ -17,16 +17,19 @@ copied onto the group's first device and summed there in member order.
   - ``Mesh``: a numpy object array of ``torch.device`` with its axis names.
   - ``make_mesh``: the one mesh constructor. ``devices=None`` takes every CUDA
     device in order and raises when there is none (a mesh never falls back to
-    the CPU). A device may repeat only if it is ``cpu``: the port's form of the
-    reference's forced host devices, so the CPU tests run a multi-device
-    session in one process. A CUDA device listed twice raises.
+    the CPU). A device may repeat only if it is ``cpu`` or ``meta``: the
+    port's form of the reference's forced host devices, so the CPU tests run
+    a multi-device session in one process and the dry-run
+    (``launch.dryrun``) lays a production mesh over ``meta``. A CUDA device
+    listed twice raises.
   - ``session_mesh_layout`` / ``session_devices``: a session mesh's data
     groups and their devices, in shard order.
   - ``replicate_backbone``: one replica per *distinct* device; the caller's
     own tensors serve on the device they live on, so shards that share a
     device share one backbone.
 
-  - ``AxisRules`` / ``SESSION_TP_RULES``: logical axis -> mesh axis;
+  - ``AxisRules`` / ``SESSION_TP_RULES`` (and the dry-run's
+    ``FSDP_RULES_KW`` / ``EP_RULES_KW``): logical axis -> mesh axis;
     ``ShardScope``: a group's 1-D ``("model",)`` mesh and its rules, as
     data (a ``tp.GroupParams`` carries its own devices).
   - spec trees: a spec is a tuple with one entry per dimension, an axis
@@ -104,8 +107,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, devices=None) -> Mes
     devices = devices[:n]
     seen = set()
     for d in devices:
-        if d.type != "cpu" and d in seen:
-            raise ValueError(f"device {d} listed twice: only the CPU may repeat in a mesh")
+        if d.type not in ("cpu", "meta") and d in seen:
+            raise ValueError(f"device {d} listed twice: only the CPU (and meta) may repeat in a mesh")
         seen.add(d)
     grid = np.empty(n, dtype=object)
     grid[:] = devices
@@ -215,6 +218,22 @@ SESSION_TP_RULES = AxisRules(
     batch=None, seq=None, heads="model", vocab="model", ffn="model", expert="model", capacity=None,
     d_inner="model", logits_batch=None, expert_group=None, layers="model",
 )
+
+#: 'fsdp': the batch over the (data, model) grid, every weight split and
+#: gathered a layer at a time; the loss logits batch on 'data', vocab on
+#: 'model'. The reference's table, field for field.
+FSDP_RULES_KW = dict(
+    batch=("data", "model"), heads=None, vocab="model", ffn=None, expert=None, capacity=None,
+    d_inner=None, logits_batch=("data",), expert_group=("data", "model"),
+)
+
+#: 'ep': 'fsdp' for the dense path, the MoE experts on 'model' with their
+#: buffers grouped on ('pod', 'data').
+EP_RULES_KW = dict(
+    batch=("data", "model"), heads=None, vocab="model", ffn=None, expert="model", capacity=None,
+    d_inner=None, logits_batch=("data",), expert_group=("pod", "data"),
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardScope:

@@ -24,7 +24,8 @@ device:
     1.5-fold, ``predicted_bubble()`` = 1/3; the 2-D checkpoint restored
     into the 1-device twin, both continuing within the same bars; the
     refusals (``use_kernel``, N != M, a compressed pool under pipelining,
-    a cache split for another group, and the recurrent stacks: slice 7c); a
+    a cache split for another group; a recurrent stack builds, its
+    scheduler refused); a
     backbone split beforehand (``tp.GroupParams``) serving as the session
     that splits it.
   - ``launch.run --mesh 2x2 --pipeline-stages 2 --scheduler
@@ -206,13 +207,20 @@ def test_head_split_moves_rows_and_gathers_heads():
 
 
 def test_group_refusals():
+    # recurrent stacks run on a group (they raised before the mixers were
+    # split): the forward equals the unsplit one, the states split by d_inner
     cfg = reduce_config(get_config("jamba-1.5-large-398b"))
     tp = TL.init_lm(torch.Generator().manual_seed(0), cfg)
     gp = TP.group_params(tp, ["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="slice 7c"):
-        TL.lm_forward(gp, cfg, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="slice 7c"):
-        TP.require_supported(reduce_config(get_config("xlstm-350m")))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 4)))
+    _close(TL.lm_forward(gp, cfg, tokens)["h"], TL.lm_forward(tp, cfg, tokens)["h"], tol=1e-5)
+    xcfg = reduce_config(get_config("xlstm-350m"))
+    xgp = TP.group_params(TL.init_lm(torch.Generator().manual_seed(0), xcfg), ["cpu"] * 2)
+    states = TL.init_serve_caches(xcfg, 1, 6, device="cpu", params=xgp)
+    assert isinstance(states[0]["conv"], TP.HeadSplit) and states[0]["conv"].axis == -1
+    assert isinstance(states[0]["c"], TP.HeadSplit) and not isinstance(states[0]["n"], TP.HeadSplit)
+    with pytest.raises(ValueError, match="states split over its members"):
+        TL.serve_prefill(xgp, xcfg, torch.zeros((1, 4), dtype=torch.long), TL.init_serve_caches(xcfg, 1, 6, device="cpu"))
     small = reduce_config(get_config("stablelm-1.6b"))
     gp = TP.group_params(TL.init_lm(torch.Generator().manual_seed(0), small), ["cpu"] * 2)
     caches = TL.init_serve_caches(small, 1, 6, device="cpu", params=gp)
@@ -342,10 +350,14 @@ class TestSession2D:
                            pool_compress="int8")
         with pytest.raises(ValueError, match="pipelined-admission knob"):
             build().attach_scheduler(microbatch=2)
+        # a recurrent stack builds over a model axis; its scheduler is
+        # refused, as the reference's is
         jamba = reduce_config(get_config("jamba-1.5-large-398b"))
-        with pytest.raises(NotImplementedError, match="slice 7c"):
-            SessionRuntime(jamba, SL, TL.init_lm(torch.Generator().manual_seed(0), jamba), **kw, mesh=mesh,
-                           use_kernel=False)
+        rt = SessionRuntime(jamba, SL, TL.init_lm(torch.Generator().manual_seed(0), jamba), **kw, mesh=mesh,
+                            use_kernel=False)
+        assert rt.model_parallel == 2
+        with pytest.raises(NotImplementedError, match="attention"):
+            rt.attach_scheduler(max_batch=2, max_prompt=5, max_new_cap=4)
 
 
 def test_session_takes_a_backbone_split_beforehand():
