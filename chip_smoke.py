@@ -258,6 +258,23 @@ Phases, each printing one line (or a few) before the last line:
      fp32); ``compress_grads`` / ``decompress_grads`` /
      ``error_feedback_residual`` bitwise the CPU's. No hand-written kernel
      launches. The phase's time is printed.
+ 17. remat / context parallel (``remat_cp_phase``; ``models.remat``, the
+     sequence split of ``models.tp``): each rematerialised measurement of
+     the earlier phases against the same one with ``remat.region`` a plain
+     call (the un-rematerialised parent) in this process: the dry-run's
+     train 8 x 512 card cells on 1 x 1 and 1 x 2 (meta == card counts,
+     peak / counted within ``DRY_PEAK_BAND``, step ms, peak), the
+     full-backprop trainer (4 steps, losses bitwise, step ms, peak) and a
+     populate epoch of the train phase's launcher (losses bitwise, seconds).
+     paligemma-3b at full width (bf16, one KV head) split two ways over
+     ``[cuda:0, cuda:0]``, its K/V caches split by sequence: the dry-run's
+     decode 32 x 2048 card cell on the 1 x 2 group (meta == card, the
+     arguments the allocator's, each member's part 1024 positions, member
+     bytes == ``per_device_bytes``); greedy grouped serving from a 4 x 128
+     prefill, 32 new tokens, equal to the unsplit run's but near ties
+     (``_split_flips``); a reduced float32 copy's decode logits within
+     ``CP_LOGIT_BAR`` of the same group with whole caches. Host seconds, no
+     hand-written kernel launches, the phase's time.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
 step's must take many rows, and each ``generate_grouped`` call's and each
@@ -1018,6 +1035,8 @@ def _train_epochs(torch, run, what, steps):
             totals[k] += counts[k]
         check(tuple(losses.shape) == (steps,) and bool(torch.isfinite(losses).all()),
               f"{what} epoch {epoch}: losses {losses.tolist()}")
+        if epoch == 0:
+            REMAT_SEEN[what] = (times[0], losses.cpu())
         means.append(float(losses.mean()))
     falling = means[1:] if len(means) > 2 else means
     check(all(b < a for a, b in zip(falling, falling[1:])), f"{what}: mean losses {means} do not fall")
@@ -3495,6 +3514,7 @@ def _trainer_part(torch, device_name):
     check(len(losses) == steps and all(map(math.isfinite, losses)), f"train: losses {losses}")
     check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
     step_ms = 1e3 * statistics.median(per_step["step_s"][1:])
+    REMAT_SEEN["trainer"] = (losses, step_ms, peak_step)
     params = per_step["params"]
     del per_step
     torch.cuda.empty_cache()
@@ -4527,8 +4547,10 @@ def _dry_meta(src, arch, shape, step):
     return rec
 
 
-def _dry_card_cell(torch, kind, bs, n, device_name):
-    """One stablelm-1.6b cell a card holds, counted on meta and for real."""
+def _dry_card_cell(torch, kind, bs, n, device_name, arch=ARCH, tag="", inspect=None):
+    """One cell a card holds (stablelm-1.6b unless ``arch``), counted on
+    meta and for real; ``inspect(cell)`` sees the card's cell before it is
+    counted. The record gains the card's step ms, peak and peak / counted."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import roofline
@@ -4536,7 +4558,7 @@ def _dry_card_cell(torch, kind, bs, n, device_name):
     from repro_torch.launch.shapes import ShapeCell
     from repro_torch.runtime import sharding as SH
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     cell_shape = ShapeCell(f"{kind}_{bs[0]}x{bs[1]}", "train" if kind.startswith(("train", "fine")) else
                            ("prefill" if kind == "prefill" else "decode"), bs[1], bs[0])
     mesh = SH.make_mesh((1, n), ("data", "model"), devices=["meta"] * n)
@@ -4547,6 +4569,8 @@ def _dry_card_cell(torch, kind, bs, n, device_name):
     cell = D.prepare_cell(cfg, cell_shape, kind, mesh=mesh, group=[dev] * n)
     torch.cuda.synchronize()
     held = torch.cuda.memory_stats()["requested_bytes.all.current"] - before
+    if inspect is not None:
+        inspect(cell)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     rec = D.count_cell(cell)
@@ -4579,7 +4603,8 @@ def _dry_card_cell(torch, kind, bs, n, device_name):
     ms = t0.elapsed_time(t1) / reps
     mf = model_flops(cfg, bs, kind)
     mfu = roofline.mfu(mf, ms / 1e3)
-    line = (f"dryrun card {ARCH} {kind} {bs[0]}x{bs[1]} 1x{n} on {device_name}: meta == card (dot FLOPs "
+    rec.update(card_ms=ms, card_peak=peak, card_ratio=ratio)
+    line = (f"{tag}dryrun card {arch} {kind} {bs[0]}x{bs[1]} 1x{n} on {device_name}: meta == card (dot FLOPs "
             f"{rec['dot_flops']:.4e}, collective bytes {rec['collective_bytes']:.4e}, {rec['collective_count']} "
             f"collectives); arguments {held} B == the allocator's requested bytes; peak {peak / 2**30:.3f} GiB / counted "
             f"{predicted / 2**30:.3f} GiB = {ratio:.3f}; {ms:.3f} ms a step (CUDA events, {reps} after a warm-up), "
@@ -4765,7 +4790,9 @@ def dryrun_phase(torch, device_name):
     _reset_launches()
     for kind, bs, groups in DRY_CARD:
         for n in groups:
-            _dry_card_cell(torch, kind, bs, n, device_name)
+            rec = _dry_card_cell(torch, kind, bs, n, device_name)
+            if kind == "train":
+                REMAT_SEEN["card", n] = rec
     t_card = time.perf_counter() - t_phase
     pool = concurrent.futures.ProcessPoolExecutor(max_workers=DRY_WORKERS,
                                                   mp_context=multiprocessing.get_context("spawn"))
@@ -4783,6 +4810,299 @@ def dryrun_phase(torch, device_name):
     print(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s (card cells {t_card:.1f} s; {len(DRY_META)} meta "
           f"cells on the 16x16 mesh in {DRY_WORKERS} worker processes, counts not timings); no hand-written kernel "
           f"launched")
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: rematerialisation in training, and context parallelism
+# ---------------------------------------------------------------------------
+
+#: what the earlier phases measured with each period rematerialised:
+#: {"train full": (populate s, losses), "trainer": (losses, step ms, peak
+#: GiB), ("card", n): the dry-run train cell's record}
+REMAT_SEEN: dict = {}
+CP_ARCH = "paligemma-3b"
+CP_DECODE = (32, 2048)
+CP_LOGIT_BAR = 1e-5
+
+
+@contextlib.contextmanager
+def _unrematerialised():
+    """Train mode without rematerialisation, as before it was ported:
+    ``remat.region`` a plain call."""
+    from repro_torch.models import remat as RM
+
+    real = RM.region
+    RM.region = lambda fn, *args: fn(*args)
+    try:
+        yield
+    finally:
+        RM.region = real
+
+
+def _remat_part(torch, device_name):
+    """Each rematerialised measurement of the earlier phases against the
+    same one un-rematerialised (the parent), in this process, in turns:
+    the dry-run's train 8 x 512 card cells on 1 x 1 and 1 x 2 (phase 16's
+    remat run, then parent, then remat again: meta == card counts, peak /
+    counted within ``DRY_PEAK_BAND``, step ms, peak), the loss and
+    gradients of that step alone (no optimizer update: what remat keeps
+    less of), the full-backprop trainer (4 steps, losses bitwise) and a
+    populate epoch of the train phase's launcher (losses bitwise)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import finetune as FT
+    from repro_torch.launch import train as TT
+    from repro_torch.models import lm as LM
+    from repro_torch.optim.optimizers import tree_leaves
+
+    lines = []
+    for n in (1, 2):
+        first = REMAT_SEEN["card", n]
+        with _unrematerialised():
+            old = _dry_card_cell(torch, "train", (8, 512), n, device_name, tag="remat parent: ")
+        new = _dry_card_cell(torch, "train", (8, 512), n, device_name, tag="remat again: ")
+        check(new["dot_flops"] == first["dot_flops"], "remat: the dry-run train cell's counts moved between runs")
+        lines.append(f"remat dryrun card {ARCH} train 8x512 1x{n} on {device_name}: remat / parent / remat: step "
+                     f"{first['card_ms']:.1f} / {old['card_ms']:.1f} / {new['card_ms']:.1f} ms, peak "
+                     f"(max_memory_allocated) {new['card_peak'] / 2**30:.3f} / {old['card_peak'] / 2**30:.3f} GiB, "
+                     f"peak / counted {new['card_ratio']:.3f} / {old['card_ratio']:.3f}, counted temp "
+                     f"{new['temp_size_in_bytes'] / 2**30:.3f} / {old['temp_size_in_bytes'] / 2**30:.3f} GiB, "
+                     f"dot FLOPs {new['dot_flops']:.4e} / {old['dot_flops']:.4e} "
+                     f"(x{new['dot_flops'] / old['dot_flops']:.4f}), collective bytes "
+                     f"{new['collective_bytes']:.4e} / {old['collective_bytes']:.4e}")
+    # the loss and gradients alone: the activations' peak, which the
+    # optimizer update's fp32 moments hide in the cells above
+    dev = torch.device("cuda", 0)
+    cfg = get_config(ARCH)
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    grad_runs = {}
+    for name in ("parent", "remat", "remat", "parent"):
+        with _unrematerialised() if name == "parent" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad(LM.train_loss_fn(params, cfg, batch), leaves)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            if name in grad_runs:
+                check(all(torch.equal(a, b) for a, b in zip(grads, grad_runs[name][2])),
+                      f"remat: the {name} gradients moved between runs")
+            grad_runs.setdefault(name, [[], [], grads])
+            grad_runs[name][0].append(ms)
+            grad_runs[name][1].append(peak)
+            del grads
+    check(all(torch.equal(a, b) for a, b in zip(grad_runs["remat"][2], grad_runs["parent"][2])),
+          "remat: the loss's gradients differ from the parent's")
+    grad_runs["remat"][2] = grad_runs["parent"][2] = None
+    del params, leaves
+    torch.cuda.empty_cache()
+    (r_ms, r_pk, _), (p_ms, p_pk, _) = grad_runs["remat"], grad_runs["parent"]
+    lines.append(f"remat loss + gradients {ARCH} full width 8 x 512 (no optimizer update) on {device_name}: gradients "
+                 f"bitwise the parent's; peak over what the call started with {r_pk[0]:.3f} / {p_pk[0]:.3f} GiB remat / "
+                 f"parent ({r_pk[0] / p_pk[0]:.3f}); host ms (synchronised) parent, remat, remat, parent: "
+                 f"{p_ms[0]:.1f}, {r_ms[0]:.1f}, {r_ms[1]:.1f}, {p_ms[1]:.1f}")
+    losses = REMAT_SEEN["trainer"][0]
+    argv = ["--arch", ARCH, "--full", "--steps", "4", "--batch", "8", "--seq", "128", "--device", "cuda",
+            "--ckpt-every", "1000", "--log-every", "1"]
+    trainer = {}
+    for name in ("parent", "remat"):
+        with _unrematerialised() if name == "parent" else contextlib.nullcontext():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out = TT.main([*argv, "--ckpt-dir", str(TOOLING_DIR / f"remat_{name}")])
+            steps = sorted(out["step_s"][1:])
+            trainer[name] = (1e3 * steps[len(steps) // 2], torch.cuda.max_memory_allocated() / 2**30)
+            check(out["losses"] == losses, f"remat trainer ({name}): losses {out['losses']} against the tooling "
+                  f"phase's {losses}")
+            del out
+        shutil.rmtree(TOOLING_DIR / f"remat_{name}", ignore_errors=True)
+    torch.cuda.empty_cache()
+    lines.append(f"remat trainer {ARCH} full width --full, 4 steps of 8 x 128 on {device_name}: losses bitwise "
+                 f"the parent's ({' / '.join(f'{v:.4f}' for v in losses)}); remat / parent: "
+                 f"{trainer['remat'][0]:.1f} / {trainer['parent'][0]:.1f} ms a step (host clock, median of steps "
+                 f"1-3), peak {trainer['remat'][1]:.2f} / {trainer['parent'][1]:.2f} GiB")
+    # the populate epoch, remat then parent, each from a fresh launcher run
+    pop_s, pop_losses = {}, {}
+    for name in ("remat", "parent"):
+        with _unrematerialised() if name == "parent" else contextlib.nullcontext():
+            run = FT.prepare(FT.parse_args([*TRAIN_ARGS, "--mode", "full"]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pop_losses[name] = FT.run_epoch(run, 0).cpu()
+            torch.cuda.synchronize()
+            pop_s[name] = time.perf_counter() - t0
+        del run
+        torch.cuda.empty_cache()
+    check(torch.equal(pop_losses["remat"], pop_losses["parent"])
+          and torch.equal(pop_losses["remat"], REMAT_SEEN["train full"][1]),
+          f"remat populate: losses {pop_losses['remat'].tolist()} against the parent's "
+          f"{pop_losses['parent'].tolist()}")
+    lines.append(f"remat populate {ARCH} full width mode=full ({TRAIN_STEPS} steps of 8 x 128) on {device_name}: "
+                 f"losses bitwise the parent's and the train phase's; remat / parent {pop_s['remat']:.3f} / "
+                 f"{pop_s['parent']:.3f} s an epoch (host clock; the train phase's first epoch, warm-up included: "
+                 f"{REMAT_SEEN['train full'][0]:.3f} s)")
+    return lines
+
+
+def _cp_member_bytes(torch, cfg, n, want_positions):
+    """``inspect`` of the paligemma decode cell: each member's K/V part
+    holds ``want_positions`` positions, and its cache and parameter bytes
+    equal ``per_device_bytes`` of the spec trees."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import lm as LM
+    from repro_torch.models import tp as TP
+    from repro_torch.runtime import sharding as SH
+
+    out = {}
+
+    def inspect(cell):
+        caches, gp = cell.args[3], cell.args[0]
+        mesh = SH.make_mesh((1, n), ("data", "model"), devices=["meta"] * n)
+        shapes = LM.init_serve_caches(cfg, CP_DECODE[0], CP_DECODE[1], device="meta")
+        specs = ST.cache_specs(shapes, mesh, ST.rules_for(ShapeCell("d", "decode", CP_DECODE[1], CP_DECODE[0]),
+                                                          mesh))
+        want = SH.per_device_bytes(shapes, specs, mesh)
+        kv = [c[k] for c in caches for k in ("k", "v")]
+        check(all(TP.seq_split(t) and [p.shape[-3] for p in t.parts] == [want_positions] * n for t in kv),
+              f"context parallel: the caches are not split into {n} x {want_positions} positions")
+        got = [sum(t.parts[i].numel() * t.parts[i].element_size() for t in kv) for i in range(n)]
+        check(got == [want] * n, f"context parallel: member cache bytes {got} != per_device_bytes {want}")
+        pshapes = LM.param_shapes(cfg)
+        pwant = SH.per_device_bytes(pshapes, SH.param_specs(pshapes, mesh), mesh)
+        pgot = [sum(t.numel() * t.element_size() for t in SH._leaves(m)) for m in gp.members]
+        check(pgot == [pwant] * n, f"context parallel: member parameter bytes {pgot} != {pwant}")
+        out.update(cache=got[0], params=pgot[0])
+
+    return inspect, out
+
+
+def _cp_fp32_steps(torch, dev, n):
+    """Reduced float32 paligemma split ``n`` ways over ``[dev] * n``, its
+    caches split by sequence, against the same group with its caches whole
+    on the home device: each decode step from the same caches, the
+    logits' largest difference over their largest value. The caches are
+    float32 too (the port's are bf16), so that no key rounds to bf16 the
+    other way after an ulp of a hidden state (with bf16 caches the card
+    read 4.3e-5 on an H100)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import lm as LM
+    from repro_torch.models import tp as TP
+
+    cfg = reduce_config(get_config(CP_ARCH))
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    _live_norms(params, cfg)
+    gp = TP.group_params(params, [dev] * n)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    seq, prompt = 64, 20
+    tokens = torch.randint(0, cfg.vocab_size, (4, prompt), generator=gen, device=dev)
+    whole = LM.init_serve_caches(cfg, 4, seq, device=dev)
+    split = LM.init_serve_caches(cfg, 4, seq, device=dev, params=gp)
+    for a, b in zip(whole, split):
+        for k in ("k", "v"):
+            a[k] = a[k].float()
+            b[k] = TP.HeadSplit([p.float() for p in b[k].parts], b[k].ranges, b[k].axis)
+    worst = 0.0
+    with torch.no_grad():
+        l1, _ = LM.serve_prefill(gp, cfg, tokens, whole)
+        l2, _ = LM.serve_prefill(gp, cfg, tokens, split)
+        worst = _rel_max(torch, l2, l1)
+        for step, pos in enumerate([prompt, torch.tensor(prompt + 1, device=dev), 40,
+                                    torch.tensor([41, 50, 60, 63], device=dev)]):
+            for a, b in zip(whole, split):
+                for k in ("k", "v"):
+                    b[k][:, :] = a[k]
+            tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen, device=dev)
+            l1, _ = LM.serve_decode(gp, cfg, tok, pos, whole)
+            l2, _ = LM.serve_decode(gp, cfg, tok, pos, split)
+            check(bool(torch.isfinite(l2).all()), f"context parallel fp32 step {step}: non-finite logits")
+            worst = max(worst, _rel_max(torch, l2, l1))
+    check(worst <= CP_LOGIT_BAR, f"context parallel fp32: logits {worst:.3e} > {CP_LOGIT_BAR}")
+    return worst
+
+
+def _cp_part(torch, device_name):
+    """paligemma-3b (one KV head) at full width split two ways over
+    ``[cuda:0, cuda:0]``, its K/V caches split by sequence: the dry-run's
+    decode 32 x 2048 card cell on the 1 x 2 group (meta == card, the
+    arguments the allocator's, each member's part 1024 positions, member
+    bytes == ``per_device_bytes``); greedy grouped serving from a 4 x 128
+    prefill, 32 new tokens, against the unsplit run (near ties explained,
+    ``_split_flips``); a reduced float32 copy within ``CP_LOGIT_BAR``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import generate_grouped, generate_loop
+    from repro_torch.launch.serve import demo_pool
+    from repro_torch.models import lm as LM
+    from repro_torch.models import tp as TP
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(CP_ARCH)
+    lines, secs = [], {}
+    inspect, seen = _cp_member_bytes(torch, cfg, 2, CP_DECODE[1] // 2)
+    rec = _dry_card_cell(torch, "decode", CP_DECODE, 2, device_name, arch=CP_ARCH, tag="context parallel: ",
+                         inspect=inspect)
+    lines.append(f"context parallel {CP_ARCH} decode {CP_DECODE[0]}x{CP_DECODE[1]} 1x2 on {device_name}: each "
+                 f"member's K/V part {CP_DECODE[1] // 2} positions, member cache bytes {seen['cache']} == "
+                 f"per_device_bytes, member parameter bytes {seen['params']}; {rec['card_ms']:.2f} ms a step; "
+                 f"collectives {json.dumps(rec['collectives_per_op'], sort_keys=True)}")
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    params = LM.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+    pool = demo_pool(cfg, TENANTS, RANK, None, dev)
+    who = [None] + [f"tenant-{i % TENANTS}" for i in range(1, BATCH)]
+    idx = pool.lookup(who)
+    with torch.no_grad():
+        want_samples = []
+        with _sampled(torch, want_samples):
+            want = timed("serve unsplit (eager loop)", lambda: generate_loop(
+                params, cfg, prompts, max_new=NEW, pools=pool.pools(), idx=idx, use_kernel=False, device=dev))
+        gp = TP.group_params(params, [dev, dev])
+        del params
+        caches = LM.init_serve_caches(cfg, BATCH, PROMPT + NEW, device=dev, params=gp)
+        check(TP.seq_split(caches[0]["k"]), "context parallel: the serve caches are not split by sequence")
+        del caches
+        got_samples = []
+        with _sampled(torch, got_samples):
+            got = timed("serve split", lambda: generate_grouped(gp, cfg, prompts, pool.pools(), idx, max_new=NEW,
+                                                               use_kernel=False, device=dev))
+    flips = _split_flips(torch, want.cpu(), got.cpu(), want_samples, got_samples)
+    del gp, want_samples, got_samples
+    _free_device(torch)
+    lines.append(f"context parallel {CP_ARCH} full width (bf16, one KV head) grouped serve {BATCH}x{PROMPT} + {NEW} "
+                 f"new (greedy, float pool, use_kernel=False) split 2 ways over [cuda:0, cuda:0] on {device_name}: "
+                 f"tokens equal to the unsplit run's{' except near ties: ' + '; '.join(flips) if flips else ''}")
+    worst = timed("reduced fp32 steps", lambda: _cp_fp32_steps(torch, dev, 2))
+    lines.append(f"context parallel fp32 reduced {CP_ARCH} split 2 ways on {device_name}: prefill and 4 decode "
+                 f"steps (int, 0-d, per-row positions) from the same caches, logits max diff / max |logit| "
+                 f"{worst:.3e} (bar {CP_LOGIT_BAR}); host s " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    return lines
+
+
+def remat_cp_phase(torch, device_name):
+    """Phase 17 of the module docstring."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    for part in (_remat_part, _cp_part):
+        for line in part(torch, device_name):
+            print(line, flush=True)
+    check(not any(_launches().values()), f"remat / context parallel: hand-written kernels launched {_launches()}")
+    print(f"remat / context parallel phase: {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched")
 
 
 def _tensor_core_ptxas(logs):
@@ -4883,6 +5203,7 @@ def main() -> None:
     families_launches = families_phase(torch, smi)
     model_axis_phase(torch, smi)
     dryrun_phase(torch, smi)
+    remat_cp_phase(torch, smi)
     # each kernel's launches over every main path that runs it
     for counts in (fleet_launches, serve_launches, session_launches, shard_launches, sched_launches,
                    families_launches):

@@ -187,8 +187,8 @@ class KVBlockPool:
         ``slots[j]`` of the row (token span [slots[j] * block, (slots[j] + 1)
         * block)) lands in pool block ``ids[j]``, for every layer. ``caches``
         are stacked live caches {"k", "v"}: (L, B, S, n_kv, hd), whole or
-        split by heads over a model group (``tp.HeadSplit``, gathered onto
-        the pool's device). One gather and one indexed write per tensor."""
+        split by heads or by sequence over a model group (``tp.HeadSplit``,
+        gathered onto the pool's device). One gather and one indexed write per tensor."""
         ids = np.asarray(ids, np.int64).reshape(-1)
         slots = np.asarray(slots, np.int64).reshape(-1)
         if ids.size == 0:

@@ -270,8 +270,8 @@ class SessionRuntime:
     (``sharding.shard_backbone``, run by ``models.tp``): each device's
     backbone bytes drop about M-fold, and every serve, ingest, adapt and
     scheduler dispatch of the shard runs on its group. The KV caches of
-    serving and the scheduler's live batch keep each member's KV heads on
-    its device (``tp.HeadSplit``); the shard's pool, engine, adapters,
+    serving and the scheduler's live batch keep each member's KV heads, or
+    its range of positions, on its device (``tp.HeadSplit``); the shard's pool, engine, adapters,
     moments and paged prefix pool live on the group's first device (the
     reference replicates them over the group).
     Such a session takes ``use_kernel=False`` (the skip-sums' plain

@@ -246,8 +246,8 @@ def _sched_admit_reuse(params, cfg, how, chunk, max_seq, pools, idx, pool_data, 
 
 class _LiveBatch:
     """One shard's resident decode state: device tensors (stacked caches
-    (L, B, max_seq, n_kv, hd), split by heads over the shard's model group
-    when ``params`` is one, tok (B, 1), pos (B,)) plus host-side row
+    (L, B, max_seq, n_kv, hd), split by heads or by sequence over the
+    shard's model group when ``params`` is one, tok (B, 1), pos (B,)) plus host-side row
     bookkeeping. ``rows[i]`` is the request occupying batch row ``i`` (None
     = free)."""
 

@@ -30,11 +30,17 @@ per device (the home member's: the busiest):
   - ``build_s`` / ``run_s`` where the reference has ``lower_s`` /
     ``compile_s``, and ``per_member``: each member's counts.
 
-These are counts, not timings. ``long_500k`` decodes one sequence with its
-cache split over 'data' in the reference (context parallelism); the port
-has none, so its record counts the whole sequence on one group and says so
-in ``note``. ``--unroll`` is accepted and changes nothing (the reference's
-numbers are the same either way). A recurrent cell's time loops are
+These are counts, not timings. Where the reference's ``cache_specs`` put a
+K/V cache's sequence on 'data' (``long_500k``: one sequence, fewer rows
+than data shards, ``steps.rules_for``), the first data shard's program
+holds its 1/D of the positions, [0, S / D), and decodes at its last one,
+so that it attends every position it holds; over a model group whose KV
+heads do not divide it, ``tp.init_caches`` splits those positions again
+(1/(D·M) a device). The merge of the D shards' partial outputs (an
+all-gather of each attention layer's partials and log-sum-exps) is counted
+once a step with the data axis's other collectives. ``--unroll`` is
+accepted and changes nothing (the reference's numbers are the same either
+way). A recurrent cell's time loops are
 counted from two runs cut to 2 and 3 steps (``op_analysis.count(
 sample_loops=True)``). Several cells run in ``--jobs`` worker
 processes, one intra-op thread each.
@@ -85,6 +91,7 @@ class Cell:
     mesh: SH.Mesh
     group: list
     batch_shards: int
+    seq_shards: int
     arg_specs: tuple
     example_args: tuple
     build_s: float
@@ -114,6 +121,22 @@ def _batch_shards(specs, step: str, mesh) -> int:
     spec = specs[_BATCH_ARG[step]]
     leaf = next(iter(spec.values())) if isinstance(spec, dict) else spec
     return SH.spec_shards((), leaf[:1], mesh) if leaf else 1
+
+
+#: the argument of the serve step kinds that holds the caches
+_CACHE_ARG = {"prefill": 2, "decode": 3, "decode_adapted": 4}
+
+
+def _seq_shards(specs, step: str, mesh) -> int:
+    """How many data shards split the K/V caches' sequence: the data axes
+    in the sequence entry of the first K/V spec (1 where none does)."""
+    if step not in _CACHE_ARG:
+        return 1
+    layer = next((c for c in specs[_CACHE_ARG[step]] if "k" in c), None)
+    part = None if layer is None else layer["k"][1]
+    axes = () if part is None else ((part,) if isinstance(part, str) else tuple(part))
+    data = tuple(a for a in axes if a != "model")
+    return SH._axis_size(mesh, data) if data else 1
 
 
 def _group(mesh: SH.Mesh, strategy: str, group) -> list:
@@ -169,6 +192,7 @@ def prepare_cell(
     group = [torch.device(d) for d in _group(mesh, strategy, group)]
     home = group[0]
     shards = _batch_shards(in_specs, step_kind, mesh)
+    seq_shards = _seq_shards(in_specs, step_kind, mesh)
     rows = max(1, shape.batch // shards)
     gen = None if home.type == "meta" else torch.Generator(device=home).manual_seed(1)
     params = _draw_params(cfg, group)
@@ -192,16 +216,17 @@ def prepare_cell(
         t, s = SL.split_trainable(adapters(), sl)
         local = (params, t, s, fn.opt.init(t), batch(args[4]))
     else:
-        caches = LM.init_serve_caches(cfg, rows, shape.seq, device=home, params=params)
+        seq = shape.seq // seq_shards        # the first data shard's positions
+        caches = LM.init_serve_caches(cfg, rows, seq, device=home, params=params)
         if step_kind == "prefill":
             prefix = None if args[3] is None else _like(args[3], home, gen, rows=rows)
             local = (params, _like(args[1], home, gen, rows=rows, high=vocab), caches, prefix)
         else:
             token = _like(args[1] if step_kind == "decode" else args[2], home, gen, rows=rows, high=vocab)
-            pos = torch.tensor(shape.seq - 1, dtype=torch.int32, device=home)
+            pos = torch.tensor(seq - 1, dtype=torch.int32, device=home)
             local = ((params, token, pos, caches) if step_kind == "decode"
                      else (params, adapters(), token, pos, caches))
-    return Cell(fn, local, cfg, shape, step_kind, strategy, mesh, group, shards, in_specs, args,
+    return Cell(fn, local, cfg, shape, step_kind, strategy, mesh, group, shards, seq_shards, in_specs, args,
                 time.time() - t0)
 
 
@@ -274,6 +299,16 @@ def _data_collectives(counter: OA.OpCounter, cell: Cell) -> None:
     if trains and cell.step != "train" and mesh.size > 1:
         adapters = cell.args[1]
         counter.add_collective("all-reduce", sum(t.numel() * t.element_size() for t in tree_leaves(adapters)))
+    if cell.seq_shards > 1:
+        # the sequence over data shards: each attention layer's partial
+        # outputs (the compute dtype) and fp32 log-sum-exps gathered
+        cfg, d = cell.cfg, cell.seq_shards
+        rows = cell.args[_BATCH_ARG[cell.step]].shape[0]       # one token a row
+        item = LM.model_dtype(cfg).itemsize
+        for kind in cfg.layer_kinds():
+            if kind in ("attn", "attn_local"):
+                counter.add_collective("all-gather", d * rows * cfg.n_heads * cfg.resolved_head_dim * item)
+                counter.add_collective("all-gather", d * rows * cfg.n_heads * 4)
 
 
 def count_cell(cell: Cell, *, sample_loops: bool = True) -> dict:
@@ -315,6 +350,7 @@ def count_cell(cell: Cell, *, sample_loops: bool = True) -> dict:
         "temp_size_in_bytes": int(temp),
         "group": n,
         "batch_shards": cell.batch_shards,
+        "seq_shards": cell.seq_shards,
         "ops": counter.ops,
         "per_member": [{**counter.members[i].as_dict(), "argument_bytes": arg_members.get(i, 0),
                         "output_bytes": out_members.get(i, 0)} for i in range(n)],
@@ -325,10 +361,6 @@ def count_cell(cell: Cell, *, sample_loops: bool = True) -> dict:
         f"per device (member 0 of {n}): argument {arg_bytes / 2**30:.3f} GiB (spec trees), "
         f"output {out_bytes / 2**30:.3f} GiB, temp {temp / 2**30:.3f} GiB (peak new {home.peak_bytes / 2**30:.3f} "
         f"GiB; counted, not allocated)")
-    if cell.shape.name == "long_500k":
-        rec["note"] = ("the reference splits this cache's sequence over 'data' (context parallelism); the port has "
-                       "none: the record counts the whole sequence on one model group, the argument bytes the "
-                       "reference's split")
     return rec
 
 

@@ -38,7 +38,10 @@ falls at the same point of both runs.
 Each op is attributed to the member ``tp.current_member()`` names (0, the
 home device, outside a group's member loops), a backward op to its forward
 op's member (a label on the autograd node: the engine may run the backward
-on another thread, where the member is unset); the per-device numbers are
+on another thread, where the member is unset); the forward ops that a
+rematerialised region replays inside the backward (``models.remat``) to
+the member the replay names, as in the forward, and their storages count
+toward the peak while the backward holds them; the per-device numbers are
 the busiest member's, the home device's, which also runs the replicated
 norms, routers and sums, as every device does in XLA's SPMD program.
 """
@@ -54,6 +57,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.models import remat as RM
 from repro_torch.models import ssm as S
 from repro_torch.models import tp as TP
 
@@ -153,8 +157,8 @@ class OpCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         self.ops += 1
         node = torch._C._current_autograd_node()
-        if node is not None:          # a backward op: its forward op's member
-            member = node.metadata.get("op_member", 0)
+        if node is not None and not RM.in_region():   # a backward op: its forward op's member
+            member = node.metadata.get(TP.MEMBER_KEY, 0)
         else:
             member = TP.current_member()
             if member and any(t.requires_grad for t in _tensors(args)):
@@ -187,7 +191,7 @@ class OpCounter(TorchDispatchMode):
         for ref in self._pending:
             t = ref()
             if t is not None and t.grad_fn is not None:
-                t.grad_fn.metadata["op_member"] = self._pending_member
+                t.grad_fn.metadata[TP.MEMBER_KEY] = self._pending_member
         self._pending = []
 
     def _track(self, t: torch.Tensor, member: int) -> None:

@@ -108,6 +108,18 @@ def _scale(spec: AttnSpec) -> float:
     return spec.query_scale if spec.query_scale else spec.head_dim**-0.5
 
 
+def _logits(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    """fp32 GQA logits (b, nk, group, sq, sk) of ``q`` (b, sq, n, h) against
+    ``k`` (b, sk, nk, h): scaled, softcapped, ``NEG_INF`` where ``mask``
+    (b or 1, sq, sk) is False."""
+    b, sq, n, h = q.shape
+    qg = q.reshape(b, sq, spec.n_kv_heads, spec.n_heads // spec.n_kv_heads, h)
+    logits = torch.einsum("bsngh,btnh->bngst", qg * _scale(spec), k).float()
+    if spec.softcap:
+        logits = spec.softcap * torch.tanh(logits / spec.softcap)
+    return logits.masked_fill(~mask[:, None, None, :, :], NEG_INF)
+
+
 def _sdpa(
     q: torch.Tensor,          # (b, sq, n, h)
     k: torch.Tensor,          # (b, sk, nk, h)
@@ -117,16 +129,47 @@ def _sdpa(
 ) -> torch.Tensor:
     """GQA attention: fp32 logits (softcap, NEG_INF mask, softmax), probs
     cast back to the compute dtype before the value product."""
-    b, sq, n, h = q.shape
-    group = spec.n_heads // spec.n_kv_heads
-    qg = q.reshape(b, sq, spec.n_kv_heads, group, h)
-    logits = torch.einsum("bsngh,btnh->bngst", qg * _scale(spec), k).float()
-    if spec.softcap:
-        logits = spec.softcap * torch.tanh(logits / spec.softcap)
-    logits = logits.masked_fill(~mask[:, None, None, :, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bngst,btnh->bsngh", probs, v)
-    return out.reshape(b, sq, n, h)
+    probs = torch.softmax(_logits(q, k, mask, spec), dim=-1).to(q.dtype)
+    return torch.einsum("bngst,btnh->bsngh", probs, v).reshape(q.shape)
+
+
+def sdpa_partial(
+    q: torch.Tensor,          # (b, sq, n, h)
+    k: torch.Tensor,          # (b, sk, nk, h): one part of the keys
+    v: torch.Tensor,
+    mask: torch.Tensor,       # (b or 1, sq, sk) bool, True = attend
+    spec: AttnSpec,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_sdpa`` over one part of the keys, unnormalised: (sum_t p_t v_t
+    (b, sq, n, h) in the compute dtype, with p_t = exp(logit_t - top) in
+    the compute dtype; sum_t p_t (b, sq, n) fp32; top, the part's largest
+    logit (b, sq, n) fp32). ``merge_partials`` of the parts' triples is the
+    attention over all keys. A part whose keys are all masked has top
+    ``NEG_INF``: weight 0 beside any part with a key to attend."""
+    b, sq, n, _ = q.shape
+    logits = _logits(q, k, mask, spec)
+    top = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - top)
+    out = torch.einsum("bngst,btnh->bsngh", p.to(q.dtype), v).reshape(q.shape)
+
+    def heads_last(t):                                       # (b, nk, g, sq) -> (b, sq, n)
+        return t.permute(0, 3, 1, 2).reshape(b, sq, n)
+
+    return out, heads_last(p.sum(dim=-1)), heads_last(top.squeeze(-1))
+
+
+def merge_partials(outs: torch.Tensor, sums: torch.Tensor, tops: torch.Tensor, dtype) -> torch.Tensor:
+    """The attention over every part's keys from ``sdpa_partial``'s triples
+    stacked on a leading part axis (``outs`` (P, b, sq, n, h), ``sums`` and
+    ``tops`` (P, b, sq, n)): each part scaled by exp(its top - the largest
+    top), summed in part order in fp32, divided by the scaled sums' total
+    -> ``dtype``."""
+    w = torch.exp(tops - tops.amax(dim=0))
+    out, total = outs[0].float() * w[0][..., None], sums[0] * w[0]
+    for i in range(1, w.shape[0]):
+        out = out + outs[i].float() * w[i][..., None]
+        total = total + sums[i] * w[i]
+    return (out / total[..., None]).to(dtype)
 
 
 def causal_mask(sq: int, sk: int, q_offset, window: int, *, device=None) -> torch.Tensor:
@@ -140,10 +183,11 @@ def causal_mask(sq: int, sk: int, q_offset, window: int, *, device=None) -> torc
     return m[None]
 
 
-def row_mask(q_pos: torch.Tensor, sk: int, window: int) -> torch.Tensor:
+def row_mask(q_pos: torch.Tensor, sk: int, window: int, k_offset: int = 0) -> torch.Tensor:
     """(b, s, sk) mask for per-row query positions ``q_pos`` (b, s): key t
-    attends iff t <= q_pos and q_pos - t < window."""
-    k_pos = torch.arange(sk, device=q_pos.device)
+    (at position ``k_offset + t``: a sequence part of a cache) attends iff
+    its position is <= q_pos and q_pos minus it is < window."""
+    k_pos = torch.arange(k_offset, k_offset + sk, device=q_pos.device)
     m = k_pos[None, None, :] <= q_pos[:, :, None]
     if window > 0:
         m &= k_pos[None, None, :] > (q_pos[:, :, None] - window)

@@ -18,15 +18,21 @@ into a skip term the LM adds to the final hidden state.
 Serve caches are updated in place: the attention functions write their K/V
 into the cache, and a recurrent block's new state is copied into its cache
 dict, so a CUDA graph of a decode step replays over the same buffers.
+
+In train mode each period of layers is rematerialised (``remat.region``),
+as the reference's ``jax.checkpoint`` around its period scan: the backward
+keeps a period's inputs and replays the period for the rest.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
 
 from repro_torch.models import attention as A
+from repro_torch.models import remat as RM
 from repro_torch.models import ssm as S
 from repro_torch.models import tp as TP
 from repro_torch.models.config import ModelConfig
@@ -191,8 +197,11 @@ def init_stack_caches(
 
 
 def _apply_adapter(adapter: Params, h: torch.Tensor) -> torch.Tensor:
-    """Skip-LoRA tap: (h @ A) @ B in model dtype."""
-    return (h @ adapter["A"].to(h.dtype)) @ adapter["B"].to(h.dtype)
+    """Skip-LoRA tap: (h @ A) @ B in model dtype. Its result only adds into
+    the skip sum, so a rematerialised region's replay leaves out the
+    ``@ B`` (``remat.product``)."""
+    with RM.tail():
+        return RM.product(h @ adapter["A"].to(h.dtype), adapter["B"].to(h.dtype))
 
 
 def stack_forward(
@@ -213,23 +222,47 @@ def stack_forward(
     acts    : per-layer block inputs (n_layers, B, S, D) if collect_acts
     aux     : the MoE FFNs' summed aux loss (fp32 scalar; zero without one)
 
-    In train mode the backbone params never require grad, so autograd
-    records only the adapters' skip path, which reads the block inputs
-    and nothing inside the blocks: the counterpart of the reference's
-    rematerialised (``jax.checkpoint``) layer scan."""
+    In train mode each period of layers (``[p * period, (p + 1) *
+    period)``, ``p < n_periods``) runs as one rematerialised region
+    (``remat.region``), carrying (h, skip, aux) and returning the period's
+    block inputs: the backward keeps each period's inputs and replays the
+    period for the rest, as the reference's ``jax.checkpoint``-ed period
+    scan does. The remainder layers run outside any region, as the reference's
+    unrolled ones."""
+    kinds = cfg.layer_kinds()
+    if mode == "train" and caches is not None:
+        raise ValueError("train mode takes no caches: a rematerialised period is replayed in the backward, so it "
+                         "must not write states in place")
+
+    def layers(lo: int, hi: int, h, skip, aux):
+        acts = []
+        for l in range(lo, hi):
+            if collect_acts:
+                acts.append(h)
+            if adapters is not None:
+                skip = skip + _apply_adapter(adapters[l], h)
+            cache = None if caches is None else caches[l]
+            # the last block of a region: its FFN's down projection feeds no
+            # saved tensor unless a post-norm reads it
+            with RM.tail(l == hi - 1 and "post_norm2" not in stack[l]):
+                h, cache, a = block_forward(kinds[l], stack[l], h, cfg, mode=mode, cache=cache, pos=pos)
+            if caches is not None:
+                caches[l] = cache
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return h, skip, aux, acts
+
     skip = torch.zeros_like(h)
     acts, aux = [], None
-    for l, kind in enumerate(cfg.layer_kinds()):
-        if collect_acts:
-            acts.append(h)
-        if adapters is not None:
-            skip = skip + _apply_adapter(adapters[l], h)
-        cache = None if caches is None else caches[l]
-        h, cache, a = block_forward(kind, stack[l], h, cfg, mode=mode, cache=cache, pos=pos)
-        if caches is not None:
-            caches[l] = cache
-        if a is not None:
-            aux = a if aux is None else aux + a
+    start = 0
+    if mode == "train":
+        for p in range(cfg.n_periods):
+            lo, hi = p * cfg.period, (p + 1) * cfg.period
+            h, skip, aux, a = RM.region(functools.partial(layers, lo, hi), h, skip, aux)
+            acts += a
+        start = cfg.n_periods * cfg.period
+    h, skip, aux, a = layers(start, len(kinds), h, skip, aux)
+    acts += a
     return {
         "h": h,
         "skip": skip,

@@ -1,7 +1,9 @@
 """Feed-forward blocks: plain MLP, SwiGLU/GeGLU gated variants.
 
 Counterpart of ``repro.models.ffn``: weights ``w_gate``/``w_up`` (D, F) and
-``w_down`` (F, D), products in the activation dtype.
+``w_down`` (F, D), products in the activation dtype. The down projection
+goes through ``remat.product``: in the tail of a rematerialised region
+(``remat.tail()``) the backward's replay leaves it out.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.models import remat as RM
 from repro_torch.models.layers import activation
 
 Params = Any
@@ -37,6 +40,6 @@ def ffn(params: Params, x: torch.Tensor, *, act: str, gated: bool) -> torch.Tens
     if gated:
         g = activation(act, x @ params["w_gate"].to(dtype))
         u = x @ params["w_up"].to(dtype)
-        return (g * u) @ params["w_down"].to(dtype)
+        return RM.product(g * u, params["w_down"].to(dtype))
     h = activation(act, x @ params["w_up"].to(dtype))
-    return h @ params["w_down"].to(dtype)
+    return RM.product(h, params["w_down"].to(dtype))

@@ -301,8 +301,8 @@ def init_serve_caches(cfg: ModelConfig, batch: int, max_seq: int, *, device, par
     """Per-layer serve caches with the cache dtype bf16 whatever the model
     dtype, as the reference makes them: bf16 KV caches, recurrent states
     with fp32 memories and bf16 conv windows (sLSTM's ``h`` bf16 too).
-    For ``params`` split over a model group, each member's KV heads on its
-    device (``tp.init_caches``)."""
+    For ``params`` split over a model group, each member's part on its
+    device, split by KV heads or by sequence (``tp.init_caches``)."""
     if TP.is_group(params):
         return TP.init_caches(params, cfg, batch, max_seq)
     return B.init_stack_caches(batch, max_seq, cfg, torch.bfloat16, device=device)

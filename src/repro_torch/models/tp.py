@@ -17,14 +17,20 @@ summed there in member order. Activations go out to a member by a copy
 
   - attention: heads split -> each member attends over its heads (KV heads
     too when they divide, else its query heads' KV heads from the whole
-    K/V), and ``wo`` is row parallel (partials summed); heads that do not
-    divide -> ``d_model`` split, the q/k/v partials summed and attention
-    run once on the home device, ``wo`` splitting its output (the pieces
+    fresh K/V), and ``wo`` is row parallel (partials summed); heads that do
+    not divide -> ``d_model`` split, the q/k/v partials summed and attention
+    run on the home device, ``wo`` splitting its output (the pieces
     concatenated) or replicated.
-  - KV caches (``init_caches``): split by the KV heads each member's
-    attention reads (``HeadSplit``), each part on its member's device, so
-    a decode step moves no cached position between devices; where heads do
-    not divide, whole on the home device, where attention runs.
+  - KV caches (``init_caches``), placed as the reference's ``cache_specs``
+    places them: split by each member's own KV heads where they divide the
+    group (``HeadSplit``), each part on its member's device; else split by
+    sequence (context parallelism), member i holding a contiguous range of
+    positions. Over a sequence split a decode step (or an offset prefill)
+    sends every query head to each member, which attends over its own
+    positions only, and merges the members' partial outputs by their
+    log-sum-exps on the home device (``attend_split``): a step moves no
+    cached position between devices. A cache whose positions the group
+    does not divide stays whole on the home device, where attention runs.
   - dense FFN: ``w_gate``/``w_up`` column split, ``w_down`` row split.
   - MoE: one dispatch on the home device (the router is replicated, so the
     drops are the one-device ones); a member forms only its experts' E*C
@@ -86,6 +92,17 @@ _LISTENERS: list[Callable] = []
 
 def current_member() -> int:
     return _MEMBER.get()
+
+
+#: the autograd-node metadata key naming the member whose forward op made
+#: the node (``launch.op_analysis`` attributes the node's backward to it)
+MEMBER_KEY = "op_member"
+
+
+def label_node(node) -> None:
+    """Name ``current_member()`` on an autograd node (a custom Function's
+    ``ctx``), whose backward then counts as that member's."""
+    node.metadata[MEMBER_KEY] = current_member()
 
 
 @contextlib.contextmanager
@@ -289,13 +306,16 @@ def readout_table(ge: GroupParams):
 class HeadSplit:
     """A cache tensor split along one axis over a model group: ``parts[i]``,
     on member i's device, holds indices ``ranges[i]`` = [lo, hi) of axis
-    ``axis`` (negative). K and V caches split by their KV heads (axis -2;
-    the heads member i's attention reads, so ranges overlap where members
-    share a KV head); recurrent states by ``d_inner`` or heads. Indexing
-    the dimensions before ``axis`` gives a ``HeadSplit`` of the parts'
-    views; assigning into them takes a ``HeadSplit`` of the same ranges or
-    a whole tensor (each part its indices). ``whole()`` gathers it on the
-    home device."""
+    ``axis`` (negative). K and V caches split by their KV heads (axis -2)
+    where the KV heads divide the group, else by sequence positions (axis
+    -3: context parallelism, ``init_caches``); recurrent states by
+    ``d_inner`` or heads. Indexing the dimensions before ``axis`` gives a
+    ``HeadSplit`` of the parts' views; assigning into them takes a
+    ``HeadSplit`` of the same ranges or a whole tensor (each part its
+    indices), and assigning into a slice of ``axis`` too (``c[:, rows,
+    :p] = ...``) takes any value, each part its indices of the slice (a
+    ``HeadSplit`` value gathered first). ``whole()`` gathers it on the home
+    device."""
 
     __slots__ = ("parts", "ranges", "axis")
 
@@ -325,6 +345,11 @@ class HeadSplit:
         return HeadSplit([p[self._lead(idx, p.device)] for p in self.parts], self.ranges, self.axis)
 
     def __setitem__(self, idx, value) -> None:
+        t = idx if isinstance(idx, tuple) else (idx,)
+        lead = self.parts[0].dim() + self.axis
+        if len(t) == lead + 1 and isinstance(t[lead], slice):
+            self._set_span(t[:lead], t[lead], value)
+            return
         if isinstance(value, HeadSplit):
             if value.ranges != self.ranges:
                 raise ValueError(f"heads {value.ranges} assigned into heads {self.ranges}")
@@ -333,6 +358,19 @@ class HeadSplit:
             values = [value.narrow(self.axis, lo, hi - lo) for lo, hi in self.ranges]
         for p, v in zip(self.parts, values):
             p[self._lead(idx, p.device)] = v.to(p.device)
+
+    def _set_span(self, lead: tuple, span: slice, value) -> None:
+        """``self[lead + (span,)] = value``: each part takes the indices of
+        ``span`` it holds."""
+        a, b, step = span.indices(self.shape[self.axis])
+        if step != 1:
+            raise IndexError("a HeadSplit assigns a contiguous slice of its split axis")
+        value = whole(value)
+        for p, (lo, hi) in zip(self.parts, self.ranges):
+            x0, x1 = max(a, lo), min(b, hi)
+            if x1 > x0:
+                src = value.narrow(self.axis, x0 - a, x1 - x0) if value.dim() >= -self.axis else value
+                p[self._lead(lead, p.device) + (slice(x0 - lo, x1 - lo),)] = src.to(p.device)
 
     def whole(self) -> torch.Tensor:
         """Every index on the home device, each from the first member that
@@ -362,44 +400,47 @@ def _kv_range(i: int, n: int, spec: A.AttnSpec, kv_split: bool) -> tuple[int, in
     return lo, hi
 
 
-def kv_ranges(ga: GroupParams, spec: A.AttnSpec) -> Optional[list[tuple[int, int]]]:
-    """Each member's ``_kv_range`` in an attention layer ``ga``, or None
-    where the heads do not divide the group (attention runs once, on the
-    home device)."""
-    if not _split(ga.specs["wq"], 1):
-        return None
-    kv_split, n = _split(ga.specs["wk"], 1), len(ga.devices)
-    return [_kv_range(i, n, spec, kv_split) for i in range(n)]
-
-
 def init_caches(gp: GroupParams, cfg, batch: int, max_seq: int, *, stacked: bool = False):
     """Zeroed serve caches of a backbone split over ``gp``'s group: one
     {"k", "v"} dict an attention layer (``lm.init_serve_caches``' layout)
     and a recurrent layer's state, or, with ``stacked`` (attention-only
     stacks), two (L, batch, max_seq, n_kv, hd) tensors
-    (``lm.init_stacked_caches``'). A K or V cache is a ``HeadSplit`` of the
-    heads each member reads, or whole on the home device where heads do
-    not divide; a recurrent state as ``_init_state`` splits it."""
+    (``lm.init_stacked_caches``'). A K or V cache is placed as the
+    reference's ``cache_specs`` places it over a model axis of the group's
+    size: a ``HeadSplit`` of each member's own KV heads where they divide
+    the group; else a ``HeadSplit`` by sequence, member i holding positions
+    [i * max_seq / n, (i + 1) * max_seq / n) (context parallelism), where
+    the group divides ``max_seq``; else whole on the home device. A
+    recurrent state as ``_init_state`` splits it."""
     from repro_torch.models.blocks import ATTN_KINDS
 
     kinds = cfg.layer_kinds()
-    attn_at = next((l for l, k in enumerate(kinds) if k in ATTN_KINDS), None)
     spec = A.AttnSpec.from_config(cfg, local=False)   # local layers' heads are the same
-    ranges = kv_ranges(gp["stack"][attn_at]["attn"], spec) if attn_at is not None else None
+    n = len(gp.devices)
     lead = (cfg.n_layers,) if stacked else ()
 
-    def zeros(heads, dev):
-        return torch.zeros(lead + (batch, max_seq, heads, spec.head_dim), dtype=torch.bfloat16, device=dev)
+    def zeros(seq, heads, dev):
+        return torch.zeros(lead + (batch, seq, heads, spec.head_dim), dtype=torch.bfloat16, device=dev)
 
     def kv():
-        if ranges is None:
-            return zeros(spec.n_kv_heads, gp.home)
-        return HeadSplit([zeros(hi - lo, d) for (lo, hi), d in zip(ranges, gp.devices)], ranges)
+        if spec.n_kv_heads % n == 0:
+            w = spec.n_kv_heads // n
+            return HeadSplit([zeros(max_seq, w, d) for d in gp.devices], [(i * w, (i + 1) * w) for i in range(n)])
+        if max_seq % n == 0:
+            w = max_seq // n
+            return HeadSplit([zeros(w, spec.n_kv_heads, d) for d in gp.devices],
+                             [(i * w, (i + 1) * w) for i in range(n)], axis=-3)
+        return zeros(max_seq, spec.n_kv_heads, gp.home)
 
     if stacked:
         return {"k": kv(), "v": kv()}
     return [{"k": kv(), "v": kv()} if kind in ATTN_KINDS else _init_state(gp["stack"][l][kind], kind, cfg, batch)
             for l, kind in enumerate(kinds)]
+
+
+def seq_split(t) -> bool:
+    """True for a K/V cache split by sequence positions (``init_caches``)."""
+    return isinstance(t, HeadSplit) and t.axis == -3
 
 
 def _init_state(gk: GroupParams, kind: str, cfg, batch: int) -> dict:
@@ -433,8 +474,8 @@ def _member_cache(cache, i: int, lo: int, hi: int):
     """Member i's {"k", "v"}: its ``HeadSplit`` parts, heads [lo, hi)."""
     if cache is None:
         return None
-    if not isinstance(cache["k"], HeadSplit):
-        raise ValueError("a group whose heads split takes caches split by heads: make them with params= "
+    if not isinstance(cache["k"], HeadSplit) or seq_split(cache["k"]):
+        raise ValueError("a group whose KV heads split takes caches split by heads: make them with params= "
                          "(lm.init_serve_caches, lm.init_stacked_caches)")
     if cache["k"].ranges[i] != (lo, hi):
         raise ValueError(f"member {i} reads KV heads {(lo, hi)}, its cache part holds {cache['k'].ranges[i]}")
@@ -452,6 +493,76 @@ def _full_proj(ga: GroupParams, name: str, xs: list[torch.Tensor]) -> torch.Tens
     return A._proj(xs[0], ga.local[name])
 
 
+def _write_part(part: torch.Tensor, new: torch.Tensor, lo: int, mode: str, pos) -> None:
+    """Write the fresh K or V ``new`` (b, s, nk, hd) into ``part`` (b, n_i,
+    nk, hd), the cache's positions [lo, lo + n_i), in place, as
+    ``attention.attend`` writes a whole cache: positions [0, s) in a
+    prefill, each row's [offs, offs + s) in an offset prefill, ``pos`` in a
+    decode. Only the fresh K/V of the part's own positions reach it; a
+    position held by another part leaves it as it was (a device ``pos``
+    selects with ``where``, so nothing is read back to the host)."""
+    dev, n_i = part.device, part.shape[1]
+    b, s = new.shape[:2]
+    if mode == "prefill" and pos is None:
+        x1 = min(lo + n_i, s)
+        if x1 > lo:
+            part[:, :x1 - lo] = new[:, lo:x1].to(dev, part.dtype)
+        return
+    new = new.to(dev, part.dtype)
+    if mode == "prefill":
+        src = torch.arange(lo, lo + n_i, device=dev)[None] - pos.long().to(dev)[:, None]     # (b, n_i)
+        hit = ((src >= 0) & (src < s))[:, :, None, None]
+        picked = torch.gather(new, 1, src.clamp(0, s - 1)[:, :, None, None].expand(b, n_i, *new.shape[2:]))
+        part.copy_(torch.where(hit, picked, part))
+    elif isinstance(pos, torch.Tensor) and pos.dim() == 0:
+        at = pos.long().to(dev).reshape(1) - lo
+        inside = (at >= 0) & (at < n_i)
+        at = at.clamp(0, n_i - 1)
+        part.index_copy_(1, at, torch.where(inside, new, part.index_select(1, at)))
+    elif isinstance(pos, torch.Tensor):
+        rows = torch.arange(b, device=dev)
+        at = pos.long().to(dev) - lo
+        inside = ((at >= 0) & (at < n_i))[:, None, None]
+        at = at.clamp(0, n_i - 1)
+        part[rows, at] = torch.where(inside, new[:, 0], part[rows, at])
+    elif lo <= pos < lo + n_i:
+        part[:, pos - lo:pos - lo + 1] = new
+
+
+def _write_split(cache, k: torch.Tensor, v: torch.Tensor, mode: str, pos) -> None:
+    """``_write_part`` of the fresh K and V into each member's part, as
+    that member."""
+    for name, new in (("k", k), ("v", v)):
+        for i, (part, (lo, _)) in enumerate(zip(cache[name].parts, cache[name].ranges)):
+            with as_member(i):
+                _write_part(part, new, lo, mode, pos)
+
+
+def attend_split(q, k, v, spec: A.AttnSpec, mode: str, cache, pos, positions: torch.Tensor) -> torch.Tensor:
+    """``attention.attend`` over a K/V cache split by sequence (``seq_split``):
+    the fresh ``k`` / ``v`` go into the parts that hold their positions
+    (``_write_part``); a prefill attends over the fresh K/V as before; a
+    decode step or an offset prefill runs each member's query heads over
+    its own positions (``attention.sdpa_partial``: the same mask, window
+    and softcap, by global position) on its device, and the unnormalised
+    partial outputs with their fp32 sums and largest logits are gathered on
+    ``q``'s device and merged there (``attention.merge_partials``). What
+    moves is the queries out and the partials back, never a cached
+    position. ``q`` holds every query head; ``positions`` (b, s) are its
+    global positions."""
+    ks, vs = cache["k"], cache["v"]
+    _write_split(cache, k, v, mode, pos)
+    if mode == "prefill" and pos is None:
+        return A._sdpa(q, k, v, A.causal_mask(q.shape[1], k.shape[1], 0, spec.window, device=q.device), spec)
+    parts = []
+    for i, (pk, pv, (lo, hi)) in enumerate(zip(ks.parts, vs.parts, ks.ranges)):
+        with as_member(i):
+            dev = pk.device
+            mask = A.row_mask(positions.to(dev), hi - lo, spec.window, k_offset=lo)
+            parts.append([t[None] for t in A.sdpa_partial(q.to(dev), pk.to(q.dtype), pv.to(q.dtype), mask, spec)])
+    return A.merge_partials(*(gather([p[j] for p in parts], q.device, dim=0) for j in range(3)), q.dtype)
+
+
 def attention(ga: GroupParams, x: torch.Tensor, spec: A.AttnSpec, mode: str, cache=None, pos=None):
     """One attention layer over the group: (y (b, s, d) on the home device,
     cache)."""
@@ -459,34 +570,62 @@ def attention(ga: GroupParams, x: torch.Tensor, spec: A.AttnSpec, mode: str, cac
     positions = A.query_positions(x, mode, pos)
     xs = [x.to(d) for d in ga.devices]
     rope = dict(theta=spec.rope_theta, rope_pct=spec.rope_pct)
-    if not _split(ga.specs["wq"], 1):
-        # heads do not divide the group: d_model split, attention once
-        q, k, v = (_full_proj(ga, w, xs) for w in ("wq", "wk", "wv"))
-        q, k = apply_rope(q, positions, **rope), apply_rope(k, positions, **rope)
-        o, cache = A.attend(q, k, v, spec, mode, cache, pos)
-        if _split(ga.specs["wo"], 2):
-            return gather([A._out(o.to(d), m["wo"]) for _, m, d in _each(ga)], home), cache
-        return A._out(o, ga.local["wo"]), cache
-    kv_split = _split(ga.specs["wk"], 1)
-    if not kv_split:
-        k_all, v_all = _full_proj(ga, "wk", xs), _full_proj(ga, "wv", xs)
-        k_all = apply_rope(k_all, positions, **rope)
-    parts = []
-    for i, m, dev in _each(ga):
-        lo, hi = _kv_range(i, n, spec, kv_split)
-        pos_i = positions.to(dev)
-        q = apply_rope(A._proj(xs[i], m["wq"]), pos_i, **rope)
-        if kv_split:
+    heads_split = _split(ga.specs["wq"], 1)
+    if heads_split and _split(ga.specs["wk"], 1):
+        # the KV heads split with the query heads: each member its own
+        parts = []
+        for i, m, dev in _each(ga):
+            lo, hi = _kv_range(i, n, spec, True)
+            pos_i = positions.to(dev)
+            q = apply_rope(A._proj(xs[i], m["wq"]), pos_i, **rope)
             k = apply_rope(A._proj(xs[i], m["wk"]), pos_i, **rope)
             v = A._proj(xs[i], m["wv"])
-        else:
-            # the whole K/V: this member's query heads read KV heads [lo, hi)
-            k, v = k_all[:, :, lo:hi].to(dev), v_all[:, :, lo:hi].to(dev)
-        local_spec = dataclasses.replace(spec, n_heads=spec.n_heads // n, n_kv_heads=hi - lo)
-        o, _ = A.attend(q, k, v, local_spec, mode, _member_cache(cache, i, lo, hi),
-                        pos.to(dev) if isinstance(pos, torch.Tensor) else pos)
-        parts.append(A._out(o, m["wo"]))
-    return reduce(parts, home), cache
+            local_spec = dataclasses.replace(spec, n_heads=spec.n_heads // n, n_kv_heads=hi - lo)
+            o, _ = A.attend(q, k, v, local_spec, mode, _member_cache(cache, i, lo, hi),
+                            pos.to(dev) if isinstance(pos, torch.Tensor) else pos)
+            parts.append(A._out(o, m["wo"]))
+        return reduce(parts, home), cache
+    # the K/V whole on the home device: d_model partials summed, or replicated
+    k = apply_rope(_full_proj(ga, "wk", xs), positions, **rope)
+    v = _full_proj(ga, "wv", xs)
+    split = cache is not None and seq_split(cache["k"])
+    if cache is not None and not split and isinstance(cache["k"], HeadSplit):
+        raise ValueError("a group whose KV heads do not divide it takes caches split by sequence or whole: make "
+                         "them with params= (lm.init_serve_caches, lm.init_stacked_caches)")
+    fresh = cache is None or (mode == "prefill" and pos is None)
+    if heads_split and fresh:
+        # attention over the fresh K/V: each member's query heads over
+        # copies of the KV heads they read; the cache takes its positions
+        if split:
+            _write_split(cache, k, v, mode, pos)
+        elif cache is not None:
+            cache["k"][:, :k.shape[1]] = k.to(cache["k"].dtype)
+            cache["v"][:, :v.shape[1]] = v.to(cache["v"].dtype)
+        parts = []
+        for i, m, dev in _each(ga):
+            lo, hi = _kv_range(i, n, spec, False)
+            q = apply_rope(A._proj(xs[i], m["wq"]), positions.to(dev), **rope)
+            local_spec = dataclasses.replace(spec, n_heads=spec.n_heads // n, n_kv_heads=hi - lo)
+            o, _ = A.attend(q, k[:, :, lo:hi].to(dev), v[:, :, lo:hi].to(dev), local_spec, "train")
+            parts.append(A._out(o, m["wo"]))
+        return reduce(parts, home), cache
+    if heads_split:
+        # every query head on the home device, where the cache's partials meet
+        q = gather([apply_rope(A._proj(xs[i], m["wq"]), positions.to(dev), **rope) for i, m, dev in _each(ga)],
+                   home, dim=2)
+    else:
+        q = apply_rope(_full_proj(ga, "wq", xs), positions, **rope)
+    if split:
+        o = attend_split(q, k, v, spec, mode, cache, pos, positions)
+    else:
+        o, cache = A.attend(q, k, v, spec, mode, cache, pos)
+    if heads_split:
+        hq = spec.n_heads // n
+        return reduce([A._out(o[:, :, i * hq:(i + 1) * hq].to(dev), m["wo"]) for i, m, dev in _each(ga)],
+                      home), cache
+    if _split(ga.specs["wo"], 2):
+        return gather([A._out(o.to(d), m["wo"]) for _, m, d in _each(ga)], home), cache
+    return A._out(o, ga.local["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,17 @@ JAX:
     logits within 1e-4 of the largest value, the states after it gathering
     to the unsplit ones (fp32 within 1e-4, bf16 within an ulp), three decode
     steps within 1e-3, greedy tokens equal;
+  - rematerialisation: a reduced stablelm-1.6b ``train`` cell on 1 x 1 and
+    on ``[cuda:0, cuda:0]``, counted on meta and on the card with each
+    period rematerialised and with ``remat.region`` a plain call: the
+    counts equal between meta and the card either way, the loss and new
+    parameters bitwise between the two, the counted temp bytes lower with
+    remat;
+  - context parallelism: a reduced paligemma-3b ``decode`` cell on
+    ``[cuda:0, cuda:0]`` (one KV head: its caches split by sequence),
+    counted on meta and on the card: the same counts, each member's cache
+    half the positions, the arguments' storages the allocator's requested
+    bytes;
   - ``optim.quantized`` on the card against the CPU: five ``int8_adamw``
     steps (updates within 1e-6 of the largest, codes at most one step
     apart), ``compress_grads`` and the error-feedback residual bitwise."""
@@ -30,6 +41,7 @@ from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.launch import steps as ST  # noqa: E402
 from repro_torch.launch.shapes import ShapeCell  # noqa: E402
 from repro_torch.models import lm as TL  # noqa: E402
+from repro_torch.models import remat as RM  # noqa: E402
 from repro_torch.models import tp as TP  # noqa: E402
 from repro_torch.optim import optimizers as O  # noqa: E402
 from repro_torch.optim import quantized as Q  # noqa: E402
@@ -110,6 +122,52 @@ def test_recurrent_split_on_one_card(arch):
             logits, caches = TL.serve_prefill(p, cfg, tokens, caches)
             toks.append(TL.decode_scan(p, cfg, torch.argmax(logits, -1), 9, caches, max_new=5)[0])
     assert torch.equal(toks[0], toks[1]), (toks[0].tolist(), toks[1].tolist())
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_remat_train_cell_meta_equals_the_card(n, monkeypatch):
+    """Four layers at 4 x 128, where the layers' activations set the peak
+    (at 2 x 32 the readout's does, the same either way)."""
+    cfg = reduce_config(get_config("stablelm-1.6b"), n_periods=4)
+    mesh = SH.make_mesh((1, n), ("data", "model"), devices=["meta"] * n)
+    dev = torch.device("cuda", 0)
+    shape = ShapeCell("t", "train", 128, 4)
+    recs, outs = {}, {}
+    for remat in (True, False):
+        with monkeypatch.context() as m:
+            if not remat:
+                m.setattr(RM, "region", lambda fn, *args: fn(*args))
+            meta = D.count_cell(D.prepare_cell(cfg, shape, "train", mesh=mesh))
+            cell = D.prepare_cell(cfg, shape, "train", mesh=mesh, group=[dev] * n)
+            card = D.count_cell(cell)
+            new, _, loss = cell.fn(*cell.args)
+        for f in ("dot_flops", "collective_bytes", "collective_count", "argument_size_in_bytes"):
+            assert card[f] == meta[f], (remat, f, card[f], meta[f])
+        recs[remat], outs[remat] = card, [loss] + SH._leaves(ST.trainable_tree(new)[0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[True], outs[False], strict=True))
+    assert recs[True]["dot_flops"] > recs[False]["dot_flops"]
+    assert recs[True]["temp_size_in_bytes"] < recs[False]["temp_size_in_bytes"]
+
+
+def test_context_parallel_decode_cell_on_the_card():
+    cfg = reduce_config(get_config("paligemma-3b"))
+    mesh = SH.make_mesh((1, 2), ("data", "model"), devices=["meta"] * 2)
+    dev = torch.device("cuda", 0)
+    shape = ShapeCell("d", "decode", 64, 4)
+    meta = D.count_cell(D.prepare_cell(cfg, shape, "decode", mesh=mesh))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    cell = D.prepare_cell(cfg, shape, "decode", mesh=mesh, group=[dev, dev])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_stats()["requested_bytes.all.current"] - before
+    for c in cell.args[3]:
+        for k in ("k", "v"):
+            assert TP.seq_split(c[k]) and [p.shape[-3] for p in c[k].parts] == [32, 32]
+    card = D.count_cell(cell)
+    for f in ("dot_flops", "collective_bytes", "collective_count", "argument_size_in_bytes"):
+        assert card[f] == meta[f], (f, card[f], meta[f])
+    assert [m["dot_flops"] for m in card["per_member"]] == [m["dot_flops"] for m in meta["per_member"]]
+    assert held == card["argument_bytes_all_members"], (held, card["argument_bytes_all_members"])
 
 
 def test_quantized_on_the_card_against_the_cpu():

@@ -13,7 +13,7 @@ device:
     split (qwen at 2) or their hidden dimension (qwen at 16), vocabulary
     split (vocab 512) or replicated (503). Then the serve prefill, three
     decode steps (int, 0-d and per-row positions) and the caches (split by
-    the KV heads each member reads, ``tp.HeadSplit``), the
+    each member's KV heads or by sequence, ``tp.HeadSplit``), the
     chunked loss and its gradient, against the port's one-device run;
     ``tp.init_group_params`` against ``group_params`` of ``init_lm``.
   - ``TestSession2D``: ``tests/test_session_shard.py``'s 2-D bars, port
@@ -139,9 +139,12 @@ class TestGroupForward:
         tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 7)).astype(np.int64))
         c1 = TL.init_serve_caches(cfg, 2, 12, device="cpu")
         c2 = TL.init_serve_caches(cfg, 2, 12, device="cpu", params=gp)
-        # split by the KV heads each member reads, whole where heads do not divide
-        ranges = TP.kv_ranges(gp["stack"][0]["attn"], TP.A.AttnSpec.from_config(cfg, local=False))
-        assert isinstance(c2[0]["k"], TP.HeadSplit) == (ranges is not None)
+        # placed as the reference's cache_specs: split by each member's own KV
+        # heads where they divide the group, else by sequence where the group
+        # divides the 12 positions, else whole
+        n = len(gp.devices)
+        axis = -2 if cfg.n_kv_heads % n == 0 else (-3 if 12 % n == 0 else None)
+        assert (c2[0]["k"].axis if isinstance(c2[0]["k"], TP.HeadSplit) else None) == axis
         l1, _ = TL.serve_prefill(tp, cfg, tokens, c1)
         l2, _ = TL.serve_prefill(gp, cfg, tokens, c2)
         _close(l2, l1)

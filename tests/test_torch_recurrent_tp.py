@@ -143,16 +143,16 @@ def test_member_states_gather_to_the_unsplit_ones(arch, n):
     TL.serve_prefill(params, cfg, tokens, c1)
     TL.serve_prefill(gp, cfg, tokens, c2)
     split_axes = {"mamba": {"ssm": -2, "conv": -1}, "mlstm": {"conv": -1, "c": -3}, "slstm": {}}
+    kv_axis = -2 if cfg.n_kv_heads % n == 0 else -3      # jamba's one KV head: split by sequence
     for kind, a, b in zip(cfg.layer_kinds(), c1, c2):
         for name, want in a.items():
             got = b[name]
-            axis = split_axes.get(kind, {"k": -2, "v": -2}).get(name)
+            axis = split_axes.get(kind, {"k": kv_axis, "v": kv_axis}).get(name)
             if kind in split_axes:
                 assert isinstance(got, TP.HeadSplit) == (axis is not None), (kind, name)
             if isinstance(got, TP.HeadSplit):
                 assert got.axis == axis and len(got.parts) == n
-                if kind in split_axes:     # (K/V heads may overlap: paligemma's, jamba's one KV head)
-                    assert all(p.shape[axis] * n == want.shape[axis] for p in got.parts)
+                assert all(p.shape[axis] * n == want.shape[axis] for p in got.parts)
                 got = got.whole()
             assert got.shape == want.shape and got.dtype == want.dtype
             tol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 1e-5
