@@ -47,10 +47,18 @@ Phases, each printing one line (or a few) before the last line:
      share of device time.
   6. train: the paper's loop through ``repro_torch.launch.finetune`` at full
      width (stablelm-1.6b, bf16, 64 samples, batch 8, seq 128, rank 8,
-     ``--use-kernel``), modes full and int8, one populate and two cached
-     epochs. K1 or K3, and K2, must launch exactly 8 times per cached epoch
-     and no kernel during populate; losses finite and the cached-epoch mean
-     loss falling; one cached step's adapter gradients with the kernels equal
+     ``--use-kernel``), modes full, int8 and freeze_a, one populate and two
+     cached epochs, each CUDA-graph replays of one captured step
+     (``core.lm_skiplora``) held bitwise against the eager loop
+     (``loop=True``) run first from the same state (losses, adapters,
+     moments, step count, cache rows), with its first-call, eager first
+     step, capture and replay seconds beside the eager epoch's, and the
+     caching allocator's device allocations and frees during the first
+     call. K1 or K3, and K2, must launch exactly 8 times per cached epoch
+     (the eager first step's launches counted as they run, each replayed
+     step's by the launch tape; the eager comparisons' launches apart) and
+     no kernel during populate or in
+     mode freeze_a; losses finite and the cached-epoch mean loss falling; one cached step's adapter gradients with the kernels equal
      to the same step through the plain versions on the card. Populate and
      cached epoch times; one populate and one cached step's device time
      (CUDA events) and busy share (torch.profiler), and the cached step's
@@ -73,7 +81,9 @@ Phases, each printing one line (or a few) before the last line:
   9. fleet: 4 tenants x 16 samples x seq 128 through
      ``repro_torch.launch.fleet`` at full width (batch per tenant 2, rank 8,
      ``--use-kernel``), modes full and int8, one populate and two cached
-     epochs: exactly 8 K5 + 8 K9 per populate epoch, 8 K5 (full) or K8 (int8)
+     epochs, graph replays bitwise the same run as the eager loop
+     (``fleet_finetune(loop=True)``; losses, adapters, moments, cache),
+     seconds both ways: exactly 8 K5 + 8 K9 per populate epoch, 8 K5 (full) or K8 (int8)
      + 8 K9 per cached epoch, nothing else; every tenant's loss falling; one
      cached step's stacked gradients with the kernels equal to the einsum
      route's; frozen and empty slots exactly zero; each mode's cached step
@@ -101,7 +111,9 @@ Phases, each printing one line (or a few) before the last line:
  11. session: the session runtime (``SessionRuntime``) at full width on the
      fleet phase's inputs, ``use_kernel=True``: mode full over a resident
      engine (a base serve, 32 ingests of 2 rows, one K5 launch each over the
-     last position; ``adapt(epochs=3)`` on the scan path, 24 K5 and 24 K9;
+     last position; ``adapt(epochs=3)`` on the scan path, 24 replays of one
+     graph captured on the shard's device, 24 K5 and 24 K9, bitwise the
+     fleet phase's graphed and eager runs;
      a serve of the 4 tenants and a base row), whose adapters, per-step
      losses and pool slots equal the fleet phase's offline ``fleet_finetune``
      bitwise; mode full over a tiered engine holding half the rows (the
@@ -114,7 +126,8 @@ Phases, each printing one line (or a few) before the last line:
      build/), restored into a fresh runtime (``restore_runtime_session``),
      and both continuing one adapt epoch (8 K5 + 8 K9 each) and the serve
      (33 K5 each): losses, adapters, moments, pool, slot table and tokens
-     bitwise; save and restore seconds and the bytes on disk. A reduced
+     bitwise, the trained session's epoch replays only, the restored one
+     capturing its own; save and restore seconds and the bytes on disk. A reduced
      float32 session (a control plane, a disk host tier) gives the same
      losses, adapters, gate decisions and tokens on the card as on the CPU,
      and, saved after its first gated adapt and restored into a fresh
@@ -125,8 +138,9 @@ Phases, each printing one line (or a few) before the last line:
      exactly once, at event 3, and ends bitwise the unsupervised run.
  11b. shard: the session's data axis at full width on the session phase's
      inputs, ``placement_shards=2`` over [cuda:0] (``shard_phase``):
-     round-robin placement and adapt groups [[0, 2], [1, 3]]; exact launches
-     a shard (ingest 16 K5 at few rows, ``adapt(epochs=3)`` 24 K5 at many
+     round-robin placement and adapt groups [[0, 2], [1, 3]], each shard's
+     adapt one graph of its own replayed 24 times, issued back to back
+     before any write-back; exact launches a shard (ingest 16 K5 at few rows, ``adapt(epochs=3)`` 24 K5 at many
      rows + 24 K9, each 2-tenant group 8 steps an epoch; a continued epoch 8
      + 8; a serve one dispatch and 33 K5 at few rows); the adapters, moments
      and temperature-0 tokens bitwise the one-shard session's, the loss
@@ -135,7 +149,8 @@ Phases, each printing one line (or a few) before the last line:
      runtime refusing it; the scheduler on the shared-prefix trace with a
      live batch, a KV pool and K10 a shard, no leaks, tokens bitwise a
      one-shard scheduler's; over [cuda:0, cuda:1] when there are two cards
-     (else one line says it did not run); a reduced 2-shard session card vs
+     (then 3 more adapt epochs of replays only, two cards against one;
+     else one line says it did not run); a reduced 2-shard session card vs
      CPU. Adapt s an epoch with 1 and 2 shards, serve and scheduler tok/s,
      save and restore s, decode-graph captures and replays.
  12. paper: the source paper's own experiment (Section 5.1), which reaches
@@ -154,6 +169,14 @@ Phases, each printing one line (or a few) before the last line:
      graphed epoch's busy share (torch.profiler), the per-batch forward /
      backward / update split, and Skip2-LoRA's time against LoRA-All's at
      the paper's epoch counts beside the cost model's FLOP reduction.
+ 12b. twins (``twins_phase``): ``repro_torch.examples.finetune_lm`` at its
+     ~100M config (14 layers, d 576, vocab 50304, float32, 64 x 256, 4
+     epochs: graph replays, losses falling, the cached-epoch speedup) and
+     ``repro_torch.examples.serve_adapted`` (reduced gemma2-9b: every row of
+     the mixed batch equal to single-tenant serving, 4/4), no hand-written
+     kernel; ``launch.train``'s scan chunk with two reduced states of equal
+     shapes alternated, each bitwise its own eager trajectory, tokens and
+     labels unwritten.
  13. tooling (``kernels.autotune``, ``launch.roofline``, ``launch.train``),
      with the launch counters reset before and after it, so the kernels line
      counts the main paths only: ``tune_grouped`` of K5, K6 and K7 (int4,
@@ -183,7 +206,8 @@ Phases, each printing one line (or a few) before the last line:
      eager loop, the base row equal to base ``generate``'s or apart at a
      near tie, from one prefill the replays bitwise the eager loop); the
      finetune launcher's loop in modes full and int8 (32 samples, batch 8,
-     seq 128, a populate and two cached epochs, K1 or K3 and K2 exactly 4
+     seq 128, a populate and two cached epochs, graph replays bitwise the
+     eager loop, the populate again replays only, K1 or K3 and K2 exactly 4
      times a cached epoch, none during populate, the mean loss falling);
      one ``SessionRuntime`` round in mode int8 (2 K5 ingests, one adapt
      epoch of 2 K8 + 2 K9 steps, a serve of 33 K5). xlstm-350m (grouped
@@ -294,6 +318,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1006,62 +1031,172 @@ def _reset_launches():
     PG.reset_launches()
 
 
+def _graph_gain(stats, since) -> dict:
+    """What a ``GraphCache``'s stats gained since the copy ``since``:
+    captures, eager first steps, replays and their host seconds."""
+    got = stats.copy()
+    got.subtract(since)
+    return {k: got[k] for k in ("captures", "first_steps", "replays", "capture_s", "first_step_s", "replay_s",
+                                "warmup_launches")}
+
+
+def _allocs(torch, since: dict) -> dict:
+    """What the caching allocator did since the copy ``since`` of
+    ``torch.cuda.memory_stats()``: device allocations (``cudaMalloc``),
+    their bytes, device frees and retries after a failed allocation."""
+    now = torch.cuda.memory_stats()
+    keys = ("num_device_alloc", "num_device_free", "num_alloc_retries", "reserved_bytes.all.allocated")
+    return {k: now.get(k, 0) - since.get(k, 0) for k in keys}
+
+
+def _same(torch, a, b) -> bool:
+    """Two lists of tensors, equal bit for bit."""
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _state_leaves(trainable, opt_state, cache=None):
+    from repro_torch.optim.optimizers import tree_leaves
+
+    out = tree_leaves(trainable) + [opt_state.step] + tree_leaves(opt_state.mu) + tree_leaves(opt_state.nu)
+    if cache is not None:
+        out += list(cache.slots.values()) + [cache.valid]
+    return out
+
+
+#: the launches of the eager comparisons, by phase (not main-path launches:
+#: they run the same wrappers to hold the graphs against)
+EAGER_LAUNCHES: dict[str, int] = {}
+
+
+def _eager_epoch(torch, run, epoch):
+    """The launcher run's next epoch as the eager loop (``loop=True``) from
+    the run's state, into a fresh cache copy when it populates: (losses,
+    trainable, opt_state, cache or None, seconds, ``_allocs`` of the
+    epoch). Its launches go to ``EAGER_LAUNCHES``, not the counters."""
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.launch import finetune as FT
+    from repro_torch.optim.optimizers import adamw
+
+    opt = adamw(run.args.lr)
+    idx_mat = FT.epoch_index_matrix(epoch, run.args.samples, run.args.batch, run.device)
+    cache = None
+    if epoch == 0:
+        cache = SL.SkipCache(slots={k: v.clone() for k, v in run.cache.slots.items()}, valid=run.cache.valid.clone())
+    torch.cuda.synchronize()
+    _reset_launches()
+    mem = torch.cuda.memory_stats()
+    t0 = time.perf_counter()
+    if epoch == 0:
+        t, o, cache, ls = SL.make_populate_epoch(run.cfg, run.sl, opt, loop=True)(
+            run.params, run.trainable, run.static, run.opt_state, cache, run.tokens, run.labels, idx_mat)
+    else:
+        t, o, ls = SL.make_cached_epoch(run.cfg, run.sl, opt, loop=True)(
+            run.params, run.trainable, run.static, run.opt_state, run.cache, idx_mat)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    EAGER_LAUNCHES["train"] = EAGER_LAUNCHES.get("train", 0) + sum(_launches().values())
+    _reset_launches()
+    return ls, t, o, cache, dt, _allocs(torch, mem)
+
+
 def _train_epochs(torch, run, what, steps):
     """Every epoch of ``run`` through the finetune launcher's own
-    ``run_epoch``: no kernel during populate, K1 (K3 in mode int8) and K2
-    exactly ``steps`` times each cached epoch, ``steps`` finite losses an
-    epoch, and the mean loss falling over the cached epochs (from populate
-    when there is one cached epoch). Returns (launches of K1 or K3 and K2,
-    epoch seconds, mean losses)."""
+    ``run_epoch`` (CUDA-graph replays, ``core.lm_skiplora``), each first
+    run as the eager loop from the same state: losses, adapters, moments,
+    step count and (populating) cache rows bitwise the eager epoch's; no
+    kernel during populate, K1 (K3 in mode int8) and K2 exactly ``steps``
+    times each cached epoch (none in mode freeze_a), the eager first
+    step's launches counted as they run and the replayed steps' by the
+    launch tape; ``steps`` finite losses an epoch, and the
+    mean loss falling over the cached epochs (from populate when there is
+    one cached epoch). Returns (launches of K1 or K3 and K2, graphed epoch
+    seconds, mean losses, [(graph stats gained, eager seconds)] an epoch)."""
+    from repro_torch.core import lm_skiplora as SL
     from repro_torch.launch import finetune as FT
 
     check(run.device.type == "cuda", f"{what}: the launcher runs on {run.device}, not the card")
-    fwd = "skip_lora_fwd_int8" if run.args.mode == "int8" else "skip_lora_fwd"
-    totals = {fwd: 0, "skip_lora_bwd": 0}
-    times, means = [], []
+    fwd = {"int8": "skip_lora_fwd_int8", "full": "skip_lora_fwd"}.get(run.args.mode)
+    totals = {k: 0 for k in (fwd, "skip_lora_bwd") if k}
+    times, means, graphs = [], [], []
     for epoch in range(run.args.epochs):
-        torch.cuda.synchronize()
-        _reset_launches()
+        e_ls, e_t, e_o, e_cache, e_s, e_mem = _eager_epoch(torch, run, epoch)
+        since, mem = SL.GRAPHS.stats.copy(), torch.cuda.memory_stats()
         t0 = time.perf_counter()
         losses = FT.run_epoch(run, epoch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        gain = _graph_gain(SL.GRAPHS.stats, since)
+        gain["allocs"], gain["eager_allocs"] = _allocs(torch, mem), e_mem
+        # an epoch that captures runs its first step eagerly and replays the rest
+        first = epoch < 2
+        check(gain["captures"] == first and gain["first_steps"] == first and gain["replays"] == steps - first,
+              f"{what} epoch {epoch}: graph stats {gain}, not {steps - first} replays")
+        graphs.append((gain, e_s))
         counts = _launches()
         want = {k: 0 for k in counts}
-        if epoch > 0:
+        if epoch > 0 and fwd:
             want[fwd] = want["skip_lora_bwd"] = steps
         check(counts == want, f"{what} epoch {epoch}: launches {counts} != {want}")
         for k in totals:
             totals[k] += counts[k]
         check(tuple(losses.shape) == (steps,) and bool(torch.isfinite(losses).all()),
               f"{what} epoch {epoch}: losses {losses.tolist()}")
+        check(torch.equal(losses, e_ls), f"{what} epoch {epoch}: graphed losses {losses.tolist()} != the eager "
+              f"loop's {e_ls.tolist()}")
+        check(_same(torch, _state_leaves(run.trainable, run.opt_state, run.cache if epoch == 0 else None),
+                    _state_leaves(e_t, e_o, e_cache)),
+              f"{what} epoch {epoch}: adapters, moments or cache rows differ from the eager loop's")
+        del e_ls, e_t, e_o, e_cache
         if epoch == 0:
             REMAT_SEEN[what] = (times[0], losses.cpu())
         means.append(float(losses.mean()))
     falling = means[1:] if len(means) > 2 else means
     check(all(b < a for a, b in zip(falling, falling[1:])), f"{what}: mean losses {means} do not fall")
-    return totals, times, means
+    return totals, times, means, graphs
+
+
+def _graph_line(times, graphs) -> str:
+    """Each epoch's graphed seconds split into the eager first step,
+    capture and the host time of issuing the replays, beside the eager
+    loop's seconds."""
+    parts = []
+    for e, (t, (g, eager_s)) in enumerate(zip(times, graphs)):
+        kind = "populate" if e == 0 else "cached"
+        first = f"first step {g['first_step_s']:.3f} + capture {g['capture_s']:.3f} + " if g["captures"] else ""
+        a = g.get("allocs")
+        mallocs = (f"; {a['num_device_alloc']} cudaMalloc ({a['reserved_bytes.all.allocated'] / 2**30:.2f} GiB), "
+                   f"{a['num_device_free']} cudaFree, {a['num_alloc_retries']} retries" if a and g["captures"] else "")
+        ea = g.get("eager_allocs")
+        eager = f" ({ea['num_device_alloc']} cudaMalloc)" if ea and g["captures"] else ""
+        parts.append(f"{kind} {t:.3f} s ({first}replays issued {g['replay_s']:.3f}{mallocs}) vs eager {eager_s:.3f} s"
+                     f"{eager}")
+    return "; ".join(parts)
 
 
 def train_phase(torch, device_name):
     """Populate + 2 cached epochs per mode through the launcher's own
-    functions; returns each kernel's launches over the phase's epochs."""
+    functions, each epoch graphed and held against the eager loop; returns
+    each kernel's launches over the phase's epochs."""
     from repro_torch.launch import finetune as FT
 
     totals = {"skip_lora_fwd": 0, "skip_lora_bwd": 0, "skip_lora_fwd_int8": 0, "flash_attn_fwd": 0}
-    for mode, fwd in (("full", "skip_lora_fwd"), ("int8", "skip_lora_fwd_int8")):
+    for mode, fwd in (("full", "skip_lora_fwd"), ("int8", "skip_lora_fwd_int8"), ("freeze_a", None)):
         run = FT.prepare(FT.parse_args([*TRAIN_ARGS, "--mode", mode]))
-        counts, times, means = _train_epochs(torch, run, f"train {mode}", TRAIN_STEPS)
+        counts, times, means, graphs = _train_epochs(torch, run, f"train {mode}", TRAIN_STEPS)
         for k, n in counts.items():
             totals[k] += n
         speedup = times[0] / (sum(times[1:]) / 2)
+        kernels = (f"launches per cached epoch: {fwd} {TRAIN_STEPS}, skip_lora_bwd {TRAIN_STEPS}; during "
+                   "populate: none") if fwd else "no hand-written kernel (freeze_a)"
         print(f"train {ARCH} full width mode={mode} --use-kernel on {device_name}: 64 samples, batch 8, "
               f"seq 128, rank {RANK}: populate epoch {times[0]:.3f} s, cached epochs {times[1]:.3f} / "
               f"{times[2]:.3f} s, cached-epoch speedup {speedup:.2f}x; mean losses "
-              f"{' / '.join(f'{v:.4f}' for v in means)}; launches per cached epoch: {fwd} {TRAIN_STEPS}, "
-              f"skip_lora_bwd {TRAIN_STEPS}; during populate: none")
-        _grad_check(torch, run, mode)
-        _step_split(torch, run, device_name)
+              f"{' / '.join(f'{v:.4f}' for v in means)}; {kernels}")
+        print(f"train graphs mode={mode} on {device_name}: every epoch CUDA-graph replays, bitwise the eager loop "
+              f"from the same state (losses, adapters, moments, step, cache rows): {_graph_line(times, graphs)}")
+        if fwd:
+            _grad_check(torch, run, mode)
+            _step_split(torch, run, device_name)
         del run
         torch.cuda.empty_cache()
     return totals
@@ -1510,6 +1645,7 @@ def fleet_phase(torch, device_name):
     cached step's gradients against the einsum route, frozen and empty slots
     exactly zero. Returns each kernel's launches and the full-mode run's
     inputs and results (for write-back and the session phase)."""
+    from repro_torch.core import lm_skiplora as SL
     from repro_torch.launch import fleet as FL
 
     totals = {k: 0 for k in ("grouped_skip_sum_fwd", "grouped_skip_sum_fwd_actint8", "grouped_skip_sum_bwd")}
@@ -1521,8 +1657,12 @@ def fleet_phase(torch, device_name):
         check(dev.type == "cuda", f"the fleet launcher runs on {dev}, not the card")
         params, tokens, labels = FL.make_inputs(args, cfg, dev)
 
+        gains, since = [], [SL.GRAPHS.stats.copy()]
+
         def on_epoch(epoch, losses, seconds, fwd=fwd, mode=mode):
             torch.cuda.synchronize()
+            gains.append(_graph_gain(SL.GRAPHS.stats, since[0]))
+            since[0] = SL.GRAPHS.stats.copy()
             counts = _launches()
             # every forward of a fleet step takes M 1024 in 4 slots: many rows
             _tally_rows("grouped_skip_sum_fwd" if epoch == 0 else fwd, {"many_rows": FLEET_STEPS})
@@ -1551,15 +1691,51 @@ def fleet_phase(torch, device_name):
               f"grouped_skip_sum_fwd {FLEET_STEPS} + grouped_skip_sum_bwd {FLEET_STEPS}, cached {fwd} "
               f"{FLEET_STEPS} + grouped_skip_sum_bwd {FLEET_STEPS}, no other kernel")
         res = out["result"]
+        check([g["replays"] for g in gains] == [FLEET_STEPS - 1, FLEET_STEPS - 1, FLEET_STEPS]
+              and [g["captures"] for g in gains] == [1, 1, 0],
+              f"fleet {mode}: graph stats by epoch {gains}")
+        eager = _fleet_eager(torch, args, cfg, sl, params, tokens, labels, res, mode)
+        split = _graph_line(times, list(zip(gains, eager.epoch_times_s)))
+        print(f"fleet graphs mode={mode} on {device_name}: every epoch CUDA-graph replays, bitwise the eager loop "
+              f"(losses, adapters, moments, step, cache rows): {split}")
         _fleet_grad_check(torch, cfg, sl, params, res, mode)
         _fleet_step_split(torch, cfg, sl, params, res, device_name, mode)
         res.cache = None
         if mode == "full":
             kept = dict(cfg=cfg, sl=sl, params=params, tokens=tokens, labels=labels, adapters=res.adapters,
-                        losses=losses, times=times)
-        del params, res, out
+                        losses=losses, times=times, eager_adapters=eager.adapters, eager_losses=eager.losses)
+        del params, res, out, eager
         torch.cuda.empty_cache()
     return totals, kept
+
+
+def _fleet_eager(torch, args, cfg, sl, params, tokens, labels, res, mode):
+    """The fleet launcher's offline run again as the eager loop
+    (``fleet_finetune(loop=True)``) on the same inputs and seed: its
+    losses, adapters, moments, step count and cache bitwise the graphed
+    run's ``res``. Its launches go to ``EAGER_LAUNCHES``. Returns the eager
+    run's ``FleetResult`` (its cache dropped)."""
+    from repro_torch.core import fleet_finetune as FF
+    from repro_torch.optim.optimizers import adamw
+
+    import numpy as np
+
+    dev = params["embed"]["table"].device
+    torch.cuda.synchronize()
+    _reset_launches()
+    ref = FF.fleet_finetune(torch.Generator(device=dev).manual_seed(3), cfg, sl, params, tokens, labels,
+                            epochs=args.epochs, batch_per_tenant=min(args.batch_per_tenant, args.samples),
+                            optimizer=adamw(args.lr), use_kernel=args.use_kernel, loop=True)
+    torch.cuda.synchronize()
+    EAGER_LAUNCHES["fleet"] = EAGER_LAUNCHES.get("fleet", 0) + sum(_launches().values())
+    _reset_launches()
+    check(np.array_equal(ref.losses, res.losses), f"fleet {mode}: graphed losses differ from the eager loop's "
+          f"(max {np.abs(ref.losses - res.losses).max():.3e})")
+    check(_same(torch, _state_leaves(res.adapters, res.opt_state, res.cache),
+                _state_leaves(ref.adapters, ref.opt_state, ref.cache)),
+          f"fleet {mode}: adapters, moments or cache rows differ from the eager loop's")
+    ref.cache = None
+    return ref
 
 
 def _fleet_grad_check(torch, cfg, sl, params, res, mode):
@@ -1899,11 +2075,19 @@ def session_phase(torch, device_name, kept):
             err = max(errs)
         return rate, dev_ms, err
 
+    graph_gains = {}
+
     def adapt(rt, fwd, path):
         torch.cuda.synchronize()
+        since = rt.epoch_graph_stats()
         t0 = time.perf_counter()
         out = rt.adapt(epochs=3, batch_per_tenant=FLEET_BPT, generator=torch.Generator(device=dev).manual_seed(3))
         dt = time.perf_counter() - t0                     # the losses are on the host: the epochs have ended
+        gain = graph_gains[fwd, path] = _graph_gain(rt.epoch_graph_stats(), since)
+        # the resident path replays one captured step a step after the first,
+        # which runs eagerly; the stream path stays eager
+        want = (1, n_steps - 1) if path == "scan" else (0, 0)
+        check((gain["captures"], gain["replays"]) == want, f"session adapt {path}: graph stats {gain}")
         window({fwd: n_steps, "grouped_skip_sum_bwd": n_steps}, (fwd, {"many_rows": n_steps}))
         check(out["path"] == path and out["groups"] == [list(range(FLEET_TENANTS))],
               f"session adapt: path {out['path']} groups {out['groups']}, not one group on the {path} path")
@@ -1958,7 +2142,11 @@ def session_phase(torch, device_name, kept):
               f"{twin.pool.slot_table() == rt.pool.slot_table()}")
         outs, toks = [], []
         for r in (rt, twin):
+            since = r.epoch_graph_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             outs.append(r.adapt(epochs=1, batch_per_tenant=FLEET_BPT))
+            graph_gains["continued", r is rt] = (_graph_gain(r.epoch_graph_stats(), since), time.perf_counter() - t0)
             window({"grouped_skip_sum_fwd": FLEET_STEPS, "grouped_skip_sum_bwd": FLEET_STEPS},
                    ("grouped_skip_sum_fwd", {"many_rows": FLEET_STEPS}))
             toks.append(serve(r, "grouped_skip_sum_fwd", base))
@@ -1991,10 +2179,18 @@ def session_phase(torch, device_name, kept):
     scan_hit = rt.engine.stats.hbm_hit_rate()
     check(np.array_equal(losses, kept["losses"]), "session: per-step losses != the offline fleet_finetune's "
           f"(max diff {np.abs(losses - kept['losses']).max():.3e})")
+    check(np.array_equal(losses, kept["eager_losses"]), "session: per-step losses != the offline eager loop's")
     for k in ("A", "B"):
         for t in range(FLEET_TENANTS):
-            check(torch.equal(rt.tenant(t).adapters[k], kept["adapters"][k][t]),
-                  f"session: tenant {t} adapters {k} != the offline fleet_finetune's")
+            check(torch.equal(rt.tenant(t).adapters[k], kept["adapters"][k][t])
+                  and torch.equal(rt.tenant(t).adapters[k], kept["eager_adapters"][k][t]),
+                  f"session: tenant {t} adapters {k} != the offline fleet_finetune's (graphed and eager)")
+    g = graph_gains["grouped_skip_sum_fwd", "scan"]
+    print(f"session graphs {ARCH} full width mode=full on {device_name}: adapt(epochs=3) on the scan path is "
+          f"{g['replays']} step replays of {g['captures']} graph captured on the shard's device, {scan_s:.3f} s "
+          f"(eager first step {g['first_step_s']:.3f} + capture {g['capture_s']:.3f} + replays issued "
+          f"{g['replay_s']:.3f} s); losses and adapters bitwise the offline "
+          f"fleet_finetune's, graphed and eager loop")
     pool = AdapterPool(FLEET_TENANTS + 1, cfg, RANK, device=dev)
     write_back_to_pool(pool, list(range(FLEET_TENANTS)), kept["adapters"])
     check(all(torch.equal(v, pool.pools()[k]) for k, v in rt.pool.pools().items()),
@@ -2003,6 +2199,14 @@ def session_phase(torch, device_name, kept):
     trained0 = resident[0]
     del pool
     ckpt = checkpoint_round_trip(rt)
+    (g_rt, s_rt), (g_tw, s_tw) = graph_gains["continued", True], graph_gains["continued", False]
+    check(g_rt["captures"] == 0 and g_rt["replays"] == FLEET_STEPS and g_tw["captures"] == 1
+          and g_tw["replays"] == FLEET_STEPS - 1, f"session continued epoch: graph stats {g_rt} / restored {g_tw}")
+    print(f"session graphs, one continued adapt epoch on {device_name}: the trained session {s_rt:.3f} s, replays "
+          f"only ({g_rt['replays']} issued in {g_rt['replay_s']:.3f} s); the restored session {s_tw:.3f} s, its own "
+          f"graph (eager first step {g_tw['first_step_s']:.3f} + capture {g_tw['capture_s']:.3f} s); ingest frees "
+          "a shard's "
+          "graphs with its export")
     del rt
     torch.cuda.empty_cache()
 
@@ -2389,7 +2593,7 @@ def shard_phase(torch, device_name, kept):
 
     def watch(rt):
         tally.wrap(rt, "ingest", lambda tenant, *a: rt.pool.shard_of(tenant))
-        tally.wrap(rt, "_adapt_group", lambda group, spt, shard, **kw: shard)
+        tally.wrap(rt, "_adapt_epochs", lambda group, spt, shard, **kw: shard)
         tally.wrap(rt, "_serve_shard", lambda s, *a, **kw: s)
 
     def held(what, want_launches, want_rows, taken=None):
@@ -2440,6 +2644,9 @@ def shard_phase(torch, device_name, kept):
         out = rt.adapt(epochs=3, batch_per_tenant=FLEET_BPT, generator=torch.Generator(device=dev).manual_seed(3))
         adapt_s = time.perf_counter() - t0            # the losses are on the host: the epochs have ended
         steps = 3 * FLEET_STEPS
+        shard_graphs = [_graph_gain(rt.epoch_graph_stats(s), Counter()) for s in both]
+        check(all(g["captures"] == 1 and g["replays"] == steps - 1 for g in shard_graphs),
+              f"shard adapt: each shard's graphs {shard_graphs}, not one capture and {steps - 1} replays")
         held("adapt", {s: {fwd: steps, bwd: steps} for s in both}, {s: {(fwd, "many_rows"): steps} for s in both})
         check(out["groups"] == [[0, 2], [1, 3]] and out["path"] == "scan",
               f"shard adapt: groups {out['groups']} on the {out['path']} path")
@@ -2453,6 +2660,16 @@ def shard_phase(torch, device_name, kept):
                       f"{(rt.tenant(t).adapters[k] - kept['adapters'][k][t]).abs().max().item():.3e}; "
                       f"losses {loss_ulps} ulps apart)")
         after3 = {t: dict(rt.tenant(t).adapters) for t in range(FLEET_TENANTS)}
+        check(all(torch.equal(after3[t][k], kept["eager_adapters"][k][t])
+                  for t in range(FLEET_TENANTS) for k in ("A", "B")),
+              "shard adapt: adapters differ from the offline eager loop's")
+        print(f"shard graphs on {device_name}: adapt(epochs=3) is each shard's own graph (captured on its device, "
+              f"{' / '.join(str(g['captures']) for g in shard_graphs)} capture(s)) replayed "
+              f"{' / '.join(str(g['replays']) for g in shard_graphs)} times, the shards' replays issued back to "
+              f"back before any write-back; {adapt_s:.3f} s (eager first steps "
+              f"{sum(g['first_step_s'] for g in shard_graphs):.3f} + capture "
+              f"{sum(g['capture_s'] for g in shard_graphs):.3f} s); adapters bitwise the one-shard session's and "
+              f"the offline eager loop's")
 
         # -- save, restore, continue --------------------------------------------
         torch.cuda.synchronize()
@@ -2759,12 +2976,26 @@ def _two_cards(torch, runtime, ref, tokens, labels, prompts, who, scratch):
                       f"shard two cards: tenant {t} {name} {k} after 4 epochs != the 1-card session's")
     check(torch.equal(toks[0], toks[1]) and torch.equal(toks[0], ref["tokens"].cpu()),
           "shard two cards: tokens differ")
+    # both now hold their graphs: three more epochs each, replays only, the
+    # two cards' shards overlapping against the two shards on one card
+    replay_s = {}
+    for name, r in (("two cards", two), ("one card", back)):
+        since = r.epoch_graph_stats()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        r.adapt(epochs=3, batch_per_tenant=FLEET_BPT)
+        replay_s[name] = time.perf_counter() - t0
+        gain = _graph_gain(r.epoch_graph_stats(), since)
+        check(gain["captures"] == 0 and gain["replays"] == 6 * FLEET_STEPS, f"shard two cards: {name} graphs {gain}")
     del two, back
     torch.cuda.empty_cache()
     _reset_launches()   # a measurement beside the main path: its launches are not counted
     return (f"shard two cards: the 2-shard session over [cuda:0, cuda:1] (adapt 3 epochs {dt2:.3f} s) bitwise the "
             f"1-card session (adapters, moments, tokens); saved and restored onto cuda:0 alone (elastic 2 -> 1), "
-            f"both continued one epoch and a serve bitwise")
+            f"both continued one epoch and a serve bitwise; then adapt 3 epochs of replays only: two cards "
+            f"{replay_s['two cards']:.3f} s, one card {replay_s['one card']:.3f} s "
+            f"({replay_s['one card'] / replay_s['two cards']:.2f}x)")
 
 
 def small_shard_check(torch):
@@ -3636,15 +3867,17 @@ def _live_part(cfg, key, tree):
 
 
 def _free_device(torch):
-    """Drop what earlier phases left on the card: the decode, MLP-epoch and
-    trainer graphs (and their memory pools), then the allocator's cache."""
+    """Drop what earlier phases left on the card: the decode, MLP-epoch,
+    trainer and LM-epoch graphs (and their memory pools), then the
+    allocator's cache."""
     import gc
 
     from repro_torch.core import decode_graph as DG
     from repro_torch.core import finetune as MF
+    from repro_torch.core import lm_skiplora as SL
     from repro_torch.launch import train as TR
 
-    for graphs in (DG.GRAPHS, MF.GRAPHS, TR.GRAPHS):
+    for graphs in (DG.GRAPHS, MF.GRAPHS, TR.GRAPHS, SL.GRAPHS):
         graphs.clear()
     gc.collect()
     torch.cuda.synchronize()
@@ -3867,13 +4100,27 @@ def _family_train(torch, arch, mode, epochs, device_name, params):
 
     args = FT.parse_args(["--arch", arch, *FAM_TRAIN, "--mode", mode, "--epochs", str(epochs)])
     run = FT.prepare(args, params=params)
-    totals, times, means = _train_epochs(torch, run, f"families train {arch} {mode}", FAM_STEPS)
+    start = (run.trainable, run.opt_state)
+    what = f"families train {arch} {mode}"
+    totals, times, means, graphs = _train_epochs(torch, run, what, FAM_STEPS)
+    # the populate epoch again from the same state into the same cache (the
+    # rows it rewrites are the ones it wrote): replays only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    *_, again = run.populate_epoch(run.params, *start[:1], run.static, start[1], run.cache, run.tokens, run.labels,
+                                   FT.epoch_index_matrix(0, args.samples, args.batch, run.device))
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    _reset_launches()
+    check(torch.equal(again.cpu(), REMAT_SEEN[what][1]), f"{what}: a replayed populate epoch's losses differ")
     fwd = next(iter(totals))
     print(f"families train {arch} full width mode={mode} --use-kernel on {device_name}: {args.samples} samples, "
           f"batch {args.batch}, seq {args.seq}, rank {args.rank}: populate epoch {times[0]:.3f} s, cached epoch(s) "
           f"{' / '.join(f'{t:.3f}' for t in times[1:])} s; mean losses {' / '.join(f'{v:.4f}' for v in means)}; "
           f"{fwd} and skip_lora_bwd x{FAM_STEPS} a cached epoch, none during populate")
-    return totals, times
+    print(f"families graphs {arch} mode={mode} on {device_name}: CUDA-graph replays bitwise the eager loop from "
+          f"the same state: {_graph_line(times, graphs)}; populate again, replays only: {replay_s:.3f} s")
+    return totals, times + [replay_s]
 
 
 def _family_session(torch, cfg, params, device_name):
@@ -4025,7 +4272,8 @@ def families_phase(torch, device_name):
         for mode in (("full", "int8") if cfg.moe is not None else ("full",)):
             counts, times = _family_train(torch, arch, mode, 3 if cfg.moe is not None else 2, device_name, params)
             add(counts)
-            epoch_s.append(f"{mode} populate {times[0]:.3f} s, cached {' / '.join(f'{t:.3f}' for t in times[1:])} s")
+            epoch_s.append(f"{mode} populate {times[0]:.3f} s (replayed {times[-1]:.3f} s), cached "
+                           f"{' / '.join(f'{t:.3f}' for t in times[1:-1])} s")
         if cfg.moe is not None:
             add(_family_session(torch, cfg, params, device_name))
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -5105,6 +5353,101 @@ def remat_cp_phase(torch, device_name):
     print(f"remat / context parallel phase: {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched")
 
 
+def _chunk_states(torch, device_name):
+    """``launch.train``'s scan chunk with two trainer states of equal shapes
+    (reduced stablelm-1.6b, two seeds) alternated through one
+    ``make_scan_chunk`` over one staged set: each state's losses and final
+    parameters and moments bitwise its own eager ``make_step`` trajectory,
+    the tokens and labels never written, one graph entry a state."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.cuda_graph import GraphCache
+    from repro_torch.launch import train as TT
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim.optimizers import adamw
+
+    cfg = reduce_config(get_config(ARCH))
+    opt = adamw(3e-4, weight_decay=0.1)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (32, 32), generator=g, device="cuda", dtype=torch.int32)
+    labels = torch.randint(0, cfg.vocab_size, (32, 32), generator=g, device="cuda", dtype=torch.int32)
+    data = (tokens.clone(), labels.clone())
+    mats = [torch.as_tensor(np.random.default_rng(s).integers(0, 32, size=(2, 4)), device="cuda") for s in range(3)]
+    step = TT.make_step(cfg, opt)
+    states, want = [], []
+    for seed in (0, 1):
+        p = init_lm(torch.Generator(device="cuda").manual_seed(seed), cfg)
+        states.append((p, opt.init(p)))
+        st, ls = opt.init(p), []
+        for m in mats:
+            for ids in m:
+                p, st, loss = step(p, st, {"tokens": tokens[ids], "labels": labels[ids]})
+                ls.append(loss)
+        want.append(_state_leaves(p, st) + [torch.stack(ls)])
+    graphs = GraphCache(capacity=4)
+    run = TT.make_scan_chunk(cfg, opt, graphs=graphs)
+    losses = [[], []]
+    for m in mats:
+        for i in (0, 1):
+            p, st, ls = run(*states[i], tokens, labels, m)
+            states[i] = (p, st)
+            losses[i].append(ls)
+    for i in (0, 1):
+        check(_same(torch, _state_leaves(*states[i]) + [torch.cat(losses[i])], want[i]),
+              f"train chunk: state {i} left its own eager trajectory when alternated with another of equal shapes")
+    check(torch.equal(tokens, data[0]) and torch.equal(labels, data[1]), "train chunk: tokens or labels written")
+    check(graphs.stats["misses"] == 2 and graphs.stats["hits"] == 4, f"train chunk: graph stats {graphs.stats}")
+    graphs.clear()
+    return (f"train chunk keying on {device_name}: two reduced {ARCH} states of equal shapes alternated through "
+            f"one make_scan_chunk, 3 chunks of 2 steps each: each bitwise its own eager trajectory (losses, "
+            f"params, moments), tokens and labels unwritten, one graph entry a state")
+
+
+def twins_phase(torch, device_name):
+    """The twins of the reference's two LM examples on the card, and the
+    trainer chunk's keying (``_chunk_states``):
+      - ``repro_torch.examples.finetune_lm`` at its ~100M config (14 layers,
+        d 576, vocab 50304, float32; 64 samples of 256 tokens, batch 8, rank
+        8, 4 epochs): losses finite and falling, every epoch graph replays
+        (2 captures, 32 step replays), the cached-epoch speedup;
+      - ``repro_torch.examples.serve_adapted`` (reduced gemma2-9b, 3 tenants
+        and a base row, 24-token prompts, 12 new): every row equal to
+        single-tenant serving (4/4).
+    Both run the plain versions, as the reference's examples do: no
+    hand-written kernel launches."""
+    import numpy as np
+
+    from repro_torch.examples import finetune_lm as FLM
+    from repro_torch.examples import serve_adapted as SA
+
+    t_phase = time.perf_counter()
+    _free_device(torch)
+    _reset_launches()
+    out = FLM.main(["--epochs", "4", "--device", "cuda"])
+    steps = 64 // 8
+    g = out["graphs"]
+    check(g["captures"] == 2 and g["replays"] == 4 * steps - 2, f"finetune_lm twin: graph stats {dict(g)}")
+    means = [float(v.mean()) for v in out["losses"]]
+    check(all(np.isfinite(v).all() for v in out["losses"]) and means[-1] < means[0],
+          f"finetune_lm twin: mean losses {means}")
+    t = out["times"]
+    print(f"twin finetune_lm (~100M, 14L d=576 vocab 50304 float32) on {device_name}: 4 epochs x {steps} steps of "
+          f"8 x 256: populate {t[0]:.3f} s, cached {' / '.join(f'{v:.3f}' for v in t[1:])} s, cached-epoch speedup "
+          f"{t[0] / (sum(t[1:]) / len(t[1:])):.1f}x (first cached epoch with its capture; without it "
+          f"{t[0] / (sum(t[2:]) / len(t[2:])):.1f}x); graphs: {g['captures']} captured in {g['capture_s']:.3f} s "
+          f"(+{g['first_step_s']:.3f} s eager first steps), {g['replays']} step replays; mean losses "
+          f"{' / '.join(f'{v:.4f}' for v in means)}")
+    served = SA.main(["--device", "cuda"])
+    check(served["agree"] == SA.BATCH, f"serve_adapted twin: {served['agree']}/{SA.BATCH} rows match solo serving")
+    print(f"twin serve_adapted (reduced gemma2-9b, use_kernel=False) on {device_name}: rows matching single-tenant "
+          f"serving {served['agree']}/{SA.BATCH}, adapter-vs-base divergence {served['diverged']:.2f}")
+    check(not any(_launches().values()), f"twins: hand-written kernels launched {_launches()}")
+    print(_chunk_states(torch, device_name))
+    _reset_launches()
+    print(f"twins phase: {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched")
+
+
 def _tensor_core_ptxas(logs):
     """One line per instantiation of the tensor-core kernels from nvcc's
     ``-Xptxas -v`` output (registers, shared memory, spills): K4's bf16
@@ -5199,6 +5542,7 @@ def main() -> None:
     sched_launches = scheduler_phase(torch, smi)
     small_scheduler_check(torch)
     paper_phase(torch, smi)
+    twins_phase(torch, smi)
     tooling_phase(torch, smi)
     families_launches = families_phase(torch, smi)
     model_axis_phase(torch, smi)
@@ -5220,6 +5564,7 @@ def main() -> None:
               f"{launches[kname]} launches")
         results[kname].update(launches_many_rows=many, launches_few_rows=few)
     check(len(results) == 10, f"{len(results)} kernels in the kernels line, not 10")
+    print(f"eager comparisons beside the epoch graphs (not in the kernels line): {EAGER_LAUNCHES} kernel launches")
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s, the builds included")
     check(all(r["launches"] is not None for r in results.values()), "a kernel has no launch count")
     print(json.dumps({"kernels": list(results.values())}))

@@ -38,9 +38,9 @@ to eager steps.
 
 Launch accounting: the kernel wrappers count their launches in Python
 (``KernelLib.launch``, ``kernel.ROW_LAUNCHES``), which a replay does not
-run. ``LaunchTape`` takes back what a capture counted (a capture executes
-nothing) and adds it again at every replay, so the counters keep counting
-launches executed.
+run. ``LaunchTape`` (``core.cuda_graph``, re-exported here) takes back what
+a capture counted (a capture executes nothing) and adds it again at every
+replay, so the counters keep counting launches executed.
 
 Sampling: a graph that samples draws from a ``torch.Generator`` registered
 with it. A call sets that generator to the caller's generator state before
@@ -50,7 +50,6 @@ steps' draws.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from collections import Counter
 from typing import Any, Callable, Optional
@@ -58,46 +57,11 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.adapter_pool import grouped_plan
-from repro_torch.core.cuda_graph import GraphCache, GraphCaptureError, capture, on_side_stream
+from repro_torch.core.cuda_graph import GraphCache, GraphCaptureError, LaunchTape, capture, on_side_stream, storage_sig
 from repro_torch.kernels.skip_lora.ops import plan_tile
 from repro_torch.models import lm as LM
 
 __all__ = ["GRAPHS", "GraphCache", "GraphCaptureError", "LaunchTape", "chunk", "decode", "segments"]
-
-
-def _counters() -> tuple[dict, ...]:
-    from repro_torch.kernels.flash_attn import kernel as FK
-    from repro_torch.kernels.flash_attn import paged as PG
-    from repro_torch.kernels.skip_lora import kernel as K
-
-    return K.LAUNCHES, K.ROW_LAUNCHES, FK.LAUNCHES, PG.LAUNCHES
-
-
-class LaunchTape:
-    """The kernel launches one capture counted, by kernel and, for the
-    grouped forwards, by row class. ``recording()`` around a capture takes
-    them back out of the counters; ``replayed(n)`` adds them ``n`` times."""
-
-    def __init__(self):
-        self.counts: list[dict] = []
-
-    @contextlib.contextmanager
-    def recording(self):
-        counters = _counters()
-        before = [dict(c) for c in counters]
-        try:
-            yield self
-        finally:
-            self.counts = [{k: v - b.get(k, 0) for k, v in c.items() if v != b.get(k, 0)}
-                           for c, b in zip(counters, before)]
-            for c, b in zip(counters, before):
-                c.clear()
-                c.update(b)
-
-    def replayed(self, n: int = 1) -> None:
-        for c, d in zip(_counters(), self.counts):
-            for k, v in d.items():
-                c[k] = c.get(k, 0) + n * v
 
 
 def segments(steps: int, unroll: int) -> list[int]:
@@ -105,28 +69,6 @@ def segments(steps: int, unroll: int) -> list[int]:
     replay: ``steps // unroll`` full graphs, then one of the remainder."""
     full, rest = divmod(steps, unroll)
     return [unroll] * full + ([rest] if rest else [])
-
-
-def _sig(tree) -> tuple:
-    """(data pointer, shape, dtype) of every tensor in ``tree`` (nested
-    dicts, lists and tuples), with the dict keys, in order."""
-    out: list = []
-
-    def walk(t):
-        if isinstance(t, torch.Tensor):
-            out.append((t.data_ptr(), tuple(t.shape), t.dtype))
-        elif isinstance(t, dict):
-            for k, v in t.items():
-                out.append(k)
-                walk(v)
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
-        elif t is not None:
-            raise TypeError(f"unexpected leaf {type(t).__name__} in a graph's inputs")
-
-    walk(tree)
-    return tuple(out)
 
 
 def _temp_kind(temperature) -> tuple:
@@ -278,7 +220,8 @@ def decode(params, cfg, tok0, start_pos: int, caches, *, max_new: int, temperatu
     unroll = max(1, min(unroll, max_new))
     shapes = tuple((n, tuple(t.shape), t.dtype) for c in caches for n, t in c.items())
     key = ("decode", cfg, tuple(tok0.shape), tok0.dtype, shapes, _temp_kind(temperature), use_kernel,
-           fuse_skip, unroll, None if idx is None else idx.dtype, _sig(params), _sig(adapters), _sig(pools))
+           fuse_skip, unroll, None if idx is None else idx.dtype, storage_sig(params), storage_sig(adapters),
+           storage_sig(pools))
     e = graphs.entry(key, lambda: _Decode(
         graphs.stats, cfg, tok0, caches, temperature=temperature, pools=pools, idx=idx, use_kernel=use_kernel,
         fuse_skip=fuse_skip, unroll=unroll))
@@ -342,7 +285,7 @@ def chunk(params, cfg, steps: int, pools, idx, caches, tok, pos, active, temps, 
     updated in place. Returns the token each step sampled, (steps, B)."""
     graphs = GRAPHS if graphs is None else graphs
     key = ("chunk", cfg, steps, max_seq, _temp_kind(temps), use_kernel, fuse, idx.dtype, active.dtype,
-           _sig(params), _sig(pools), _sig(caches), _sig(tok), _sig(pos))
+           storage_sig(params), storage_sig(pools), storage_sig(caches), storage_sig(tok), storage_sig(pos))
     e = graphs.entry(key, lambda: _Chunk(graphs.stats, cfg, steps, max_seq, pools, idx, tok, active, temps,
                                          use_kernel, fuse))
     e.idx.copy_(idx)

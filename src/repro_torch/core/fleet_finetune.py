@@ -24,9 +24,15 @@ Counterpart of ``repro.core.fleet_finetune``. Instead of N single-tenant
     batched registration (``write_back_to_pool``).
 
 The reference's epochs are ``lax.scan`` loops compiled into one dispatch;
-here they are Python loops over the rows of the index matrix, the cache is
-written in place, and each step's per-tenant losses stay on the device until
-the epoch returns them stacked. With a ``TieredCacheEngine`` (``engine=``),
+here, on CUDA tensors, an epoch is replays of a captured step
+(``cuda_graph.EpochGraph`` through ``lm_skiplora.run_epoch_graph``, as the
+single-tenant epochs: the stacked adapters, moments, step count and the
+row -> tenant map in the entry's buffers, params, tokens, labels and cache
+in place), with a held-out eval before or after folded in as graphs of
+their own; ``loop=True``, CPU tensors and a model group run the eager
+loop over the rows. Either way the cache is written in place, and each
+step's per-tenant losses stay on the device until the epoch returns them
+stacked. With a ``TieredCacheEngine`` (``engine=``),
 cached epochs stream their batches out of the engine
 (``fleet_cached_epoch_via_engine``), the next batch's host rows prefetched
 while a step runs: the path of a fleet whose cache exceeds its device
@@ -44,6 +50,7 @@ import torch
 
 from repro_torch.core import batch_plan
 from repro_torch.core import lm_skiplora as SL
+from repro_torch.core.cuda_graph import GraphCache, storage_sig
 from repro_torch.core.skip_cache import SkipCache, cache_read, cache_write
 from repro_torch.kernels.skip_lora.ops import (
     freeze_pool_slots,
@@ -242,24 +249,74 @@ def make_fleet_cached_epoch(
     *,
     use_kernel: bool = True,
     freeze_mask: Optional[torch.Tensor] = None,
+    loop: bool = False,
+    graphs: Optional[GraphCache] = None,
 ):
     """A fleet cached epoch: cache gathers and grouped adapter steps, no
-    backbone compute, every tenant advanced each step.
+    backbone compute, every tenant advanced each step. On CUDA tensors
+    (``loop=False``) the steps are graph replays (``lm_skiplora.GRAPHS`` or
+    ``graphs``); the arguments are left alone.
 
     epoch(params, stacked, opt_state, cache, idx_mat, row_tenant)
         -> (stacked, opt_state, losses (steps, N))"""
+    run = _cached_epoch_run(cfg, sl, optimizer, n_tenants, use_kernel=use_kernel, freeze_mask=freeze_mask,
+                            loop=loop, graphs=graphs)
+
+    def epoch(params, stacked, opt_state, cache, idx_mat, row_tenant):
+        stacked, opt_state, losses, _, _ = run(params, stacked, opt_state, cache, idx_mat, row_tenant)
+        return stacked, opt_state, losses
+
+    return epoch
+
+
+def _cached_epoch_run(cfg, sl, optimizer, n_tenants, *, use_kernel, freeze_mask, loop, graphs,
+                      eval_pre: bool = False, eval_post: bool = False):
+    """The fleet cached epoch with the held-out loss before and/or after:
+    run(params, stacked, opt_state, cache, idx_mat, row_tenant, eval_idx=None,
+    eval_row_tenant=None) -> (stacked, opt_state, losses, pre | None, post | None)."""
     step = make_fleet_cached_step_from_vals(
         cfg, sl, optimizer, n_tenants, use_kernel=use_kernel, freeze_mask=freeze_mask
     )
+    ev = make_fleet_eval_loss(cfg, sl, n_tenants, use_kernel=use_kernel)
 
-    def epoch(params, stacked, opt_state, cache, idx_mat, row_tenant):
+    def loop_run(params, stacked, opt_state, cache, idx_mat, row_tenant, eval_idx, eval_row_tenant):
+        def held_out(t):
+            return ev(params, t, cache_read(cache, eval_idx), eval_row_tenant)
+
+        pre = held_out(stacked) if eval_pre else None
         losses = []
         for idx in idx_mat:
             stacked, opt_state, per = step(params, stacked, opt_state, cache_read(cache, idx), row_tenant)
             losses.append(per)
-        return stacked, opt_state, torch.stack(losses)
+        post = held_out(stacked) if eval_post else None
+        return stacked, opt_state, torch.stack(losses), pre, post
 
-    return epoch
+    def run(params, stacked, opt_state, cache, idx_mat, row_tenant, eval_idx=None, eval_row_tenant=None):
+        if not SL.graphed(cache.valid, params, loop):
+            return loop_run(params, stacked, opt_state, cache, idx_mat, row_tenant, eval_idx, eval_row_tenant)
+        carry, struct = SL.carry_leaves(stacked, opt_state)
+        consts = [row_tenant] + ([eval_idx, eval_row_tenant] if eval_pre or eval_post else [])
+
+        def graph_step(live, carry, consts, idx):
+            p, c = live
+            t, o = SL.from_carry(carry, struct)
+            t, o, per = step(p, t, o, cache_read(c, idx), consts[0])
+            return SL.carry_leaves(t, o)[0], per
+
+        def held_out(live, carry, consts):
+            p, c = live
+            return ev(p, SL.from_carry(carry, struct)[0], cache_read(c, consts[1]), consts[2])
+
+        key = ("fleet_cached", cfg, sl, optimizer, n_tenants, use_kernel, storage_sig(freeze_mask), eval_pre,
+               eval_post, struct, storage_sig(params), SL.cache_sig(cache))
+        new, losses, extra = SL.run_epoch_graph(
+            graphs, key, graph_step, (params, cache), carry, consts, idx_mat.to(cache.valid.device),
+            before=held_out if eval_pre else None, after=held_out if eval_post else None,
+            what=f"the fleet cached step ({cfg.name}, mode {sl.mode}, {n_tenants} tenants)")
+        stacked, opt_state = SL.from_carry(new, struct)
+        return stacked, opt_state, losses, extra.get("before"), extra.get("after")
+
+    return run
 
 
 def make_fleet_eval_loss(cfg: ModelConfig, sl: SL.SkipLoRAConfig, n_tenants: int, *, use_kernel: bool = True):
@@ -289,27 +346,20 @@ def make_fleet_cached_epoch_eval(
     use_kernel: bool = True,
     eval_pre: bool = True,
     eval_post: bool = True,
+    loop: bool = False,
+    graphs: Optional[GraphCache] = None,
 ):
     """``make_fleet_cached_epoch`` with the held-out per-tenant loss taken
     from the cached rows just before (``eval_pre``) and/or just after
-    (``eval_post``) the epoch's steps: no backbone forward.
+    (``eval_post``) the epoch's steps: no backbone forward. On CUDA tensors
+    each eval is a graph of its own, replayed before the first step's
+    replay or after the last.
 
     epoch(params, stacked, opt_state, cache, idx_mat, row_tenant, eval_idx,
           eval_row_tenant)
         -> (stacked, opt_state, losses (steps, N), pre (N,) | None, post (N,) | None)"""
-    run = make_fleet_cached_epoch(cfg, sl, optimizer, n_tenants, use_kernel=use_kernel)
-    ev = make_fleet_eval_loss(cfg, sl, n_tenants, use_kernel=use_kernel)
-
-    def epoch(params, stacked, opt_state, cache, idx_mat, row_tenant, eval_idx, eval_row_tenant):
-        def held_out(t):
-            return ev(params, t, cache_read(cache, eval_idx), eval_row_tenant)
-
-        pre = held_out(stacked) if eval_pre else None
-        stacked, opt_state, losses = run(params, stacked, opt_state, cache, idx_mat, row_tenant)
-        post = held_out(stacked) if eval_post else None
-        return stacked, opt_state, losses, pre, post
-
-    return epoch
+    return _cached_epoch_run(cfg, sl, optimizer, n_tenants, use_kernel=use_kernel, freeze_mask=None, loop=loop,
+                             graphs=graphs, eval_pre=eval_pre, eval_post=eval_post)
 
 
 def make_fleet_populate_epoch(
@@ -320,39 +370,62 @@ def make_fleet_populate_epoch(
     *,
     use_kernel: bool = True,
     freeze_mask: Optional[torch.Tensor] = None,
+    loop: bool = False,
+    graphs: Optional[GraphCache] = None,
 ):
     """Fleet populate epoch: one adapter-free backbone forward per fleet
     batch serves every tenant's rows (the backbone is tenant-independent),
     the activations go into each tenant's cache partition, and the adapter
     step runs on the just-collected full-precision activations through the
     grouped sum (mode ``int8`` quantises only what the cache keeps, like the
-    single-tenant populate step).
+    single-tenant populate step). On CUDA tensors (``loop=False``) the
+    steps are graph replays; the cache is written in place, the other
+    arguments are left alone.
 
     epoch(params, stacked, opt_state, cache, tokens, labels, idx_mat, row_tenant)
         -> (stacked, opt_state, cache, losses (steps, N))"""
     dtype = model_dtype(cfg)
     _check_fleet_mode(sl)
 
+    def step(params, stacked, opt_state, cache, tokens, labels, idx, row_tenant):
+        out = lm_forward(params, cfg, tokens[idx], mode="train", collect_acts=True)
+        acts, y_base, lab = out["acts"].detach(), out["y_base"].detach(), labels[idx]
+        values = SL._encode_acts(acts, None, sl)
+        values["y_base"] = y_base
+        values["labels"] = lab
+        cache_write(cache, idx, values)
+
+        def loss_fn(t):
+            skip = _fleet_skip_sum(t, row_tenant, n_tenants, dtype, acts=acts.to(dtype),
+                                   use_kernel=use_kernel, freeze_mask=freeze_mask)
+            h = y_base.to(dtype) + skip.to(dtype)
+            per = per_tenant_loss(params, cfg, h, lab, n_tenants)
+            return torch.sum(per), per
+
+        return _adapter_step(optimizer, stacked, opt_state, loss_fn)
+
     def epoch(params, stacked, opt_state, cache, tokens, labels, idx_mat, row_tenant):
-        losses = []
-        for idx in idx_mat:
-            out = lm_forward(params, cfg, tokens[idx], mode="train", collect_acts=True)
-            acts, y_base, lab = out["acts"].detach(), out["y_base"].detach(), labels[idx]
-            values = SL._encode_acts(acts, None, sl)
-            values["y_base"] = y_base
-            values["labels"] = lab
-            cache = cache_write(cache, idx, values)
+        if not SL.graphed(tokens, params, loop):
+            losses = []
+            for idx in idx_mat:
+                stacked, opt_state, per = step(params, stacked, opt_state, cache, tokens, labels, idx, row_tenant)
+                losses.append(per)
+            return stacked, opt_state, cache, torch.stack(losses)
+        carry, struct = SL.carry_leaves(stacked, opt_state)
 
-            def loss_fn(t, acts=acts, y_base=y_base, lab=lab):
-                skip = _fleet_skip_sum(t, row_tenant, n_tenants, dtype, acts=acts.to(dtype),
-                                       use_kernel=use_kernel, freeze_mask=freeze_mask)
-                h = y_base.to(dtype) + skip.to(dtype)
-                per = per_tenant_loss(params, cfg, h, lab, n_tenants)
-                return torch.sum(per), per
+        def graph_step(live, carry, consts, idx):
+            p, c, tok, lab = live
+            t, o = SL.from_carry(carry, struct)
+            t, o, per = step(p, t, o, c, tok, lab, idx, consts[0])
+            return SL.carry_leaves(t, o)[0], per
 
-            stacked, opt_state, per = _adapter_step(optimizer, stacked, opt_state, loss_fn)
-            losses.append(per)
-        return stacked, opt_state, cache, torch.stack(losses)
+        key = ("fleet_populate", cfg, sl, optimizer, n_tenants, use_kernel, storage_sig(freeze_mask), struct,
+               storage_sig(params), SL.cache_sig(cache), storage_sig(tokens), storage_sig(labels))
+        new, losses, _ = SL.run_epoch_graph(
+            graphs, key, graph_step, (params, cache, tokens, labels), carry, [row_tenant],
+            idx_mat.to(tokens.device), what=f"the fleet populate step ({cfg.name}, mode {sl.mode}, {n_tenants} tenants)")
+        stacked, opt_state = SL.from_carry(new, struct)
+        return stacked, opt_state, cache, losses
 
     return epoch
 
@@ -403,6 +476,8 @@ def fleet_finetune(
     adapters: Optional[Params] = None,
     engine=None,
     on_epoch=None,
+    loop: bool = False,
+    graphs: Optional[GraphCache] = None,
 ) -> FleetResult:
     """Algorithm 1 for a whole fleet, on the device the params live on:
     epoch 0 populates every tenant's cache partition (one shared backbone
@@ -416,7 +491,9 @@ def fleet_finetune(
     n_per`` samples) the populated rows go into the engine after epoch 0,
     outside its time, and the cached epochs stream out of it
     (``fleet_cached_epoch_via_engine``). The populate epoch still holds the
-    whole fleet cache once: the engine's budget governs the cached epochs."""
+    whole fleet cache once: the engine's budget governs the cached epochs.
+    On the card the epochs are graph replays (``graphs``, default
+    ``lm_skiplora.GRAPHS``); ``loop=True`` runs their eager loops."""
     _check_fleet_mode(sl)
     n_tenants, n_per, seq = tokens.shape
     batch_per_tenant = min(batch_per_tenant, n_per)   # fleet_index_matrix clamps the same way
@@ -429,8 +506,8 @@ def fleet_finetune(
     labels_flat = torch.as_tensor(labels, device=dev).reshape(n_tenants * n_per, seq)
     cache = SL.init_lm_cache(n_tenants * n_per, cfg, sl, seq, device=dev)
     kw = dict(use_kernel=use_kernel, freeze_mask=freeze_mask)
-    populate_epoch = make_fleet_populate_epoch(cfg, sl, opt, n_tenants, **kw)
-    cached_epoch = make_fleet_cached_epoch(cfg, sl, opt, n_tenants, **kw)
+    populate_epoch = make_fleet_populate_epoch(cfg, sl, opt, n_tenants, loop=loop, graphs=graphs, **kw)
+    cached_epoch = make_fleet_cached_epoch(cfg, sl, opt, n_tenants, loop=loop, graphs=graphs, **kw)
     engine_step = make_fleet_cached_step_from_vals(cfg, sl, opt, n_tenants, **kw)
 
     losses, times = [], []

@@ -28,25 +28,41 @@ to and from the per-layer list the port's layer stack takes (the
 reference's periodic layout has no counterpart here).
 
 The reference's epochs are ``lax.scan`` loops compiled into one dispatch
-with donated carries; here they are Python loops over the rows of the index
-matrix, the cache is written in place, and each step's loss stays on the
-device until the epoch returns them stacked.
+with donated carries (trainable, opt_state and, populating, the cache). On
+CUDA tensors an epoch here is CUDA-graph replays with no Python op dispatch
+a step (``cuda_graph.EpochGraph``, cached in ``GRAPHS``): a graph of one
+step, replayed once a row of the index matrix, which it reads through a
+step counter on the device (an entry's first call runs its first step
+eagerly, then captures and replays the rest). The adapters, moments and step count go into
+the entry's buffers and come out as new tensors; params, tokens and labels
+are read in place and never written; the cache is written in place (it is
+donated) and keys the entry by its storage with the params, tokens and
+labels. ``loop=True``, CPU tensors and params split over a model group
+(``models.tp``) run the eager loop over the rows instead, the yardstick the
+replays are held to bitwise. Either way the cache is written in place and
+each step's loss stays on the device until the epoch returns them stacked.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.cuda_graph import EpochGraph, GraphCache, shapes, storage_sig
 from repro_torch.core.skip_cache import SkipCache, cache_read, cache_write
+from repro_torch.models import tp as TP
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_forward, lm_loss, model_dtype, pad_prefix_labels
-from repro_torch.optim.optimizers import apply_updates
+from repro_torch.optim.optimizers import OptState, apply_updates
 
 Params = Any
+
+#: the CUDA graphs of the LM epochs run on the card (single-tenant and
+#: fleet); a session keeps its own per shard
+GRAPHS = GraphCache(capacity=4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,17 +316,65 @@ def make_cached_step(cfg: ModelConfig, sl: SkipLoRAConfig, optimizer):
 
 
 # ---------------------------------------------------------------------------
-# Epochs: a Python loop over the rows of the index matrix
+# Epochs: graph replays on the card, the eager loop over the rows elsewhere
 # ---------------------------------------------------------------------------
 
 
-def make_populate_epoch(cfg: ModelConfig, sl: SkipLoRAConfig, optimizer):
+def carry_leaves(trainable: Params, opt_state: OptState) -> tuple[list[torch.Tensor], tuple]:
+    """The donated small state of an adapter epoch as a flat list (the
+    trainable leaves, the step count, then the moments' leaves) and the
+    structure ``from_carry`` rebuilds it with."""
+    keys = tuple(trainable)
+    leaves = [trainable[k] for k in keys] + [opt_state.step]
+    for m in (opt_state.mu, opt_state.nu):
+        if m is not None:
+            leaves += [m[k] for k in keys]
+    return leaves, (keys, opt_state.mu is not None, opt_state.nu is not None)
+
+
+def from_carry(leaves: list[torch.Tensor], struct: tuple) -> tuple[Params, OptState]:
+    keys, has_mu, has_nu = struct
+    it = iter(leaves)
+    trainable = {k: next(it) for k in keys}
+    step = next(it)
+    mu = {k: next(it) for k in keys} if has_mu else None
+    nu = {k: next(it) for k in keys} if has_nu else None
+    return trainable, OptState(step=step, mu=mu, nu=nu)
+
+
+def graphed(x: torch.Tensor, params: Params, loop: bool) -> bool:
+    """Whether an epoch over ``x``'s device runs as graph replays: on a CUDA
+    device, unless ``loop`` asks for the eager steps or the params are split
+    over a model group (whose members' dispatches stay eager)."""
+    return not loop and x.is_cuda and not TP.is_group(params)
+
+
+def cache_sig(cache: SkipCache) -> tuple:
+    return storage_sig(cache.slots) + storage_sig(cache.valid)
+
+
+def run_epoch_graph(graphs: Optional[GraphCache], key: tuple, step, live, carry, consts, idx_mat, *, what: str,
+                    before=None, after=None):
+    """One epoch as replays of the entry ``key`` of ``graphs`` (default
+    ``GRAPHS``): ``cuda_graph.EpochGraph.run``. ``key`` must name what fixes
+    the step and hold ``storage_sig`` of ``live``."""
+    graphs = GRAPHS if graphs is None else graphs
+    key = key + (tuple(idx_mat.shape), idx_mat.dtype, shapes(carry), shapes(consts), idx_mat.device)
+    e = graphs.entry(key, lambda: EpochGraph(graphs.stats, step, device=idx_mat.device, what=what, before=before,
+                                             after=after))
+    return e.run(live, carry, consts, idx_mat)
+
+
+def make_populate_epoch(cfg: ModelConfig, sl: SkipLoRAConfig, optimizer, *, loop: bool = False,
+                        graphs: Optional[GraphCache] = None):
     """Whole populate epoch over ``idx_mat`` (steps, batch): tokens/labels
     (num_samples, seq) on the device. Returns (trainable, opt_state, cache,
-    losses (steps,)); the cache is written in place."""
+    losses (steps,)); the cache is written in place, the other arguments
+    are left alone. On CUDA tensors (``loop=False``) the steps are replays
+    of a step graph (``GRAPHS`` or ``graphs``)."""
     step = make_populate_step(cfg, sl, optimizer)
 
-    def epoch(params, trainable, static, opt_state, cache, tokens, labels, idx_mat):
+    def loop_epoch(params, trainable, static, opt_state, cache, tokens, labels, idx_mat):
         losses = []
         for idx in idx_mat:
             batch = {"tokens": tokens[idx], "labels": labels[idx]}
@@ -318,19 +382,60 @@ def make_populate_epoch(cfg: ModelConfig, sl: SkipLoRAConfig, optimizer):
             losses.append(loss)
         return trainable, opt_state, cache, torch.stack(losses)
 
+    def epoch(params, trainable, static, opt_state, cache, tokens, labels, idx_mat):
+        if not graphed(tokens, params, loop):
+            return loop_epoch(params, trainable, static, opt_state, cache, tokens, labels, idx_mat)
+        carry, struct = carry_leaves(trainable, opt_state)
+        names = tuple(static)
+
+        def graph_step(live, carry, consts, idx):
+            p, c, tok, lab = live
+            t, o = from_carry(carry, struct)
+            t, o, _, loss = step(p, t, dict(zip(names, consts)), o, c, {"tokens": tok[idx], "labels": lab[idx]}, idx)
+            return carry_leaves(t, o)[0], loss
+
+        key = ("populate", cfg, sl, optimizer, struct, names, storage_sig(params), cache_sig(cache),
+               storage_sig(tokens), storage_sig(labels))
+        new, losses, _ = run_epoch_graph(
+            graphs, key, graph_step, (params, cache, tokens, labels), carry, [static[k] for k in names],
+            idx_mat.to(tokens.device), what=f"the populate step ({cfg.name}, mode {sl.mode}, batch {idx_mat.shape[1]})")
+        trainable, opt_state = from_carry(new, struct)
+        return trainable, opt_state, cache, losses
+
     return epoch
 
 
-def make_cached_epoch(cfg: ModelConfig, sl: SkipLoRAConfig, optimizer):
+def make_cached_epoch(cfg: ModelConfig, sl: SkipLoRAConfig, optimizer, *, loop: bool = False,
+                      graphs: Optional[GraphCache] = None):
     """Whole cached epoch: cache gathers + adapter steps only. Returns
-    (trainable, opt_state, losses (steps,))."""
+    (trainable, opt_state, losses (steps,)), the arguments left alone. On
+    CUDA tensors (``loop=False``) the steps are graph replays."""
     step = make_cached_step(cfg, sl, optimizer)
 
-    def epoch(params, trainable, static, opt_state, cache, idx_mat):
+    def loop_epoch(params, trainable, static, opt_state, cache, idx_mat):
         losses = []
         for idx in idx_mat:
             trainable, opt_state, loss = step(params, trainable, static, opt_state, cache, idx)
             losses.append(loss)
         return trainable, opt_state, torch.stack(losses)
+
+    def epoch(params, trainable, static, opt_state, cache, idx_mat):
+        if not graphed(cache.valid, params, loop):
+            return loop_epoch(params, trainable, static, opt_state, cache, idx_mat)
+        carry, struct = carry_leaves(trainable, opt_state)
+        names = tuple(static)
+
+        def graph_step(live, carry, consts, idx):
+            p, c = live
+            t, o = from_carry(carry, struct)
+            t, o, loss = step(p, t, dict(zip(names, consts)), o, c, idx)
+            return carry_leaves(t, o)[0], loss
+
+        key = ("cached", cfg, sl, optimizer, struct, names, storage_sig(params), cache_sig(cache))
+        new, losses, _ = run_epoch_graph(
+            graphs, key, graph_step, (params, cache), carry, [static[k] for k in names],
+            idx_mat.to(cache.valid.device), what=f"the cached step ({cfg.name}, mode {sl.mode}, batch {idx_mat.shape[1]})")
+        trainable, opt_state = from_carry(new, struct)
+        return trainable, opt_state, losses
 
     return epoch

@@ -54,7 +54,8 @@ dispatches run under the shard's ``ShardScope``, and with
 ``pipeline_stages`` the scheduler's admission prefill runs as GPipe
 microbatches over the group's devices (``lm.pipeline_sched_prefill``).
 
-The decode's CUDA graphs are cached in ``core.decode_graph``.
+The decode's CUDA graphs are cached in ``core.decode_graph``, the resident
+adapt's epoch graphs per shard in the session (``core.cuda_graph.EpochGraph``).
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ from repro_torch.core import fleet_finetune as FF
 from repro_torch.core import lm_skiplora as SL
 from repro_torch.core.cache_engine import TieredCacheEngine
 from repro_torch.core.control_plane import ControlConfig, ControlPlane
+from repro_torch.core.cuda_graph import GraphCache
 from repro_torch.models import tp as TP
 from repro_torch.models.lm import (
     decode_loop,
@@ -435,6 +437,9 @@ class SessionRuntime:
         #: (``export_skipcache``), kept across adapt calls until the next
         #: ingest on the shard writes new rows
         self._export: list = [None] * n
+        #: per shard, the resident adapt path's epoch graphs (captured on the
+        #: shard's device over its export), freed with the export
+        self._epoch_graphs = [GraphCache(capacity=8) for _ in range(n)]
         #: (shard, tenant tuple, shard pool version) -> slot-index tensor,
         #: LRU: repeated serve batches skip the host-to-device slot-index
         #: build, a slot-map change moves the version, and live traffic's
@@ -693,6 +698,7 @@ class SessionRuntime:
             self.engines[shard].write(self._local_ids(st.partition, range(st.n_ingested, st.n_ingested + b)),
                                       values)
         self._export[shard] = None   # new rows: the resident path's export is stale
+        self._epoch_graphs[shard].clear()   # and the graphs captured over it
         st.n_ingested += b
         self.counters["ingest/rows"] += b
         return logits
@@ -722,9 +728,14 @@ class SessionRuntime:
         losses come to the host after every group has been issued.
 
         The engine's placement picks the path: fully resident -> "scan" (the
-        epochs read an id-indexed export of the cache), tiered -> "stream"
-        (``fleet_cached_epoch_via_engine``). Returns {"losses": {tenant:
-        (epochs, steps) np.ndarray}, "groups": [tenant lists], "path"}."""
+        epochs read an id-indexed export of the cache; on the card they are
+        replays of graphs the session keeps per shard, captured on the
+        shard's device and freed when an ingest makes the export stale),
+        tiered -> "stream" (``fleet_cached_epoch_via_engine``, eager steps).
+        Every group's epochs are issued before the first write-back, so the
+        shards' replays go out back to back. A model group's epochs stay
+        eager. Returns {"losses": {tenant: (epochs, steps) np.ndarray},
+        "groups": [tenant lists], "path"}."""
         order = list(self._tenants) if tenants is None else list(tenants)
         if not order:
             raise ValueError("no tenants to adapt")
@@ -750,17 +761,25 @@ class SessionRuntime:
             st = self.tenant(t)
             groups.setdefault((st.step, st.epochs_done, st.n_ingested, self._shard_of_partition(st.partition)),
                               []).append(t)
+        # Every group's epochs are issued before any write-back: a write-back
+        # uploads slot ids and the gate reads losses, each a wait for the
+        # device, so the shards' epochs run back to back, and overlap on
+        # separate devices. No group's epochs read the pool or another
+        # group's tenants, so the order changes nothing they compute.
         pending = []
         for (step0, epoch0, spt, shard), group in groups.items():
             with self._on(shard):
-                ls_epochs, path = self._adapt_group(
+                pending.append(self._adapt_epochs(
                     group, spt, shard, epochs=epochs, epoch0=epoch0, step0=step0,
                     batch_per_tenant=batch_per_tenant,
-                )
-            pending.append((group, ls_epochs, path))
+                ))
+        for run in pending:
+            with self._on(run["shard"]):
+                self._write_back(run)
         losses: dict[Any, np.ndarray] = {}
         paths = set()
-        for group, ls_epochs, path in pending:   # to the host after every group is issued
+        for run in pending:   # to the host after every group is issued
+            group, ls_epochs, path = run["group"], run["losses"], run["path"]
             paths.add(path)
             ls = np.stack([l.cpu().numpy() for l in ls_epochs])   # (epochs, steps, n)
             for g, t in enumerate(group):
@@ -769,16 +788,18 @@ class SessionRuntime:
         return {"losses": losses, "groups": list(groups.values()),
                 "path": "stream" if "stream" in paths else "scan"}
 
-    def _adapt_group(self, group, spt, shard, *, epochs, epoch0, step0, batch_per_tenant) -> tuple[list, str]:
-        """One same-(trajectory, shard) group's cached epochs and write-back
-        on the shard's device and engine. Returns the per-epoch (steps, N)
-        losses on the device and the path."""
+    def _adapt_epochs(self, group, spt, shard, *, epochs, epoch0, step0, batch_per_tenant) -> dict:
+        """Issue one same-(trajectory, shard) group's cached epochs on the
+        shard's device and engine; on the resident path they are replays of
+        the shard's epoch graphs, and nothing here waits for the device.
+        Returns what ``_write_back`` needs: the per-epoch (steps, N) losses
+        on the device, the new state, the held-out losses and the path."""
         n, dev, engine = len(group), self._shard_device[shard], self.engines[shard]
         params = self._shard_params[shard]
         states = [self.tenant(t) for t in group]
         stacked = _to(_stack([st.adapters for st in states]), dev)
         opt_state = OptState(
-            step=torch.tensor(step0, dtype=torch.int32, device=dev),
+            step=torch.full((), step0, dtype=torch.int32, device=dev),
             mu=_to(_stack([st.opt_mu for st in states]), dev),
             nu=_to(_stack([st.opt_nu for st in states]), dev),
         )
@@ -797,16 +818,17 @@ class SessionRuntime:
         kw = dict(use_kernel=self.use_kernel)
         resident = engine.capacity >= engine.num_samples
         if do_eval:
-            eval_idx = torch.as_tensor(batch_plan.fleet_eval_index(
+            eval_idx = _upload(batch_plan.fleet_eval_index(
                 n, spt, holdout_every=holdout, partitions=local_parts,
                 partition_stride=self.samples_per_tenant,
-            ), device=dev)
+            ), dev)
             eval_row_tenant = FF.fleet_row_tenant(n, eval_rows.size, device=dev)
         if resident:
             if self._export[shard] is None:
                 self._export[shard] = engine.export_skipcache()
             cache = self._export[shard]
-            epoch_fn = FF.make_fleet_cached_epoch(self.cfg, self.sl, self.optimizer, n, **kw)
+            graphs = self._epoch_graphs[shard]
+            epoch_fn = FF.make_fleet_cached_epoch(self.cfg, self.sl, self.optimizer, n, graphs=graphs, **kw)
         else:
             step_fn = FF.make_fleet_cached_step_from_vals(self.cfg, self.sl, self.optimizer, n, **kw)
             ev_fn = FF.make_fleet_eval_loss(self.cfg, self.sl, n, **kw)
@@ -828,17 +850,18 @@ class SessionRuntime:
             if want_pre or want_post:
                 # Shadow eval folded into the epoch call, on the cached rows.
                 eval_epoch = FF.make_fleet_cached_epoch_eval(
-                    self.cfg, self.sl, self.optimizer, n, eval_pre=want_pre, eval_post=want_post, **kw
+                    self.cfg, self.sl, self.optimizer, n, eval_pre=want_pre, eval_post=want_post,
+                    graphs=graphs, **kw
                 )
                 stacked, opt_state, ls, pre, post = eval_epoch(
-                    params, stacked, opt_state, cache, torch.as_tensor(idx_mat, device=dev),
+                    params, stacked, opt_state, cache, _upload(idx_mat, dev),
                     row_tenant, eval_idx, eval_row_tenant,
                 )
                 pre_loss = pre if want_pre else pre_loss
                 post_loss = post if want_post else post_loss
             elif resident:
                 stacked, opt_state, ls = epoch_fn(
-                    params, stacked, opt_state, cache, torch.as_tensor(idx_mat, device=dev), row_tenant
+                    params, stacked, opt_state, cache, _upload(idx_mat, dev), row_tenant
                 )
             else:
                 stacked, opt_state, ls = FF.fleet_cached_epoch_via_engine(
@@ -847,22 +870,28 @@ class SessionRuntime:
             all_losses.append(ls)
         if do_eval and not resident:
             post_loss = ev_fn(params, stacked, engine.read(eval_idx), eval_row_tenant)
-        # from the plan: reading opt_state.step would wait for the device
-        step_after = step0 + steps_per_epoch * epochs
-        path = "scan" if resident else "stream"
+        return {"group": group, "shard": shard, "states": states, "stacked": stacked, "opt_state": opt_state,
+                "losses": all_losses, "pre": pre_loss, "post": post_loss, "epochs_done": epoch0 + epochs,
+                # from the plan: reading opt_state.step would wait for the device
+                "step": step0 + steps_per_epoch * epochs, "path": "scan" if resident else "stream"}
 
+    def _write_back(self, run: dict) -> None:
+        """A group's write-back into the pool (gated with a control plane)
+        and the tenants' new training state."""
+        group, states, stacked, opt_state = run["group"], run["states"], run["stacked"], run["opt_state"]
+        step_after, epochs_done = run["step"], run["epochs_done"]
         if self.control is None:
             for g, st in enumerate(states):
-                self._advance(st, stacked, opt_state, g, step_after, epoch0 + epochs)
+                self._advance(st, stacked, opt_state, g, step_after, epochs_done)
             self.pool.register_many(group, stacked)
             for t in group:
                 self.pool.pin(t)   # in-flight session state: never LRU-evicted
-            return all_losses, path
+            return
 
         # -- gated write-back (control plane on): the gate reads the eval
         # losses on the host, which waits for this group's epochs.
-        pre_np = None if pre_loss is None else pre_loss.cpu().numpy()
-        post_np = None if post_loss is None else post_loss.cpu().numpy()
+        pre_np = None if run["pre"] is None else run["pre"].cpu().numpy()
+        post_np = None if run["post"] is None else run["post"].cpu().numpy()
         decisions: dict[Any, str] = {}
         meta: dict[Any, dict] = {}
         for g, t in enumerate(group):
@@ -876,7 +905,7 @@ class SessionRuntime:
             self.counters[f"control/{dec}"] += 1
         for g, (t, st) in enumerate(zip(group, states)):
             if decisions[t] != "reject":   # reject: retrain the same plan next adapt
-                self._advance(st, stacked, opt_state, g, step_after, epoch0 + epochs)
+                self._advance(st, stacked, opt_state, g, step_after, epochs_done)
         self.pool.register_many(group, stacked, gate=decisions.__getitem__, meta=meta)
         for t in group:
             self.pool.pin(t)
@@ -893,7 +922,6 @@ class SessionRuntime:
             self.control.record_rollback(t, auto=True)
             self.counters["control/rollbacks"] += 1
             self.counters["control/auto_rollbacks"] += 1
-        return all_losses, path
 
     @staticmethod
     def _advance(st: TenantState, stacked, opt_state, g: int, step: int, epochs_done: int) -> None:
@@ -929,6 +957,15 @@ class SessionRuntime:
             for f in dataclasses.fields(agg):
                 setattr(agg, f.name, getattr(agg, f.name) + getattr(eng.stats, f.name))
         return agg
+
+    def epoch_graph_stats(self, shard: Optional[int] = None) -> Counter:
+        """The resident adapt's epoch graphs of ``shard`` (default: summed
+        over every shard): captures, replays, eager first steps and their host
+        seconds (``cuda_graph.EpochGraph``)."""
+        out = Counter()
+        for graphs in self._epoch_graphs if shard is None else [self._epoch_graphs[shard]]:
+            out.update(graphs.stats)
+        return out
 
     def stats(self) -> dict[str, float]:
         out = {f"runtime/{k}": float(v) for k, v in sorted(self.counters.items())}
@@ -1120,3 +1157,13 @@ def _zeros(tree: Optional[Params]) -> Optional[Params]:
 
 def _to(tree: Optional[Params], device) -> Optional[Params]:
     return None if tree is None else {k: v.to(device) for k, v in tree.items()}
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the device's queued
+    work: a copy from pageable memory waits for it, one from pinned memory
+    is ordered on the stream instead."""
+    t = torch.as_tensor(arr)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

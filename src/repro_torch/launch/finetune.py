@@ -9,7 +9,10 @@ the reference's CLI does, as a one-tenant ``SessionRuntime``: epoch 0
 cache) and then runs one ``adapt`` epoch; every later epoch is a cached
 ``adapt`` with no backbone compute. Each epoch prints its mean step loss,
 wall time and adapt path; the last line is the cached-epoch speedup over
-epoch 0.
+epoch 0. On the card the epochs are CUDA-graph replays (the session's
+resident adapt, or ``core.lm_skiplora``'s epochs), and an epoch that
+captured its graphs says how much of its time the captures and its eager
+first step took.
 
 With ``--hbm-mb`` the runtime's ``TieredCacheEngine`` holds that many MiB of
 cache rows on the device: the rest spill to the host tier (on disk under
@@ -49,6 +52,7 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import lm_skiplora as SL
 from repro_torch.core.batch_plan import index_matrix
+from repro_torch.core.cuda_graph import capture_note
 from repro_torch.data.pipeline import DataConfig, epoch_permutation, make_pipeline
 from repro_torch.models.lm import init_lm
 from repro_torch.optim.optimizers import adamw
@@ -201,6 +205,7 @@ def _session_main(args: argparse.Namespace) -> dict:
     epoch_times, losses, paths = [], [], []
     generator = torch.Generator(device=device).manual_seed(1)
     for epoch in range(args.epochs):
+        graphs0 = rt.epoch_graph_stats()
         t0 = time.perf_counter()
         if epoch == 0:
             # Populate: ingest the whole set, one backbone forward a sample
@@ -213,7 +218,7 @@ def _session_main(args: argparse.Namespace) -> dict:
         epoch_times.append(dt)
         losses.append(mean)
         paths.append(out["path"])
-        _report(epoch, mean, dt, f" ({out['path']} path)")
+        _report(epoch, mean, dt, f" ({out['path']} path{capture_note(rt.epoch_graph_stats(), graphs0)})")
     _speedup(epoch_times)
     result = {"epoch_times": epoch_times, "losses": losses, "paths": paths, "runtime": rt}
     if args.hbm_mb > 0:
@@ -232,13 +237,15 @@ def _single_tenant_main(args: argparse.Namespace) -> dict:
           f"device={run.device}")
     epoch_times, losses = [], []
     for epoch in range(args.epochs):
+        graphs0 = SL.GRAPHS.stats.copy()
         t0 = time.perf_counter()
         ls = run_epoch(run, epoch)
         mean = float(ls.mean())   # waits for the device
         dt = time.perf_counter() - t0
         epoch_times.append(dt)
         losses.append(mean)
-        _report(epoch, mean, dt)
+        note = capture_note(SL.GRAPHS.stats, graphs0)
+        _report(epoch, mean, dt, f" ({note[2:]})" if note else "")
     _speedup(epoch_times)
     return {"epoch_times": epoch_times, "losses": losses, "run": run}
 

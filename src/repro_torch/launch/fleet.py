@@ -31,6 +31,10 @@ backward, and ingest's last-position sum through K5; without it the sums are
 the plain versions and the ``blocked_skip_sum`` einsum. Weights are random
 from seed 0, tokens and labels from seeds 1 and 2, adapters from seed 3.
 ``run`` is the offline trainer on its own.
+
+On the card every epoch is CUDA-graph replays (the session's resident
+adapt, or the offline trainer's epochs); an epoch that captured its graphs
+says how much of its time the captures and its eager first step took.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import fleet_finetune as FF
 from repro_torch.core import lm_skiplora as SL
+from repro_torch.core.cuda_graph import capture_note
 from repro_torch.models.lm import init_lm
 from repro_torch.optim.optimizers import adamw
 
@@ -120,10 +125,14 @@ def run(args, cfg, sl, params, tokens, labels, *, adapters: Optional[Any] = None
     dev = params["embed"]["table"].device
     _build_kernels(args, sl, dev)
 
+    since = [SL.GRAPHS.stats.copy()]
+
     def report(e, ls, dt):
         kind = "populate" if e == 0 else "cached  "
+        note = capture_note(SL.GRAPHS.stats, since[0])
+        since[0] = SL.GRAPHS.stats.copy()
         print(f"epoch {e} [{kind}] mean loss {float(np.mean(ls)):.4f} "
-              f"time {dt:.2f}s ({n_t / dt:.1f} tenants/s/epoch)")
+              f"time {dt:.2f}s ({n_t / dt:.1f} tenants/s/epoch{note})")
         if on_epoch is not None:
             on_epoch(e, ls, dt)
 
@@ -162,6 +171,7 @@ def run_session(args, cfg, sl, params, tokens, labels, *, on_epoch=None) -> dict
     generator = torch.Generator(device=dev).manual_seed(3)
     losses, times = [], []
     for e in range(args.epochs):
+        graphs0 = rt.epoch_graph_stats()
         t0 = time.perf_counter()
         out = rt.adapt(epochs=1, batch_per_tenant=bpt, generator=generator)
         ls = np.stack([out["losses"][t][0] for t in range(n_t)], axis=-1)   # on the host
@@ -171,7 +181,8 @@ def run_session(args, cfg, sl, params, tokens, labels, *, on_epoch=None) -> dict
         kind = "populate" if e == 0 else "cached  "
         extra = f" (+{ingest_s:.2f}s ingest)" if e == 0 else ""
         print(f"epoch {e} [{kind}] mean loss {float(np.mean(ls)):.4f} time {dt:.2f}s{extra} "
-              f"({n_t / dt:.1f} tenants/s/epoch, {len(out['groups'])} group(s), {out['path']} path)")
+              f"({n_t / dt:.1f} tenants/s/epoch, {len(out['groups'])} group(s), {out['path']} path"
+              f"{capture_note(rt.epoch_graph_stats(), graphs0)})")
         if on_epoch is not None:
             on_epoch(e, ls, dt)
     return {"losses": np.stack(losses), "epoch_times": times, "ingest_s": ingest_s, "devices": args.devices,

@@ -23,12 +23,14 @@ sampler's batch s, so a resumed run continues the uninterrupted one's data.
 
 ``--scan-chunk N`` runs N steps per dispatch over pre-sampled batch ids, the
 whole synthetic set staged on the device: the reference's ``lax.scan``. On
-the card a chunk is one CUDA-graph replay (``make_scan_chunk``): static
-buffers hold the parameters, AdamW's moments and step, the staged tokens and
-labels, the (N, batch) id matrix and the losses, and each captured step
-writes its new parameters and moments back into them, so the graph's pool
-holds one step's temporaries, not N copies of the state. On the CPU a chunk
-is the eager loop. A chunk's result is the same bits as N per-step calls.
+the card a chunk is one CUDA-graph replay (``make_scan_chunk``) over the
+parameters, AdamW's moments and step, the staged tokens and labels, the
+(N, batch) id matrix and the losses. Each captured step writes its new
+parameters and moments back into the caller's own (donated, handed back),
+so the graph's pool holds one step's temporaries, not N copies of the
+state; the tokens and labels are only read, and the entry is keyed on the
+storage of all four. On the CPU a chunk is the eager loop. A chunk's result
+is the same bits as N per-step calls.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import torch
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduce_config
-from repro_torch.core.cuda_graph import GraphCache, capture, on_side_stream
+from repro_torch.core.cuda_graph import GraphCache, capture, on_side_stream, storage_sig
 from repro_torch.data.pipeline import DataConfig, SamplerState, make_pipeline
 from repro_torch.models.lm import init_lm, train_loss_fn
 from repro_torch.optim.optimizers import OptState, adamw, apply_updates, clip_by_global_norm, tree_leaves, tree_map
@@ -86,9 +88,13 @@ def _opt_leaves(st: OptState) -> list[torch.Tensor]:
 
 class _ChunkGraph:
     """One chunk of ``n`` steps on the card: static buffers and the graph of
-    the steps over them. The first call's parameters, moments, tokens and
-    labels become the static buffers (donated, no copy: at full width the
-    state is ~16 GB)."""
+    the steps over them. The first call's parameters and moments become the
+    static buffers (donated, no copy: at full width the state is ~16 GB),
+    which each step's new state is written back into; the staged tokens and
+    labels are read in place and never written. The entry is keyed on the
+    storage of all four (``chunk_key``), so only the caller that was
+    handed the buffers back reaches them again; the id matrix goes into a
+    buffer of the entry's own."""
 
     def __init__(self, step, params, opt_state, tokens, labels, idx_mat):
         self.step = step
@@ -101,13 +107,6 @@ class _ChunkGraph:
     def _state(self) -> list[torch.Tensor]:
         return tree_leaves(self.params) + _opt_leaves(self.opt_state)
 
-    def _load(self, params, opt_state, tokens, labels, idx_mat) -> None:
-        src = tree_leaves(params) + _opt_leaves(opt_state) + [tokens, labels, idx_mat]
-        dst = self._state() + [self.tokens, self.labels, self.idx]
-        for d, s in zip(dst, src, strict=True):
-            if d.data_ptr() != s.data_ptr():   # the entry's own buffers come back donated
-                d.copy_(s)
-
     def _batch(self, s: int) -> dict:
         ids = self.idx[s]
         return {"tokens": self.tokens[ids], "labels": self.labels[ids]}
@@ -118,8 +117,8 @@ class _ChunkGraph:
             torch._foreach_copy_(self._state(), tree_leaves(params) + _opt_leaves(opt_state))
             self.losses[s].copy_(loss)
 
-    def run(self, params, opt_state, tokens, labels, idx_mat):
-        self._load(params, opt_state, tokens, labels, idx_mat)
+    def run(self, idx_mat):
+        self.idx.copy_(idx_mat)
         if self.graph is None:
             # warm-up: one step whose result is dropped, so the state stays
             # the caller's; its temporaries go back to the device before the
@@ -138,6 +137,14 @@ class _ChunkGraph:
         self.graph = self.params = self.opt_state = self.tokens = self.labels = None
 
 
+def chunk_key(cfg, opt, params, opt_state, tokens, labels, idx_mat) -> tuple:
+    """What fixes a chunk's graph: the config, the optimizer, the id
+    matrix's shape and the storage of the state it donates (params,
+    moments, step count) and of the tokens and labels it reads."""
+    return (cfg, opt, tuple(idx_mat.shape), idx_mat.dtype, tokens.device, storage_sig(params),
+            storage_sig(_opt_leaves(opt_state)), storage_sig(tokens), storage_sig(labels))
+
+
 def make_scan_chunk(cfg, opt, *, graphs: Optional[GraphCache] = None):
     """A chunk of train steps as one dispatch: ``run_chunk(params,
     opt_state, tokens, labels, idx_mat) -> (params, opt_state, losses
@@ -145,14 +152,16 @@ def make_scan_chunk(cfg, opt, *, graphs: Optional[GraphCache] = None):
     tokens / labels (S, seq).
 
     On CUDA tensors the chunk is one CUDA-graph replay (cached in
-    ``GRAPHS`` by shape); its first call runs one step eagerly on a side
-    stream (the warm-up, its result dropped) and captures. The first
-    call's params, opt_state, tokens and labels become the graph's static
-    buffers, and the returned params and opt_state ARE those buffers, which
-    every call on the same entry overwrites: the inputs are donated, as the
-    reference's ``donate_argnums`` donates them. A failed capture raises
-    ``GraphCaptureError``; nothing falls back to eager steps. On CPU tensors
-    the chunk is the eager loop and returns new tensors."""
+    ``GRAPHS`` by ``chunk_key``); its first call runs one step eagerly on a
+    side stream (the warm-up, its result dropped) and captures. The
+    caller's params and opt_state become the graph's static buffers, and
+    the returned params and opt_state ARE those buffers, which the next
+    call with them overwrites: they are donated, as the reference's
+    ``donate_argnums`` donates them. Tokens and labels are only read.
+    Another state, even of equal shapes, keys another entry and never
+    lands in these buffers. A failed capture raises ``GraphCaptureError``;
+    nothing falls back to eager steps. On CPU tensors the chunk is the
+    eager loop and returns new tensors."""
     step = make_step(cfg, opt)
     cache = GRAPHS if graphs is None else graphs
 
@@ -164,9 +173,9 @@ def make_scan_chunk(cfg, opt, *, graphs: Optional[GraphCache] = None):
                 params, opt_state, loss = step(params, opt_state, {"tokens": tokens[ids], "labels": labels[ids]})
                 losses.append(loss)
             return params, opt_state, torch.stack(losses)
-        key = (cfg, id(opt), tuple(idx_mat.shape), tuple(tokens.shape), tokens.device)
+        key = chunk_key(cfg, opt, params, opt_state, tokens, labels, idx_mat)
         e = cache.entry(key, lambda: _ChunkGraph(step, params, opt_state, tokens, labels, idx_mat))
-        return e.run(params, opt_state, tokens, labels, idx_mat)
+        return e.run(idx_mat)
 
     return run_chunk
 

@@ -39,7 +39,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "          'repro_torch.kernels.autotune', 'repro_torch.launch.train', 'repro_torch.launch.roofline',\n"
         "          'repro_torch.launch.flops', 'repro_torch.launch.shapes',\n"
         "          'repro_torch.runtime.sharding', 'repro_torch.launch.mesh',\n"
-        "          'repro_torch.models.moe', 'repro_torch.models.ssm', 'repro_torch.models.frontend'):\n"
+        "          'repro_torch.models.moe', 'repro_torch.models.ssm', 'repro_torch.models.frontend',\n"
+        "          'repro_torch.examples.finetune_lm', 'repro_torch.examples.serve_adapted'):\n"
         "    assert m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -27,7 +27,7 @@ from repro.models.lm import init_lm as j_init_lm  # noqa: E402
 from repro.optim.optimizers import adamw as j_adamw  # noqa: E402
 from repro_torch import convert as C  # noqa: E402
 from repro_torch.launch import train as TT  # noqa: E402
-from repro_torch.optim.optimizers import adamw as t_adamw, tree_leaves  # noqa: E402
+from repro_torch.optim.optimizers import adamw as t_adamw, tree_leaves, tree_map  # noqa: E402
 
 BATCH, SEQ, STEPS, LR = 4, 16, 3, 3e-4
 
@@ -94,6 +94,43 @@ def test_scan_chunk_equals_per_step_path(setup):
     for a, b in zip(tree_leaves(p2) + tree_leaves(st2.mu) + tree_leaves(st2.nu) + [st2.step],
                     tree_leaves(p) + tree_leaves(st.mu) + tree_leaves(st.nu) + [st.step], strict=True):
         assert torch.equal(a, b)
+
+
+def test_chunk_graph_key_holds_the_storage_of_the_state_and_the_data(setup):
+    """A chunk's graph entry (``chunk_key``) is keyed on the storage of the
+    params and moments it donates and of the tokens and labels it reads:
+    two token tensors, or two states, of equal shapes give two entries, so
+    neither caller's tensors land in the other's buffers; the buffers handed
+    back reuse theirs."""
+    from repro_torch.core.cuda_graph import GraphCache
+
+    cfg, _, tp, _ = setup
+    opt = t_adamw(LR, weight_decay=0.1)
+    tokens = [torch.zeros((16, SEQ), dtype=torch.int32) for _ in range(2)]
+    labels = torch.zeros((16, SEQ), dtype=torch.int32)
+    idx = torch.zeros((3, BATCH), dtype=torch.long)
+    states = [(tp, opt.init(tp)), (tree_map(torch.clone, tp), opt.init(tp))]
+    graphs = GraphCache(capacity=8)
+
+    def entry(p, st, tok):
+        return graphs.entry(TT.chunk_key(cfg, opt, p, st, tok, labels, idx), object)
+
+    first = entry(*states[0], tokens[0])
+    assert entry(*states[0], tokens[1]) is not first      # other tokens
+    assert entry(*states[1], tokens[0]) is not first      # another state, params and moments
+    assert entry(states[0][0], states[1][1], tokens[0]) is not first   # other moments
+    assert entry(*states[0], tokens[0]) is first          # the buffers handed back
+    assert len(graphs) == 4
+
+
+def test_storage_sig_tells_strides_apart():
+    """A graph addresses memory by pointer, shape and strides: a transposed
+    square weight (same pointer, same shape) keys another entry."""
+    from repro_torch.core.cuda_graph import storage_sig
+
+    w = torch.zeros((8, 8))
+    assert storage_sig({"w": w}) != storage_sig({"w": w.t()})
+    assert storage_sig({"w": w}) == storage_sig({"w": w.view(8, 8)})
 
 
 def _cli(tmp_path, *extra):
