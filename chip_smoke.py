@@ -235,8 +235,16 @@ Phases, each printing one line (or a few) before the last line:
      a flip allowed only where the unsplit run ranks the split's pick
      within ``TOP2_REL_TOL`` of its largest |logit| below its argmax (the
      near-tie rule of ``_near_tie_flips``) and the two tokens' own
-     differences, within the bar, cover that gap; the
-     routing flips and the unpinned differences printed beside them; the
+     differences, within the bar, cover that gap (the pinned serve is the
+     split's eager loop: the pinning reads the device back at every
+     routing); the routing flips and the unpinned differences printed
+     beside them; unpinned, the split's graphed serve (its decode replays
+     graphs of the group's steps, ``cuda_graph.capturable``) bitwise the
+     split's eager loop (``_split_graphs``: first call, replays only,
+     eager, the prefill and the graphed decode apart); a one-group
+     session (``_group_session``: full-width stablelm-1.6b split over
+     ``[cuda:0, cuda:0]`` at the fleet shape) whose adapt replays its
+     epoch graphs, bitwise ``loop=True``, first call and replays timed; the
      cached-loss step's loss and adapter gradients within ``TP_LOSS_BAR``
      / ``TP_GRAD_BAR``; the split's own routing unpinned in float32 at
      reduced width (``_model_axis_fp32``: hidden and logits within
@@ -271,7 +279,9 @@ Phases, each printing one line (or a few) before the last line:
      xlstm-350m at full width split two ways over ``[cuda:0, cuda:0]``
      against the unsplit run: member bytes == ``per_device_bytes``; in
      float32 a 4 x 128 prefill's logits within ``XLSTM_FP32_LOGIT_BAR``,
-     greedy grouped serve tokens equal but near ties (``_split_flips``), a
+     greedy grouped serve tokens equal but near ties (``_split_flips``;
+     the split's eager loop, then its graphed serve bitwise that loop,
+     ``_split_graphs``), a
      cached-loss step within ``XLSTM_FP32_LOSS_BAR`` / ``XLSTM_FP32_GRAD_BAR``;
      in bf16 the split's and the unsplit run's prefill logits are printed, not
      held to a bar (random full-width weights put the bf16 model itself 0.3
@@ -296,9 +306,11 @@ Phases, each printing one line (or a few) before the last line:
      arguments the allocator's, each member's part 1024 positions, member
      bytes == ``per_device_bytes``); greedy grouped serving from a 4 x 128
      prefill, 32 new tokens, equal to the unsplit run's but near ties
-     (``_split_flips``); a reduced float32 copy's decode logits within
-     ``CP_LOGIT_BAR`` of the same group with whole caches. Host seconds, no
-     hand-written kernel launches, the phase's time.
+     (``_split_flips``; the split's eager loop, then its graphed serve
+     bitwise that loop, ``_split_graphs``); a reduced float32 copy's
+     decode logits within ``CP_LOGIT_BAR`` of the same group with whole
+     caches. Host seconds, no hand-written kernel launches, the phase's
+     time.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
 step's must take many rows, and each ``generate_grouped`` call's and each
@@ -4542,18 +4554,24 @@ def model_axis_phase(torch, device_name):
         check(isinstance(caches[0]["k"], TP.HeadSplit), "model axis: the split's caches are not split by heads")
         return LM.serve_prefill(gp, cfg, prompts, caches)[0]
 
-    def split_serve():
-        return generate_grouped(gp, cfg, prompts, pool.pools(), idx, max_new=NEW, use_kernel=False, device=dev)
+    def split_loop():
+        return generate_loop(gp, cfg, prompts, max_new=NEW, pools=pool.pools(), idx=idx, use_kernel=False,
+                             device=dev)
 
     with torch.no_grad():
         with _routing(torch, prefill_routes, True) as pinned_prefill:
-            got_logits = timed("prefill split", split_prefill)
+            got_logits = timed("prefill split (pinned)", split_prefill)
         got_samples = []
+        # the pinned routing and the logged samples read the device back at
+        # every call: the split's eager loop, never a capture
         with _routing(torch, serve_routes, True) as pinned_serve, _sampled(torch, got_samples):
-            got_toks = timed("serve split", split_serve)
-        free_logits = split_prefill()
-        free_toks = split_serve()
+            got_toks = timed("serve split (pinned, eager loop)", split_loop)
     check(not prefill_routes and not serve_routes, "model axis: the split made other routing calls")
+    with torch.no_grad():
+        free_logits = timed("prefill split", split_prefill)
+        free_toks = timed("serve split (eager loop)", split_loop)
+        graph_line = _split_graphs(torch, "model axis", gp, cfg, prompts, pool, idx, timed, secs, free_toks,
+                                   "serve split (eager loop)")
     logit_err = _rel_max(torch, got_logits, want_logits)
     check(logit_err <= TP_LOGIT_BAR, f"model axis prefill logits: {logit_err:.3e} > {TP_LOGIT_BAR}")
     free_err = _rel_max(torch, free_logits, want_logits)
@@ -4570,7 +4588,8 @@ def model_axis_phase(torch, device_name):
     counts = _launches()
     check(not any(counts.values()), f"model axis: hand-written kernels launched {counts}")
     del gp, acts, y_base
-    torch.cuda.empty_cache()
+    _free_device(torch)
+    session_line = _group_session(torch, device_name)
     fp32 = _model_axis_fp32(torch)
     two = _model_axis_two_cards(torch) if torch.cuda.device_count() >= 2 else None
     check(not any(_launches().values()), f"model axis: hand-written kernels launched {_launches()}")
@@ -4602,6 +4621,8 @@ def model_axis_phase(torch, device_name):
           f"sched_prefill of "
           f"all {BATCH} rows (other product shapes, other routing inputs) {whole_err:.3e}, {whole_same} of "
           f"{BATCH} tokens equal")
+    print(graph_line)
+    print(session_line)
     print("model axis host seconds (synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     if two is None:
         print(f"model axis two cards: not run, this machine has {torch.cuda.device_count()} card (the (1 x 2) "
@@ -4609,6 +4630,130 @@ def model_axis_phase(torch, device_name):
     else:
         print(two)
     print(f"model axis phase: {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched")
+
+
+def _split_graphs(torch, tag, gp, cfg, prompts, pool, idx, timed, secs, eager, eager_key):
+    """A split backbone's graphed serve (``generate_grouped``: its decode
+    replays graphs of the group's steps, ``cuda_graph.capturable``) held
+    bitwise to ``eager``, the tokens of the split's own eager loop
+    (``generate_loop``, unpinned, timed as ``secs[eager_key]``): the first
+    call (one eager step, the capture and the replays) and a call of
+    replays only, timed into ``secs``; then the prefill and the graphed
+    decode apart. Returns the line."""
+    from repro_torch.core import decode_graph as DG
+    from repro_torch.core.runtime import generate_grouped
+    from repro_torch.models import lm as LM
+
+    dev = prompts.device
+    b, s = prompts.shape
+    kw = dict(pools=pool.pools(), idx=idx, use_kernel=False)
+    since = DG.GRAPHS.stats.copy()
+    first = timed(f"{tag}: serve split graphed, first call", lambda: generate_grouped(
+        gp, cfg, prompts, max_new=NEW, device=dev, **kw))
+    gain_first = _graph_gain(DG.GRAPHS.stats, since) | {"eager_steps": DG.GRAPHS.stats["eager_steps"]
+                                                          - since["eager_steps"]}
+    since = DG.GRAPHS.stats.copy()
+    again = timed(f"{tag}: serve split graphed", lambda: generate_grouped(
+        gp, cfg, prompts, max_new=NEW, device=dev, **kw))
+    gain = _graph_gain(DG.GRAPHS.stats, since)
+    check(torch.equal(first, eager) and torch.equal(again, eager),
+          f"{tag}: the split's graphed serve != its eager loop")
+    check(gain_first["captures"] >= 1 and gain_first["eager_steps"] == 1 and gain["captures"] == 0
+          and gain["replays"] == NEW, f"{tag}: split decode graph stats {gain_first} then {gain}")
+
+    def prefilled():
+        caches = LM.init_serve_caches(cfg, b, s + NEW, device=dev, params=gp)
+        logits, caches = LM.serve_prefill_grouped(gp, cfg, prompts, caches, **kw)
+        return LM.sample_token(logits, 0.0), caches
+
+    tok0, caches = timed(f"{tag}: prefill split grouped", prefilled)
+    got = timed(f"{tag}: decode split graphed", lambda: LM.decode_scan(
+        gp, cfg, tok0, s, caches, max_new=NEW, **kw)[0])
+    check(torch.equal(got, eager), f"{tag}: the split's graphed decode != its eager loop")
+    del caches
+    return (f"{tag} graphed split serve ({b}x{s} + {NEW} new, greedy, float pool, use_kernel=False) on one card: "
+            f"tokens bitwise the split's eager loop, unpinned; first call "
+            f"{secs[f'{tag}: serve split graphed, first call']:.3f} s ({gain_first['eager_steps']} eager step + "
+            f"{gain_first['captures']} capture(s) + {gain_first['replays']} replays), replays only "
+            f"{secs[f'{tag}: serve split graphed']:.3f} s ({gain['replays']} replays issued in "
+            f"{gain['replay_s']:.3f} s), eager loop {secs[eager_key]:.3f} s; apart: prefill "
+            f"{secs[f'{tag}: prefill split grouped']:.3f} s, decode graphed "
+            f"{secs[f'{tag}: decode split graphed']:.3f} s")
+
+
+def _group_session(torch, device_name):
+    """A one-group session on ``[cuda:0, cuda:0]``: full-width stablelm-1.6b
+    split two ways (``tp.group_params``) in two ``SessionRuntime``s over
+    ``sharding.group_mesh`` at the fleet phase's shape (4 tenants x 16 x
+    128, 2 rows a tenant a step, mode full, fp32 cache, ``use_kernel=False``
+    as a model axis must), the same 32 ingests each; one ``adapt(epochs=3)``
+    and a continued ``adapt(epochs=1)``, graphed (the resident path's epoch
+    graphs over the group) in one session, ``loop=True`` in the other:
+    losses, adapters and moments bitwise, the graphs' captures and
+    replays counted. Returns the line."""
+    import numpy as np
+
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.launch import fleet as FL
+    from repro_torch.models import tp as TP
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.runtime import sharding as SH
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    args = FL.parse_args([*FLEET_ARGS, "--mode", "full"])
+    cfg, sl = FL.setup(args)
+    params, tokens, labels = FL.make_inputs(args, cfg, dev)
+    gp = TP.group_params(params, [dev, dev])
+    del params
+    torch.cuda.empty_cache()
+    runs, times = {}, {}
+    for loop in (False, True):
+        rt = SessionRuntime(cfg, sl, gp, max_tenants=FLEET_TENANTS, samples_per_tenant=FLEET_SAMPLES,
+                            seq=FLEET_SEQ, optimizer=adamw(1e-3), use_kernel=False,
+                            mesh=SH.group_mesh([dev, dev]))
+        check(rt.params is gp, "group session: the split params were not taken as they are")
+        for t in range(FLEET_TENANTS):
+            for lo in range(0, FLEET_SAMPLES, FLEET_BPT):
+                rt.ingest(t, tokens[t, lo:lo + FLEET_BPT], labels[t, lo:lo + FLEET_BPT])
+        outs, gains = [], []
+        for epochs in (3, 1):
+            torch.cuda.synchronize()
+            since = rt.epoch_graph_stats()
+            t1 = time.perf_counter()
+            outs.append(rt.adapt(epochs=epochs, batch_per_tenant=FLEET_BPT, loop=loop,
+                                 generator=torch.Generator(device=dev).manual_seed(3)))
+            times[loop, epochs] = time.perf_counter() - t1     # the losses are on the host
+            gains.append(_graph_gain(rt.epoch_graph_stats(), since))
+            check(outs[-1]["path"] == "scan", f"group session: adapt ran the {outs[-1]['path']} path")
+        runs[loop] = (rt, outs, gains)
+    (g_rt, g_outs, g_gains), (e_rt, e_outs, e_gains) = runs[False], runs[True]
+    for a, b in zip(g_outs, e_outs):
+        for t in range(FLEET_TENANTS):
+            check(np.array_equal(a["losses"][t], b["losses"][t]) and np.isfinite(a["losses"][t]).all(),
+                  f"group session: tenant {t} graphed losses != loop=True's")
+    for t in range(FLEET_TENANTS):
+        for name in ("adapters", "opt_mu", "opt_nu"):
+            for k in ("A", "B"):
+                check(torch.equal(getattr(g_rt.tenant(t), name)[k], getattr(e_rt.tenant(t), name)[k]),
+                      f"group session: tenant {t} {name} {k} graphed != loop=True's")
+    check(g_rt.pool.slot_table() == e_rt.pool.slot_table(), "group session: slot tables differ")
+    first, cont = g_gains
+    check((first["captures"], first["first_steps"], first["replays"]) == (1, 1, 3 * FLEET_STEPS - 1)
+          and (cont["captures"], cont["replays"]) == (0, FLEET_STEPS)
+          and all(g["captures"] == g["replays"] == 0 for g in e_gains),
+          f"group session: graph stats {g_gains}, loop=True {e_gains}")
+    check(not any(_launches().values()), f"group session: hand-written kernels launched {_launches()}")
+    del runs, g_rt, e_rt, gp
+    _free_device(torch)
+    return (f"model axis group session {ARCH} full width split 2 ways over [cuda:0, cuda:0] on {device_name} "
+            f"(sharding.group_mesh, {FLEET_TENANTS} tenants x {FLEET_SAMPLES} x {FLEET_SEQ}, {FLEET_BPT} a tenant a "
+            f"step, mode full, use_kernel=False): adapt(epochs=3) graphed {times[False, 3]:.3f} s (first call: eager "
+            f"first step {first['first_step_s']:.3f} + {first['captures']} capture {first['capture_s']:.3f} + "
+            f"{first['replays']} replays issued {first['replay_s']:.3f} s) against loop=True {times[True, 3]:.3f} s; "
+            f"a continued epoch, replays only, {times[False, 1]:.3f} s ({cont['replays']} replays issued in "
+            f"{cont['replay_s']:.3f} s) against loop=True {times[True, 1]:.3f} s; losses, adapters, moments and slot "
+            f"tables bitwise ({time.perf_counter() - t0:.1f} s)")
 
 
 def _model_axis_fp32(torch):
@@ -4878,7 +5023,7 @@ def _xlstm_split(torch, device_name):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.core.runtime import generate_grouped, generate_loop
+    from repro_torch.core.runtime import generate_loop
     from repro_torch.launch.serve import demo_pool
     from repro_torch.models import lm as LM
     from repro_torch.models import tp as TP
@@ -4938,9 +5083,13 @@ def _xlstm_split(torch, device_name):
               "xlstm split: the mLSTM states are not split over the members")
         got_logits = timed("prefill split fp32", lambda: LM.serve_prefill(gp, cfg, prompts, caches)[0])
         got_samples = []
+        # the logged samples read the device back at every step: the
+        # split's eager loop, never a capture
         with _sampled(torch, got_samples):
-            got_toks = timed("serve split fp32", lambda: generate_grouped(
-                gp, cfg, prompts, pool.pools(), idx, max_new=NEW, use_kernel=False, device=dev))
+            got_toks = timed("serve split fp32 (eager loop)", lambda: generate_loop(
+                gp, cfg, prompts, max_new=NEW, pools=pool.pools(), idx=idx, use_kernel=False, device=dev))
+        graph_line = _split_graphs(torch, "xlstm split fp32", gp, cfg, prompts, pool, idx, timed, secs, got_toks,
+                                   "serve split fp32 (eager loop)")
     logit_err = _rel_max(torch, got_logits, want_logits)
     check(logit_err <= XLSTM_FP32_LOGIT_BAR, f"xlstm split fp32 prefill logits: {logit_err:.3e} > "
           f"{XLSTM_FP32_LOGIT_BAR}")
@@ -4973,7 +5122,7 @@ def _xlstm_split(torch, device_name):
             f"cached-loss step loss rel diff {loss_err:.3e} (bar {XLSTM_FP32_LOSS_BAR}), gradients {grad_err:.3e} "
             f"(bar {XLSTM_FP32_GRAD_BAR}); bf16 (printed, no bar): split vs unsplit logits {diff16:.3e}, split vs "
             f"fp32 {split16:.3e}, unsplit vs fp32 {noise:.3e}; host s "
-            + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+            + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()) + "\n" + graph_line)
 
 
 def _quantized_check(torch, device_name):
@@ -5285,7 +5434,7 @@ def _cp_part(torch, device_name):
     prefill, 32 new tokens, against the unsplit run (near ties explained,
     ``_split_flips``); a reduced float32 copy within ``CP_LOGIT_BAR``."""
     from repro_torch.configs import get_config
-    from repro_torch.core.runtime import generate_grouped, generate_loop
+    from repro_torch.core.runtime import generate_loop
     from repro_torch.launch.serve import demo_pool
     from repro_torch.models import lm as LM
     from repro_torch.models import tp as TP
@@ -5326,15 +5475,20 @@ def _cp_part(torch, device_name):
         check(TP.seq_split(caches[0]["k"]), "context parallel: the serve caches are not split by sequence")
         del caches
         got_samples = []
+        # the logged samples read the device back at every step: the
+        # split's eager loop, never a capture
         with _sampled(torch, got_samples):
-            got = timed("serve split", lambda: generate_grouped(gp, cfg, prompts, pool.pools(), idx, max_new=NEW,
-                                                               use_kernel=False, device=dev))
+            got = timed("serve split (eager loop)", lambda: generate_loop(
+                gp, cfg, prompts, max_new=NEW, pools=pool.pools(), idx=idx, use_kernel=False, device=dev))
+        graph_line = _split_graphs(torch, "context parallel", gp, cfg, prompts, pool, idx, timed, secs, got,
+                                   "serve split (eager loop)")
     flips = _split_flips(torch, want.cpu(), got.cpu(), want_samples, got_samples)
     del gp, want_samples, got_samples
     _free_device(torch)
     lines.append(f"context parallel {CP_ARCH} full width (bf16, one KV head) grouped serve {BATCH}x{PROMPT} + {NEW} "
                  f"new (greedy, float pool, use_kernel=False) split 2 ways over [cuda:0, cuda:0] on {device_name}: "
                  f"tokens equal to the unsplit run's{' except near ties: ' + '; '.join(flips) if flips else ''}")
+    lines.append(graph_line)
     worst = timed("reduced fp32 steps", lambda: _cp_fp32_steps(torch, dev, 2))
     lines.append(f"context parallel fp32 reduced {CP_ARCH} split 2 ways on {device_name}: prefill and 4 decode "
                  f"steps (int, 0-d, per-row positions) from the same caches, logits max diff / max |logit| "

@@ -33,6 +33,8 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.models import tp as TP
+
 
 class GraphCaptureError(RuntimeError):
     """A step could not be captured into a CUDA graph."""
@@ -118,14 +120,19 @@ class GraphCache:
 
 
 def storage_sig(tree) -> tuple:
-    """(data pointer, shape, strides, dtype) of every tensor in ``tree``
-    (nested dicts, lists and tuples), with the dict keys, in order: what
-    keys a graph to the tensors it reads or writes in place."""
+    """(data pointer, shape, strides, dtype, device) of every tensor in
+    ``tree`` (nested dicts, lists and tuples), with the dict keys, in
+    order: what keys a graph to the tensors it reads or writes in place. A
+    backbone split over a model group (``tp.GroupParams``) gives its
+    devices, then each member's tensors in member order; a split cache
+    (``tp.HeadSplit``) its axis and ranges, then each part's storage. A
+    member re-sharded, or a part re-made, into new storage therefore keys
+    a new capture."""
     out: list = []
 
     def walk(t):
         if isinstance(t, torch.Tensor):
-            out.append((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype))
+            out.append((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device))
         elif isinstance(t, dict):
             for k, v in t.items():
                 out.append(k)
@@ -133,11 +140,43 @@ def storage_sig(tree) -> tuple:
         elif isinstance(t, (list, tuple)):
             for v in t:
                 walk(v)
+        elif isinstance(t, TP.GroupParams):
+            out.append(("group", tuple(torch.device(d) for d in t.devices)))
+            for m in t.members:
+                walk(m)
+        elif isinstance(t, TP.HeadSplit):
+            out.append(("split", t.axis, tuple(t.ranges)))
+            for p in t.parts:
+                walk(p)
         elif t is not None:
             raise TypeError(f"unexpected leaf {type(t).__name__} in a graph's inputs")
 
     walk(tree)
     return tuple(out)
+
+
+def capturable(devices: Sequence) -> bool:
+    """Whether work that runs on ``devices`` (the devices of a call's
+    tensors: a whole backbone's one, or the home device and every member
+    of a model group) can be one CUDA-graph capture: true only when every
+    one is a CUDA device and all are the same card (a group whose members
+    share the home device, such as ``[cuda:0, cuda:0]``).
+
+    A group spread over several cards runs eager steps, the one test every
+    graphed path makes (``lm.decode_scan``, the scheduler's chunk,
+    ``lm_skiplora.graphed``). ``capture`` records one stream on one device:
+    a member's kernels on another card go to that card's streams and are
+    not recorded, and its allocations come from that card's caching
+    allocator, outside the graph's private pool, so a replay would read
+    memory the allocator has handed out again. One capture across cards
+    would need a capture stream on each member's card, joined to the home
+    stream by events, and each card's allocations routed into memory the
+    graph owns; ``torch.cuda.graph`` does neither."""
+    devs = [torch.device(d) for d in devices]
+    if not devs or any(d.type != "cuda" for d in devs):
+        return False
+    current = torch.cuda.current_device() if torch.cuda.is_available() else 0
+    return len({current if d.index is None else d.index for d in devs}) == 1
 
 
 def shapes(tensors: Sequence[torch.Tensor]) -> tuple:

@@ -29,6 +29,14 @@ tensors, and a reallocated pool recaptures instead of reading freed memory.
 ``GraphCache`` keeps the ``capacity`` most recently used entries and frees
 an evicted entry's graphs and their private memory pool.
 
+A backbone split over a model group (``tp.GroupParams``) whose members
+share one card (``cuda_graph.capturable``) is captured the same way: the
+members' work runs one member after the other on the capture stream, the
+entry's caches are twins of the split caches (``tp.HeadSplit.zeros_like``:
+each part on its member's device, the same ranges and axis; a cache kept
+whole stays a tensor), and the key holds every member's storage. A group
+spread over several cards runs eager steps (``capturable`` says why).
+
 The first call of an entry runs its first step eagerly on a side stream, as
 the warm-up: the kernel libraries load and ``cudaFuncSetAttribute`` runs
 outside the capture. That step is one of the call's own, so every call
@@ -60,6 +68,7 @@ from repro_torch.core.adapter_pool import grouped_plan
 from repro_torch.core.cuda_graph import GraphCache, GraphCaptureError, LaunchTape, capture, on_side_stream, storage_sig
 from repro_torch.kernels.skip_lora.ops import plan_tile
 from repro_torch.models import lm as LM
+from repro_torch.models import tp as TP
 
 __all__ = ["GRAPHS", "GraphCache", "GraphCaptureError", "LaunchTape", "chunk", "decode", "segments"]
 
@@ -184,6 +193,15 @@ def _load_plan(plan, pools, idx) -> None:
             buf.copy_(new)
 
 
+def _layout(t) -> tuple:
+    """What an entry's twin of a cache leaf must match: a tensor's shape
+    and dtype; a split cache's axis, ranges and each part's shape, dtype
+    and device."""
+    if isinstance(t, TP.HeadSplit):
+        return ("split", t.axis, tuple(t.ranges), tuple((tuple(p.shape), p.dtype, p.device) for p in t.parts))
+    return (tuple(t.shape), t.dtype)
+
+
 class _Decode(_Entry):
     """``decode``'s entry: token, 0-d position, slot index, plan, per-row
     temperatures and serve caches (KV, recurrent states) of its own; steps
@@ -195,7 +213,7 @@ class _Decode(_Entry):
                          _temp_kind(temperature)[0] != "greedy")
         self.cfg = cfg
         self.state = {"tok": torch.zeros_like(tok0), "pos": torch.zeros((), dtype=torch.long, device=dev),
-                      "caches": [{n: torch.zeros_like(t) for n, t in c.items()} for c in caches]}
+                      "caches": [{n: TP.zeros_like(t) for n, t in c.items()} for c in caches]}
         self.idx = torch.zeros_like(idx) if idx is not None else None
         self.temps = torch.zeros_like(temperature) if isinstance(temperature, torch.Tensor) else temperature
         self.plan = grouped_plan(pools, self.idx, use_kernel=use_kernel, fused=fuse_skip)
@@ -218,7 +236,7 @@ def decode(params, cfg, tok0, start_pos: int, caches, *, max_new: int, temperatu
     (tokens (B, max_new) with tok0 first, caches)."""
     graphs = GRAPHS if graphs is None else graphs
     unroll = max(1, min(unroll, max_new))
-    shapes = tuple((n, tuple(t.shape), t.dtype) for c in caches for n, t in c.items())
+    shapes = tuple((n, _layout(t)) for c in caches for n, t in c.items())
     key = ("decode", cfg, tuple(tok0.shape), tok0.dtype, shapes, _temp_kind(temperature), use_kernel,
            fuse_skip, unroll, None if idx is None else idx.dtype, storage_sig(params), storage_sig(adapters),
            storage_sig(pools))

@@ -37,9 +37,11 @@ eagerly, then captures and replays the rest). The adapters, moments and step cou
 the entry's buffers and come out as new tensors; params, tokens and labels
 are read in place and never written; the cache is written in place (it is
 donated) and keys the entry by its storage with the params, tokens and
-labels. ``loop=True``, CPU tensors and params split over a model group
-(``models.tp``) run the eager loop over the rows instead, the yardstick the
-replays are held to bitwise. Either way the cache is written in place and
+labels. Params split over a model group (``models.tp``) whose members
+share one card replay the same way, the key holding every member's
+storage. ``loop=True``, CPU tensors and a group spread over several cards
+run the eager loop over the rows instead, the yardstick the replays are
+held to bitwise. Either way the cache is written in place and
 each step's loss stays on the device until the epoch returns them stacked.
 """
 
@@ -51,7 +53,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.cuda_graph import EpochGraph, GraphCache, shapes, storage_sig
+from repro_torch.core.cuda_graph import EpochGraph, GraphCache, capturable, shapes, storage_sig
 from repro_torch.core.skip_cache import SkipCache, cache_read, cache_write
 from repro_torch.models import tp as TP
 from repro_torch.models.config import ModelConfig
@@ -344,9 +346,10 @@ def from_carry(leaves: list[torch.Tensor], struct: tuple) -> tuple[Params, OptSt
 
 def graphed(x: torch.Tensor, params: Params, loop: bool) -> bool:
     """Whether an epoch over ``x``'s device runs as graph replays: on a CUDA
-    device, unless ``loop`` asks for the eager steps or the params are split
-    over a model group (whose members' dispatches stay eager)."""
-    return not loop and x.is_cuda and not TP.is_group(params)
+    device, and for params split over a model group whose members share
+    that card, unless ``loop`` asks for the eager steps. A group spread over
+    several cards runs the eager steps (``cuda_graph.capturable``)."""
+    return not loop and capturable(TP.run_devices(params, x))
 
 
 def cache_sig(cache: SkipCache) -> tuple:

@@ -115,8 +115,9 @@ def generate(
     list, see ``lm_skiplora.adapters_to_stack``): one prefill, then
     ``decode_scan``, whose ``max_new`` steps are CUDA-graph replays of
     ``unroll`` steps each on the card. ``params`` split over a model group
-    (``models.tp``) keep each member's KV heads on its device and decode in
-    eager steps. Returns (B, max_new)."""
+    (``models.tp``) keep each member's KV heads on its device; their steps
+    are graph replays when the members share one card, eager steps when
+    they span several (``cuda_graph.capturable``). Returns (B, max_new)."""
     tokens, dev = _on_device(params, tokens, device)
     b, s = tokens.shape
     caches = init_serve_caches(cfg, b, s + max_new, device=dev, params=params)
@@ -277,10 +278,13 @@ class SessionRuntime:
     moments and paged prefix pool live on the group's first device (the
     reference replicates them over the group).
     Such a session takes ``use_kernel=False`` (the skip-sums' plain
-    versions) and decodes in eager steps. ``pipeline_stages=N`` (N == the
-    model-axis size, a float pool) also splits each group's devices into N
-    GPipe stages of whole layers (``lm.pipeline_stage_params``) for the
-    scheduler's pipelined admission prefill. ``params`` may come split
+    versions); its decode, scheduler chunks and resident adapt epochs are
+    graph replays when the group's members share one card, eager steps when
+    they span several (``cuda_graph.capturable``). ``pipeline_stages=N``
+    (N == the model-axis size, a float pool) also splits each group's
+    devices into N GPipe stages of whole layers
+    (``lm.pipeline_stage_params``) for the scheduler's pipelined admission
+    prefill. ``params`` may come split
     already (a ``tp.GroupParams`` over the devices of a mesh with one
     model group): a backbone no card can hold whole, drawn a layer at a
     time.
@@ -710,6 +714,7 @@ class SessionRuntime:
         epochs: int = 1,
         batch_per_tenant: int = 4,
         generator: Optional[torch.Generator] = None,
+        loop: bool = False,
     ) -> dict:
         """Cached fleet epochs over the tenants' ingested partitions (every
         ingested tenant by default), then one batched write-back into the
@@ -733,8 +738,12 @@ class SessionRuntime:
         shard's device and freed when an ingest makes the export stale),
         tiered -> "stream" (``fleet_cached_epoch_via_engine``, eager steps).
         Every group's epochs are issued before the first write-back, so the
-        shards' replays go out back to back. A model group's epochs stay
-        eager. Returns {"losses": {tenant: (epochs, steps) np.ndarray},
+        shards' replays go out back to back. A model group's epochs replay
+        as the unsplit ones do when its members share one card, and run
+        eager steps when they span several (``cuda_graph.capturable``).
+        ``loop=True`` runs the resident path's epochs as their eager loop
+        (``make_fleet_cached_epoch(loop=True)``), what the replays are held
+        against. Returns {"losses": {tenant: (epochs, steps) np.ndarray},
         "groups": [tenant lists], "path"}."""
         order = list(self._tenants) if tenants is None else list(tenants)
         if not order:
@@ -771,7 +780,7 @@ class SessionRuntime:
             with self._on(shard):
                 pending.append(self._adapt_epochs(
                     group, spt, shard, epochs=epochs, epoch0=epoch0, step0=step0,
-                    batch_per_tenant=batch_per_tenant,
+                    batch_per_tenant=batch_per_tenant, loop=loop,
                 ))
         for run in pending:
             with self._on(run["shard"]):
@@ -788,10 +797,12 @@ class SessionRuntime:
         return {"losses": losses, "groups": list(groups.values()),
                 "path": "stream" if "stream" in paths else "scan"}
 
-    def _adapt_epochs(self, group, spt, shard, *, epochs, epoch0, step0, batch_per_tenant) -> dict:
+    def _adapt_epochs(self, group, spt, shard, *, epochs, epoch0, step0, batch_per_tenant, loop=False) -> dict:
         """Issue one same-(trajectory, shard) group's cached epochs on the
         shard's device and engine; on the resident path they are replays of
-        the shard's epoch graphs, and nothing here waits for the device.
+        the shard's epoch graphs (over a model group too, when its members
+        share one card; a group over several cards runs eager steps), and
+        nothing here waits for the device.
         Returns what ``_write_back`` needs: the per-epoch (steps, N) losses
         on the device, the new state, the held-out losses and the path."""
         n, dev, engine = len(group), self._shard_device[shard], self.engines[shard]
@@ -828,7 +839,8 @@ class SessionRuntime:
                 self._export[shard] = engine.export_skipcache()
             cache = self._export[shard]
             graphs = self._epoch_graphs[shard]
-            epoch_fn = FF.make_fleet_cached_epoch(self.cfg, self.sl, self.optimizer, n, graphs=graphs, **kw)
+            epoch_fn = FF.make_fleet_cached_epoch(self.cfg, self.sl, self.optimizer, n, loop=loop, graphs=graphs,
+                                                  **kw)
         else:
             step_fn = FF.make_fleet_cached_step_from_vals(self.cfg, self.sl, self.optimizer, n, **kw)
             ev_fn = FF.make_fleet_eval_loss(self.cfg, self.sl, n, **kw)
@@ -851,7 +863,7 @@ class SessionRuntime:
                 # Shadow eval folded into the epoch call, on the cached rows.
                 eval_epoch = FF.make_fleet_cached_epoch_eval(
                     self.cfg, self.sl, self.optimizer, n, eval_pre=want_pre, eval_post=want_post,
-                    graphs=graphs, **kw
+                    loop=loop, graphs=graphs, **kw
                 )
                 stacked, opt_state, ls, pre, post = eval_epoch(
                     params, stacked, opt_state, cache, _upload(idx_mat, dev),

@@ -74,8 +74,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import batch_plan
+from repro_torch.core.cuda_graph import capturable
 from repro_torch.models.blocks import ATTN_KINDS
-from repro_torch.models.tp import is_group
 from repro_torch.models.lm import (
     decode_step_,
     init_stacked_caches,
@@ -85,6 +85,7 @@ from repro_torch.models.lm import (
     sched_prefill,
     sched_prefill_reuse,
 )
+from repro_torch.models.tp import run_devices
 
 #: Sentinel batch row of an admission's padding entries: their prefill is
 #: computed and dropped (only the admitted rows scatter into the live
@@ -155,12 +156,13 @@ def _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, p
     ``tok`` and ``pos``, updated in place: retired rows frozen, live
     positions clamped so a chunk overshooting a finishing row never writes
     past the cache. On the card one CUDA-graph replay
-    (``decode_graph.chunk``); on the CPU, with ``loop``, or for a backbone
-    split over a model group, the same steps eagerly. ``fuse`` computes
-    each step's skip term as dense per-row math instead of a grouped kernel
+    (``decode_graph.chunk``), over a model group whose members share one
+    card too; on the CPU, with ``loop``, or for a group spread over several
+    cards (``cuda_graph.capturable``), the same steps eagerly. ``fuse``
+    computes each step's skip term as dense per-row math instead of a grouped kernel
     launch. Returns (tok, pos, tokens sampled at each step (chunk, B)):
     each chunk hands back exactly the tokens the host has not seen."""
-    if tok.is_cuda and not loop and not is_group(params):
+    if not loop and capturable(run_devices(params, tok)):
         from repro_torch.core import decode_graph
 
         toks = decode_graph.chunk(params, cfg, chunk, pools, idx, caches, tok, pos, active, temps, generator,

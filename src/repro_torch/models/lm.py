@@ -554,17 +554,19 @@ def decode_scan(
     reference's scan runs (the last step's token is dropped, its K/V kept).
     On CUDA tensors the steps are CUDA-graph replays, ``unroll`` steps a
     replay (``core.decode_graph``: the card's form of the reference's one
-    ``lax.scan`` dispatch; ``max_new`` need not be a multiple); on CPU
-    tensors, and for a backbone split over a model group (the group size
-    picks it: the graphs capture one device's steps), the same step
-    function (``decode_step_``) runs eagerly. The caches are updated in
-    place. Returns (tokens (B, max_new) with tok0
-    first, final caches)."""
+    ``lax.scan`` dispatch; ``max_new`` need not be a multiple), for a
+    backbone split over a model group whose members share one card too;
+    on CPU tensors, and for a group spread over several cards
+    (``cuda_graph.capturable``), the same step function
+    (``decode_step_``) runs eagerly. The caches are updated in place.
+    Returns (tokens (B, max_new) with tok0 first, final caches)."""
+    from repro_torch.core.cuda_graph import capturable
+
     if unroll < 1:
         raise ValueError(f"unroll {unroll} < 1")
     kw = dict(temperature=temperature, adapters=adapters, pools=pools, idx=idx,
               use_kernel=use_kernel, fuse_skip=fuse_skip)
-    if tok0.is_cuda and not TP.is_group(params):
+    if capturable(TP.run_devices(params, tok0)):
         from repro_torch.core import decode_graph
 
         return decode_graph.decode(params, cfg, tok0, start_pos, caches, max_new=max_new,

@@ -188,6 +188,13 @@ def home_device(params) -> torch.device:
     return params.home if is_group(params) else params["embed"]["table"].device
 
 
+def run_devices(params, x: torch.Tensor) -> list[torch.device]:
+    """The devices a call over ``params`` with ``x`` on the home device
+    runs on: ``x``'s, then a group's members' (what
+    ``cuda_graph.capturable`` tests)."""
+    return [x.device] + (list(params.devices) if is_group(params) else [])
+
+
 def local(params):
     """A replicated subtree as plain tensors (member 0's for a group)."""
     return params.local if is_group(params) else params
@@ -315,7 +322,8 @@ class HeadSplit:
     indices), and assigning into a slice of ``axis`` too (``c[:, rows,
     :p] = ...``) takes any value, each part its indices of the slice (a
     ``HeadSplit`` value gathered first). ``whole()`` gathers it on the home
-    device."""
+    device; ``zeros_like()`` and ``copy_()`` give a CUDA-graph entry a
+    twin of its own and copy a split cache into and out of it."""
 
     __slots__ = ("parts", "ranges", "axis")
 
@@ -372,6 +380,23 @@ class HeadSplit:
                 src = value.narrow(self.axis, x0 - a, x1 - x0) if value.dim() >= -self.axis else value
                 p[self._lead(lead, p.device) + (slice(x0 - lo, x1 - lo),)] = src.to(p.device)
 
+    def zeros_like(self) -> "HeadSplit":
+        """A zeroed twin: parts of the same shapes, dtypes and devices over
+        the same ranges and axis (a graph entry's own cache buffer)."""
+        return HeadSplit([torch.zeros_like(p) for p in self.parts], self.ranges, self.axis)
+
+    def copy_(self, src: "HeadSplit") -> "HeadSplit":
+        """Copy ``src``, a ``HeadSplit`` of the same axis and ranges, into
+        the parts in place, part by part; returns ``self``."""
+        if not isinstance(src, HeadSplit) or src.axis != self.axis or src.ranges != self.ranges:
+            got = (src.axis, src.ranges) if isinstance(src, HeadSplit) else type(src).__name__
+            raise ValueError(f"copy into a HeadSplit of axis {self.axis}, ranges {self.ranges} from {got}")
+        for p, q in zip(self.parts, src.parts, strict=True):
+            if p.shape != q.shape:
+                raise ValueError(f"copy of a part {tuple(q.shape)} into one of {tuple(p.shape)}")
+            p.copy_(q)
+        return self
+
     def whole(self) -> torch.Tensor:
         """Every index on the home device, each from the first member that
         holds it."""
@@ -386,6 +411,12 @@ class HeadSplit:
 def whole(t):
     """A cache tensor whole on one device (``HeadSplit.whole``)."""
     return t.whole() if isinstance(t, HeadSplit) else t
+
+
+def zeros_like(t):
+    """A zeroed twin of a cache leaf: a tensor's ``torch.zeros_like``, a
+    ``HeadSplit``'s ``zeros_like()``."""
+    return t.zeros_like() if isinstance(t, HeadSplit) else torch.zeros_like(t)
 
 
 def _kv_range(i: int, n: int, spec: A.AttnSpec, kv_split: bool) -> tuple[int, int]:
