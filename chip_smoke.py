@@ -2,6 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --two-cards   # only the parts that need two cards
+
+With ``--two-cards`` (a machine with two cards or more) it builds the
+kernels and runs the fleet, session and shard phases (the shard phase's
+``shard two cards`` line needs their state) and the model axis's two-card
+part (``_model_axis_two_cards``: the reduced (1 x 2) session graphed
+against eager and the CPU, phi3.5-moe-42b over two cards), then the same
+last line.
 
 Phases, each printing one line (or a few) before the last line:
   1. device: the card's name and power limit from nvidia-smi.
@@ -256,11 +264,15 @@ Phases, each printing one line (or a few) before the last line:
      kernel launches (a model axis refuses them, as in the reference).
      With two cards: the reduced float32 (1 x 2) session over
      ``[cuda:0, cuda:1]`` (``make_mesh``), with ``pipeline_stages=2`` and
-     without, against the same over ``["cpu", "cpu"]``, and
-     phi3.5-moe-42b-a6.6b at full width over them, drawn a part at a time
-     and split as it comes (``tp.init_group_params``; each card at most
-     0.55 of its 83.75 GB), one ingest / adapt / serve round with its
-     tok/s; on one card a line says that part did not run.
+     without, against the same over ``["cpu", "cpu"]`` and, without stages,
+     its graph replays across both cards bitwise its eager steps on them;
+     and phi3.5-moe-42b-a6.6b at full width over them, drawn a part at a
+     time and split as it comes (``tp.init_group_params``; each card at
+     most 0.55 of its 83.75 GB): ingest, adapt as replays bitwise
+     ``adapt(loop=True)``, and a serve whose decode replays graphs across
+     both cards, bitwise ``generate_loop``, each with its first call,
+     replays only and eager seconds and each card's peak; on one card a
+     line says that part did not run.
  16. dryrun (``dryrun_phase``; ``launch.steps``, ``launch.op_analysis``,
      ``launch.dryrun``, ``optim.quantized``, the recurrent mixers of
      ``models.tp``): ``dryrun.run_cell`` on the 16 x 16 meta mesh for one
@@ -4452,8 +4464,10 @@ def model_axis_phase(torch, device_name):
     and the pipelined admission (``lm.pipeline_sched_prefill``, 2 stages on
     ``[cuda:0, cuda:0]``) against ``sched_prefill``. With two cards, the
     reduced 2-D session over ``[cuda:0, cuda:1]`` against the same over
-    ``["cpu", "cpu"]``. No hand-written kernel launches here, as in the
-    reference, where a model axis refuses them."""
+    ``["cpu", "cpu"]`` and against its own eager steps, and phi3.5-moe-42b
+    split over the two cards, graphed against eager (``_model_axis_two_cards``).
+    No hand-written kernel launches here, as in the reference, where a model
+    axis refuses them."""
     from repro_torch.configs import get_config
     from repro_torch.core.runtime import generate_grouped, generate_loop
     from repro_torch.launch.serve import demo_pool
@@ -4801,19 +4815,25 @@ def _model_axis_two_cards(torch):
     """The reduced float32 (1 data x 2 model) session over [cuda:0, cuda:1]
     (``make_mesh``), with ``pipeline_stages=2`` and without, against the same
     session over ["cpu", "cpu"] (adapters within rtol 1e-4 / atol 1e-6,
-    slot tables, serve and scheduler tokens equal). Returns the line."""
+    slot tables, serve and scheduler tokens equal); without stages also
+    against its own eager steps on the same cards (``adapt(loop=True)``,
+    ``generate_loop``, the scheduler's ``loop=True``): adapters, moments,
+    losses and tokens bitwise, the graphed session's decode, chunk and
+    epoch captures counted. Returns the lines."""
     import numpy as np
 
+    from repro_torch.core import decode_graph as DG
     from repro_torch.core import lm_skiplora as SL
-    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.core.runtime import SessionRuntime, generate_loop
     from repro_torch.models import lm as LM
     from repro_torch.models.config import ModelConfig
     from repro_torch.runtime.sharding import _to, make_mesh
 
     cfg = ModelConfig(name="t", family="test", n_layers=4, d_model=16, n_heads=4, n_kv_heads=2, d_ff=32,
                       vocab_size=64, pattern=("attn",), dtype="float32")
+    who = [None, "a", "b"]
 
-    def session(devices, stages):
+    def session(devices, stages, loop=False):
         params = _live_norms(LM.init_lm(torch.Generator().manual_seed(0), cfg), cfg)
         params = _to(params, torch.device(devices[0]))
         rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=2, mode="full"), params, max_tenants=2,
@@ -4822,18 +4842,27 @@ def _model_axis_two_cards(torch):
         g = np.random.default_rng(5)
         for t in ("a", "b"):
             rt.ingest(t, g.integers(0, 64, (4, 6)), g.integers(0, 64, (4, 6)))
-        rt.adapt(["a", "b"], epochs=2, batch_per_tenant=2, generator=torch.Generator().manual_seed(7))
+        out = rt.adapt(["a", "b"], epochs=2, batch_per_tenant=2, loop=loop,
+                       generator=torch.Generator().manual_seed(7))
         prompts = g.integers(0, 64, (3, 5))
-        toks = rt.serve([None, "a", "b"], prompts, max_new=4).cpu()
-        rt.attach_scheduler(max_batch=4, max_prompt=5, max_new_cap=6, admit_bucket=2, chunk=2)
+        if loop:
+            toks = generate_loop(rt.params, cfg, prompts, pools=rt.pool.shard_pools(0),
+                                 idx=rt.pool.lookup_local(0, who), max_new=4, use_kernel=False,
+                                 device=rt.device).cpu()
+        else:
+            toks = rt.serve(who, prompts, max_new=4).cpu()
+        rt.attach_scheduler(max_batch=4, max_prompt=5, max_new_cap=6, admit_bucket=2, chunk=2, loop=loop)
         reqs = [rt.enqueue_serve(t, prompts[j, :4 - j], max_new=5) for j, t in enumerate(("a", None, "b"))]
         rt.drain()
-        return rt, toks, [r.result().tolist() for r in reqs]
+        return rt, toks, [r.result().tolist() for r in reqs], out["losses"]
 
     t0 = time.perf_counter()
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
     for stages in (0, 2):
-        card, toks_card, sched_card = session([torch.device("cuda", 0), torch.device("cuda", 1)], stages)
-        cpu, toks_cpu, sched_cpu = session(["cpu", "cpu"], stages)
+        since = DG.GRAPHS.stats.copy()
+        card, toks_card, sched_card, losses_card = session(cards, stages)
+        decode_gain = _graph_gain(DG.GRAPHS.stats, since)
+        cpu, toks_cpu, sched_cpu, _ = session(["cpu", "cpu"], stages)
         for t in ("a", "b"):
             for k in ("A", "B"):
                 check(np.allclose(card.tenant(t).adapters[k].cpu().numpy(), cpu.tenant(t).adapters[k].numpy(),
@@ -4841,25 +4870,54 @@ def _model_axis_two_cards(torch):
         check(card.pool.slot_table() == cpu.pool.slot_table(), f"model axis two cards (stages {stages}): slots")
         check(torch.equal(toks_card, toks_cpu) and sched_card == sched_cpu,
               f"model axis two cards (stages {stages}): tokens differ")
+        if stages == 0:
+            epoch_gain = card.epoch_graph_stats()
+            since = DG.GRAPHS.stats.copy()
+            eager, toks_eager, sched_eager, losses_eager = session(cards, 0, loop=True)
+            check(_graph_gain(DG.GRAPHS.stats, since)["captures"] == 0
+                  and eager.epoch_graph_stats()["captures"] == 0, "model axis two cards: the eager twin captured")
+            for t in ("a", "b"):
+                check(np.array_equal(losses_card[t], losses_eager[t]),
+                      f"model axis two cards: tenant {t} graphed losses != loop=True's")
+                for name in ("adapters", "opt_mu", "opt_nu"):
+                    for k in ("A", "B"):
+                        check(torch.equal(getattr(card.tenant(t), name)[k], getattr(eager.tenant(t), name)[k]),
+                              f"model axis two cards: tenant {t} {name} {k} graphed != loop=True's")
+            check(torch.equal(toks_card, toks_eager) and sched_card == sched_eager,
+                  "model axis two cards: graphed tokens != the eager steps'")
+            check(decode_gain["captures"] >= 2 and decode_gain["replays"] >= 2 and epoch_gain["captures"] >= 1
+                  and epoch_gain["replays"] >= 1,
+                  f"model axis two cards: captures decode/chunk {decode_gain}, epochs {dict(epoch_gain)}")
+            del eager
         del card, cpu
     small_s = time.perf_counter() - t0
     return (f"model axis two cards: the reduced float32 (1 x 2) session over [cuda:0, cuda:1], with "
             f"pipeline_stages=2 and without, == the same over [cpu, cpu] (adapters within rtol 1e-4 / atol 1e-6, "
-            f"slot tables, serve and scheduler tokens equal; {small_s:.1f} s)\n" + _phi_two_cards(torch))
+            f"slot tables, serve and scheduler tokens equal); without stages as graph replays across both cards "
+            f"(decode and chunks {decode_gain['captures']} captures / {decode_gain['replays']} replays, adapt "
+            f"{epoch_gain['captures']} / {epoch_gain['replays']}) bitwise its eager steps on the same cards "
+            f"(adapt(loop=True), generate_loop, the scheduler's loop=True: losses, adapters, moments, tokens) "
+            f"({small_s:.1f} s)\n" + _phi_two_cards(torch))
 
 
 def _phi_two_cards(torch):
     """phi3.5-moe-42b-a6.6b at full width (83.75 GB bf16) over a (1 data x 2
     model) session mesh on [cuda:0, cuda:1], drawn split
     (``tp.init_group_params``, a part at a time, RMSNorm scales 1):
-    each card's backbone bytes at most 0.55 of the whole, 2 tenants
-    ingest 4 x 128 tokens each, adapt one epoch, then a grouped serve (4
-    x 128 prompt, 32 new, greedy). Returns the line."""
+    each card's backbone bytes at most 0.55 of the whole. Two sessions
+    share the split params; 2 tenants ingest 4 x 128 tokens each in both.
+    One adapts as graph replays across both cards (one epoch: its first
+    call, then a continued epoch of replays only), the other as its eager
+    loop (``adapt(loop=True)``): losses, adapters and moments bitwise.
+    Then the graphed one serves (4 x 128 prompt, 32 new, greedy; a first
+    call, then replays only) against the eager loop (``generate_loop``) on
+    the same pool rows: tokens bitwise. Returns the line."""
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.core import decode_graph as DG
     from repro_torch.core import lm_skiplora as SL
-    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.core.runtime import SessionRuntime, generate_loop
     from repro_torch.models import lm as LM
     from repro_torch.models import tp as TP
     from repro_torch.runtime import sharding as SH
@@ -4868,42 +4926,92 @@ def _phi_two_cards(torch):
     cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
-    t0 = time.perf_counter()
-    gp = TP.init_group_params(torch.Generator(device=cards[0]).manual_seed(0), cfg, cards,
-                              prepare=lambda key, tree: _live_part(cfg, key, tree))
-    for d in cards:
-        torch.cuda.synchronize(d)
-    draw_s = time.perf_counter() - t0
+
+    def synced(fn):
+        for d in cards:
+            torch.cuda.synchronize(d)
+        t1 = time.perf_counter()
+        out = fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        return out, time.perf_counter() - t1
+
+    gp, draw_s = synced(lambda: TP.init_group_params(torch.Generator(device=cards[0]).manual_seed(0), cfg, cards,
+                                                     prepare=lambda key, tree: _live_part(cfg, key, tree)))
     total = sum(t.numel() * t.element_size() for t in SH._leaves(LM.param_shapes(cfg)))
     per_card = [sum(t.numel() * t.element_size() for t in SH._leaves(m)) for m in gp.members]
     check(max(per_card) <= 0.55 * total, f"phi3.5 two cards: a card holds {max(per_card)} of {total} bytes")
-    rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=RANK, mode="full"), gp, max_tenants=2, samples_per_tenant=4,
-                        seq=PROMPT, use_kernel=False, mesh=SH.make_mesh((1, 2), ("data", "model"), devices=cards))
-    g = np.random.default_rng(5)
-    t0 = time.perf_counter()
-    for t in ("a", "b"):
-        rt.ingest(t, g.integers(0, cfg.vocab_size, (4, PROMPT)), g.integers(0, cfg.vocab_size, (4, PROMPT)))
-    out = rt.adapt(["a", "b"], epochs=1, batch_per_tenant=2, generator=torch.Generator().manual_seed(7))
-    for d in cards:
-        torch.cuda.synchronize(d)
-    adapt_s = time.perf_counter() - t0
-    check(all(np.isfinite(v).all() for v in out["losses"].values()), "phi3.5 two cards: adapt losses not finite")
+    sessions = [SessionRuntime(cfg, SL.SkipLoRAConfig(rank=RANK, mode="full"), gp, max_tenants=2,
+                               samples_per_tenant=4, seq=PROMPT, use_kernel=False,
+                               mesh=SH.make_mesh((1, 2), ("data", "model"), devices=cards)) for _ in range(2)]
+    rt, eager = sessions
+    check(rt.params is gp and eager.params is gp, "phi3.5 two cards: the split params were not taken as they are")
+    ingest_s = 0.0
+    for r in sessions:
+        g = np.random.default_rng(5)
+        _, dt = synced(lambda: [r.ingest(t, g.integers(0, cfg.vocab_size, (4, PROMPT)),
+                                         g.integers(0, cfg.vocab_size, (4, PROMPT))) for t in ("a", "b")])
+        ingest_s = ingest_s or dt
     prompts = g.integers(0, cfg.vocab_size, (BATCH, PROMPT))
-    t0 = time.perf_counter()
-    toks = rt.serve([None, "a", "b", "a"], prompts, max_new=NEW)
-    for d in cards:
-        torch.cuda.synchronize(d)
-    serve_s = time.perf_counter() - t0
+    adapt_s, gains, outs = {}, [], {False: [], True: []}
+    for i in range(2):          # the first call (eager first step + capture + replays), then replays only
+        for loop, r in ((False, rt), (True, eager)):
+            since = r.epoch_graph_stats()
+            out, adapt_s[loop, i] = synced(lambda: r.adapt(["a", "b"], epochs=1, batch_per_tenant=2, loop=loop,
+                                                           generator=torch.Generator().manual_seed(7 + i)))
+            outs[loop].append(out)
+            if not loop:
+                gains.append(_graph_gain(r.epoch_graph_stats(), since))
+        for t in ("a", "b"):
+            check(np.array_equal(outs[False][i]["losses"][t], outs[True][i]["losses"][t])
+                  and np.isfinite(outs[False][i]["losses"][t]).all(),
+                  f"phi3.5 two cards: tenant {t} adapt call {i} losses graphed != loop=True's")
+    for t in ("a", "b"):
+        for name in ("adapters", "opt_mu", "opt_nu"):
+            for k in ("A", "B"):
+                check(torch.equal(getattr(rt.tenant(t), name)[k], getattr(eager.tenant(t), name)[k]),
+                      f"phi3.5 two cards: tenant {t} {name} {k} graphed != loop=True's")
+    first, cont = gains
+    check(first["captures"] >= 1 and first["first_steps"] >= 1 and cont["captures"] == 0 and cont["replays"] >= 1
+          and eager.epoch_graph_stats()["captures"] == 0, f"phi3.5 two cards: adapt graph stats {gains}")
+    del eager, sessions
+    torch.cuda.empty_cache()
+    tenants = [None, "a", "b", "a"]
+    since = DG.GRAPHS.stats.copy()
+    toks_first, first_s = synced(lambda: rt.serve(tenants, prompts, max_new=NEW))
+    serve_first = _graph_gain(DG.GRAPHS.stats, since) | {
+        "eager_steps": DG.GRAPHS.stats["eager_steps"] - since["eager_steps"]}
+    since = DG.GRAPHS.stats.copy()
+    toks, serve_s = synced(lambda: rt.serve(tenants, prompts, max_new=NEW))
+    serve_gain = _graph_gain(DG.GRAPHS.stats, since)
+    with torch.no_grad():
+        toks_loop, loop_s = synced(lambda: generate_loop(
+            gp, cfg, torch.as_tensor(prompts, device=cards[0]), pools=rt.pool.shard_pools(0),
+            idx=rt.pool.lookup_local(0, tenants), max_new=NEW, use_kernel=False, device=cards[0]))
     check(tuple(toks.shape) == (BATCH, NEW) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "phi3.5 two cards: serve tokens out of range")
+    check(torch.equal(toks_first, toks_loop) and torch.equal(toks, toks_loop),
+          "phi3.5 two cards: the graphed serve's tokens != the eager loop's")
+    check(serve_first["captures"] >= 1 and serve_first["eager_steps"] == 1 and serve_gain["captures"] == 0
+          and serve_gain["replays"] == NEW, f"phi3.5 two cards: serve graph stats {serve_first} then {serve_gain}")
     peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
     del rt, gp
+    DG.GRAPHS.clear()
     torch.cuda.empty_cache()
+    n = BATCH * NEW
     return (f"model axis phi3.5-moe-42b-a6.6b full width over (1 x 2) [cuda:0, cuda:1], drawn split in "
             f"{draw_s:.1f} s: backbone bytes a card {per_card} of {total} ({max(per_card) / total:.3f} of the "
-            f"whole, bar 0.55); 2 tenants x 4 x {PROMPT} ingested and one adapt epoch {adapt_s:.2f} s (losses "
-            f"finite); grouped serve {BATCH}x{PROMPT} + {NEW} new {serve_s:.2f} s = {BATCH * NEW / serve_s:.1f} tok/s "
-            f"(eager decode); peaks {peaks[0]:.2f} / {peaks[1]:.2f} GiB")
+            f"whole, bar 0.55); 2 tenants x 4 x {PROMPT} ingested {ingest_s:.2f} s; adapt one epoch graphed, "
+            f"first call {adapt_s[False, 0]:.3f} s (eager first step {first['first_step_s']:.3f} + "
+            f"{first['captures']} capture(s) {first['capture_s']:.3f} + {first['replays']} replays issued "
+            f"{first['replay_s']:.3f} s) against loop=True {adapt_s[True, 0]:.3f} s, a continued epoch of replays "
+            f"only {adapt_s[False, 1]:.3f} s against loop=True {adapt_s[True, 1]:.3f} s (losses, adapters, moments "
+            f"bitwise); grouped serve {BATCH}x{PROMPT} + {NEW} new, graphed across both cards: first call "
+            f"{first_s:.2f} s = {n / first_s:.1f} tok/s ({serve_first['eager_steps']} eager step + "
+            f"{serve_first['captures']} capture(s) + {serve_first['replays']} replays), replays only {serve_s:.2f} s "
+            f"= {n / serve_s:.1f} tok/s ({serve_gain['replays']} replays issued in {serve_gain['replay_s']:.3f} s), "
+            f"eager loop {loop_s:.2f} s = {n / loop_s:.1f} tok/s, tokens bitwise; peaks {peaks[0]:.2f} / "
+            f"{peaks[1]:.2f} GiB")
 
 
 # ---------------------------------------------------------------------------
@@ -5661,6 +5769,11 @@ def main() -> None:
     from repro_torch.kernels.flash_attn import paged as PG
     from repro_torch.kernels.skip_lora import kernel as K
 
+    two_cards = sys.argv[1:] == ["--two-cards"]
+    if sys.argv[1:] and not two_cards:
+        fail(f"unknown arguments {sys.argv[1:]}: none, or --two-cards")
+    if two_cards and torch.cuda.device_count() < 2:
+        fail(f"--two-cards needs two cards, this machine has {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     logs = build_all([(K.LIB, None), (FK.LIB, None), (PG.LIB, None)])
     regs = [int(v) for log in logs.values() for v in re.findall(r"Used (\d+) registers", log)]
@@ -5671,6 +5784,16 @@ def main() -> None:
           f"with a stack frame {sum(s > 0 for s in stack)}")
     for line in _tensor_core_ptxas(logs):
         print(line)
+    if two_cards:
+        _, kept = fleet_phase(torch, smi)
+        session_phase(torch, smi, kept)
+        shard_phase(torch, smi, kept)
+        del kept
+        print(_model_axis_two_cards(torch))
+        print(f"chip_smoke --two-cards: {time.perf_counter() - t_run:.1f} s, the builds included")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}))
+        return
 
     results = kernel_phase(torch)
     results.update(fused_kernel_phase(torch))

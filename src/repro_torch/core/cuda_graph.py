@@ -20,11 +20,23 @@ when the entry is keyed on its storage (``EpochGraph``'s live tensors, the
 trainer chunk's parameters and moments), so a second caller's tensors of
 equal shapes get an entry of their own and never land in the first
 caller's buffers.
+
+Work that spans several cards (a backbone split over a model group whose
+members sit on other cards than the home one) is one capture too:
+``capture(devices=)`` forks a capture stream on each other card from the
+home capture stream and joins it back, makes it that card's current stream
+for the capture (so the members' kernels and the cross-card copies of
+``models.tp``, which PyTorch orders with events on both cards' current
+streams, are recorded in the one graph), and routes that card's
+allocations into a pool the entry owns there (``torch.cuda.MemPool``), so
+no replay reads memory the card's allocator has handed out again.
+``across`` orders the replays with the other cards' eager work.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import time
 import warnings
@@ -46,42 +58,163 @@ class GraphCaptureError(RuntimeError):
 _STREAMS: dict[int, "torch.cuda.Stream"] = {}
 
 
-def capture(graph: "torch.cuda.CUDAGraph", fn: Callable[[], None], *, what: str, pool=None) -> None:
+def _stream(card: int) -> "torch.cuda.Stream":
+    s = _STREAMS.get(card)
+    if s is None:
+        s = _STREAMS[card] = torch.cuda.Stream(card)
+    return s
+
+
+def other_cards(devices: Sequence, home: int) -> list[int]:
+    """The CUDA cards among ``devices`` other than the card ``home``, each
+    once, in order of first appearance (a device without an index is
+    ``home``)."""
+    out: list[int] = []
+    for d in devices:
+        d = torch.device(d)
+        card = home if d.index is None else d.index
+        if d.type == "cuda" and card != home and card not in out:
+            out.append(card)
+    return out
+
+
+@contextlib.contextmanager
+def _current(streams: Sequence["torch.cuda.Stream"]):
+    """Each stream current on its own card for the block; the current card
+    stays the one it was (``torch.cuda.set_stream`` also makes the
+    stream's card current)."""
+    home = torch.cuda.current_device()
+    before = [torch.cuda.current_stream(s.device) for s in streams]
+    for s in streams:
+        torch.cuda.set_stream(s)
+    torch.cuda.set_device(home)
+    try:
+        yield
+    finally:
+        for s in before:
+            torch.cuda.set_stream(s)
+        torch.cuda.set_device(home)
+
+
+class CardPools(dict):
+    """card -> ``torch.cuda.MemPool``: the memory an entry's graphs hold on
+    the cards other than its own (``home``), filled by ``capture``.
+    Dropping it first waits for ``home`` and every card it holds a pool
+    on: a replay's copies write one card's memory from another card, and
+    freeing a pool (``cudaFree``) waits only for the pool's own card, so a
+    pool freed while the replays are in flight would be written after it
+    is gone."""
+
+    def __init__(self, home: torch.device):
+        super().__init__()
+        self.home = home
+
+    def __del__(self):
+        if self and torch.cuda.is_initialized():
+            for card in [self.home, *self]:
+                torch.cuda.synchronize(card)
+
+
+@contextlib.contextmanager
+def _members(home: "torch.cuda.Stream", cards: Sequence[int], pools: dict):
+    """Inside a capture on ``home``: each card's capture stream forked from
+    ``home`` and current on its card, the card's allocations routed into
+    ``pools[card]``; every stream joined back into ``home`` at the end.
+    When the block raised, the joins are still tried (a capture that fails
+    may have invalidated them), and the block's error is the one raised."""
+    streams = [_stream(c) for c in cards]
+    for s in streams:
+        s.wait_stream(home)
+    ok = False
+    try:
+        with contextlib.ExitStack() as stack:
+            for c in cards:
+                stack.enter_context(torch.cuda.use_mem_pool(pools[c], device=c))
+            stack.enter_context(_current(streams))
+            yield
+        ok = True
+    finally:
+        for s in streams:
+            try:
+                home.wait_stream(s)
+            except RuntimeError:
+                if ok:
+                    raise
+
+
+def capture(graph: "torch.cuda.CUDAGraph", fn: Callable[[], None], *, what: str, pool=None,
+            devices: Sequence = (), pools: Optional[dict] = None) -> None:
     """Capture ``fn``'s work into ``graph`` on the current CUDA device
-    (``pool``: a memory pool to share with other graphs). No cycle
-    collection runs inside the capture: freeing another graph there
-    (``cudaGraphExecDestroy``) would invalidate this one. A failure, and a
-    capture that records nothing (work sent to another device's stream),
-    raise ``GraphCaptureError`` naming ``what``."""
-    dev = torch.cuda.current_device()
-    stream = _STREAMS.get(dev)
-    if stream is None:
-        stream = _STREAMS[dev] = torch.cuda.Stream(dev)
+    (``pool``: a memory pool to share with other graphs). ``devices``: the
+    devices the work runs on; each CUDA card among them other than the
+    current one is synchronised first (its eager work cannot be waited on
+    from inside the capture), then recorded on a capture stream of its own
+    forked from the current card's, its allocations going into ``pools``
+    (the caller's ``CardPools``, filled on first use and kept as long as
+    the graph). No cycle collection runs inside the capture: freeing
+    another graph there (``cudaGraphExecDestroy``) would invalidate this
+    one. A failure, and a capture that records nothing (work sent to
+    another device's stream), raise ``GraphCaptureError`` naming
+    ``what``."""
+    home = torch.cuda.current_device()
+    stream = _stream(home)
+    cards = other_cards(devices, home)
+    if cards and pools is None:
+        raise ValueError(f"capturing {what} over cards {cards} needs pools to own their memory")
+    for c in cards:
+        torch.cuda.synchronize(c)
+        if c not in pools:
+            with torch.cuda.device(c):
+                pools[c] = torch.cuda.MemPool()
+    before = torch.cuda.current_stream()
     collecting = gc.isenabled()
     gc.disable()
     try:
         with warnings.catch_warnings():
             warnings.filterwarnings("error", message="The CUDA Graph is empty")
             with torch.cuda.graph(graph, pool=pool, stream=stream):
-                fn()
+                with _members(stream, cards, pools) if cards else contextlib.nullcontext():
+                    fn()
     except (RuntimeError, ValueError, UserWarning) as err:
+        # a capture that fails to end leaves the capture stream current
+        torch.cuda.set_stream(before)
         raise GraphCaptureError(f"capturing {what} into a CUDA graph failed: {err}") from err
     finally:
         if collecting:
             gc.enable()
 
 
-def on_side_stream(fn: Callable[[], Any], device: torch.device) -> Any:
-    """Run ``fn`` on a fresh side stream ordered after the current stream's
-    work, and make the current stream wait for it: the warm-up before a
-    capture (the kernel libraries load and their handles and workspaces
-    are made outside the capture)."""
-    main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
+@contextlib.contextmanager
+def across(cards: Sequence[int]):
+    """Replays on the current card ordered with the eager work of the
+    other ``cards`` their graphs reach: the current stream waits for each
+    card's current stream before the block, and each card's current stream
+    waits for the current stream after it."""
+    if not cards:
+        yield
+        return
+    home = torch.cuda.current_stream()
+    for c in cards:
+        home.wait_stream(torch.cuda.current_stream(c))
+    yield
+    for c in cards:
+        torch.cuda.current_stream(c).wait_stream(home)
+
+
+def on_side_stream(fn: Callable[[], Any], device: torch.device, cards: Sequence[int] = ()) -> Any:
+    """Run ``fn`` on a fresh side stream on ``device`` and on each other
+    card of ``cards``, each ordered after its card's current stream, and
+    make every current stream wait for its side stream: the warm-up before a
+    capture (the kernel libraries load and their handles and workspaces are
+    made outside the capture, on every card the work reaches)."""
+    sides = [torch.cuda.Stream(device)] + [torch.cuda.Stream(c) for c in cards]
+    mains = [torch.cuda.current_stream(s.device) for s in sides]
+    for side, main in zip(sides, mains):
+        side.wait_stream(main)
+    with torch.cuda.device(device), _current(sides):
         out = fn()
-    main.wait_stream(side)
+    for side, main in zip(sides, mains):
+        main.wait_stream(side)
     return out
 
 
@@ -119,64 +252,76 @@ class GraphCache:
             self._entries.popitem(last=False)[1].free()
 
 
+def _flatten(tree, out: list) -> list:
+    """The tensors of ``tree`` (nested dicts, lists and tuples, dataclass
+    instances such as a ``SkipCache``, model groups and split caches) in
+    order, with the marks that tell its structure: dict keys and field
+    names, a group's devices, a split's axis and ranges."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            out.append(f.name)
+            _flatten(getattr(tree, f.name), out)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            out.append(k)
+            _flatten(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _flatten(v, out)
+    elif isinstance(tree, TP.GroupParams):
+        out.append(("group", tuple(torch.device(d) for d in tree.devices)))
+        for m in tree.members:
+            _flatten(m, out)
+    elif isinstance(tree, TP.HeadSplit):
+        out.append(("split", tree.axis, tuple(tree.ranges)))
+        for part in tree.parts:
+            _flatten(part, out)
+    elif tree is not None:
+        raise TypeError(f"unexpected leaf {type(tree).__name__} in a graph's inputs")
+    return out
+
+
 def storage_sig(tree) -> tuple:
     """(data pointer, shape, strides, dtype, device) of every tensor in
-    ``tree`` (nested dicts, lists and tuples), with the dict keys, in
-    order: what keys a graph to the tensors it reads or writes in place. A
-    backbone split over a model group (``tp.GroupParams``) gives its
-    devices, then each member's tensors in member order; a split cache
-    (``tp.HeadSplit``) its axis and ranges, then each part's storage. A
-    member re-sharded, or a part re-made, into new storage therefore keys
-    a new capture."""
-    out: list = []
+    ``tree`` (nested dicts, lists, tuples and dataclass instances), with
+    the dict keys and field names, in order: what keys a graph to the
+    tensors it reads or writes in place. A backbone split over a model
+    group (``tp.GroupParams``) gives its devices, then each member's
+    tensors in member order; a split cache (``tp.HeadSplit``) its axis and
+    ranges, then each part's storage. A member re-sharded, or a part
+    re-made, into new storage therefore keys a new capture."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device) if isinstance(t, torch.Tensor)
+                 else t for t in _flatten(tree, []))
 
-    def walk(t):
-        if isinstance(t, torch.Tensor):
-            out.append((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device))
-        elif isinstance(t, dict):
-            for k, v in t.items():
-                out.append(k)
-                walk(v)
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
-        elif isinstance(t, TP.GroupParams):
-            out.append(("group", tuple(torch.device(d) for d in t.devices)))
-            for m in t.members:
-                walk(m)
-        elif isinstance(t, TP.HeadSplit):
-            out.append(("split", t.axis, tuple(t.ranges)))
-            for p in t.parts:
-                walk(p)
-        elif t is not None:
-            raise TypeError(f"unexpected leaf {type(t).__name__} in a graph's inputs")
 
-    walk(tree)
-    return tuple(out)
+def tree_devices(tree) -> list[torch.device]:
+    """The devices of ``tree``'s tensors, each once, in order of first
+    appearance: what a capture over them must reach."""
+    out: list[torch.device] = []
+    for t in _flatten(tree, []):
+        if isinstance(t, torch.Tensor) and t.device not in out:
+            out.append(t.device)
+    return out
 
 
 def capturable(devices: Sequence) -> bool:
     """Whether work that runs on ``devices`` (the devices of a call's
     tensors: a whole backbone's one, or the home device and every member
-    of a model group) can be one CUDA-graph capture: true only when every
-    one is a CUDA device and all are the same card (a group whose members
-    share the home device, such as ``[cuda:0, cuda:0]``).
+    of a model group) can be one CUDA-graph capture: true when every one is
+    a CUDA device, on one card (a group whose members share the home
+    device, such as ``[cuda:0, cuda:0]``) or on several (``[cuda:0,
+    cuda:1]``); false for an empty list and wherever a ``cpu`` or ``meta``
+    device appears.
 
-    A group spread over several cards runs eager steps, the one test every
-    graphed path makes (``lm.decode_scan``, the scheduler's chunk,
-    ``lm_skiplora.graphed``). ``capture`` records one stream on one device:
-    a member's kernels on another card go to that card's streams and are
-    not recorded, and its allocations come from that card's caching
-    allocator, outside the graph's private pool, so a replay would read
-    memory the allocator has handed out again. One capture across cards
-    would need a capture stream on each member's card, joined to the home
-    stream by events, and each card's allocations routed into memory the
-    graph owns; ``torch.cuda.graph`` does neither."""
+    This is the one test every graphed path makes (``lm.decode_scan``, the
+    scheduler's chunk, ``lm_skiplora.graphed``). Work on several cards is
+    captured by ``capture(devices=)``: a capture stream on each other card,
+    forked from the home card's and joined back, and each card's
+    allocations in a pool the entry owns there."""
     devs = [torch.device(d) for d in devices]
-    if not devs or any(d.type != "cuda" for d in devs):
-        return False
-    current = torch.cuda.current_device() if torch.cuda.is_available() else 0
-    return len({current if d.index is None else d.index for d in devs}) == 1
+    return bool(devs) and all(d.type == "cuda" for d in devs)
 
 
 def shapes(tensors: Sequence[torch.Tensor]) -> tuple:
@@ -277,15 +422,21 @@ class EpochGraph:
     the call replays the step graph for the other rows, so the counters
     count each step's launches once, as the eager loop does. ``stats``
     also gets captures, replays, first steps and the host seconds of each
-    (``first_step_s``, ``capture_s``, ``replay_s``)."""
+    (``first_step_s``, ``capture_s``, ``replay_s``).
+
+    ``devices``: every device the step's tensors live on (``tree_devices``
+    of ``live``). Where they span several cards, each capture reaches every
+    card (``capture(devices=)``), the entry keeps a pool on each card other
+    than ``device``, and the replays are ordered with those cards' eager
+    work (``across``)."""
 
     def __init__(self, stats: Counter, step: Callable, *, device: torch.device, what: str,
-                 before: Optional[Callable] = None, after: Optional[Callable] = None):
+                 before: Optional[Callable] = None, after: Optional[Callable] = None, devices: Sequence = ()):
         # the cache's stats, not the cache: an entry that pointed back at its
         # cache would free its graphs only in the cycle collector, which may
         # run inside another capture
         self.stats, self.step, self.device, self.what = stats, step, device, what
-        self.before, self.after = before, after
+        self.before, self.after, self.devices = before, after, list(devices)
         self.live: Any = None
         self.carry: list[torch.Tensor] = []
         self.consts: list[torch.Tensor] = []
@@ -293,6 +444,7 @@ class EpochGraph:
         self.out: dict[str, torch.Tensor] = {}
         self._graphs: dict[str, tuple[torch.cuda.CUDAGraph, LaunchTape]] = {}
         self._pool = None
+        self._pools = CardPools(device)
 
     def _load(self, carry, consts, idx_mat) -> None:
         if self.idx is None:
@@ -346,7 +498,7 @@ class EpochGraph:
             fn, what = (lambda: self._extra(name)), f"the {name} pass of {self.what}"
         t0 = time.perf_counter()
         with tape.recording():
-            capture(graph, fn, what=what, pool=self._pool)
+            capture(graph, fn, what=what, pool=self._pool, devices=self.devices, pools=self._pools)
         if self._pool is None:
             self._pool = graph.pool()
         self._graphs[name] = got = (graph, tape)
@@ -374,9 +526,10 @@ class EpochGraph:
             plan = ([graphs["before"]] if self.before is not None and not first else []) + [graphs["step"]] * (
                 self.idx.shape[0] - first) + ([graphs["after"]] if self.after is not None else [])
             t0 = time.perf_counter()
-            for graph, tape in plan:
-                graph.replay()
-                tape.replayed()
+            with across(other_cards(self.devices, torch.cuda.current_device())):
+                for graph, tape in plan:
+                    graph.replay()
+                    tape.replayed()
             self.stats["replays"] += len(plan)
             self.stats["replay_s"] += time.perf_counter() - t0
             return ([t.clone() for t in self.carry], self.losses.clone(),
@@ -387,4 +540,5 @@ class EpochGraph:
             graph.reset()
         self._graphs.clear()
         self._pool = self.live = self.idx = self.losses = None
+        self._pools = CardPools(self.device)
         self.carry, self.consts, self.out = [], [], {}

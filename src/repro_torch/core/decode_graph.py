@@ -29,20 +29,23 @@ tensors, and a reallocated pool recaptures instead of reading freed memory.
 ``GraphCache`` keeps the ``capacity`` most recently used entries and frees
 an evicted entry's graphs and their private memory pool.
 
-A backbone split over a model group (``tp.GroupParams``) whose members
-share one card (``cuda_graph.capturable``) is captured the same way: the
-members' work runs one member after the other on the capture stream, the
-entry's caches are twins of the split caches (``tp.HeadSplit.zeros_like``:
-each part on its member's device, the same ranges and axis; a cache kept
-whole stays a tensor), and the key holds every member's storage. A group
-spread over several cards runs eager steps (``capturable`` says why).
+A backbone split over a model group (``tp.GroupParams``) is captured the
+same way (``cuda_graph.capturable``): the entry's caches are twins of the
+split caches (``tp.HeadSplit.zeros_like``: each part on its member's
+device, the same ranges and axis; a cache kept whole stays a tensor), and
+the key holds every member's storage. Members that share the home card run
+one after the other on the capture stream; members on other cards run on
+a capture stream of their card, forked from the home one and joined back
+(``cuda_graph.capture(devices=)``), their allocations in a pool the entry
+keeps on each such card, and every replay is ordered with those cards'
+eager work (``cuda_graph.across``).
 
-The first call of an entry runs its first step eagerly on a side stream, as
-the warm-up: the kernel libraries load and ``cudaFuncSetAttribute`` runs
-outside the capture. That step is one of the call's own, so every call
-executes exactly its steps. A capture that fails raises
-``GraphCaptureError`` naming the step and the CUDA error; nothing falls back
-to eager steps.
+The first call of an entry runs its first step eagerly on a side stream of
+every card the step reaches, as the warm-up: the kernel libraries load and
+``cudaFuncSetAttribute`` runs outside the capture. That step is one of the
+call's own, so every call executes exactly its steps. A capture that fails
+raises ``GraphCaptureError`` naming the step and the CUDA error; nothing
+falls back to eager steps.
 
 Launch accounting: the kernel wrappers count their launches in Python
 (``KernelLib.launch``, ``kernel.ROW_LAUNCHES``), which a replay does not
@@ -65,7 +68,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.adapter_pool import grouped_plan
-from repro_torch.core.cuda_graph import GraphCache, GraphCaptureError, LaunchTape, capture, on_side_stream, storage_sig
+from repro_torch.core.cuda_graph import (CardPools, GraphCache, GraphCaptureError, LaunchTape, across, capture,
+                                        on_side_stream, other_cards, storage_sig)
 from repro_torch.kernels.skip_lora.ops import plan_tile
 from repro_torch.models import lm as LM
 from repro_torch.models import tp as TP
@@ -91,17 +95,21 @@ def _temp_kind(temperature) -> tuple:
 class _Entry:
     """One cache entry: the static buffers of a decode call or a scheduler
     chunk, and its graphs, one per number of steps, sharing one memory
-    pool. ``body(n, generator)`` runs ``n`` steps over the buffers and the
-    live call's tensors (``self.live``)."""
+    pool on the home card and one on each other card of ``devices`` (the
+    call's run devices, ``tp.run_devices``). ``body(n, generator)`` runs
+    ``n`` steps over the buffers and the live call's tensors
+    (``self.live``)."""
 
-    def __init__(self, stats: Counter, what: str, device: torch.device, sampling: bool):
+    def __init__(self, stats: Counter, what: str, device: torch.device, sampling: bool, devices=()):
         # the cache's stats, not the cache: an entry that pointed back at its
         # cache would free its graphs only in the cycle collector, which may
         # run inside another capture
         self.stats, self.what, self.device, self.sampling = stats, what, device, sampling
+        self.devices = list(devices)
         self.live: Any = None
         self._graphs: dict[int, tuple[torch.cuda.CUDAGraph, LaunchTape, Optional[torch.Generator]]] = {}
         self._pool = None
+        self._pools = CardPools(device)
         self._warm = False
 
     def body(self, n: int, generator: Optional[torch.Generator]) -> None:
@@ -118,32 +126,34 @@ class _Entry:
     def _run(self, steps, unroll, emit, generator) -> None:
         state = generator.get_state() if self.sampling else None
         done = 0
+        cards = other_cards(self.devices, torch.cuda.current_device())
         if not self._warm and steps:
-            state = self._eager(state)
+            state = self._eager(state, cards)
             emit(0, 1)
             done, self._warm = 1, True
-        for n in segments(steps - done, unroll):
-            graph, tape, gen = self._graph(n)
-            if gen is not None:
-                gen.set_state(state)
-            t0 = time.perf_counter()
-            graph.replay()
-            self.stats["replay_s"] += time.perf_counter() - t0
-            if gen is not None:
-                state = gen.get_state()
-            tape.replayed()
-            self.stats["replays"] += 1
-            emit(done, n)
-            done += n
+        with across(cards):
+            for n in segments(steps - done, unroll):
+                graph, tape, gen = self._graph(n)
+                if gen is not None:
+                    gen.set_state(state)
+                t0 = time.perf_counter()
+                graph.replay()
+                self.stats["replay_s"] += time.perf_counter() - t0
+                if gen is not None:
+                    state = gen.get_state()
+                tape.replayed()
+                self.stats["replays"] += 1
+                emit(done, n)
+                done += n
         if self.sampling:
             generator.set_state(state)
 
-    def _eager(self, state):
+    def _eager(self, state, cards):
         gen = None
         if self.sampling:
             gen = torch.Generator(device=self.device)
             gen.set_state(state)
-        on_side_stream(lambda: self.body(1, gen), self.device)
+        on_side_stream(lambda: self.body(1, gen), self.device, cards)
         self.stats["eager_steps"] += 1
         return gen.get_state() if gen is not None else None
 
@@ -158,7 +168,8 @@ class _Entry:
             graph.register_generator_state(gen)
         tape = LaunchTape()
         with tape.recording():
-            capture(graph, lambda: self.body(n, gen), what=f"{n} step(s) of {self.what}", pool=self._pool)
+            capture(graph, lambda: self.body(n, gen), what=f"{n} step(s) of {self.what}", pool=self._pool,
+                    devices=self.devices, pools=self._pools)
         if self._pool is None:
             self._pool = graph.pool()
         self._graphs[n] = got = (graph, tape, gen)
@@ -170,6 +181,7 @@ class _Entry:
             graph.reset()
         self._graphs.clear()
         self._pool = self.live = None
+        self._pools = CardPools(self.device)
 
 
 #: the graphs ``lm.decode_scan`` and the scheduler's chunks replay
@@ -207,10 +219,11 @@ class _Decode(_Entry):
     temperatures and serve caches (KV, recurrent states) of its own; steps
     emit the carried token."""
 
-    def __init__(self, stats, cfg, tok0, caches, *, temperature, pools, idx, use_kernel, fuse_skip, unroll):
+    def __init__(self, stats, cfg, tok0, caches, *, temperature, pools, idx, use_kernel, fuse_skip, unroll,
+                 devices=()):
         dev = tok0.device
         super().__init__(stats, f"the decode step ({cfg.name}, batch {tok0.shape[0]})", dev,
-                         _temp_kind(temperature)[0] != "greedy")
+                         _temp_kind(temperature)[0] != "greedy", devices)
         self.cfg = cfg
         self.state = {"tok": torch.zeros_like(tok0), "pos": torch.zeros((), dtype=torch.long, device=dev),
                       "caches": [{n: TP.zeros_like(t) for n, t in c.items()} for c in caches]}
@@ -242,7 +255,7 @@ def decode(params, cfg, tok0, start_pos: int, caches, *, max_new: int, temperatu
            storage_sig(pools))
     e = graphs.entry(key, lambda: _Decode(
         graphs.stats, cfg, tok0, caches, temperature=temperature, pools=pools, idx=idx, use_kernel=use_kernel,
-        fuse_skip=fuse_skip, unroll=unroll))
+        fuse_skip=fuse_skip, unroll=unroll, devices=TP.run_devices(params, tok0)))
     st = e.state
     st["tok"].copy_(tok0)
     st["pos"].fill_(start_pos)
@@ -275,9 +288,9 @@ class _Chunk(_Entry):
     plan of its own over the live batch's caches, token and position; steps
     emit the new token."""
 
-    def __init__(self, stats, cfg, steps, max_seq, pools, idx, tok, active, temps, use_kernel, fuse):
+    def __init__(self, stats, cfg, steps, max_seq, pools, idx, tok, active, temps, use_kernel, fuse, devices=()):
         super().__init__(stats, f"the scheduler's decode step ({cfg.name}, batch {tok.shape[0]})",
-                         tok.device, _temp_kind(temps)[0] != "greedy")
+                         tok.device, _temp_kind(temps)[0] != "greedy", devices)
         self.cfg, self.max_seq = cfg, max_seq
         self.idx = torch.zeros_like(idx)
         self.active = torch.zeros_like(active)
@@ -305,7 +318,7 @@ def chunk(params, cfg, steps: int, pools, idx, caches, tok, pos, active, temps, 
     key = ("chunk", cfg, steps, max_seq, _temp_kind(temps), use_kernel, fuse, idx.dtype, active.dtype,
            storage_sig(params), storage_sig(pools), storage_sig(caches), storage_sig(tok), storage_sig(pos))
     e = graphs.entry(key, lambda: _Chunk(graphs.stats, cfg, steps, max_seq, pools, idx, tok, active, temps,
-                                         use_kernel, fuse))
+                                         use_kernel, fuse, TP.run_devices(params, tok)))
     e.idx.copy_(idx)
     e.active.copy_(active)
     _load_plan(e.plan, pools, e.idx)

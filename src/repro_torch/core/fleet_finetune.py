@@ -29,9 +29,9 @@ here, on CUDA tensors, an epoch is replays of a captured step
 single-tenant epochs: the stacked adapters, moments, step count and the
 row -> tenant map in the entry's buffers, params, tokens, labels and cache
 in place), with a held-out eval before or after folded in as graphs of
-their own, for a model group whose members share one card too;
-``loop=True``, CPU tensors and a group spread over several cards
-(``cuda_graph.capturable``) run the eager loop over the rows. Either way
+their own, for a model group too, on one card or spread over several
+(``cuda_graph.capturable``); ``loop=True`` and CPU tensors run the eager
+loop over the rows. Either way
 the cache is written in place, and each step's per-tenant losses stay on
 the device until the epoch returns them stacked. With a ``TieredCacheEngine`` (``engine=``),
 cached epochs stream their batches out of the engine

@@ -37,11 +37,11 @@ eagerly, then captures and replays the rest). The adapters, moments and step cou
 the entry's buffers and come out as new tensors; params, tokens and labels
 are read in place and never written; the cache is written in place (it is
 donated) and keys the entry by its storage with the params, tokens and
-labels. Params split over a model group (``models.tp``) whose members
-share one card replay the same way, the key holding every member's
-storage. ``loop=True``, CPU tensors and a group spread over several cards
-run the eager loop over the rows instead, the yardstick the replays are
-held to bitwise. Either way the cache is written in place and
+labels. Params split over a model group (``models.tp``) replay the same
+way, whether its members share the home card or sit on several cards (one
+capture reaching every card), the key holding every member's storage.
+``loop=True`` and CPU tensors run the eager loop over the rows instead,
+the yardstick the replays are held to bitwise. Either way the cache is written in place and
 each step's loss stays on the device until the epoch returns them stacked.
 """
 
@@ -53,7 +53,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.cuda_graph import EpochGraph, GraphCache, capturable, shapes, storage_sig
+from repro_torch.core.cuda_graph import EpochGraph, GraphCache, capturable, shapes, storage_sig, tree_devices
 from repro_torch.core.skip_cache import SkipCache, cache_read, cache_write
 from repro_torch.models import tp as TP
 from repro_torch.models.config import ModelConfig
@@ -346,9 +346,9 @@ def from_carry(leaves: list[torch.Tensor], struct: tuple) -> tuple[Params, OptSt
 
 def graphed(x: torch.Tensor, params: Params, loop: bool) -> bool:
     """Whether an epoch over ``x``'s device runs as graph replays: on a CUDA
-    device, and for params split over a model group whose members share
-    that card, unless ``loop`` asks for the eager steps. A group spread over
-    several cards runs the eager steps (``cuda_graph.capturable``)."""
+    device, and for params split over a model group whose members are all on
+    CUDA cards, that one or others (``cuda_graph.capturable``), unless
+    ``loop`` asks for the eager steps."""
     return not loop and capturable(TP.run_devices(params, x))
 
 
@@ -364,7 +364,7 @@ def run_epoch_graph(graphs: Optional[GraphCache], key: tuple, step, live, carry,
     graphs = GRAPHS if graphs is None else graphs
     key = key + (tuple(idx_mat.shape), idx_mat.dtype, shapes(carry), shapes(consts), idx_mat.device)
     e = graphs.entry(key, lambda: EpochGraph(graphs.stats, step, device=idx_mat.device, what=what, before=before,
-                                             after=after))
+                                             after=after, devices=tree_devices(live)))
     return e.run(live, carry, consts, idx_mat)
 
 

@@ -116,8 +116,8 @@ def generate(
     ``decode_scan``, whose ``max_new`` steps are CUDA-graph replays of
     ``unroll`` steps each on the card. ``params`` split over a model group
     (``models.tp``) keep each member's KV heads on its device; their steps
-    are graph replays when the members share one card, eager steps when
-    they span several (``cuda_graph.capturable``). Returns (B, max_new)."""
+    are graph replays too, whether the members share one card or span
+    several (``cuda_graph.capturable``). Returns (B, max_new)."""
     tokens, dev = _on_device(params, tokens, device)
     b, s = tokens.shape
     caches = init_serve_caches(cfg, b, s + max_new, device=dev, params=params)
@@ -279,8 +279,9 @@ class SessionRuntime:
     reference replicates them over the group).
     Such a session takes ``use_kernel=False`` (the skip-sums' plain
     versions); its decode, scheduler chunks and resident adapt epochs are
-    graph replays when the group's members share one card, eager steps when
-    they span several (``cuda_graph.capturable``). ``pipeline_stages=N``
+    graph replays, whether the group's members share one card or span
+    several (``cuda_graph.capturable``); the stream path and the pipelined
+    admission run eager steps. ``pipeline_stages=N``
     (N == the model-axis size, a float pool) also splits each group's
     devices into N GPipe stages of whole layers
     (``lm.pipeline_stage_params``) for the scheduler's pipelined admission
@@ -739,8 +740,8 @@ class SessionRuntime:
         tiered -> "stream" (``fleet_cached_epoch_via_engine``, eager steps).
         Every group's epochs are issued before the first write-back, so the
         shards' replays go out back to back. A model group's epochs replay
-        as the unsplit ones do when its members share one card, and run
-        eager steps when they span several (``cuda_graph.capturable``).
+        as the unsplit ones do, whether its members share one card or span
+        several (``cuda_graph.capturable``).
         ``loop=True`` runs the resident path's epochs as their eager loop
         (``make_fleet_cached_epoch(loop=True)``), what the replays are held
         against. Returns {"losses": {tenant: (epochs, steps) np.ndarray},
@@ -800,8 +801,8 @@ class SessionRuntime:
     def _adapt_epochs(self, group, spt, shard, *, epochs, epoch0, step0, batch_per_tenant, loop=False) -> dict:
         """Issue one same-(trajectory, shard) group's cached epochs on the
         shard's device and engine; on the resident path they are replays of
-        the shard's epoch graphs (over a model group too, when its members
-        share one card; a group over several cards runs eager steps), and
+        the shard's epoch graphs (over a model group too, on one card or
+        several), and
         nothing here waits for the device.
         Returns what ``_write_back`` needs: the per-epoch (steps, N) losses
         on the device, the new state, the held-out losses and the path."""

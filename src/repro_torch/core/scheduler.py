@@ -156,9 +156,9 @@ def _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, p
     ``tok`` and ``pos``, updated in place: retired rows frozen, live
     positions clamped so a chunk overshooting a finishing row never writes
     past the cache. On the card one CUDA-graph replay
-    (``decode_graph.chunk``), over a model group whose members share one
-    card too; on the CPU, with ``loop``, or for a group spread over several
-    cards (``cuda_graph.capturable``), the same steps eagerly. ``fuse``
+    (``decode_graph.chunk``), over a model group too, on one card or spread
+    over several (``cuda_graph.capturable``); on the CPU or with ``loop``,
+    the same steps eagerly. ``fuse``
     computes each step's skip term as dense per-row math instead of a grouped kernel
     launch. Returns (tok, pos, tokens sampled at each step (chunk, B)):
     each chunk hands back exactly the tokens the host has not seen."""

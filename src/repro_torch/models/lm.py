@@ -555,10 +555,10 @@ def decode_scan(
     On CUDA tensors the steps are CUDA-graph replays, ``unroll`` steps a
     replay (``core.decode_graph``: the card's form of the reference's one
     ``lax.scan`` dispatch; ``max_new`` need not be a multiple), for a
-    backbone split over a model group whose members share one card too;
-    on CPU tensors, and for a group spread over several cards
-    (``cuda_graph.capturable``), the same step function
-    (``decode_step_``) runs eagerly. The caches are updated in place.
+    backbone split over a model group too, whether its members share one
+    card or span several (``cuda_graph.capturable``); on CPU tensors the
+    same step function (``decode_step_``) runs eagerly. The caches are
+    updated in place.
     Returns (tokens (B, max_new) with tok0 first, final caches)."""
     from repro_torch.core.cuda_graph import capturable
 

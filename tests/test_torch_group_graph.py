@@ -16,8 +16,9 @@ xlstm-350m (one period: mLSTM states split by ``d_inner`` and heads).
     twin with the parts' shapes, dtypes and devices, the ranges and the
     axis; a round trip through it bitwise; a copy across other ranges, axis
     or part shapes refused; a whole cache stays a tensor;
-  - ``cuda_graph.capturable``: true only for CUDA devices that are all one
-    card, on device lists; ``tp.run_devices``;
+  - ``cuda_graph.capturable``: true for every list of CUDA devices, on one
+    card or several, false wherever a ``cpu`` or ``meta`` device appears;
+    ``tp.run_devices``; ``cuda_graph.tree_devices``;
   - on the CPU a group's ``decode_scan`` and scheduler chunk run their
     eager steps and capture nothing.
 
@@ -31,7 +32,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.core import decode_graph as DG  # noqa: E402
-from repro_torch.core.cuda_graph import capturable, storage_sig  # noqa: E402
+from repro_torch.core import lm_skiplora as SL  # noqa: E402
+from repro_torch.core.cuda_graph import CardPools, capturable, other_cards, storage_sig, tree_devices  # noqa: E402
 from repro_torch.core.scheduler import _chunk_scan  # noqa: E402
 from repro_torch.models import lm as TL  # noqa: E402
 from repro_torch.models import tp as TP  # noqa: E402
@@ -200,15 +202,19 @@ def test_decode_entry_twins_every_cache_leaf(kind):
     (["cuda:0", "cuda:0"], True),
     (["cuda:1", "cuda:1", "cuda:1", "cuda:1"], True),
     ([torch.device("cuda", 0), "cuda:0"], True),
-    (["cuda:0", "cuda:1"], False),
-    (["cuda:1", "cuda:0", "cuda:0"], False),
+    (["cuda:0", "cuda:1"], True),
+    (["cuda:1", "cuda:0", "cuda:0"], True),
     (["cuda:0", "cpu"], False),
     (["cpu"], False),
     (["cpu", "cpu"], False),
     (["meta", "meta"], False),
     ([], False),
+    (["cuda:0", "meta"], False),
 ])
 def test_capturable_only_for_one_card(devices, want):
+    """True for every list of CUDA devices, on one card or several (the
+    name predates captures across cards), false wherever a ``cpu`` or
+    ``meta`` device appears."""
     assert capturable(devices) is want
 
 
@@ -218,7 +224,64 @@ def test_run_devices_lists_the_home_and_the_members():
     assert TP.run_devices(gp, x) == [torch.device("cpu")] * 3
     assert TP.run_devices({"embed": {}}, x) == [torch.device("cpu")]
     cross = TP.GroupParams(gp.members, gp.specs, [torch.device("cuda", 0), torch.device("cuda", 1)])
-    assert not capturable(TP.run_devices(cross, x))
+    assert TP.run_devices(cross, x) == [torch.device("cpu"), torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert not capturable(TP.run_devices(cross, x))      # x on the CPU
+    assert capturable(TP.run_devices(cross, x)[1:])
+
+
+@pytest.mark.parametrize("devices,home,want", [
+    (["cuda:0"], 0, []),
+    (["cuda:0", "cuda:0"], 0, []),
+    (["cuda:0", "cuda:1"], 0, [1]),
+    (["cuda:0", "cuda:1", "cuda:1", "cuda:3", "cuda:0"], 0, [1, 3]),
+    (["cuda:2", "cuda:0", "cuda"], 2, [0]),
+    (["cuda", "cuda:1"], 1, []),
+    (["cpu", "cuda:1"], 0, [1]),
+])
+def test_other_cards_lists_each_card_but_the_home_once(devices, home, want):
+    assert other_cards(devices, home) == want
+
+
+def test_entries_start_with_empty_card_pools():
+    """A decode entry and an epoch graph own a ``CardPools`` keyed by their
+    home device, empty until a capture reaches another card; dropping an
+    empty one touches no device."""
+    cfg, gp = _group("heads")
+    caches = TL.init_serve_caches(cfg, 2, 8, device="cpu", params=gp)
+    e = DG._Decode(DG.GraphCache().stats, cfg, torch.zeros((2, 1), dtype=torch.long), caches, temperature=0.0,
+                   pools=None, idx=None, use_kernel=False, fuse_skip=False, unroll=2)
+    assert isinstance(e._pools, CardPools) and e._pools.home == torch.device("cpu") and not e._pools
+    e.free()
+    assert isinstance(e._pools, CardPools) and not e._pools
+    pools = CardPools(torch.device("cpu"))
+    assert pools == {} and pools.home == torch.device("cpu")
+    del pools
+
+
+@pytest.mark.parametrize("kind", ["heads", "sequence", "recurrent"])
+def test_tree_devices_walks_groups_and_split_caches(kind):
+    cfg, gp = _group(kind)
+    caches = TL.init_serve_caches(cfg, 2, 8, device="cpu", params=gp)
+    assert tree_devices((gp, caches, torch.zeros(1))) == [torch.device("cpu")]
+    meta = torch.zeros(2, device="meta")
+    assert tree_devices([{"a": torch.zeros(1)}, None, (meta, torch.ones(1))]) == [torch.device("cpu"),
+                                                                                  torch.device("meta")]
+    assert not capturable(tree_devices((gp, meta)))
+    assert tree_devices({}) == []
+
+
+def test_tree_devices_reads_an_epoch_graphs_live_tensors():
+    """What ``lm_skiplora.run_epoch_graph`` hands ``tree_devices``: the
+    params (a group here), the ``SkipCache`` dataclass, tokens and labels;
+    ``storage_sig`` walks the dataclass by its fields too."""
+    cfg, gp = _group("heads")
+    sl = SL.SkipLoRAConfig(rank=2, mode="full", cache_dtype="float32")
+    cache = SL.init_lm_cache(4, cfg, sl, 6, device="cpu")
+    tokens = torch.zeros((4, 6), dtype=torch.int32)
+    assert tree_devices((gp, cache, tokens, tokens)) == [torch.device("cpu")]
+    assert storage_sig(cache) == ("slots",) + storage_sig(cache.slots) + ("valid",) + storage_sig(cache.valid)
+    moved = SL.SkipCache(slots={k: v.clone() for k, v in cache.slots.items()}, valid=cache.valid)
+    assert storage_sig(moved) != storage_sig(cache)
 
 
 # ---------------------------------------------------------------------------

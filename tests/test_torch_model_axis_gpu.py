@@ -15,21 +15,27 @@ weights. The session takes ``use_kernel=False``, as a model axis must.
     the same card: train forward, serve prefill and a decode step (the
     caches split by heads) within 1e-4 of the largest value, greedy tokens
     equal;
-  - one card, graphs (``cuda_graph.capturable``): on ``[cuda:0, cuda:0]``
-    ``lm.decode_scan`` replays bitwise ``lm.decode_loop`` (tokens and
-    caches) for reduced qwen2-moe-a2.7b (KV heads split), paligemma-3b (one
-    KV head: caches split by sequence) and xlstm-350m (recurrent states
-    split), greedy and sampled; the scheduler's chunks bitwise
-    ``loop=True``; the populate, cached and three fleet epochs and a
-    session's adapt (with and without a control plane) bitwise their
-    ``loop=True`` loops; captures and replays counted in
-    ``decode_graph.GRAPHS.stats`` / ``GraphCache.stats``;
+  - graphs (``cuda_graph.capturable``), each on one card (the group
+    ``[cuda:0, cuda:0]``) and on two (``[cuda:0, cuda:1]``, one capture
+    reaching both cards; skipped below two): ``lm.decode_scan`` replays
+    bitwise ``lm.decode_loop`` (tokens and caches) for reduced
+    qwen2-moe-a2.7b (KV heads split), paligemma-3b (one KV head: caches
+    split by sequence) and xlstm-350m (recurrent states split), greedy and
+    sampled; the scheduler's chunks bitwise ``loop=True``; the populate,
+    cached and three fleet epochs and a session's adapt (with and without a
+    control plane) bitwise their ``loop=True`` loops; captures and replays
+    counted in ``decode_graph.GRAPHS.stats`` / ``GraphCache.stats``;
   - two cards: a (1 data x 2 model) session over ``[cuda:0, cuda:1]`` (built
     through ``make_mesh``), with ``pipeline_stages=2`` and without, against
     the same session over ``["cpu", "cpu"]``: adapters within rtol 1e-4 /
     atol 1e-6 (the CPU tests' bar), slot tables and serve and scheduler
-    tokens equal; a group over ``[cuda:0, cuda:1]`` decodes and trains in
-    eager steps and captures nothing."""
+    tokens equal; a group over ``[cuda:0, cuda:1]`` decodes and trains as
+    graph replays bitwise its eager steps; after a two-card capture the
+    member card's free memory filled with NaN through new allocations, the
+    replays stay bitwise and write none of it, and dropping the graphs
+    gives the member card's pool back; entries dropped while their replays
+    are in flight fault nothing; a failed two-card capture raises
+    ``GraphCaptureError`` and leaves both cards usable."""
 
 import dataclasses
 
@@ -134,10 +140,20 @@ def test_two_card_session_matches_the_cpu_group(stages):
 
 
 # ---------------------------------------------------------------------------
-# One card: a group's steps as graph replays
+# A group's steps as graph replays, on one card and on two
 # ---------------------------------------------------------------------------
 
 ONE_CARD = ["cuda:0", "cuda:0"]
+TWO_CARDS = ["cuda:0", "cuda:1"]
+CARDS = pytest.mark.parametrize("cards", [1, 2], ids=["one_card", "two_cards"])
+
+
+def _group_devices(cards):
+    """The group's devices: one card's two members, or two cards (skipped
+    below two)."""
+    if cards == 2 and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return ONE_CARD if cards == 1 else TWO_CARDS
 SEQ_CFG = dataclasses.replace(CFG, name="t1", n_kv_heads=1)
 ARCHS = {"moe": "qwen2-moe-a2.7b", "sequence": "paligemma-3b", "recurrent": "xlstm-350m"}
 
@@ -157,12 +173,14 @@ def _stats_gain(stats, since):
     return got
 
 
+@CARDS
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
 @pytest.mark.parametrize("kind", ["moe", "sequence", "recurrent"])
-def test_group_decode_scan_replays_the_eager_loop_bitwise(kind, temperature):
+def test_group_decode_scan_replays_the_eager_loop_bitwise(kind, temperature, cards):
+    devices = _group_devices(cards)
     cfg = _reduced(kind)
     params = _live(TL.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg), cfg)
-    gp = TP.group_params(params, ONE_CARD)
+    gp = TP.group_params(params, devices)
     del params
     g = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (4, 8), generator=g, device="cuda")
@@ -189,10 +207,10 @@ def test_group_decode_scan_replays_the_eager_loop_bitwise(kind, temperature):
     DG.GRAPHS.clear()
 
 
-def _sched_session(cfg, loop):
+def _sched_session(cfg, loop, devices):
     params = _live(TL.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg), cfg)
     rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=2, mode="full"), params, max_tenants=2, samples_per_tenant=4,
-                        seq=6, use_kernel=False, mesh=group_mesh(ONE_CARD), seed=0)
+                        seq=6, use_kernel=False, mesh=group_mesh(devices), seed=0)
     g = np.random.default_rng(5)
     for t in ("a", "b"):
         rt.ingest(t, g.integers(0, cfg.vocab_size, (4, 6)), g.integers(0, cfg.vocab_size, (4, 6)))
@@ -204,16 +222,18 @@ def _sched_session(cfg, loop):
     return [r.result().tolist() for r in reqs], rt
 
 
+@CARDS
 @pytest.mark.parametrize("cfg", [CFG, SEQ_CFG], ids=["heads", "sequence"])
-def test_group_scheduler_chunks_replay_the_eager_chunks_bitwise(cfg):
+def test_group_scheduler_chunks_replay_the_eager_chunks_bitwise(cfg, cards):
+    devices = _group_devices(cards)
     since = DG.GRAPHS.stats.copy()
-    got, rt = _sched_session(cfg, loop=False)
+    got, rt = _sched_session(cfg, False, devices)
     gain = _stats_gain(DG.GRAPHS.stats, since)
-    assert TP.is_group(rt.params) and rt.params.devices == [torch.device("cuda", 0)] * 2
+    assert TP.is_group(rt.params) and rt.params.devices == [torch.device(d) for d in devices]
     assert (isinstance(rt.scheduler._lb.caches["k"], TP.HeadSplit)
             and rt.scheduler._lb.caches["k"].axis == (-2 if cfg is CFG else -3))
     since = DG.GRAPHS.stats.copy()
-    want, _ = _sched_session(cfg, loop=True)
+    want, _ = _sched_session(cfg, True, devices)
     assert got == want
     assert gain["captures"] >= 1 and gain["replays"] >= 1
     assert _stats_gain(DG.GRAPHS.stats, since)["captures"] == 0
@@ -223,12 +243,13 @@ def test_group_scheduler_chunks_replay_the_eager_chunks_bitwise(cfg):
 N, SEQ, BATCH, RANK = 16, 16, 4, 4
 
 
-@pytest.fixture(scope="module")
-def group_model():
+@pytest.fixture(scope="module", params=[1, 2], ids=["one_card", "two_cards"])
+def group_model(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    devices = _group_devices(request.param)
     cfg = dataclasses.replace(reduce_config(get_config("stablelm-1.6b")), vocab_size=512)
-    gp = TP.group_params(_live(TL.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg), cfg), ONE_CARD)
+    gp = TP.group_params(_live(TL.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg), cfg), devices)
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (N, SEQ), generator=g, device="cuda", dtype=torch.int32)
     labels = torch.randint(0, cfg.vocab_size, (N, SEQ), generator=g, device="cuda", dtype=torch.int32)
@@ -316,11 +337,11 @@ def test_group_fleet_epochs_replay_the_eager_loop_bitwise(group_model, mode):
     assert graphs.stats["captures"] == 5 and graphs.stats["replays"] == 3 * (N // 4) - 2
 
 
-def _adapt_session(control):
+def _adapt_session(control, devices):
     cfg = dataclasses.replace(CFG, vocab_size=64)
     params = _live(TL.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg), cfg)
     rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=2, mode="full"), params, max_tenants=2, samples_per_tenant=6,
-                        seq=6, use_kernel=False, mesh=group_mesh(ONE_CARD), seed=0,
+                        seq=6, use_kernel=False, mesh=group_mesh(devices), seed=0,
                         control=ControlConfig(holdout_every=3) if control else None)
     g = np.random.default_rng(5)
     for t in ("a", "b"):
@@ -328,9 +349,11 @@ def _adapt_session(control):
     return rt
 
 
+@CARDS
 @pytest.mark.parametrize("control", [False, True], ids=["plain", "control"])
-def test_group_session_adapt_replays_the_eager_loop_bitwise(control):
-    rts = [_adapt_session(control) for _ in range(2)]
+def test_group_session_adapt_replays_the_eager_loop_bitwise(control, cards):
+    devices = _group_devices(cards)
+    rts = [_adapt_session(control, devices) for _ in range(2)]
     outs = []
     for rt, loop in zip(rts, (False, True)):
         outs.append([rt.adapt(["a", "b"], epochs=2, batch_per_tenant=2, loop=loop,
@@ -354,29 +377,156 @@ def test_group_session_adapt_replays_the_eager_loop_bitwise(control):
         assert stats["captures"] == 1 and stats["replays"] == 4 * steps - 1
 
 
-def test_cross_card_group_runs_eager_steps():
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA devices")
-    cards = ["cuda:0", "cuda:1"]
-    params = _live(TL.init_lm(torch.Generator(device="cuda").manual_seed(0), CFG), CFG)
-    gp = TP.group_params(params, cards)
-    prompts = torch.randint(0, CFG.vocab_size, (2, 5), generator=torch.Generator().manual_seed(4)).cuda()
+def _two_card_decode(cfg):
+    """A group over two cards after its prefill: (params, tok0, the caches,
+    a twin of them)."""
+    params = _live(TL.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg), cfg)
+    gp = TP.group_params(params, TWO_CARDS)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 5), generator=torch.Generator().manual_seed(4)).cuda()
+    with torch.no_grad():
+        caches = TL.init_serve_caches(cfg, 2, 9, device="cuda", params=gp)
+        logits, caches = TL.serve_prefill(gp, cfg, prompts, caches)
+    twin = [{n: TP.zeros_like(t).copy_(t) for n, t in c.items()} for c in caches]
+    return gp, logits.argmax(-1), caches, twin
+
+
+def test_cross_card_group_replays_the_eager_steps_bitwise():
+    _group_devices(2)
+    gp, tok0, caches, twin = _two_card_decode(CFG)
+    assert {p.device for c in caches for t in c.values() if isinstance(t, TP.HeadSplit) for p in t.parts} == {
+        torch.device("cuda", 0), torch.device("cuda", 1)}
     since = DG.GRAPHS.stats.copy()
     with torch.no_grad():
-        caches = TL.init_serve_caches(CFG, 2, 9, device="cuda", params=gp)
-        logits, caches = TL.serve_prefill(gp, CFG, prompts, caches)
-        twin = [{n: TP.zeros_like(t).copy_(t) for n, t in c.items()} for c in caches]
-        got, _ = TL.decode_scan(gp, CFG, logits.argmax(-1), 5, caches, max_new=4)
-        want, _ = TL.decode_loop(gp, CFG, logits.argmax(-1), 5, twin, max_new=4)
+        got, _ = TL.decode_scan(gp, CFG, tok0, 5, caches, max_new=4)
+        want, _ = TL.decode_loop(gp, CFG, tok0, 5, twin, max_new=4)
     assert torch.equal(got, want)
-    assert _stats_gain(DG.GRAPHS.stats, since)["captures"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(_whole(caches), _whole(twin)))
+    gain = _stats_gain(DG.GRAPHS.stats, since)
+    assert gain["captures"] == 1 and gain["eager_steps"] == 1 and gain["replays"] == 3
+    DG.GRAPHS.clear()
     sl = SL.SkipLoRAConfig(rank=2, mode="full", cache_dtype="float32")
     trainable, static = SL.split_trainable(SL.init_adapters(torch.Generator(device="cuda").manual_seed(2), CFG, sl),
                                            sl)
     opt = adamw(1e-3)
-    tokens = torch.randint(0, CFG.vocab_size, (4, 6), device="cuda")
+    tokens = torch.randint(0, CFG.vocab_size, (4, 6), generator=torch.Generator().manual_seed(6)).cuda()
+    outs = []
     graphs = GraphCache()
-    SL.make_populate_epoch(CFG, sl, opt, graphs=graphs)(
-        gp, trainable, static, opt.init(trainable), SL.init_lm_cache(4, CFG, sl, 6, device="cuda"), tokens, tokens,
-        torch.arange(4, device="cuda").reshape(2, 2))
-    assert graphs.stats["captures"] == 0 and graphs.stats["replays"] == 0
+    for loop in (False, True):
+        cache = SL.init_lm_cache(4, CFG, sl, 6, device="cuda")
+        t, o, cache, losses = SL.make_populate_epoch(CFG, sl, opt, loop=loop, graphs=graphs)(
+            gp, trainable, static, opt.init(trainable), cache, tokens, tokens,
+            torch.arange(4, device="cuda").reshape(2, 2))
+        outs.append([losses] + _leaves(t, o, cache))
+    assert _equal(*outs)
+    assert graphs.stats["captures"] == 1 and graphs.stats["replays"] == 1
+
+
+def _scribble(card):
+    """The card's free memory filled with NaN through new allocations (the
+    allocator's cached blocks first, then fresh memory) until 1 GiB is
+    left: what a replay would read if its memory had been handed out
+    again."""
+    junk, chunk = [], 64 << 20
+    while torch.cuda.mem_get_info(card)[0] > (1 << 30) + chunk:
+        junk.append(torch.full((chunk // 4,), float("nan"), device=f"cuda:{card}"))
+    torch.cuda.synchronize(card)
+    return junk
+
+
+@pytest.mark.parametrize("what", ["decode", "epochs"])
+def test_two_card_replays_survive_a_scribbled_member_card(what):
+    _group_devices(2)
+    cfg = _reduced("moe")
+    gp, tok0, caches, twin = _two_card_decode(cfg)
+    base = [{n: TP.zeros_like(t).copy_(t) for n, t in c.items()} for c in caches]
+    graphs = GraphCache()
+    if what == "decode":
+        def run(loop):
+            mine = [{n: TP.zeros_like(t).copy_(t) for n, t in c.items()} for c in base]
+            with torch.no_grad():
+                if loop:
+                    toks, _ = TL.decode_loop(gp, cfg, tok0, 5, mine, max_new=4, use_kernel=False)
+                else:
+                    toks, _ = DG.decode(gp, cfg, tok0, 5, mine, max_new=4, use_kernel=False, graphs=graphs)
+            return [toks] + _whole(mine)
+    else:
+        sl = SL.SkipLoRAConfig(rank=2, mode="full", cache_dtype="float32")
+        trainable, static = SL.split_trainable(
+            SL.init_adapters(torch.Generator(device="cuda").manual_seed(2), cfg, sl), sl)
+        opt = adamw(1e-3)
+        tokens = torch.randint(0, cfg.vocab_size, (8, 6), generator=torch.Generator().manual_seed(6)).cuda()
+        mat = torch.randperm(8, generator=torch.Generator().manual_seed(8)).reshape(4, 2).cuda()
+        fresh = SL.init_lm_cache(8, cfg, sl, 6, device="cuda")
+        cache = SL.init_lm_cache(8, cfg, sl, 6, device="cuda")   # one storage: the entry is keyed on it
+
+        def run(loop):
+            for a, b in zip(_leaves(cache), _leaves(fresh)):
+                a.copy_(b)
+            t, o, _, losses = SL.make_populate_epoch(cfg, sl, opt, loop=loop, graphs=graphs)(
+                gp, trainable, static, opt.init(trainable), cache, tokens, tokens, mat)
+            return [losses] + [x.clone() for x in _leaves(t, o, cache)]
+
+    want = run(True)
+    assert _equal(run(False), want)              # captures
+    captures = graphs.stats["captures"]
+    assert captures >= 1
+    torch.cuda.empty_cache()
+    junk = _scribble(1)
+    got = run(False)                             # replays only, over a member card full of NaN
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    assert graphs.stats["captures"] == captures
+    assert _equal(got, want)
+    assert all(bool(torch.isnan(j).all()) for j in junk)
+    del junk, got
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(1)
+    graphs.clear()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(1) < held  # the member card's pool went with the graphs
+
+
+def test_dropping_two_card_entries_mid_replay_is_safe():
+    """Entries dropped as soon as their call returns, with their replays
+    still in flight on both cards (a temporary ``GraphCache``: the entry's
+    member-card pool is released before anything synchronises): every call
+    bitwise the eager loop, no fault."""
+    _group_devices(2)
+    cfg = _reduced("moe")
+    gp, tok0, caches, twin = _two_card_decode(cfg)
+    with torch.no_grad():
+        want, _ = TL.decode_loop(gp, cfg, tok0, 5, twin, max_new=4, use_kernel=False)
+        got = []
+        for _ in range(4):
+            mine = [{n: TP.zeros_like(t).copy_(t) for n, t in c.items()} for c in caches]
+            got.append(DG.decode(gp, cfg, tok0, 5, mine, max_new=4, use_kernel=False, graphs=GraphCache())[0])
+    assert all(torch.equal(g, want) for g in got)
+
+
+def test_a_failed_two_card_capture_raises_and_the_cards_go_on():
+    """A step refused after it issued work on both cards (as the kernel
+    wrappers refuse inside a capture) raises ``GraphCaptureError`` naming
+    the step: no step falls back, both cards' current streams and the
+    current card are as they were, and a later two-card capture replays
+    bitwise."""
+    _group_devices(2)
+    from repro_torch.core.cuda_graph import CardPools, GraphCaptureError, capture
+
+    x = torch.arange(8.0, device="cuda:1")
+    (x * 2).to("cuda:0")            # peer access enabled outside the capture
+    pools = CardPools(torch.device("cuda", 0))
+    before = [torch.cuda.current_stream(d) for d in (0, 1)]
+
+    def bad():
+        (x * 2).to("cuda:0").add_(1)
+        raise RuntimeError("refused inside a capture")
+
+    with torch.cuda.device(0), pytest.raises(GraphCaptureError, match="capturing a bad step.*refused inside"):
+        capture(torch.cuda.CUDAGraph(), bad, what="a bad step", devices=TWO_CARDS, pools=pools)
+    assert [torch.cuda.current_stream(d) for d in (0, 1)] == before and torch.cuda.current_device() == 0
+    assert list(pools) == [1]
+    gp, tok0, caches, twin = _two_card_decode(CFG)
+    with torch.no_grad():
+        got, _ = DG.decode(gp, CFG, tok0, 5, caches, max_new=3, use_kernel=False, graphs=GraphCache())
+        want, _ = TL.decode_loop(gp, CFG, tok0, 5, twin, max_new=3, use_kernel=False)
+    assert torch.equal(got, want)
