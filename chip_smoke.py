@@ -46,7 +46,10 @@ Phases, each printing one line (or a few) before the last line:
      loop tokens; the zero-slot row equals row 0 of base ``generate``. From
      one prefill, the graph replays (``decode_scan`` at unroll 1, 3, 32)
      give the eager loop's (``decode_loop``) tokens, final caches and
-     generator state bitwise, greedy and at temperature 0.8. Tokens/s both
+     generator state bitwise, greedy and at temperature 0.8, for the float
+     pool (the other layouts: ``tests/test_torch_decode_graph_gpu.py``);
+     each prefill's graph, base and grouped, bitwise the eager prefill over
+     a key's first call, capture and replay. Tokens/s both
      ways and at unroll 32 (one replay a call), and the host time a replay
      takes. A reduced config must give the same tokens on the card as on
      the CPU.
@@ -323,6 +326,15 @@ Phases, each printing one line (or a few) before the last line:
      decode logits within ``CP_LOGIT_BAR`` of the same group with whole
      caches. Host seconds, no hand-written kernel launches, the phase's
      time.
+The serving prefills, the session's ingest and the scheduler's
+admissions are graph replays too (``core.prefill_graph``): the serve,
+scheduler, session, families and model axis phases each hold a fresh key's
+first call (eager), its capture and a replay bitwise against the eager call
+(``_prefill_calls``: logits, caches, encoded rows, first tokens, the live
+batch, generator state and launches; the scheduler's graphed drains against
+``loop=True``), and the ``prefill graphs`` line before the kernels line
+sums the run: captures, replays, evictions, each kind's seconds, and the
+comparisons' launches, which the kernels line leaves out.
 The grouped forwards' launches on these main paths are also counted by row
 class where their wrappers launch them (``kernel.ROW_LAUNCHES``): a fleet
 step's must take many rows, and each ``generate_grouped`` call's and each
@@ -658,6 +670,7 @@ def serve_phase(torch, device_name):
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=torch.Generator(device=dev).manual_seed(3), device=dev)
     tenants = [None] + [f"tenant-{i % TENANTS}" for i in range(1, BATCH)]
+    prefill_lines = [_serve_prefill_calls(torch, "prefill", cfg, params, prompts)]
     base = generate(params, cfg, prompts, max_new=NEW, device=dev)
     launches, pools = {}, {}
     kernels = {None: "grouped_skip_sum_fwd", "int8": "grouped_skip_sum_fwd_int8",
@@ -665,7 +678,15 @@ def serve_phase(torch, device_name):
     for compress, kname in kernels.items():
         pool = pools[compress] = demo_pool(cfg, TENANTS, RANK, compress, dev)
         idx = pool.lookup(tenants)
-        generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)  # warm-up
+        if compress is None:
+            prefill_lines.append(_serve_prefill_calls(torch, "grouped prefill", cfg, params, prompts, pool, idx))
+        warm = []
+        for _ in range(2):   # warm-up: the prefill's first call (eager) and its capture, the decode's captures
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
         timed = {}
         for path in ("graph", "loop"):
             run = generate_grouped if path == "graph" else generate_loop
@@ -698,11 +719,16 @@ def serve_phase(torch, device_name):
         check(torch.equal(out[0], base[0]), f"pool {compress}: zero-slot row {out[0].tolist()} "
               f"!= base row {base[0].tolist()}")
         check(not torch.equal(out[1:], base[1:]), f"pool {compress}: adapters changed no token")
-        bits = _graph_vs_loop(torch, cfg, params, prompts, pool, idx)
+        # from one prefill, graph == loop: here for the float pool, for every pool layout in
+        # tests/test_torch_decode_graph_gpu.py
+        bits = ("from one prefill graph == loop bitwise for the float pool" if compress else
+                _graph_vs_loop(torch, cfg, params, prompts, pool, idx))
         if compress is None:
             STEP_MS["decode"] = _decode_step_ms(torch, cfg, params, prompts, pool, idx)
-        # one replay a call: the unroll-32 graph, warm (captured by _graph_vs_loop's decode_scan at unroll 32)
-        generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, unroll=NEW, device=dev)
+        # one replay a call: the unroll-32 graph, warm (an entry's first call runs an eager step and a
+        # 31-step graph, its second captures the 32-step one)
+        for _ in range(2):
+            generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, unroll=NEW, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, unroll=NEW, device=dev)
@@ -713,11 +739,39 @@ def serve_phase(torch, device_name):
               f"{device_name}: graph {dt:.3f} s = {BATCH * NEW / dt:.1f} tok/s ({replays} replays a call, "
               f"unroll 1, {replay_us:.1f} us of host time a replay), unroll {NEW} {dt32:.3f} s = "
               f"{BATCH * NEW / dt32:.1f} tok/s (1 replay a call), loop {loop_dt:.3f} s = "
-              f"{BATCH * NEW / loop_dt:.1f} tok/s ({loop_dt / dt:.2f}x); "
+              f"{BATCH * NEW / loop_dt:.1f} tok/s ({loop_dt / dt:.2f}x); warm-up calls "
+              f"{' / '.join(f'{w:.3f}' for w in warm)} s; "
               f"{kname} x{1 + NEW} a call both ways; graph tokens == loop tokens; zero-slot row == base "
               f"generate; {bits}")
+    print(f"serve prefill graphs {ARCH} full width {BATCH}x{PROMPT} (cache {PROMPT + NEW}) on {device_name}: "
+          + "; ".join(prefill_lines))
     trace_phase(torch, device_name, cfg, params, prompts, pools[None], pools[None].lookup(tenants))
     return launches
+
+
+def _serve_prefill_calls(torch, kind, cfg, params, prompts, pool=None, idx=None, tag=""):
+    """``_prefill_calls`` for ``generate``'s prefill (``pool`` None) or
+    ``generate_grouped``'s (``use_kernel`` unless ``params`` are split over
+    a model group) with ``NEW`` positions to decode: logits and every cache
+    position of the entry's caches against a fresh eager prefill's."""
+    from repro_torch.core import prefill_graph as PFG
+    from repro_torch.models import lm as LM
+    from repro_torch.models import tp as TP
+
+    b, s = prompts.shape
+    kw = {} if pool is None else dict(pools=pool.pools(), idx=idx)
+    use_kernel = not TP.is_group(params)    # a model axis refuses the kernels
+
+    def eager():
+        caches = LM.init_serve_caches(cfg, b, s + NEW, device=prompts.device, params=params)
+        if pool is None:
+            return LM.serve_prefill(params, cfg, prompts, caches)
+        return LM.serve_prefill_grouped(params, cfg, prompts, caches, kw["pools"], idx, use_kernel=use_kernel)
+
+    def graphed():
+        return PFG.prefill(params, cfg, prompts, s + NEW, use_kernel=use_kernel, **kw)
+
+    return _prefill_calls(torch, f"{kind}{tag}", graphed, eager, lambda got, want: _tree_equal(torch, got, want))
 
 
 def _graph_vs_loop(torch, cfg, params, prompts, pool, idx):
@@ -1076,6 +1130,117 @@ def _allocs(torch, since: dict) -> dict:
 def _same(torch, a, b) -> bool:
     """Two lists of tensors, equal bit for bit."""
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+#: host seconds (synchronised) of each kind of prefill graph a phase held
+#: against its eager call: (first call, second call = capture + replay,
+#: third call = replay, the eager call), one tuple a phase (``prefill graphs``)
+PREFILL_TIMES: dict[str, list] = {}
+#: the kernel launches of those comparisons, kept out of the kernels line
+COMPARE_LAUNCHES: dict[str, int] = {}
+
+
+def _aside(tape) -> None:
+    """Add what a ``LaunchTape`` recorded (and took back out of the launch
+    counters) to ``COMPARE_LAUNCHES``."""
+    for counts in (tape.counts[0], tape.counts[2], tape.counts[3]):
+        for k, n in counts.items():
+            COMPARE_LAUNCHES[k] = COMPARE_LAUNCHES.get(k, 0) + n
+
+
+def _prefill_calls(torch, kind, graphed, eager, same) -> str:
+    """Three calls of one fresh key of a prefill graph (``core.prefill_graph``:
+    the first eager on a side stream, the second captured and replayed, the
+    third replayed) and its eager call on the same inputs: each graphed
+    call's outputs bitwise the eager call's (``same(got, want)``, checked
+    before the next call), and each graphed call's kernel launches the
+    eager call's, else the check fails. The seconds go into
+    ``PREFILL_TIMES[kind]``, the launches into ``COMPARE_LAUNCHES`` (not the
+    kernels line); returns the seconds as a summary."""
+    from repro_torch.core.cuda_graph import LaunchTape
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        tape = LaunchTape()
+        with tape.recording():
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        _aside(tape)
+        return out, dt, tape.counts
+
+    want, eager_s, want_counts = clock(eager)
+    times = []
+    for call in range(3):
+        got, dt, counts = clock(graphed)
+        check(same(got, want) and counts == want_counts,
+              f"prefill graphs {kind}: call {call + 1} (first, capture, replay) != the eager call (launches "
+              f"{counts} vs {want_counts})")
+        times.append(dt)
+        del got
+    PREFILL_TIMES.setdefault(kind, []).append((*times, eager_s))
+    return (f"{kind}: first call {times[0]:.4f} s, capture + replay {times[1]:.4f} s, replay {times[2]:.4f} s, "
+            f"eager {eager_s:.4f} s, each bitwise, launches equal")
+
+
+def _tree_equal(torch, a, b) -> bool:
+    """Two trees of tensors (dicts, lists, tuples; split caches by part),
+    equal bit for bit."""
+    from repro_torch.models import tp as TP
+
+    def leaves(t):
+        if isinstance(t, TP.HeadSplit):
+            return list(t.parts)
+        if isinstance(t, torch.Tensor):
+            return [t]
+        if isinstance(t, dict):
+            return [x for v in t.values() for x in leaves(v)]
+        return [x for v in t for x in leaves(v)]
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _sched_graph_vs_loop(torch, rt, tag, prompts, who, max_new, **kw) -> str:
+    """One trace through ``RequestScheduler`` on ``rt``, admissions and chunks
+    as graph replays, then as eager calls (``loop=True``): tokens, the whole
+    counters dict and every launch counter bitwise; the replayed admissions
+    counted. Returns the summary."""
+    from repro_torch.core import prefill_graph as PFG
+    from repro_torch.core import scheduler as S
+
+    from repro_torch.core.cuda_graph import LaunchTape
+
+    out = {}
+    for loop in (False, True):
+        rt.reset_prefix_cache()
+        sched = S.RequestScheduler(rt, loop=loop, **kw)
+        reqs = [sched.submit(t, p, max_new=max_new) for t, p in zip(who, prompts)]
+        since = PFG.GRAPHS.stats.copy()
+        torch.cuda.synchronize()
+        tape = LaunchTape()
+        with tape.recording():
+            t0 = time.perf_counter()
+            sched.drain()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        _aside(tape)
+        gain = PFG.GRAPHS.stats.copy()
+        gain.subtract(since)
+        out[loop] = ([r.result().tolist() for r in reqs], dict(sched.counters), tape.counts, dt, gain)
+    (toks, counters, launches, dt, gain), (e_toks, e_counters, e_launches, e_dt, e_gain) = out[False], out[True]
+    check(toks == e_toks and counters == e_counters and launches == e_launches,
+          f"{tag}: the graphed admissions' tokens, counters or launches != loop=True's: {counters} {launches} vs "
+          f"{e_counters} {e_launches}")
+    admits = counters.get("dispatch/admit", 0) + counters.get("dispatch/admit_reuse", 0)
+    check(gain["eager_steps"] + gain["replays"] == admits and gain["replays"] >= 1
+          and e_gain["eager_steps"] + e_gain["replays"] == 0,
+          f"{tag}: {admits} admissions but prefill graph stats {dict(gain)} (loop=True: {dict(e_gain)})")
+    return (f"{tag}: {len(prompts)} requests, {counters.get('dispatch/admit', 0)} dense + "
+            f"{counters.get('dispatch/admit_reuse', 0)} reuse admissions as {gain['eager_steps']} eager first "
+            f"call(s) + {gain['captures']} capture(s) + {gain['replays']} replays, {dt:.3f} s, against loop=True "
+            f"{e_dt:.3f} s: tokens, counters and launches bitwise")
 
 
 def _state_leaves(trainable, opt_state, cache=None):
@@ -2008,6 +2173,32 @@ def _window(torch, want, rows=None):
     return counts
 
 
+def _ingest_calls(torch, rt, kind, tokens) -> str:
+    """``_prefill_calls`` for ``SessionRuntime.ingest``'s forward on shard 0
+    (``prefill_graph.ingest`` on a fresh graph cache) against the eager
+    ``lm.ingest_prefill`` and ``lm_skiplora._encode_acts``: logits, every
+    encoded row and ``y_base``, over the tenant-0 slot."""
+    from repro_torch.core import prefill_graph as PFG
+    from repro_torch.core.cuda_graph import GraphCache
+    from repro_torch.core.lm_skiplora import _encode_acts
+    from repro_torch.models.lm import ingest_prefill
+
+    params, pools = rt._shard_params[0], rt.pool.shard_pools(0)
+    idx = rt.pool.lookup_local(0, [0 if rt.pool.has(0) else None] * tokens.shape[0])
+    graphs = GraphCache()
+
+    def eager():
+        logits, acts, y_base = ingest_prefill(params, rt.cfg, tokens, pools, idx, use_kernel=rt.use_kernel)
+        return logits, _encode_acts(acts, None, rt.sl), y_base
+
+    def graphed():
+        return PFG.ingest(params, rt.cfg, rt.sl, tokens, pools, idx, use_kernel=rt.use_kernel, graphs=graphs)
+
+    line = _prefill_calls(torch, kind, graphed, eager, lambda got, want: _tree_equal(torch, got, want))
+    graphs.clear()
+    return line
+
+
 def session_phase(torch, device_name, kept):
     """The session runtime at full width on the fleet phase's inputs (4
     tenants x 16 samples x seq 128, seed-0 weights, batch per tenant 2, rank
@@ -2069,15 +2260,21 @@ def session_phase(torch, device_name, kept):
     def ingest_all(rt, fwd, compare):
         """The 32 ingests; the last under the profiler. Returns (rows/s over
         the first 31, device ms of the last, logits error vs use_kernel=False
-        or None)."""
+        or None, ms a call over calls 3 to 31: replays of the ingest's
+        graph, the engine write included)."""
         batches = [(t, lo) for t in range(FLEET_TENANTS) for lo in range(0, FLEET_SAMPLES, FLEET_BPT)]
         logits = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for t, lo in batches[:-1]:
+        for i, (t, lo) in enumerate(batches[:-1]):
             logits.append(rt.ingest(t, tokens[t, lo:lo + FLEET_BPT], labels[t, lo:lo + FLEET_BPT]))
+            if i == 1:   # the key's first call (eager) and its capture are behind
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
         torch.cuda.synchronize()
-        rate = (len(batches) - 1) * FLEET_BPT / (time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        rate = (len(batches) - 1) * FLEET_BPT / (t1 - t0)
+        replay_ms = 1e3 * (t1 - t2) / (len(batches) - 3)
         t, lo = batches[-1]
         box = []
         _, per_kernel = _profile(lambda: box.append(rt.ingest(t, tokens[t, lo:lo + FLEET_BPT],
@@ -2097,7 +2294,7 @@ def session_phase(torch, device_name, kept):
                 errs.append(e)
             window({})
             err = max(errs)
-        return rate, dev_ms, err
+        return rate, dev_ms, err, replay_ms
 
     graph_gains = {}
 
@@ -2197,7 +2394,8 @@ def session_phase(torch, device_name, kept):
     rt = runtime("full")
     base = rt.serve([None] * len(who), prompts, max_new=NEW)
     window({})
-    rate, ingest_ms, logit_err = ingest_all(rt, "grouped_skip_sum_fwd", compare=True)
+    rate, ingest_ms, logit_err, ingest_call_ms = ingest_all(rt, "grouped_skip_sum_fwd", compare=True)
+    ingest_lines = [_ingest_calls(torch, rt, "ingest mode=full", tokens[0, :FLEET_BPT])]
     losses, scan_s = adapt(rt, "grouped_skip_sum_fwd", "scan")
     kept.update(session_prompts=prompts, session_base=base, session_scan_s=scan_s)
     scan_hit = rt.engine.stats.hbm_hit_rate()
@@ -2254,7 +2452,10 @@ def session_phase(torch, device_name, kept):
 
     # -- mode int8 over an int8 pool -------------------------------------------
     rt = runtime("int8", pool_compress="int8")
-    i_rate, i_ms, i_err = ingest_all(rt, "grouped_skip_sum_fwd_int8", compare=True)
+    i_rate, i_ms, i_err, i_call_ms = ingest_all(rt, "grouped_skip_sum_fwd_int8", compare=True)
+    ingest_lines.append(_ingest_calls(torch, rt, "ingest mode=int8, int8 pool", tokens[0, :FLEET_BPT]))
+    print(f"session ingest graphs {ARCH} full width {FLEET_BPT}x{FLEET_SEQ} on {device_name} (a fresh graph "
+          f"cache; logits, encoded rows and y_base): " + "; ".join(ingest_lines))
     i_losses, int8_s = adapt(rt, "grouped_skip_sum_fwd_actint8", "scan")
     means = i_losses.mean(axis=1)                  # (epochs, tenants)
     check(bool((means[-1] < means[0]).all()), f"int8 session: a tenant's mean loss did not fall: {means.tolist()}")
@@ -2287,7 +2488,8 @@ def session_phase(torch, device_name, kept):
     off = kept["times"]
     print(f"session {ARCH} full width on {device_name}: {FLEET_TENANTS} tenants x {FLEET_SAMPLES} samples x seq "
           f"{FLEET_SEQ}, batch/tenant {FLEET_BPT}, rank {RANK}, fp32 cache, use_kernel=True; ingest "
-          f"{rate:.1f} rows/s (2 rows a call, engine write included), one ingest {ingest_ms:.3f} ms on the device "
+          f"{rate:.1f} rows/s (2 rows a call, engine write included; the replayed calls {ingest_call_ms:.2f} ms "
+          f"each), one ingest {ingest_ms:.3f} ms on the device "
           f"(profiler), logits vs use_kernel=False max diff {logit_err:.3e}; adapt 3 epochs: scan path "
           f"{scan_s:.3f} s ({scan_s / 3:.3f} s/epoch, the cache's export included; hbm hit rate {scan_hit:.2f}), "
           f"stream path {stream_s:.3f} s ({stream_s / 3:.3f} s/epoch; half the rows on the card, host tier in "
@@ -2309,7 +2511,8 @@ def session_phase(torch, device_name, kept):
           f"{ck_rows * row_bytes / 1e9:.3f} GB, then pool, adapters and moments); both continued adapt(epochs=1) "
           f"({FLEET_STEPS} K5 many rows + {FLEET_STEPS} K9 each) and the serve ({1 + NEW} K5 few rows each): "
           f"losses, adapters, moments, pool, slot table and temperature-0 tokens bitwise")
-    print(f"session int8 (int8 pool) on {device_name}: ingest {i_rate:.1f} rows/s, one ingest {i_ms:.3f} ms on the "
+    print(f"session int8 (int8 pool) on {device_name}: ingest {i_rate:.1f} rows/s (the replayed calls "
+          f"{i_call_ms:.2f} ms each), one ingest {i_ms:.3f} ms on the "
           f"device, logits vs use_kernel=False max diff {i_err:.3e}; adapt 3 epochs {int8_s:.3f} s; per-tenant "
           f"mean losses by epoch {[[round(float(v), 4) for v in row] for row in means]}; launches: ingest "
           f"grouped_skip_sum_fwd_int8 x{n_ingests}, adapt grouped_skip_sum_fwd_actint8 x{n_steps} + "
@@ -3082,6 +3285,59 @@ SCHED_ARGS = dict(max_batch=4, max_prompt=SCHED_SHARE + SCHED_TAIL, max_new_cap=
 TOP2_REL_TOL = 2.0**-5
 
 
+def _admission_calls(torch, name, args, kw) -> str:
+    """``_prefill_calls`` for one admission (``name`` "admit" or
+    "admit_reuse", ``args``/``kw`` a scheduler call of
+    ``scheduler._sched_admit(_reuse)``) alone, from the live batch as that
+    call's tensors hold it now, restored before each call: the first
+    tokens, the whole live batch (caches, tokens, positions) and the
+    generator's state of ``prefill_graph.admit(_reuse)`` on a fresh graph
+    cache against the eager admission (``scheduler._dense_admission`` /
+    ``_reuse_admission``)."""
+    from repro_torch.core import prefill_graph as PFG
+    from repro_torch.core import scheduler as S
+    from repro_torch.core.cuda_graph import GraphCache
+    from repro_torch.models import lm as LM
+
+    params, cfg, how, _, _, pools, _ = args[:7]
+    caches, tok, pos = args[-7:-4]
+    adm_temps = args[-2]
+    inputs = args[7:-7]          # (new_tokens, new_lens, new_idx, rows) or (pool_data, tables, ..., rows)
+    start = ({n: t.clone() for n, t in caches.items()}, tok.clone(), pos.clone())
+    graphs = GraphCache()
+
+    def restore():
+        for n in caches:
+            caches[n].copy_(start[0][n])
+        tok.copy_(start[1])
+        pos.copy_(start[2])
+        return torch.Generator(device=tok.device).manual_seed(7)
+
+    def graphed():
+        g = restore()
+        if name == "admit":
+            tok0 = PFG.admit(params, cfg, how[0], pools, *inputs, caches, tok, pos, adm_temps, g, graphs=graphs)
+        else:
+            tok0 = PFG.admit_reuse(params, cfg, how[0], pools, *inputs, caches, tok, pos, adm_temps, g,
+                                   prompt=kw["prompt"], graphs=graphs)
+        return tok0, caches, tok, pos, g.get_state()
+
+    def eager():
+        g = restore()
+        a = inputs[-2].shape[0]
+        p = inputs[0].shape[1] if name == "admit" else kw["prompt"]
+        adm = LM.init_stacked_caches(cfg, a, p, device=tok.device, params=params)
+        run = S._dense_admission if name == "admit" else S._reuse_admission
+        tok0 = run(params, cfg, how[0], pools, *inputs, caches, tok, pos, adm_temps, g, adm)
+        return tok0, {n: t.clone() for n, t in caches.items()}, tok.clone(), pos.clone(), g.get_state()
+
+    line = _prefill_calls(torch, name, graphed, eager, lambda got, want: _tree_equal(torch, got, want))
+    restore()
+    graphs.clear()
+    del start
+    return line
+
+
 def paged_kernel_phase(torch):
     """K10 against its plain version, bitwise: at the scheduler's reuse wave
     (one gather of K at full width: pool (24, 128, 32, 32, 64) bf16, tables
@@ -3174,21 +3430,27 @@ def scheduler_phase(torch, device_name):
     ``RequestScheduler`` on the reference's shared-prefix trace: 8 requests
     of one tenant, a shared 448-token prefix + a distinct 64-token tail each
     (numpy seed 13), 4 new tokens, batch 4, admission bucket 2, chunk 2, KV
-    block 32, temperature 0. Warmed once (reuse on and off, 4 other
-    prompts), then replayed with reuse on and with reuse off. Checks: reuse
+    block 32, temperature 0. With reuse on, then off, on one scheduler
+    each: two warm drains of the trace (the admissions' first calls, then
+    their captures), then the timed drain over the same live batch and KV
+    pool (admissions and chunks replayed). Checks: reuse
     admissions and prefix hits happen; K10 launches exactly twice a reuse
     wave and K5 as often as the dispatch counters imply, no other kernel;
     no block leaks after the drain; the first reuse wave's gathered K/V equal
     bitwise the live rows the dense admission wrote for the same prefix;
     temperature-0 tokens equal with reuse on and off (or a flip within
-    ``TOP2_REL_TOL``). Then the device time of one reuse and one dense
+    ``TOP2_REL_TOL``); the same drains with ``loop=True`` (eager admissions
+    and chunks) give the tokens, counters and launches bitwise. Then each
+    admission alone, graphed (first call, capture, replay) against eager,
+    bitwise; the device time of one reuse and one dense
     admission dispatch, and mid-decode admission at full width (3 requests
     of 128 tokens, bucket 1, 8 new tokens): continuous equal to sequential,
     and to solo ``serve`` (or a flip within ``TOP2_REL_TOL``). Returns each kernel's launches over the two replays."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import kv_pool as KV
+    from repro_torch.core import decode_graph as DG
+    from repro_torch.core import prefill_graph as PFG
     from repro_torch.core import scheduler as S
     from repro_torch.kernels.skip_lora import kernel as K
     from repro_torch.launch.serve import demo_runtime
@@ -3208,12 +3470,11 @@ def scheduler_phase(torch, device_name):
                 n: lb.caches[n][:, rows, :SCHED_SHARE].clone() for n in ("k", "v")}))
             super()._publish_rows(pool, pidx, lb, admits, rows)
 
-    real_gather = KV.gather_blocks
-
-    def gather(data, tables, **kw):
-        out = real_gather(data, tables, **kw)
-        captured.setdefault("gathered", {n: v.clone() for n, v in out.items()})
-        return out
+        def _dispatch_reuse(self, shard, lb, admits, rows, *a):
+            out = super()._dispatch_reuse(shard, lb, admits, rows, *a)
+            # the prefix the first reuse wave gathered, as it landed in its live rows
+            captured.setdefault("gathered", {n: lb.caches[n][:, rows, :SCHED_SHARE].clone() for n in ("k", "v")})
+            return out
 
     def first_call(name, fn):
         def wrapper(*a, **kw):
@@ -3221,58 +3482,75 @@ def scheduler_phase(torch, device_name):
             return fn(*a, **kw)
         return wrapper
 
-    def replay(prompts, reuse, cls=S.RequestScheduler, loop=False):
-        rt.reset_prefix_cache()
-        sched = cls(rt, prefix_reuse=reuse, loop=loop, **SCHED_ARGS)
-        reqs = [sched.submit(tenant, p, max_new=SCHED_NEW) for p in prompts]
-        torch.cuda.synchronize()
-        _reset_launches()
-        t0 = time.perf_counter()
-        sched.drain()
-        torch.cuda.synchronize()
-        return sched, [r.result() for r in reqs], time.perf_counter() - t0, (_launches(), dict(K.ROW_LAUNCHES))
+    graph_stats = {}   # the graph caches' gains in each drain of a replay, by (reuse, loop)
+    WARM = 2           # untimed drains before the timed one: a key's first call, then its capture
 
-    for reuse in (True, False):
-        replay(_shared_prefix_trace(cfg.vocab_size, 17, 4), reuse)
+    def replay(prompts, reuse, cls=S.RequestScheduler, loop=False, warm=0):
+        """``warm`` untimed drains of the trace on one scheduler, then the
+        timed one on the same scheduler (its live batch, so the keys of its
+        graphs, and the runtime's KV pool, reset before each drain).
+        Returns (the timed drain's counters, its tokens, its seconds and its
+        launches, the warm drains' seconds)."""
+        sched = cls(rt, prefix_reuse=reuse, loop=loop, **SCHED_ARGS)
+        times, lines = [], []
+        for _ in range(warm + 1):
+            rt.reset_prefix_cache()
+            before = sched.counters.copy()
+            reqs = [sched.submit(tenant, p, max_new=SCHED_NEW) for p in prompts]
+            since = PFG.GRAPHS.stats.copy(), DG.GRAPHS.stats.copy()
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            sched.drain()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            gains = [g.stats.copy() for g in (PFG.GRAPHS, DG.GRAPHS)]
+            for g, s0 in zip(gains, since):
+                g.subtract(s0)
+            lines.append(f"admissions {gains[0]['eager_steps']} eager first / {gains[0]['captures']} captured / "
+                         f"{gains[0]['replays']} replayed, chunks {gains[1]['captures']} captured / "
+                         f"{gains[1]['replays']} replayed")
+        graph_stats[reuse, loop] = lines
+        counters = {k: v - before.get(k, 0) for k, v in sched.counters.items() if v != before.get(k, 0)}
+        return counters, [r.result() for r in reqs], times[-1], (_launches(), dict(K.ROW_LAUNCHES)), times[:-1]
+
     prompts = _shared_prefix_trace(cfg.vocab_size, 13, SCHED_REQS)
-    saved = (KV.gather_blocks, S._sched_admit, S._sched_admit_reuse)
-    KV.gather_blocks = gather
+    saved = (S._sched_admit, S._sched_admit_reuse)
     S._sched_admit = first_call("admit", S._sched_admit)
     S._sched_admit_reuse = first_call("admit_reuse", S._sched_admit_reuse)
     try:
-        on, on_toks, on_dt, on_counts = replay(prompts, True, cls=Traced)
+        on, on_toks, on_dt, on_counts, on_warm = replay(prompts, True, cls=Traced, warm=WARM)
         rt.check_prefix_no_leaks()
-        off, off_toks, off_dt, off_counts = replay(prompts, False)
+        off, off_toks, off_dt, off_counts, off_warm = replay(prompts, False, warm=WARM)
     finally:
-        KV.gather_blocks, S._sched_admit, S._sched_admit_reuse = saved
+        S._sched_admit, S._sched_admit_reuse = saved
     # the same replays with every chunk as eager steps: the graphed chunks' tokens and counters, bitwise
     eager = {}
-    for reuse, (sched, toks, dt, counts) in ((True, (on, on_toks, on_dt, on_counts)),
-                                              (False, (off, off_toks, off_dt, off_counts))):
-        e_sched, e_toks, e_dt, e_counts = replay(prompts, reuse, loop=True)
+    for reuse, (counters, toks, dt, counts) in ((True, (on, on_toks, on_dt, on_counts)),
+                                                 (False, (off, off_toks, off_dt, off_counts))):
+        e_counters, e_toks, e_dt, e_counts, _ = replay(prompts, reuse, loop=True)
         check(all(np.array_equal(a, b) for a, b in zip(toks, e_toks)),
               f"scheduler reuse={reuse}: graphed chunks' tokens {[t.tolist() for t in toks]} != eager chunks' "
               f"{[t.tolist() for t in e_toks]}")
-        check(e_sched.counters == sched.counters and e_counts == counts,
-              f"scheduler reuse={reuse}: eager chunks' counters or launches differ: {dict(e_sched.counters)} "
-              f"{e_counts} != {dict(sched.counters)} {counts}")
+        check(e_counters == counters and e_counts == counts,
+              f"scheduler reuse={reuse}: eager chunks' counters or launches differ: {e_counters} "
+              f"{e_counts} != {counters} {counts}")
         eager[reuse] = e_dt
-    c, chunk = on.counters, SCHED_ARGS["chunk"]
-    check(c["dispatch/admit_reuse"] >= 1 and c["prefix/hits"] >= 1,
-          f"scheduler: no prefix reuse on the shared-prefix trace: {dict(c)}")
+    c, chunk = on, SCHED_ARGS["chunk"]
+    check(c.get("dispatch/admit_reuse", 0) >= 1 and c.get("prefix/hits", 0) >= 1,
+          f"scheduler: no prefix reuse on the shared-prefix trace: {c}")
     launches = {}
-    for sched, (counts, rows), reuse in ((on, on_counts, True), (off, off_counts, False)):
+    for sc, (counts, rows), reuse in ((on, on_counts, True), (off, off_counts, False)):
         for (kname, geometry), n in rows.items():
             MAIN_ROWS[kname, geometry] = MAIN_ROWS.get((kname, geometry), 0) + n
-        sc = sched.counters
         want = {k: 0 for k in counts}
-        admits = sc["dispatch/admit"] + sc["dispatch/admit_reuse"]
-        want["grouped_skip_sum_fwd"] = admits * (1 + chunk) + sc["dispatch/step"] * chunk
-        want["paged_gather"] = 2 * sc["dispatch/admit_reuse"]
-        check(counts == want, f"scheduler reuse={reuse}: launches {counts} != {want} (counters {dict(sc)})")
+        admits = sc.get("dispatch/admit", 0) + sc.get("dispatch/admit_reuse", 0)
+        want["grouped_skip_sum_fwd"] = admits * (1 + chunk) + sc.get("dispatch/step", 0) * chunk
+        want["paged_gather"] = 2 * sc.get("dispatch/admit_reuse", 0)
+        check(counts == want, f"scheduler reuse={reuse}: launches {counts} != {want} (counters {sc})")
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
-    check(off.counters["dispatch/admit_reuse"] == 0, "reuse off still reused")
+    check(off.get("dispatch/admit_reuse", 0) == 0, "reuse off still reused")
     rows, dense = captured["dense"]
     gathered = captured["gathered"]
     check(tuple(gathered["k"].shape[2:3]) == (SCHED_SHARE,), f"gathered span {tuple(gathered['k'].shape)}")
@@ -3290,19 +3568,24 @@ def scheduler_phase(torch, device_name):
           f"{SCHED_TAIL} tail) prompt + {SCHED_NEW} new, batch 4, bucket 2, chunk 2, kv block 32: reuse on "
           f"{on_dt:.3f} s = {total / on_dt:.1f} tok/s, reuse off {off_dt:.3f} s = {total / off_dt:.1f} tok/s "
           f"({off_dt / on_dt:.2f}x); prefill tokens skipped {100 * skipped:.1f}%; counters on "
-          f"{dict(sorted(c.items()))}; off {dict(sorted(off.counters.items()))}")
-    print(f"scheduler graphed chunks vs eager chunks on {device_name}: tokens, counters and launches bitwise "
-          f"equal with reuse on and off; reuse on {on_dt:.3f} s graphed vs {eager[True]:.3f} s eager "
-          f"({total / on_dt:.1f} vs {total / eager[True]:.1f} tok/s), reuse off {off_dt:.3f} s vs "
-          f"{eager[False]:.3f} s ({total / off_dt:.1f} vs {total / eager[False]:.1f} tok/s)")
+          f"{dict(sorted(c.items()))}; off {dict(sorted(off.items()))}")
+    print(f"scheduler graphed admissions and chunks vs eager (loop=True) on {device_name}: tokens, counters and "
+          f"launches bitwise equal with reuse on and off; reuse on {on_dt:.3f} s graphed vs {eager[True]:.3f} s "
+          f"eager ({total / on_dt:.1f} vs {total / eager[True]:.1f} tok/s), reuse off {off_dt:.3f} s vs "
+          f"{eager[False]:.3f} s ({total / off_dt:.1f} vs {total / eager[False]:.1f} tok/s); on one scheduler each, "
+          f"{WARM} warm drains before the timed one, reuse on "
+          f"{' / '.join(f'{t:.3f}' for t in on_warm)} s, off {' / '.join(f'{t:.3f}' for t in off_warm)} s; "
+          f"the graphs in each drain, reuse on: {'; '.join(graph_stats[True, False])}; off: "
+          f"{'; '.join(graph_stats[False, False])}")
     print(f"scheduler checks: launches per replay exact (K5 = admissions x 3 + steps x 2, K10 = 2 x reuse "
           f"waves); no block leaks after the reuse-on drain; first reuse wave's gathered K/V bitwise the "
           f"dense admission's live row (the two dense rows' prefixes {'equal' if same_rows else 'differ'}); "
           f"temperature-0 tokens reuse on vs off: "
           f"{'all equal' if not flips else '; '.join(flips)}")
-    timed = {}
+    timed, adm_lines = {}, []
     for name in ("admit", "admit_reuse"):
         fn, a, kw = captured[name]
+        adm_lines.append(_admission_calls(torch, name, a, kw))
         run = lambda: fn(*a, **kw)  # noqa: E731
         timed[name] = (time_ms(run, reps=5, spin=STEP_SPIN), *_busy(torch, run))
     (d_ms, d_busy, d_wall, d_n), (r_ms, r_busy, r_wall, r_n) = timed["admit"], timed["admit_reuse"]
@@ -3311,8 +3594,9 @@ def scheduler_phase(torch, device_name):
           f"{d_wall:.1f} ms), of a reuse admission (K10 gather of {SCHED_SHARE} tokens a row + {SCHED_TAIL}-token "
           f"tail prefill) + 2 decode steps {r_busy:.3f} ms ({r_n} kernels, wall {r_wall:.1f} ms): "
           f"{d_busy / r_busy:.2f}x; CUDA events from first to last kernel (L2 flushed, stream held by a spin "
-          f"kernel) {d_ms:.3f} / {r_ms:.3f} ms, which the host sets: once the card's launch queue is full the host "
-          f"waits on each launch, so the card idles between kernels")
+          f"kernel) {d_ms:.3f} / {r_ms:.3f} ms; each dispatch an admission replay and a chunk replay")
+    print(f"scheduler admission graphs (the wave's admission alone, a fresh graph cache) on {device_name}: "
+          + "; ".join(adm_lines))
     captured.clear()
 
     # Mid-decode admission at full width: continuous, sequential, solo serve.
@@ -3891,17 +4175,18 @@ def _live_part(cfg, key, tree):
 
 
 def _free_device(torch):
-    """Drop what earlier phases left on the card: the decode, MLP-epoch,
-    trainer and LM-epoch graphs (and their memory pools), then the
-    allocator's cache."""
+    """Drop what earlier phases left on the card: the decode, prefill,
+    MLP-epoch, trainer and LM-epoch graphs (and their memory pools), then
+    the allocator's cache."""
     import gc
 
     from repro_torch.core import decode_graph as DG
     from repro_torch.core import finetune as MF
     from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core import prefill_graph as PFG
     from repro_torch.launch import train as TR
 
-    for graphs in (DG.GRAPHS, MF.GRAPHS, TR.GRAPHS, SL.GRAPHS):
+    for graphs in (DG.GRAPHS, PFG.GRAPHS, MF.GRAPHS, TR.GRAPHS, SL.GRAPHS):
         graphs.clear()
     gc.collect()
     torch.cuda.synchronize()
@@ -4010,8 +4295,10 @@ def _cell_clock(torch):
 
 def _family_serve(torch, cfg, params, device_name):
     """Grouped serving of 3 demo tenants and the base row (4 x 128 prompt
-    tokens, 32 new, float pool): a warm-up call, then ``generate_grouped``
-    (graph replays) and ``generate_loop`` (eager steps), each exactly 33 K5
+    tokens, 32 new, float pool): the prefill's graph held to the eager
+    prefill over its first call, capture and a replay, a warm-up call, then
+    ``generate_grouped`` (graph replays) and ``generate_loop`` (eager
+    steps), each exactly 33 K5
     (few rows); graph tokens == loop tokens; the base row equal to base
     ``generate``'s or apart at a near tie; from one prefill the replays
     bitwise the eager loop (tokens, KV caches, recurrent states). Returns
@@ -4025,7 +4312,10 @@ def _family_serve(torch, cfg, params, device_name):
                             device=dev)
     pool = demo_pool(cfg, TENANTS, RANK, None, dev)
     idx = pool.lookup([None] + [f"tenant-{i % TENANTS}" for i in range(1, BATCH)])
-    generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)   # warm-up: captures
+    # the prefill's graph first (its first call, capture and a replay, each held to the eager prefill), so the
+    # serves below replay it
+    prefill_line = _serve_prefill_calls(torch, "grouped prefill", cfg, params, prompts, pool, idx, f" {cfg.name}")
+    generate_grouped(params, cfg, prompts, pool.pools(), idx, max_new=NEW, device=dev)   # warm-up: decode captures
     timed = {}
     for path in ("graph", "loop"):
         torch.cuda.synchronize()
@@ -4070,7 +4360,7 @@ def _family_serve(torch, cfg, params, device_name):
           f"{device_name}: graph {dt:.3f} s = {BATCH * NEW / dt:.1f} tok/s, eager loop {loop_dt:.3f} s = "
           f"{BATCH * NEW / loop_dt:.1f} tok/s; grouped_skip_sum_fwd x{1 + NEW} a call both ways; graph == loop "
           f"tokens; from one prefill graph == loop bitwise (tokens, caches, states); base row == base "
-          f"generate{'' if not flips else ' but at a near tie: ' + flips[0]}{share}")
+          f"generate{'' if not flips else ' but at a near tie: ' + flips[0]}{share}; prefill graph {prefill_line}")
     return 1 + NEW, BATCH * NEW / dt
 
 
@@ -4586,6 +4876,7 @@ def model_axis_phase(torch, device_name):
         free_toks = timed("serve split (eager loop)", split_loop)
         graph_line = _split_graphs(torch, "model axis", gp, cfg, prompts, pool, idx, timed, secs, free_toks,
                                    "serve split (eager loop)")
+        sched_line = _split_scheduler(torch, gp, cfg, group)
     logit_err = _rel_max(torch, got_logits, want_logits)
     check(logit_err <= TP_LOGIT_BAR, f"model axis prefill logits: {logit_err:.3e} > {TP_LOGIT_BAR}")
     free_err = _rel_max(torch, free_logits, want_logits)
@@ -4636,6 +4927,7 @@ def model_axis_phase(torch, device_name):
           f"all {BATCH} rows (other product shapes, other routing inputs) {whole_err:.3e}, {whole_same} of "
           f"{BATCH} tokens equal")
     print(graph_line)
+    print(sched_line)
     print(session_line)
     print("model axis host seconds (synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     if two is None:
@@ -4647,13 +4939,14 @@ def model_axis_phase(torch, device_name):
 
 
 def _split_graphs(torch, tag, gp, cfg, prompts, pool, idx, timed, secs, eager, eager_key):
-    """A split backbone's graphed serve (``generate_grouped``: its decode
-    replays graphs of the group's steps, ``cuda_graph.capturable``) held
-    bitwise to ``eager``, the tokens of the split's own eager loop
-    (``generate_loop``, unpinned, timed as ``secs[eager_key]``): the first
-    call (one eager step, the capture and the replays) and a call of
-    replays only, timed into ``secs``; then the prefill and the graphed
-    decode apart. Returns the line."""
+    """A split backbone's graphed serve (``generate_grouped``: its prefill
+    and decode replay graphs of the group's work, ``cuda_graph.capturable``)
+    held bitwise to ``eager``, the tokens of the split's own eager loop
+    (``generate_loop``, unpinned, timed as ``secs[eager_key]``): first the
+    prefill's graph alone against the eager prefill (``_prefill_calls``),
+    then the serve's first call (the decode's eager step, capture and
+    replays) and a call of replays only, timed into ``secs``; then the
+    prefill and the graphed decode apart. Returns the line."""
     from repro_torch.core import decode_graph as DG
     from repro_torch.core.runtime import generate_grouped
     from repro_torch.models import lm as LM
@@ -4661,6 +4954,9 @@ def _split_graphs(torch, tag, gp, cfg, prompts, pool, idx, timed, secs, eager, e
     dev = prompts.device
     b, s = prompts.shape
     kw = dict(pools=pool.pools(), idx=idx, use_kernel=False)
+    # the split prefill's graph first (first call, capture, a replay: each the eager prefill's logits and split
+    # caches), so the serves below replay it
+    prefill_line = _serve_prefill_calls(torch, "grouped prefill", cfg, gp, prompts, pool, idx, f" {tag} split")
     since = DG.GRAPHS.stats.copy()
     first = timed(f"{tag}: serve split graphed, first call", lambda: generate_grouped(
         gp, cfg, prompts, max_new=NEW, device=dev, **kw))
@@ -4692,7 +4988,48 @@ def _split_graphs(torch, tag, gp, cfg, prompts, pool, idx, timed, secs, eager, e
             f"{secs[f'{tag}: serve split graphed']:.3f} s ({gain['replays']} replays issued in "
             f"{gain['replay_s']:.3f} s), eager loop {secs[eager_key]:.3f} s; apart: prefill "
             f"{secs[f'{tag}: prefill split grouped']:.3f} s, decode graphed "
-            f"{secs[f'{tag}: decode split graphed']:.3f} s")
+            f"{secs[f'{tag}: decode split graphed']:.3f} s; prefill graph {prefill_line}")
+
+
+#: an admission trace (``_admission_trace``): 8 prompts of ``length``
+#: tokens, the 1st and the last 4 sharing their first ``shared``; in
+#: waves of 2 they admit dense, dense, reuse, reuse
+ADMIT_ORDER = "sfffssss"
+
+
+def _admission_trace(vocab, length, shared, seed=29):
+    """The prompts of ``ADMIT_ORDER``: "s" shares the first prompt's first
+    ``shared`` tokens, "f" shares nothing."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, shared, dtype=np.int32)
+    out = []
+    for kind in ADMIT_ORDER:
+        tail = rng.integers(0, vocab, length - (shared if kind == "s" else 0), dtype=np.int32)
+        out.append(np.concatenate([head, tail]) if kind == "s" else tail)
+    return out
+
+
+def _split_scheduler(torch, gp, cfg, group) -> str:
+    """A one-group session over the split backbone (``use_kernel=False``,
+    the demo tenants): ``_admission_trace`` at 128 tokens (96 shared, KV
+    block 32) through the scheduler, admissions and chunks replayed against
+    ``loop=True``, bitwise."""
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.launch.serve import _register_demo
+    from repro_torch.runtime import sharding as SH
+
+    rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=RANK), gp, max_tenants=TENANTS, samples_per_tenant=1, seq=8,
+                        use_kernel=False, mesh=SH.group_mesh(group))
+    _register_demo(rt.pool, cfg, TENANTS, RANK, group[0])
+    prompts = _admission_trace(cfg.vocab_size, PROMPT, 96)
+    line = _sched_graph_vs_loop(torch, rt, f"model axis scheduler {cfg.name} split on one card", prompts,
+                                ["tenant-0"] * len(prompts), 4, max_batch=4, max_prompt=PROMPT, max_new_cap=4,
+                                admit_bucket=2, inflight_per_tenant=len(prompts), chunk=2, kv_block=32)
+    del rt
+    return line
 
 
 def _group_session(torch, device_name):
@@ -4911,12 +5248,15 @@ def _phi_two_cards(torch):
     loop (``adapt(loop=True)``): losses, adapters and moments bitwise.
     Then the graphed one serves (4 x 128 prompt, 32 new, greedy; a first
     call, then replays only) against the eager loop (``generate_loop``) on
-    the same pool rows: tokens bitwise. Returns the line."""
+    the same pool rows: tokens bitwise; and schedules ``_admission_trace``
+    (dense and reuse admissions replayed across both cards) against
+    ``loop=True``: tokens, counters, launches bitwise. Returns the line."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.core import decode_graph as DG
     from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core import prefill_graph as PFG
     from repro_torch.core.runtime import SessionRuntime, generate_loop
     from repro_torch.models import lm as LM
     from repro_torch.models import tp as TP
@@ -4981,22 +5321,32 @@ def _phi_two_cards(torch):
     toks_first, first_s = synced(lambda: rt.serve(tenants, prompts, max_new=NEW))
     serve_first = _graph_gain(DG.GRAPHS.stats, since) | {
         "eager_steps": DG.GRAPHS.stats["eager_steps"] - since["eager_steps"]}
-    since = DG.GRAPHS.stats.copy()
+    # the second call captures the prefill (its first ran eagerly); the third replays everything
+    toks_second, second_s = synced(lambda: rt.serve(tenants, prompts, max_new=NEW))
+    since, pf_since = DG.GRAPHS.stats.copy(), PFG.GRAPHS.stats.copy()
     toks, serve_s = synced(lambda: rt.serve(tenants, prompts, max_new=NEW))
     serve_gain = _graph_gain(DG.GRAPHS.stats, since)
+    pf_gain = PFG.GRAPHS.stats.copy()
+    pf_gain.subtract(pf_since)
     with torch.no_grad():
         toks_loop, loop_s = synced(lambda: generate_loop(
             gp, cfg, torch.as_tensor(prompts, device=cards[0]), pools=rt.pool.shard_pools(0),
             idx=rt.pool.lookup_local(0, tenants), max_new=NEW, use_kernel=False, device=cards[0]))
     check(tuple(toks.shape) == (BATCH, NEW) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "phi3.5 two cards: serve tokens out of range")
-    check(torch.equal(toks_first, toks_loop) and torch.equal(toks, toks_loop),
+    check(torch.equal(toks_first, toks_loop) and torch.equal(toks_second, toks_loop) and torch.equal(toks, toks_loop),
           "phi3.5 two cards: the graphed serve's tokens != the eager loop's")
     check(serve_first["captures"] >= 1 and serve_first["eager_steps"] == 1 and serve_gain["captures"] == 0
-          and serve_gain["replays"] == NEW, f"phi3.5 two cards: serve graph stats {serve_first} then {serve_gain}")
+          and serve_gain["replays"] == NEW and pf_gain["captures"] == pf_gain["eager_steps"] == 0
+          and pf_gain["replays"] == 1,
+          f"phi3.5 two cards: serve graph stats {serve_first} then {serve_gain}, prefill {dict(pf_gain)}")
+    sched_line = _sched_graph_vs_loop(
+        torch, rt, "phi3.5 two cards scheduler", _admission_trace(cfg.vocab_size, PROMPT, 96), ["a"] * 8, 4,
+        max_batch=4, max_prompt=PROMPT, max_new_cap=4, admit_bucket=2, inflight_per_tenant=8, chunk=2, kv_block=32)
     peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
     del rt, gp
     DG.GRAPHS.clear()
+    PFG.GRAPHS.clear()
     torch.cuda.empty_cache()
     n = BATCH * NEW
     return (f"model axis phi3.5-moe-42b-a6.6b full width over (1 x 2) [cuda:0, cuda:1], drawn split in "
@@ -5007,11 +5357,12 @@ def _phi_two_cards(torch):
             f"{first['replay_s']:.3f} s) against loop=True {adapt_s[True, 0]:.3f} s, a continued epoch of replays "
             f"only {adapt_s[False, 1]:.3f} s against loop=True {adapt_s[True, 1]:.3f} s (losses, adapters, moments "
             f"bitwise); grouped serve {BATCH}x{PROMPT} + {NEW} new, graphed across both cards: first call "
-            f"{first_s:.2f} s = {n / first_s:.1f} tok/s ({serve_first['eager_steps']} eager step + "
-            f"{serve_first['captures']} capture(s) + {serve_first['replays']} replays), replays only {serve_s:.2f} s "
-            f"= {n / serve_s:.1f} tok/s ({serve_gain['replays']} replays issued in {serve_gain['replay_s']:.3f} s), "
-            f"eager loop {loop_s:.2f} s = {n / loop_s:.1f} tok/s, tokens bitwise; peaks {peaks[0]:.2f} / "
-            f"{peaks[1]:.2f} GiB")
+            f"{first_s:.2f} s = {n / first_s:.1f} tok/s (the prefill eager, the decode {serve_first['eager_steps']} "
+            f"eager step + {serve_first['captures']} capture(s) + {serve_first['replays']} replays), second call "
+            f"{second_s:.2f} s (the prefill captured), replays only {serve_s:.2f} s = {n / serve_s:.1f} tok/s (the "
+            f"prefill's and {serve_gain['replays']} decode replays issued in {serve_gain['replay_s']:.3f} s), "
+            f"eager loop {loop_s:.2f} s = {n / loop_s:.1f} tok/s, tokens bitwise; {sched_line}; peaks "
+            f"{peaks[0]:.2f} / {peaks[1]:.2f} GiB")
 
 
 # ---------------------------------------------------------------------------
@@ -5710,6 +6061,23 @@ def twins_phase(torch, device_name):
     print(f"twins phase: {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched")
 
 
+def _prefill_graphs_line() -> str:
+    """The ``prefill graphs`` line: ``prefill_graph.GRAPHS``' captures,
+    replays and evictions over the run, and per kind the host seconds of a
+    fresh key's first call, its capture (with its replay), a replay and the
+    eager call (``PREFILL_TIMES``), and the comparisons' launches."""
+    from repro_torch.core import prefill_graph as PFG
+
+    st = PFG.GRAPHS.stats
+    kinds = "; ".join(f"{kind} " + " | ".join(" / ".join(f"{t:.4f}" for t in row) for row in rows)
+                      for kind, rows in PREFILL_TIMES.items())
+    return (f"prefill graphs (core.prefill_graph.GRAPHS, LRU of {PFG.CAPACITY}) over the run: {st['captures']} "
+            f"captures ({st['capture_s']:.3f} s), {st['replays']} replays, {st['eager_steps']} eager first calls "
+            f"({st['eager_s']:.3f} s), {st['evictions']} evictions, {st['hits']} hits / {st['misses']} misses; "
+            f"per kind, s (first call / capture + replay / replay / eager): {kinds}; the comparisons' launches "
+            f"(not in the kernels line) {COMPARE_LAUNCHES}")
+
+
 def _tensor_core_ptxas(logs):
     """One line per instantiation of the tensor-core kernels from nvcc's
     ``-Xptxas -v`` output (registers, shared memory, spills): K4's bf16
@@ -5790,6 +6158,7 @@ def main() -> None:
         shard_phase(torch, smi, kept)
         del kept
         print(_model_axis_two_cards(torch))
+        print(_prefill_graphs_line())
         print(f"chip_smoke --two-cards: {time.perf_counter() - t_run:.1f} s, the builds included")
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                  "count": torch.cuda.device_count()}}))
@@ -5842,6 +6211,7 @@ def main() -> None:
         results[kname].update(launches_many_rows=many, launches_few_rows=few)
     check(len(results) == 10, f"{len(results)} kernels in the kernels line, not 10")
     print(f"eager comparisons beside the epoch graphs (not in the kernels line): {EAGER_LAUNCHES} kernel launches")
+    print(_prefill_graphs_line())
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s, the builds included")
     check(all(r["launches"] is not None for r in results.values()), "a kernel has no launch count")
     print(json.dumps({"kernels": list(results.values())}))

@@ -153,8 +153,10 @@ class _Entry:
         if self.sampling:
             gen = torch.Generator(device=self.device)
             gen.set_state(state)
+        t0 = time.perf_counter()
         on_side_stream(lambda: self.body(1, gen), self.device, cards)
         self.stats["eager_steps"] += 1
+        self.stats["eager_s"] += time.perf_counter() - t0
         return gen.get_state() if gen is not None else None
 
     def _graph(self, n: int):
@@ -167,6 +169,7 @@ class _Entry:
             gen = torch.Generator(device=self.device)
             graph.register_generator_state(gen)
         tape = LaunchTape()
+        t0 = time.perf_counter()
         with tape.recording():
             capture(graph, lambda: self.body(n, gen), what=f"{n} step(s) of {self.what}", pool=self._pool,
                     devices=self.devices, pools=self._pools)
@@ -174,6 +177,7 @@ class _Entry:
             self._pool = graph.pool()
         self._graphs[n] = got = (graph, tape, gen)
         self.stats["captures"] += 1
+        self.stats["capture_s"] += time.perf_counter() - t0
         return got
 
     def free(self) -> None:

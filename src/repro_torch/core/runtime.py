@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.core.runtime``:
   - ``generate`` / ``generate_grouped``: one prefill, then ``decode_scan``'s
-    ``max_new`` decode steps, CUDA-graph replays of ``unroll`` steps each on
-    the card (``core.decode_graph``). Both run on ``device`` ("cuda" unless
+    ``max_new`` decode steps: on the card the prefill one CUDA-graph replay
+    (``core.prefill_graph``) and the steps replays of ``unroll`` steps each
+    (``core.decode_graph``). Both run on ``device`` ("cuda" unless
     the caller asks for "cpu"); params and pool must already live there. On
     a CUDA device the grouped skip-sum goes through the hand-written
     kernels, on the CPU through their plain versions. ``generate_loop`` is
@@ -54,8 +55,9 @@ dispatches run under the shard's ``ShardScope``, and with
 ``pipeline_stages`` the scheduler's admission prefill runs as GPipe
 microbatches over the group's devices (``lm.pipeline_sched_prefill``).
 
-The decode's CUDA graphs are cached in ``core.decode_graph``, the resident
-adapt's epoch graphs per shard in the session (``core.cuda_graph.EpochGraph``).
+The decode's CUDA graphs are cached in ``core.decode_graph``, the
+prefills' and the ingest's in ``core.prefill_graph``, the resident adapt's
+epoch graphs per shard in the session (``core.cuda_graph.EpochGraph``).
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ from repro_torch.core import fleet_finetune as FF
 from repro_torch.core import lm_skiplora as SL
 from repro_torch.core.cache_engine import TieredCacheEngine
 from repro_torch.core.control_plane import ControlConfig, ControlPlane
-from repro_torch.core.cuda_graph import GraphCache
+from repro_torch.core.cuda_graph import GraphCache, capturable
 from repro_torch.models import tp as TP
 from repro_torch.models.lm import (
     decode_loop,
@@ -98,6 +100,23 @@ def _on_device(params: Params, tokens, device) -> tuple[torch.Tensor, torch.devi
     return torch.as_tensor(tokens, device=home), home
 
 
+def _prefill(params: Params, cfg, tokens: torch.Tensor, max_seq: int, *, adapters=None, pools=None, idx=None,
+             use_kernel: bool = True):
+    """The prefill of ``generate`` (``pools`` None) or ``generate_grouped``
+    into serve caches of ``max_seq`` positions: on the card one CUDA-graph
+    replay (``core.prefill_graph``, whose caches the decode then copies in),
+    for a model group too; on the CPU eager. Returns (logits, caches)."""
+    if capturable(TP.run_devices(params, tokens)):
+        from repro_torch.core import prefill_graph
+
+        return prefill_graph.prefill(params, cfg, tokens, max_seq, adapters=adapters, pools=pools, idx=idx,
+                                     use_kernel=use_kernel)
+    caches = init_serve_caches(cfg, tokens.shape[0], max_seq, device=tokens.device, params=params)
+    if pools is None:
+        return serve_prefill(params, cfg, tokens, caches, adapters=adapters)
+    return serve_prefill_grouped(params, cfg, tokens, caches, pools, idx, use_kernel=use_kernel)
+
+
 @torch.no_grad()
 def generate(
     params: Params,
@@ -114,14 +133,14 @@ def generate(
     """Batched generation with optional single-stack adapters (per-layer
     list, see ``lm_skiplora.adapters_to_stack``): one prefill, then
     ``decode_scan``, whose ``max_new`` steps are CUDA-graph replays of
-    ``unroll`` steps each on the card. ``params`` split over a model group
-    (``models.tp``) keep each member's KV heads on its device; their steps
+    ``unroll`` steps each on the card, as the prefill is one
+    (``core.prefill_graph``). ``params`` split over a model group
+    (``models.tp``) keep each member's KV heads on its device; their calls
     are graph replays too, whether the members share one card or span
     several (``cuda_graph.capturable``). Returns (B, max_new)."""
-    tokens, dev = _on_device(params, tokens, device)
-    b, s = tokens.shape
-    caches = init_serve_caches(cfg, b, s + max_new, device=dev, params=params)
-    logits, caches = serve_prefill(params, cfg, tokens, caches, adapters=adapters_stack)
+    tokens, _ = _on_device(params, tokens, device)
+    s = tokens.shape[1]
+    logits, caches = _prefill(params, cfg, tokens, s + max_new, adapters=adapters_stack)
     tok0 = sample_token(logits, temperature, generator)
     toks, _ = decode_scan(
         params, cfg, tok0, s, caches, max_new=max_new, temperature=temperature,
@@ -149,16 +168,16 @@ def generate_grouped(
     """Multi-tenant generation: batch row b decodes under adapter slot
     ``idx[b]`` of the stacked pool (float, int8 or 4-bit layout, see
     ``AdapterPool.pools()``). One grouped skip-sum launch for the prefill and
-    one per decode step: ``1 + max_new`` per call, the steps' inside
-    CUDA-graph replays of ``unroll`` steps on the card. ``use_kernel=False``
+    one per decode step: ``1 + max_new`` per call, on the card inside
+    CUDA-graph replays (the prefill one, the steps ``unroll`` a replay;
+    a key's first call runs eagerly). ``use_kernel=False``
     sums through the plain versions on any device; ``fuse_skip=True``
     computes the decode steps' skip term as dense per-row math (the prefill
     keeps the grouped kernel either way). A model group's ``params`` as in
     ``generate``. Returns (B, max_new)."""
-    tokens, dev = _on_device(params, tokens, device)
-    b, s = tokens.shape
-    caches = init_serve_caches(cfg, b, s + max_new, device=dev, params=params)
-    logits, caches = serve_prefill_grouped(params, cfg, tokens, caches, pools, idx, use_kernel=use_kernel)
+    tokens, _ = _on_device(params, tokens, device)
+    s = tokens.shape[1]
+    logits, caches = _prefill(params, cfg, tokens, s + max_new, pools=pools, idx=idx, use_kernel=use_kernel)
     tok0 = sample_token(logits, temperature, generator)
     toks, _ = decode_scan(
         params, cfg, tok0, s, caches, max_new=max_new, temperature=temperature,
@@ -185,8 +204,8 @@ def generate_loop(
     device="cuda",
 ) -> torch.Tensor:
     """The per-token Python decode loop, the reference's ``generate_loop``:
-    one prefill, then ``max_new`` eager steps (``decode_loop``), kept as
-    what the CUDA-graph replays are held against. Single-stack, as the
+    one eager prefill, then ``max_new`` eager steps (``decode_loop``), kept
+    as what the CUDA-graph replays are held against. Single-stack, as the
     reference's; ``pools``/``idx`` run ``generate_grouped``'s prefill and
     steps instead, so the grouped path has its loop too. Returns
     (B, max_new)."""
@@ -674,7 +693,10 @@ class SessionRuntime:
         """Populate forward for new samples on the tenant's shard: writes the
         batch into the tenant's cache partition AND returns the last-position
         logits under the tenant's current adapters (the zero slot until its
-        first ``adapt`` write-back): ingestion doubles as serving. tokens,
+        first ``adapt`` write-back): ingestion doubles as serving. On the
+        card the forward and the rows' encoding are one CUDA-graph replay
+        (``core.prefill_graph.ingest``; a key's first call runs eagerly),
+        whose buffers the engine copies before anything else runs. tokens,
         labels: (B, seq). Returns (B, 1, V) logits on the shard's device."""
         # Validate before registering: a rejected batch must not leak a
         # cache partition or leave a tenant with nothing ingested.
@@ -693,11 +715,16 @@ class SessionRuntime:
         labels = torch.as_tensor(labels, device=dev)
         with self._on(shard):
             idx = self.pool.lookup_local(shard, [tenant if self.pool.has(tenant) else None] * b)
-            logits, acts, y_base = ingest_prefill(
-                self._shard_params[shard], self.cfg, tokens, self.pool.shard_pools(shard), idx,
-                use_kernel=self.use_kernel,
-            )
-            values = SL._encode_acts(acts, None, self.sl)
+            params, pools = self._shard_params[shard], self.pool.shard_pools(shard)
+            if capturable(TP.run_devices(params, tokens)):
+                from repro_torch.core import prefill_graph
+
+                logits, values, y_base = prefill_graph.ingest(params, self.cfg, self.sl, tokens, pools, idx,
+                                                              use_kernel=self.use_kernel)
+            else:
+                logits, acts, y_base = ingest_prefill(params, self.cfg, tokens, pools, idx,
+                                                      use_kernel=self.use_kernel)
+                values = SL._encode_acts(acts, None, self.sl)
             values["y_base"] = y_base
             values["labels"] = labels
             self.engines[shard].write(self._local_ids(st.partition, range(st.n_ingested, st.n_ingested + b)),

@@ -18,8 +18,9 @@ Event model (one ``step()`` = one dispatch per shard with work):
      ``chunk`` in-place ``lm.decode_step_``s over per-row positions, per-row
      temperatures and per-row adapter slots: on the card one CUDA-graph
      replay over the live batch's resident buffers (``core.decode_graph``),
-     on the CPU (or with ``loop=True``) eager steps. The admission prefill
-     stays eager.
+     on the CPU (or with ``loop=True``) eager steps. On the card the
+     admission (prefill, first-token sample and scatter) is one CUDA-graph
+     replay too (``core.prefill_graph``), the pipelined admission aside.
   3. *Harvest*: after every shard's dispatch is issued, pull the tokens
      to the host, append per row, retire rows whose requests hit
      ``max_new`` (their rows are recyclable at once: a follow-up admission
@@ -162,7 +163,7 @@ def _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, p
     computes each step's skip term as dense per-row math instead of a grouped kernel
     launch. Returns (tok, pos, tokens sampled at each step (chunk, B)):
     each chunk hands back exactly the tokens the host has not seen."""
-    if not loop and capturable(run_devices(params, tok)):
+    if _graphed(params, tok, loop):
         from repro_torch.core import decode_graph
 
         toks = decode_graph.chunk(params, cfg, chunk, pools, idx, caches, tok, pos, active, temps, generator,
@@ -181,42 +182,86 @@ def _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, p
     return tok, pos, torch.stack(toks)
 
 
-def _admit_epilogue(params, cfg, how, chunk, max_seq, pools, idx, logits, adm, rows, start_pos,
-                    caches, tok, pos, active, temps, adm_temps, generator):
-    """Sample each admitted row's first token, scatter the first
+def _admit_scatter(logits, adm, rows, start_pos, caches, tok, pos, adm_temps, generator):
+    """Sample each admitted row's first token, then scatter the first
     ``len(rows)`` admission rows' caches, tokens and positions into live
-    rows ``rows`` (the padding rows behind them are dropped), then decode
-    the chunk (``how``: ``_chunk_scan``'s use_kernel, fuse and loop).
-    Returns (tok, pos, toks, tok0 (A, 1))."""
+    rows ``rows`` (the padding rows behind them are dropped). Returns the
+    first tokens (A, 1)."""
     tok0 = sample_token(logits, adm_temps, generator)
     k, p = rows.shape[0], adm["k"].shape[2]
     for n in ("k", "v"):
         caches[n][:, rows, :p] = adm[n][:, :k]
     tok[rows] = tok0[:k]
     pos[rows] = start_pos[:k]
-    use_kernel, fuse, loop = how
-    tok, pos, toks = _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, pos, active,
-                                 temps, generator, max_seq, loop)
-    return tok, pos, toks, tok0
+    return tok0
+
+
+def _dense_admission(params, cfg, use_kernel, pools, new_tokens, new_lens, new_idx, rows, caches, tok, pos,
+                     adm_temps, generator, adm, plan=None):
+    """The padded (A, P) prompts prefilled into the zeroed admission caches
+    ``adm``, then the scatter: what one replay of the dense admission's
+    graph runs (``prefill_graph.admit``). Returns the first tokens."""
+    logits, _ = sched_prefill(params, cfg, new_tokens, new_lens, pools, new_idx, caches=layer_caches(adm),
+                              use_kernel=use_kernel, plan=plan)
+    return _admit_scatter(logits, adm, rows, new_lens.long(), caches, tok, pos, adm_temps, generator)
+
+
+def _reuse_admission(params, cfg, use_kernel, pools, pool_data, tables, tail_tokens, tail_lens, prefix_lens,
+                     new_idx, rows, caches, tok, pos, adm_temps, generator, adm, plan=None):
+    """The block tables gathered out of the pool into the zeroed admission
+    caches ``adm`` (data movement: no forward FLOPs for the prefix), the
+    (A, PT) tails prefilled, then the scatter: what one replay of the
+    prefix-reuse admission's graph runs (``prefill_graph.admit_reuse``).
+    Returns the first tokens."""
+    from repro_torch.core.kv_pool import gather_blocks
+
+    prefix = gather_blocks(pool_data, tables, use_kernel=use_kernel)
+    span = prefix["k"].shape[2]
+    for n in ("k", "v"):
+        adm[n][:, :, :span] = prefix[n]
+    logits, _ = sched_prefill_reuse(params, cfg, tail_tokens, tail_lens, prefix_lens, layer_caches(adm), pools,
+                                    new_idx, use_kernel=use_kernel, plan=plan)
+    return _admit_scatter(logits, adm, rows, (prefix_lens + tail_lens).long(), caches, tok, pos, adm_temps,
+                          generator)
+
+
+def _graphed(params, tok, loop) -> bool:
+    """Whether a dispatch replays CUDA graphs: on the card unless ``loop``
+    asks for eager steps (``_chunk_scan``'s test)."""
+    return not loop and capturable(run_devices(params, tok))
 
 
 def _sched_admit(params, cfg, how, chunk, max_seq, pools, idx, new_tokens, new_lens, new_idx, rows,
                  caches, tok, pos, active, temps, adm_temps, generator, pipe=None):
     """Dense admission: prefill the padded (A, P) prompts into fresh
-    admission caches, then the common epilogue. ``pipe`` (stages, valid,
-    devices, n_micro) runs the prefill as GPipe microbatches."""
+    admission caches, sample the admitted rows' first tokens, scatter them
+    into the live batch, then decode the chunk (``how``: ``_chunk_scan``'s
+    use_kernel, fuse and loop). On the card the admission is one CUDA-graph
+    replay (``prefill_graph.admit``) and the chunk another; on the CPU or
+    with ``loop``, eager. ``pipe`` (stages, valid, devices, n_micro) runs
+    the prefill eagerly as GPipe microbatches. Returns (tok, pos, toks,
+    tok0 (A, 1))."""
+    use_kernel, fuse, loop = how
     a, p = new_tokens.shape
-    # the pipeline's stages hold whole layers: their caches are whole too
-    adm = init_stacked_caches(cfg, a, p, device=tok.device, params=None if pipe is not None else params)
     if pipe is not None:
+        # the pipeline's stages hold whole layers: their caches are whole too
+        adm = init_stacked_caches(cfg, a, p, device=tok.device)
         stages, valid, devices, n_micro = pipe
         logits, _ = pipeline_sched_prefill(params, cfg, stages, valid, new_tokens, new_lens, pools, new_idx,
                                            devices=devices, n_micro=n_micro, caches=layer_caches(adm))
+        tok0 = _admit_scatter(logits, adm, rows, new_lens.long(), caches, tok, pos, adm_temps, generator)
+    elif _graphed(params, tok, loop):
+        from repro_torch.core import prefill_graph
+
+        tok0 = prefill_graph.admit(params, cfg, use_kernel, pools, new_tokens, new_lens, new_idx, rows, caches,
+                                   tok, pos, adm_temps, generator)
     else:
-        logits, _ = sched_prefill(params, cfg, new_tokens, new_lens, pools, new_idx,
-                                  caches=layer_caches(adm), use_kernel=how[0])
-    return _admit_epilogue(params, cfg, how, chunk, max_seq, pools, idx, logits, adm, rows,
-                           new_lens.long(), caches, tok, pos, active, temps, adm_temps, generator)
+        adm = init_stacked_caches(cfg, a, p, device=tok.device, params=params)
+        tok0 = _dense_admission(params, cfg, use_kernel, pools, new_tokens, new_lens, new_idx, rows, caches, tok,
+                                pos, adm_temps, generator, adm)
+    tok, pos, toks = _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, pos, active,
+                                 temps, generator, max_seq, loop)
+    return tok, pos, toks, tok0
 
 
 def _sched_admit_reuse(params, cfg, how, chunk, max_seq, pools, idx, pool_data, tables, tail_tokens,
@@ -224,21 +269,24 @@ def _sched_admit_reuse(params, cfg, how, chunk, max_seq, pools, idx, pool_data, 
                        adm_temps, generator, *, prompt):
     """Prefix-reuse admission: every prompt of the wave matched >= 1 pooled
     block. Gather their block tables out of the pool into fresh (A, P)
-    admission caches (data movement: no forward FLOPs for the prefix),
-    prefill only the (A, PT) tails, then the common epilogue."""
-    from repro_torch.core.kv_pool import gather_blocks
+    admission caches, prefill only the (A, PT) tails, sample and scatter
+    as the dense admission does, then decode the chunk. On the card the
+    admission is one CUDA-graph replay (``prefill_graph.admit_reuse``) and
+    the chunk another; on the CPU or with ``loop`` (``how[2]``), eager."""
+    use_kernel, fuse, loop = how
+    if _graphed(params, tok, loop):
+        from repro_torch.core import prefill_graph
 
-    a = tables.shape[0]
-    adm = init_stacked_caches(cfg, a, prompt, device=tok.device, params=params)
-    prefix = gather_blocks(pool_data, tables, use_kernel=how[0])
-    span = prefix["k"].shape[2]
-    for n in ("k", "v"):
-        adm[n][:, :, :span] = prefix[n]
-    logits, _ = sched_prefill_reuse(params, cfg, tail_tokens, tail_lens, prefix_lens,
-                                    layer_caches(adm), pools, new_idx, use_kernel=how[0])
-    return _admit_epilogue(params, cfg, how, chunk, max_seq, pools, idx, logits, adm, rows,
-                           (prefix_lens + tail_lens).long(), caches, tok, pos, active, temps,
-                           adm_temps, generator)
+        tok0 = prefill_graph.admit_reuse(params, cfg, use_kernel, pools, pool_data, tables, tail_tokens, tail_lens,
+                                         prefix_lens, new_idx, rows, caches, tok, pos, adm_temps, generator,
+                                         prompt=prompt)
+    else:
+        adm = init_stacked_caches(cfg, tables.shape[0], prompt, device=tok.device, params=params)
+        tok0 = _reuse_admission(params, cfg, use_kernel, pools, pool_data, tables, tail_tokens, tail_lens,
+                                prefix_lens, new_idx, rows, caches, tok, pos, adm_temps, generator, adm)
+    tok, pos, toks = _chunk_scan(params, cfg, use_kernel, fuse, chunk, pools, idx, caches, tok, pos, active,
+                                 temps, generator, max_seq, loop)
+    return tok, pos, toks, tok0
 
 
 # ---------------------------------------------------------------------------

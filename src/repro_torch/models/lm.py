@@ -373,16 +373,19 @@ def serve_prefill_grouped(
     idx: torch.Tensor,                # (B,) int32 slot per batch row
     *,
     use_kernel: bool = True,
+    plan=None,
 ) -> tuple[torch.Tensor, list[Params]]:
     """Prefill with per-row adapters. The backbone runs adapter-free,
     activations are collected, and one grouped skip-sum over the *last*
     position yields the per-tenant logits (``use_kernel=False``: through
-    the plain versions on any device)."""
+    the plain versions on any device). ``plan``: the skip-sum's grouping
+    plan (``adapter_pool.grouped_plan``), as a CUDA graph's static buffers
+    hold it."""
     from repro_torch.core.adapter_pool import grouped_skip_sum
 
     out = lm_forward(params, cfg, tokens, mode="prefill", caches=caches, collect_acts=True)
     y_last = out["y_base"][:, -1:]
-    skip = grouped_skip_sum(out["acts"][:, :, -1:], pools, idx, use_kernel=use_kernel)
+    skip = grouped_skip_sum(out["acts"][:, :, -1:], pools, idx, use_kernel=use_kernel, plan=plan)
     logits = readout(params, cfg, y_last + skip.to(y_last.dtype))
     return logits, out["caches"]
 
@@ -423,6 +426,7 @@ def ingest_prefill(
     idx: Optional[torch.Tensor] = None,            # (B,) int32 slot per row
     *,
     use_kernel: bool = True,
+    plan=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Populate-phase forward that doubles as serving: one train-mode
     backbone pass with activation collection gives the Skip-Cache payload
@@ -430,7 +434,7 @@ def ingest_prefill(
     backbone being frozen) and, through one grouped skip-sum over the last
     position, each row's adapted logits. ``pools``/``idx`` pick each row's
     adapter slot (``None`` pools: the base model); ``use_kernel=False`` sums
-    through the plain versions. Returns (last-position logits (B, 1, V),
+    through the plain versions; ``plan`` as in ``serve_prefill_grouped``. Returns (last-position logits (B, 1, V),
     acts (L, B, S, D), y_base (B, S, D))."""
     from repro_torch.core.adapter_pool import grouped_skip_sum
 
@@ -438,7 +442,7 @@ def ingest_prefill(
     acts, y_base = out["acts"], out["y_base"]
     y_last = y_base[:, -1:]
     if pools is not None:
-        skip = grouped_skip_sum(acts[:, :, -1:], pools, idx, use_kernel=use_kernel)
+        skip = grouped_skip_sum(acts[:, :, -1:], pools, idx, use_kernel=use_kernel, plan=plan)
         y_last = y_last + skip.to(y_last.dtype)
     return readout(params, cfg, y_last), acts, y_base
 
@@ -616,17 +620,18 @@ def decode_loop(
 # ---------------------------------------------------------------------------
 
 
-def _last_logits(params, cfg, out, last, pools, idx, use_kernel) -> torch.Tensor:
+def _last_logits(params, cfg, out, last, pools, idx, use_kernel, plan=None) -> torch.Tensor:
     """Logits at each row's position ``last`` (A,): the adapter-free hidden
     there plus, with ``pools``, one grouped skip-sum over the block inputs
-    at that position -> (A, 1, V)."""
+    at that position (``plan`` its grouping plan, or None) -> (A, 1, V)."""
     rows = torch.arange(last.shape[0], device=last.device)
     y_last = out["y_base"][rows, last][:, None]                  # (A, 1, D)
     if pools is not None:
         from repro_torch.core.adapter_pool import grouped_skip_sum
 
         acts_last = out["acts"][:, rows, last][:, :, None]       # (L, A, 1, D)
-        y_last = y_last + grouped_skip_sum(acts_last, pools, idx, use_kernel=use_kernel).to(y_last.dtype)
+        y_last = y_last + grouped_skip_sum(acts_last, pools, idx, use_kernel=use_kernel,
+                                           plan=plan).to(y_last.dtype)
     return readout(params, cfg, y_last)
 
 
@@ -640,6 +645,7 @@ def sched_prefill(
     *,
     caches: Optional[list[Params]] = None,
     use_kernel: bool = True,
+    plan=None,
 ) -> tuple[torch.Tensor, list[Params]]:
     """Admission prefill of the request scheduler: ragged prompts in one
     padded (A, P) batch, the logits read at each row's own last *real*
@@ -648,14 +654,14 @@ def sched_prefill(
     garbage K/V at indices >= len, which decode overwrites (it resumes at
     ``pos = len``) before the causal mask ever exposes them. ``caches``
     (per-layer, at (A, P)) defaults to fresh zeroed ones; the scheduler
-    passes views of its stacked admission caches. Returns (logits (A, 1, V),
-    caches)."""
+    passes views of its stacked admission caches. ``plan`` as in
+    ``serve_prefill_grouped``. Returns (logits (A, 1, V), caches)."""
     a, p = tokens.shape
     if caches is None:
         caches = init_serve_caches(cfg, a, p, device=tokens.device, params=params)
     out = lm_forward(params, cfg, tokens, mode="prefill", caches=caches, collect_acts=True)
     last = (lens.clamp(min=1) - 1).long()
-    return _last_logits(params, cfg, out, last, pools, idx, use_kernel), out["caches"]
+    return _last_logits(params, cfg, out, last, pools, idx, use_kernel, plan), out["caches"]
 
 
 def sched_prefill_reuse(
@@ -669,6 +675,7 @@ def sched_prefill_reuse(
     idx: Optional[torch.Tensor] = None,     # (A,) int32 slot per row
     *,
     use_kernel: bool = True,
+    plan=None,
 ) -> tuple[torch.Tensor, list[Params]]:
     """Admission prefill over only the unseen tail of each prompt: the
     prefix's K/V were gathered from the paged pool into
@@ -676,13 +683,14 @@ def sched_prefill_reuse(
     (A, P). The tail attends the cache (``attention.attn_prefill_ext``). The
     skip-LoRA readout needs only the last real position's block inputs,
     which lie in the tail (the radix match always leaves >= 1 tail token).
-    Returns (logits (A, 1, V), caches at (A, P))."""
+    ``plan`` as in ``serve_prefill_grouped``. Returns (logits (A, 1, V),
+    caches at (A, P))."""
     out = lm_forward(
         params, cfg, tail_tokens, mode="prefill", caches=caches, pos=prefix_lens,
         collect_acts=True,
     )
     last = (tail_lens.clamp(min=1) - 1).long()
-    return _last_logits(params, cfg, out, last, pools, idx, use_kernel), out["caches"]
+    return _last_logits(params, cfg, out, last, pools, idx, use_kernel, plan), out["caches"]
 
 
 # ---------------------------------------------------------------------------

@@ -322,8 +322,9 @@ class HeadSplit:
     indices), and assigning into a slice of ``axis`` too (``c[:, rows,
     :p] = ...``) takes any value, each part its indices of the slice (a
     ``HeadSplit`` value gathered first). ``whole()`` gathers it on the home
-    device; ``zeros_like()`` and ``copy_()`` give a CUDA-graph entry a
-    twin of its own and copy a split cache into and out of it."""
+    device; ``zeros_like()``, ``zero_()`` and ``copy_()`` give a CUDA-graph
+    entry a twin of its own, make it fresh and copy a split cache into and
+    out of it."""
 
     __slots__ = ("parts", "ranges", "axis")
 
@@ -384,6 +385,13 @@ class HeadSplit:
         """A zeroed twin: parts of the same shapes, dtypes and devices over
         the same ranges and axis (a graph entry's own cache buffer)."""
         return HeadSplit([torch.zeros_like(p) for p in self.parts], self.ranges, self.axis)
+
+    def zero_(self) -> "HeadSplit":
+        """Zero every part in place (a graph entry's cache made fresh);
+        returns ``self``."""
+        for p in self.parts:
+            p.zero_()
+        return self
 
     def copy_(self, src: "HeadSplit") -> "HeadSplit":
         """Copy ``src``, a ``HeadSplit`` of the same axis and ranges, into

@@ -32,6 +32,7 @@ from repro.models import lm as JL  # noqa: E402
 from repro_torch import convert as C  # noqa: E402
 from repro_torch.core import decode_graph as DG  # noqa: E402
 from repro_torch.core import lm_skiplora as TSL  # noqa: E402
+from repro_torch.core import prefill_graph as PG  # noqa: E402
 from repro_torch.core.runtime import SessionRuntime, generate, generate_grouped, generate_loop  # noqa: E402
 from repro_torch.core.scheduler import RequestScheduler  # noqa: E402
 from repro_torch.kernels.skip_lora import kernel as K  # noqa: E402
@@ -148,6 +149,7 @@ def test_generate_loop_equals_the_reference_and_unroll_keeps_the_tokens(setup):
         for unroll in (1, 3):
             scan = generate(s.tp, s.cfg, s.tokens, max_new=5, adapters_stack=ts, unroll=unroll, device="cpu")
             assert torch.equal(scan, got)
+    assert len(PG.GRAPHS) == 0 and not PG.GRAPHS.stats     # the CPU's prefills are eager: nothing captured
 
 
 @pytest.mark.parametrize("via", ["generate", "runtime"])
@@ -173,6 +175,7 @@ def test_fused_decode_temp0_token_parity(setup, via):
         fused = tfused.serve(who, s.tokens, max_new=5)
     assert torch.equal(split, fused)
     np.testing.assert_array_equal(fused.numpy(), want)
+    assert len(PG.GRAPHS) == 0 and not PG.GRAPHS.stats
 
 
 def test_scheduler_chunk_scan_with_a_fused_skip_term(setup):

@@ -43,6 +43,7 @@ from repro.models.lm import init_lm as j_init_lm  # noqa: E402
 from repro_torch import convert as C  # noqa: E402
 from repro_torch.core import fleet_finetune as TFF  # noqa: E402
 from repro_torch.core import lm_skiplora as TSL  # noqa: E402
+from repro_torch.core import prefill_graph as PG  # noqa: E402
 from repro_torch.core.adapter_pool import AdapterPool  # noqa: E402
 from repro_torch.core.runtime import SessionRuntime  # noqa: E402
 
@@ -133,6 +134,7 @@ def test_session_matches_reference(session_pair):
     stats = trt.stats()
     assert stats["runtime/ingest/rows"] == N_T * N_PER + BPT and stats["runtime/serve/grouped/float"] == 1
     assert stats["runtime/serve/single/base"] == 1 and stats["adapter_pool/registrations"] == N_T
+    assert len(PG.GRAPHS) == 0 and not PG.GRAPHS.stats     # the CPU's ingests and prefills are eager
 
 
 # ---------------------------------------------------------------------------

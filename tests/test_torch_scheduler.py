@@ -33,6 +33,7 @@ from repro.core.scheduler import RequestScheduler as JScheduler  # noqa: E402
 from repro.models import lm as JL  # noqa: E402
 from repro_torch import convert as C  # noqa: E402
 from repro_torch.core import lm_skiplora as TSL  # noqa: E402
+from repro_torch.core import prefill_graph as PG  # noqa: E402
 from repro_torch.core import scheduler as S  # noqa: E402
 from repro_torch.core.runtime import SessionRuntime  # noqa: E402
 from repro_torch.launch import serve as cli  # noqa: E402
@@ -136,13 +137,14 @@ def test_tokens_and_counters_equal_the_reference_on_local_attention(local_sessio
 
 def _check_trace(jrt, trt, trace, reuse):
     """Tokens and counters of the reference's scheduler on ``trace``, and the
-    port's own invariants after it."""
+    port's own invariants after it (on the CPU no admission graph)."""
     prompts, who, gen, kw = TRACES[trace]()
     want, want_c, _ = _run(JScheduler, jrt, prompts, who, gen, prefix_reuse=reuse, **kw)
     got, got_c, sched = _run(S.RequestScheduler, trt, prompts, who, gen, prefix_reuse=reuse, **kw)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
     assert got_c == want_c
+    assert len(PG.GRAPHS) == 0 and not PG.GRAPHS.stats     # the CPU's admissions are eager: nothing captured
     if trace == "mixed-waves" and reuse:
         assert got_c["prefix/wave_split"] >= 1
     if reuse and trace != "mid-decode":
