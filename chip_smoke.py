@@ -8,8 +8,9 @@ With ``--two-cards`` (a machine with two cards or more) it builds the
 kernels and runs the fleet, session and shard phases (the shard phase's
 ``shard two cards`` line needs their state) and the model axis's two-card
 part (``_model_axis_two_cards``: the reduced (1 x 2) session graphed
-against eager and the CPU, phi3.5-moe-42b over two cards), then the same
-last line.
+against eager and the CPU, with pipeline stages and without; the
+full-width pipelined scheduler on one card's two members and over two
+cards; phi3.5-moe-42b over two cards), then the same last line.
 
 Phases, each printing one line (or a few) before the last line:
   1. device: the card's name and power limit from nvidia-smi.
@@ -263,12 +264,19 @@ Phases, each printing one line (or a few) before the last line:
      with 2 stages on ``[cuda:0, cuda:0]`` against ``sched_prefill`` a
      microbatch at a time within ``PIPE_LOGIT_BAR`` and within
      ``PIPE_SKIP_SHARE`` of what the adapters' skip terms move the logits
-     by, tokens equal. Host seconds of each, the peak. No hand-written
+     by, tokens equal; the pipelined scheduler (``_pipe_scheduler``:
+     full-width stablelm-1.6b in a session over ``[cuda:0, cuda:0]`` with
+     ``pipeline_stages=2`` on the scheduler phase's trace, each pipelined
+     admission one replay, bitwise ``loop=True``; its tokens against the
+     group without stages; the dispatch's span graphed and eager). Host
+     seconds of each, the peak. No hand-written
      kernel launches (a model axis refuses them, as in the reference).
      With two cards: the reduced float32 (1 x 2) session over
      ``[cuda:0, cuda:1]`` (``make_mesh``), with ``pipeline_stages=2`` and
-     without, against the same over ``["cpu", "cpu"]`` and, without stages,
-     its graph replays across both cards bitwise its eager steps on them;
+     without, against the same over ``["cpu", "cpu"]`` and its graph
+     replays across both cards bitwise its eager steps on them; the
+     pipelined scheduler over ``[cuda:0, cuda:1]``, its admission's
+     replay beside the one-card one and the predicted bubble;
      and phi3.5-moe-42b-a6.6b at full width over them, drawn a part at a
      time and split as it comes (``tp.init_group_params``; each card at
      most 0.55 of its 83.75 GB): ingest, adapt as replays bitwise
@@ -4751,11 +4759,14 @@ def model_axis_phase(torch, device_name):
     greedy grouped serving (float pool, ``use_kernel=False``, 3 tenants and a
     base row) and one cached-loss step against the unsplit ones, the
     split's own routing in float32 at reduced width (``_model_axis_fp32``),
-    and the pipelined admission (``lm.pipeline_sched_prefill``, 2 stages on
-    ``[cuda:0, cuda:0]``) against ``sched_prefill``. With two cards, the
-    reduced 2-D session over ``[cuda:0, cuda:1]`` against the same over
-    ``["cpu", "cpu"]`` and against its own eager steps, and phi3.5-moe-42b
-    split over the two cards, graphed against eager (``_model_axis_two_cards``).
+    the pipelined admission (``lm.pipeline_sched_prefill``, 2 stages on
+    ``[cuda:0, cuda:0]``) against ``sched_prefill``, and the pipelined
+    scheduler at full width, its admissions replayed (``_pipe_scheduler``).
+    With two cards, the reduced 2-D session over ``[cuda:0, cuda:1]``, with
+    stages and without, against the same over ``["cpu", "cpu"]`` and
+    against its own eager steps, the pipelined scheduler over the two cards,
+    and phi3.5-moe-42b split over them, graphed against eager
+    (``_model_axis_two_cards``).
     No hand-written kernel launches here, as in the reference, where a model
     axis refuses them."""
     from repro_torch.configs import get_config
@@ -4873,9 +4884,10 @@ def model_axis_phase(torch, device_name):
     check(not prefill_routes and not serve_routes, "model axis: the split made other routing calls")
     with torch.no_grad():
         free_logits = timed("prefill split", split_prefill)
-        free_toks = timed("serve split (eager loop)", split_loop)
-        graph_line = _split_graphs(torch, "model axis", gp, cfg, prompts, pool, idx, timed, secs, free_toks,
-                                   "serve split (eager loop)")
+        # the split's unpinned eager loop is left to tests/test_torch_model_axis_gpu.py, which holds a split's
+        # graphed decode bitwise its eager loop: the graphed serve's tokens stand for it
+        graph_line = _split_graphs(torch, "model axis", gp, cfg, prompts, pool, idx, timed, secs, None, None)
+        free_toks = generate_grouped(gp, cfg, prompts, pool.pools(), idx, max_new=NEW, use_kernel=False, device=dev)
         sched_line = _split_scheduler(torch, gp, cfg, group)
     logit_err = _rel_max(torch, got_logits, want_logits)
     check(logit_err <= TP_LOGIT_BAR, f"model axis prefill logits: {logit_err:.3e} > {TP_LOGIT_BAR}")
@@ -4895,8 +4907,9 @@ def model_axis_phase(torch, device_name):
     del gp, acts, y_base
     _free_device(torch)
     session_line = _group_session(torch, device_name)
+    pipe_line, pipe_ms = _pipe_scheduler(torch, device_name, group)
     fp32 = _model_axis_fp32(torch)
-    two = _model_axis_two_cards(torch) if torch.cuda.device_count() >= 2 else None
+    two = _model_axis_two_cards(torch, device_name, (pipe_line, pipe_ms)) if torch.cuda.device_count() >= 2 else None
     check(not any(_launches().values()), f"model axis: hand-written kernels launched {_launches()}")
     _reset_launches()
 
@@ -4929,10 +4942,12 @@ def model_axis_phase(torch, device_name):
     print(graph_line)
     print(sched_line)
     print(session_line)
+    print(pipe_line)
     print("model axis host seconds (synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     if two is None:
         print(f"model axis two cards: not run, this machine has {torch.cuda.device_count()} card (the (1 x 2) "
-              f"session over [cuda:0, cuda:1] and phi3.5-moe-42b-a6.6b split over two cards need two)")
+              f"session over [cuda:0, cuda:1], the pipelined scheduler over them and phi3.5-moe-42b-a6.6b split "
+              f"over two cards need two)")
     else:
         print(two)
     print(f"model axis phase: {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched")
@@ -4942,7 +4957,10 @@ def _split_graphs(torch, tag, gp, cfg, prompts, pool, idx, timed, secs, eager, e
     """A split backbone's graphed serve (``generate_grouped``: its prefill
     and decode replay graphs of the group's work, ``cuda_graph.capturable``)
     held bitwise to ``eager``, the tokens of the split's own eager loop
-    (``generate_loop``, unpinned, timed as ``secs[eager_key]``): first the
+    (``generate_loop``, unpinned, timed as ``secs[eager_key]``; None: not
+    run here, the first call's tokens stand for it, and
+    ``tests/test_torch_model_axis_gpu.py`` holds a split's graphed decode
+    bitwise its eager loop): first the
     prefill's graph alone against the eager prefill (``_prefill_calls``),
     then the serve's first call (the decode's eager step, capture and
     replays) and a call of replays only, timed into ``secs``; then the
@@ -4962,6 +4980,11 @@ def _split_graphs(torch, tag, gp, cfg, prompts, pool, idx, timed, secs, eager, e
         gp, cfg, prompts, max_new=NEW, device=dev, **kw))
     gain_first = _graph_gain(DG.GRAPHS.stats, since) | {"eager_steps": DG.GRAPHS.stats["eager_steps"]
                                                           - since["eager_steps"]}
+    if eager is None:
+        eager, ref_txt = first, "the first call's"
+        eager_txt = "eager loop not run here (tests/test_torch_model_axis_gpu.py)"
+    else:
+        ref_txt, eager_txt = "the split's eager loop, unpinned", f"eager loop {secs[eager_key]:.3f} s"
     since = DG.GRAPHS.stats.copy()
     again = timed(f"{tag}: serve split graphed", lambda: generate_grouped(
         gp, cfg, prompts, max_new=NEW, device=dev, **kw))
@@ -4982,11 +5005,11 @@ def _split_graphs(torch, tag, gp, cfg, prompts, pool, idx, timed, secs, eager, e
     check(torch.equal(got, eager), f"{tag}: the split's graphed decode != its eager loop")
     del caches
     return (f"{tag} graphed split serve ({b}x{s} + {NEW} new, greedy, float pool, use_kernel=False) on one card: "
-            f"tokens bitwise the split's eager loop, unpinned; first call "
+            f"tokens bitwise {ref_txt}; first call "
             f"{secs[f'{tag}: serve split graphed, first call']:.3f} s ({gain_first['eager_steps']} eager step + "
             f"{gain_first['captures']} capture(s) + {gain_first['replays']} replays), replays only "
             f"{secs[f'{tag}: serve split graphed']:.3f} s ({gain['replays']} replays issued in "
-            f"{gain['replay_s']:.3f} s), eager loop {secs[eager_key]:.3f} s; apart: prefill "
+            f"{gain['replay_s']:.3f} s), {eager_txt}; apart: prefill "
             f"{secs[f'{tag}: prefill split grouped']:.3f} s, decode graphed "
             f"{secs[f'{tag}: decode split graphed']:.3f} s; prefill graph {prefill_line}")
 
@@ -5030,6 +5053,157 @@ def _split_scheduler(torch, gp, cfg, group) -> str:
                                 admit_bucket=2, inflight_per_tenant=len(prompts), chunk=2, kv_block=32)
     del rt
     return line
+
+
+def _pipe_scheduler(torch, device_name, devices):
+    """The pipelined scheduler at full width: stablelm-1.6b (bf16, seed-0
+    weights) in a ``SessionRuntime`` over ``sharding.group_mesh(devices)``
+    with ``pipeline_stages=2`` (``use_kernel=False``, the scheduler phase's
+    3 demo tenants on a float pool) through the scheduler phase's
+    shared-prefix trace (``SCHED_ARGS``: 8 requests of 448 + 64 tokens, 4
+    new, batch 4, bucket 2, chunk 2; ``n_micro`` 2): two warm drains on one
+    scheduler, then the timed drain, every admission of it a replay of the
+    GPipe ticks (``prefill_graph.admit`` with ``pipe``); the timed drain
+    bitwise the ``loop=True`` drain (tokens, counters, the live batch's
+    caches, tokens and positions); its tokens against the same group's
+    scheduler without stages (equal, or a flip within ``TOP2_REL_TOL``).
+    Then the pipelined admission dispatch (``scheduler._sched_admit``: the
+    admission's replay, then the chunk's) timed by CUDA events from first to
+    last kernel, graphed and eager, the graphed one's kernels counted
+    (profiler), and the admission's replay alone. No hand-written kernel
+    launches in the drains; the launches of the flip check go to
+    ``COMPARE_LAUNCHES``.
+    Returns (the line, the admission replay's ms)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core import prefill_graph as PFG
+    from repro_torch.core import scheduler as S
+    from repro_torch.core.cuda_graph import LaunchTape
+    from repro_torch.core.runtime import SessionRuntime
+    from repro_torch.launch.serve import _register_demo
+    from repro_torch.models.lm import init_lm
+    from repro_torch.runtime import sharding as SH
+
+    t0 = time.perf_counter()
+    devices = [torch.device(d) for d in devices]
+    home = devices[0]
+    cfg = get_config(ARCH)
+    params = init_lm(torch.Generator(device=home).manual_seed(0), cfg)
+    prompts = _shared_prefix_trace(cfg.vocab_size, 13, SCHED_REQS)
+    tenant, tape = "tenant-0", LaunchTape()
+    since, old_keys = PFG.GRAPHS.stats.copy(), set(PFG.GRAPHS._entries)
+    secs, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - mark[0]
+        mark[0] = time.perf_counter()
+
+    def runtime(stages):
+        rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=RANK), params, max_tenants=TENANTS, samples_per_tenant=1,
+                            seq=8, use_kernel=False, mesh=SH.group_mesh(devices), pipeline_stages=stages, seed=0)
+        _register_demo(rt.pool, cfg, TENANTS, RANK, home)
+        return rt
+
+    def drains(rt, loop, n):
+        """``n`` drains of the trace on one scheduler: the last one's
+        tokens, counters, seconds, and the live batch after it."""
+        sched = S.RequestScheduler(rt, loop=loop, prefix_reuse=False, **SCHED_ARGS)
+        for _ in range(n):
+            before = sched.counters.copy()
+            reqs = [sched.submit(tenant, p, max_new=SCHED_NEW) for p in prompts]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with tape.recording():
+                sched.drain()
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            _aside(tape)
+            check(not tape.kernel_launches(), f"pipelined scheduler: hand-written kernels launched {tape.counts}")
+        counters = {k: v - before.get(k, 0) for k, v in sched.counters.items() if v != before.get(k, 0)}
+        lb = sched._lb
+        return [r.result() for r in reqs], counters, dt, (lb.caches, lb.tok, lb.pos), sched
+
+    rt = runtime(2)
+    lap("setup")
+    recorded = {}
+    real = S._sched_admit
+
+    def first_call(*a, **kw):
+        recorded.setdefault("admit", (a, kw))
+        return real(*a, **kw)
+
+    S._sched_admit = first_call
+    try:
+        toks, counters, dt, live, sched = drains(rt, False, 3)
+    finally:
+        S._sched_admit = real
+    lap("3 drains")
+    bubble, n_micro = sched.predicted_bubble(), sched.n_micro
+    check(n_micro == 2 and abs(bubble - 1 / 3) < 1e-12, f"pipelined scheduler: n_micro {n_micro}, bubble {bubble}")
+    gain = PFG.GRAPHS.stats.copy()
+    gain.subtract(since)
+    keys = sorted({k[0] for k in set(PFG.GRAPHS._entries) - old_keys})
+    e_toks, e_counters, e_dt, e_live, _ = drains(rt, True, 1)
+    lap("loop=True drain")
+    check(all(np.array_equal(a, b) for a, b in zip(toks, e_toks)) and counters == e_counters
+          and _tree_equal(torch, live, e_live),
+          f"pipelined scheduler {devices}: the graphed drain != loop=True's: {[t.tolist() for t in toks]} {counters} "
+          f"vs {[t.tolist() for t in e_toks]} {e_counters} (live batch equal: {_tree_equal(torch, live, e_live)})")
+    check(keys == ["admit_pipe"] and gain["captures"] >= 1 and gain["replays"] >= 1
+          and counters.get("dispatch/admit_pipe", 0) >= 4 and "dispatch/admit" not in counters,
+          f"pipelined scheduler: keys {keys}, prefill graphs {dict(gain)}, counters {counters}")
+
+    # the dispatch alone, graphed and eager, then the admission's replay alone
+    a, kw = recorded["admit"]
+    how = a[2]
+    eager_a = (*a[:2], (how[0], how[1], True), *a[3:])
+    params_s, cfg_s, _, _, _, pools, _, new_tokens, new_lens, new_idx, rows, caches, tok, pos = a[:14]
+    adm_temps, generator = a[16], a[17]
+    graphed = lambda: real(*a, **kw)       # noqa: E731
+    eager = lambda: real(*eager_a, **kw)   # noqa: E731
+    admit_only = lambda: PFG.admit(params_s, cfg_s, how[0], pools, new_tokens, new_lens, new_idx, rows,  # noqa: E731
+                                   caches, tok, pos, adm_temps, generator, pipe=kw["pipe"])
+    with tape.recording():
+        g_ms, e_ms = time_ms(graphed, reps=5, spin=STEP_SPIN), time_ms(eager, reps=3, spin=STEP_SPIN)
+        adm_ms = time_ms(admit_only, reps=5, spin=STEP_SPIN)
+        g_busy, _, g_n = _busy(torch, graphed)
+    _aside(tape)
+    check(not tape.kernel_launches(), f"pipelined dispatch: hand-written kernels launched {tape.counts}")
+    lap("spans")
+    del recorded, a, kw, eager_a, graphed, eager, admit_only, live, e_live, sched, params_s, pools, new_tokens, \
+        new_lens, new_idx, rows, caches, tok, pos, generator
+    # the same group without stages: its scheduler's tokens equal, or a flip at a near tie
+    flat_toks = drains(runtime(0), False, 1)[0]
+    lap("no stages")
+    with tape.recording():
+        flips = _near_tie_flips(torch, params, cfg, rt.pool, f"pipelined scheduler {devices} vs no stages", prompts,
+                                [tenant] * SCHED_REQS, toks, flat_toks)
+    _aside(tape)
+    lap("flips")
+    part = PFG.GRAPHS.stats.copy()
+    part.subtract(since)
+    total = SCHED_REQS * SCHED_NEW
+    where = ", ".join(str(d) for d in devices)
+    line = (f"pipelined scheduler {ARCH} full width bf16, pipeline_stages=2 over group_mesh([{where}]) on "
+            f"{device_name} ({SCHED_REQS} requests x ({SCHED_SHARE} + {SCHED_TAIL}) + {SCHED_NEW} new, batch 4, "
+            f"bucket 2, chunk 2, n_micro {n_micro}, predicted bubble {bubble:.4f}; float pool, use_kernel=False): "
+            f"timed "
+            f"drain {dt:.3f} s = {total / dt:.1f} tok/s, its {counters.get('dispatch/admit_pipe', 0)} admissions "
+            f"replayed, against loop=True {e_dt:.3f} s ({total / e_dt:.1f} tok/s): tokens, counters, live caches, "
+            f"tokens and positions bitwise; against the group without stages: "
+            f"{'all tokens equal' if not flips else '; '.join(flips)}; a pipelined admission dispatch (2 x "
+            f"{SCHED_SHARE + SCHED_TAIL} admission + 2 decode steps), CUDA events first to last kernel: graphed "
+            f"{g_ms:.3f} ms ({g_busy:.3f} ms of kernels, {g_n} kernels, profiler), eager {e_ms:.3f} ms; the "
+            f"admission's replay alone {adm_ms:.3f} ms; prefill graphs over the part: "
+            f"{part['captures']} captures, {part['replays']} replays, {part['eager_steps']} eager first calls, "
+            f"{part['evictions']} evictions ({time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    del rt, params
+    _free_device(torch)
+    return line, adm_ms
 
 
 def _group_session(torch, device_name):
@@ -5148,22 +5322,30 @@ def _model_axis_fp32(torch):
             f"({time.perf_counter() - t0:.1f} s)")
 
 
-def _model_axis_two_cards(torch):
+def _model_axis_two_cards(torch, device_name, one_card=None):
     """The reduced float32 (1 data x 2 model) session over [cuda:0, cuda:1]
     (``make_mesh``), with ``pipeline_stages=2`` and without, against the same
     session over ["cpu", "cpu"] (adapters within rtol 1e-4 / atol 1e-6,
-    slot tables, serve and scheduler tokens equal); without stages also
-    against its own eager steps on the same cards (``adapt(loop=True)``,
-    ``generate_loop``, the scheduler's ``loop=True``): adapters, moments,
-    losses and tokens bitwise, the graphed session's decode, chunk and
-    epoch captures counted. Returns the lines."""
+    slot tables, serve and scheduler tokens equal) and against its own
+    eager steps on the same cards (``adapt(loop=True)``, ``generate_loop``,
+    the scheduler's ``loop=True``): adapters, moments, losses, tokens and
+    the scheduler's live batch bitwise, the graphed session's decode, chunk,
+    epoch and admission captures counted (the scheduler drains the requests
+    twice, so each admission key is first called, then captured and
+    replayed; with stages its admissions are the pipelined ones). Then
+    ``_pipe_scheduler`` over the two cards, its admission's replay beside
+    the one-card group's (``one_card``: that part's (line, ms), run here
+    when not given) and the predicted bubble, and phi3.5-moe-42b over two
+    cards (``_phi_two_cards``). Returns the lines."""
     import numpy as np
 
     from repro_torch.core import decode_graph as DG
     from repro_torch.core import lm_skiplora as SL
+    from repro_torch.core import prefill_graph as PFG
     from repro_torch.core.runtime import SessionRuntime, generate_loop
     from repro_torch.models import lm as LM
     from repro_torch.models.config import ModelConfig
+    from repro_torch.runtime.pipeline_par import bubble_fraction
     from repro_torch.runtime.sharding import _to, make_mesh
 
     cfg = ModelConfig(name="t", family="test", n_layers=4, d_model=16, n_heads=4, n_kv_heads=2, d_ff=32,
@@ -5189,17 +5371,24 @@ def _model_axis_two_cards(torch):
         else:
             toks = rt.serve(who, prompts, max_new=4).cpu()
         rt.attach_scheduler(max_batch=4, max_prompt=5, max_new_cap=6, admit_bucket=2, chunk=2, loop=loop)
-        reqs = [rt.enqueue_serve(t, prompts[j, :4 - j], max_new=5) for j, t in enumerate(("a", None, "b"))]
-        rt.drain()
-        return rt, toks, [r.result().tolist() for r in reqs], out["losses"]
+        since = PFG.GRAPHS.stats.copy()
+        sched = []
+        for _ in range(2):      # each admission key: a first call, then a capture and its replay
+            reqs = [rt.enqueue_serve(t, prompts[j, :4 - j], max_new=5) for j, t in enumerate(("a", None, "b"))]
+            rt.drain()
+            sched.append([r.result().tolist() for r in reqs])
+        lb, admit_gain = rt.scheduler._lb, PFG.GRAPHS.stats.copy()
+        admit_gain.subtract(since)
+        return rt, toks, sched, out["losses"], (lb.caches, lb.tok, lb.pos), admit_gain
 
     t0 = time.perf_counter()
     cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    gains = {}
     for stages in (0, 2):
         since = DG.GRAPHS.stats.copy()
-        card, toks_card, sched_card, losses_card = session(cards, stages)
-        decode_gain = _graph_gain(DG.GRAPHS.stats, since)
-        cpu, toks_cpu, sched_cpu, _ = session(["cpu", "cpu"], stages)
+        card, toks_card, sched_card, losses_card, live_card, admit_gain = session(cards, stages)
+        gains[stages] = (_graph_gain(DG.GRAPHS.stats, since), card.epoch_graph_stats(), admit_gain)
+        cpu, toks_cpu, sched_cpu = session(["cpu", "cpu"], stages)[:3]
         for t in ("a", "b"):
             for k in ("A", "B"):
                 check(np.allclose(card.tenant(t).adapters[k].cpu().numpy(), cpu.tenant(t).adapters[k].numpy(),
@@ -5207,34 +5396,50 @@ def _model_axis_two_cards(torch):
         check(card.pool.slot_table() == cpu.pool.slot_table(), f"model axis two cards (stages {stages}): slots")
         check(torch.equal(toks_card, toks_cpu) and sched_card == sched_cpu,
               f"model axis two cards (stages {stages}): tokens differ")
-        if stages == 0:
-            epoch_gain = card.epoch_graph_stats()
-            since = DG.GRAPHS.stats.copy()
-            eager, toks_eager, sched_eager, losses_eager = session(cards, 0, loop=True)
-            check(_graph_gain(DG.GRAPHS.stats, since)["captures"] == 0
-                  and eager.epoch_graph_stats()["captures"] == 0, "model axis two cards: the eager twin captured")
-            for t in ("a", "b"):
-                check(np.array_equal(losses_card[t], losses_eager[t]),
-                      f"model axis two cards: tenant {t} graphed losses != loop=True's")
-                for name in ("adapters", "opt_mu", "opt_nu"):
-                    for k in ("A", "B"):
-                        check(torch.equal(getattr(card.tenant(t), name)[k], getattr(eager.tenant(t), name)[k]),
-                              f"model axis two cards: tenant {t} {name} {k} graphed != loop=True's")
-            check(torch.equal(toks_card, toks_eager) and sched_card == sched_eager,
-                  "model axis two cards: graphed tokens != the eager steps'")
-            check(decode_gain["captures"] >= 2 and decode_gain["replays"] >= 2 and epoch_gain["captures"] >= 1
-                  and epoch_gain["replays"] >= 1,
-                  f"model axis two cards: captures decode/chunk {decode_gain}, epochs {dict(epoch_gain)}")
-            del eager
-        del card, cpu
+        since = DG.GRAPHS.stats.copy()
+        eager, toks_eager, sched_eager, losses_eager, live_eager, e_admit = session(cards, stages, loop=True)
+        check(_graph_gain(DG.GRAPHS.stats, since)["captures"] == 0 and e_admit["eager_steps"] + e_admit["replays"]
+              == 0 and eager.epoch_graph_stats()["captures"] == 0,
+              f"model axis two cards (stages {stages}): the eager twin captured")
+        for t in ("a", "b"):
+            check(np.array_equal(losses_card[t], losses_eager[t]),
+                  f"model axis two cards (stages {stages}): tenant {t} graphed losses != loop=True's")
+            for name in ("adapters", "opt_mu", "opt_nu"):
+                for k in ("A", "B"):
+                    check(torch.equal(getattr(card.tenant(t), name)[k], getattr(eager.tenant(t), name)[k]),
+                          f"model axis two cards (stages {stages}): tenant {t} {name} {k} graphed != loop=True's")
+        check(torch.equal(toks_card, toks_eager) and sched_card == sched_eager
+              and _tree_equal(torch, live_card, live_eager),
+              f"model axis two cards (stages {stages}): graphed tokens or live batch != the eager steps'")
+        decode_gain, epoch_gain, _ = gains[stages]
+        check(decode_gain["captures"] >= 2 and decode_gain["replays"] >= 2 and epoch_gain["captures"] >= 1
+              and epoch_gain["replays"] >= 1 and admit_gain["captures"] >= 1 and admit_gain["replays"] >= 1
+              and (card.scheduler.counters["dispatch/admit_pipe"] >= 2) == (stages == 2),
+              f"model axis two cards (stages {stages}): captures decode/chunk {decode_gain}, epochs "
+              f"{dict(epoch_gain)}, admissions {dict(admit_gain)}, counters {dict(card.scheduler.counters)}")
+        del card, cpu, eager, live_card, live_eager
     small_s = time.perf_counter() - t0
-    return (f"model axis two cards: the reduced float32 (1 x 2) session over [cuda:0, cuda:1], with "
-            f"pipeline_stages=2 and without, == the same over [cpu, cpu] (adapters within rtol 1e-4 / atol 1e-6, "
-            f"slot tables, serve and scheduler tokens equal); without stages as graph replays across both cards "
-            f"(decode and chunks {decode_gain['captures']} captures / {decode_gain['replays']} replays, adapt "
-            f"{epoch_gain['captures']} / {epoch_gain['replays']}) bitwise its eager steps on the same cards "
-            f"(adapt(loop=True), generate_loop, the scheduler's loop=True: losses, adapters, moments, tokens) "
-            f"({small_s:.1f} s)\n" + _phi_two_cards(torch))
+    one_line, one_ms = one_card if one_card is not None else _pipe_scheduler(torch, device_name, cards[:1] * 2)
+    two_line, two_ms = _pipe_scheduler(torch, device_name, cards)
+    n_micro, n_stages = 2, 2
+    ideal = (n_micro + n_stages - 1) / (n_micro * n_stages)
+    lines = [f"model axis two cards: the reduced float32 (1 x 2) session over [cuda:0, cuda:1], with "
+             f"pipeline_stages=2 and without, == the same over [cpu, cpu] (adapters within rtol 1e-4 / atol 1e-6, "
+             f"slot tables, serve and scheduler tokens equal) and, as graph replays across both cards, bitwise its "
+             f"eager steps on the same cards (adapt(loop=True), generate_loop, the scheduler's loop=True: losses, "
+             f"adapters, moments, tokens, live batch); captures / replays without stages: decode and chunks "
+             + "{} / {}, adapt {} / {}, admissions {} / {}; with stages: {} / {}, {} / {}, pipelined admissions "
+             "{} / {}".format(*(g[k] for st in (0, 2) for g in gains[st] for k in ("captures", "replays")))
+             + f" ({small_s:.1f} s)"]
+    if one_card is None:
+        lines.append(one_line)
+    lines.append(two_line)
+    lines.append(f"pipelined admission over two cards: its replay {two_ms:.3f} ms against {one_ms:.3f} ms on one "
+                 f"card's two members ({two_ms / one_ms:.3f}x); predicted bubble "
+                 f"{bubble_fraction(n_micro, n_stages):.4f} "
+                 f"({n_micro} microbatches, {n_stages} stages), so perfectly overlapped stages would take "
+                 f"(M + P - 1) / (M P) = {ideal:.3f} of the one-card time, and no overlap 1.0 plus the handoffs")
+    return "\n".join(lines) + "\n" + _phi_two_cards(torch)
 
 
 def _phi_two_cards(torch):
@@ -6157,7 +6362,7 @@ def main() -> None:
         session_phase(torch, smi, kept)
         shard_phase(torch, smi, kept)
         del kept
-        print(_model_axis_two_cards(torch))
+        print(_model_axis_two_cards(torch, smi))
         print(_prefill_graphs_line())
         print(f"chip_smoke --two-cards: {time.perf_counter() - t_run:.1f} s, the builds included")
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

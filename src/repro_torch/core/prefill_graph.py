@@ -4,11 +4,11 @@ scheduler's admissions: one replay a call.
 The reference runs each of these calls as one compiled program through its
 compiled-function cache (``repro.core.runtime.compiled``): the prefill
 (``_prefill_fn``), the grouped prefill (``_prefill_grouped_fn``), the
-session's ingest (``_ingest_fn``) and the scheduler's dense and prefix-reuse
-admissions (``repro.core.scheduler._sched_admit_fn``,
-``_sched_admit_reuse_fn``). On the card each becomes a CUDA-graph replay,
-captured through ``decode_graph``'s entries (``decode_graph._Entry``) with
-one step a call:
+session's ingest (``_ingest_fn``) and the scheduler's dense, pipelined and
+prefix-reuse admissions (``repro.core.scheduler._sched_admit_fn``,
+``_sched_admit_pipe_fn``, ``_sched_admit_reuse_fn``). On the card each
+becomes a CUDA-graph replay, captured through ``decode_graph``'s entries
+(``decode_graph._Entry``) with one step a call:
 
   - a key's first call runs the call eagerly on a side stream of every card
     it reaches, as the warm-up, and its result is the call's;
@@ -36,12 +36,21 @@ The calls:
     admitted rows' temperatures and the scatter of the first ``k`` rows'
     caches, tokens and positions into the live batch
     (``scheduler._dense_admission``).
+  - ``admit`` with ``pipe`` (stages, valid, devices, n_micro), the
+    pipelined admission of a runtime built with ``pipeline_stages``:
+    ``lm.pipeline_sched_prefill``'s GPipe ticks over the stages' cards into
+    whole admission caches of the entry's own (the stages hold whole
+    layers), then the same draw and scatter
+    (``scheduler._pipe_admission``). Its first call, eager on a side stream
+    of every card, makes each cross-card copy of the ticks (the stages'
+    adapter rows, the handoffs, the far stage's K/V) once before the
+    capture, which must not be the first to enable peer access.
   - ``admit_reuse``: the prefix-reuse admission: ``kv_pool.gather_blocks``
     (K10 on the card), the prefix written into the admission caches,
     ``lm.sched_prefill_reuse`` and the same scatter
     (``scheduler._reuse_admission``).
 
-After either admission the chunk's decode steps run as the
+After any admission the chunk's decode steps run as the
 ``decode_graph.chunk`` replay: an admission dispatch is two replays where
 the reference's is one program.
 
@@ -62,6 +71,10 @@ of the caller's that a graph reads or writes in place:
     padding rows (``mode="drop"``); here the graph scatters exactly the
     first ``k`` rows, so no index repeats. The live batch's temperatures
     are read only by the chunk, whose own entry keys them;
+  - admit_pipe: as admit, plus ``n_micro``, the storage of the stage split
+    (the runtime's ``_stage_blocks[shard]``), the ``valid`` mask as a host
+    tuple (read once a call, on the CPU, where the runtime keeps it) and the
+    stage devices; the entry spans the run devices and every stage's card;
   - admit_reuse: as admit, plus the tail bucket ``PT``, the table width
     ``max_nb`` and the storage of the paged pool.
 
@@ -88,15 +101,16 @@ from repro_torch.models import tp as TP
 
 __all__ = ["CAPACITY", "GRAPHS", "admit", "admit_reuse", "ingest", "prefill"]
 
-#: Entries the prefill cache keeps. A scheduler holds one dense key for
-#: each number of admitted rows (at most the admission bucket) and one reuse
-#: key for each (tail bucket, table width, rows) its waves meet, while its
-#: chunk entry stays in ``decode_graph.GRAPHS``; a serving session adds one
-#: prefill key a batch shape and pool, and an ingest key a shard. The
-#: scheduler cell (bucket 2, one tail bucket and table width) uses two;
-#: 16 leaves room for a bucket of 4 over several tail buckets beside the
-#: serving and ingest keys, so that no admission evicts another in a run
-#: (an evicted key pays its eager first call and capture again).
+#: Entries the prefill cache keeps. A scheduler holds one dense (or
+#: pipelined) key for each number of admitted rows (at most the admission
+#: bucket) and one reuse key for each (tail bucket, table width, rows) its
+#: waves meet, while its chunk entry stays in ``decode_graph.GRAPHS``; a
+#: serving session adds one prefill key a batch shape and pool, and an
+#: ingest key a shard. The scheduler cell (bucket 2, one tail bucket and
+#: table width) uses two; 16 leaves room for a bucket of 4 over several
+#: tail buckets beside the serving and ingest keys, so that no admission
+#: evicts another in a run (an evicted key pays its eager first call and
+#: capture again).
 CAPACITY = 16
 
 #: the graphs of the prefills, ingests and admissions
@@ -262,20 +276,27 @@ def ingest(params, cfg, sl, tokens: torch.Tensor, pools=None, idx=None, *, use_k
 class _Admit(_Call):
     """An admission's entry: its inputs copied into buffers of its own
     (``self.args``), admission caches of its own, the plan; outputs the
-    admitted rows' first tokens. ``reuse``: the prefix-reuse admission."""
+    admitted rows' first tokens. ``reuse``: the prefix-reuse admission;
+    ``pipe`` (stages, valid, devices, n_micro): the pipelined one, its
+    caches whole and its ``valid`` mask kept on the host."""
 
     def __init__(self, stats, cfg, use_kernel, args: dict, adm_temps, prompt: int, *, params, pools, reuse,
-                 devices):
+                 devices, pipe=None):
         dev = args["new_idx"].device
         a = args["new_idx"].shape[0]
-        kind = "prefix-reuse admission" if reuse else "admission"
+        kind = "prefix-reuse admission" if reuse else "pipelined admission" if pipe else "admission"
         super().__init__(stats, f"the scheduler's {kind} ({cfg.name}, {a}x{prompt}, {args['rows'].shape[0]} "
                          f"rows)", dev, _temp_kind(adm_temps)[0] != "greedy", devices)
         self.cfg, self.use_kernel, self.reuse = cfg, use_kernel, reuse
+        self.pipe = None
+        if pipe is not None:
+            stages, valid, stage_devices, n_micro = pipe
+            self.pipe = (stages, torch.tensor(_host_mask(valid)), stage_devices, n_micro)
         self.args = {n: torch.zeros_like(t) for n, t in args.items()}
         self.temps = torch.zeros_like(adm_temps) if isinstance(adm_temps, torch.Tensor) else adm_temps
-        self.adm = LM.init_stacked_caches(cfg, a, prompt, device=dev, params=params)
-        self.plan = grouped_plan(pools, self.args["new_idx"], use_kernel=use_kernel)
+        self.adm = LM.init_stacked_caches(cfg, a, prompt, device=dev, params=None if pipe else params)
+        # the pipelined prefill's skip terms take no grouping plan
+        self.plan = None if pipe else grouped_plan(pools, self.args["new_idx"], use_kernel=use_kernel)
 
     def body(self, n, generator):
         from repro_torch.core import scheduler as S
@@ -288,6 +309,9 @@ class _Admit(_Call):
             tok0 = S._reuse_admission(params, self.cfg, self.use_kernel, pools, pool_data, a["tables"],
                                       a["tail_tokens"], a["tail_lens"], a["prefix_lens"], a["new_idx"], a["rows"],
                                       caches, tok, pos, self.temps, generator, self.adm, plan=self.plan)
+        elif self.pipe is not None:
+            tok0 = S._pipe_admission(params, self.cfg, self.pipe, pools, a["new_tokens"], a["new_lens"],
+                                     a["new_idx"], a["rows"], caches, tok, pos, self.temps, generator, self.adm)
         else:
             tok0 = S._dense_admission(params, self.cfg, self.use_kernel, pools, a["new_tokens"], a["new_lens"],
                                       a["new_idx"], a["rows"], caches, tok, pos, self.temps, generator, self.adm,
@@ -295,26 +319,43 @@ class _Admit(_Call):
         self._keep("tok0", tok0)
 
 
+def _host_mask(valid) -> tuple:
+    """A stage split's ``valid`` mask (n_stages, per) as nested tuples of
+    bools, read on the host."""
+    return tuple(tuple(bool(v) for v in row) for row in valid.tolist())
+
+
+def _pipe_sig(pipe) -> Optional[tuple]:
+    """What keys a pipelined admission beyond a dense one: ``n_micro``, the
+    stage split's storage, its ``valid`` mask and the stage devices."""
+    if pipe is None:
+        return None
+    stages, valid, devices, n_micro = pipe
+    return n_micro, storage_sig(stages), _host_mask(valid), tuple(torch.device(d) for d in devices)
+
+
 def admit_key(params, cfg, use_kernel: bool, pools, args: dict, adm_temps, caches, tok, pos, *,
-              prompt: int, pool_data=None) -> tuple:
+              prompt: int, pool_data=None, pipe=None) -> tuple:
     """The key of an admission's entry: ``args`` its input tensors by name
     (the shapes give (A, P), ``k`` = len(rows), and for a reuse admission
     (A, PT) and (A, max_nb)), ``pool_data`` the paged pool of a reuse
-    admission."""
-    return ("admit_reuse" if pool_data is not None else "admit", cfg, prompt, use_kernel,
-            tuple((n, tuple(t.shape), t.dtype) for n, t in args.items()), _temp_kind(adm_temps),
-            storage_sig(params), storage_sig(pools), storage_sig(pool_data), storage_sig(caches), storage_sig(tok),
-            storage_sig(pos))
+    admission, ``pipe`` the stages of a pipelined one."""
+    kind = "admit_reuse" if pool_data is not None else "admit_pipe" if pipe is not None else "admit"
+    return (kind, cfg, prompt, use_kernel, tuple((n, tuple(t.shape), t.dtype) for n, t in args.items()),
+            _temp_kind(adm_temps), storage_sig(params), storage_sig(pools), storage_sig(pool_data),
+            storage_sig(caches), storage_sig(tok), storage_sig(pos), _pipe_sig(pipe))
 
 
 def _admit(params, cfg, use_kernel, pools, args, caches, tok, pos, adm_temps, generator, prompt, pool_data,
-           graphs):
+           graphs, pipe=None):
     graphs = GRAPHS if graphs is None else graphs
     reuse = pool_data is not None
     key = admit_key(params, cfg, use_kernel, pools, args, adm_temps, caches, tok, pos, prompt=prompt,
-                    pool_data=pool_data)
+                    pool_data=pool_data, pipe=pipe)
+    # a pipelined admission spans every stage's card too
+    devices = TP.run_devices(params, tok) + ([torch.device(d) for d in pipe[2]] if pipe is not None else [])
     e = graphs.entry(key, lambda: _Admit(graphs.stats, cfg, use_kernel, args, adm_temps, prompt, params=params,
-                                         pools=pools, reuse=reuse, devices=TP.run_devices(params, tok)))
+                                         pools=pools, reuse=reuse, devices=devices, pipe=pipe))
     for n, t in args.items():
         e.args[n].copy_(t)
     _load_plan(e.plan, pools, e.args["new_idx"])
@@ -325,15 +366,18 @@ def _admit(params, cfg, use_kernel, pools, args, caches, tok, pos, adm_temps, ge
 
 
 def admit(params, cfg, use_kernel: bool, pools, new_tokens, new_lens, new_idx, rows, caches, tok, pos, adm_temps,
-          generator, *, graphs: Optional[GraphCache] = None) -> torch.Tensor:
+          generator, *, pipe=None, graphs: Optional[GraphCache] = None) -> torch.Tensor:
     """The scheduler's dense admission on the card, one replay: the (A, P)
     prefill, the first tokens of the admitted rows drawn from ``generator``
     (advanced as the eager draw advances it) and the scatter of the first
     ``len(rows)`` rows into the live batch's ``caches``, ``tok`` and
-    ``pos`` (in place). Returns the first tokens (A, 1), a new tensor."""
+    ``pos`` (in place). With ``pipe`` (stages, valid, devices, n_micro) the
+    prefill runs as GPipe microbatches over the stages, as the pipelined
+    admission's eager path does. Returns the first tokens (A, 1), a new
+    tensor."""
     args = dict(new_tokens=new_tokens, new_lens=new_lens, new_idx=new_idx, rows=rows)
     return _admit(params, cfg, use_kernel, pools, args, caches, tok, pos, adm_temps, generator,
-                  new_tokens.shape[1], None, graphs)
+                  new_tokens.shape[1], None, graphs, pipe)
 
 
 def admit_reuse(params, cfg, use_kernel: bool, pools, pool_data, tables, tail_tokens, tail_lens, prefix_lens,

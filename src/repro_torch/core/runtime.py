@@ -297,10 +297,11 @@ class SessionRuntime:
     moments and paged prefix pool live on the group's first device (the
     reference replicates them over the group).
     Such a session takes ``use_kernel=False`` (the skip-sums' plain
-    versions); its decode, scheduler chunks and resident adapt epochs are
-    graph replays, whether the group's members share one card or span
-    several (``cuda_graph.capturable``); the stream path and the pipelined
-    admission run eager steps. ``pipeline_stages=N``
+    versions); its decode, scheduler admissions (the pipelined ones too)
+    and chunks, and resident adapt epochs are graph replays, whether the
+    group's members share one card or span several
+    (``cuda_graph.capturable``); the stream path runs eager steps.
+    ``pipeline_stages=N``
     (N == the model-axis size, a float pool) also splits each group's
     devices into N GPipe stages of whole layers
     (``lm.pipeline_stage_params``) for the scheduler's pipelined admission

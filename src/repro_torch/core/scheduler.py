@@ -20,7 +20,7 @@ Event model (one ``step()`` = one dispatch per shard with work):
      replay over the live batch's resident buffers (``core.decode_graph``),
      on the CPU (or with ``loop=True``) eager steps. On the card the
      admission (prefill, first-token sample and scatter) is one CUDA-graph
-     replay too (``core.prefill_graph``), the pipelined admission aside.
+     replay too (``core.prefill_graph``), the pipelined one included.
   3. *Harvest*: after every shard's dispatch is issued, pull the tokens
      to the host, append per row, retire rows whose requests hit
      ``max_new`` (their rows are recyclable at once: a follow-up admission
@@ -59,7 +59,10 @@ model axis): the admission prefill runs as GPipe microbatches of
 ``microbatch`` rows over the shard's group's devices
 (``lm.pipeline_sched_prefill``), the admission width padded up to
 ``n_micro * microbatch`` (``admit_pad``; the pads are dropped rows);
-``predicted_bubble()`` is the schedule's bubble fraction. The pipelined
+``predicted_bubble()`` is the schedule's bubble fraction. On the card the
+whole pipelined admission (the GPipe ticks over every stage's card, the
+first-token sample, the scatter) is one CUDA-graph replay
+(``prefill_graph.admit`` with ``pipe``), as the dense one is. The pipelined
 prefill keeps the dense caches, so prefix reuse is off under it. Decode
 stays on the group's tensor-parallel path.
 """
@@ -206,6 +209,20 @@ def _dense_admission(params, cfg, use_kernel, pools, new_tokens, new_lens, new_i
     return _admit_scatter(logits, adm, rows, new_lens.long(), caches, tok, pos, adm_temps, generator)
 
 
+def _pipe_admission(params, cfg, pipe, pools, new_tokens, new_lens, new_idx, rows, caches, tok, pos, adm_temps,
+                    generator, adm):
+    """The padded (A, P) prompts prefilled as GPipe microbatches over the
+    stages (``pipe``: stages, valid, devices, n_micro) into the zeroed
+    admission caches ``adm`` (whole: the stages hold whole layers), then
+    the scatter: what the eager pipelined admission and one replay of its
+    graph (``prefill_graph.admit`` with ``pipe``) run. Returns the first
+    tokens."""
+    stages, valid, devices, n_micro = pipe
+    logits, _ = pipeline_sched_prefill(params, cfg, stages, valid, new_tokens, new_lens, pools, new_idx,
+                                       devices=devices, n_micro=n_micro, caches=layer_caches(adm))
+    return _admit_scatter(logits, adm, rows, new_lens.long(), caches, tok, pos, adm_temps, generator)
+
+
 def _reuse_admission(params, cfg, use_kernel, pools, pool_data, tables, tail_tokens, tail_lens, prefix_lens,
                      new_idx, rows, caches, tok, pos, adm_temps, generator, adm, plan=None):
     """The block tables gathered out of the pool into the zeroed admission
@@ -236,25 +253,23 @@ def _sched_admit(params, cfg, how, chunk, max_seq, pools, idx, new_tokens, new_l
     """Dense admission: prefill the padded (A, P) prompts into fresh
     admission caches, sample the admitted rows' first tokens, scatter them
     into the live batch, then decode the chunk (``how``: ``_chunk_scan``'s
-    use_kernel, fuse and loop). On the card the admission is one CUDA-graph
-    replay (``prefill_graph.admit``) and the chunk another; on the CPU or
-    with ``loop``, eager. ``pipe`` (stages, valid, devices, n_micro) runs
-    the prefill eagerly as GPipe microbatches. Returns (tok, pos, toks,
-    tok0 (A, 1))."""
+    use_kernel, fuse and loop). ``pipe`` (stages, valid, devices, n_micro)
+    runs the prefill as GPipe microbatches (``_pipe_admission``). On the
+    card the admission is one CUDA-graph replay (``prefill_graph.admit``)
+    and the chunk another; on the CPU or with ``loop``, eager. Returns
+    (tok, pos, toks, tok0 (A, 1))."""
     use_kernel, fuse, loop = how
     a, p = new_tokens.shape
-    if pipe is not None:
-        # the pipeline's stages hold whole layers: their caches are whole too
-        adm = init_stacked_caches(cfg, a, p, device=tok.device)
-        stages, valid, devices, n_micro = pipe
-        logits, _ = pipeline_sched_prefill(params, cfg, stages, valid, new_tokens, new_lens, pools, new_idx,
-                                           devices=devices, n_micro=n_micro, caches=layer_caches(adm))
-        tok0 = _admit_scatter(logits, adm, rows, new_lens.long(), caches, tok, pos, adm_temps, generator)
-    elif _graphed(params, tok, loop):
+    if _graphed(params, tok, loop):
         from repro_torch.core import prefill_graph
 
         tok0 = prefill_graph.admit(params, cfg, use_kernel, pools, new_tokens, new_lens, new_idx, rows, caches,
-                                   tok, pos, adm_temps, generator)
+                                   tok, pos, adm_temps, generator, pipe=pipe)
+    elif pipe is not None:
+        # the pipeline's stages hold whole layers: their caches are whole too
+        adm = init_stacked_caches(cfg, a, p, device=tok.device)
+        tok0 = _pipe_admission(params, cfg, pipe, pools, new_tokens, new_lens, new_idx, rows, caches, tok, pos,
+                               adm_temps, generator, adm)
     else:
         adm = init_stacked_caches(cfg, a, p, device=tok.device, params=params)
         tok0 = _dense_admission(params, cfg, use_kernel, pools, new_tokens, new_lens, new_idx, rows, caches, tok,
@@ -329,17 +344,18 @@ class RequestScheduler:
     ``inflight_per_tenant`` caps one tenant's simultaneous batch rows;
     ``admit_bucket`` is the (padded) admission width of one dispatch;
     ``chunk`` is how many decode steps each dispatch runs, one CUDA-graph
-    replay on the card (``loop=True`` runs them as eager steps, what the
-    replays are held against). ``prefix_reuse`` turns on the paged KV prefix
-    cache; ``kv_block`` overrides the default block size and
+    replay on the card, after the admission's own replay (``loop=True``
+    runs both as eager steps, what the replays are held against).
+    ``prefix_reuse`` turns on the paged KV prefix cache; ``kv_block``
+    overrides the default block size and
     ``kv_pool_blocks`` the pool's block count (default: enough for twice
     the live batch's prompts, at least 8). The skip-sums
     follow the runtime's ``use_kernel`` and ``decode_fuse``. The pool
     and index live on the runtime, so a later scheduler reuses what an
     earlier one published (``runtime.reset_prefix_cache()`` clears them).
     On a runtime built with ``pipeline_stages`` the admission prefill runs
-    as GPipe microbatches of ``microbatch`` rows (default 1), and
-    ``prefix_reuse`` is off."""
+    as GPipe microbatches of ``microbatch`` rows (default 1), one replay on
+    the card as well, and ``prefix_reuse`` is off."""
 
     def __init__(
         self,

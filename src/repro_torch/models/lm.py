@@ -752,23 +752,28 @@ def pipeline_sched_prefill(
     stage_a = [pools["A"][:, s * per:min((s + 1) * per, n_layers)].to(devices[s]) for s in range(n_stages)]
     stage_b = [pools["B"][:, s * per:min((s + 1) * per, n_layers)].to(devices[s]) for s in range(n_stages)]
     kind = cfg.layer_kinds()[0]
+    far: list = []         # (home view, far buffer) of the stages on other devices
 
     def block_fn(l, m, p_l, hh):
         # a stage on another device prefills a zeroed buffer there (the
-        # classic prefill reads no cached position) and copies it home once
+        # classic prefill reads no cached position), copied home once after
+        # the schedule (``pipeline_prefill``: a copy between cards mid-way
+        # would hold the first card back)
         view = {n: caches[l][n][m * mb:(m + 1) * mb] for n in ("k", "v")}
         mine = view if view["k"].device == hh.device else {n: torch.zeros_like(t, device=hh.device)
                                                            for n, t in view.items()}
         h2, _, _ = B.block_forward(kind, p_l, hh, cfg, mode="prefill", cache=mine)
         if mine is not view:
-            for n in ("k", "v"):
-                view[n].copy_(mine[n])
+            far.append((view, mine))
         return h2
 
     y, skip = pipeline_prefill(
         stages, stage_a, stage_b, valid, h.reshape(n_micro, mb, p_len, -1), lens.reshape(n_micro, mb),
         idx.reshape(n_micro, mb), block_fn, devices=devices,
     )
+    for view, mine in far:
+        for n in ("k", "v"):
+            view[n].copy_(mine[n])
     y, skip = y.reshape(a, p_len, -1), skip.reshape(a, -1)
     last = (lens.clamp(min=1) - 1).long()
     y_last = y[torch.arange(a, device=y.device), last][:, None]                 # (A, 1, D)

@@ -15,11 +15,17 @@ The schedule is the reference's: ``n_micro + n_stages - 1`` ticks, stage
 ``s`` takes microbatch ``t - s`` at tick ``t``, bubble fraction
 ``(P - 1) / (M + P - 1)``. One process drives every stage: a handoff is a
 copy onto the next stage's device (a no-op when two stages share one), and
-each stage's kernels queue on its own device, so stages on different cards
-overlap as the schedule says. The stage split is a list of lists of the
-caller's own layer dicts: nothing is stacked or copied, and a pad is the
-last layer again with ``valid`` False. The skip terms stay plain torch, as
-the reference computes them in plain jnp.
+each stage's kernels queue on its own device's current stream. A copy
+between two cards orders both cards' streams (each waits for the other's
+work queued so far), so ``pipeline_prefill`` queues a tick's later stages
+first and makes the last stage's copies onto the first device after the
+last tick: stage ``s + 1``'s microbatch ``m`` then waits only on its
+handoff, and stages on different cards overlap as the schedule says, on
+the card's eager streams and in a CUDA graph captured over them alike.
+The stage split is a list of lists of the caller's own layer dicts:
+nothing is stacked or copied, and a pad is the last layer again with
+``valid`` False. The skip terms stay plain torch, as the reference
+computes them in plain jnp.
 """
 
 from __future__ import annotations
@@ -125,7 +131,9 @@ def pipeline_prefill(
         rows' prompt lengths; slots (n_micro, mb) their adapter slots; all
         on ``devices[0]``.
     block_fn: (layer index, microbatch index, layer params, h) -> the
-        block's output, prefill mode (the caller writes its caches).
+        block's output, prefill mode (the caller writes its caches; a
+        stage off ``devices[0]`` should copy them there only after this
+        call returns, as the last stage's outputs are).
 
     The carry is ``(h, skip)``: each stage reads its blocks' inputs at every
     row's last real position (``max(len, 1) - 1``, ``lm.sched_prefill``'s
@@ -142,7 +150,9 @@ def pipeline_prefill(
     skips: list = [None] * n_micro
     for t in range(n_micro + n_stages - 1):
         nxt: list = [None] * n_stages
-        for s in range(n_stages):
+        # the later stages first: a handoff then waits for the next card's
+        # earlier microbatch without holding this tick's work back
+        for s in reversed(range(n_stages)):
             m = t - s
             if not 0 <= m < n_micro:
                 continue
@@ -167,9 +177,11 @@ def pipeline_prefill(
             if s + 1 < n_stages:
                 nxt[s + 1] = (h.to(devices[s + 1]), skip.to(devices[s + 1]))
             else:
-                ys[m], skips[m] = h.to(devices[0]), skip.to(devices[0])
+                ys[m], skips[m] = h, skip
         buf = nxt
-    return torch.stack(ys), torch.stack(skips)
+    # home after the last tick: a copy mid-schedule would hold the first
+    # device's later ticks back until the last stage had caught up
+    return torch.stack([y.to(devices[0]) for y in ys]), torch.stack([k.to(devices[0]) for k in skips])
 
 
 def bubble_fraction(n_micro: int, n_stages: int) -> float:

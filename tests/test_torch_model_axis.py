@@ -30,10 +30,21 @@ device:
     that splits it.
   - ``launch.run --mesh 2x2 --pipeline-stages 2 --scheduler
     --check-parity`` in-process prints ``parity OK``.
+  - The pipelined scheduler against the reference's: a (1 x 2) session with
+    ``pipeline_stages=2`` in both packages on the same weights (norm scales
+    drawn around 1), ingest, ``adapt`` (adapters within rtol 1e-4 / atol
+    1e-6, the bar of ``TestSession2D``), then three requests through the
+    scheduler: temperature-0 tokens, the counters dict and the predicted
+    bubble equal. The reference runs in a subprocess over four forced host
+    devices (``JAX_PLATFORMS=cpu`` set there explicitly).
 
 One intra-op thread."""
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -48,6 +59,10 @@ from repro.models import lm as JL  # noqa: E402
 from repro_torch import convert as C  # noqa: E402
 from repro_torch.checkpoint import checkpoint as CK  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro.core import fleet_finetune as JFF  # noqa: E402
+from repro.core import lm_skiplora as JSL  # noqa: E402
+from repro.models.config import ModelConfig as JModelConfig  # noqa: E402
+from repro_torch.core import fleet_finetune as TFF  # noqa: E402
 from repro_torch.core import lm_skiplora as TSL  # noqa: E402
 from repro_torch.core.runtime import SessionRuntime  # noqa: E402
 from repro_torch.launch import run  # noqa: E402
@@ -394,3 +409,82 @@ def test_run_cli_2d_pipelined_parity(capsys):
     assert out["parity/diffs"] == 0.0 and out["session/model_parallel"] == 2.0
     # reduced stablelm's vocabulary (503) does not split, its layers do
     assert out["session/backbone_bytes_per_device_peak"] < out["session/backbone_bytes_total"]
+
+
+#: the reference's pipelined session and scheduler on a (1 x 2) mesh of
+#: forced host devices: the weights and data from the npz in argv[1], the
+#: tokens, counters, bubble and adapters printed as JSON
+PIPE_REF_PROG = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4 " + os.environ.get("XLA_FLAGS", "")
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax, numpy as np
+from repro.core.lm_skiplora import SkipLoRAConfig
+from repro.core.runtime import SessionRuntime
+from repro.models.config import ModelConfig
+from repro.models.lm import init_lm
+from repro.runtime.sharding import make_mesh
+
+data = np.load(sys.argv[1])
+cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in json.loads(sys.argv[2]).items()})
+tree = init_lm(jax.random.key(0), cfg)
+params = jax.tree.unflatten(jax.tree.structure(tree),
+                            [jax.numpy.asarray(data[f"p{i}"]) for i in range(len(jax.tree.leaves(tree)))])
+rt = SessionRuntime(cfg, SkipLoRAConfig(rank=2, mode="full"), params, max_tenants=2, samples_per_tenant=4, seq=6,
+                    use_kernel=False, seed=0, pipeline_stages=2,
+                    mesh=make_mesh((1, 2), ("data", "model"), devices=jax.devices()[:2]))
+for i, t in enumerate(("a", "b")):
+    rt.ingest(t, data["tokens"][i], data["labels"][i])
+rt.adapt(["a", "b"], epochs=2, batch_per_tenant=2, key=jax.random.key(7))
+rt.attach_scheduler(max_batch=4, max_prompt=5, max_new_cap=8, admit_bucket=2, chunk=2)
+reqs = [rt.enqueue_serve(t, data["prompts"][j, :5 - j], max_new=6 - j) for j, t in enumerate(("a", None, "b"))]
+rt.drain()
+print(json.dumps({"tokens": [r.result().tolist() for r in reqs], "counters": dict(rt.scheduler.counters),
+                  "bubble": rt.scheduler.predicted_bubble(),
+                  "adapters": {t: {k: np.asarray(rt.tenant(t).adapters[k]).tolist() for k in ("A", "B")}
+                               for t in ("a", "b")}}))
+"""
+
+
+def test_pipelined_scheduler_matches_the_reference_subprocess(tmp_path):
+    """The port's pipelined (1 x 2) session over ``["cpu", "cpu"]`` against
+    the reference's over two forced host devices: adapters after ``adapt``
+    within rtol 1e-4 / atol 1e-6, then the scheduler's temperature-0 tokens
+    (two admission waves of 2 and 1 rows, each pipelined as 2 microbatches),
+    its counters and ``predicted_bubble()`` equal. The subprocess has a
+    timeout of its own, 120 s."""
+    spec = {f.name: getattr(SCFG, f.name) for f in dataclasses.fields(JModelConfig)}
+    jcfg = JModelConfig(**spec)
+    jp = _live_norms(JL.init_lm(jax.random.key(0), jcfg), jcfg)
+    tokens, labels, prompts = _ints(5, (2, 4, 6)), _ints(6, (2, 4, 6)), _ints(4, (3, 5))
+    npz = tmp_path / "inputs.npz"
+    np.savez(npz, tokens=tokens, labels=labels, prompts=prompts,
+             **{f"p{i}": np.asarray(x) for i, x in enumerate(jax.tree.leaves(jp))})
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    ref = subprocess.run([sys.executable, "-c", PIPE_REF_PROG, str(npz), json.dumps(spec)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    want = json.loads(ref.stdout.strip().splitlines()[-1])
+
+    init = JFF.init_fleet_adapters(jax.random.key(7), jcfg, JSL.SkipLoRAConfig(rank=2, mode="full"), 2)
+    stacked = C.adapters_from_reference(jax.tree.map(np.asarray, init))
+    rt = SessionRuntime(SCFG, SL, C.params_from_reference(jax.tree.map(np.asarray, jp), SCFG), max_tenants=2,
+                        samples_per_tenant=4, seq=6, use_kernel=False, seed=0, pipeline_stages=2,
+                        mesh=SH.make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2))
+    for i, t in enumerate(("a", "b")):
+        rt.ingest(t, tokens[i], labels[i])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TFF, "init_fleet_adapters", lambda gen, cfg, sl, n: {k: v[:n].clone() for k, v in stacked.items()})
+        rt.adapt(["a", "b"], epochs=2, batch_per_tenant=2)
+    for t in ("a", "b"):
+        for k in ("A", "B"):
+            np.testing.assert_allclose(rt.tenant(t).adapters[k].numpy(), np.asarray(want["adapters"][t][k]),
+                                       rtol=1e-4, atol=1e-6)
+    rt.attach_scheduler(max_batch=4, max_prompt=5, max_new_cap=8, admit_bucket=2, chunk=2)
+    reqs = [rt.enqueue_serve(t, prompts[j, :5 - j], max_new=6 - j) for j, t in enumerate(("a", None, "b"))]
+    rt.drain()
+    assert [r.result().tolist() for r in reqs] == want["tokens"]
+    assert dict(rt.scheduler.counters) == want["counters"] and want["counters"]["dispatch/admit_pipe"] == 2
+    assert rt.scheduler.predicted_bubble() == pytest.approx(want["bubble"], abs=1e-12)

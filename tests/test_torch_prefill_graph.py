@@ -11,17 +11,21 @@ which also checks that the CPU captured nothing.
 
   - each entry's key holds the storage of what its graph reads or writes in
     place: two states of equal shapes give two keys; an admission's key
-    follows the number of admitted rows, their temperature kind, and a
-    reuse admission's tail bucket and table width;
+    follows the number of admitted rows, their temperature kind, a reuse
+    admission's tail bucket and table width, and a pipelined admission's
+    ``n_micro``, stage split storage, ``valid`` mask and stage devices;
   - the entries live in a ``GraphCache`` of their own, not
-    ``decode_graph.GRAPHS``, and a CPU serve, ingest and scheduler run make
-    no entry in either;
+    ``decode_graph.GRAPHS``, and a CPU serve, ingest and scheduler run (a
+    pipelined one too, its ``dispatch/admit_pipe`` counted) make no entry
+    in either;
   - an entry's body, run twice over its own buffers (the second time over
     what the first left), gives the eager call's outputs bitwise: logits and
     every cache position of a prefill (a recurrent stack's non-zero initial
     states included, a model group's split caches too), an ingest's logits,
-    ``y_base`` and encoded rows, an admission's first tokens, the live
-    batch's caches, tokens and positions, and the generator's state.
+    ``y_base`` and encoded rows, an admission's first tokens (dense,
+    prefix-reuse, over a group, and pipelined: 2 stages on ``["cpu",
+    "cpu"]``, 2 microbatches), the live batch's caches, tokens and
+    positions, and the generator's state.
 
 Reduced float32 configs of the port's own, seeded; one intra-op thread."""
 
@@ -39,10 +43,11 @@ from repro_torch.core import lm_skiplora as SL  # noqa: E402
 from repro_torch.core import prefill_graph as PG  # noqa: E402
 from repro_torch.core import scheduler as S  # noqa: E402
 from repro_torch.core.cuda_graph import GraphCache  # noqa: E402
-from repro_torch.core.runtime import generate, generate_grouped  # noqa: E402
+from repro_torch.core.runtime import SessionRuntime, generate, generate_grouped  # noqa: E402
 from repro_torch.launch.serve import demo_pool, demo_runtime  # noqa: E402
 from repro_torch.models import lm as TL  # noqa: E402
 from repro_torch.models import tp as TP  # noqa: E402
+from repro_torch.runtime.sharding import group_mesh  # noqa: E402
 
 RANK = 4
 CFG = reduce_config(get_config("stablelm-1.6b"))
@@ -172,19 +177,42 @@ def test_each_key_holds_the_storage_of_what_its_graph_touches(kind):
     assert len({key(params), *others}) == 1 + len(others)
 
 
-@pytest.mark.parametrize("what", ["k", "temperature kind", "tail bucket", "table width"])
+def _pipe(params, cfg, n_micro=2, devices=GROUP, valid=None):
+    """A pipelined admission's ``pipe``: 2 stages of ``params``' layers."""
+    stages, mask = TL.pipeline_stage_params(params, cfg, 2)
+    return stages, mask if valid is None else valid, devices, n_micro
+
+
+PIPE_KEYS = ["n_micro", "stage storage", "valid", "stage devices"]
+
+
+@pytest.mark.parametrize("what", ["k", "temperature kind", "tail bucket", "table width"] + PIPE_KEYS)
 def test_admission_key_follows_rows_temperature_kind_tail_bucket_and_table_width(what):
     cfg, params = _model("stablelm")
     pool = _pool(cfg)
     caches, tok, pos = _live(cfg, params)
     data = _kv_data(cfg)
 
-    def key(temps=0.0, **over):
+    def key(temps=0.0, pipe=None, **over):
         reuse = what in ("tail bucket", "table width")
         args = _reuse_args(**over) if reuse else _dense_args(**over)
         return PG.admit_key(params, cfg, True, pool.pools(), args, temps, caches, tok, pos, prompt=6,
-                            pool_data=data if reuse else None)
+                            pool_data=data if reuse else None, pipe=pipe)
 
+    if what in PIPE_KEYS:
+        pipe = _pipe(params, cfg)
+        base = key(pipe=pipe)
+        assert base != key() and base == key(pipe=_pipe(params, cfg))     # a dense admission's key is another
+        if what == "n_micro":
+            other = _pipe(params, cfg, n_micro=1)
+        elif what == "stage storage":
+            other = _pipe(TL.init_lm(torch.Generator().manual_seed(0), cfg), cfg)   # equal values, other storage
+        elif what == "valid":
+            other = _pipe(params, cfg, valid=torch.tensor([[True], [False]]))
+        else:
+            other = _pipe(params, cfg, devices=["cpu", "meta"])
+        assert key(pipe=other) != base
+        return
     base = key()
     if what == "k":
         assert key(k=1) != base and key(k=2) == base
@@ -219,6 +247,14 @@ def test_prefill_graphs_are_a_cache_of_their_own_and_the_cpu_captures_nothing():
         sched.submit("tenant-0", p, max_new=3)
     sched.drain()
     assert sched.counters["dispatch/admit"] >= 1 and sched.counters["dispatch/admit_reuse"] >= 1
+    # a pipelined scheduler: 2 stages over a group of the CPU, its admissions eager and counted
+    prt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=RANK), params, max_tenants=2, samples_per_tenant=1, seq=8,
+                         use_kernel=False, mesh=group_mesh(GROUP), pipeline_stages=2, seed=0)
+    pipe = S.RequestScheduler(prt, max_batch=2, max_prompt=8, max_new_cap=3, admit_bucket=2, chunk=2)
+    for p in (tok[0].numpy(), tok[1].numpy(), tok[0].numpy()):
+        pipe.submit(None, p, max_new=3)
+    pipe.drain()
+    assert pipe.counters["dispatch/admit_pipe"] >= 2 and pipe.counters["dispatch/admit"] == 0
     assert (PG.GRAPHS.stats, len(PG.GRAPHS), DG.GRAPHS.stats, len(DG.GRAPHS)) == before
 
 
@@ -310,13 +346,17 @@ def _load_live(dst, src):
 
 
 @pytest.mark.parametrize("temps", ["greedy", "rows"])
-@pytest.mark.parametrize("kind", ["dense", "reuse", "group dense"])
+@pytest.mark.parametrize("kind", ["dense", "reuse", "group dense", "pipe"])
 def test_admission_body_twice_equals_the_eager_admission(kind, temps):
     """An admission entry's body (prefill into its zeroed caches, the first
     tokens drawn, the scatter of ``k`` rows), twice over two live batches,
     each into the same buffers: the eager admission's first tokens, live
-    caches, tokens, positions and generator state, bitwise."""
-    cfg, params = _model("group" if kind == "group dense" else "stablelm")
+    caches, tokens, positions and generator state, bitwise. ``pipe``: the
+    pipelined admission of a runtime built with ``pipeline_stages=2`` over
+    ``GROUP`` (the live batch split by heads, the stages' layers and the
+    admission caches whole, 2 microbatches of one row)."""
+    cfg, params = _model("group" if kind in ("group dense", "pipe") else "stablelm")
+    pipe = _pipe(_model("stablelm")[1], cfg) if kind == "pipe" else None
     pool = _pool(cfg)
     rng = np.random.default_rng(8)
     a, p, blk = 2, 6, 2
@@ -334,8 +374,8 @@ def test_admission_body_twice_equals_the_eager_admission(kind, temps):
         data = None
         args = dict(new_tokens=torch.as_tensor(rng.integers(0, cfg.vocab_size, (a, p)).astype(np.int32)),
                     new_lens=torch.tensor([6, 4], dtype=torch.int32), new_idx=new_idx, rows=rows)
-    e = PG._Admit(Counter(), cfg, True, args, adm_temps, p, params=params, pools=pool.pools(),
-                  reuse=kind == "reuse", devices=["cpu"])
+    e = PG._Admit(Counter(), cfg, pipe is None, args, adm_temps, p, params=params, pools=pool.pools(),
+                  reuse=kind == "reuse", devices=["cpu"], pipe=pipe)
     mine = _copy_live(_live(cfg, params))
     for seed in (10, 11):
         live = _filled_live(cfg, params, seed)
@@ -349,8 +389,11 @@ def test_admission_body_twice_equals_the_eager_admission(kind, temps):
         g_mine, g_theirs = torch.Generator().manual_seed(seed), torch.Generator().manual_seed(seed)
         e.live = (params, pool.pools(), data, *mine)
         e.body(1, g_mine)
-        adm = TL.init_stacked_caches(cfg, a, p, device="cpu", params=params)
-        if kind == "reuse":
+        adm = TL.init_stacked_caches(cfg, a, p, device="cpu", params=None if pipe else params)
+        if kind == "pipe":
+            want = S._pipe_admission(params, cfg, pipe, pool.pools(), args["new_tokens"], args["new_lens"], new_idx,
+                                     rows, *theirs, adm_temps, g_theirs, adm)
+        elif kind == "reuse":
             want = S._reuse_admission(params, cfg, True, pool.pools(), data, args["tables"], args["tail_tokens"],
                                       args["tail_lens"], args["prefix_lens"], new_idx, rows, *theirs, adm_temps,
                                       g_theirs, adm)

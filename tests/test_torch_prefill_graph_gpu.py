@@ -21,6 +21,11 @@ float, int8 and int4 pools:
     per-row temperatures: tokens, the whole ``counters`` dict and the
     launches counted, against ``RequestScheduler(loop=True)``;
   - a model group on one card and, where two are present, over two cards;
+  - the pipelined admission of a runtime built with ``pipeline_stages=2``
+    over one card's two members and over two cards: a dense trace, greedy
+    and per-row temperatures, the graphed drain against ``loop=True``
+    (tokens, counters, launches, the live batch's caches, tokens and
+    positions), its ``admit_pipe`` keys captured and replayed;
   - entries dropped between calls (a temporary cache, an evicted entry) and
     a capture that fails (``GraphCaptureError``, no eager fallback)."""
 
@@ -40,7 +45,7 @@ from repro_torch.core.runtime import SessionRuntime, generate, generate_grouped,
 from repro_torch.core.scheduler import RequestScheduler  # noqa: E402
 from repro_torch.kernels.flash_attn import paged as PGK  # noqa: E402
 from repro_torch.kernels.skip_lora import kernel as K  # noqa: E402
-from repro_torch.launch.serve import demo_pool, demo_runtime  # noqa: E402
+from repro_torch.launch.serve import _register_demo, demo_pool, demo_runtime  # noqa: E402
 from repro_torch.models import lm as TL  # noqa: E402
 from repro_torch.models import tp as TP  # noqa: E402
 from repro_torch.runtime.sharding import group_mesh  # noqa: E402
@@ -290,6 +295,51 @@ def test_group_prefill_and_admissions_replay_bitwise(cuda, cards):
     got = _scheduled(cfg, params, cuda, None, trace, "rows", False, devices)
     assert got == _scheduled(cfg, params, cuda, None, trace, "rows", True, devices)
     assert got[1]["dispatch/admit_reuse"] >= 1
+
+
+def _pipelined(cfg, params, devices, prompts, temps, loop):
+    """A dense trace through the scheduler of a session built with
+    ``pipeline_stages=2`` over ``devices`` (the demo tenants, rank 8, float
+    pool): tokens, counters, launches, and the live batch after the drain
+    (caches, tokens, positions)."""
+    rt = SessionRuntime(cfg, SL.SkipLoRAConfig(rank=8), params, max_tenants=2, samples_per_tenant=1, seq=8,
+                        use_kernel=False, mesh=group_mesh(devices), pipeline_stages=2, seed=0)
+    _register_demo(rt.pool, cfg, 2, 8, devices[0])
+    sched = RequestScheduler(rt, max_batch=4, max_prompt=16, max_new_cap=5, admit_bucket=2, inflight_per_tenant=8,
+                             chunk=2, loop=loop)
+    reqs = [sched.submit(f"tenant-{i % 3}" if i % 3 < 2 else None, p, max_new=5,
+                         temperature=0.7 * (i % 2) if temps == "rows" else 0.0) for i, p in enumerate(prompts)]
+    _reset()
+    sched.drain()
+    lb = sched._lb
+    return ([r.result().tolist() for r in reqs], dict(sched.counters), _launches()), (lb.caches, lb.tok, lb.pos)
+
+
+@pytest.mark.parametrize("temps", ["greedy", "rows"])
+@pytest.mark.parametrize("cards", [1, 2], ids=["one_card", "two_cards"])
+def test_pipelined_admissions_replay_bitwise(cuda, cards, temps):
+    """The scheduler of a runtime built with ``pipeline_stages=2``, over one
+    card's two members or over two cards: its admissions replay graphs of
+    the GPipe ticks (``admit_pipe`` keys: eager first call, capture,
+    replays), bitwise the ``loop=True`` drain: tokens, counters, launches,
+    and the live batch's caches, tokens and positions; ``loop=True``
+    captures nothing."""
+    if cards == 2 and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    devices = ONE_CARD if cards == 1 else TWO_CARDS
+    cfg = _cfg()
+    params = _params(cfg, cuda)
+    prompts = _trace(cfg, "dense")
+    since = PG.GRAPHS.stats.copy()
+    got, got_live = _pipelined(cfg, params, devices, prompts, temps, False)
+    gain = _gain(since)
+    keys = {k[0] for k in PG.GRAPHS._entries}
+    want, want_live = _pipelined(cfg, params, devices, prompts, temps, True)
+    assert got == want and got[1]["dispatch/admit_pipe"] >= 3 and "dispatch/admit" not in got[1]
+    assert _same(got_live, want_live)
+    assert keys == {"admit_pipe"} and gain["captures"] >= 1 and gain["replays"] >= 1
+    assert gain["eager_steps"] + gain["replays"] == got[1]["dispatch/admit_pipe"]
+    assert _gain(since)["captures"] == gain["captures"]       # loop=True captured nothing
 
 
 def test_dropping_an_entry_between_calls_is_safe(cuda):
